@@ -3,11 +3,15 @@
 // Replaces genima_tpu/kernels/packed_attention.py::_packed_kernel (resident
 // K/V) and ::_streaming_kernel (online softmax over key blocks): one kernel
 // covers both, since a block's shared memory cannot hold a 4096-row K/V.
+// Its training variant also replaces ::_packed_kernel_lse: the same kernel,
+// instantiated to write L = m + log(l) per (row, head) as well, the softmax
+// normaliser the backward (packed_attention_bwd.cu) rebuilds P from.
 //
 // Layout: q, k, v and o are (B, S, heads * 64) bf16, row-major, exactly as
 // the to_q / to_k / to_v projections emit them. A block reads head h as the
 // 64 columns at offset h * 64 with row stride C = heads * 64, so no
-// (S, H, D) -> (H, S, D) transpose ever touches device memory.
+// (S, H, D) -> (H, S, D) transpose ever touches device memory. L is
+// (B, S, heads) f32.
 //
 // Design (FlashAttention-2 forward):
 //   * one block per (64-query tile, head, batch); 4 warps, 16 query rows
@@ -28,94 +32,21 @@
 // about as costly). The design keeps scores out of device memory and uses
 // the tensor cores; wgmma, TMA and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = kWarps * 16;        // query rows per block
-constexpr int kBlockN = 64;                 // keys per tile
-constexpr int kStride = kHeadDim + 8;       // padded smem row (bf16 elements)
+using namespace packed_attn;
+constexpr int kBlockM = kWarps * 16;  // query rows per block
+constexpr int kBlockN = kTile;        // keys per tile
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 bf16 matrices from shared memory into mma fragments: as stored
-// (the B operand of Q K^T from row-major K) ...
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// ... or transposed (the B operand of P V from row-major V).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 64 rows x 64 bf16 from global (row stride ld elements) into padded smem.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
-                                          int ld) {
-#pragma unroll
-  for (int i = 0; i < (kBlockN * 8) / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int row = idx >> 3;
-    const int col = (idx & 7) * 8;
-    cp_async_16(smem + row * kStride + col, gmem + static_cast<size_t>(row) * ld + col);
-  }
-}
-
+template <bool kWriteLse>
 __global__ void __launch_bounds__(kThreads)
 packed_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int sq, int sk, int c,
-                            float scale_log2) {
+                            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
+                            int sk, int c, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 s_k[2][kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 s_v[2][kBlockN * kStride];
 
@@ -140,22 +71,9 @@ packed_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   // Q stays in registers as mma A fragments for the whole key loop, loaded
   // once straight from global memory: rows g and g + 8 of this warp's 16.
   uint32_t q_frag[4][4];
-  {
-    const __nv_bfloat16* qg = q_blk + static_cast<size_t>(warp * 16 + g) * c + t * 2;
-    const __nv_bfloat16* qg8 = qg + static_cast<size_t>(8) * c;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      q_frag[kk][0] = ld_u32(qg + kk * 16);
-      q_frag[kk][1] = ld_u32(qg8 + kk * 16);
-      q_frag[kk][2] = ld_u32(qg + kk * 16 + 8);
-      q_frag[kk][3] = ld_u32(qg8 + kk * 16 + 8);
-    }
-  }
+  load_a_frags(q_frag, q_blk + static_cast<size_t>(warp * 16) * c, c, g, t);
   float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
+  zero_acc(acc);
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
 
@@ -172,21 +90,9 @@ packed_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys (8 tiles of 8 keys).
-    // ldmatrix: lanes 8i..8i+7 address rows of matrix i = head-dim columns
-    // 8i..8i+7 (of 32) of the tile's 8 keys.
     float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* ks = s_k[cur] + (nt * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + half * 32);
-        mma_bf16_16816(s[nt], q_frag[2 * half], b);
-        mma_bf16_16816(s[nt], q_frag[2 * half + 1], b + 2);
-      }
-    }
+    zero_acc(s);
+    mma_a_yt(s, q_frag, s_k[cur], lane);
 
     // Online softmax in base 2 on raw scores: rows g (regs 0, 1) and g + 8
     // (regs 2, 3); row_max is kept pre-scaled, so p = 2^(s*scale - max) is
@@ -225,27 +131,7 @@ packed_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // O += P V: P's accumulator fragments become the A operand directly.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4] = {
-          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      // lanes 0-7 / 8-15 / 16-23 / 24-31 address matrices (keys +0, d +0),
-      // (keys +8, d +0), (keys +0, d +8), (keys +8, d +8).
-      const int mi = lane >> 3;
-      const __nv_bfloat16* vs =
-          s_v[cur] + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * kStride + (mi >> 1) * 8;
-#pragma unroll
-      for (int dt = 0; dt < 8; dt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + dt * 8);
-        mma_bf16_16816(acc[dt], a, b);
-        mma_bf16_16816(acc[dt + 1], a, b + 2);
-      }
-    }
+    mma_c_y(acc, s, s_v[cur], lane);
     __syncthreads();
   }
 
@@ -253,18 +139,30 @@ packed_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 1);
     row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 2);
-    row_sum[r] = 1.f / row_sum[r];
   }
-  const int row0 = q_tile * kBlockM + warp * 16 + g;
-  __nv_bfloat16* o0 = o + (static_cast<size_t>(batch) * sq + row0) * c + head * kHeadDim + t * 2;
-  __nv_bfloat16* o1 = o0 + static_cast<size_t>(8) * c;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(o0 + dt * 8) =
-        pack_bf16x2(acc[dt][0] * row_sum[0], acc[dt][1] * row_sum[0]);
-    *reinterpret_cast<uint32_t*>(o1 + dt * 8) =
-        pack_bf16x2(acc[dt][2] * row_sum[1], acc[dt][3] * row_sum[1]);
+  const int row0 = q_tile * kBlockM + warp * 16;
+  store_acc_bf16(o + (static_cast<size_t>(batch) * sq + row0) * c + head * kHeadDim, c, acc,
+                 1.f / row_sum[0], 1.f / row_sum[1], g, t);
+  if (kWriteLse && t == 0) {
+    // L = m + ln(l) in natural-log units: row_max is m * log2(e).
+    const int heads = c / kHeadDim;
+    float* l0 = lse + (static_cast<size_t>(batch) * sq + row0 + g) * heads + head;
+    l0[0] = (row_max[0] + log2f(row_sum[0])) * kLn2;
+    l0[static_cast<size_t>(8) * heads] = (row_max[1] + log2f(row_sum[1])) * kLn2;
   }
+}
+
+template <bool kWriteLse>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+               int sq, int sk, int heads, void* stream) {
+  const dim3 grid(sq / kBlockM, heads, batch);
+  const float scale_log2 = kLog2e / 8.0f;  // log2(e) / sqrt(64)
+  packed_attention_fwd_kernel<kWriteLse>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk,
+          heads * kHeadDim, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -276,13 +174,15 @@ extern "C" {
 // cudaGetLastError() so the caller sees a refused launch.
 int packed_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                          int sq, int sk, int heads, void* stream) {
-  const dim3 grid(sq / kBlockM, heads, batch);
-  const float scale_log2 = 1.4426950408889634f / 8.0f;  // log2(e) / sqrt(64)
-  packed_attention_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk,
-      heads * kHeadDim, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(q, k, v, o, nullptr, batch, sq, sk, heads, stream);
+}
+
+// The same, and L = m + log(l) per (row, head) into the (B, Sq, heads) f32
+// tensor `lse`.
+int packed_attention_fwd_lse(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int batch, int sq, int sk, int heads, void* stream) {
+  return launch_fwd<true>(q, k, v, o, static_cast<float*>(lse), batch, sq, sk, heads,
+                          stream);
 }
 
 const char* packed_attention_error_string(int code) {

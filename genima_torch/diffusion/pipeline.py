@@ -47,6 +47,9 @@ class SDControlNetPipeline:
     # "xla": everything through the library attention
     backend: str = "fused"
     device: Any = "cuda"
+    # build the VAE's encode half too (the trainer encodes target images;
+    # serving only decodes)
+    vae_encoder: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -65,7 +68,7 @@ class SDControlNetPipeline:
             "controlnet": lambda: ControlNetModel(
                 self.unet_cfg, self.cond_channels, self.backend
             ),
-            "vae": lambda: AutoencoderKL(self.vae_cfg),
+            "vae": lambda: AutoencoderKL(self.vae_cfg, encoder=self.vae_encoder),
             "text_encoder": lambda: CLIPTextModel(self.text_cfg),
         }
         return {k: build_module(f, self.device, self.dtype) for k, f in factories.items()}
@@ -76,8 +79,11 @@ class SDControlNetPipeline:
 
     def params_from_jax(self, tree: dict) -> dict[str, nn.Module]:
         """The four models loaded from the reference's param trees (numpy
-        leaves); the VAE keeps only its decode subtrees."""
-        trees = dict(tree, vae=drop_subtrees(tree["vae"], DECODE_SUBTREES, keep=True))
+        leaves); without ``vae_encoder`` the VAE keeps only its decode
+        subtrees."""
+        trees = dict(tree)
+        if not self.vae_encoder:
+            trees["vae"] = drop_subtrees(tree["vae"], DECODE_SUBTREES, keep=True)
         return {
             k: load_from_jax(m, trees[k], _FAMILIES[k]) for k, m in self._build().items()
         }

@@ -36,6 +36,16 @@ def make_alphas_cumprod(config: SchedulerConfig) -> np.ndarray:
     return np.cumprod(1.0 - betas).astype(np.float32)
 
 
+def add_noise(alphas_cumprod: torch.Tensor, sample: torch.Tensor, noise: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0); ``timesteps`` is (B,) int and indexes
+    ``alphas_cumprod`` (which must hold every value: torch indexing raises
+    where the reference's gather would clamp)."""
+    acp = alphas_cumprod.to(sample.device)[timesteps].to(sample.dtype)
+    acp = acp.reshape(acp.shape + (1,) * (sample.ndim - acp.ndim))
+    return torch.sqrt(acp) * sample + torch.sqrt(1.0 - acp) * noise
+
+
 def _spaced_timesteps(config: SchedulerConfig, num_inference_steps: int) -> np.ndarray:
     """Inference timesteps, descending, per diffusers spacing conventions."""
     n_train, n = config.num_train_timesteps, num_inference_steps

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at the repository root, at
 its first use, then loaded with ``ctypes``. The file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale library
-is never loaded. Nothing here runs at import time: a CPU-only host without
+the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing here runs at import time: a CPU-only host without
 ``nvcc`` imports every kernel module.
 """
 
@@ -41,7 +41,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, the shared headers it may include, and the flags
+    src = b"".join(
+        path.read_bytes()
+        for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    )
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,12 +1,18 @@
-"""Where the fused control step's time goes on the card.
+"""Where a step's time goes on the card.
 
-    python -m genima_torch.profile_step [--steps 3] [--out FILE]
+    python -m genima_torch.profile_step [--path serve|train] [--steps 3] [--out FILE]
 
-Builds the full-width main path (``eval.main_path``), warms it up, then:
+``serve`` (the default) builds the full-width fused control step
+(``eval.main_path``); ``train`` builds a full-width ControlNet fine-tune
+step (sd-turbo width, batch 4, 512x512, bf16 compute, f32 master weights,
+packed attention kernels; seeded random weights and a random uint8 batch).
+It warms the step up, then:
 
-* times each top-level model per step with CUDA events recorded by forward
-  hooks (ControlNet, UNet, VAE decoder, the two CLIP towers, the ResNet
-  encoder, the ACT actor), so each span includes any device idle inside it;
+* times each top-level model's forward per step with CUDA events recorded
+  by forward hooks (serve: ControlNet, UNet, VAE decoder, the two CLIP
+  towers, the ResNet encoder, the ACT actor; train: VAE encoder, CLIP,
+  ControlNet, UNet, forward only), so each span includes any device idle
+  inside it;
 * profiles one step with ``torch.profiler`` and reports the device-busy
   share (summed kernel time over the step's wall time), device time by
   kernel family, and the top kernels.
@@ -28,6 +34,7 @@ from genima_torch.eval.main_path import build_main_path
 
 FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("packed_attention", ("packed_attention",)),
+    ("optimizer", ("multi_tensor",)),  # the foreach AdamW and clip
     ("library_attention", ("flash", "fmha", "attention")),
     ("layout", ("nchwtonhwc", "nhwctonchw")),  # cuDNN's NCHW <-> NHWC copies
     ("conv", ("conv", "implicit", "fprop", "winograd")),
@@ -45,14 +52,54 @@ def family(name: str) -> str:
     return "other"
 
 
-def module_spans(step, args):
-    """Per-model device ms over one step, from forward-hook CUDA events."""
+def serve_step():
+    """The fused control step and the models to time in it."""
+    step, args = build_main_path("cuda")
     p, c = args["diffusion_params"], args["controller_params"]
     watched = {
         "controlnet": p["controlnet"], "unet": p["unet"], "vae_decoder": p["vae"].decoder,
         "clip_prompt": p["text_encoder"], "clip_lang": args["clip_params"],
         "resnet_encoder": c["encoder"], "act_actor": c["actor"],
     }
+    return lambda: step(**args), watched
+
+
+def train_step():
+    """One ControlNet fine-tune step at the trainer CLI's defaults (batch 4,
+    512x512, bf16), and the models to time in it."""
+    from genima_torch.cli.train_controlnet_genima import parse_args
+    from genima_torch.diffusion import driver
+    from genima_torch.diffusion.training import ControlNetTrainer
+
+    args = parse_args(["--device", "cuda", "--seed", "0",
+                       "--enable_xformers_memory_efficient_attention"])
+    batch_size, resolution = args.train_batch_size, args.resolution
+    pipe = driver.build_pipeline(args)
+    params = driver.init_model_params(pipe, args)
+    trainer = ControlNetTrainer(pipe, driver.train_config(args, max_steps=1000))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (batch_size, resolution, resolution, 3)
+    batch = {
+        "pixel_values": torch.randint(0, 256, shape, generator=gen, device="cuda",
+                                      dtype=torch.uint8),
+        "conditioning_pixel_values": torch.randint(0, 256, shape, generator=gen,
+                                                   device="cuda", dtype=torch.uint8),
+        "input_ids": torch.randint(0, 49406, (batch_size, 77), generator=gen, device="cuda"),
+    }
+    state = [trainer.create_state(params)]
+
+    def step():
+        state[0], _ = trainer.train_step(state[0], batch, gen)
+
+    watched = {
+        "vae_encoder": params["vae"].encoder, "clip_prompt": params["text_encoder"],
+        "controlnet_fwd": params["controlnet"], "unet_fwd": params["unet"],
+    }
+    return step, watched
+
+
+def module_spans(step, watched):
+    """Per-model device ms over one step, from forward-hook CUDA events."""
     events = collections.defaultdict(list)
     handles = []
     for name, mod in watched.items():
@@ -68,7 +115,7 @@ def module_spans(step, args):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    step(**args)
+    step()
     end.record()
     torch.cuda.synchronize()
     for h in handles:
@@ -80,6 +127,7 @@ def module_spans(step, args):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("serve", "train"), default="serve")
     ap.add_argument("--steps", type=int, default=3, help="warm-up steps")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     a = ap.parse_args()
@@ -89,16 +137,17 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    step, args = build_main_path("cuda")
+    step, watched = serve_step() if a.path == "serve" else train_step()
     for _ in range(a.steps):
-        step(**args)
-    step_ms, spans = module_spans(step, args)
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, spans = module_spans(step, watched)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         h0 = time.perf_counter()
-        step(**args)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - h0) * 1e3
     kernels = collections.Counter()
@@ -113,7 +162,9 @@ def main() -> None:
         fams[family(name)] += ms
     out = {
         "card": card,
+        "path": a.path,
         "step_ms_events": step_ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "profiled_step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,

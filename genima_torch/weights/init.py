@@ -3,7 +3,8 @@
 Modules are constructed on the meta device (no host memory, no default
 init), allocated on the target device, cast to the serving dtype and then
 either filled from a ``torch.Generator`` (``init_random_``) or loaded from a
-JAX tree (``weights.from_jax``).
+JAX tree (``weights.from_jax``). They come frozen; ``master_params`` makes
+one trainable for a trainer.
 """
 
 from __future__ import annotations
@@ -39,3 +40,16 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             t.zero_()
     return module
+
+
+@torch.no_grad()
+def master_params(module: nn.Module) -> dict[str, torch.Tensor]:
+    """Make ``module`` trainable and return f32 master copies of its
+    parameters, keyed by name: the trainer updates these, and the module
+    keeps its compute dtype as the working copy (the JAX package keeps f32
+    params and computes in bf16, flax's ``param_dtype`` vs ``dtype``)."""
+    module.requires_grad_(True)
+    return {
+        name: p.detach().to(torch.float32, copy=True)
+        for name, p in module.named_parameters()
+    }

@@ -1,0 +1,35 @@
+"""The port stands alone: importing every module of ``genima_torch`` loads
+neither JAX nor anything of the JAX package ``genima_tpu``."""
+
+import os
+import subprocess
+import sys
+
+CODE = """
+import importlib, pkgutil, sys
+import genima_torch
+names = [m.name for m in pkgutil.walk_packages(genima_torch.__path__, "genima_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "genima_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", CODE], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 30  # every module was walked
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = "import sys, runpy; runpy.run_path('chip_smoke.py', run_name='not_main');" \
+           "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'genima_tpu')];" \
+           "assert not bad, bad"
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
