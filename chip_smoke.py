@@ -19,7 +19,19 @@
    launch B1 exactly 105 times. The result is checked for shape, dtype and
    finiteness, and one denoise step's noise prediction is held to the same
    models run with the library attention instead of the kernel.
-4. Train path: ``genima_torch.diffusion.driver.run_training`` (the CLI's
+4. Opt-in kernel phase: B3 (flash attention on (B, S, H, 64)), B4 (fused
+   GN-SiLU-conv3x3, NHWC) and B5 (int8 weight-only matmul) at every distinct
+   shape the opt-in serving configuration gives them, against their plain
+   versions, timed beside their bound and a labelled library yardstick.
+5. Opt-in serving path: the same control step built with
+   ``backend="pallas+w8", conv_backend="fused"`` (int8 weights quantized by
+   ``quantize_pipeline_params`` from the seeded floats). Each step must
+   launch B3 230 times, B5 1380 times, B4 25 times and B1 never. One
+   denoise step's noise prediction is held to the library attention on the
+   same int8 weights (B3 in place), that to the float models on the
+   dequantised weights (B5 in place), and the fused VAE decode to the
+   default decoder on the same latents (B4 in place).
+6. Train path: ``genima_torch.diffusion.driver.run_training`` (the CLI's
    entry point) takes 3 ControlNet fine-tune steps at full sd-turbo width,
    512x512, batch 4, bf16 compute with f32 master weights, the packed
    attention kernels, on a small rendered dataset written from the seed.
@@ -68,6 +80,35 @@ TRAIN_LAUNCHES = {"B1": 6, "B2a": 15, "B2b": 15, "fallbacks": 0}
 # ControlNet gradients, kernels vs library attention, one full-width bf16
 # step: relative global-norm difference, and the worst attention projection's
 TRAIN_GRAD_REL_TOL = 0.1
+
+# the opt-in serving configuration: "pallas+w8" attention, fused VAE convs
+OPT_BACKEND, OPT_CONV_BACKEND = "pallas+w8", "fused"
+OPT_STEPS = 3
+# per control step (5 denoise steps): B3 = 46 attentions per denoise step
+# (16 UNet + 7 ControlNet transformer blocks, self and cross) x 5; B5 = 12
+# int8 linears per transformer block x 23 x 5; B4 = 12 decoder resnets x 2
+# convs + conv_out; B1 none (the "pallas" backend replaces it)
+OPT_LAUNCHES = {"B1": 0, "B3": 230, "B4": 25, "B5": 1380}
+# (tokens, channels, heads) of the UNet / ControlNet levels at 64x64 latents
+OPT_LEVELS = [(4096, 320, 5), (1024, 640, 10), (256, 1280, 20), (64, 1280, 20)]
+CONTEXT = (77, 1024)  # prompt tokens, CLIP width
+# B3 (B, Sq, Sk, C, heads): self-attention, then cross-attention over 77 keys
+FLASH_SHAPES = [(1, s, s, c, h) for s, c, h in OPT_LEVELS] + [
+    (1, s, CONTEXT[0], c, h) for s, c, h in OPT_LEVELS]
+# B4 (B, H, W, C, O) of the SD VAE decoder's up blocks and conv_out at 512^2
+CONV_SHAPES = [
+    (1, 64, 64, 512, 512), (1, 128, 128, 512, 512), (1, 256, 256, 512, 256),
+    (1, 256, 256, 256, 256), (1, 512, 512, 256, 128), (1, 512, 512, 128, 128),
+    (1, 512, 512, 128, 3),
+]
+# B5 (M, K, N): proj_in/out and attention projections, GEGLU in and out,
+# and the cross-attention K/V on the 77 prompt tokens
+W8_SHAPES = sorted(
+    {(m, k, n) for m, c, _ in OPT_LEVELS for k, n in ((c, c), (c, 8 * c), (4 * c, c))}
+    | {(CONTEXT[0], CONTEXT[1], c) for _, c, _ in OPT_LEVELS})
+CONV_REL_TOL = 2e-2  # bf16 activation and output roundings: error / max |y|
+W8_REL_TOL = 1e-2  # bf16 output rounding: error / max |y|
+OPT_REL_TOL = 5e-2  # each kernel vs the library path through a full model
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -281,6 +322,214 @@ def training_kernel_phase(pa) -> list[dict]:
     return rows
 
 
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def opt_kernel_phase() -> list[dict]:
+    """B3, B4 and B5 at every shape of the opt-in serving path."""
+    import torch.nn.functional as F
+
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.kernels import w8_matmul as w8
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for b, sq, sk, c, h in FLASH_SHAPES:
+        q, k, v = (torch.randn(b, s, h, c // h, generator=gen, device="cuda").bfloat16()
+                   for s in (sq, sk, sk))
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"B3 {b}x{sq}x{sk}x{c}/{h}: max abs err {err}")
+        heads = [t.transpose(1, 2) for t in (q, k, v)]
+        bound_ms, bound_by = _bound(4 * b * sq * sk * c, 2 * b * (2 * sq + 2 * sk) * c)
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "genima_torch/csrc/flash_attention.cu",
+            "replaces": "genima_tpu/kernels/flash_attention.py:129",
+            "shape": f"{b}x{sq}x{sk}x{c}/{h}", "key": f"{b}x{sq}x{sk}x{c}",
+            "launches": None, "max_abs_err": err,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 50),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 3),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
+            "library": "scaled_dot_product_attention forward on the same (B, H, S, 64) views",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+
+    for b, h, w, c, o in CONV_SHAPES:
+        x = torch.randn(b, h, w, c, generator=gen, device="cuda").bfloat16()
+        gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+        scale, shift = fc.fold_group_norm(x, gamma, beta, 32, 1e-6)
+        wt = (torch.randn(3, 3, c, o, generator=gen, device="cuda") / (3 * c ** 0.5)).bfloat16()
+        bias = torch.randn(o, generator=gen, device="cuda").bfloat16()
+        # the path's calls at a C == O shape include each block's second conv,
+        # which adds the residual
+        res = torch.randn(b, h, w, o, generator=gen, device="cuda").bfloat16() if c == o else None
+        args = (x, wt, bias, scale, shift, None, res)
+        got = fc.fused_conv3x3(*args)
+        want = fc.fused_conv3x3_reference(*args)
+        torch.cuda.synchronize()
+        rel = _rel_err(got, want)
+        if not rel <= CONV_REL_TOL:
+            raise AssertionError(f"B4 {b}x{h}x{w}x{c}->{o}: max err {rel} of max |y|")
+        act = (x.float() * scale[:, None, None] + shift[:, None, None])
+        act = (act * torch.sigmoid(act)).bfloat16().permute(0, 3, 1, 2)  # channels_last NCHW
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        nbytes = 2 * b * h * w * (c + o + (o if res is not None else 0)) + 2 * 9 * c * o \
+            + 2 * o + 8 * b * c
+        bound_ms, bound_by = _bound(2 * b * h * w * o * 9 * c, nbytes)
+        rows.append({
+            "name": "fused_conv3x3", "route": "cuda",
+            "source": "genima_torch/csrc/fused_conv.cu",
+            "replaces": "genima_tpu/kernels/fused_conv.py:380",
+            "shape": f"{b}x{h}x{w}x{c}->{o}" + ("+res" if res is not None else ""),
+            "key": f"{b}x{h}x{w}x{c}x{o}",
+            "launches": None, "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "max_rel_err": rel,
+            "ms": cuda_ms(lambda: fc.fused_conv3x3(*args), 20),
+            "plain_ms": cuda_ms(lambda: fc.fused_conv3x3_reference(*args), 3),
+            "library_ms": cuda_ms(lambda: F.conv2d(act, w_cl, bias, padding=1), 20),
+            "library": "cuDNN conv2d alone, channels_last bf16, on the pre-activated input "
+                       "(a lower yardstick: it skips the GN/SiLU prologue and the residual)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+
+    for m, k, n in W8_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)
+        got = w8.w8_matmul(x, w_q, scale)
+        want = w8.w8_matmul_reference(x, w_q, scale)
+        torch.cuda.synchronize()
+        rel = _rel_err(got, want)
+        if not rel <= W8_REL_TOL:
+            raise AssertionError(f"B5 {m}x{k}x{n}: max err {rel} of max |y|")
+        w_deq = (w_q.float() * scale[:, None]).bfloat16().t()
+        bound_ms, bound_by = _bound(2 * m * k * n, 2 * m * k + k * n + 4 * n + 2 * m * n)
+        rows.append({
+            "name": "w8_matmul", "route": "cuda",
+            "source": "genima_torch/csrc/w8_matmul.cu",
+            "replaces": "genima_tpu/kernels/w8_matmul.py:94",
+            "shape": f"{m}x{k}x{n}", "key": f"{m}x{k}x{n}",
+            "launches": None, "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "max_rel_err": rel,
+            "ms": cuda_ms(lambda: w8.w8_matmul(x, w_q, scale), 100),
+            "plain_ms": cuda_ms(lambda: w8.w8_matmul_reference(x, w_q, scale), 5),
+            "library_ms": cuda_ms(lambda: torch.matmul(x, w_deq), 100),
+            "library": "torch.matmul on the pre-dequantised bf16 weight (reads twice the "
+                       "weight bytes)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    return rows
+
+
+def _denoise_eps(pipe, unet, cn, args) -> torch.Tensor:
+    """One denoise step's noise prediction at the first timestep."""
+    state = pipe.scheduler.set_timesteps(5)
+    with torch.inference_mode():
+        x = args["latents"].permute(0, 3, 1, 2) * float(state.init_noise_sigma)
+        x = pipe.scheduler.scale_model_input(state, x.contiguous(), 0).to(pipe.dtype)
+        t = torch.full((1,), float(state.timesteps[0]), device="cuda")
+        cond = args["tiled_u8"].permute(0, 3, 1, 2).to(pipe.dtype).contiguous() / 255.0
+        down, mid = cn(x, t, args["prompt_embeds"], cond, cond_is_embedded=False)
+        return unet(x, t, args["prompt_embeds"], down, mid).float()
+
+
+def opt_path_phase() -> dict:
+    """The control step under the opt-in backends, its launches pinned, and
+    each kernel held in place against the library path."""
+    import copy
+
+    from genima_torch.eval.main_path import build_main_path
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.kernels import packed_attention as pa
+    from genima_torch.kernels import w8_matmul as w8
+    from genima_torch.nn.layers import set_attention_backend
+    from genima_torch.weights.quantize import dequantize_dense_tree
+
+    t0 = time.time()
+    step, args = build_main_path(device="cuda", seed=0, backend=OPT_BACKEND,
+                                 conv_backend=OPT_CONV_BACKEND)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    counters = {"B1": pa.packed_flash_attention, "B3": fa.flash_attention,
+                "B4": fc.fused_conv3x3, "B5": w8.w8_matmul}
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, host_ms, per_step = [], [], []
+    for _ in range(OPT_STEPS):
+        before = {k: fn.launches for k, fn in counters.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        actions, target = step(**args)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        per_step.append({k: fn.launches - before[k] for k, fn in counters.items()})
+        if per_step[-1] != OPT_LAUNCHES:
+            raise AssertionError(f"opt-in step launches {per_step[-1]}, want {OPT_LAUNCHES}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches_by_shape = {
+        k: {"x".join(map(str, s)): n for s, n in fn.launches_by_shape.items()}
+        for k, fn in counters.items()
+    }
+    if actions.shape != (1, 20, 8) or not torch.isfinite(actions).all():
+        raise AssertionError(f"actions {tuple(actions.shape)} finite={torch.isfinite(actions).all()}")
+    if target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8:
+        raise AssertionError(f"target {tuple(target.shape)} {target.dtype}")
+
+    pipe = step.pipe
+    params = args["diffusion_params"]
+    unet, cn = params["unet"], params["controlnet"]
+    eps = {"pallas+w8": _denoise_eps(pipe, unet, cn, args)}
+    for m in (unet, cn):  # (a) B3 in place: the library attention, same int8 weights
+        set_attention_backend(m, "xla+w8")
+    eps["xla+w8"] = _denoise_eps(pipe, unet, cn, args)
+    for m in (unet, cn):
+        set_attention_backend(m, OPT_BACKEND)
+    # (b) B5 in place: float models on the dequantised weights w_q * scale
+    f_unet, f_cn = (dequantize_dense_tree(copy.deepcopy(m)) for m in (unet, cn))
+    for m in (f_unet, f_cn):
+        set_attention_backend(m, "xla")
+    eps["xla"] = _denoise_eps(pipe, f_unet, f_cn, args)
+    del f_unet, f_cn
+    # (c) B4 in place: the fused decode against the default decoder
+    vae = params["vae"]
+    z = args["latents"].permute(0, 3, 1, 2).contiguous().to(pipe.dtype)
+    with torch.inference_mode():
+        fused_img = vae.decode(z).float()
+        vae.decoder.conv_backend = "xla"
+        xla_img = vae.decode(z).float()
+        vae.decoder.conv_backend = OPT_CONV_BACKEND
+    errs = {
+        "eps_pallas_vs_library_attention_same_int8": _rel_err(eps["pallas+w8"], eps["xla+w8"]),
+        "eps_int8_vs_dequantised_float": _rel_err(eps["xla+w8"], eps["xla"]),
+        "vae_fused_vs_default_decode": _rel_err(fused_img, xla_img),
+    }
+    finite = all(torch.isfinite(t).all() for t in (*eps.values(), fused_img))
+    if not (finite and all(e <= OPT_REL_TOL for e in errs.values())):
+        raise AssertionError(f"opt-in path vs library path: {errs} (finite={finite})")
+    return {
+        "backend": OPT_BACKEND, "conv_backend": OPT_CONV_BACKEND,
+        "setup_s": setup_s, "step_ms": step_ms, "host_step_ms": host_ms,
+        "launches_per_step": per_step, "launches_by_shape": launches_by_shape,
+        **errs,
+        "actions_abs_max": actions.abs().max().item(),
+        "target_mean": target.float().mean().item(),
+        "peak_mem_gb": peak_gb,
+    }
+
+
 def write_rendered_dataset(root: Path, episodes: int = 2, frames: int = 5, size: int = 512):
     """A seeded rendered dataset in the layout ``index_rendered_dataset``
     reads: <task>/variation0/episodes/episode<i>/{tiled_rgb,tiled_rgb_rendered}."""
@@ -438,7 +687,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    _build.build_all(["packed_attention", "packed_attention_bwd"])
+    _build.build_all(["packed_attention", "packed_attention_bwd", "flash_attention",
+                      "fused_conv", "w8_matmul"])
     print(f"built kernels in {time.time() - t0:.1f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -447,6 +697,7 @@ def main() -> int:
 
     kernels = kernel_phase(pa)
     train_kernels = training_kernel_phase(pa)
+    opt_kernels = opt_kernel_phase()
     path = path_phase(pa)
     for row in kernels:
         b, s, c, _ = SD_LEVELS[kernels.index(row)]
@@ -462,7 +713,14 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
     print("train " + json.dumps(train))
-    print(json.dumps({"kernels": kernels + train_kernels}))
+    opt = opt_path_phase()
+    counter = {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"}
+    for row in opt_kernels:
+        row["launches"] = opt["launches_by_shape"][counter[row["name"]]].get(row.pop("key"), 0)
+        if row["launches"] == 0:
+            raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
+    print("opt_path " + json.dumps(opt))
+    print(json.dumps({"kernels": kernels + train_kernels + opt_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,12 @@ from genima_torch.data.tiling import denormalize_to_uint8
 from genima_torch.diffusion.schedulers import EulerDiscreteScheduler
 from genima_torch.nn.clip_text import CLIPTextConfig, CLIPTextModel
 from genima_torch.nn.controlnet import ControlNetModel, embed_conditioning
+from genima_torch.nn.layers import split_backend
 from genima_torch.nn.unet import UNet2DConditionModel, UNetConfig
 from genima_torch.nn.vae import DECODE_SUBTREES, AutoencoderKL, VAEConfig
 from genima_torch.weights.from_jax import drop_subtrees, load_from_jax
 from genima_torch.weights.init import build_module, init_random_
+from genima_torch.weights.quantize import quantize_pipeline_params
 
 _FAMILIES = {
     "unet": "diffusers_unet",
@@ -44,14 +46,21 @@ class SDControlNetPipeline:
     scheduler: Any = dataclasses.field(default_factory=EulerDiscreteScheduler)
     dtype: Optional[torch.dtype] = None  # bf16 on the card, f32 on the CPU
     # "fused": long self-attention through the packed CUDA kernel;
-    # "xla": everything through the library attention
+    # "pallas": every attention through the flash kernel, "pallas_self":
+    # self-attention only; "xla": everything through the library attention.
+    # "+w8" on any of them: int8 transformer linears (params from
+    # init_params, or a JAX tree from weights/quantize.py)
     backend: str = "fused"
+    # VAE decoder convs: "xla" the library convs, "fused" the GN-SiLU-conv3x3
+    # kernel (same params)
+    conv_backend: str = "xla"
     device: Any = "cuda"
     # build the VAE's encode half too (the trainer encodes target images;
     # serving only decodes)
     vae_encoder: bool = False
 
     def __post_init__(self):
+        split_backend(self.backend)  # raises on an unknown spec
         self.device = resolve_device(self.device)
         if self.dtype is None:
             self.dtype = default_dtype(self.device)
@@ -62,25 +71,31 @@ class SDControlNetPipeline:
     def vae_scale_factor(self) -> int:
         return 2 ** (len(self.vae_cfg.block_out_channels) - 1)
 
-    def _build(self) -> dict[str, nn.Module]:
+    def _build(self, backend: Optional[str] = None) -> dict[str, nn.Module]:
+        backend = backend or self.backend
         factories = {
-            "unet": lambda: UNet2DConditionModel(self.unet_cfg, self.backend),
-            "controlnet": lambda: ControlNetModel(
-                self.unet_cfg, self.cond_channels, self.backend
+            "unet": lambda: UNet2DConditionModel(self.unet_cfg, backend),
+            "controlnet": lambda: ControlNetModel(self.unet_cfg, self.cond_channels, backend),
+            "vae": lambda: AutoencoderKL(
+                self.vae_cfg, encoder=self.vae_encoder, conv_backend=self.conv_backend
             ),
-            "vae": lambda: AutoencoderKL(self.vae_cfg, encoder=self.vae_encoder),
             "text_encoder": lambda: CLIPTextModel(self.text_cfg),
         }
         return {k: build_module(f, self.device, self.dtype) for k, f in factories.items()}
 
     def init_params(self, generator: torch.Generator) -> dict[str, nn.Module]:
-        """All four models with seeded scaled-normal weights, on the device."""
-        return {k: init_random_(m, generator) for k, m in self._build().items()}
+        """All four models with seeded scaled-normal weights, on the device.
+        Under ``+w8`` the float weights are drawn, then quantized, so the
+        int8 linears hold real values (the reference's ``W8Dense`` init is
+        all zeros)."""
+        attn, w8 = split_backend(self.backend)
+        params = {k: init_random_(m, generator) for k, m in self._build(attn).items()}
+        return quantize_pipeline_params(params) if w8 else params
 
     def params_from_jax(self, tree: dict) -> dict[str, nn.Module]:
         """The four models loaded from the reference's param trees (numpy
-        leaves); without ``vae_encoder`` the VAE keeps only its decode
-        subtrees."""
+        leaves; quantized UNet and ControlNet trees under ``+w8``); without
+        ``vae_encoder`` the VAE keeps only its decode subtrees."""
         trees = dict(tree)
         if not self.vae_encoder:
             trees["vae"] = drop_subtrees(tree["vae"], DECODE_SUBTREES, keep=True)

@@ -50,13 +50,15 @@ class SDControlNetAgent:
         )
 
 
-def make_tiny_sd_agent(device: Any = "cuda", **kw) -> SDControlNetAgent:
-    """Tiny-config agent for tests and smoke runs, f32."""
+def make_tiny_sd_agent(device: Any = "cuda", seed: int = 0, **pipeline_kw) -> SDControlNetAgent:
+    """Tiny-config agent for tests and smoke runs, f32; ``pipeline_kw``
+    (``backend``, ``conv_backend``, ...) go to the pipeline."""
     pipe = SDControlNetPipeline(
         unet_cfg=UNetConfig.tiny(),
         vae_cfg=VAEConfig.tiny_test(),
         text_cfg=CLIPTextConfig.tiny(),
         dtype=torch.float32,
         device=device,
+        **pipeline_kw,
     )
-    return SDControlNetAgent(pipe=pipe, **kw)
+    return SDControlNetAgent(pipe=pipe, seed=seed)

@@ -26,9 +26,14 @@ OBS_SIZE = 256
 EOT_ID = 49407  # CLIP end-of-text, the highest id: where the text towers pool
 
 
-def build_main_path(device: Any = "cuda", seed: int = 0):
-    """Returns ``(step, args)``; ``step(**args)`` runs one control step."""
-    dag = SDControlNetAgent(SDControlNetPipeline(device=device), seed=seed)
+def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
+                    conv_backend: str = "xla"):
+    """Returns ``(step, args)``; ``step(**args)`` runs one control step.
+    ``backend`` and ``conv_backend`` are the pipeline's (the default path, or
+    the opt-in serving configuration ``"pallas+w8"`` / ``"fused"``, whose
+    int8 weights ``init_params`` quantizes from the seeded floats)."""
+    pipe = SDControlNetPipeline(device=device, backend=backend, conv_backend=conv_backend)
+    dag = SDControlNetAgent(pipe, seed=seed)
     device = dag.pipe.device
     act_agent = GenimaACTAgent(device=device)
     act_params, clip = act_agent.init_params(

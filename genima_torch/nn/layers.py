@@ -14,13 +14,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from genima_torch.kernels.flash_attention import flash_attention
 from genima_torch.kernels.packed_attention import packed_flash_attention
+from genima_torch.kernels.w8_matmul import w8_matmul
 
 # 'fused' backend: self-attention at least this long with a multiple of 128
 # tokens goes to the packed kernel (the reference's threshold, kept so both
 # packages route the same attentions; the port has not re-measured it).
 FUSED_MIN_SEQ = 256
-BACKENDS = ("fused", "xla")  # "xla": the library attention, as in the reference
+# attention backends: "fused" (long self-attention through the packed
+# kernel), "pallas" (every attention through the flash kernel),
+# "pallas_self" (self-attention only), "xla" (the library attention). Each
+# may carry "+w8": the transformer blocks' linears in int8 (W8Linear).
+BACKENDS = ("fused", "xla", "pallas", "pallas_self")
 
 
 def group_norm(channels: int, eps: float) -> nn.GroupNorm:
@@ -61,12 +67,24 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(sample)))
 
 
+def split_backend(spec: str) -> tuple[str, bool]:
+    """A backend spec is ``<attn>[+w8]``: returns (attention backend, w8)."""
+    attn, w8 = (spec[: -len("+w8")], True) if spec.endswith("+w8") else (spec, False)
+    if attn not in BACKENDS:
+        raise ValueError(f"attention backend {spec!r} not in {BACKENDS}, each optionally +w8")
+    return attn, w8
+
+
 def resolve_backend(backend: str, is_cross: bool) -> str:
-    """'fused' sends self-attention to the packed kernel; cross-attention
-    (77 keys) stays on the library attention."""
-    if backend not in BACKENDS:
-        raise ValueError(f"attention backend {backend!r} not in {BACKENDS}")
-    return "xla" if is_cross else backend
+    """The attention one call takes: 'fused' and 'pallas_self' send
+    cross-attention (77 keys) to the library attention, 'pallas' sends it
+    to the flash kernel too."""
+    attn, _ = split_backend(backend)
+    if attn == "pallas_self":
+        return "xla" if is_cross else "pallas"
+    if attn == "fused":
+        return "xla" if is_cross else "fused"
+    return attn
 
 
 def library_attention(q, k, v, heads: int) -> torch.Tensor:
@@ -81,6 +99,38 @@ def library_attention(q, k, v, heads: int) -> torch.Tensor:
     return out.transpose(1, 2).reshape(b, sq, c)
 
 
+class W8Linear(nn.Module):
+    """``nn.Linear`` with int8 weight-only storage (the reference's
+    ``W8Dense``): ``kernel_q`` int8 (out, in), ``scale`` f32 (out,), an
+    optional ``bias``; ``x @ (kernel_q * scale).T`` through
+    ``kernels.w8_matmul``. Made from a float linear by
+    ``weights.quantize.quantize_dense_tree``, or loaded from a quantized
+    JAX tree. ``scale`` stays f32 when the module is cast to bf16."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.register_buffer("kernel_q", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def _apply(self, fn, recurse=True):
+        scale = self.scale
+        super()._apply(fn, recurse)
+        if self.scale.dtype != scale.dtype:  # a dtype cast: keep the f32 scale
+            self.scale = scale.to(self.scale.device)
+        return self
+
+    def forward(self, x):
+        y = w8_matmul(x, self.kernel_q, self.scale)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def make_dense(w8: bool, in_features: int, out_features: int, bias: bool = True) -> nn.Module:
+    """``nn.Linear`` or its int8 weight-only twin, same call signature."""
+    cls = W8Linear if w8 else nn.Linear
+    return cls(in_features, out_features, bias=bias)
+
+
 class Attention(nn.Module):
     """Multi-head (self or cross) attention, diffusers ``Attention`` layout."""
 
@@ -92,38 +142,49 @@ class Attention(nn.Module):
         self.heads = heads
         self.is_cross = cross_attention_dim is not None
         self.backend = backend
+        w8 = split_backend(backend)[1]
         kv_dim = cross_attention_dim if self.is_cross else query_dim
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(kv_dim, query_dim, bias=False)
-        self.to_v = nn.Linear(kv_dim, query_dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+        self.to_q = make_dense(w8, query_dim, query_dim, bias=False)
+        self.to_k = make_dense(w8, kv_dim, query_dim, bias=False)
+        self.to_v = make_dense(w8, kv_dim, query_dim, bias=False)
+        self.to_out = nn.ModuleList([make_dense(w8, query_dim, query_dim)])
 
     def forward(self, hidden_states, context=None):
         context = hidden_states if context is None else context
         q = self.to_q(hidden_states)
         k = self.to_k(context)
         v = self.to_v(context)
-        sq = q.shape[1]
+        b, sq, c = q.shape
         backend = resolve_backend(self.backend, self.is_cross)
         if backend == "fused" and sq >= FUSED_MIN_SEQ and sq % 128 == 0:
             out = packed_flash_attention(q, k, v, self.heads)
+        elif backend == "pallas":
+            # (B, S, heads*d) is (B, S, heads, d) in place: no transposes
+            heads = [t.reshape(b, t.shape[1], self.heads, c // self.heads) for t in (q, k, v)]
+            out = flash_attention(*heads).reshape(b, sq, c)
         else:
             out = library_attention(q, k, v, self.heads)
         return self.to_out[0](out)
 
 
 def set_attention_backend(module: nn.Module, backend: str) -> None:
-    """Route every ``Attention`` under ``module`` through ``backend``."""
-    resolve_backend(backend, False)
+    """Route every ``Attention`` under ``module`` through ``backend``. Its
+    ``+w8`` part must match the weights the module holds (``W8Linear`` after
+    ``weights.quantize.quantize_dense_tree``); it cannot switch them."""
+    _, w8 = split_backend(backend)
     for m in module.modules():
         if isinstance(m, Attention):
+            if isinstance(m.to_q, W8Linear) != w8:
+                raise ValueError(
+                    f"backend {backend!r} does not fit the module's "
+                    f"{'int8' if not w8 else 'float'} linears")
             m.backend = backend
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, inner_dim: int):
+    def __init__(self, dim: int, inner_dim: int, w8: bool = False):
         super().__init__()
-        self.proj = nn.Linear(dim, inner_dim * 2)
+        self.proj = make_dense(w8, dim, inner_dim * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -133,10 +194,10 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     """diffusers FeedForward: net.0 = GEGLU, net.1 = dropout, net.2 = Linear."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, w8: bool = False):
         super().__init__()
         self.net = nn.ModuleList(
-            [GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)]
+            [GEGLU(dim, dim * mult, w8), nn.Identity(), make_dense(w8, dim * mult, dim)]
         )
 
     def forward(self, x):
@@ -153,7 +214,7 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, cross_attention_dim, backend)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, w8=split_backend(backend)[1])
 
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
@@ -169,13 +230,14 @@ class Transformer2DModel(nn.Module):
                  num_layers: int = 1, backend: str = "fused"):
         super().__init__()
         c = in_channels
+        w8 = split_backend(backend)[1]
         self.norm = group_norm(c, 1e-6)
-        self.proj_in = nn.Linear(c, c)
+        self.proj_in = make_dense(w8, c, c)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(c, heads, cross_attention_dim, backend)
             for _ in range(num_layers)
         )
-        self.proj_out = nn.Linear(c, c)
+        self.proj_out = make_dense(w8, c, c)
 
     def forward(self, x, context):
         b, c, h, w = x.shape

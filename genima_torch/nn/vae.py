@@ -6,6 +6,8 @@ Counterpart of ``genima_tpu/nn/vae.py`` (``AutoencoderKL.encode`` /
 ``LatentDistribution``). Serving builds the decode half only, and carrying
 weights across then keeps just the JAX tree's ``DECODE_SUBTREES``; the
 ControlNet trainer builds it with ``encoder=True`` and loads the whole tree.
+``conv_backend="fused"`` runs the decoder's up-block resnets and its output
+conv through the fused GN-SiLU-conv3x3 kernel, with the same parameters.
 ``AutoencoderTiny`` belongs to a later slice.
 """
 
@@ -18,9 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from genima_torch.nn.fused_blocks import fused_gn_silu_conv, fused_resnet_block
 from genima_torch.nn.layers import ResnetBlock2D, group_norm
 
 DECODE_SUBTREES = ("decoder", "post_quant_conv")
+CONV_BACKENDS = ("xla", "fused")  # "xla": the library convs, as in the reference
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,10 +149,16 @@ class _UpBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    """SD VAE decoder (diffusers names ``up_blocks.N.resnets.M``)."""
+    """SD VAE decoder (diffusers names ``up_blocks.N.resnets.M``).
+    ``conv_backend="fused"``: the up-block resnets and conv_norm_out/conv_out
+    go through the fused kernel; the mid block stays on the plain modules
+    and the upsample convs on the library conv, as in the reference."""
 
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, conv_backend: str = "xla"):
         super().__init__()
+        if conv_backend not in CONV_BACKENDS:
+            raise ValueError(f"conv backend {conv_backend!r} not in {CONV_BACKENDS}")
+        self.conv_backend = conv_backend
         rev = list(reversed(cfg.block_out_channels))
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = VAEMidBlock(rev[0])
@@ -162,9 +172,24 @@ class Decoder(nn.Module):
 
     def forward(self, z):
         x = self.mid_block(self.conv_in(z))
+        if self.conv_backend == "fused":
+            return self._fused_up(x)
         for block in self.up_blocks:
             x = block(x)
         return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+    def _fused_up(self, x):
+        """The up path channels-last: one conversion in, here, and none out
+        (the NCHW result is a view of the kernel's NHWC output). The
+        upsample convs then run on ``channels_last`` tensors."""
+        h = x.permute(0, 2, 3, 1).contiguous()
+        for block in self.up_blocks:
+            for resnet in block.resnets:
+                h = fused_resnet_block(resnet, h)
+            if hasattr(block, "upsamplers"):
+                up = F.interpolate(h.permute(0, 3, 1, 2), scale_factor=2.0, mode="nearest")
+                h = block.upsamplers[0].conv(up).permute(0, 2, 3, 1).contiguous()
+        return fused_gn_silu_conv(h, self.conv_norm_out, self.conv_out).permute(0, 3, 1, 2)
 
 
 class LatentDistribution(NamedTuple):
@@ -183,15 +208,16 @@ class LatentDistribution(NamedTuple):
 
 class AutoencoderKL(nn.Module):
     """The SD KL-VAE: the decode half, and with ``encoder=True`` the encode
-    half as well."""
+    half as well. ``conv_backend`` selects the decoder's convs; the
+    parameters are the same under both."""
 
-    def __init__(self, cfg: VAEConfig, encoder: bool = False):
+    def __init__(self, cfg: VAEConfig, encoder: bool = False, conv_backend: str = "xla"):
         super().__init__()
         self.cfg = cfg
         if encoder:
             self.encoder = Encoder(cfg)
             self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
-        self.decoder = Decoder(cfg)
+        self.decoder = Decoder(cfg, conv_backend)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
 
     def encode(self, x: torch.Tensor) -> LatentDistribution:

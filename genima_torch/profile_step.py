@@ -1,9 +1,12 @@
 """Where a step's time goes on the card.
 
     python -m genima_torch.profile_step [--path serve|train] [--steps 3] [--out FILE]
+        [--backend fused] [--conv_backend xla]
 
 ``serve`` (the default) builds the full-width fused control step
-(``eval.main_path``); ``train`` builds a full-width ControlNet fine-tune
+(``eval.main_path``) under the pipeline's ``--backend`` and
+``--conv_backend`` (``--backend pallas+w8 --conv_backend fused`` is the
+opt-in serving configuration); ``train`` builds a full-width ControlNet fine-tune
 step (sd-turbo width, batch 4, 512x512, bf16 compute, f32 master weights,
 packed attention kernels; seeded random weights and a random uint8 batch).
 It warms the step up, then:
@@ -34,6 +37,9 @@ from genima_torch.eval.main_path import build_main_path
 
 FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("packed_attention", ("packed_attention",)),
+    ("flash_attention_b3", ("flash_attention_fwd",)),
+    ("fused_conv_b4", ("fused_conv3x3",)),
+    ("w8_matmul_b5", ("w8_matmul",)),
     ("optimizer", ("multi_tensor",)),  # the foreach AdamW and clip
     ("library_attention", ("flash", "fmha", "attention")),
     ("layout", ("nchwtonhwc", "nhwctonchw")),  # cuDNN's NCHW <-> NHWC copies
@@ -52,9 +58,9 @@ def family(name: str) -> str:
     return "other"
 
 
-def serve_step():
+def serve_step(backend: str = "fused", conv_backend: str = "xla"):
     """The fused control step and the models to time in it."""
-    step, args = build_main_path("cuda")
+    step, args = build_main_path("cuda", backend=backend, conv_backend=conv_backend)
     p, c = args["diffusion_params"], args["controller_params"]
     watched = {
         "controlnet": p["controlnet"], "unet": p["unet"], "vae_decoder": p["vae"].decoder,
@@ -130,6 +136,8 @@ def main() -> None:
     ap.add_argument("--path", choices=("serve", "train"), default="serve")
     ap.add_argument("--steps", type=int, default=3, help="warm-up steps")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--backend", default="fused", help="serve: attention backend spec")
+    ap.add_argument("--conv_backend", default="xla", help="serve: VAE decoder convs")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
@@ -137,7 +145,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    step, watched = serve_step() if a.path == "serve" else train_step()
+    step, watched = serve_step(a.backend, a.conv_backend) if a.path == "serve" else train_step()
     for _ in range(a.steps):
         step()
     torch.cuda.reset_peak_memory_stats()
@@ -163,6 +171,7 @@ def main() -> None:
     out = {
         "card": card,
         "path": a.path,
+        **({"backend": a.backend, "conv_backend": a.conv_backend} if a.path == "serve" else {}),
         "step_ms_events": step_ms,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "profiled_step_wall_ms": wall_ms,

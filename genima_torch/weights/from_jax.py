@@ -92,23 +92,28 @@ _LEAF_TO_TORCH = {
 }
 
 
-def torch_name(path: tuple[str, ...], family: str) -> str:
-    """Torch state-dict key for a flax parameter path."""
+def torch_name(path: tuple[str, ...], family: str, w8: bool = False) -> str:
+    """Torch state-dict key for a flax parameter path. ``w8``: the path's
+    module is a ``W8Dense`` (``kernel_q``, ``scale``, ``bias``), whose leaf
+    names the port's ``W8Linear`` keeps."""
     token_fn = _TOKEN_FNS[family]
     *mods, leaf = path
     parts = [token_fn(t) for t in mods]
     if leaf == "position_embedding":  # raw flax param; torch has .weight
         parts.append(token_fn(leaf))
         leaf_name = "weight"
+    elif w8:
+        leaf_name = leaf
     else:  # other raw params (query_embed ...) keep their name
         leaf_name = _LEAF_TO_TORCH.get(leaf, leaf)
     return ".".join([*parts, leaf_name])
 
 
 def torch_array(arr: Any, leaf: str) -> np.ndarray:
-    """Flax layout -> torch layout: conv HWIO -> OIHW, dense (I,O) -> (O,I)."""
+    """Flax layout -> torch layout: conv HWIO -> OIHW, dense (I,O) -> (O,I),
+    int8 ``kernel_q`` (K, N) -> (N, K)."""
     arr = np.asarray(arr)
-    if leaf == "kernel":
+    if leaf in ("kernel", "kernel_q"):
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:
@@ -117,19 +122,21 @@ def torch_array(arr: Any, leaf: str) -> np.ndarray:
 
 
 def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
+    """(path, leaf, whether the leaf's module is a W8Dense)."""
+    w8 = "kernel_q" in tree
     for key, value in tree.items():
         path = (*prefix, str(key))
         if isinstance(value, Mapping):
             yield from _flatten(value, path)
         else:
-            yield path, value
+            yield path, value, w8
 
 
 def state_dict_from_jax(tree: Mapping, family: str) -> dict[str, np.ndarray]:
     """Flax params tree -> the port's state dict (numpy arrays)."""
     out: dict[str, np.ndarray] = {}
-    for path, leaf in _flatten(tree):
-        name = torch_name(path, family)
+    for path, leaf, w8 in _flatten(tree):
+        name = torch_name(path, family, w8)
         if name in out:
             raise KeyError(f"two flax params map to {name!r}")
         out[name] = torch_array(leaf, path[-1])
@@ -138,10 +145,12 @@ def state_dict_from_jax(tree: Mapping, family: str) -> dict[str, np.ndarray]:
 
 def load_from_jax(module: nn.Module, tree: Mapping, family: str) -> nn.Module:
     """Load a flax params tree into ``module`` strictly, keeping the module's
-    device and dtype."""
+    device and each tensor's dtype (float in the module's dtype, int8
+    ``kernel_q`` and f32 ``scale`` as they are)."""
     ref = next(module.parameters())
+    target = module.state_dict()
     sd = {
-        k: torch.tensor(v, device=ref.device, dtype=ref.dtype)
+        k: torch.tensor(v, device=ref.device, dtype=target[k].dtype if k in target else ref.dtype)
         for k, v in state_dict_from_jax(tree, family).items()
     }
     module.load_state_dict(sd, strict=True)

@@ -124,3 +124,165 @@ def test_requires_grad_on_cuda_gets_gradients(cuda):
         assert x.grad is not None
         rel = ((x.grad.float() - y.float()).abs().max() / y.float().abs().max()).item()
         assert rel <= GRAD_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# B3, B4, B5: the serving pipeline's opt-in backends
+# ---------------------------------------------------------------------------
+
+from genima_torch.kernels import flash_attention as fa  # noqa: E402
+from genima_torch.kernels import fused_conv as fc  # noqa: E402
+from genima_torch.kernels import w8_matmul as w8  # noqa: E402
+
+# (B, Sq, Sk, heads): the "pallas" path's self-attention at the four SD
+# levels, its cross-attention over 77 prompt tokens, and ragged edges
+FLASH_SHAPES = [
+    (1, 4096, 4096, 5), (1, 1024, 1024, 10), (1, 256, 256, 20), (1, 64, 64, 20),
+    (1, 4096, 77, 5), (1, 1024, 77, 10), (1, 256, 77, 20), (1, 64, 77, 20),
+    (2, 100, 77, 3), (2, 33, 16, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain_version(cuda, b, sq, sk, h):
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk)
+    q, k, v = (torch.randn(b, s, h, 64, generator=gen, device=cuda).bfloat16()
+               for s in (sq, sk, sk))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    # bf16 output and bf16-rounded P: ~2^-8 relative on O(1) values
+    torch.testing.assert_close(got.float(), fa.flash_attention_reference(q, k, v).float(),
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_cuda(cuda):
+    """The forward launches the kernel; the backward recomputes through the
+    plain version and matches its gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(1, s, 2, 64, generator=gen, device=cuda).bfloat16()
+                   for s in (96, 77, 77, 96))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(*leaves)
+    assert out.grad_fn is not None and fa.flash_attention.launches == before + 1
+    out.backward(do)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention_reference(*ref).backward(do)
+    for x, y in zip(leaves, ref):
+        torch.testing.assert_close(x.grad, y.grad, atol=0, rtol=0)
+
+
+# (B, H, W, C, O) of the SD VAE decoder's up blocks and conv_out at 512x512
+CONV_SHAPES = [
+    (1, 64, 64, 512, 512), (1, 128, 128, 512, 512), (1, 256, 256, 512, 256),
+    (1, 256, 256, 256, 256), (1, 512, 512, 256, 128), (1, 512, 512, 128, 128),
+    (1, 512, 512, 128, 3),
+]
+
+
+def _conv_inputs(cuda, b, h, w, c, o, seed, skip=False, res=False):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=cuda) * s
+
+    x = rnd(b, h, w, c).bfloat16()
+    scale, shift = fc.fold_group_norm(x, 1.0 + 0.2 * rnd(c), 0.2 * rnd(c), 8, 1e-6)
+    return dict(
+        x=x, w=(rnd(3, 3, c, o) / (3 * c ** 0.5)).bfloat16(), b=rnd(o).bfloat16(),
+        scale=scale, shift=shift,
+        wskip=(rnd(c, o) / c ** 0.5).bfloat16() if skip else None,
+        residual=rnd(b, h, w, o).bfloat16() if res else None,
+    )
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+# every decoder shape through the GN-SiLU prologue; the plain conv and the
+# skip + residual variants at conv_out's and at ragged small shapes
+CONV_CASES = [(s, "gn_silu") for s in CONV_SHAPES] + [
+    (s, v) for s in (CONV_SHAPES[-1], (2, 16, 12, 24, 16), (1, 9, 70, 16, 8))
+    for v in ("plain", "skip_residual")
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,variant", CONV_CASES)
+def test_fused_conv_kernel_matches_plain_version(cuda, shape, variant):
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's conv in full f32
+    i = _conv_inputs(cuda, *shape, seed=sum(shape), skip=variant == "skip_residual",
+                     res=variant == "skip_residual")
+    if variant == "plain":
+        i["scale"] = i["shift"] = None
+    before = fc.fused_conv3x3.launches
+    got = fc.fused_conv3x3(**i)
+    torch.cuda.synchronize()
+    assert fc.fused_conv3x3.launches == before + 1
+    assert got.shape == (*shape[:3], shape[4]) and got.dtype == torch.bfloat16
+    # bf16 activation and output roundings, f32 sums in another order
+    assert _rel_err(got, fc.fused_conv3x3_reference(**i)) <= 2e-2
+
+
+# (M, K, N) of every int8 linear on the "+w8" path: proj_in/out and the
+# attention projections (C -> C), GEGLU (C -> 8C), its output (4C -> C) at
+# the four token counts, and the cross-attention K/V on 77 prompt tokens
+W8_SHAPES = sorted(
+    {(m, c, c) for m, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))}
+    | {(m, c, 8 * c) for m, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))}
+    | {(m, 4 * c, c) for m, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))}
+    | {(77, 1024, c) for c in (320, 640, 1280)}
+) + [(5, 48, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", W8_SHAPES)
+def test_w8_matmul_kernel_matches_plain_version(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device=cuda) / k ** 0.5)
+    before = w8.w8_matmul.launches
+    got = w8.w8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert w8.w8_matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    # bf16 output rounding; f32 sums in another order
+    assert _rel_err(got, w8.w8_matmul_reference(x, w_q, scale)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_w8_matmul_autograd_on_cuda(cuda):
+    """Under autograd the kernel still runs the forward and the output keeps
+    its gradient: dx is the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(77, 1024, generator=gen, device=cuda).bfloat16()
+    dy = torch.randn(77, 320, generator=gen, device=cuda).bfloat16()
+    w_q, scale = w8.quantize_weight(torch.randn(320, 1024, generator=gen, device=cuda) / 32)
+    leaf = x.clone().requires_grad_()
+    before = w8.w8_matmul.launches
+    out = w8.w8_matmul(leaf, w_q, scale)
+    assert out.grad_fn is not None and w8.w8_matmul.launches == before + 1
+    out.backward(dy)
+    ref = x.clone().requires_grad_()
+    w8.w8_matmul_reference(ref, w_q, scale).backward(dy)
+    torch.testing.assert_close(leaf.grad, ref.grad, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_what_they_cannot_take(cuda):
+    x = torch.zeros(4, 40, device=cuda, dtype=torch.bfloat16)
+    w_q = torch.zeros(8, 40, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8.w8_matmul(x, w_q, torch.ones(8, device=cuda))
+    q = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    xc = torch.zeros(1, 4, 4, 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fc.fused_conv3x3(xc, torch.zeros(3, 3, 12, 8, device=cuda), torch.zeros(8, device=cuda))

@@ -93,19 +93,23 @@ def test_attention(case):
 
 def test_attention_backend_switch():
     """'xla' sends every attention to the library call; 'fused' sends long
-    self-attention to the packed wrapper. On the CPU both compute the same
-    function; an unknown backend raises."""
+    self-attention to the packed wrapper, 'pallas' every attention to the
+    flash wrapper. On the CPU all compute the same function; an unknown
+    backend, or '+w8' on float linears, raises."""
     torch.manual_seed(0)
     block = build_module(lambda: tl.BasicTransformerBlock(128, 2, 48), CPU, torch.float32)
     for p in block.parameters():
         torch.nn.init.normal_(p, std=0.05)
     x, ctx = torch.randn(1, 256, 128), torch.randn(1, 77, 48)
     fused = block(x, ctx)
-    tl.set_attention_backend(block, "xla")
-    assert {m.backend for m in block.modules() if isinstance(m, tl.Attention)} == {"xla"}
-    torch.testing.assert_close(block(x, ctx), fused, atol=1e-5, rtol=0)
+    for backend in ("xla", "pallas", "pallas_self"):
+        tl.set_attention_backend(block, backend)
+        assert {m.backend for m in block.modules() if isinstance(m, tl.Attention)} == {backend}
+        torch.testing.assert_close(block(x, ctx), fused, atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="backend"):
-        tl.set_attention_backend(block, "pallas")
+        tl.set_attention_backend(block, "flash")
+    with pytest.raises(ValueError, match="backend"):
+        tl.set_attention_backend(block, "xla+w8")
 
 
 def test_transformer2d_token_order():
