@@ -23,6 +23,9 @@
    GN-SiLU-conv3x3, NHWC) and B5 (int8 weight-only matmul) at every distinct
    shape the opt-in serving configuration gives them, against their plain
    versions, timed beside their bound and a labelled library yardstick.
+   B4/B5 rows carry their launch plan, ptxas registers and spills and
+   shared memory (held to the kernel's own count); two B5 calls on the
+   same inputs must give the same bits.
 5. Opt-in serving path: the same control step built with
    ``backend="pallas+w8", conv_backend="fused"`` (int8 weights quantized by
    ``quantize_pipeline_params`` from the seeded floats). Each step must
@@ -42,7 +45,9 @@
    library attention.
 
 Prints the card's name and power limit, the per-step times and peak memory,
-one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+a ``per_step`` line (per kernel: launches a step x ms, and the same sums of
+its bound and library time), one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a GPU or without the package.
 """
 
@@ -106,6 +111,8 @@ CONV_SHAPES = [
 W8_SHAPES = sorted(
     {(m, k, n) for m, c, _ in OPT_LEVELS for k, n in ((c, c), (c, 8 * c), (4 * c, c))}
     | {(CONTEXT[0], CONTEXT[1], c) for _, c, _ in OPT_LEVELS})
+KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention", "fused_conv",
+                  "w8_matmul"]
 CONV_REL_TOL = 2e-2  # bf16 activation and output roundings: error / max |y|
 W8_REL_TOL = 1e-2  # bf16 output rounding: error / max |y|
 OPT_REL_TOL = 5e-2  # each kernel vs the library path through a full model
@@ -326,14 +333,39 @@ def _rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers and spills of each kernel instantiation in an ``nvcc
+    -Xptxas -v`` log, keyed by its template arguments ("128" for
+    ``w8_matmul_kernel<128>``, "128x2" for ``fused_conv3x3_kernel<128, 2>``)."""
+    import re
+
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            key = "x".join(re.findall(r"Li(\d+)E", m.group(1))) or m.group(1)
+            out[key] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and key is not None:
+            out[key]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key is not None:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
 def opt_kernel_phase() -> list[dict]:
     """B3, B4 and B5 at every shape of the opt-in serving path."""
     import torch.nn.functional as F
 
     from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import _build
     from genima_torch.kernels import fused_conv as fc
     from genima_torch.kernels import w8_matmul as w8
 
+    regs = {name: ptxas_report(_build.build_log(name)) for name in ("fused_conv", "w8_matmul")}
+    conv_lib, w8_lib = fc._library(), w8._library()
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for b, sq, sk, c, h in FLASH_SHAPES:
@@ -377,6 +409,9 @@ def opt_kernel_phase() -> list[dict]:
         rel = _rel_err(got, want)
         if not rel <= CONV_REL_TOL:
             raise AssertionError(f"B4 {b}x{h}x{w}x{c}->{o}: max err {rel} of max |y|")
+        plan = fc.plan(b, h, w, c, o)
+        if conv_lib.fused_conv3x3_smem_bytes(plan.bn, plan.rows) != plan.smem_bytes:
+            raise AssertionError(f"B4 plan's shared memory {plan.smem_bytes} != the kernel's")
         act = (x.float() * scale[:, None, None] + shift[:, None, None])
         act = (act * torch.sigmoid(act)).bfloat16().permute(0, 3, 1, 2)  # channels_last NCHW
         w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -397,6 +432,10 @@ def opt_kernel_phase() -> list[dict]:
             "library": "cuDNN conv2d alone, channels_last bf16, on the pre-activated input "
                        "(a lower yardstick: it skips the GN/SiLU prologue and the residual)",
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": {"tile": f"{plan.rows * 64} pixels x {plan.bn} channels",
+                     "tiles": plan.n_tiles, "blocks": plan.blocks},
+            "smem_bytes": plan.smem_bytes,
+            **regs["fused_conv"].get(f"{plan.bn}x{plan.rows}", {}),
         })
 
     for m, k, n in W8_SHAPES:
@@ -404,10 +443,16 @@ def opt_kernel_phase() -> list[dict]:
         w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)
         got = w8.w8_matmul(x, w_q, scale)
         want = w8.w8_matmul_reference(x, w_q, scale)
+        again = w8.w8_matmul(x, w_q, scale)
         torch.cuda.synchronize()
         rel = _rel_err(got, want)
         if not rel <= W8_REL_TOL:
             raise AssertionError(f"B5 {m}x{k}x{n}: max err {rel} of max |y|")
+        if not torch.equal(got, again):  # split-K sums in a fixed order
+            raise AssertionError(f"B5 {m}x{k}x{n}: two calls differ")
+        plan = w8.plan(m, k, n)
+        if w8_lib.w8_matmul_smem_bytes(plan.bt, plan.stages) != plan.smem_bytes:
+            raise AssertionError(f"B5 plan's shared memory {plan.smem_bytes} != the kernel's")
         w_deq = (w_q.float() * scale[:, None]).bfloat16().t()
         bound_ms, bound_by = _bound(2 * m * k * n, 2 * m * k + k * n + 4 * n + 2 * m * n)
         rows.append({
@@ -423,6 +468,9 @@ def opt_kernel_phase() -> list[dict]:
             "library": "torch.matmul on the pre-dequantised bf16 weight (reads twice the "
                        "weight bytes)",
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": {"tile": f"{plan.bt} tokens x {w8.BN} rows", "split": plan.split,
+                     "stages": plan.stages, "blocks": plan.blocks},
+            "smem_bytes": plan.smem_bytes, **regs["w8_matmul"].get(str(plan.bt), {}),
         })
     return rows
 
@@ -666,6 +714,22 @@ def train_phase(pa) -> dict:
     }
 
 
+def per_step_sums(rows) -> dict:
+    """Per kernel, launches per step x ms summed over its shapes, beside the
+    same sum of its bound and of its library yardstick: (row, steps the
+    row's launches were counted over)."""
+    out: dict[str, dict] = {}
+    for row, steps in rows:
+        d = out.setdefault(row["name"], {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                                         "launches": 0})
+        per = row["launches"] / steps
+        d["launches"] += per
+        d["ms"] += per * row["ms"]
+        d["bound_ms"] += per * row["bound_ms"]
+        d["library_ms"] += per * row["library_ms"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -687,13 +751,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    _build.build_all(["packed_attention", "packed_attention_bwd", "flash_attention",
-                      "fused_conv", "w8_matmul"])
+    _build.build_all(KERNEL_SOURCES)
     print(f"built kernels in {time.time() - t0:.1f} s")
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for name in KERNEL_SOURCES:
+        for key, report in ptxas_report(_build.build_log(name)).items():
+            print(f"  {name} <{key}>: {json.dumps(report)}")
 
     kernels = kernel_phase(pa)
     train_kernels = training_kernel_phase(pa)
@@ -720,6 +782,9 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
     print("opt_path " + json.dumps(opt))
+    print("per_step " + json.dumps(per_step_sums(
+        [(r, PATH_STEPS) for r in kernels] + [(r, TRAIN_STEPS) for r in train_kernels]
+        + [(r, OPT_STEPS) for r in opt_kernels])))
     print(json.dumps({"kernels": kernels + train_kernels + opt_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,260 +10,331 @@
 // padded to a multiple of 8), b (O,) f32, wskip (C, Opad), residual and y
 // (B, H, W, O). f32 accumulation, one bf16 rounding of y.
 //
-// Design: an implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16 in,
-// f32 accumulate). A block computes 128 output pixels (2 image rows x 64
-// columns) by BN output channels, and walks the input channels in chunks
-// of 32:
-//   * the chunk's halo band, (2 + 2) rows x (64 + 2) columns x 32 channels,
-//     is copied into shared memory with cp.async, out-of-image pixels
-//     zero-filled;
-//   * the GroupNorm affine and SiLU are applied to the band in place, once
-//     per element (not once per tap), and out-of-image pixels stay 0: the
-//     conv's zero padding is padding of the activated image. The normalised
-//     activation never reaches device memory, which is what the TPU kernel
-//     exists for;
-//   * the nine taps are nine K-slices of the GEMM whose A rows are the band
-//     shifted by (di, dj): ldmatrix takes one row address per lane, so a
-//     shifted window costs nothing to form. Each tap's 32 x BN weight tile
-//     is double-buffered with cp.async;
-//   * wskip is one more K-slice per chunk, on the raw (not activated) band's
-//     centre; the bias and the residual are added in the epilogue.
-// BN is 128 (8 warps of 64 pixels x 32 channels) or, for conv_out's 3
-// output channels, 16 (8 warps of 16 pixels x 16 channels).
+// What bounds it on the H100: 2*B*H*W*O*(9C [+ C]) operations on the x, y
+// [and residual] bytes. At the SD decoder's widths (C, O >= 128) the tensor
+// cores bound it, so the kernel has to keep them busy: loads, the
+// activation and the MMAs must overlap, and the MMAs must be wgmma, which
+// mma.sync cannot match on this card. conv_out (O = 3) is bound by reading
+// its 128-channel input.
+//
+// Design: an implicit GEMM. A tile is 64 output columns by `rows` image
+// rows (one consumer warpgroup each) by BN output channels: 128 x 2 rows,
+// or 16 x 4 rows for conv_out. Its input channels are walked in chunks of
+// 64. The grid is persistent: one block per SM takes every gridDim-th tile,
+// so the next tile's band and weights load while the current tile's
+// epilogue runs. Warp-specialised:
+//   * one producer warp keeps two rings full with TMA behind mbarriers: the
+//     halo band of a chunk, (rows + 2) x (64 + 2) pixels x 64 channels (two
+//     stages), and the chunk's per-tap weight tiles, 64 x BN (four stages;
+//     the skip's tile first when there is one, then taps 0..8). TMA
+//     zero-fills pixels outside the image, which is the conv's padding, and
+//     channels past C; the band is 128-byte swizzled, so the shifted
+//     ldmatrix windows below are free of bank conflicts;
+//   * the consumer warpgroups wait on "full" barriers only. Per chunk: the
+//     1x1 skip's K-slice on the raw band's centre; then the GroupNorm affine
+//     and SiLU applied to the band in place, once per element, split
+//     between all consumer threads, leaving out-of-image pixels and
+//     channels past C at 0 (silu(shift) is not 0, and the conv pads the
+//     activated image with zeros); then the nine taps. A tap's A operand is
+//     the band shifted by (di, dj), which a shared-memory descriptor cannot
+//     express, so each warp loads it with ldmatrix (one row address per
+//     lane) into registers, and wgmma m64nBNk16 takes A from registers and
+//     the weight tile (MN-major, 128-byte swizzled; 32 for BN = 16) from
+//     shared memory. Two sets of A registers alternate, so a warp loads the
+//     next tap's window while the tensor cores run the current one (wgmma
+//     wait_group 1). Each weight stage is handed back when its group
+//     completes, the band when the chunk is done: one barrier wait per
+//     stage, and block-wide barriers only around the activation;
+//   * epilogue: + bias [+ residual] in f32, one rounding, masked to the
+//     image and to the O real channels.
+// Why BN = 128 and not 256 (which would activate each band once per 256
+// output channels instead of 128): measured slower at every decoder shape.
+// ptxas gives a 288-thread block at most 168 registers, and the 128
+// accumulators of an m64n256 tile then spill; the SiLU a band repeats per
+// column block is a small part of the time. conv_out takes four rows:
+// with 16 channels a tap's MMA is short, and four warpgroups hide the
+// per-tap latency that two do not.
 //
 // Not ported from the TPU kernel: its routing to XLA for C % 128 != 0 or
-// O < 128 (a lane-alignment rule of the TPU's DMA and VMEM), its split of the
-// output channels when a band overflows VMEM, and its row-band height search.
-// A block's working set here is 40 KB of shared memory whatever the width.
-//
-// Bound: 2*B*H*W*O*(9C [+ C]) flops on x, y [and residual] bytes. At the SD
-// decoder's widths (C, O >= 128) the tensor cores bound it; conv_out (O = 3)
-// is bound by reading its 128-channel input.
+// O < 128 (a lane-alignment rule of the TPU's DMA and VMEM), its split of
+// the output channels when a band overflows VMEM, and its row-band height
+// search.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTH = 2;                 // output rows per block
-constexpr int kTW = 64;                // output columns per block
-constexpr int kBM = kTH * kTW;         // output pixels per block
-constexpr int kBK = 32;                // input channels per chunk
+using namespace hopper;
+
+constexpr int kTW = 64;                     // output columns per tile
+constexpr int kBK = 64;                     // input channels per chunk
 constexpr int kBandW = kTW + 2;
-constexpr int kBandPix = (kTH + 2) * kBandW;
-constexpr int kBandStride = kBK + 8;   // bf16 per band pixel in smem (80 bytes)
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0: fill with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kBandStages = 2;
+constexpr int kWStages = 4;
 
 struct Params {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* w;      // (9, C, opad)
   const float* b;              // (o,)
   const float* scale;          // (B, C) or null
   const float* shift;
-  const __nv_bfloat16* wskip;  // (C, opad) or null
   const __nv_bfloat16* res;    // (B, H, W, o) or null
   __nv_bfloat16* y;            // (B, H, W, o)
-  int h, w_img, c, o, opad;
+  int h, w_img, c, o, n_chunks, has_skip;
+  int tiles_w, tiles_h, o_blocks, n_tiles;  // tile t: o block fastest, then x, y, batch
 };
 
-template <int BN, int WARPS_M>
-__global__ void __launch_bounds__(kThreads) fused_conv3x3_kernel(Params p) {
-  constexpr int WARPS_N = (kThreads / 32) / WARPS_M;
-  constexpr int WM = kBM / WARPS_M;  // pixels per warp
-  constexpr int WN = BN / WARPS_N;   // output channels per warp
-  constexpr int MT = WM / 16;
-  constexpr int NT = WN / 8;
-  constexpr int kWStride = BN + 8;
-  static_assert(NT % 2 == 0, "B fragments are loaded two n-tiles at a time");
+// BN output channels by NWG image rows (one consumer warpgroup each)
+template <int BN, int NWG>
+struct Cfg {
+  static constexpr int kTH = NWG;                    // output rows per tile
+  static constexpr int kBandH = kTH + 2;
+  static constexpr int kBandBytes = kBandH * kBandW * kBK * 2;  // 128 bytes a pixel
+  static constexpr int kBandStride = (kBandBytes + 1023) / 1024 * 1024;  // swizzle atoms
+  static constexpr int kConsumers = 128 * NWG;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kBoxN = BN >= 64 ? 64 : 16;   // output channels per TMA box
+  static constexpr int kSwizzle = kBoxN * 2;         // bytes of a box row
+  static constexpr int kBoxBytes = kBK * kSwizzle;
+  static constexpr int kWTap = kBK * BN * 2;         // one tap's weight tile
+  static int smem_bytes() {
+    return 1024 + kBandStages * kBandStride + kWStages * kWTap + 8 * 2 * (kBandStages + kWStages);
+  }
+};
 
-  __shared__ __align__(16) __nv_bfloat16 s_band[kBandPix * kBandStride];
-  __shared__ __align__(16) __nv_bfloat16 s_w[2][kBK * kWStride];
+// silu(v * sc + sh) on 8 bf16 channels in place, in f32
+__device__ __forceinline__ void activate8(uint4* v, const float* sc, const float* sh) {
+  const float4 s0 = __ldg(reinterpret_cast<const float4*>(sc));
+  const float4 s1 = __ldg(reinterpret_cast<const float4*>(sc) + 1);
+  const float4 h0 = __ldg(reinterpret_cast<const float4*>(sh));
+  const float4 h1 = __ldg(reinterpret_cast<const float4*>(sh) + 1);
+  const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  const float o[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+  uint4 raw = *v;
+  __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(pairs[j]);
+    float a = fmaf(f.x, s[2 * j], o[2 * j]);
+    float b = fmaf(f.y, s[2 * j + 1], o[2 * j + 1]);
+    a = __fdividef(a, 1.f + __expf(-a));
+    b = __fdividef(b, 1.f + __expf(-b));
+    pairs[j] = __floats2bfloat162_rn(a, b);
+  }
+  *v = raw;
+}
 
-  const int tiles_w = (p.w_img + kTW - 1) / kTW;
-  const int y0 = (blockIdx.x / tiles_w) * kTH;
-  const int x0 = (blockIdx.x % tiles_w) * kTW;
-  const int n0 = blockIdx.y * BN;
-  const int bi = blockIdx.z;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+template <int BN, int NWG>
+__global__ void __launch_bounds__(Cfg<BN, NWG>::kThreads, 1)
+fused_conv3x3_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_skip, const Params p) {
+  using C = Cfg<BN, NWG>;
+  constexpr int kTH = C::kTH, kBandH = C::kBandH, kConsumers = C::kConsumers;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* band_ring = smem;
+  uint8_t* w_ring = smem + kBandStages * C::kBandStride;
+  uint64_t* band_full = reinterpret_cast<uint64_t*>(w_ring + kWStages * C::kWTap);
+  uint64_t* band_empty = band_full + kBandStages;
+  uint64_t* w_full = band_empty + kBandStages;
+  uint64_t* w_empty = w_full + kWStages;
+
+  // persistent: block b takes tiles b, b + gridDim.x, ...; the rings run
+  // on across tiles, so the next tile's band and weights load while the
+  // consumers finish the current one
+  int y0, x0, n0, bi;
+  auto coord = [&](int tile) {
+    n0 = (tile % p.o_blocks) * BN;
+    tile /= p.o_blocks;
+    x0 = (tile % p.tiles_w) * kTW;
+    tile /= p.tiles_w;
+    y0 = (tile % p.tiles_h) * kTH;
+    bi = tile / p.tiles_h;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBandStages; ++s) {
+      mbar_init(&band_full[s], 1);
+      mbar_init(&band_empty[s], NWG);
+    }
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&w_full[s], 1);
+      mbar_init(&w_empty[s], NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t img = static_cast<size_t>(bi) * p.h * p.w_img;
 
-  // band pixel q <-> image (y0 + q / kBandW - 1, x0 + q % kBandW - 1)
-  auto band_pixel = [&](int q, int& yy, int& xx) {
-    yy = y0 + q / kBandW - 1;
-    xx = x0 + q % kBandW - 1;
-    return yy >= 0 && yy < p.h && xx >= 0 && xx < p.w_img;
-  };
-
-  auto load_band = [&](int c0) {
-    for (int idx = threadIdx.x; idx < kBandPix * (kBK / 8); idx += kThreads) {
-      const int q = idx >> 2, cv = (idx & 3) * 8;
-      int yy, xx;
-      const bool ok = band_pixel(q, yy, xx) && c0 + cv < p.c;
-      const __nv_bfloat16* src =
-          ok ? p.x + (img + static_cast<size_t>(yy) * p.w_img + xx) * p.c + c0 + cv : p.x;
-      cp_async_16(s_band + q * kBandStride + cv, src, ok);
-    }
-  };
-
-  // silu(x * scale + shift) in place, in f32, rounded to bf16; pixels
-  // outside the image (and channels past C) keep their zeros
-  auto activate_band = [&](int c0) {
-    for (int idx = threadIdx.x; idx < kBandPix * (kBK / 8); idx += kThreads) {
-      const int q = idx >> 2, cv = (idx & 3) * 8;
-      int yy, xx;
-      if (!band_pixel(q, yy, xx) || c0 + cv >= p.c) continue;
-      __nv_bfloat16* v = s_band + q * kBandStride + cv;
-      uint4 raw = *reinterpret_cast<uint4*>(v);
-      __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&raw);
-      const float* sc = p.scale + static_cast<size_t>(bi) * p.c + c0 + cv;
-      const float* sh = p.shift + static_cast<size_t>(bi) * p.c + c0 + cv;
+  if (warp == 4 * NWG) {  // producer warp
+    if (lane == 0) {
+      prefetch_tensormap(&map_x);
+      prefetch_tensormap(&map_w);
+      int ws = 0;
+      uint32_t wph = 0;
+      auto load_w = [&](const CUtensorMap* map, int c0, int tap) {
+        mbar_wait(&w_empty[ws], wph ^ 1);
+        uint8_t* dst = w_ring + ws * C::kWTap;
+        mbar_expect_tx(&w_full[ws], C::kWTap);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float2 f = __bfloat1622float2(pairs[j]);
-        float a = fmaf(f.x, sc[2 * j], sh[2 * j]);
-        float b = fmaf(f.y, sc[2 * j + 1], sh[2 * j + 1]);
-        a = __fdividef(a, 1.f + __expf(-a));
-        b = __fdividef(b, 1.f + __expf(-b));
-        pairs[j] = __floats2bfloat162_rn(a, b);
-      }
-      *reinterpret_cast<uint4*>(v) = raw;
-    }
-  };
-
-  // one 32 x BN weight tile: rows are input channels c0.., columns output
-  // channels n0..; `src` is (C, opad) row-major
-  auto load_w = [&](int buf, const __nv_bfloat16* src, int c0) {
-    for (int idx = threadIdx.x; idx < kBK * (BN / 8); idx += kThreads) {
-      const int r = idx / (BN / 8), cv = (idx % (BN / 8)) * 8;
-      const bool ok = c0 + r < p.c && n0 + cv < p.opad;
-      const __nv_bfloat16* s =
-          ok ? src + static_cast<size_t>(c0 + r) * p.opad + n0 + cv : src;
-      cp_async_16(&s_w[buf][r * kWStride + cv], s, ok);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  // this lane's ldmatrix row: pixel m of the block, as band coordinates
-  int a_base[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int m = wm * WM + mt * 16 + (lane & 15);
-    a_base[mt] = ((m / kTW) * kBandW + (m % kTW)) * kBandStride + (lane >> 4) * 8;
-  }
-  const int mi = lane >> 3;
-  const int b_base = ((mi & 1) * 8 + (lane & 7)) * kWStride + wn * WN + (mi >> 1) * 8;
-
-  const int n_chunks = (p.c + kBK - 1) / kBK;
-  const int n_iters = n_chunks * (p.wskip ? 2 : 1);
-  for (int it = 0; it < n_iters; ++it) {
-    const bool skip = it >= n_chunks;  // the 1x1 shortcut's K-slices
-    const int c0 = (skip ? it - n_chunks : it) * kBK;
-    const int n_taps = skip ? 1 : 9;
-    load_band(c0);
-    load_w(0, skip ? p.wskip : p.w, c0);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    if (!skip && p.scale) {
-      activate_band(c0);
-      __syncthreads();
-    }
-    for (int tap = 0; tap < n_taps; ++tap) {
-      if (tap + 1 < n_taps) load_w((tap + 1) & 1, p.w + static_cast<size_t>(tap + 1) * p.c * p.opad, c0);
-      cp_async_commit();
-      const int di = skip ? 1 : tap / 3, dj = skip ? 1 : tap % 3;
-      const __nv_bfloat16* band = s_band + (di * kBandW + dj) * kBandStride;
-      const __nv_bfloat16* ws = s_w[tap & 1];
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], band + a_base[mt] + kk * 16);
-#pragma unroll
-        for (int nt = 0; nt < NT; nt += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, ws + kk * 16 * kWStride + b_base + nt * 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16_16816(acc[mt][nt], a[mt], b);
-            mma_bf16_16816(acc[mt][nt + 1], a[mt], b + 2);
-          }
+        for (int j = 0; j < BN / C::kBoxN; ++j)
+          tma_load_3d(dst + j * C::kBoxBytes, map, &w_full[ws], n0 + j * C::kBoxN, c0, tap);
+        if (++ws == kWStages) {
+          ws = 0;
+          wph ^= 1;
+        }
+      };
+      int bands = 0;  // bands loaded so far: ring stage and phase
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        coord(tile);
+        for (int i = 0; i < p.n_chunks; ++i, ++bands) {
+          const int bs = bands % kBandStages;
+          const uint32_t bph = (bands / kBandStages) & 1;
+          const int c0 = i * kBK;
+          mbar_wait(&band_empty[bs], bph ^ 1);
+          mbar_expect_tx(&band_full[bs], C::kBandBytes);
+          tma_load_4d(band_ring + bs * C::kBandStride, &map_x, &band_full[bs], c0, x0 - 1, y0 - 1,
+                      bi);
+          if (p.has_skip) load_w(&map_skip, c0, 0);
+          for (int tap = 0; tap < 9; ++tap) load_w(&map_w, c0, tap);
         }
       }
-      cp_async_wait_all();
-      __syncthreads();
     }
+    return;
   }
 
-  // epilogue: + bias [+ residual], one rounding to bf16, masked to the image
-  // and to the O real output channels
-  const bool pairs = (p.o & 1) == 0;
+  // consumer warpgroup wg computes output row y0 + wg, pixels x0 .. x0 + 63
+  const int ctid = threadIdx.x;
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float acc[BN / 2];
+
+  // this lane's ldmatrix row: pixel wq * 16 + (lane & 15) of the warpgroup's
+  // row, 16-byte chunk (lane >> 4) of each k16 step
+  const int a_pix = wq * 16 + (lane & 15);
+  const int a_half = lane >> 4;
+
+  // One K-slice of 64 channels: the band shifted by (di, dj) times the
+  // weight tile at the head of the weight ring, as one wgmma group. Groups
+  // alternate between two sets of A registers: after issuing one, the warp
+  // waits only for the group before it (wait_group 1), then that group's
+  // A registers are free (fence_a keeps the compiler from reusing them
+  // earlier) and its weight stage goes back to the producer, while the
+  // tensor cores run the new group.
+  int ws = 0;
+  uint32_t wph = 0;
+  int pending = -1;  // weight stage of the group still running
+  uint32_t a0[4][4], a1[4][4];
+  auto fence_a = [](uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r])::"memory");
+  };
+  auto release_w = [&](int st) {
+    if (wq == 0 && lane == 0) mbar_arrive(&w_empty[st]);
+  };
+  auto group = [&](const uint8_t* band, int di, int dj, uint32_t (&a)[4][4],
+                   uint32_t (&other)[4][4]) {
+    mbar_wait(&w_full[ws], wph);
+    const int q = (wg + di) * kBandW + a_pix + dj;
+    const uint32_t row = smem_u32(band) + q * 128;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(a[kk], row + (((2 * kk + a_half) ^ (q & 7)) << 4));
+    const uint8_t* wt = w_ring + ws * C::kWTap;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc =
+          make_desc(wt + kk * 16 * C::kSwizzle, C::kSwizzle, C::kBoxBytes, 8 * C::kSwizzle);
+      wgmma_rs<BN, 1>(acc, a[kk], desc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_a(other);
+    if (pending >= 0) release_w(pending);
+    pending = ws;
+    if (++ws == kWStages) {
+      ws = 0;
+      wph ^= 1;
+    }
+  };
+
+  int bands = 0;
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    coord(tile);
+    const float* scale = p.scale ? p.scale + static_cast<size_t>(bi) * p.c : nullptr;
+    const float* shift = p.shift ? p.shift + static_cast<size_t>(bi) * p.c : nullptr;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    fence_operands(acc);
+
+    for (int i = 0; i < p.n_chunks; ++i, ++bands) {
+      const int bs = bands % kBandStages;
+      const uint32_t bph = (bands / kBandStages) & 1;
+      const int c0 = i * kBK;
+      uint8_t* band = band_ring + bs * C::kBandStride;
+      mbar_wait(&band_full[bs], bph);
+      if (p.has_skip) group(band, 1, 1, a1, a0);  // the 1x1 shortcut on the raw band
+      if (scale) {
+        named_barrier(1, kConsumers);  // nobody still reads the raw band
+        for (int idx = ctid; idx < kBandH * kBandW * 8; idx += kConsumers) {
+          const int q = idx >> 3;
+          const int j = (idx & 7) ^ (q & 7);  // logical 8-channel group
+          const int yy = y0 - 1 + q / kBandW, xx = x0 - 1 + q % kBandW;
+          const int cc = c0 + 8 * j;
+          if (yy < 0 || yy >= p.h || xx < 0 || xx >= p.w_img || cc >= p.c) continue;
+          activate8(reinterpret_cast<uint4*>(band + idx * 16), scale + cc, shift + cc);
+        }
+        fence_proxy_async();  // before TMA overwrites these bytes
+        named_barrier(1, kConsumers);
+      }
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        if (tap & 1)
+          group(band, tap / 3, tap % 3, a1, a0);
+        else
+          group(band, tap / 3, tap % 3, a0, a1);
+      }
+      // the chunk's last group done: its weights and the band go back
+      wgmma_wait<0>();
+      fence_a(a0);
+      fence_operands(acc);
+      release_w(pending);
+      pending = -1;
+      if (wq == 0 && lane == 0) mbar_arrive(&band_empty[bs]);
+    }
+
+    // epilogue: + bias [+ residual], one rounding to bf16, masked to the image
+    // and to the O real output channels
+    const int yy = y0 + wg;
+    const bool pairs = (p.o & 1) == 0;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int m = wm * WM + mt * 16 + g + half * 8;
-      const int yy = y0 + m / kTW, xx = x0 + m % kTW;
+      const int xx = x0 + wq * 16 + g + 8 * half;
       if (yy >= p.h || xx >= p.w_img) continue;
-      const size_t pix = (img + static_cast<size_t>(yy) * p.w_img + xx) * p.o;
+      const size_t pix = ((static_cast<size_t>(bi) * p.h + yy) * p.w_img + xx) * p.o;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = n0 + wn * WN + nt * 8 + 2 * t;
-        float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
         if (pairs) {
           if (col >= p.o) continue;
           v0 += p.b[col];
           v1 += p.b[col + 1];
           if (p.res) {
-            const float2 r = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(p.res + pix + col));
+            const float2 r =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.res + pix + col));
             v0 += r.x;
             v1 += r.y;
           }
@@ -271,11 +342,11 @@ __global__ void __launch_bounds__(kThreads) fused_conv3x3_kernel(Params p) {
         } else {
           const float vs[2] = {v0, v1};
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            if (col + j >= p.o) continue;
-            float v = vs[j] + p.b[col + j];
-            if (p.res) v += __bfloat162float(p.res[pix + col + j]);
-            p.y[pix + col + j] = __float2bfloat16_rn(v);
+          for (int e = 0; e < 2; ++e) {
+            if (col + e >= p.o) continue;
+            float v = vs[e] + p.b[col + e];
+            if (p.res) v += __bfloat162float(p.res[pix + col + e]);
+            p.y[pix + col + e] = __float2bfloat16_rn(v);
           }
         }
       }
@@ -283,42 +354,92 @@ __global__ void __launch_bounds__(kThreads) fused_conv3x3_kernel(Params p) {
   }
 }
 
+template <int BN, int NWG>
+int launch(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& ms, const Params& p,
+           int blocks, cudaStream_t stream) {
+  const int smem = Cfg<BN, NWG>::smem_bytes();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_conv3x3_kernel<BN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  fused_conv3x3_kernel<BN, NWG><<<blocks, Cfg<BN, NWG>::kThreads, smem, stream>>>(mx, mw, ms, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A (opad, C, depth) weight map, box (box_n, 64, 1), swizzled box_n * 2 bytes.
+int weight_map(CUtensorMap* map, const void* w, int c, int opad, int depth, int box_n) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(opad), static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(opad) * 2,
+                                 static_cast<cuuint64_t>(c) * opad * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_n), kBK, 1};
+  return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, dims, strides, box,
+                             box_n == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
 }  // namespace
 
 extern "C" {
 
-// See the header comment. scale/shift, wskip and residual may be null.
-// Needs C % 8 == 0 and opad % 8 == 0 (the wrapper pads w and checks).
-// Launches on `stream`, does not synchronise, returns cudaGetLastError().
+int fused_conv3x3_smem_bytes(int bn, int rows);
+
+// See the header comment. scale/shift, wskip and residual may be null; the
+// tile (bn output channels x rows image rows: 128 x 2 or 16 x 4) and the
+// number of persistent blocks are kernels/fused_conv.py::plan's. Needs C % 8 == 0,
+// opad % 8 == 0 and 16-byte aligned tensors (the wrapper pads w and
+// checks). Launches on `stream`, does not synchronise; returns 0 or an
+// error code for fused_conv3x3_error_string.
 int fused_conv3x3(const void* x, const void* w, const void* b, const void* scale,
                   const void* shift, const void* wskip, const void* residual, void* y, int batch,
-                  int h, int w_img, int c, int o, int opad, void* stream) {
+                  int h, int w_img, int c, int o, int opad, int bn, int rows, int blocks,
+                  void* stream) {
+  if (fused_conv3x3_smem_bytes(bn, rows) == 0 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int box_n = bn >= 64 ? 64 : 16;
+  CUtensorMap mx, mw, ms;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w_img),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(c) * 2,
+                                 static_cast<cuuint64_t>(w_img) * c * 2,
+                                 static_cast<cuuint64_t>(h) * w_img * c * 2};
+  const cuuint32_t box[4] = {kBK, kBandW, static_cast<cuuint32_t>(rows + 2), 1};
+  int rc = hopper_host::encode(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  if ((rc = weight_map(&mw, w, c, opad, 9, box_n))) return rc;
+  if ((rc = weight_map(&ms, wskip ? wskip : w, c, opad, 1, box_n))) return rc;
   Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.w = static_cast<const __nv_bfloat16*>(w);
   p.b = static_cast<const float*>(b);
   p.scale = static_cast<const float*>(scale);
   p.shift = static_cast<const float*>(shift);
-  p.wskip = static_cast<const __nv_bfloat16*>(wskip);
   p.res = static_cast<const __nv_bfloat16*>(residual);
   p.y = static_cast<__nv_bfloat16*>(y);
   p.h = h;
   p.w_img = w_img;
   p.c = c;
   p.o = o;
-  p.opad = opad;
-  const int tiles = ((h + kTH - 1) / kTH) * ((w_img + kTW - 1) / kTW);
+  p.n_chunks = (c + kBK - 1) / kBK;
+  p.has_skip = wskip != nullptr;
+  p.tiles_w = (w_img + kTW - 1) / kTW;
+  p.tiles_h = (h + rows - 1) / rows;
+  p.o_blocks = (opad + bn - 1) / bn;
+  p.n_tiles = p.tiles_w * p.tiles_h * p.o_blocks * batch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (opad <= 16) {
-    fused_conv3x3_kernel<16, 8><<<dim3(tiles, (opad + 15) / 16, batch), kThreads, 0, s>>>(p);
-  } else {
-    fused_conv3x3_kernel<128, 2><<<dim3(tiles, (opad + 127) / 128, batch), kThreads, 0, s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (bn == 128) return launch<128, 2>(mx, mw, ms, p, blocks, s);
+  return launch<16, 4>(mx, mw, ms, p, blocks, s);
 }
 
-const char* fused_conv3x3_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// Shared memory a block of the (bn output channels, rows image rows)
+// kernel asks for; 0 for a tile there is no kernel for.
+int fused_conv3x3_smem_bytes(int bn, int rows) {
+  if (bn == 128 && rows == 2) return Cfg<128, 2>::smem_bytes();
+  if (bn == 16 && rows == 4) return Cfg<16, 4>::smem_bytes();
+  return 0;
 }
+
+const char* fused_conv3x3_error_string(int code) { return hopper_host::error_string(code); }
 
 }  // extern "C"

@@ -62,8 +62,19 @@ def build(name: str) -> Path:
     build_logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_logs[name]}")
+    out.with_suffix(".log").write_text(build_logs[name])
     os.replace(tmp, out)
     return out
+
+
+def build_log(name: str) -> str:
+    """The compiler output of ``csrc/<name>.cu``'s current library, from this
+    process's build or, for a library built earlier, from the log kept
+    beside it."""
+    if name not in build_logs:
+        log = library_path(name).with_suffix(".log")
+        build_logs[name] = log.read_text() if log.exists() else ""
+    return build_logs[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,15 +12,19 @@ Layouts are the JAX package's: x and y NHWC ``(B, H, W, C)``, w HWIO
 ``(3, 3, C, O)``, scale/shift ``(B, C)`` (the folded GroupNorm of
 ``fold_group_norm``), wskip ``(C, O)``, residual ``(B, H, W, O)``.
 
-* CUDA: ``csrc/fused_conv.cu``, an implicit-GEMM conv on the tensor cores
-  (mma.sync) that applies the GroupNorm affine and SiLU to each input band
-  in shared memory once, so the normalised activation never reaches device
-  memory; wskip is one more K-slice on the raw band, the residual is added
-  in the epilogue. Takes bf16 x, C % 8 == 0, and every O (conv_out's 3
-  included: w is padded to a multiple of 8 output channels here). The TPU
-  wrapper's routing to XLA (C % 128, O < 128) and its VMEM channel split are
-  lane and VMEM rules of that chip and are not ported. Bound: tensor-core
-  operations at the decoder's widths, input bytes for conv_out.
+* CUDA: ``csrc/fused_conv.cu``, a persistent, warp-specialised
+  implicit-GEMM conv: a producer warp streams each 64-channel halo band and
+  its per-tap weight tiles through TMA + mbarrier rings; the consumer
+  warpgroups (one per image row of the tile) apply the GroupNorm affine
+  and SiLU to the band in shared memory once, so the normalised activation
+  never reaches device memory, then run the nine taps as wgmma with the
+  shifted band in registers (ldmatrix). wskip is one more K-slice on the
+  raw band, the residual is added in the epilogue. ``plan`` picks the
+  tile. Takes bf16 x, C % 8 == 0, and every O (conv_out's 3 included: w is
+  padded to a multiple of 8 output channels here). The TPU wrapper's routing to XLA (C % 128, O < 128) and
+  its VMEM channel split are lane and VMEM rules of that chip and are not
+  ported. Bound: tensor-core operations at the decoder's widths, input
+  bytes for conv_out.
 * CPU: ``fused_conv3x3_reference``, the kernel's arithmetic in plain
   PyTorch. The wrapper takes it only for tensors that lie on the CPU.
 
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -58,11 +63,87 @@ def fused_conv3x3_reference(x, w, b, scale=None, shift=None, wskip=None, residua
     return y.to(x.dtype)
 
 
+SMS = 132  # streaming multiprocessors of an H100 SXM
+TILE_W, CHUNK = 64, 64  # output columns per tile, input channels per band
+BAND_STAGES, W_STAGES = 2, 4
+# (output channels, image rows) per tile that the source instantiates: one
+# consumer warpgroup per row, wgmma N = output channels. Measured on the
+# H100 (``python -m genima_torch.tune_kernels conv``): 128 x 2 beats 256 x 2
+# and 128 x 4 at every decoder shape (both spill: ptxas gives a 288-thread
+# block at most 168 registers, a 544-thread one 96); 16 x 4 beats 16 x 2 at
+# conv_out, where the per-tap latency is worth four warpgroups.
+TILES = ((128, 2), (16, 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One call's launch: ``bn`` output channels per tile, the tiles, and
+    the persistent blocks that walk them (block b takes tiles b, b +
+    blocks, ...)."""
+
+    bn: int
+    rows: int  # image rows per tile, one consumer warpgroup each
+    tiles: tuple[int, int, int]  # (pixel tiles, output-channel blocks, batch)
+    blocks: int  # persistent blocks, one an SM at most
+    chunks: int  # 64-channel bands per tile
+    smem_bytes: int
+    why_short: str  # why the grid is under one wave ("" if it is not)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tiles[0] * self.tiles[1] * self.tiles[2]
+
+
+def smem_bytes(bn: int, rows: int) -> int:
+    """Dynamic shared memory of one block: 1 KB of alignment slack, the
+    band ring ((rows + 2) x 66 pixels x 64 channels a stage, in whole KB),
+    the weight ring (64 x bn bf16 a stage) and the barriers. Mirrors
+    ``fused_conv3x3_smem_bytes`` in the source."""
+    band = -(-(rows + 2) * (TILE_W + 2) * CHUNK * 2 // 1024) * 1024
+    return 1024 + BAND_STAGES * band + W_STAGES * CHUNK * bn * 2 + 16 * (BAND_STAGES + W_STAGES)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, c: int, o: int, sms: int = SMS) -> Plan:
+    """Tile for a (B, H, W, C) -> O call: 16 output channels over four
+    image rows for conv_out's few channels, else 128 over two. One
+    persistent block per SM (the rings take most of its shared memory), or
+    one per tile when there are fewer tiles."""
+    if min(b, h, w, c, o) < 1:
+        raise ValueError(f"empty conv: B={b}, H={h}, W={w}, C={c}, O={o}")
+    if c % 8:
+        raise ValueError(f"C={c} must be a multiple of 8")
+    bn, rows = TILES[1] if o <= 16 else TILES[0]
+    return make_plan(b, h, w, c, o, bn, rows, sms)
+
+
+def make_plan(b: int, h: int, w: int, c: int, o: int, bn: int, rows: int,
+              sms: int = SMS) -> Plan:
+    """The launch for a chosen tile."""
+    if (bn, rows) not in TILES:
+        raise ValueError(f"no kernel for {bn} output channels x {rows} rows")
+    opad = -(-o // 8) * 8
+    grid = (-(-h // rows) * -(-w // TILE_W), -(-opad // bn), b)
+    n_tiles = grid[0] * grid[1] * grid[2]
+    why = (f"{grid[0] * b} tiles of {rows}x{TILE_W} pixels x {grid[1]} blocks of {bn} "
+           f"output channels" if n_tiles < sms else "")
+    return Plan(bn=bn, rows=rows, tiles=grid, blocks=min(n_tiles, sms), chunks=-(-c // CHUNK),
+                smem_bytes=smem_bytes(bn, rows), why_short=why)
+
+
+def _plan_for(b: int, h: int, w: int, c: int, o: int) -> Plan:
+    """The plan a call launches (``tune_kernels`` and the card tests swap
+    in others)."""
+    return plan(b, h, w, c, o)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_conv")
-    lib.fused_conv3x3.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.fused_conv3x3.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.fused_conv3x3.restype = ctypes.c_int
+    lib.fused_conv3x3_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.fused_conv3x3_smem_bytes.restype = ctypes.c_int
     lib.fused_conv3x3_error_string.argtypes = [ctypes.c_int]
     lib.fused_conv3x3_error_string.restype = ctypes.c_char_p
     return lib
@@ -83,6 +164,7 @@ def _launch(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
         raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)} do not fit C={c}")
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
+    p = _plan_for(bsz, h, wd, c, o)
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
     for name, t, shape in (("scale", scale, (bsz, c)), ("shift", shift, (bsz, c)),
@@ -107,7 +189,8 @@ def _launch(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fused_conv3x3(*ptrs, out.data_ptr(), bsz, h, wd, c, o, opad, stream)
+        rc = lib.fused_conv3x3(*ptrs, out.data_ptr(), bsz, h, wd, c, o, opad, p.bn, p.rows,
+                               p.blocks, stream)
     fused_conv3x3.launches += 1
     fused_conv3x3.launches_by_shape[(bsz, h, wd, c, o)] += 1
     if rc != 0:

@@ -8,15 +8,18 @@ out of the contraction and is applied once to the f32 accumulator.
 
 Layout: ``w_q`` is ``(N, K)`` int8, one row per output column, as
 ``nn.Linear.weight`` stores a weight (the JAX kernel takes ``(K, N)``;
-``weights.from_jax`` transposes ``kernel_q`` on load). That is the column
-layout the tensor cores' B operand wants, so two neighbouring K values of a
-column are one 16-bit load.
+``weights.from_jax`` transposes ``kernel_q`` on load). Each output
+column's K values are then contiguous, the K-major layout in which TMA
+brings weight rows in as the kernel's wgmma A operand.
 
-* CUDA: ``csrc/w8_matmul.cu``, a tiled mma.sync GEMM that keeps the weight
-  int8 in device and shared memory and widens it in registers, K walked in
-  32-wide tiles, ragged M and N masked. Takes bf16 x, K % 16 == 0 and
-  N % 8 == 0; anything else raises. Bound: weight bytes at M <= 256, tensor
-  cores at M = 4096.
+* CUDA: ``csrc/w8_matmul.cu``, a swap-AB wgmma GEMM (the weight tile is
+  the A operand, widened from int8 in registers once; the token tile is B)
+  fed by a TMA + mbarrier ring of 128-wide K tiles, with a split-K whose
+  partials are summed in a fixed order by the last block of each tile, so
+  results are bit-identical from call to call. ``plan`` picks the token
+  tile, the split and the ring depth per shape. Takes bf16 x, K % 16 == 0
+  and N % 8 == 0; anything else raises. Bound: weight bytes at M <= 256,
+  tensor cores at M = 4096.
 * CPU: ``w8_matmul_reference``, the JAX fallback's arithmetic (x rounded to
   bf16, exact int8 values, f32 accumulate, ``* scale``, cast to x's dtype).
   The wrapper takes it only for tensors that lie on the CPU.
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -51,11 +55,141 @@ def w8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor)
     return (acc * scale.float()).to(x.dtype)
 
 
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_BLOCK = 232448  # dynamic shared memory one block may use (227 KB)
+SMEM_TWO_BLOCKS = 115712  # each of two blocks that share an SM (1 KB reserved each)
+BK = 128  # K per ring stage
+BN = 64  # weight rows per block (one consumer warpgroup)
+TOKEN_TILES = (64, 80, 128)  # the wgmma N of the token tile
+MAX_SPLIT = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One call's launch: tile (``bt`` tokens x 64 weight rows), K split,
+    ring depth, and what they imply."""
+
+    bt: int
+    split: int
+    stages: int
+    k_tiles: int
+    grid: tuple[int, int, int]  # (N tiles, token tiles, split)
+    smem_bytes: int
+    workspace_floats: int  # f32 partials, 0 without a split
+    tickets: int  # per-tile counters, 0 without a split
+    why_short: str  # why the grid is under one wave ("" if it is not)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def tiles(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def k_ranges(self) -> list[tuple[int, int]]:
+        """The K tiles of each split, as the kernel computes them."""
+        kt, s = self.k_tiles, self.split
+        return [(z * kt // s, (z + 1) * kt // s) for z in range(s)]
+
+
+def smem_bytes(bt: int, stages: int) -> int:
+    """Dynamic shared memory of one block: 1 KB of alignment slack, the
+    ring (int8 W box + two bf16 x boxes per stage) and its barriers.
+    Mirrors ``w8_matmul_smem_bytes`` in the source."""
+    return 1024 + stages * (BN * BK + 2 * bt * 128) + 16 * stages + 16
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, k: int, n: int, sms: int = SMS) -> Plan:
+    """Tile, split-K and ring depth for an (M, K) x (K, N) call.
+
+    * token tile: the smallest of 64, 80, 128 that holds M, else 128;
+    * split: none once the tiles make half a wave; below that, the fewest
+      splits of the K tiles (at most 4) that reach half a wave. Measured
+      on the H100 (``python -m genima_torch.tune_kernels w8``): past that a
+      split's f32 partials cost more than the extra blocks gain, and a
+      deep ring per block does better;
+    * ring: as deep as a split's K tiles need, within one block's shared
+      memory when the grid fits the SMs, else within half an SM's, so that
+      two blocks share an SM.
+    """
+    if m < 1 or k < 16 or n < 8:
+        raise ValueError(f"M={m}, K={k}, N={n}: every dimension must be positive (K >= 16, N >= 8)")
+    if k % 16 or n % 8:
+        raise ValueError(f"K={k} must be a multiple of 16 and N={n} of 8")
+    bt = next((t for t in TOKEN_TILES if m <= t), TOKEN_TILES[-1])
+    tiles = -(-n // BN) * -(-m // bt)
+    half_wave = -(-sms // 2)
+    split = 1 if tiles >= half_wave else min(-(-k // BK), MAX_SPLIT, -(-half_wave // tiles))
+    return make_plan(m, k, n, bt, split, sms=sms)
+
+
+def make_plan(m: int, k: int, n: int, bt: int, split: int = 1, stages: int | None = None,
+              sms: int = SMS) -> Plan:
+    """The launch for a chosen token tile and split; the ring depth as
+    ``plan`` derives it unless given."""
+    k_tiles = -(-k // BK)
+    m_tiles, n_tiles = -(-m // bt), -(-n // BN)
+    tiles = n_tiles * m_tiles
+    if not 1 <= split <= k_tiles or bt not in TOKEN_TILES:
+        raise ValueError(f"no such launch: bt={bt}, split={split} of {k_tiles}")
+    blocks = tiles * split
+    per_split = -(-k_tiles // split)
+    budget = SMEM_BLOCK if blocks <= sms else SMEM_TWO_BLOCKS
+    stage = BN * BK + 2 * bt * 128
+    # a stage is handed back only once the next one's first group is issued,
+    # so a split of two or more K tiles needs two stages
+    least = 1 if per_split == 1 else 2
+    stages = stages or max(least, min(per_split, (budget - 1040) // (stage + 16)))
+    if stages < least:
+        raise ValueError(f"{per_split} K tiles a split need at least two stages")
+    why = ""
+    if blocks < sms:
+        why = (f"{tiles} tiles of {bt} tokens x {BN} weight rows, split {split} of "
+               f"{k_tiles} K tiles: more splits measured slower (partials)")
+    return Plan(bt=bt, split=split, stages=stages, k_tiles=k_tiles,
+                grid=(n_tiles, m_tiles, split), smem_bytes=smem_bytes(bt, stages),
+                workspace_floats=split * tiles * BN * bt if split > 1 else 0,
+                tickets=tiles if split > 1 else 0, why_short=why)
+
+
+# per-device split-K workspace and tile counters, grown on demand and
+# reused by every call on that device (calls are ordered on one stream; two
+# streams running split calls at once would share the counters). Growing
+# zeroes the new counters: the one launch besides the kernel's, once per
+# larger plan, never per call.
+_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, p: Plan) -> tuple[int, int]:
+    if p.split == 1:
+        return 0, 0
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    ws, tickets = _scratch.get(idx, (None, None))
+    if ws is None or ws.numel() < p.workspace_floats or tickets.numel() < p.tickets:
+        need_ws = max(p.workspace_floats, 0 if ws is None else ws.numel())
+        need_t = max(p.tickets, 0 if tickets is None else tickets.numel())
+        ws = torch.empty(need_ws, device=device, dtype=torch.float32)
+        tickets = torch.zeros(need_t, device=device, dtype=torch.int32)
+        _scratch[idx] = (ws, tickets)
+    return ws.data_ptr(), tickets.data_ptr()
+
+
+def _plan_for(m: int, k: int, n: int) -> Plan:
+    """The plan a call launches (``tune_kernels`` and the card tests swap
+    in others)."""
+    return plan(m, k, n)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("w8_matmul")
-    lib.w8_matmul.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.w8_matmul.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     lib.w8_matmul.restype = ctypes.c_int
+    lib.w8_matmul_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.w8_matmul_smem_bytes.restype = ctypes.c_int
     lib.w8_matmul_error_string.argtypes = [ctypes.c_int]
     lib.w8_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -77,6 +211,8 @@ def _check_cuda_inputs(x2, w_q, scale) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if k % 16 or n % 8:
         raise ValueError(f"K={k} must be a multiple of 16 and N={n} of 8")
+    if m == 0:
+        raise ValueError("x has no rows")
 
 
 def _forward(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -90,12 +226,14 @@ def _forward(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.T
     x2 = x.reshape(-1, k).contiguous()  # proj_in's tokens are a permuted NCHW view
     _check_cuda_inputs(x2, w_q, scale)
     m, n = x2.shape[0], w_q.shape[0]
+    p = _plan_for(m, k, n)
     out = torch.empty(m, n, device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
+        ws, tickets = _workspace(x.device, p)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.w8_matmul(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                           m, n, k, stream)
+                           m, n, k, p.bt, p.split, p.stages, ws, tickets, stream)
     w8_matmul.launches += 1
     w8_matmul.launches_by_shape[(m, k, n)] += 1
     if rc != 0:

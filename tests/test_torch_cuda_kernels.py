@@ -210,6 +210,12 @@ def _rel_err(got, want):
 CONV_CASES = [(s, "gn_silu") for s in CONV_SHAPES] + [
     (s, v) for s in (CONV_SHAPES[-1], (2, 16, 12, 24, 16), (1, 9, 70, 16, 8))
     for v in ("plain", "skip_residual")
+] + [
+    # ragged widths (one and a bit, two and a bit 64-column tiles), an odd
+    # height, batch 2, C = 136 (two 64-channel bands and an 8-channel one),
+    # conv_out's 3 and 256 (two 128-channel tiles), through each variant
+    ((2, 33, w, 136, o), v) for w in (66, 130) for o in (3, 256)
+    for v in ("gn_silu", "skip_residual")
 ]
 
 
@@ -227,6 +233,20 @@ def test_fused_conv_kernel_matches_plain_version(cuda, shape, variant):
     assert fc.fused_conv3x3.launches == before + 1
     assert got.shape == (*shape[:3], shape[4]) and got.dtype == torch.bfloat16
     # bf16 activation and output roundings, f32 sums in another order
+    assert _rel_err(got, fc.fused_conv3x3_reference(**i)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,rows", fc.TILES)
+def test_fused_conv_every_tile_matches_plain_version(cuda, monkeypatch, bn, rows):
+    """Each (output channels, image rows) instantiation, forced on a ragged
+    shape with the skip and the residual."""
+    torch.backends.cudnn.allow_tf32 = False
+    shape = (2, 33, 130, 136, 256 if bn > 16 else 3)
+    i = _conv_inputs(cuda, *shape, seed=bn + rows, skip=True, res=True)
+    monkeypatch.setattr(fc, "_plan_for", lambda *s: fc.make_plan(*s, bn=bn, rows=rows))
+    got = fc.fused_conv3x3(**i)
+    torch.cuda.synchronize()
     assert _rel_err(got, fc.fused_conv3x3_reference(**i)) <= 2e-2
 
 
@@ -254,6 +274,45 @@ def test_w8_matmul_kernel_matches_plain_version(cuda, m, k, n):
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     # bf16 output rounding; f32 sums in another order
     assert _rel_err(got, w8.w8_matmul_reference(x, w_q, scale)) <= 1e-2
+
+
+# shapes that exercise the plan: one token up to two 128-token tiles, K that
+# is a multiple of the 128-wide K tile and not (1040 = 8 tiles + 16), N from
+# one 8-column group to twenty 64-row tiles; (1, 1040, 1280) splits 9 K
+# tiles 4 ways, which does not divide them
+W8_PLAN_SHAPES = [(m, k, n) for m in (1, 64, 77, 256) for k in (1024, 1040, 5120)
+                  for n in (8, 320, 1280)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", W8_PLAN_SHAPES)
+def test_w8_matmul_kernel_matches_plain_version_across_plans(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(7 * m + k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device=cuda) / k ** 0.5)
+    got = w8.w8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _rel_err(got, w8.w8_matmul_reference(x, w_q, scale)) <= 1e-2
+
+
+def test_w8_plan_shapes_include_a_split_that_does_not_divide_the_k_tiles():
+    plans = [w8.plan(m, k, n) for m, k, n in W8_PLAN_SHAPES]
+    assert any(p.split > 1 and p.k_tiles % p.split for p in plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 5120, 1280), (77, 1024, 320), (256, 1280, 1280),
+                                   (1024, 640, 640)])
+def test_w8_matmul_is_bit_deterministic(cuda, m, k, n):
+    """Split-K partials are summed in split order by whichever block comes
+    last, so repeated calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device=cuda) / k ** 0.5)
+    first = w8.w8_matmul(x, w_q, scale)
+    for _ in range(5):
+        assert torch.equal(w8.w8_matmul(x, w_q, scale), first)
 
 
 @pytest.mark.cuda
