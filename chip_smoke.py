@@ -11,7 +11,9 @@
    computes the same function (``scaled_dot_product_attention`` forward, or
    its autograd backward: yardsticks the port never calls). B1, the packed
    forward, at the serving batch 1; B2a (forward + log-sum-exp) and B2b
-   (backward) at the trainer's batch 4.
+   (backward) at the trainer's batch 4. B2b's rows carry its two kernels'
+   ptxas registers, spills and shared memory, and two B2b calls on the same
+   inputs must give the same bits.
 3. Serving path: the fused control step (SD-turbo ControlNet 5-step
    denoise, VAE decode, untile, ACT) at full sd-turbo + ACT width with
    seeded random weights, for a few steps on 512x512 uint8 observations.
@@ -23,7 +25,7 @@
    GN-SiLU-conv3x3, NHWC) and B5 (int8 weight-only matmul) at every distinct
    shape the opt-in serving configuration gives them, against their plain
    versions, timed beside their bound and a labelled library yardstick.
-   B4/B5 rows carry their launch plan, ptxas registers and spills and
+   B3/B4/B5 rows carry their launch plan, ptxas registers and spills and
    shared memory (held to the kernel's own count); two B5 calls on the
    same inputs must give the same bits.
 5. Opt-in serving path: the same control step built with
@@ -54,6 +56,7 @@ Exits non-zero, printing no result, without a GPU or without the package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -254,10 +257,31 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
 
 
+def _bwd_kernel_report() -> dict:
+    """ptxas registers and spills of B2b's two kernels and the shared memory
+    each asks for (held to ``backward_plan``'s count), keyed "dq" and
+    "dkdv"."""
+    from genima_torch.kernels import _build
+    from genima_torch.kernels import packed_attention as pa
+
+    lib = pa._bwd_library()
+    report = ptxas_report(_build.build_log("packed_attention_bwd"))
+    plan = pa.backward_plan(1, 64, 64, 1)
+    out = {}
+    for name, dkdv in (("dq", 0), ("dkdv", 1)):
+        smem = lib.packed_attention_bwd_smem_bytes(dkdv)
+        if smem != getattr(plan, f"{name}_smem_bytes"):
+            raise AssertionError(f"B2b {name} kernel's shared memory {smem} != backward_plan's")
+        regs = next((r for k, r in report.items() if f"_{name}_kernel" in k), {})
+        out[name] = {**regs, "smem_bytes": smem}
+    return out
+
+
 def training_kernel_phase(pa) -> list[dict]:
     """B2a and B2b at the three SD levels at batch 4."""
     import torch.nn.functional as F
 
+    bwd_report = _bwd_kernel_report()
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for b, s, c, h in TRAIN_LEVELS:
@@ -265,6 +289,7 @@ def training_kernel_phase(pa) -> list[dict]:
             torch.randn(b, s, c, generator=gen, device="cuda").bfloat16() for _ in range(4)
         )
         shape = f"{b}x{s}x{c}/{h}"
+        bp = pa.backward_plan(b, s, s, h)
 
         # B2a: o and L against the plain version
         o, lse = pa.packed_attention_forward_lse(q, k, v, h)
@@ -296,7 +321,10 @@ def training_kernel_phase(pa) -> list[dict]:
         # B2b: dq, dk, dv against the plain version, from the kernel's o and L
         got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
         want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
+        again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):  # no atomics
+            raise AssertionError(f"B2b {shape}: two calls differ")
         abs_err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
         rel_err = max(
             ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
@@ -324,6 +352,10 @@ def training_kernel_phase(pa) -> list[dict]:
                 lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), 50),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "plan": {"kernels": "dq, then dk/dv", "rows_per_block": pa.BWD_BLOCK_ROWS,
+                     "stages": pa.BWD_STAGES,
+                     "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
+            **bwd_report,
         })
         del out, leaves
     return rows
@@ -364,8 +396,9 @@ def opt_kernel_phase() -> list[dict]:
     from genima_torch.kernels import fused_conv as fc
     from genima_torch.kernels import w8_matmul as w8
 
-    regs = {name: ptxas_report(_build.build_log(name)) for name in ("fused_conv", "w8_matmul")}
-    conv_lib, w8_lib = fc._library(), w8._library()
+    regs = {name: ptxas_report(_build.build_log(name))
+            for name in ("flash_attention", "fused_conv", "w8_matmul")}
+    fa_lib, conv_lib, w8_lib = fa._library(), fc._library(), w8._library()
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for b, sq, sk, c, h in FLASH_SHAPES:
@@ -378,6 +411,9 @@ def opt_kernel_phase() -> list[dict]:
         if not err <= ATTN_TOL:
             raise AssertionError(f"B3 {b}x{sq}x{sk}x{c}/{h}: max abs err {err}")
         heads = [t.transpose(1, 2) for t in (q, k, v)]
+        plan = fa.plan(b, sq, sk, h)
+        if fa_lib.flash_attention_smem_bytes(plan.nwg, plan.bn, plan.stages) != plan.smem_bytes:
+            raise AssertionError(f"B3 plan's shared memory {plan.smem_bytes} != the kernel's")
         bound_ms, bound_by = _bound(4 * b * sq * sk * c, 2 * b * (2 * sq + 2 * sk) * c)
         rows.append({
             "name": "flash_attention", "route": "cuda",
@@ -390,6 +426,10 @@ def opt_kernel_phase() -> list[dict]:
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
             "library": "scaled_dot_product_attention forward on the same (B, H, S, 64) views",
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
+                     "stages": plan.stages, "blocks": plan.blocks},
+            "smem_bytes": plan.smem_bytes,
+            **regs["flash_attention"].get(f"{plan.nwg}x{plan.bn}", {}),
         })
 
     for b, h, w, c, o in CONV_SHAPES:

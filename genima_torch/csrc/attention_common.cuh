@@ -1,6 +1,7 @@
-// Shared device helpers of the packed flash-attention kernels (forward in
-// packed_attention.cu, backward in packed_attention_bwd.cu): cp.async tile
-// loads, ldmatrix, and the bf16 mma.sync m16n8k16 tensor-core product.
+// Device helpers of the mma.sync packed flash-attention forward (B1 and B2a
+// in packed_attention.cu): cp.async tile loads, ldmatrix, and the bf16
+// mma.sync m16n8k16 tensor-core product. The Hopper kernels (B2b, B3) use
+// attention_hopper.cuh instead.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -81,11 +82,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&u);
-  return __bfloat1622float2(v);
 }
 
 // 64 rows x 64 bf16 from global (row stride ld elements) into padded smem.

@@ -13,211 +13,382 @@
 // offset h * 64 with row stride C, as the forward reads it. The TPU wrapper
 // transposes to (B * heads, S, 64) around its kernel; the packed kernel
 // exists to avoid those transposes, so this one reads head-strided instead.
-// L and Drow are (B, Sq, heads) f32.
-//
-// Design (FlashAttention-2 backward, two kernels, no atomics, deterministic):
-//   * dq kernel: one block per (64-query tile, head, batch), 4 warps of 16
-//     query rows with Q and dO in registers. Its prologue computes
-//     Drow = rowsum(dO * O) for its rows (stored for the next kernel); then a
-//     loop over 64-key tiles (K, V double-buffered through cp.async)
-//     rebuilds P, forms dS and accumulates dQ = dS K in f32 registers.
-//   * dk/dv kernel: one block per (64-key tile, head, batch), 4 warps of 16
-//     keys with K and V in registers, looping over 64-query tiles (Q, dO, L,
-//     Drow double-buffered). It works on the transposed scores S^T = K Q^T,
-//     so P^T and dS^T come out of the mma accumulators already in the A
-//     layout of dV += P^T dO and dK += dS^T Q.
-//   Both kernels run mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// L is (B, Sq, heads) f32.
 //
 // Bound: 10 * S^2 * C flops (the TPU kernel's cost estimate: S, dP, dV, dQ,
-// dK) over ~16 * S * C bytes, so tensor-core operations bound it. This
-// design does 14 * S^2 * C (S and dP are formed in both kernels), the
-// price of having no atomics; wgmma and TMA are later work.
+// dK) over ~16 * S * C bytes, so tensor-core operations bound it.
+//
+// Design: two kernels, no atomics, so two calls give the same bits (the
+// price: S and dP are formed in both, 14 * S^2 * C flops). Each is
+// warp-specialised: a producer warpgroup, whose first thread keeps a
+// 4-stage ring of 64-row tiles full with TMA behind "full" / "empty"
+// mbarriers, and two consumer warpgroups of 64 rows that run wgmma
+// m64n64k16 with A from registers and B from the ring's 128-byte-swizzled
+// tiles; setmaxnreg moves registers from the producer (24) to the
+// consumers (240). Each stage is read K-major by one product and MN-major
+// by another (attention_hopper.cuh).
+//   * dq kernel, one block per (128 query rows, head, batch): Q and dO in
+//     registers. Its prologue computes Drow = rowsum(dO * O) and L * log2(e)
+//     for its rows and writes both, (B, heads, Sq) contiguous, into the
+//     `delta` scratch for the second kernel. Per 64-key tile of K and V:
+//     S = Q K^T and dP = dO V^T (K, V K-major), P and dS in registers,
+//     dQ += bf16(dS) K (K MN-major).
+//   * dk/dv kernel, one block per (128 keys, head, batch): K and V in
+//     registers, dK and dV accumulated in f32. Per 64-query tile of Q and
+//     dO (plus that tile's 64 values of L * log2(e) and Drow, bulk-copied
+//     from the scratch: as (B, Sq, heads) they lie heads * 4 bytes apart,
+//     which no TMA box can take): S^T = K Q^T and dP^T = V dO^T (Q, dO
+//     K-major), P^T and dS^T in registers, already in the A layout of
+//     dV += bf16(P^T) dO and dK += bf16(dS^T) Q (Q, dO MN-major).
+//   In both, S is waited for before dP, so the exponentials run while dP
+//   finishes; the dk/dv kernel issues dV += P^T dO as soon as P^T is in
+//   registers, so that group runs under the dS math. A stage goes back to
+//   the producer once the groups reading it have been retired. Sq or Sk an
+//   odd multiple of 64 leaves the last block's second warpgroup without
+//   rows: it takes no part.
 
-#include "attention_common.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
-using namespace packed_attn;
+using namespace hopper;
+using namespace attn_hopper;
 
-__global__ void __launch_bounds__(kThreads)
-packed_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const __nv_bfloat16* __restrict__ o,
-                               const __nv_bfloat16* __restrict__ dout,
-                               const float* __restrict__ lse, float* __restrict__ delta,
-                               __nv_bfloat16* __restrict__ dq, int sq, int sk, int c,
-                               float scale_log2, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 s_k[2][kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 s_v[2][kTile * kStride];
+constexpr int kNWG = 2;                       // consumer warpgroups a block
+constexpr int kThreads = 128 * kNWG + 128;    // + the producer warpgroup
+constexpr int kBlockRows = 64 * kNWG;
+constexpr int kTileBytes = 64 * kRowBytes;    // a 64-row tile
+constexpr int kStages = 4;
+constexpr int kRing = kStages * 2 * kTileBytes;
+constexpr int kDqSmem = 1024 + kRing + 16 * kStages;
+constexpr int kDkdvSmem = 1024 + kRing + kStages * 2 * 64 * 4 + 16 * kStages;
 
-  const int q_tile = blockIdx.x;
+struct Params {
+  const __nv_bfloat16 *q, *k, *v, *o, *dout;
+  const float* lse;  // (B, Sq, heads)
+  float* l2;         // (B, heads, Sq): L * log2(e), written by the dq kernel
+  float* drow;       // (B, heads, Sq): rowsum(dO * O), written by the dq kernel
+  __nv_bfloat16 *dq, *dk, *dv;
+  int sq, sk, c, heads;
+  float scale_log2, scale;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing);
+  uint64_t* empty = full + kStages;
+
+  const int q0 = blockIdx.x * kBlockRows;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int heads = c / kHeadDim;
+  const int active = min(kNWG, (p.sq - q0) / 64);
+  const int n_tiles = p.sk / 64;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], active);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+
+  if (warp >= 4 * kNWG) {  // producer warpgroup: K and V tiles
+    setmaxnreg_dec<24>();
+    if (warp == 4 * kNWG && lane == 0) {
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* st = ring + stage * 2 * kTileBytes;
+        mbar_expect_tx(&full[stage], 2 * kTileBytes);
+        tma_load_3d(st, &map_k, &full[stage], head * kHeadDim, j * 64, batch);
+        tma_load_3d(st + kTileBytes, &map_v, &full[stage], head * kHeadDim, j * 64, batch);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  if (wg >= active) return;
+  const int wq = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  const int row0 = q_tile * kTile + warp * 16;  // this warp's first query row
-  const size_t rows_off = (static_cast<size_t>(batch) * sq + row0) * c + head * kHeadDim;
-  const __nv_bfloat16* k_blk = k + static_cast<size_t>(batch) * sk * c + head * kHeadDim;
-  const __nv_bfloat16* v_blk = v + static_cast<size_t>(batch) * sk * c + head * kHeadDim;
+  const int row0 = q0 + wg * 64 + wq * 16;  // this warp's first query row
+  const size_t rows_off = (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * kHeadDim;
+  uint32_t qf[4][4], dof[4][4];
+  load_a_global(qf, p.q + rows_off, p.c, g, t);
+  load_a_global(dof, p.dout + rows_off, p.c, g, t);
 
-  load_tile(s_k[0], k_blk, c);
-  load_tile(s_v[0], v_blk, c);
-  cp_async_commit();
-
-  uint32_t q_frag[4][4], do_frag[4][4];
-  load_a_frags(q_frag, q + rows_off, c, g, t);
-  load_a_frags(do_frag, dout + rows_off, c, g, t);
-
-  // Prologue: Drow for rows g and g + 8 from dO and O in the same fragment
-  // pattern (f32 products of the bf16 values, as the TPU wrapper sums them).
-  float drow[2] = {0.f, 0.f};
+  // Prologue: Drow and L * log2(e) for rows g and g + 8 (f32 products of
+  // the bf16 values, summed as the TPU wrapper sums them), kept in
+  // registers and written for the dk/dv kernel.
+  float drow[2] = {0.f, 0.f}, l2[2];
   {
-    uint32_t o_frag[4][4];
-    load_a_frags(o_frag, o + rows_off, c, g, t);
+    uint32_t of[4][4];
+    load_a_global(of, p.o + rows_off, p.c, g, t);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 a = unpack_bf16x2(do_frag[kk][i]);
-        const float2 b = unpack_bf16x2(o_frag[kk][i]);
+        const float2 a = unpack_bf16x2(dof[kk][i]);
+        const float2 b = unpack_bf16x2(of[kk][i]);
         drow[i & 1] += a.x * b.x + a.y * b.y;  // regs 0, 2: row g; 1, 3: row g + 8
       }
     }
   }
-  float l2[2];
-  const size_t lrow = (static_cast<size_t>(batch) * sq + row0 + g) * heads + head;
+  const size_t lrow = (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
+  const size_t srow = (static_cast<size_t>(batch) * p.heads + head) * p.sq + row0 + g;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     drow[r] += __shfl_xor_sync(0xffffffff, drow[r], 1);
     drow[r] += __shfl_xor_sync(0xffffffff, drow[r], 2);
-    l2[r] = lse[lrow + static_cast<size_t>(8 * r) * heads] * kLog2e;
-  }
-  if (t == 0) {
-    delta[lrow] = drow[0];
-    delta[lrow + static_cast<size_t>(8) * heads] = drow[1];
+    l2[r] = p.lse[lrow + static_cast<size_t>(8 * r) * p.heads] * kLog2e;
+    if (t == 0) {
+      p.l2[srow + 8 * r] = l2[r];
+      p.drow[srow + 8 * r] = drow[r];
+    }
   }
 
-  float acc[8][4];
-  zero_acc(acc);
-  const int n_tiles = sk / kTile;
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  uint32_t dsf[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) dsf[kk][0] = dsf[kk][1] = dsf[kk][2] = dsf[kk][3] = 0u;
+  fence_operands(dq);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  int prev = -1;  // the stage the dQ group in flight reads
   for (int j = 0; j < n_tiles; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < n_tiles) {
-      const size_t off = static_cast<size_t>(j + 1) * kTile * c;
-      load_tile(s_k[cur ^ 1], k_blk + off, c);
-      load_tile(s_v[cur ^ 1], v_blk + off, c);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float p[8][4], ds[8][4];
-    zero_acc(p);
-    zero_acc(ds);
-    mma_a_yt(p, q_frag, s_k[cur], lane);    // S = Q K^T
-    mma_a_yt(ds, do_frag, s_v[cur], lane);  // dP = dO V^T
+    mbar_wait(&full[stage], phase);
+    const uint8_t* ks = ring + stage * 2 * kTileBytes;
+    const uint8_t* vs = ks + kTileBytes;
+    float s[32], dp[32];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        p[nt][i] = exp2_approx(fmaf(p[nt][i], scale_log2, -l2[r]));
-        ds[nt][i] = p[nt][i] * (ds[nt][i] - drow[r]) * scale;
-      }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(s, qf[kk], desc_k(ks, kk));  // S = Q K^T
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(dp, dof[kk], desc_k(vs, kk));  // dP = dO V^T
+    wgmma_commit();
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_wait<1>();  // S, and the previous tile's dQ group
+    fence_operands(s);
+    fence_frags(dsf);
+    if (prev >= 0 && wq == 0 && lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = exp2_approx(fmaf(s[i], p.scale_log2, -l2[(i >> 1) & 1]));
+    wgmma_wait<0>();
+    fence_operands(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - drow[(i >> 1) & 1]) * p.scale;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(dsf[kk], dp, kk);
+    fence_frags(dsf);
+    fence_operands(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 1>(dq, dsf[kk], desc_mn(ks, kk));  // dQ += dS K
+    wgmma_commit();
+    fence_operands(dq);
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
-    mma_c_y(acc, ds, s_k[cur], lane);  // dQ += bf16(dS) K
-    __syncthreads();
   }
-  store_acc_bf16(dq + rows_off, c, acc, 1.f, 1.f, g, t);
+  wgmma_wait<0>();
+  fence_operands(dq);
+  fence_frags(dsf);
+  store_acc(p.dq + rows_off, p.c, dq, 1.f, 1.f, true, true, g, t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-packed_attention_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
-                                 const __nv_bfloat16* __restrict__ k,
-                                 const __nv_bfloat16* __restrict__ v,
-                                 const __nv_bfloat16* __restrict__ dout,
-                                 const float* __restrict__ lse,
-                                 const float* __restrict__ delta,
-                                 __nv_bfloat16* __restrict__ dk,
-                                 __nv_bfloat16* __restrict__ dv, int sq, int sk, int c,
-                                 float scale_log2, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 s_q[2][kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 s_do[2][kTile * kStride];
-  __shared__ float s_l[2][kTile];  // L * log2(e) of the tile's query rows
-  __shared__ float s_d[2][kTile];  // Drow of the tile's query rows
+__global__ void __launch_bounds__(kThreads, 1)
+packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_do, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  float* rows_ring = reinterpret_cast<float*>(ring + kRing);  // [stage][L2 | Drow][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_ring + kStages * 2 * 64);
+  uint64_t* empty = full + kStages;
 
-  const int k_tile = blockIdx.x;
+  const int k0 = blockIdx.x * kBlockRows;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int heads = c / kHeadDim;
+  const int active = min(kNWG, (p.sk - k0) / 64);
+  const int n_tiles = p.sq / 64;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], active);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+
+  if (warp >= 4 * kNWG) {  // producer warpgroup: Q, dO, L * log2(e), Drow tiles
+    setmaxnreg_dec<24>();
+    if (warp == 4 * kNWG && lane == 0) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_do);
+      const size_t bh = (static_cast<size_t>(batch) * p.heads + head) * p.sq;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* st = ring + stage * 2 * kTileBytes;
+        float* rs = rows_ring + stage * 2 * 64;
+        mbar_expect_tx(&full[stage], 2 * kTileBytes + 2 * 64 * 4);
+        tma_load_3d(st, &map_q, &full[stage], head * kHeadDim, i * 64, batch);
+        tma_load_3d(st + kTileBytes, &map_do, &full[stage], head * kHeadDim, i * 64, batch);
+        bulk_load(rs, p.l2 + bh + i * 64, 64 * 4, &full[stage]);
+        bulk_load(rs + 64, p.drow + bh + i * 64, 64 * 4, &full[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  if (wg >= active) return;
+  const int wq = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
 
   const size_t keys_off =
-      (static_cast<size_t>(batch) * sk + k_tile * kTile + warp * 16) * c + head * kHeadDim;
-  const __nv_bfloat16* q_blk = q + static_cast<size_t>(batch) * sq * c + head * kHeadDim;
-  const __nv_bfloat16* do_blk = dout + static_cast<size_t>(batch) * sq * c + head * kHeadDim;
-  const size_t lbase = static_cast<size_t>(batch) * sq * heads + head;
+      (static_cast<size_t>(batch) * p.sk + k0 + wg * 64 + wq * 16) * p.c + head * kHeadDim;
+  uint32_t kf[4][4], vf[4][4];
+  load_a_global(kf, p.k + keys_off, p.c, g, t);
+  load_a_global(vf, p.v + keys_off, p.c, g, t);
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pf[kk][r] = dsf[kk][r] = 0u;
+  fence_operands(dk);
+  fence_operands(dv);
 
-  auto prefetch = [&](int i, int buf) {
-    const size_t off = static_cast<size_t>(i) * kTile * c;
-    load_tile(s_q[buf], q_blk + off, c);
-    load_tile(s_do[buf], do_blk + off, c);
-    if (threadIdx.x < kTile) {
-      const size_t li = lbase + static_cast<size_t>(i * kTile + threadIdx.x) * heads;
-      s_l[buf][threadIdx.x] = lse[li] * kLog2e;
-      s_d[buf][threadIdx.x] = delta[li];
-    }
-  };
-  prefetch(0, 0);
-  cp_async_commit();
-
-  uint32_t k_frag[4][4], v_frag[4][4];
-  load_a_frags(k_frag, k + keys_off, c, g, t);
-  load_a_frags(v_frag, v + keys_off, c, g, t);
-  float dk_acc[8][4], dv_acc[8][4];
-  zero_acc(dk_acc);
-  zero_acc(dv_acc);
-
-  const int n_tiles = sq / kTile;
+  int stage = 0;
+  uint32_t phase = 0;
+  int prev = -1;  // the stage the dV/dK group in flight reads
   for (int i = 0; i < n_tiles; ++i) {
-    const int cur = i & 1;
-    if (i + 1 < n_tiles) {
-      prefetch(i + 1, cur ^ 1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // Transposed scores: rows are this warp's keys g, g + 8; column
-    // nt * 8 + 2t (+1) is a query row of the tile.
-    float p[8][4], ds[8][4];
-    zero_acc(p);
-    zero_acc(ds);
-    mma_a_yt(p, k_frag, s_q[cur], lane);    // S^T = K Q^T
-    mma_a_yt(ds, v_frag, s_do[cur], lane);  // dP^T = V dO^T
+    mbar_wait(&full[stage], phase);
+    const uint8_t* qs = ring + stage * 2 * kTileBytes;
+    const uint8_t* dos = qs + kTileBytes;
+    const float* rs = rows_ring + stage * 2 * 64;
+    // transposed scores: rows are this warp's keys g, g + 8; accumulator
+    // value e of column group j is query 8j + 2t + (e & 1) of the tile
+    float s[32], dp[32];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        p[nt][e] = exp2_approx(fmaf(p[nt][e], scale_log2, -s_l[cur][col]));
-        ds[nt][e] = p[nt][e] * (ds[nt][e] - s_d[cur][col]) * scale;
-      }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(s, kf[kk], desc_k(qs, kk));  // S^T = K Q^T
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(dp, vf[kk], desc_k(dos, kk));  // dP^T = V dO^T
+    wgmma_commit();
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_wait<1>();  // S^T, and the previous tile's dV and dK groups
+    fence_operands(s);
+    fence_frags(pf);
+    fence_frags(dsf);
+    if (prev >= 0 && wq == 0 && lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(rs + 8 * j + 2 * t);
+      s[4 * j] = exp2_approx(fmaf(s[4 * j], p.scale_log2, -l.x));
+      s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], p.scale_log2, -l.y));
+      s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], p.scale_log2, -l.x));
+      s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], p.scale_log2, -l.y));
     }
-    mma_c_y(dv_acc, p, s_do[cur], lane);  // dV += bf16(P^T) dO
-    mma_c_y(dk_acc, ds, s_q[cur], lane);  // dK += bf16(dS^T) Q
-    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pf[kk], s, kk);
+    fence_frags(pf);
+    fence_operands(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 1>(dv, pf[kk], desc_mn(dos, kk));  // dV += P^T dO
+    wgmma_commit();
+    fence_operands(dv);
+    wgmma_wait<1>();  // dP^T; the dV group runs on under the dS math
+    fence_operands(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(rs + 64 + 8 * j + 2 * t);
+      dp[4 * j] = s[4 * j] * (dp[4 * j] - d.x) * p.scale;
+      dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d.y) * p.scale;
+      dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d.x) * p.scale;
+      dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d.y) * p.scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(dsf[kk], dp, kk);
+    fence_frags(dsf);
+    fence_operands(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 1>(dk, dsf[kk], desc_mn(qs, kk));  // dK += dS^T Q
+    wgmma_commit();
+    fence_operands(dk);
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
-  store_acc_bf16(dk + keys_off, c, dk_acc, 1.f, 1.f, g, t);
-  store_acc_bf16(dv + keys_off, c, dv_acc, 1.f, 1.f, g, t);
+  wgmma_wait<0>();
+  fence_operands(dk);
+  fence_operands(dv);
+  fence_frags(pf);
+  fence_frags(dsf);
+  store_acc(p.dk + keys_off, p.c, dk, 1.f, 1.f, true, true, g, t);
+  store_acc(p.dv + keys_off, p.c, dv, 1.f, 1.f, true, true, g, t);
+}
+
+// A (C, S, B) map of a packed (B, S, C) bf16 tensor with a (64, 64, 1) box.
+int seq_map(CUtensorMap* map, const void* x, int batch, int s, int c) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 2,
+                                 static_cast<cuuint64_t>(s) * c * 2};
+  const cuuint32_t box[3] = {kHeadDim, 64, 1};
+  return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
@@ -225,35 +396,65 @@ packed_attention_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" {
 
 // dq, dk, dv of packed (B, S, heads * 64) bf16 attention, from the forward's
-// o and (B, Sq, heads) f32 lse and the output gradient dout. `delta` is a
-// (B, Sq, heads) f32 scratch the first kernel fills with rowsum(dO * O) for
-// the second. Launches both kernels on `stream`, does not synchronise, and
-// returns the first launch error (0 when both were accepted).
+// o and (B, Sq, heads) f32 lse and the output gradient dout; Sq and Sk
+// multiples of 64. `delta` is a (2, B, heads, Sq) f32 scratch the first
+// kernel fills with L * log2(e) and rowsum(dO * O) for the second. Needs
+// 16-byte aligned tensors (the wrapper checks). Launches both kernels on
+// `stream`, does not synchronise, and returns 0 or the first error code for
+// packed_attention_bwd_error_string.
 int packed_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* lse, const void* dout, void* delta, void* dq, void* dk,
                          void* dv, int batch, int sq, int sk, int heads, void* stream) {
+  if (sq < 64 || sk < 64 || sq % 64 || sk % 64) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int c = heads * kHeadDim;
-  const float scale = 0.125f;  // 1 / sqrt(64)
-  const float scale_log2 = kLog2e * scale;
-  const auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-  packed_attention_bwd_dq_kernel<<<dim3(sq / kTile, heads, batch), kThreads, 0, st>>>(
-      bf(q), bf(k), bf(v), bf(o), bf(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dq), sq, sk, c, scale_log2,
-      scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = seq_map(&mq, q, batch, sq, c))) return rc;
+  if ((rc = seq_map(&mk, k, batch, sk, c))) return rc;
+  if ((rc = seq_map(&mv, v, batch, sk, c))) return rc;
+  if ((rc = seq_map(&mdo, dout, batch, sq, c))) return rc;
+  const auto bf = [](const void* x) { return static_cast<const __nv_bfloat16*>(x); };
+  Params p;
+  p.q = bf(q);
+  p.k = bf(k);
+  p.v = bf(v);
+  p.o = bf(o);
+  p.dout = bf(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.l2 = static_cast<float*>(delta);
+  p.drow = p.l2 + static_cast<size_t>(batch) * heads * sq;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.sq = sq;
+  p.sk = sk;
+  p.c = c;
+  p.heads = heads;
+  p.scale = 0.125f;  // 1 / sqrt(64)
+  p.scale_log2 = kLog2e * p.scale;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(packed_attention_bwd_dq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(packed_attention_bwd_dkdv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
   }
-  packed_attention_bwd_dkdv_kernel<<<dim3(sk / kTile, heads, batch), kThreads, 0, st>>>(
-      bf(q), bf(k), bf(v), bf(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), sq, sk, c, scale_log2, scale);
+  packed_attention_bwd_dq_kernel<<<dim3((sq + kBlockRows - 1) / kBlockRows, heads, batch),
+                                   kThreads, kDqSmem, st>>>(mk, mv, p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_attention_bwd_dkdv_kernel<<<dim3((sk + kBlockRows - 1) / kBlockRows, heads, batch),
+                                     kThreads, kDkdvSmem, st>>>(mq, mdo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* packed_attention_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+// Shared memory each of the two kernels asks for.
+int packed_attention_bwd_smem_bytes(int dkdv) { return dkdv ? kDkdvSmem : kDqSmem; }
+
+const char* packed_attention_bwd_error_string(int code) { return hopper_host::error_string(code); }
 
 }  // extern "C"

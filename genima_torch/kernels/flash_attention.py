@@ -10,13 +10,19 @@ Under ``backend="pallas"`` every UNet and ControlNet attention comes here,
 self-attention over 4096/1024/256/64 tokens and cross-attention over the 77
 prompt tokens; under ``"pallas_self"`` only self-attention does.
 
-* CUDA: ``csrc/flash_attention.cu``, B1's FlashAttention-2 forward with a
-  ragged edge: any Sq and Sk, keys past Sk zero-filled and masked to -1e30,
-  query rows past Sq never stored. It reads (B, S, H, 64) in place with row
-  stride H*64; the JAX wrapper's transposes to (B*H, S, D) are a TPU tiling
-  artifact and are not ported. Takes bf16 and head_dim 64; anything else
-  raises. Bound: tensor-core operations for long self-attention, bytes for
-  cross-attention over 77 keys.
+* CUDA: ``csrc/flash_attention.cu``, a warp-specialised FlashAttention-3-
+  style forward for Hopper with a ragged edge: a producer warpgroup
+  TMA-loads the block's Q tile and streams K/V tiles through an mbarrier
+  ring (3-D maps, so rows past S are zero-filled within the batch); one or
+  two consumer warpgroups of 64 query rows run S = Q K^T and O += P V on
+  wgmma with the online softmax in registers, keys past Sk masked to -1e30
+  in the last tile and query rows past Sq never stored. ``plan`` picks the
+  consumer warpgroups, the key tile and the ring depth per shape. It reads
+  (B, S, H, 64) in place with row stride H*64; the JAX wrapper's
+  transposes to (B*H, S, D) are a TPU tiling artifact and are not ported.
+  Takes bf16 and head_dim 64; anything else raises. Bound: tensor-core
+  operations for long self-attention, bytes for cross-attention over 77
+  keys.
 * CPU: ``flash_attention_reference``, the same arithmetic in plain PyTorch
   (f32 scores, P rounded to v's dtype before P V). The wrapper takes it only
   for tensors that lie on the CPU.
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -47,13 +54,127 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     return o.transpose(1, 2).to(q.dtype)
 
 
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_SM = 233472  # shared memory of an SM (228 KB; 1 KB of it reserved per block)
+REGISTERS_SM = 65536
+# (consumer warpgroups of 64 query rows, keys a K/V tile): the kernel's
+# instantiations
+TILES = ((1, 64), (1, 80), (1, 128), (2, 64), (2, 80), (2, 128))
+MAX_STAGES = 4
+LONG_KEY_LOOP = 4  # K/V tiles from which two consumer warpgroups pay
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One call's launch: ``nwg`` consumer warpgroups (64 query rows each),
+    ``bn`` keys a K/V tile, a ring of ``stages`` K/V stages."""
+
+    nwg: int
+    bn: int
+    stages: int
+    kv_tiles: int
+    grid: tuple[int, int, int]  # (query tiles, heads, batch)
+    smem_bytes: int
+    why_short: str  # why the grid is under one wave ("" if it is not)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def rows(self) -> int:
+        return 64 * self.nwg
+
+    @property
+    def threads(self) -> int:
+        return 128 * self.nwg + 128  # + the producer warpgroup
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """The kernel's launch bounds: the one-warpgroup, 64-key block is
+        held to 128 registers a thread so that two share an SM."""
+        return 2 if (self.nwg, self.bn) == (1, 64) else 1
+
+    @property
+    def max_registers(self) -> int:
+        """Registers a thread may hold at launch (ptxas's cap from the
+        launch bounds; a 384-thread block's consumers then take 240 with
+        setmaxnreg)."""
+        return min(255, REGISTERS_SM // (self.threads * self.blocks_per_sm) // 8 * 8)
+
+
+def smem_bytes(nwg: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of one block: 1 KB of alignment slack, the Q
+    tile, the K/V ring and the barriers. Mirrors ``flash_attention_smem_bytes``
+    in the source."""
+    return 1024 + 64 * nwg * 128 + stages * 2 * bn * 128 + 16 * stages + 16
+
+
+def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
+    if min(b, sq, sk, h) < 1:
+        raise ValueError(f"empty attention: B={b}, Sq={sq}, Sk={sk}, heads={h}")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> Plan:
+    """Consumer warpgroups, key tile and ring depth for a (B, Sq, Sk, heads)
+    call, by the rules ``python -m genima_torch.tune_kernels attn`` chose:
+
+    * key tile: 64 keys when Sk <= 64, 80 when Sk <= 80 (the 77 prompt
+      tokens in one tile: TMA zero-fills keys 77-79 and the mask drops
+      them), else 128;
+    * warpgroups: two (128 query rows a block, sharing each K/V stage) once
+      the key loop is ``LONG_KEY_LOOP`` tiles or more, even below a wave
+      (1024 tokens x 10 heads: 80 blocks of two beat 160 of one); one when
+      it is shorter, where a block's fixed cost dominates and more, smaller
+      blocks finish first;
+    * ring: as deep as the K/V tiles need, at most four stages.
+    """
+    _check_shape(b, sq, sk, h)
+    bn = 64 if sk <= 64 else 80 if sk <= 80 else 128
+    nwg = 2 if -(-sk // bn) >= LONG_KEY_LOOP else 1
+    return make_plan(b, sq, sk, h, nwg, bn, sms=sms)
+
+
+def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int | None = None,
+              sms: int = SMS) -> Plan:
+    """The launch for a chosen tile; the ring depth as ``plan`` derives it
+    unless given."""
+    _check_shape(b, sq, sk, h)
+    if (nwg, bn) not in TILES:
+        raise ValueError(f"no kernel for {nwg} warpgroups x {bn}-key tiles")
+    kv_tiles = -(-sk // bn)
+    if stages is None:
+        stages = min(kv_tiles, MAX_STAGES)
+    # a stage goes back to the producer only once the next tile has arrived
+    if not (2 if kv_tiles > 1 else 1) <= stages <= MAX_STAGES:
+        raise ValueError(f"{stages} stages for {kv_tiles} K/V tiles")
+    grid = (-(-sq // (64 * nwg)), h, b)
+    blocks = grid[0] * grid[1] * grid[2]
+    why = ""
+    if blocks < sms:
+        why = f"{grid[0]} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
+        if nwg == 2:
+            why += f", two warpgroups sharing each of {kv_tiles} K/V tiles"
+    return Plan(nwg=nwg, bn=bn, stages=stages, kv_tiles=kv_tiles, grid=grid,
+                smem_bytes=smem_bytes(nwg, bn, stages), why_short=why)
+
+
+def _plan_for(b: int, sq: int, sk: int, h: int) -> Plan:
+    """The plan a call launches (``tune_kernels`` and the card tests swap in
+    others)."""
+    return plan(b, sq, sk, h)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_attention_smem_bytes.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -82,12 +203,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_inputs(q, k, v)
     b, sq, h, _ = q.shape
+    p = _plan_for(b, sq, k.shape[1], h)
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     b, sq, k.shape[1], h, stream)
+                                     b, sq, k.shape[1], h, p.nwg, p.bn, p.stages, stream)
     flash_attention.launches += 1
     flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1
     if rc != 0:

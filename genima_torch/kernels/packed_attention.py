@@ -22,9 +22,13 @@ it runs B1 and records nothing for autograd.
   forward for ``sm_90a``: mma.sync tensor cores, online softmax in f32,
   head-strided loads at column offset ``h * 64``) and
   ``csrc/packed_attention_bwd.cu`` (B2b: a dq kernel and a dk/dv kernel,
-  no atomics). Bound: the forward does 4*S^2*C flops and the backward
-  10*S^2*C on ~8*S*C and ~16*S*C bytes, so at the SD levels tensor-core
-  operations bound both; the design keeps scores out of device memory.
+  no atomics, so repeated calls give the same bits; each a warp-specialised
+  Hopper kernel, a producer warpgroup streaming 64-row tiles by TMA through
+  an mbarrier ring to two consumer warpgroups on wgmma; ``backward_plan``
+  gives its grids and shared memory). Bound: the forward does 4*S^2*C
+  flops and the backward 10*S^2*C on ~8*S*C and ~16*S*C bytes, so at the
+  SD levels tensor-core operations bound both; the design keeps scores out
+  of device memory.
   Takes bf16, head_dim 64, and ``Sq``, ``Sk`` multiples of 64 up to 4096;
   anything else raises.
 * CPU: ``packed_attention_reference``, ``packed_attention_lse_reference`` and
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -47,6 +52,54 @@ from genima_torch.kernels import _build
 HEAD_DIM = 64
 BLOCK = 64  # query rows per block and keys per tile in the CUDA kernels
 MAX_SEQ = 4096
+# B2b: query rows (dq kernel) or keys (dk/dv kernel) a block, two consumer
+# warpgroups of 64, and the depth of each kernel's TMA ring
+BWD_BLOCK_ROWS = 128
+BWD_STAGES = 4
+BWD_THREADS = 384  # two consumer warpgroups and the producer warpgroup
+SMS = 132  # streaming multiprocessors of an H100 SXM
+REGISTERS_SM = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """B2b's two launches for a (B, Sq, Sk, heads) call: the dq kernel's
+    grid walks query blocks, the dk/dv kernel's key blocks, each over
+    (blocks, heads, batch); shared memory mirrors
+    ``packed_attention_bwd_smem_bytes`` in the source."""
+
+    dq_grid: tuple[int, int, int]
+    dkdv_grid: tuple[int, int, int]
+    dq_smem_bytes: int
+    dkdv_smem_bytes: int
+    why_short: str  # why a grid is under one wave ("" if neither is)
+
+    @property
+    def max_registers(self) -> int:
+        """ptxas's cap from the launch bounds (one block an SM): 168, from
+        which setmaxnreg moves the producer to 24 and the consumers to 240."""
+        return min(255, REGISTERS_SM // BWD_THREADS // 8 * 8)
+
+
+def backward_plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> BackwardPlan:
+    """The fixed tiling of B2b (128-row blocks, a 4-stage ring of 64-row
+    tiles) at one shape; raises for a shape the kernels do not take."""
+    if min(b, h) < 1:
+        raise ValueError(f"empty attention: B={b}, heads={h}")
+    for name, s in (("Sq", sq), ("Sk", sk)):
+        if s % BLOCK or not 0 < s <= MAX_SEQ:
+            raise ValueError(f"{name}={s} must be a multiple of {BLOCK} up to {MAX_SEQ}")
+    ring = BWD_STAGES * 2 * BLOCK * HEAD_DIM * 2  # a Q/dO or K/V pair of tiles a stage
+    dq = (-(-sq // BWD_BLOCK_ROWS), h, b)
+    dkdv = (-(-sk // BWD_BLOCK_ROWS), h, b)
+    short = [f"{name}: {g[0]} blocks of {BWD_BLOCK_ROWS} {what} x {h} heads x batch {b}"
+             for name, g, what in (("dq", dq, "queries"), ("dk/dv", dkdv, "keys"))
+             if g[0] * h * b < sms]
+    return BackwardPlan(
+        dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=1024 + ring + 16 * BWD_STAGES,
+        # + each stage's 64 values of L * log2(e) and Drow
+        dkdv_smem_bytes=1024 + ring + BWD_STAGES * 2 * BLOCK * 4 + 16 * BWD_STAGES,
+        why_short="; ".join(short))
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -164,6 +217,8 @@ def _bwd_library() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.packed_attention_bwd.restype = ctypes.c_int
+    lib.packed_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.packed_attention_bwd_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -231,7 +286,9 @@ def packed_attention_backward(
         raise ValueError(f"shapes o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
     b, sq, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)  # rowsum(dO * O), written by the first kernel
+    # L * log2(e) and rowsum(dO * O) as (B, heads, Sq), written by the first
+    # kernel for the second
+    delta = torch.empty(2, b, num_heads, sq, device=q.device, dtype=torch.float32)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

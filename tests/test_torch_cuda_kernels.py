@@ -103,6 +103,49 @@ def test_backward_kernel_matches_plain_version(cuda, b, s, c, h):
         assert rel <= GRAD_REL_TOL, f"{name}: max err {rel} of max |grad|"
 
 
+def _backward_inputs(cuda, b, sq, sk, c, h, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(b, sq, c, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, sk, c, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    o, lse = pa.packed_attention_lse_reference(q, k, v, h)
+    return q, k, v, o, lse, do
+
+
+# Sq != Sk both ways, at the trainer's widths and with Sq and Sk odd
+# multiples of 64 (the last 128-row block of each kernel half empty)
+BWD_RECT_SHAPES = [
+    (2, 1024, 4096, 320, 5), (2, 4096, 1024, 320, 5), (2, 192, 320, 320, 5),
+    (1, 320, 64, 128, 2), (3, 64, 192, 64, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,c,h", BWD_RECT_SHAPES)
+def test_backward_kernel_matches_plain_version_when_sq_differs_from_sk(cuda, b, sq, sk, c, h):
+    q, k, v, o, lse, do = _backward_inputs(cuda, b, sq, sk, c, h, seed=sq + 3 * sk)
+    got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    torch.cuda.synchronize()
+    want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+        rel = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert rel <= GRAD_REL_TOL, f"{name}: max err {rel} of max |grad|"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,c,h", [(4, 4096, 4096, 320, 5), (4, 1024, 1024, 640, 10),
+                                         (2, 192, 320, 320, 5)])
+def test_backward_kernel_is_bit_deterministic(cuda, b, sq, sk, c, h):
+    """Two kernels and no atomics: every dq, dk and dv element is summed by
+    one thread in a fixed order, so repeated calls give the same bits."""
+    q, k, v, o, lse, do = _backward_inputs(cuda, b, sq, sk, c, h, seed=b + sq)
+    first = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    for _ in range(3):
+        again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+        for x, y in zip(again, first):
+            assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 def test_requires_grad_on_cuda_gets_gradients(cuda):
     """A CUDA call under autograd stays on the graph: B2a forward, B2b
@@ -157,6 +200,58 @@ def test_flash_attention_kernel_matches_plain_version(cuda, b, sq, sk, h):
     # bf16 output and bf16-rounded P: ~2^-8 relative on O(1) values
     torch.testing.assert_close(got.float(), fa.flash_attention_reference(q, k, v).float(),
                                atol=1e-2, rtol=0)
+
+
+def _flash_inputs(cuda, b, sq, sk, h, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(b, s, h, 64, generator=gen, device=cuda).bfloat16()
+            for s in (sq, sk, sk)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [130, 200])
+@pytest.mark.parametrize("sk", [1, 77, 129])
+def test_flash_attention_kernel_across_tile_edges(cuda, sq, sk):
+    """Query counts past one and two 64-row tiles and past one 128-row
+    block; one key, the 77 prompt tokens (one 80-key tile), one key past a
+    128-key tile."""
+    q, k, v = _flash_inputs(cuda, 1, sq, sk, 2, seed=sq + sk)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), fa.flash_attention_reference(q, k, v).float(),
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_ragged_tile_stays_in_its_batch(cuda):
+    """Batch 2, 77 keys: the last K/V tile of batch 0 reaches past key 77.
+    Batch 1's first values are inf, so a tile that read into the next batch
+    (instead of TMA's zero fill within it) would turn batch 0's output into
+    NaN (0 * inf) even though the mask drops those keys."""
+    q, k, v = _flash_inputs(cuda, 2, 130, 77, 2, seed=5)
+    v[1, :3] = float("inf")
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0]).all()
+    torch.testing.assert_close(got[0].float(), fa.flash_attention_reference(q, k, v)[0].float(),
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nwg,bn", fa.TILES)
+@pytest.mark.parametrize("b,sq,sk,h", [(2, 200, 129, 3), (1, 1024, 1024, 10), (2, 64, 77, 2)])
+def test_flash_attention_every_plan_matches_plain_version(cuda, monkeypatch, nwg, bn, b, sq, sk, h):
+    """Each (warpgroups, key tile) instantiation forced, at its default ring
+    depth and at two stages where it streams more than one tile."""
+    q, k, v = _flash_inputs(cuda, b, sq, sk, h, seed=nwg * bn + sq)
+    want = fa.flash_attention_reference(q, k, v).float()
+    tiles = -(-sk // bn)
+    for stages in sorted({fa.make_plan(b, sq, sk, h, nwg, bn).stages, 2 if tiles > 1 else 1}):
+        p = fa.make_plan(b, sq, sk, h, nwg, bn, stages)
+        monkeypatch.setattr(fa, "_plan_for", lambda *s, p=p: p)
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=0)
 
 
 @pytest.mark.cuda

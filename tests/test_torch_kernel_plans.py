@@ -1,12 +1,15 @@
-"""The launch plans of the port's B4 and B5 kernels: pure Python, so they
-are held here on the CPU at every shape of the opt-in serving path (the
-kernels themselves are tested on the card in test_torch_cuda_kernels.py).
+"""The launch plans of the port's B2b, B3, B4 and B5 kernels: pure Python,
+so they are held here on the CPU at every shape of the opt-in serving path
+and the trainer's attention levels (the kernels themselves are tested on the
+card in test_torch_cuda_kernels.py).
 """
 
 import pytest
 
-from chip_smoke import CONV_SHAPES, W8_SHAPES
+from chip_smoke import CONV_SHAPES, FLASH_SHAPES, TRAIN_LEVELS, W8_SHAPES
+from genima_torch.kernels import flash_attention as fa
 from genima_torch.kernels import fused_conv as fc
+from genima_torch.kernels import packed_attention as pa
 from genima_torch.kernels import w8_matmul as w8
 
 # what the H100 gives one block: 227 KB of shared memory
@@ -113,3 +116,121 @@ def test_conv_make_plan_rejects_a_tile_with_no_kernel():
 def test_conv_plan_rejects_unsupported_shapes(shape):
     with pytest.raises(ValueError):
         fc.plan(*shape)
+
+
+# B3: (B, Sq, Sk, heads) of the opt-in path, and the card tests' ragged ones
+FLASH_PLAN_SHAPES = [(b, sq, sk, h) for b, sq, sk, _, h in FLASH_SHAPES] + [
+    (1, sq, sk, 2) for sq in (130, 200) for sk in (1, 77, 129)] + [
+    (2, 100, 77, 3), (2, 33, 16, 1), (2, 200, 129, 3), (4, 4096, 4096, 5)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h", FLASH_PLAN_SHAPES)
+def test_flash_plan_fills_the_card_or_says_why(b, sq, sk, h):
+    p = fa.plan(b, sq, sk, h)
+    assert p.grid == (-(-sq // p.rows), h, b)
+    if p.blocks < fa.SMS:
+        assert p.why_short
+        # a short grid takes the smaller block, which spreads it further,
+        # unless the key loop is long enough for two warpgroups to share it
+        assert p.nwg == 1 or p.kv_tiles >= fa.LONG_KEY_LOOP
+    else:
+        assert not p.why_short
+
+
+@pytest.mark.parametrize("b,sq,sk,h", FLASH_PLAN_SHAPES)
+def test_flash_plan_covers_sq_and_sk(b, sq, sk, h):
+    p = fa.plan(b, sq, sk, h)
+    assert p.grid[0] * p.rows >= sq > (p.grid[0] - 1) * p.rows
+    assert p.kv_tiles * p.bn >= sk > (p.kv_tiles - 1) * p.bn
+    # one tile covers the 77 prompt tokens, and no key tile is wider than Sk needs
+    if sk <= 80:
+        assert p.kv_tiles == 1 and p.bn == (64 if sk <= 64 else 80)
+    assert p.stages == min(p.kv_tiles, fa.MAX_STAGES)
+    if p.kv_tiles > 1:
+        assert p.stages >= 2  # a stage is handed back once the next tile is in
+
+
+@pytest.mark.parametrize("nwg,bn", fa.TILES)
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 4096, 4096, 5), (1, 64, 77, 20), (2, 200, 129, 3)])
+def test_flash_plan_fits_shared_memory_and_registers(nwg, bn, b, sq, sk, h):
+    for stages in range(2 if -(-sk // bn) > 1 else 1, fa.MAX_STAGES + 1):
+        p = fa.make_plan(b, sq, sk, h, nwg, bn, stages)
+        assert p.smem_bytes == fa.smem_bytes(nwg, bn, stages) <= SMEM_LIMIT
+        # the blocks the launch bounds promise an SM fit its shared memory and
+        # its register file (at the registers ptxas may then use)
+        assert p.blocks_per_sm * (p.smem_bytes + 1024) <= fa.SMEM_SM
+        assert p.blocks_per_sm * p.threads * p.max_registers <= fa.REGISTERS_SM
+        # a 384-thread block starts at 168, what setmaxnreg's 24 + 2 x 240 needs
+        if nwg == 2:
+            assert p.max_registers == 168 and 24 * 128 + 240 * 256 <= 168 * p.threads
+
+
+def test_flash_plan_picks_one_tile_for_the_prompt_and_two_warpgroups_for_long_key_loops():
+    p = fa.plan(1, 4096, 77, 5)
+    assert (p.nwg, p.bn, p.kv_tiles) == (1, 80, 1)
+    p = fa.plan(1, 4096, 4096, 5)  # 32 tiles of 128 rows x 5 heads = 160 blocks
+    assert (p.nwg, p.bn, p.blocks) == (2, 128, 160)
+    p = fa.plan(1, 1024, 1024, 10)  # 8 key tiles: 80 blocks of two warpgroups
+    assert (p.nwg, p.bn, p.blocks) == (2, 128, 80) and "K/V tiles" in p.why_short
+    p = fa.plan(1, 256, 256, 20)  # 2 key tiles: 80 blocks of one warpgroup
+    assert (p.nwg, p.bn, p.blocks) == (1, 128, 80)
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(0, 64, 64, 1), (1, 0, 64, 1), (1, 64, 0, 1), (1, 64, 64, 0)])
+def test_flash_plan_rejects_empty_shapes(b, sq, sk, h):
+    with pytest.raises(ValueError):
+        fa.plan(b, sq, sk, h)
+
+
+def test_flash_make_plan_rejects_impossible_launches():
+    with pytest.raises(ValueError):
+        fa.make_plan(1, 256, 256, 2, nwg=3, bn=64)  # no such kernel
+    with pytest.raises(ValueError):
+        fa.make_plan(1, 256, 256, 2, nwg=1, bn=96)
+    with pytest.raises(ValueError):
+        fa.make_plan(1, 256, 256, 2, nwg=1, bn=64, stages=1)  # 4 tiles need 2 stages
+    with pytest.raises(ValueError):
+        fa.make_plan(1, 256, 256, 2, nwg=1, bn=64, stages=5)
+
+
+# B2b: (B, Sq, Sk, heads) of the train step, and the card tests' Sq != Sk and
+# odd multiples of 64
+BWD_PLAN_SHAPES = [(b, s, s, h) for b, s, _, h in TRAIN_LEVELS] + [
+    (2, 1024, 4096, 5), (2, 4096, 1024, 5), (2, 192, 320, 5), (1, 320, 64, 2), (3, 64, 192, 1)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h", BWD_PLAN_SHAPES)
+def test_backward_plan_fills_the_card_or_says_why(b, sq, sk, h):
+    p = pa.backward_plan(b, sq, sk, h)
+    short = [g for g in (p.dq_grid, p.dkdv_grid) if g[0] * g[1] * g[2] < pa.SMS]
+    assert bool(short) == bool(p.why_short)
+    if (b, sq, sk, h) in [(b, s, s, h) for b, s, _, h in TRAIN_LEVELS]:
+        assert not short  # the train step's levels fill the card
+
+
+@pytest.mark.parametrize("b,sq,sk,h", BWD_PLAN_SHAPES)
+def test_backward_plan_covers_sq_and_sk(b, sq, sk, h):
+    p = pa.backward_plan(b, sq, sk, h)
+    for grid, s in ((p.dq_grid, sq), (p.dkdv_grid, sk)):
+        assert grid[1:] == (h, b)
+        assert grid[0] * pa.BWD_BLOCK_ROWS >= s > (grid[0] - 1) * pa.BWD_BLOCK_ROWS
+        # an odd multiple of 64 leaves the last block one 64-row warpgroup
+        assert (grid[0] * pa.BWD_BLOCK_ROWS - s) in (0, 64)
+
+
+def test_backward_plan_fits_shared_memory_and_registers():
+    p = pa.backward_plan(4, 4096, 4096, 5)
+    assert max(p.dq_smem_bytes, p.dkdv_smem_bytes) <= SMEM_LIMIT
+    # the ring: 4 stages of two 64 x 64 bf16 tiles; dk/dv adds 2 x 64 f32 a stage
+    assert p.dkdv_smem_bytes - p.dq_smem_bytes == pa.BWD_STAGES * 2 * 64 * 4
+    # one 384-thread block an SM at 168 registers; setmaxnreg's 24 + 2 x 240
+    # stays within what the block started with
+    assert p.max_registers == 168
+    assert 24 * 128 + 240 * 256 <= p.max_registers * pa.BWD_THREADS <= pa.REGISTERS_SM
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 65, 64, 1), (1, 64, 100, 1), (1, 8192, 64, 1),
+                                       (1, 0, 64, 1), (0, 64, 64, 1), (1, 64, 64, 0)])
+def test_backward_plan_rejects_what_the_kernels_cannot_take(b, sq, sk, h):
+    with pytest.raises(ValueError):
+        pa.backward_plan(b, sq, sk, h)
