@@ -10,10 +10,12 @@
    CUDA events beside its plain version and the one library call that
    computes the same function (``scaled_dot_product_attention`` forward, or
    its autograd backward: yardsticks the port never calls). B1, the packed
-   forward, at the serving batch 1; B2a (forward + log-sum-exp) and B2b
-   (backward) at the trainer's batch 4. B2b's rows carry its two kernels'
-   ptxas registers, spills and shared memory, and two B2b calls on the same
-   inputs must give the same bits.
+   forward, at the serving batch 1 and the trainer's batch 4; B2a (forward
+   + log-sum-exp) and B2b (backward) at batch 4. B2a's output must be B1's
+   bit for bit. B1/B2a rows carry their launch plan (``forward_plan``),
+   ptxas registers and spills and shared memory (held to the kernel's own
+   count); B2b's rows its two kernels' registers, spills and shared memory,
+   and two B2b calls on the same inputs must give the same bits.
 3. Serving path: the fused control step (SD-turbo ControlNet 5-step
    denoise, VAE decode, untile, ACT) at full sd-turbo + ACT width with
    seeded random weights, for a few steps on 512x512 uint8 observations.
@@ -47,8 +49,9 @@
    library attention.
 
 Prints the card's name and power limit, the per-step times and peak memory,
-a ``per_step`` line (per kernel: launches a step x ms, and the same sums of
-its bound and library time), one ``{"kernels": [...]}`` line, and last
+a ``per_step`` line (per path, per kernel: launches a step x ms, and the
+same sums of its bound and library time), one ``{"kernels": [...]}`` line,
+and last
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a GPU or without the package.
 """
@@ -138,9 +141,57 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase(pa) -> list[dict]:
+def _forward_report(pa, b: int, s: int, h: int, with_lse: bool) -> dict:
+    """B1's or B2a's launch plan at a shape, the shared memory its kernel
+    asks for (held to ``forward_plan``'s count) and its ptxas registers and
+    spills."""
+    from genima_torch.kernels import _build
+
+    plan = pa.forward_plan(b, s, s, h)
+    smem = pa._library().packed_attention_smem_bytes(plan.nwg, plan.bn, plan.stages)
+    if smem != plan.smem_bytes:
+        raise AssertionError(f"packed forward plan's shared memory {plan.smem_bytes} != {smem}")
+    regs = ptxas_report(_build.build_log("packed_attention"))
+    return {
+        "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
+                 "stages": plan.stages, "blocks": plan.blocks},
+        "smem_bytes": smem, **regs.get(f"{plan.nwg}x{plan.bn}x{int(with_lse)}", {}),
+    }
+
+
+def _b1_row(pa, q, k, v, h, err: float) -> dict:
     import torch.nn.functional as F
 
+    b, s, c = q.shape
+    iters = 100 if b == 1 else 50
+
+    def library():  # SDPA on (B, heads, S, 64) views, back to the packed layout
+        return F.scaled_dot_product_attention(
+            *(x.view(b, s, h, c // h).transpose(1, 2) for x in (q, k, v))
+        ).transpose(1, 2).reshape(b, s, c)
+
+    bound_ms, bound_by = _bound(4 * b * s * s * c, 2 * 4 * b * s * c)  # q, k, v read, o written
+    kernel_ms = cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), iters)
+    return {
+        "name": "packed_flash_attention",
+        "route": "cuda",
+        "source": "genima_torch/csrc/packed_attention.cu",
+        "replaces": "genima_tpu/kernels/packed_attention.py:194",
+        "shape": f"{b}x{s}x{c}/{h}", "key": f"{b}x{s}x{s}x{c}",
+        "launches": None,  # filled from the path phase
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": cuda_ms(lambda: pa.packed_attention_reference(q, k, v, h), 5 if b == 1 else 3),
+        "library_ms": cuda_ms(library, iters),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        **_forward_report(pa, b, s, h, with_lse=False),
+    }
+
+
+def kernel_phase(pa) -> list[dict]:
+    """B1 at the three SD levels at the serving batch 1."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for b, s, c, h in SD_LEVELS:
@@ -153,33 +204,7 @@ def kernel_phase(pa) -> list[dict]:
         err = (got.float() - want.float()).abs().max().item()
         if not err <= ATTN_TOL:
             raise AssertionError(f"packed attention {b}x{s}x{c}/{h}: max abs err {err}")
-
-        def library():
-            d = c // h
-            return F.scaled_dot_product_attention(
-                *(x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
-            ).transpose(1, 2).reshape(b, s, c)
-
-        flops = 4 * b * s * s * c
-        nbytes = 2 * (2 * b * s * c + 2 * b * s * c)  # q, k, v read, o written
-        bound_s = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES)
-        kernel_ms = cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 100)
-        rows.append({
-            "name": "packed_flash_attention",
-            "route": "cuda",
-            "source": "genima_torch/csrc/packed_attention.cu",
-            "replaces": "genima_tpu/kernels/packed_attention.py:194",
-            "shape": f"{b}x{s}x{c}/{h}",
-            "launches": None,  # filled from the path phase
-            "max_abs_err": err,
-            "ms": kernel_ms,
-            "kernel_ms": kernel_ms,
-            "plain_ms": cuda_ms(lambda: pa.packed_attention_reference(q, k, v, h), 5),
-            "library_ms": cuda_ms(library, 100),
-            "bound_ms": bound_s * 1e3,
-            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
-            else "bytes",
-        })
+        rows.append(_b1_row(pa, q, k, v, h, err))
     return rows
 
 
@@ -278,7 +303,7 @@ def _bwd_kernel_report() -> dict:
 
 
 def training_kernel_phase(pa) -> list[dict]:
-    """B2a and B2b at the three SD levels at batch 4."""
+    """B2a, B1 and B2b at the three SD levels at batch 4."""
     import torch.nn.functional as F
 
     bwd_report = _bwd_kernel_report()
@@ -299,6 +324,10 @@ def training_kernel_phase(pa) -> list[dict]:
         lse_err = (lse - lse_ref).abs().max().item()
         if not (o_err <= ATTN_TOL and lse_err <= LSE_TOL):
             raise AssertionError(f"B2a {shape}: o err {o_err}, L err {lse_err}")
+        o1 = pa.packed_flash_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o1):  # one kernel, one plan: B2a adds the L store
+            raise AssertionError(f"B2a {shape}: output differs from B1's")
         heads = [x.view(b, s, h, c // h).transpose(1, 2) for x in (q, k, v)]
         bound_ms, bound_by = _bound(4 * b * s * s * c, 2 * 4 * b * s * c + 4 * b * s * h)
         rows.append({
@@ -306,7 +335,7 @@ def training_kernel_phase(pa) -> list[dict]:
             "route": "cuda",
             "source": "genima_torch/csrc/packed_attention.cu",
             "replaces": "genima_tpu/kernels/packed_attention.py:274",
-            "shape": shape,
+            "shape": shape, "key": f"{b}x{s}x{s}x{c}",
             "launches": None,  # filled from the train path
             "max_abs_err": max(o_err, lse_err),
             "o_abs_err": o_err,
@@ -316,7 +345,10 @@ def training_kernel_phase(pa) -> list[dict]:
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            **_forward_report(pa, b, s, h, with_lse=True),
         })
+        # B1 at batch 4 (the UNet down blocks' attention, which needs no gradient)
+        rows.append(_b1_row(pa, q, k, v, h, (o1.float() - o_ref.float()).abs().max().item()))
 
         # B2b: dq, dk, dv against the plain version, from the kernel's o and L
         got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
@@ -341,7 +373,7 @@ def training_kernel_phase(pa) -> list[dict]:
             "route": "cuda",
             "source": "genima_torch/csrc/packed_attention_bwd.cu",
             "replaces": "genima_tpu/kernels/packed_attention.py:380",
-            "shape": shape,
+            "shape": shape, "key": f"{b}x{s}x{s}x{c}",
             "launches": None,
             "max_abs_err": abs_err,
             "max_rel_err": rel_err,
@@ -368,14 +400,15 @@ def _rel_err(got, want) -> float:
 def ptxas_report(log: str) -> dict[str, dict]:
     """Registers and spills of each kernel instantiation in an ``nvcc
     -Xptxas -v`` log, keyed by its template arguments ("128" for
-    ``w8_matmul_kernel<128>``, "128x2" for ``fused_conv3x3_kernel<128, 2>``)."""
+    ``w8_matmul_kernel<128>``, "128x2" for ``fused_conv3x3_kernel<128, 2>``,
+    "2x128x1" for ``attention_fwd_kernel<2, 128, true>``)."""
     import re
 
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            key = "x".join(re.findall(r"Li(\d+)E", m.group(1))) or m.group(1)
+            key = "x".join(re.findall(r"L[ib](\d+)E", m.group(1))) or m.group(1)
             out[key] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -429,7 +462,7 @@ def opt_kernel_phase() -> list[dict]:
             "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
                      "stages": plan.stages, "blocks": plan.blocks},
             "smem_bytes": plan.smem_bytes,
-            **regs["flash_attention"].get(f"{plan.nwg}x{plan.bn}", {}),
+            **regs["flash_attention"].get(f"{plan.nwg}x{plan.bn}x0", {}),
         })
 
     for b, h, w, c, o in CONV_SHAPES:
@@ -755,19 +788,29 @@ def train_phase(pa) -> dict:
 
 
 def per_step_sums(rows) -> dict:
-    """Per kernel, launches per step x ms summed over its shapes, beside the
-    same sum of its bound and of its library yardstick: (row, steps the
-    row's launches were counted over)."""
+    """Per path and kernel, launches per step x ms summed over its shapes,
+    beside the same sum of its bound and of its library yardstick: (path,
+    row, steps the row's launches were counted over)."""
     out: dict[str, dict] = {}
-    for row, steps in rows:
-        d = out.setdefault(row["name"], {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                                         "launches": 0})
+    for path, row, steps in rows:
+        d = out.setdefault(path, {}).setdefault(
+            row["name"], {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "launches": 0})
         per = row["launches"] / steps
         d["launches"] += per
         d["ms"] += per * row["ms"]
         d["bound_ms"] += per * row["bound_ms"]
         d["library_ms"] += per * row["library_ms"]
     return out
+
+
+def _fill_launches(rows, launches_by_shape: dict, counter: dict) -> None:
+    """Each row's launches on its path, from the counter of its kernel
+    (``counter[name]``) by shape key; a kernel the path never launched at
+    a row's shape fails the run."""
+    for row in rows:
+        row["launches"] = launches_by_shape[counter[row["name"]]].get(row.pop("key"), 0)
+        if row["launches"] == 0:
+            raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
 
 
 def main() -> int:
@@ -801,30 +844,21 @@ def main() -> int:
     train_kernels = training_kernel_phase(pa)
     opt_kernels = opt_kernel_phase()
     path = path_phase(pa)
-    for row in kernels:
-        b, s, c, _ = SD_LEVELS[kernels.index(row)]
-        row["launches"] = path["launches_by_shape"].get(f"{b}x{s}x{s}x{c}", 0)
-        if row["launches"] == 0:
-            raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
+    _fill_launches(kernels, {"B1": path["launches_by_shape"]}, {"packed_flash_attention": "B1"})
     print("path " + json.dumps(path))
     train = train_phase(pa)
-    for row in train_kernels:
-        b, s, c, _ = TRAIN_LEVELS[train_kernels.index(row) // 2]
-        key = "B2a" if row["name"] == "packed_attention_forward_lse" else "B2b"
-        row["launches"] = train["launches_by_shape"][key].get(f"{b}x{s}x{s}x{c}", 0)
-        if row["launches"] == 0:
-            raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
+    _fill_launches(train_kernels, train["launches_by_shape"], {
+        "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
+        "packed_attention_backward": "B2b"})
     print("train " + json.dumps(train))
     opt = opt_path_phase()
-    counter = {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"}
-    for row in opt_kernels:
-        row["launches"] = opt["launches_by_shape"][counter[row["name"]]].get(row.pop("key"), 0)
-        if row["launches"] == 0:
-            raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
+    _fill_launches(opt_kernels, opt["launches_by_shape"],
+                   {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
     print("opt_path " + json.dumps(opt))
     print("per_step " + json.dumps(per_step_sums(
-        [(r, PATH_STEPS) for r in kernels] + [(r, TRAIN_STEPS) for r in train_kernels]
-        + [(r, OPT_STEPS) for r in opt_kernels])))
+        [("control", r, PATH_STEPS) for r in kernels]
+        + [("train", r, TRAIN_STEPS) for r in train_kernels]
+        + [("opt_in", r, OPT_STEPS) for r in opt_kernels])))
     print(json.dumps({"kernels": kernels + train_kernels + opt_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,11 +10,12 @@ Under ``backend="pallas"`` every UNet and ControlNet attention comes here,
 self-attention over 4096/1024/256/64 tokens and cross-attention over the 77
 prompt tokens; under ``"pallas_self"`` only self-attention does.
 
-* CUDA: ``csrc/flash_attention.cu``, a warp-specialised FlashAttention-3-
-  style forward for Hopper with a ragged edge: a producer warpgroup
+* CUDA: ``csrc/flash_attention.cu``, instantiating the warp-specialised
+  FlashAttention-3-style forward for Hopper that B1/B2a share
+  (``csrc/attention_fwd_hopper.cuh``), with a ragged edge: a producer
   TMA-loads the block's Q tile and streams K/V tiles through an mbarrier
-  ring (3-D maps, so rows past S are zero-filled within the batch); one or
-  two consumer warpgroups of 64 query rows run S = Q K^T and O += P V on
+  ring (3-D maps, so rows past S are zero-filled within the batch); one to
+  three consumer warpgroups of 64 query rows run S = Q K^T and O += P V on
   wgmma with the online softmax in registers, keys past Sk masked to -1e30
   in the last tile and query rows past Sq never stored. ``plan`` picks the
   consumer warpgroups, the key tile and the ring depth per shape. It reads
@@ -59,9 +60,13 @@ SMEM_SM = 233472  # shared memory of an SM (228 KB; 1 KB of it reserved per bloc
 REGISTERS_SM = 65536
 # (consumer warpgroups of 64 query rows, keys a K/V tile): the kernel's
 # instantiations
-TILES = ((1, 64), (1, 80), (1, 128), (2, 64), (2, 80), (2, 128))
+TILES = ((1, 64), (1, 80), (1, 128), (2, 64), (2, 80), (2, 128), (3, 128))
 MAX_STAGES = 4
-LONG_KEY_LOOP = 4  # K/V tiles from which two consumer warpgroups pay
+LONG_KEY_LOOP = 4  # K/V tiles from which two or three consumer warpgroups pay
+# time per 64 query rows of a three-warpgroup block against a two-warpgroup
+# one, both one block an SM (tune_kernels packed, H100: 1x4096, 5 heads,
+# 0.0515 ms in one wave of 192-row blocks against 0.0759 in two of 128)
+THREE_WG_ROW_COST = 0.9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,26 +92,29 @@ class Plan:
 
     @property
     def threads(self) -> int:
-        return 128 * self.nwg + 128  # + the producer warpgroup
+        # + the producer: one warp beside one consumer warpgroup, else a
+        # warpgroup (setmaxnreg moves registers by warpgroup)
+        return 128 * self.nwg + (32 if self.nwg == 1 else 128)
 
     @property
     def blocks_per_sm(self) -> int:
         """The kernel's launch bounds: the one-warpgroup, 64-key block is
-        held to 128 registers a thread so that two share an SM."""
-        return 2 if (self.nwg, self.bn) == (1, 64) else 1
+        held to 136 registers a thread so that three share an SM."""
+        return 3 if (self.nwg, self.bn) == (1, 64) else 1
 
     @property
     def max_registers(self) -> int:
         """Registers a thread may hold at launch (ptxas's cap from the
-        launch bounds; a 384-thread block's consumers then take 240 with
-        setmaxnreg)."""
+        launch bounds; with setmaxnreg the consumers of a 384-thread block
+        then take 240, those of a 512-thread block 160)."""
         return min(255, REGISTERS_SM // (self.threads * self.blocks_per_sm) // 8 * 8)
 
 
 def smem_bytes(nwg: int, bn: int, stages: int) -> int:
     """Dynamic shared memory of one block: 1 KB of alignment slack, the Q
-    tile, the K/V ring and the barriers. Mirrors ``flash_attention_smem_bytes``
-    in the source."""
+    tile, the K/V ring and the barriers. Mirrors ``fwd_smem_bytes`` in
+    ``csrc/attention_fwd_hopper.cuh``, which ``flash_attention_smem_bytes``
+    and ``packed_attention_smem_bytes`` return."""
     return 1024 + 64 * nwg * 128 + stages * 2 * bn * 128 + 16 * stages + 16
 
 
@@ -123,25 +131,41 @@ def plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> Plan:
     * key tile: 64 keys when Sk <= 64, 80 when Sk <= 80 (the 77 prompt
       tokens in one tile: TMA zero-fills keys 77-79 and the mask drops
       them), else 128;
-    * warpgroups: two (128 query rows a block, sharing each K/V stage) once
-      the key loop is ``LONG_KEY_LOOP`` tiles or more, even below a wave
-      (1024 tokens x 10 heads: 80 blocks of two beat 160 of one); one when
-      it is shorter, where a block's fixed cost dominates and more, smaller
-      blocks finish first;
+    * warpgroups: two or three (``long_loop_warpgroups``: 128 or 192 query
+      rows a block, sharing each K/V stage) once the key loop is
+      ``LONG_KEY_LOOP`` tiles or more, even below a wave (1024 tokens x 10
+      heads: 80 blocks of two beat 160 of one); one when it is shorter,
+      where a block's fixed cost dominates and more, smaller blocks finish
+      first;
     * ring: as deep as the K/V tiles need, at most four stages.
     """
     _check_shape(b, sq, sk, h)
     bn = 64 if sk <= 64 else 80 if sk <= 80 else 128
-    nwg = 2 if -(-sk // bn) >= LONG_KEY_LOOP else 1
+    nwg = long_loop_warpgroups(b, sq, h, sms) if -(-sk // bn) >= LONG_KEY_LOOP else 1
     return make_plan(b, sq, sk, h, nwg, bn, sms=sms)
 
 
+def long_loop_warpgroups(b: int, sq: int, h: int, sms: int = SMS) -> int:
+    """Two or three consumer warpgroups for a long key loop: the grid that
+    holds the card for less time, counted as rounds of one block an SM x
+    64-row slices a block, a three-warpgroup slice at ``THREE_WG_ROW_COST``;
+    a tie goes to three. At the SD levels: three at 1x4096 x 5 heads (110
+    blocks, one round, against 160) and at 4x1024 x 10 heads (240 blocks in
+    two rounds against 320 in three), two at 4x4096 x 5 heads (640 blocks
+    in five rounds against 440 in four of 1.5x the rows) and at 1x1024."""
+    def cost(nwg: int) -> float:
+        rounds = -(-(-(-sq // (64 * nwg)) * h * b) // sms)
+        return rounds * nwg * (THREE_WG_ROW_COST if nwg == 3 else 1.0)
+
+    return 3 if cost(3) <= cost(2) else 2
+
+
 def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int | None = None,
-              sms: int = SMS) -> Plan:
-    """The launch for a chosen tile; the ring depth as ``plan`` derives it
-    unless given."""
+              sms: int = SMS, tiles=TILES) -> Plan:
+    """The launch for a chosen tile of ``tiles`` (the instantiations of the
+    kernel's source); the ring depth as ``plan`` derives it unless given."""
     _check_shape(b, sq, sk, h)
-    if (nwg, bn) not in TILES:
+    if (nwg, bn) not in tiles:
         raise ValueError(f"no kernel for {nwg} warpgroups x {bn}-key tiles")
     kv_tiles = -(-sk // bn)
     if stages is None:
@@ -154,8 +178,8 @@ def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int |
     why = ""
     if blocks < sms:
         why = f"{grid[0]} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
-        if nwg == 2:
-            why += f", two warpgroups sharing each of {kv_tiles} K/V tiles"
+        if nwg > 1:
+            why += f", {nwg} warpgroups sharing each of {kv_tiles} K/V tiles"
     return Plan(nwg=nwg, bn=bn, stages=stages, kv_tiles=kv_tiles, grid=grid,
                 smem_bytes=smem_bytes(nwg, bn, stages), why_short=why)
 

@@ -18,10 +18,17 @@ boundary, which is why the kernels exist. When q, k or v requires grad it
 goes through ``PackedFlashAttention`` (B2a forward, B2b backward); otherwise
 it runs B1 and records nothing for autograd.
 
-* CUDA: ``csrc/packed_attention.cu`` (B1 and B2a, one FlashAttention-2-style
-  forward for ``sm_90a``: mma.sync tensor cores, online softmax in f32,
-  head-strided loads at column offset ``h * 64``) and
-  ``csrc/packed_attention_bwd.cu`` (B2b: a dq kernel and a dk/dv kernel,
+* CUDA: ``csrc/packed_attention.cu`` (B1 and B2a: the warp-specialised
+  FlashAttention-3-style forward for ``sm_90a`` that B3 shares,
+  ``csrc/attention_fwd_hopper.cuh``, instantiated without and with the L
+  store. A producer warp or warpgroup TMA-loads the block's Q tile and
+  streams K/V tiles through an mbarrier ring over 3-D (C, S, B) maps at
+  column offset ``h * 64``; one to three consumer warpgroups of 64 query
+  rows run S = Q K^T and O += P V on wgmma with the online softmax in f32
+  registers;
+  ``forward_plan`` picks the warpgroups, the key tile and the ring depth,
+  the same for B1 and B2a at a shape, so B2a's output is B1's bit for bit)
+  and ``csrc/packed_attention_bwd.cu`` (B2b: a dq kernel and a dk/dv kernel,
   no atomics, so repeated calls give the same bits; each a warp-specialised
   Hopper kernel, a producer warpgroup streaming 64-row tiles by TMA through
   an mbarrier ring to two consumer warpgroups on wgmma; ``backward_plan``
@@ -48,10 +55,17 @@ import math
 import torch
 
 from genima_torch.kernels import _build
+from genima_torch.kernels import flash_attention as fa
 
 HEAD_DIM = 64
-BLOCK = 64  # query rows per block and keys per tile in the CUDA kernels
+BLOCK = 64  # Sq and Sk are multiples of this: the backward's 64-row tiles
 MAX_SEQ = 4096
+# B1/B2a: (consumer warpgroups of 64 query rows, keys a K/V tile), the
+# instantiations of packed_attention.cu: those ``forward_plan`` picks at some
+# shape (Sk is a multiple of 64, so B3's 80-key tile for the 77 prompt
+# tokens is not built; 64-key tiles with two or three warpgroups never beat
+# 128-key ones, tune_kernels packed)
+FORWARD_TILES = ((1, 64), (1, 128), (2, 128), (3, 128))
 # B2b: query rows (dq kernel) or keys (dk/dv kernel) a block, two consumer
 # warpgroups of 64, and the depth of each kernel's TMA ring
 BWD_BLOCK_ROWS = 128
@@ -84,11 +98,7 @@ class BackwardPlan:
 def backward_plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> BackwardPlan:
     """The fixed tiling of B2b (128-row blocks, a 4-stage ring of 64-row
     tiles) at one shape; raises for a shape the kernels do not take."""
-    if min(b, h) < 1:
-        raise ValueError(f"empty attention: B={b}, heads={h}")
-    for name, s in (("Sq", sq), ("Sk", sk)):
-        if s % BLOCK or not 0 < s <= MAX_SEQ:
-            raise ValueError(f"{name}={s} must be a multiple of {BLOCK} up to {MAX_SEQ}")
+    _check_shape(b, sq, sk, h)
     ring = BWD_STAGES * 2 * BLOCK * HEAD_DIM * 2  # a Q/dO or K/V pair of tiles a stage
     dq = (-(-sq // BWD_BLOCK_ROWS), h, b)
     dkdv = (-(-sk // BWD_BLOCK_ROWS), h, b)
@@ -100,6 +110,54 @@ def backward_plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> BackwardP
         # + each stage's 64 values of L * log2(e) and Drow
         dkdv_smem_bytes=1024 + ring + BWD_STAGES * 2 * BLOCK * 4 + 16 * BWD_STAGES,
         why_short="; ".join(short))
+
+
+def _check_seq(sq: int, sk: int) -> None:
+    for name, s in (("Sq", sq), ("Sk", sk)):
+        if s % BLOCK or not 0 < s <= MAX_SEQ:
+            raise ValueError(f"{name}={s} must be a multiple of {BLOCK} up to {MAX_SEQ}")
+
+
+def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
+    """Raises for a (B, Sq, Sk, heads) call the kernels do not take."""
+    if min(b, h) < 1:
+        raise ValueError(f"empty attention: B={b}, heads={h}")
+    _check_seq(sq, sk)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> fa.Plan:
+    """Consumer warpgroups, key tile and ring depth of B1 and B2a (one plan
+    for both: the key tile sets the order of the online-softmax updates) for
+    a (B, Sq, Sk, heads) call, by the rules ``python -m genima_torch.tune_kernels
+    packed`` chose:
+
+    * a key loop of ``fa.LONG_KEY_LOOP`` 128-key tiles or more: two or
+      three consumer warpgroups (128 or 192 query rows a block, sharing
+      each K/V stage), as B3's ``fa.long_loop_warpgroups`` picks them;
+    * a shorter one: one warpgroup, on 128-key tiles while the grid is at
+      most one block an SM (1x256 x 20 heads: 80 blocks), else on 64-key
+      tiles, whose block takes at most 136 registers so that three share
+      an SM (4x256 x 20 heads: 320 blocks in one wave, 0.0094 ms against
+      0.0111 on 128-key tiles); 64-key tiles also when Sk is 64;
+    * ring: as deep as the K/V tiles need, at most four stages.
+
+    Raises for a shape the kernel does not take.
+    """
+    if -(-sk // 128) >= fa.LONG_KEY_LOOP:
+        nwg, bn = fa.long_loop_warpgroups(b, sq, h, sms), 128
+    else:
+        nwg, bn = 1, 64 if sk <= 64 or -(-sq // 64) * h * b > sms else 128
+    return make_forward_plan(b, sq, sk, h, nwg, bn, sms=sms)
+
+
+def make_forward_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int,
+                      stages: int | None = None, sms: int = SMS) -> fa.Plan:
+    """B1/B2a's launch for a chosen tile; the ring depth as ``forward_plan``
+    derives it unless given. The shared memory mirrors
+    ``packed_attention_smem_bytes`` in the source."""
+    _check_shape(b, sq, sk, h)
+    return fa.make_plan(b, sq, sk, h, nwg, bn, stages, sms=sms, tiles=FORWARD_TILES)
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -184,9 +242,7 @@ def _check_cuda_inputs(q, k, v, num_heads) -> None:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if c != num_heads * HEAD_DIM:
         raise ValueError(f"channels {c} != {num_heads} heads x {HEAD_DIM}")
-    for name, s in (("Sq", sq), ("Sk", sk)):
-        if s % BLOCK or not 0 < s <= MAX_SEQ:
-            raise ValueError(f"{name}={s} must be a multiple of {BLOCK} up to {MAX_SEQ}")
+    _check_seq(sq, sk)
 
 
 def _device(q: torch.Tensor) -> str:
@@ -195,16 +251,25 @@ def _device(q: torch.Tensor) -> str:
     return q.device.type
 
 
+def _plan_for(b: int, sq: int, sk: int, h: int) -> fa.Plan:
+    """The plan a B1 or B2a call launches (``tune_kernels`` and the card
+    tests swap in others)."""
+    return forward_plan(b, sq, sk, h)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("packed_attention")
-    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    # pointers, then (B, Sq, Sk, heads) and the plan's (nwg, bn, stages), then the stream
+    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
-    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_fwd.restype = lib.packed_attention_fwd_lse.restype = ctypes.c_int
+    lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.packed_attention_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -237,13 +302,14 @@ def _count(fn, q: torch.Tensor, k: torch.Tensor) -> None:
 def _launch_forward(q, k, v, num_heads, with_lse: bool):
     _check_cuda_inputs(q, k, v, num_heads)
     b, sq, _ = q.shape
+    p = _plan_for(b, sq, k.shape[1], num_heads)
     out = torch.empty_like(q)
     lse = torch.empty(b, sq, num_heads, device=q.device, dtype=torch.float32) if with_lse else None
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        dims = (b, sq, k.shape[1], num_heads, stream)
+        dims = (b, sq, k.shape[1], num_heads, p.nwg, p.bn, p.stages, stream)
         if with_lse:
             rc = lib.packed_attention_fwd_lse(*args, lse.data_ptr(), *dims)
         else:

@@ -36,8 +36,9 @@ import torch
 from genima_torch.eval.main_path import build_main_path
 
 FAMILIES = (  # first match wins, on the lower-cased kernel name
-    ("packed_attention", ("packed_attention",)),
-    ("flash_attention_b3", ("flash_attention_fwd",)),
+    # the Hopper forward B1/B2a and B3 share (the step's path says which ran)
+    ("attention_fwd_b1_b2a_b3", ("attention_fwd_kernel",)),
+    ("packed_attention_bwd_b2b", ("packed_attention_bwd",)),
     ("fused_conv_b4", ("fused_conv3x3",)),
     ("w8_matmul_b5", ("w8_matmul",)),
     ("optimizer", ("multi_tensor",)),  # the foreach AdamW and clip

@@ -1,16 +1,17 @@
 """Time every launch plan of B3 (flash attention), B4 (fused conv) or B5
-(int8 matmul) at the opt-in serving path's shapes, or B2b (the flash
+(int8 matmul) at the opt-in serving path's shapes, of B1/B2a (the packed
+forward) at the serving and the trainer's shapes, or B2b (the flash
 backward) at the trainer's, beside the plan the wrapper picks.
 
-    python -m genima_torch.tune_kernels {attn,bwd,w8,conv}
+    python -m genima_torch.tune_kernels {attn,packed,bwd,w8,conv}
 
 Run from the repository root: the shapes and the timer are
-``chip_smoke.py``'s (``FLASH_SHAPES``/``TRAIN_LEVELS``/``W8_SHAPES``/
-``CONV_SHAPES``, ``cuda_ms``). Prints one JSON line per shape: ms of each
-candidate plan, of the default plan, and of the library yardstick
-(``scaled_dot_product_attention`` forward for B3, its autograd backward for
-B2b, ``torch.matmul`` on the dequantised weight for B5). Needs a GPU; this
-is how the plans' rules were chosen.
+``chip_smoke.py``'s (``FLASH_SHAPES``/``SD_LEVELS``/``TRAIN_LEVELS``/
+``W8_SHAPES``/``CONV_SHAPES``, ``cuda_ms``). Prints one JSON line per shape:
+ms of each candidate plan, of the default plan, and of the library yardstick
+(``scaled_dot_product_attention`` forward for B1/B2a/B3, its autograd
+backward for B2b, ``torch.matmul`` on the dequantised weight for B5). Needs
+a GPU; this is how the plans' rules were chosen.
 """
 
 from __future__ import annotations
@@ -48,6 +49,38 @@ def tune_attn(shapes, cuda_ms) -> None:
             "default_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 50),
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
             "plans_ms": times}))
+
+
+def tune_packed(shapes, cuda_ms) -> None:
+    """B1 and B2a (which take one plan) at every candidate plan of
+    ``forward_plan`` and at the default one; SDPA's forward beside them."""
+    import torch.nn.functional as F
+
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import packed_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for b, s, c, h in shapes:
+        q, k, v = (torch.randn(b, s, c, generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        heads = [x.view(b, s, h, c // h).transpose(1, 2) for x in (q, k, v)]
+        times, lse_times = {}, {}
+        for nwg, bn in pa.FORWARD_TILES:
+            tiles = -(-s // bn)
+            for stages in range(2 if tiles > 1 else 1, min(tiles, fa.MAX_STAGES) + 1):
+                p = pa.make_forward_plan(b, s, s, h, nwg, bn, stages)
+                pa._plan_for = lambda *a, p=p: p
+                name = f"{nwg}wg/bn{bn}/stages{stages}"
+                times[name] = cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 50)
+                lse_times[name] = cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), 50)
+        pa._plan_for = lambda *a: pa.forward_plan(*a)
+        d = pa.forward_plan(b, s, s, h)
+        print(json.dumps({
+            "shape": f"{b}x{s}x{c}/{h}", "default": f"{d.nwg}wg/bn{d.bn}/stages{d.stages}",
+            "default_ms": cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 50),
+            "default_lse_ms": cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), 50),
+            "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
+            "plans_ms": times, "plans_lse_ms": lse_times}))
 
 
 def _kernel_ms(fn, calls: int = 20) -> dict[str, float]:
@@ -149,7 +182,7 @@ def tune_conv(shapes, cuda_ms) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in (["attn"], ["bwd"], ["w8"], ["conv"]):
+    if argv not in (["attn"], ["packed"], ["bwd"], ["w8"], ["conv"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -159,6 +192,8 @@ def main(argv=None) -> int:
 
     if argv == ["attn"]:
         tune_attn(chip_smoke.FLASH_SHAPES, chip_smoke.cuda_ms)
+    elif argv == ["packed"]:
+        tune_packed(chip_smoke.SD_LEVELS + chip_smoke.TRAIN_LEVELS, chip_smoke.cuda_ms)
     elif argv == ["bwd"]:
         tune_bwd(chip_smoke.TRAIN_LEVELS, chip_smoke.cuda_ms)
     elif argv == ["w8"]:

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from genima_torch.kernels import flash_attention as fa
 from genima_torch.kernels import packed_attention as pa
 
 # the SD-turbo levels at 64x64 latents, B=1 (what the main path launches),
@@ -85,6 +86,71 @@ def test_lse_forward_kernel_matches_plain_version(cuda, b, s, c, h):
     torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
     # the output is B1's, bit for bit: the same kernel with one more store
     assert torch.equal(o, pa.packed_flash_attention(q, k, v, h))
+
+
+# B1/B2a's plans: every instantiation at every ring depth it can take, at the
+# three SD levels (batch 2)
+FORWARD_LEVELS = [(2, s, c, h) for _, s, c, h in TRAIN_SHAPES[:3]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nwg,bn", pa.FORWARD_TILES)
+@pytest.mark.parametrize("b,s,c,h", FORWARD_LEVELS)
+def test_packed_attention_every_plan_matches_plain_version(cuda, monkeypatch, nwg, bn, b, s, c, h):
+    q, k, v = _bf16_inputs(cuda, b, s, c, seed=nwg * bn + s, n=3)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    tiles = -(-s // bn)
+    for stages in range(2 if tiles > 1 else 1, min(tiles, fa.MAX_STAGES) + 1):
+        p = pa.make_forward_plan(b, s, s, h, nwg, bn, stages)
+        monkeypatch.setattr(pa, "_plan_for", lambda *a, p=p: p)
+        o1 = pa.packed_flash_attention(q, k, v, h)
+        o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o1.float(), o_ref.float(), atol=1e-2, rtol=0)
+        torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+        assert torch.equal(o, o1)
+
+
+def _forward_into(out, lse, q, k, v, h, p):
+    """B2a straight through the C entry point, into caller-owned o and L
+    that may reach past q's batch."""
+    lib = pa._library()
+    b, sq, _ = q.shape
+    rc = lib.packed_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq,
+        k.shape[1], h, p.nwg, p.bn, p.stages, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, lib.packed_attention_error_string(rc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [192, 320])
+@pytest.mark.parametrize("sk", [64, 512])
+def test_packed_attention_ragged_block_stays_in_its_batch(cuda, sq, sk):
+    """Sq an odd multiple of 64 leaves the last 128- or 192-row block partly
+    past Sq, where the contiguous (B, Sq, .) outputs hold the next batch's
+    rows. At every tile, batch 2: both batches match the plain version
+    through the wrapper, and written into outputs one batch longer (filled
+    with NaN), the extra batch of o and L stays untouched."""
+    b, c, h = 2, 320, 5
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(b, sq, c, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(b, sk, c, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    for nwg, bn in pa.FORWARD_TILES:
+        p = pa.make_forward_plan(b, sq, sk, h, nwg, bn)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pa, "_plan_for", lambda *a, p=p: p)
+            o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+            o1 = pa.packed_flash_attention(q, k, v, h)
+        out = torch.full((b + 1, sq, c), float("nan"), device=cuda, dtype=torch.bfloat16)
+        lse_out = torch.full((b + 1, sq, h), float("nan"), device=cuda)
+        _forward_into(out, lse_out, q, k, v, h, p)
+        torch.cuda.synchronize()
+        for i in range(b):
+            torch.testing.assert_close(o[i].float(), o_ref[i].float(), atol=1e-2, rtol=0)
+            torch.testing.assert_close(lse[i], lse_ref[i], atol=LSE_ATOL, rtol=0)
+        assert torch.equal(o, o1) and torch.equal(out[:b], o) and torch.equal(lse_out[:b], lse)
+        assert torch.isnan(out[b].float()).all() and torch.isnan(lse_out[b]).all(), (nwg, bn)
 
 
 @pytest.mark.cuda
@@ -173,7 +239,6 @@ def test_requires_grad_on_cuda_gets_gradients(cuda):
 # B3, B4, B5: the serving pipeline's opt-in backends
 # ---------------------------------------------------------------------------
 
-from genima_torch.kernels import flash_attention as fa  # noqa: E402
 from genima_torch.kernels import fused_conv as fc  # noqa: E402
 from genima_torch.kernels import w8_matmul as w8  # noqa: E402
 

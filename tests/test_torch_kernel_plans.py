@@ -1,12 +1,18 @@
-"""The launch plans of the port's B2b, B3, B4 and B5 kernels: pure Python,
-so they are held here on the CPU at every shape of the opt-in serving path
-and the trainer's attention levels (the kernels themselves are tested on the
-card in test_torch_cuda_kernels.py).
+"""The launch plans of the port's B1/B2a, B2b, B3, B4 and B5 kernels: pure
+Python, so they are held here on the CPU at every shape of the serving
+paths and the trainer's attention levels (the kernels themselves are tested
+on the card in test_torch_cuda_kernels.py).
 """
 
-import pytest
+import contextlib
+import re
+import types
+from pathlib import Path
 
-from chip_smoke import CONV_SHAPES, FLASH_SHAPES, TRAIN_LEVELS, W8_SHAPES
+import pytest
+import torch
+
+from chip_smoke import CONV_SHAPES, FLASH_SHAPES, SD_LEVELS, TRAIN_LEVELS, W8_SHAPES
 from genima_torch.kernels import flash_attention as fa
 from genima_torch.kernels import fused_conv as fc
 from genima_torch.kernels import packed_attention as pa
@@ -160,16 +166,21 @@ def test_flash_plan_fits_shared_memory_and_registers(nwg, bn, b, sq, sk, h):
         # its register file (at the registers ptxas may then use)
         assert p.blocks_per_sm * (p.smem_bytes + 1024) <= fa.SMEM_SM
         assert p.blocks_per_sm * p.threads * p.max_registers <= fa.REGISTERS_SM
-        # a 384-thread block starts at 168, what setmaxnreg's 24 + 2 x 240 needs
+        # a 384-thread block starts at 168, what setmaxnreg's 24 + 2 x 240 needs;
+        # a 512-thread one at 128, for 24 + 3 x 160
         if nwg == 2:
             assert p.max_registers == 168 and 24 * 128 + 240 * 256 <= 168 * p.threads
+        if nwg == 3:
+            assert p.max_registers == 128 and 24 * 128 + 160 * 384 <= 128 * p.threads
 
 
 def test_flash_plan_picks_one_tile_for_the_prompt_and_two_warpgroups_for_long_key_loops():
     p = fa.plan(1, 4096, 77, 5)
     assert (p.nwg, p.bn, p.kv_tiles) == (1, 80, 1)
-    p = fa.plan(1, 4096, 4096, 5)  # 32 tiles of 128 rows x 5 heads = 160 blocks
-    assert (p.nwg, p.bn, p.blocks) == (2, 128, 160)
+    # 22 tiles of 192 rows x 5 heads = 110 blocks, one wave (two
+    # warpgroups: 160 blocks of 128 rows)
+    p = fa.plan(1, 4096, 4096, 5)
+    assert (p.nwg, p.bn, p.blocks) == (3, 128, 110)
     p = fa.plan(1, 1024, 1024, 10)  # 8 key tiles: 80 blocks of two warpgroups
     assert (p.nwg, p.bn, p.blocks) == (2, 128, 80) and "K/V tiles" in p.why_short
     p = fa.plan(1, 256, 256, 20)  # 2 key tiles: 80 blocks of one warpgroup
@@ -234,3 +245,130 @@ def test_backward_plan_fits_shared_memory_and_registers():
 def test_backward_plan_rejects_what_the_kernels_cannot_take(b, sq, sk, h):
     with pytest.raises(ValueError):
         pa.backward_plan(b, sq, sk, h)
+
+
+# B1/B2a: (B, Sq, Sk, heads) of the control step (batch 1) and the train step
+# (batch 4), and the card tests': the levels at batch 2, ragged last blocks
+# (Sq an odd multiple of 64) and Sq != Sk
+FORWARD_PLAN_SHAPES = sorted(
+    {(b, s, s, h) for b, s, _, h in SD_LEVELS + TRAIN_LEVELS}
+    | {(2, s, s, h) for _, s, _, h in SD_LEVELS}
+    | {(2, sq, sk, 5) for sq in (192, 320) for sk in (64, 512)}
+    | {(2, 256, 512, 2), (1, 64, 64, 1), (3, 4096, 64, 1)})
+SRC = Path(pa.__file__).resolve().parent.parent / "csrc"
+
+
+@pytest.mark.parametrize("b,sq,sk,h", FORWARD_PLAN_SHAPES)
+def test_forward_plan_fills_the_card_or_says_why(b, sq, sk, h):
+    p = pa.forward_plan(b, sq, sk, h)
+    assert p.grid == (-(-sq // p.rows), h, b)
+    if p.blocks < pa.SMS:
+        assert p.why_short
+        # a short grid takes the smallest block, which spreads it furthest,
+        # unless the key loop is long enough for warpgroups to share it
+        assert p.nwg == 1 or p.kv_tiles >= fa.LONG_KEY_LOOP
+    else:
+        assert not p.why_short
+
+
+@pytest.mark.parametrize("b,sq,sk,h", FORWARD_PLAN_SHAPES)
+def test_forward_plan_covers_sq_and_sk(b, sq, sk, h):
+    p = pa.forward_plan(b, sq, sk, h)
+    assert (p.nwg, p.bn) in pa.FORWARD_TILES
+    assert p.grid[0] * p.rows >= sq > (p.grid[0] - 1) * p.rows
+    # Sk is a multiple of 64: the key tiles cover it exactly unless one
+    # 128-key tile is half masked
+    assert p.kv_tiles * p.bn >= sk > (p.kv_tiles - 1) * p.bn
+    assert p.bn == 64 or sk > 64
+    assert p.stages == min(p.kv_tiles, fa.MAX_STAGES)
+    if p.kv_tiles > 1:
+        assert p.stages >= 2  # a stage is handed back once the next tile is in
+
+
+def test_forward_tiles_and_smem_mirror_the_sources():
+    """The (nwg, bn) instantiations each source launches are its plan's
+    tiles, and the plans' shared memory is ``fwd_smem_bytes``, read from
+    the CUDA sources."""
+    for src, tiles in (("packed_attention.cu", pa.FORWARD_TILES),
+                       ("flash_attention.cu", fa.TILES)):
+        launched = re.findall(r"launch_fwd<(\d), (\d+), \w+>", (SRC / src).read_text())
+        assert sorted({(int(n), int(b)) for n, b in launched}) == sorted(tiles), src
+    body = re.search(r"int fwd_smem_bytes\(int nwg, int bn, int stages\) \{\s*return ([^;]+);",
+                     (SRC / "attention_fwd_hopper.cuh").read_text()).group(1)
+    for nwg, bn in pa.FORWARD_TILES:
+        for stages in range(1, fa.MAX_STAGES + 1):
+            want = eval(body, {"nwg": nwg, "bn": bn, "stages": stages, "kRowBytes": 128})
+            assert fa.smem_bytes(nwg, bn, stages) == want
+
+
+@pytest.mark.parametrize("nwg,bn", pa.FORWARD_TILES)
+@pytest.mark.parametrize("b,sq,sk,h", [(4, 4096, 4096, 5), (1, 256, 256, 20), (2, 192, 64, 5)])
+def test_forward_plan_fits_shared_memory_and_registers(nwg, bn, b, sq, sk, h):
+    tiles = -(-sk // bn)
+    for stages in range(2 if tiles > 1 else 1, fa.MAX_STAGES + 1):
+        p = pa.make_forward_plan(b, sq, sk, h, nwg, bn, stages)
+        assert p.smem_bytes == fa.smem_bytes(nwg, bn, stages) <= SMEM_LIMIT
+        assert p.blocks_per_sm * (p.smem_bytes + 1024) <= fa.SMEM_SM
+        assert p.blocks_per_sm * p.threads * p.max_registers <= fa.REGISTERS_SM
+        # setmaxnreg: the producer warpgroup drops to 24 and the consumers
+        # rise to 240 (two) or 160 (three) within what the block started with
+        if nwg == 2:
+            assert p.max_registers == 168 and 24 * 128 + 240 * 256 <= 168 * p.threads
+        if nwg == 3:
+            assert p.max_registers == 128 and 24 * 128 + 160 * 384 <= 128 * p.threads
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 65, 64, 1), (1, 64, 100, 1), (1, 8192, 64, 1),
+                                       (1, 0, 64, 1), (0, 64, 64, 1), (1, 64, 64, 0)])
+def test_forward_plan_rejects_what_the_kernel_cannot_take(b, sq, sk, h):
+    with pytest.raises(ValueError):
+        pa.forward_plan(b, sq, sk, h)
+
+
+def test_make_forward_plan_rejects_impossible_launches():
+    with pytest.raises(ValueError):
+        pa.make_forward_plan(1, 256, 256, 2, nwg=1, bn=80)  # B3's prompt tile: not built here
+    with pytest.raises(ValueError):
+        pa.make_forward_plan(1, 256, 256, 2, nwg=4, bn=128)
+    with pytest.raises(ValueError):
+        pa.make_forward_plan(1, 256, 256, 2, nwg=1, bn=64, stages=1)  # 4 tiles need 2 stages
+    with pytest.raises(ValueError):
+        pa.make_forward_plan(1, 256, 256, 2, nwg=1, bn=64, stages=5)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pa.make_forward_plan(1, 200, 256, 2, nwg=3, bn=128)
+
+
+@pytest.mark.parametrize("b,sq,sk,h", FORWARD_PLAN_SHAPES)
+def test_b1_and_b2a_launch_one_plan(monkeypatch, b, sq, sk, h):
+    """B1 and B2a pass ``forward_plan``'s (nwg, bn, stages) to their C entry
+    points, the same at every shape: the key tile sets the order of the
+    online-softmax updates, and B2a's output must be B1's bit for bit. (The
+    C library is replaced by a recorder; nothing is launched.)"""
+    calls = {}
+
+    def record(name):
+        def fn(*args):
+            calls[name] = args
+            return 0
+        return fn
+
+    fake = types.SimpleNamespace(packed_attention_fwd=record("B1"),
+                                 packed_attention_fwd_lse=record("B2a"),
+                                 packed_attention_error_string=lambda rc: b"")
+    monkeypatch.setattr(pa, "_library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=7))
+    for fn in (pa.packed_flash_attention, pa.packed_attention_forward_lse):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "launches_by_shape", type(fn.launches_by_shape)())
+    c = 64 * h
+    q = torch.zeros(b, sq, c, dtype=torch.bfloat16)
+    k = torch.zeros(b, sk, c, dtype=torch.bfloat16)
+    out = pa._launch_forward(q, k, k, h, with_lse=False)
+    o, lse = pa._launch_forward(q, k, k, h, with_lse=True)
+    assert out.shape == o.shape == q.shape and lse.shape == (b, sq, h)
+    p = pa.forward_plan(b, sq, sk, h)
+    assert calls["B1"][4:] == (b, sq, sk, h, p.nwg, p.bn, p.stages, 7)
+    assert calls["B2a"][5:] == calls["B1"][4:]
+    assert pa.packed_flash_attention.launches == pa.packed_attention_forward_lse.launches == 1
