@@ -47,6 +47,21 @@
    move and the UNet, VAE and CLIP must stay bit-unchanged. Then one step's
    ControlNet gradients through the kernels are held to those through the
    library attention.
+7. Eval path: ``genima_torch.cli.eval_genima.main``, the serial closed-loop
+   eval on the fake env at 256x256 views (512x512 tiles), from checkpoints
+   the phase writes with the port's own flax-msgpack writer under a
+   temporary directory: a full-width controller (``ACTConfig()``, ResNet-18
+   width 64, its train config as ``config_json``, the stats JSON files) and
+   a seeded f32 ControlNet (``checkpoint-1/controlnet/params.msgpack``); the
+   base models stay seeded. Two episodes at guidance 0 (the fused control
+   step), then one at guidance 2.0 (classifier-free guidance: B1 at batch
+   2, the split infer -> untile -> ACT path). Every control step must
+   launch B1 exactly 105 times, at batch 1 and at batch 2 under CFG; no
+   episode may end on an env exception; the loaded ControlNet must equal
+   the written tree after the bf16 cast; targets must be (1,512,512,3)
+   uint8 and actions finite; one harness control step must equal
+   ``FusedGenimaStep`` called directly on the same inputs and params. The
+   kernel phase also times B1 at batch 2 at the three levels.
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -58,6 +73,7 @@ Exits non-zero, printing no result, without a GPU or without the package.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -79,6 +95,8 @@ PATH_STEPS = 4
 LAUNCHES_PER_STEP = 105  # 7 per level per denoise step x 3 levels x 5 steps
 # (B, S, C, heads) of the SD-turbo self-attention levels at 64x64 latents
 SD_LEVELS = [(1, 4096, 320, 5), (1, 1024, 640, 10), (1, 256, 1280, 20)]
+# the same levels at batch 2: classifier-free guidance doubles the batch
+CFG_LEVELS = [(2, s, c, h) for _, s, c, h in SD_LEVELS]
 TRAIN_BATCH = 4  # the trainer CLI's default train_batch_size
 TRAIN_LEVELS = [(TRAIN_BATCH, s, c, h) for _, s, c, h in SD_LEVELS]
 LSE_TOL = 2e-3  # f32 log-sum-exp of unit-scale scores over <= 4096 keys
@@ -190,11 +208,11 @@ def _b1_row(pa, q, k, v, h, err: float) -> dict:
     }
 
 
-def kernel_phase(pa) -> list[dict]:
-    """B1 at the three SD levels at the serving batch 1."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def kernel_phase(pa, levels=SD_LEVELS, seed: int = 0) -> list[dict]:
+    """B1 at the three SD levels (the serving batch 1, or CFG's batch 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for b, s, c, h in SD_LEVELS:
+    for b, s, c, h in levels:
         q, k, v = (
             torch.randn(b, s, c, generator=gen, device="cuda").bfloat16() for _ in range(3)
         )
@@ -787,6 +805,265 @@ def train_phase(pa) -> dict:
     }
 
 
+# phase 7: the eval CLI on the fake env
+EVAL_EPISODES, EVAL_EPISODE_LENGTH, EVAL_HORIZON = 2, 40, 20
+EVAL_GUIDANCE = 2.0
+DIRECT_STEP_TOL = 0.0  # the harness's step vs FusedGenimaStep on the same inputs
+
+# the controller trainer's config for ACTConfig() at ResNet-18 width 64, as
+# the JAX trainer writes it into the checkpoint (genima_tpu/cfgs/controller.yaml)
+CONTROLLER_CONFIG = {
+    "frame_stack": 1, "action_sequence": EVAL_HORIZON, "use_onehot_time": False,
+    "clip_weights": None, "seed": 0,
+    "env": {"factory": "fake", "task": "fake_reach", "episode_length": EVAL_EPISODE_LENGTH,
+            "image_size": 256},
+    "method": {
+        "_target_": "genima_tpu.control.policy.GenimaACTAgent", "lr": 5e-05,
+        "lr_backbone": 1e-05, "weight_decay": 0.0001, "actor_grad_clip": None,
+        "num_views": 4, "frame_stack": 1, "image_size": 256, "data_augmentation": True,
+        "resnet_width": 64,
+        "act_cfg": {"hidden_dim": 256, "enc_layers": 4, "dec_layers": 6,
+                    "dim_feedforward": 2048, "dropout": 0.1, "nheads": 8,
+                    "num_queries": EVAL_HORIZON, "state_dim": 8, "action_dim": 8,
+                    "latent_dim": 32, "kl_weight": 10.0, "use_lang_cond": True,
+                    "lang_dim": 512},
+    },
+}
+
+
+def write_eval_checkpoints(root: Path) -> dict:
+    """A full-width controller checkpoint (``latest.ckpt`` + stats JSON) and
+    a seeded f32 ControlNet checkpoint, from modules made on the card."""
+    import numpy as np
+
+    from genima_torch.control.policy import build_agent
+    from genima_torch.core import checkpoint as ckpt
+    from genima_torch.diffusion.pipeline import SDControlNetPipeline
+    from genima_torch.nn.controlnet import ControlNetModel
+    from genima_torch.weights.init import build_module, init_random_
+    from genima_torch.weights.to_jax import tree_from_module
+
+    ctrl_dir, diff_dir = root / "controller", root / "diffusion"
+    t0 = time.time()
+    agent = build_agent(CONTROLLER_CONFIG, device="cuda")
+    params, _ = agent.init_params(torch.Generator(device="cuda").manual_seed(11))
+    tree = {"encoder": tree_from_module(params["encoder"], "torchvision_resnet"),
+            "actor": tree_from_module(params["actor"], "act")}
+    ckpt.save_pytree(ckpt.epoch_payload(1, 100, tree, CONTROLLER_CONFIG),
+                     ctrl_dir / ckpt.LATEST_NAME)
+    rng = np.random.RandomState(0)
+    for name in ("action_stats.json", "proprio_stats.json"):
+        (ctrl_dir / name).write_text(json.dumps({
+            "mean": rng.uniform(-0.3, 0.3, 8).tolist(), "std": rng.uniform(0.5, 1.5, 8).tolist()}))
+    torch.cuda.synchronize()
+    controller_write_s = time.time() - t0
+    del agent, params, tree
+
+    pipe = SDControlNetPipeline(device="cuda")  # dims only: no weights are made
+    controlnet = build_module(
+        lambda: ControlNetModel(pipe.unet_cfg, pipe.cond_channels, pipe.backend), pipe.device,
+        pipe.dtype)
+    init_random_(controlnet, torch.Generator(device="cuda").manual_seed(12))
+    t0 = time.time()
+    cn_tree = tree_from_module(controlnet, "diffusers_controlnet")  # f32 leaves
+    ckpt.save_pytree(cn_tree, diff_dir / "checkpoint-1" / "controlnet" / "params.msgpack")
+    controlnet_write_s = time.time() - t0
+    n_params = sum(x.size for x in _leaves(cn_tree))
+    return {"controller_dir": ctrl_dir, "diffusion_dir": diff_dir,
+            "controlnet_state": {k: v.clone() for k, v in controlnet.state_dict().items()},
+            "controlnet_params": n_params,
+            "controlnet_file_bytes": (diff_dir / "checkpoint-1" / "controlnet"
+                                      / "params.msgpack").stat().st_size,
+            "controller_write_s": controller_write_s, "controlnet_write_s": controlnet_write_s}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+class _EvalProbe:
+    """Wraps, for one eval run, the methods that show what the CLI ran: each
+    ``generate`` call's B1 launches by shape, each ``FusedGenimaStep`` call
+    (the first one's inputs and outputs kept), the split path's actions, and
+    the agent's and controller's checkpoint load times."""
+
+    def __init__(self, pa):
+        from genima_torch.diffusion.pipeline import SDControlNetPipeline
+        from genima_torch.eval.agents import SDControlNetAgent
+        from genima_torch.eval.fused import FusedGenimaStep
+        from genima_torch.eval.harness import GenimaEvalWorkspace
+
+        self.pa = pa
+        self.generate_calls, self.fused_calls, self.split_actions = [], [], []
+        self.first_fused, self.targets = None, []
+        self.load = {}
+        self._saved = []
+        probe = self
+
+        def wrap(cls, name, make):
+            orig = getattr(cls, name)
+            self._saved.append((cls, name, orig))
+            setattr(cls, name, make(orig))
+
+        def generate(orig):
+            def fn(pipe_self, *args, **kwargs):
+                before = collections.Counter(pa.packed_flash_attention.launches_by_shape)
+                out = orig(pipe_self, *args, **kwargs)
+                delta = pa.packed_flash_attention.launches_by_shape - before
+                probe.generate_calls.append(dict(delta))
+                probe.targets.append(out)
+                return out
+            return fn
+
+        def fused_call(orig):
+            def fn(step_self, *args, **kwargs):
+                before = pa.packed_flash_attention.launches
+                out = orig(step_self, *args, **kwargs)
+                probe.fused_calls.append(pa.packed_flash_attention.launches - before)
+                if probe.first_fused is None:
+                    probe.first_fused = (step_self, args, kwargs,
+                                         tuple(t.clone() for t in out))
+                return out
+            return fn
+
+        def act_device(orig):
+            def fn(ws_self, *args, **kwargs):
+                out = orig(ws_self, *args, **kwargs)
+                probe.split_actions.append(out)
+                return out
+            return fn
+
+        def timed(key):
+            def make(orig):
+                def fn(obj, *args, **kwargs):
+                    t0 = time.time()
+                    out = orig(obj, *args, **kwargs)
+                    torch.cuda.synchronize()
+                    probe.load[key] = time.time() - t0
+                    probe.load[key + "_owner"] = obj
+                    return out
+                return fn
+            return make
+
+        wrap(SDControlNetPipeline, "generate", generate)
+        wrap(FusedGenimaStep, "__call__", fused_call)
+        wrap(GenimaEvalWorkspace, "_controller_act_device", act_device)
+        wrap(SDControlNetAgent, "_load_params", timed("diffusion_params_s"))
+        wrap(GenimaEvalWorkspace, "load_controller_ckpt", timed("controller_ckpt_s"))
+
+    def close(self) -> None:
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+
+
+def _run_eval_cli(pa, argv: list[str]) -> tuple[dict, "_EvalProbe"]:
+    from genima_torch.cli import eval_genima
+
+    pa.packed_flash_attention.launches = 0
+    pa.packed_flash_attention.launches_by_shape.clear()
+    probe = _EvalProbe(pa)
+    try:
+        logs = eval_genima.main(argv)
+    finally:
+        probe.close()
+    torch.cuda.synchronize()
+    return logs, probe
+
+
+def _last_metrics(ctrl_dir: Path) -> dict:
+    lines = (ctrl_dir / "eval_logs" / "metrics.jsonl").read_text().splitlines()
+    return json.loads(lines[-1])
+
+
+def eval_phase(pa, card: str) -> dict:
+    """Phase 7: the eval CLI at full width on checkpoints written here."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        written = write_eval_checkpoints(Path(tmp))
+        ctrl_dir = written["controller_dir"]
+        argv = [
+            f"controller_ckpt={ctrl_dir}", f"diffusion_ckpt={written['diffusion_dir']}",
+            "task=fake_reach", "env.factory=fake", "env.image_size=256",
+            "image_resolution=512", "num_diffusion_steps=5",
+            f"episode_length={EVAL_EPISODE_LENGTH}", f"execution_horizon={EVAL_HORIZON}",
+            "device=cuda",
+        ]
+        out = {"card": card}
+        for name, extra, episodes in (
+            ("fused", ["guidance_scale=0.0"], EVAL_EPISODES),
+            ("cfg", [f"guidance_scale={EVAL_GUIDANCE}"], 1),
+        ):
+            logs, probe = _run_eval_cli(pa, argv + extra + [f"num_eval_episodes={episodes}"])
+            results = logs["results"]
+            if results["total_episodes"] != episodes or results["env_exception_episodes"]:
+                raise AssertionError(f"eval {name}: results {results}")
+            control_steps = sum(-(-e["steps"] // EVAL_HORIZON) for e in logs["eval_episodes"])
+            batch = 1 if name == "fused" else 2
+            # fused: a generate per control step inside FusedGenimaStep, plus the
+            # two of the one-off gen-time measurement; CFG: one per control step
+            want_generates = control_steps + (2 if name == "fused" else 0)
+            if len(probe.generate_calls) != want_generates:
+                raise AssertionError(f"eval {name}: {len(probe.generate_calls)} generate calls, "
+                                     f"want {want_generates}")
+            for delta in probe.generate_calls:
+                if sum(delta.values()) != LAUNCHES_PER_STEP or {k[0] for k in delta} != {batch}:
+                    raise AssertionError(f"eval {name}: a generate launched B1 {dict(delta)}")
+            for t in probe.targets:
+                if t.shape != (1, 512, 512, 3) or t.dtype != torch.uint8:
+                    raise AssertionError(f"eval {name}: target {tuple(t.shape)} {t.dtype}")
+            if name == "fused":
+                if probe.fused_calls != [LAUNCHES_PER_STEP] * control_steps:
+                    raise AssertionError(f"eval fused: B1 launches per step {probe.fused_calls}")
+                step_self, args, kwargs, (actions, target) = probe.first_fused
+                if actions.shape != (1, 20, 8) or not torch.isfinite(actions).all():
+                    raise AssertionError(f"eval fused: actions {tuple(actions.shape)}")
+                # the harness's step against FusedGenimaStep called directly
+                from genima_torch.eval.fused import FusedGenimaStep
+
+                dag = probe.load["diffusion_params_s_owner"]
+                direct = FusedGenimaStep(dag, step_self.controller, step_self.obs_size)
+                d_actions, d_target = direct(*args, **kwargs)
+                torch.cuda.synchronize()
+                step_err = (d_actions.float() - actions.float()).abs().max().item()
+                if not (torch.equal(d_target, target) and step_err <= DIRECT_STEP_TOL):
+                    raise AssertionError(f"eval fused: harness step vs direct FusedGenimaStep: "
+                                         f"actions err {step_err}, target equal "
+                                         f"{torch.equal(d_target, target)}")
+                # the ControlNet the agent loaded: the written tree, cast to bf16
+                loaded = dag.params["controlnet"].state_dict()
+                diff = [k for k, v in written["controlnet_state"].items()
+                        if not torch.equal(loaded[k], v)]
+                if diff or loaded[next(iter(loaded))].dtype != torch.bfloat16:
+                    raise AssertionError(f"eval: loaded ControlNet differs at {diff[:3]}")
+                out["harness_vs_direct_step_actions_err"] = step_err
+            else:
+                if len(probe.split_actions) != control_steps or not all(
+                        a.shape == (20, 8) and bool(np.isfinite(a).all())
+                        for a in probe.split_actions):
+                    raise AssertionError("eval cfg: split-path actions missing or not finite")
+                out["cfg_launches_by_shape"] = {
+                    "x".join(map(str, k)): v
+                    for k, v in pa.packed_flash_attention.launches_by_shape.items()}
+            metrics = _last_metrics(ctrl_dir)
+            out[name] = {
+                "episodes": results["total_episodes"],
+                "control_steps": control_steps,
+                "steps": [e["steps"] for e in logs["eval_episodes"]],
+                "b1_launches_per_generate": [sum(d.values()) for d in probe.generate_calls],
+                "gen_time_s": metrics["eval_genima/gen_time"],
+                "control_time_s": metrics["eval_genima/control_time"],
+                "fused_step_time_s": metrics.get("eval_genima/fused_step_time"),
+                "diffusion_params_load_s": probe.load["diffusion_params_s"],
+                "controller_ckpt_load_s": probe.load["controller_ckpt_s"],
+            }
+        out.update({k: written[k] for k in ("controller_write_s", "controlnet_write_s",
+                                             "controlnet_params", "controlnet_file_bytes")})
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -841,6 +1118,7 @@ def main() -> int:
             print(f"  {name} <{key}>: {json.dumps(report)}")
 
     kernels = kernel_phase(pa)
+    cfg_kernels = kernel_phase(pa, CFG_LEVELS, seed=3)
     train_kernels = training_kernel_phase(pa)
     opt_kernels = opt_kernel_phase()
     path = path_phase(pa)
@@ -855,11 +1133,22 @@ def main() -> int:
     _fill_launches(opt_kernels, opt["launches_by_shape"],
                    {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
     print("opt_path " + json.dumps(opt))
+    ev = eval_phase(pa, card)
+    _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    print("eval " + json.dumps(ev))
+    for name in ("fused", "cfg"):
+        e = ev[name]
+        print(f"eval {name} ({card}): gen {e['gen_time_s']:.4f} s, control "
+              f"{e['control_time_s']:.4f} s, fused step {e['fused_step_time_s']} s, "
+              f"ControlNet checkpoint write {ev['controlnet_write_s']:.2f} s, load (agent "
+              f"weights) {e['diffusion_params_load_s']:.2f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
-        + [("opt_in", r, OPT_STEPS) for r in opt_kernels])))
-    print(json.dumps({"kernels": kernels + train_kernels + opt_kernels}))
+        + [("opt_in", r, OPT_STEPS) for r in opt_kernels]
+        + [("cfg_control", r, ev["cfg"]["control_steps"]) for r in cfg_kernels])))
+    print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

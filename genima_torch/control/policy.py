@@ -5,6 +5,8 @@ Counterpart of the inference half of ``GenimaACTAgent`` in
 ``genima_tpu/control/policy.py`` (``encode_lang``, ``_act_impl``, ``act``).
 Its params are ``{"encoder": ImageEncoderACT, "actor": GenimaACTModel}``
 plus the frozen CLIP text tower, kept apart as in the reference.
+``build_agent`` makes the agent a saved train config describes
+(``genima_tpu/cli/train_act.py::build_agent``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ class GenimaACTAgent:
     clip_cfg: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig.vit_b_32)
     resnet_width: int = 64
     resnet_small_inputs: bool = False
+    # frames stacked per observation: qpos is (B, state_dim * frame_stack)
+    frame_stack: int = 1
     dtype: Optional[torch.dtype] = None  # bf16 on the card, f32 on the CPU
     device: Any = "cuda"
 
@@ -47,7 +51,7 @@ class GenimaACTAgent:
             )
         self.clip_params: Optional[CLIPTextModel] = None
 
-    def _build(self) -> tuple[dict[str, nn.Module], CLIPTextModel]:
+    def _build_params(self) -> dict[str, nn.Module]:
         c = self.act_cfg
         encoder = build_module(
             lambda: ImageEncoderACT(
@@ -56,31 +60,41 @@ class GenimaACTAgent:
             ),
             self.device, self.dtype,
         )
-        actor = build_module(lambda: GenimaACTModel(c), self.device, self.dtype)
-        clip = build_module(lambda: CLIPTextModel(self.clip_cfg), self.device, self.dtype)
-        return {"encoder": encoder, "actor": actor}, clip
+        actor_cfg = dataclasses.replace(c, state_dim=c.state_dim * self.frame_stack)
+        actor = build_module(lambda: GenimaACTModel(actor_cfg), self.device, self.dtype)
+        return {"encoder": encoder, "actor": actor}
+
+    def _build_clip(self) -> CLIPTextModel:
+        return build_module(lambda: CLIPTextModel(self.clip_cfg), self.device, self.dtype)
 
     def init_params(self, generator: torch.Generator):
         """(agent params, frozen clip) with seeded scaled-normal weights; the
         clip tower also becomes the one ``act`` uses."""
-        params, clip = self._build()
+        params, clip = self._build_params(), self._build_clip()
         for m in (*params.values(), clip):
             init_random_(m, generator)
         self.clip_params = clip
         return params, clip
 
     def params_from_jax(self, params_tree: dict, clip_tree: dict):
-        """(agent params, clip) loaded from the reference's trees; the actor
-        drops its training-only style-encoder subtrees."""
-        params, clip = self._build()
+        """(agent params, clip) loaded from the reference's trees; the clip
+        tower also becomes the one ``act`` uses."""
+        params, clip = self.load_params(params_tree), self._build_clip()
+        load_from_jax(clip, clip_tree, "hf_clip")
+        self.clip_params = clip
+        return params, clip
+
+    def load_params(self, params_tree: dict) -> dict[str, nn.Module]:
+        """The agent params from a reference ``{"encoder", "actor"}`` tree (a
+        controller checkpoint's ``agent``); the actor drops its
+        training-only style-encoder subtrees. The clip tower is not touched."""
+        params = self._build_params()
         load_from_jax(params["encoder"], params_tree["encoder"], "torchvision_resnet")
         load_from_jax(
             params["actor"], drop_subtrees(params_tree["actor"], TRAIN_ONLY_SUBTREES),
             "act",
         )
-        load_from_jax(clip, clip_tree, "hf_clip")
-        self.clip_params = clip
-        return params, clip
+        return params
 
     def encode_lang(self, clip_params: CLIPTextModel, lang_tokens) -> torch.Tensor:
         """(B, 77) -> (B, lang_dim) projected EOT feature, f32."""
@@ -104,3 +118,26 @@ class GenimaACTAgent:
     def act(self, params, images, qpos, lang_tokens) -> torch.Tensor:
         """The (B, num_queries, action_dim) action chunk."""
         return self._act_impl(params, self.clip_params, images, qpos, lang_tokens)
+
+
+# train-config keys of the reference agent and ACTConfig that only its
+# training half reads (optimizer, augmentation, dropout, the CVAE loss) or
+# that only shaped its flax init's dummy images (views, image size)
+_TRAIN_ONLY_METHOD_KEYS = ("lr", "lr_backbone", "weight_decay", "actor_grad_clip",
+                           "data_augmentation", "num_views", "image_size")
+_TRAIN_ONLY_ACT_KEYS = ("dropout", "kl_weight")
+
+
+def build_agent(cfg: dict, device: Any = "cuda") -> GenimaACTAgent:
+    """The controller agent of a saved train config (its ``method`` node):
+    ``use_onehot_time`` widens ``state_dim`` by the episode length, as the
+    OnehotTime wrapper widened ``low_dim_state``."""
+    method = dict(cfg["method"])
+    method.pop("_target_", None)
+    act_kwargs = {k: v for k, v in method.pop("act_cfg").items()
+                  if k not in _TRAIN_ONLY_ACT_KEYS}
+    if cfg.get("use_onehot_time", False):
+        act_kwargs["state_dim"] = int(act_kwargs.get("state_dim", 8)) + int(
+            cfg["env"].get("episode_length", 200))
+    kwargs = {k: v for k, v in method.items() if k not in _TRAIN_ONLY_METHOD_KEYS}
+    return GenimaACTAgent(act_cfg=ACTConfig(**act_kwargs), device=device, **kwargs)

@@ -7,6 +7,7 @@ order: [top-left, top-right, bottom-left, bottom-right].
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _grid_perm(n_lead: int) -> list[int]:
@@ -31,17 +32,33 @@ def untile_images(tiled: torch.Tensor) -> torch.Tensor:
     return grid.reshape(*lead, 4, h, w, c)
 
 
+def _resize(images: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(method="linear", antialias=downscale)`` on the two
+    spatial axes of float (..., H, W, C): half-pixel centres, a triangle
+    filter widened by the scale when shrinking, and the weights of taps
+    outside the image dropped and the rest renormalised. PyTorch's bilinear
+    resize with ``antialias=True`` builds those weights (upscaling: the
+    clamped source index gives the same edge weights)."""
+    *lead, h, w, c = images.shape
+    x = images.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=size, mode="bilinear", align_corners=False,
+                      antialias=size[0] < h or size[1] < w)
+    return y.permute(0, 2, 3, 1).reshape(*lead, *size, c)
+
+
+def resize_half(images: torch.Tensor) -> torch.Tensor:
+    """Antialiased bilinear 2x downscale of float (..., H, W, C)."""
+    h, w = images.shape[-3:-1]
+    return _resize(images, (h // 2, w // 2))
+
+
 def untile_to_cameras(tiled: torch.Tensor, target_size: int = 256) -> torch.Tensor:
     """Generated tile -> per-camera controller inputs, (..., 4, S, S, C).
-
-    Only tiles of exactly ``2 * target_size`` are supported (the default eval
-    geometry); the reference's antialiased resize is not ported yet."""
+    Quadrants are resized (antialiased when shrinking) only when they are
+    not already ``target_size``."""
     views = untile_images(tiled)
     if views.shape[-3] != target_size:
-        raise NotImplementedError(
-            f"untile_to_cameras: quadrant size {views.shape[-3]} != target_size "
-            f"{target_size} needs the antialiased resize, not ported"
-        )
+        views = _resize(views, (target_size, target_size))
     return views
 
 

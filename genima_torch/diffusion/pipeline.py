@@ -4,10 +4,12 @@ Counterpart of ``SDControlNetPipeline`` in
 ``genima_tpu/diffusion/pipeline.py``. The pipeline holds configuration; its
 ``params`` are a dict of modules (``unet``, ``controlnet``, ``vae``,
 ``text_encoder``) built by ``init_params`` or ``params_from_jax``, playing
-the part of the reference's param trees. Guidance is 0 at eval (Genima's
-``guidance_scale: 0.0``), so there is no classifier-free-guidance batch;
-latents are always passed in; the batch decodes in one pass (the
-reference's ``decode_mode="auto"`` window works around a TPU conv lowering).
+the part of the reference's param trees. Classifier-free guidance runs as
+the reference's does: with ``guidance_scale > 1`` and negative prompt
+embeddings the batch doubles to [negative, positive] (Genima evaluates at
+``guidance_scale: 0.0``, which skips it). Latents are always passed in; the
+batch decodes in one pass (the reference's ``decode_mode="auto"`` window
+works around a TPU conv lowering).
 """
 
 from __future__ import annotations
@@ -94,14 +96,18 @@ class SDControlNetPipeline:
 
     def params_from_jax(self, tree: dict) -> dict[str, nn.Module]:
         """The four models loaded from the reference's param trees (numpy
-        leaves; quantized UNet and ControlNet trees under ``+w8``); without
-        ``vae_encoder`` the VAE keeps only its decode subtrees."""
-        trees = dict(tree)
-        if not self.vae_encoder:
-            trees["vae"] = drop_subtrees(tree["vae"], DECODE_SUBTREES, keep=True)
-        return {
-            k: load_from_jax(m, trees[k], _FAMILIES[k]) for k, m in self._build().items()
-        }
+        leaves; quantized UNet and ControlNet trees under ``+w8``)."""
+        params = self._build()
+        for name in params:
+            self.load_tree(params, name, tree[name])
+        return params
+
+    def load_tree(self, params: dict[str, nn.Module], name: str, tree: dict) -> None:
+        """Load one model of ``params`` in place from the reference's tree;
+        without ``vae_encoder`` the VAE keeps only its decode subtrees."""
+        if name == "vae" and not self.vae_encoder:
+            tree = drop_subtrees(tree, DECODE_SUBTREES, keep=True)
+        load_from_jax(params[name], tree, _FAMILIES[name])
 
     @torch.inference_mode()
     def encode_prompt(self, params: dict, input_ids) -> torch.Tensor:
@@ -117,22 +123,32 @@ class SDControlNetPipeline:
         prompt_embeds: torch.Tensor,  # (B, 77, hidden)
         latents: torch.Tensor,  # (B, H/8, W/8, 4) standard normal, NHWC
         num_inference_steps: int = 5,
+        guidance_scale: float = 0.0,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,  # (B, 77, hidden)
     ) -> torch.Tensor:
         """Denoise loop + VAE decode: (B, H, W, 3) uint8 targets."""
         unet, controlnet = params["unet"], params["controlnet"]
         state = self.scheduler.set_timesteps(num_inference_steps)
+        do_cfg = guidance_scale > 1.0 and negative_prompt_embeds is not None
         cond = cond_image.to(self.device)
         if cond.dtype == torch.uint8:
             cond = cond.to(self.dtype) / 255.0
         cond = cond.to(self.dtype).permute(0, 3, 1, 2).contiguous()
         embeds = prompt_embeds.to(self.device, self.dtype)
+        if do_cfg:
+            embeds = torch.cat([negative_prompt_embeds.to(self.device, self.dtype), embeds])
         # loop-invariant: the conditioning CNN runs once, outside the loop
         cond_emb = embed_conditioning(controlnet, cond)
+        if do_cfg:
+            cond_emb = torch.cat([cond_emb, cond_emb])
 
         sample = latents.to(self.device, torch.float32).permute(0, 3, 1, 2).contiguous()
         sample = sample * float(state.init_noise_sigma)
         for i in range(num_inference_steps):
-            model_in = self.scheduler.scale_model_input(state, sample, i).to(self.dtype)
+            model_in = self.scheduler.scale_model_input(state, sample, i)
+            if do_cfg:
+                model_in = torch.cat([model_in, model_in])
+            model_in = model_in.to(self.dtype)
             t = torch.full(
                 (model_in.shape[0],), float(state.timesteps[i]), device=self.device
             )
@@ -142,6 +158,9 @@ class SDControlNetPipeline:
                 down_block_additional_residuals=down_res,
                 mid_block_additional_residual=mid_res,
             )
+            if do_cfg:
+                eps_uncond, eps_text = eps.chunk(2)
+                eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
             sample = self.scheduler.step(state, eps.float(), i, sample)
 
         z = (sample / self.vae_cfg.scaling_factor).to(self.dtype)

@@ -33,7 +33,8 @@ def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
     the opt-in serving configuration ``"pallas+w8"`` / ``"fused"``, whose
     int8 weights ``init_params`` quantizes from the seeded floats)."""
     pipe = SDControlNetPipeline(device=device, backend=backend, conv_backend=conv_backend)
-    dag = SDControlNetAgent(pipe, seed=seed)
+    dag = SDControlNetAgent(
+        pipe, params=pipe.init_params(torch.Generator(device=pipe.device).manual_seed(seed)))
     device = dag.pipe.device
     act_agent = GenimaACTAgent(device=device)
     act_params, clip = act_agent.init_params(

@@ -109,16 +109,18 @@ def torch_name(path: tuple[str, ...], family: str, w8: bool = False) -> str:
     return ".".join([*parts, leaf_name])
 
 
-def torch_array(arr: Any, leaf: str) -> np.ndarray:
+def torch_array(arr: Any, leaf: str) -> np.ndarray | torch.Tensor:
     """Flax layout -> torch layout: conv HWIO -> OIHW, dense (I,O) -> (O,I),
-    int8 ``kernel_q`` (K, N) -> (N, K)."""
-    arr = np.asarray(arr)
+    int8 ``kernel_q`` (K, N) -> (N, K). A bf16 leaf, which a checkpoint
+    hands over as a torch tensor (numpy has no bf16), stays one."""
+    if not isinstance(arr, torch.Tensor):
+        arr = np.asarray(arr)
     if leaf in ("kernel", "kernel_q"):
         if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+            arr = arr.transpose(3, 2, 0, 1) if isinstance(arr, np.ndarray) else arr.permute(3, 2, 0, 1)
         elif arr.ndim == 2:
             arr = arr.T
-    return np.ascontiguousarray(arr)
+    return arr.contiguous() if isinstance(arr, torch.Tensor) else np.ascontiguousarray(arr)
 
 
 def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
@@ -133,7 +135,8 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
 
 
 def state_dict_from_jax(tree: Mapping, family: str) -> dict[str, np.ndarray]:
-    """Flax params tree -> the port's state dict (numpy arrays)."""
+    """Flax params tree -> the port's state dict (numpy arrays; torch
+    tensors for bf16 leaves)."""
     out: dict[str, np.ndarray] = {}
     for path, leaf, w8 in _flatten(tree):
         name = torch_name(path, family, w8)
@@ -150,11 +153,19 @@ def load_from_jax(module: nn.Module, tree: Mapping, family: str) -> nn.Module:
     ref = next(module.parameters())
     target = module.state_dict()
     sd = {
-        k: torch.tensor(v, device=ref.device, dtype=target[k].dtype if k in target else ref.dtype)
+        k: _tensor(v).to(ref.device, target[k].dtype if k in target else ref.dtype)
         for k, v in state_dict_from_jax(tree, family).items()
     }
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def _tensor(v) -> torch.Tensor:
+    """A CPU tensor over ``v``'s memory where numpy lets it be written (a
+    checkpoint's buffer), else a copy (JAX's read-only host arrays)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.from_numpy(v) if v.flags.writeable else torch.tensor(v)
 
 
 def drop_subtrees(tree: Mapping, names: tuple[str, ...], keep: bool = False) -> dict:

@@ -1,0 +1,74 @@
+"""The port's modules as the reference's parameter trees: the inverse of
+``from_jax.state_dict_from_jax``.
+
+Counterpart of the export half of ``genima_tpu/weights/torch_port.py``
+(``port_torch_state_dict`` onto a flax template): ``tree_from_module``
+builds the flax tree (nested dicts of numpy arrays) a JAX model of the same
+configuration holds, so a checkpoint written from a port module loads in
+either package. Each state-dict key becomes a flax path by joining every
+``name.<int>`` pair into ``name_<int>`` and naming the leaf after the
+owning module (a linear or conv ``weight`` is a ``kernel``, a norm's a
+``scale``, an embedding's an ``embedding``; BatchNorm statistics are
+``mean`` / ``var``); the result is checked key by key against the forward
+rule, so a name the rules cannot invert raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from genima_torch.nn.resnet import FrozenBatchNorm
+from genima_torch.weights.from_jax import torch_name
+
+_NORMS = (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)
+
+
+def _flax_leaf(owner: nn.Module, leaf: str) -> str:
+    if leaf == "weight" and isinstance(owner, (nn.Linear, nn.Conv2d)):
+        return "kernel"
+    if leaf == "weight" and isinstance(owner, _NORMS):
+        return "scale"
+    if leaf == "weight" and isinstance(owner, nn.Embedding):
+        return "embedding"
+    return {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+
+
+def _flax_tokens(module_path: list[str]) -> list[str]:
+    out: list[str] = []
+    for part in module_path:
+        if part.isdigit() and out:
+            out[-1] = f"{out[-1]}_{part}"
+        else:
+            out.append(part)
+    return out
+
+
+def _flax_array(t: torch.Tensor, leaf: str) -> np.ndarray:
+    x = t.detach().cpu()
+    x = (x.float() if x.is_floating_point() else x).numpy()
+    if leaf == "kernel":
+        if x.ndim == 4:  # OIHW -> HWIO
+            x = x.transpose(2, 3, 1, 0)
+        elif x.ndim == 2:  # (O, I) -> (I, O)
+            x = x.T
+    return np.ascontiguousarray(x)
+
+
+def tree_from_module(module: nn.Module, family: str) -> dict:
+    """The flax params tree of ``module`` (float leaves in f32)."""
+    tree: dict = {}
+    for key, t in module.state_dict().items():
+        *mod_path, leaf = key.split(".")
+        owner = module.get_submodule(".".join(mod_path)) if mod_path else module
+        path = (*_flax_tokens(mod_path), _flax_leaf(owner, leaf))
+        if torch_name(path, family) != key:
+            raise KeyError(f"no flax path maps to {key!r} under family {family!r}")
+        node = tree
+        for token in path[:-1]:
+            node = node.setdefault(token, {})
+        if path[-1] in node:
+            raise KeyError(f"two state-dict keys map to flax path {'/'.join(path)}")
+        node[path[-1]] = _flax_array(t, path[-1])
+    return tree

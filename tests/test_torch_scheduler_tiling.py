@@ -74,8 +74,13 @@ def test_tile_untile_bit_equal():
 
 
 def test_untile_to_cameras_raises_on_resize():
-    with pytest.raises(NotImplementedError):
-        tt.untile_to_cameras(torch.zeros(1, 64, 64, 3), target_size=16)
+    # the antialiased resize is ported: a 32x32 quadrant shrunk to 16 matches
+    # JAX's jax.image.resize (f32, values in [0, 1])
+    x = np.random.RandomState(2).rand(1, 64, 64, 3).astype(np.float32)
+    np.testing.assert_allclose(
+        tt.untile_to_cameras(torch.from_numpy(x), target_size=16).numpy(),
+        np.asarray(jt.untile_to_cameras(jnp.asarray(x), target_size=16)), atol=1e-4, rtol=0,
+    )
     with pytest.raises(ValueError):
         tt.tile_images(torch.zeros(1, 3, 8, 8, 3))
 

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``genima_torch`` loads
-neither JAX nor anything of the JAX package ``genima_tpu``."""
+neither JAX nor anything of the JAX package ``genima_tpu``; importing the
+eval path loads none of the packages the card's machine lacks."""
 
 import os
 import subprocess
@@ -22,7 +23,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", CODE], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 56  # every module was walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -31,5 +32,24 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'genima_tpu')];" \
            "assert not bad, bad"
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+EVAL_PATH = """
+import importlib, sys
+for name in ("core.checkpoint", "core.config", "core.logging", "envs.core", "envs.wrappers",
+             "envs.fake", "envs.rlbench", "eval.agents", "eval.video", "eval.harness",
+             "weights.to_jax", "weights.openai_clip", "cli.eval_genima", "cli.eval_act"):
+    importlib.import_module("genima_torch." + name)
+absent = ("gymnasium", "msgpack", "flax", "yaml", "imageio", "PIL", "jax", "genima_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
+assert not bad, bad
+"""
+
+
+def test_eval_path_imports_none_of_the_packages_the_card_lacks():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", EVAL_PATH], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
