@@ -63,6 +63,26 @@
    ``FusedGenimaStep`` called directly on the same inputs and params. The
    kernel phase also times B1 at batch 2 at the three levels.
 
+8. Fine-tune features: ``run_training`` at the train path's width and
+   batch on a seeded dataset of 12 samples (3 batches an epoch, so the
+   steps timed around a submit start no epoch). Run A: every augmentation,
+   a step checkpoint every 2 steps (limit 1), validation every 3 (so the
+   step after a submit carries the writer alone), TensorBoard, 6 steps
+   asked for, and a preemption request after step 3: it must stop at 3
+   with only ``checkpoint-3`` (params, train state, metadata), the step-3
+   validation PNG and a finite val_mse; each train step launches
+   B1/B2a/B2b as in phase 6, each validation 84 B1 (4 denoise steps at batch 1) and no
+   B2. Run B: resume from ``latest`` to step 6; the restored params and
+   moments must equal run A's at step 3 bit for bit, and the final
+   ``controlnet/params.msgpack`` loaded by the eval agent must equal the
+   final master weights cast to bf16. Run C: 8-bit AdamW, 2-step gradient
+   accumulation, 4 mini-steps; the params stay after mini-steps 1 and 3 and
+   move after 2 and 4, and the 8-bit moments hold ~2.03 bytes a parameter.
+   Times: the checkpoint's bytes, each write's seconds, each submit's wait
+   on the previous write and its copy apart, the step right after a submit
+   against the one before it, the resume's load, validation, run C's steps,
+   peak memory.
+
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
 same sums of its bound and library time), one ``{"kernels": [...]}`` line,
@@ -700,7 +720,8 @@ def train_phase(pa) -> dict:
             "--train_batch_size", str(TRAIN_BATCH), "--max_train_steps", str(TRAIN_STEPS),
             "--seed", "0", "--device", "cuda", "--mixed_precision", "bf16",
             "--enable_xformers_memory_efficient_attention", "--max_grad_norm", "1.0",
-            "--dataloader_num_workers", "4",
+            "--dataloader_num_workers", "4", "--output_dir", str(Path(tmp) / "out"),
+            "--report_to", "none",
         ])
         t0 = time.time()
         pipe = driver.build_pipeline(args)
@@ -1064,6 +1085,294 @@ def eval_phase(pa, card: str) -> dict:
     return out
 
 
+# phase 8: the fine-tune's features at full width
+FT_STEPS, FT_PREEMPT_AT, FT_ACCUM_STEPS = 6, 3, 4
+FT_AUGMENTATIONS = "colorjitter,elastic,blur,affine,crop"
+VAL_B1_LAUNCHES = 84  # 21 per denoise step x 4 validation steps, batch 1
+
+
+def _ft_counts(pa) -> dict:
+    c = {"B1": pa.packed_flash_attention.launches, "B2a": pa.packed_attention_forward_lse.launches,
+         "B2b": pa.packed_attention_backward.launches}
+    c["fallbacks"] = pa.PackedFlashAttention.fallbacks
+    return c
+
+
+def _ft_zero(pa) -> None:
+    for fn in (pa.packed_flash_attention, pa.packed_attention_forward_lse,
+               pa.packed_attention_backward):
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+    pa.PackedFlashAttention.fallbacks = 0
+
+
+class _FinetuneProbe:
+    """Wraps the driver's validation, checkpoint submit, step-checkpoint
+    writer and resume for one phase: their times, the B1/B2a/B2b launches between
+    steps (validation's counted apart), the written checkpoints' bytes, and
+    the state a resume restored. ``close`` puts the originals back."""
+
+    def __init__(self, pa, driver, ckpt):
+        self.pa, self.driver, self.ckpt = pa, driver, ckpt
+        self.orig = (driver.log_validation, ckpt.save_step_checkpoint,
+                     driver.restore_checkpoint, ckpt.AsyncCheckpointer.submit)
+        self.reset()
+        driver.log_validation = self._validation
+        ckpt.save_step_checkpoint = self._save
+        driver.restore_checkpoint = self._restore
+        probe = self
+
+        def submit(writer, fn, *args, **kwargs):
+            # the wait on the previous write, then the copy (whose own wait
+            # is then a no-op)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            writer.wait()
+            t1 = time.perf_counter()
+            self.orig[3](writer, fn, *args, **kwargs)
+            torch.cuda.synchronize()
+            probe.mark = time.perf_counter()
+            probe.submits.append({"step": args[1], "wait_ms": (t1 - t0) * 1e3,
+                                  "copy_ms": (probe.mark - t1) * 1e3})
+
+        ckpt.AsyncCheckpointer.submit = submit
+
+    def reset(self) -> None:
+        _ft_zero(self.pa)
+        torch.cuda.synchronize()
+        self.last, self.mark = _ft_counts(self.pa), time.perf_counter()
+        self.steps, self.validations, self.writes, self.restores, self.submits = [], [], [], [], []
+
+    def hook(self, step, state, metrics):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), _ft_counts(self.pa)
+        self.steps.append({"step": step, "ms": (now - self.mark) * 1e3,
+                           "loss": float(metrics["loss"]),
+                           "launches": {k: counts[k] - self.last[k] for k in counts}})
+        self.last, self.mark = counts, now
+
+    def _validation(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), _ft_counts(self.pa)
+        out = self.orig[0](*args, **kwargs)
+        torch.cuda.synchronize()
+        self.last, self.mark = _ft_counts(self.pa), time.perf_counter()
+        self.validations.append({"step": args[5], "s": self.mark - t0, "val_mse": out,
+                                 "launches": {k: self.last[k] - c0[k] for k in c0}})
+        return out
+
+    def _save(self, output_dir, step, **kwargs):
+        import threading
+
+        t0 = time.perf_counter()
+        d = self.orig[1](output_dir, step, **kwargs)
+        self.writes.append({
+            "step": step, "s": time.perf_counter() - t0,
+            "bytes": sum(f.stat().st_size for f in d.rglob("*") if f.is_file()),
+            "async": threading.current_thread() is not threading.main_thread()})
+        return d
+
+    def _restore(self, trainer, state, resume_dir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig[2](trainer, state, resume_dir)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        # copies: the run goes on to update these tensors in place
+        self.restores.append({"s": dt, "step": out.step, "count": out.opt_state.count, **{
+            name: {k: t.clone() for k, t in tensors.items()} for name, tensors in (
+                ("params", out.params), ("mu", out.opt_state.mu), ("nu", out.opt_state.nu))}})
+        return out
+
+    def close(self) -> None:
+        (self.driver.log_validation, self.ckpt.save_step_checkpoint,
+         self.driver.restore_checkpoint, self.ckpt.AsyncCheckpointer.submit) = self.orig
+
+
+def _check_train_launches(run: str, steps: list) -> None:
+    for s in steps:
+        if s["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"finetune {run}: step {s['step']} launches {s['launches']}, "
+                                 f"want {TRAIN_LAUNCHES}")
+        if not math.isfinite(s["loss"]):
+            raise AssertionError(f"finetune {run}: step {s['step']} loss {s['loss']}")
+
+
+def finetune_phase(pa, card: str) -> dict:
+    """Phase 8: ``run_training`` at full width with step checkpoints,
+    validation, augmentations and a preemption (run A), a resume from
+    ``latest`` to the final save, which the eval agent loads (run B), and
+    the 8-bit AdamW under gradient accumulation (run C)."""
+    from genima_torch.cli.train_controlnet_genima import parse_args
+    from genima_torch.core import checkpoint as ckpt
+    from genima_torch.core.optim import BLOCK, MIN_QUANTIZED, optimizer_state_bytes
+    from genima_torch.core.preemption import PreemptionGuard
+    from genima_torch.diffusion import driver
+    from genima_torch.eval.agents import SDControlNetAgent
+    from genima_torch.weights.from_jax import state_dict_from_jax
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, run_dir = Path(tmp) / "data", Path(tmp) / "out"
+        # 12 samples, 3 batches an epoch: steps 2 and 3 of run A (before and
+        # after the first submit) and 5 and 6 of run B start no epoch
+        write_rendered_dataset(data, frames=7)
+        base = ["--data_path", str(data), "--tasks", "toy_task", "--resolution", "512",
+                "--train_batch_size", str(TRAIN_BATCH), "--seed", "0", "--device", "cuda",
+                "--mixed_precision", "bf16", "--enable_xformers_memory_efficient_attention",
+                "--dataloader_num_workers", "4"]
+        argv = base + ["--output_dir", str(run_dir), "--augmentations", FT_AUGMENTATIONS,
+                       "--checkpointing_steps", "2", "--checkpoints_total_limit", "1",
+                       "--validation_steps", "3", "--report_to", "tensorboard",
+                       "--max_train_steps", str(FT_STEPS)]
+        probe = _FinetuneProbe(pa, driver, ckpt)
+        try:
+            # run A: preempted after step 3
+            guard, held = PreemptionGuard(), {}
+
+            def hook_a(step, state, metrics):
+                probe.hook(step, state, metrics)
+                if step == FT_PREEMPT_AT:
+                    held["params"] = {k: t.clone() for k, t in state.params.items()}
+                    held["mu"] = {k: t.clone() for k, t in state.opt_state.mu.items()}
+                    held["nu"] = {k: t.clone() for k, t in state.opt_state.nu.items()}
+                    held["opt_bytes"] = optimizer_state_bytes(state.opt_state)
+                    held["params_bytes"] = sum(t.numel() * 4 for t in state.params.values())
+                    guard.request()
+
+            probe.reset()
+            torch.cuda.reset_peak_memory_stats()
+            res_a = driver.run_training(parse_args(argv), step_hook=hook_a, preemption=guard)
+            peak_a = torch.cuda.max_memory_allocated() / 2**30
+            a = {"steps": probe.steps, "validations": probe.validations,
+                 "submit_ms": probe.submits, "writes": probe.writes}
+            if res_a["global_step"] != FT_PREEMPT_AT:
+                raise AssertionError(f"finetune A stopped at {res_a['global_step']}")
+            kept = [p.name for _, p in ckpt.list_step_checkpoints(run_dir)]
+            if kept != [f"checkpoint-{FT_PREEMPT_AT}"]:
+                raise AssertionError(f"finetune A: checkpoints {kept}")
+            for f in ("controlnet/params.msgpack", "train_state.msgpack", "metadata.json"):
+                if not (run_dir / kept[0] / f).is_file():
+                    raise AssertionError(f"finetune A: {kept[0]}/{f} missing")
+            if not (run_dir / "logs" / "validation" / "step3_val0.png").is_file():
+                raise AssertionError("finetune A: validation PNG of step 3 missing")
+            if not (res_a["val_mse"] is not None and math.isfinite(res_a["val_mse"])):
+                raise AssertionError(f"finetune A: val_mse {res_a['val_mse']}")
+            _check_train_launches("A", probe.steps)
+            for v in probe.validations:
+                want = {"B1": VAL_B1_LAUNCHES, "B2a": 0, "B2b": 0, "fallbacks": 0}
+                if v["launches"] != want:
+                    raise AssertionError(f"finetune A: validation launches {v['launches']}")
+            if [w["async"] for w in probe.writes] != [True, False]:
+                raise AssertionError(f"finetune A: writes {probe.writes}")
+
+            # run B: resume from latest to the end, the final save
+            final = {}
+
+            def hook_b(step, state, metrics):
+                probe.hook(step, state, metrics)
+                final["params"] = state.params
+
+            probe.reset()
+            res_b = driver.run_training(parse_args(argv + ["--resume_from_checkpoint", "latest"]),
+                                        step_hook=hook_b)
+            b = {"steps": probe.steps, "validations": probe.validations,
+                 "submit_ms": probe.submits, "writes": probe.writes,
+                 "resume_load_s": probe.restores[0]["s"]}
+            restored = probe.restores[0]
+            if restored["step"] != FT_PREEMPT_AT or restored["count"] != FT_PREEMPT_AT:
+                raise AssertionError(f"finetune B: restored step {restored['step']}")
+            for name in ("params", "mu", "nu"):
+                diff = [k for k, t in held[name].items() if not torch.equal(restored[name][k], t)]
+                if diff:
+                    raise AssertionError(f"finetune B: restored {name} differ at {diff[:3]}")
+            if res_b["global_step"] != FT_STEPS:
+                raise AssertionError(f"finetune B ended at {res_b['global_step']}")
+            _check_train_launches("B", probe.steps)
+            # checkpoint-6, written on the writer thread, holds the final weights
+            written = state_dict_from_jax(ckpt.load_pytree(
+                run_dir / f"checkpoint-{FT_STEPS}" / "controlnet" / "params.msgpack"),
+                "diffusers_controlnet")
+            diff = [k for k, t in final["params"].items()
+                    if not torch.equal(torch.from_numpy(written[k]), t.cpu())]
+            if diff:
+                raise AssertionError(f"finetune B: checkpoint-{FT_STEPS} differs at {diff[:3]}")
+            agent = SDControlNetAgent(diffusion_ckpt=str(run_dir / "controlnet"), device="cuda")
+            loaded = agent.params["controlnet"].state_dict()
+            diff = [k for k, t in final["params"].items()
+                    if not torch.equal(loaded[k], t.to(agent.pipe.dtype))]  # bf16 on the card
+            if diff or loaded["conv_in.weight"].dtype != agent.pipe.dtype:
+                raise AssertionError(f"finetune B: the agent's ControlNet differs at {diff[:3]}")
+            del agent, loaded, final, restored, written, held["params"], held["mu"], held["nu"]
+            probe.restores.clear()
+            torch.cuda.empty_cache()
+
+            # run C: 8-bit AdamW, gradient accumulation over 2 mini-steps
+            prev, moved, c_state = {}, [], {}
+
+            def hook_c(step, state, metrics):
+                probe.hook(step, state, metrics)
+                moved.append(any(not torch.equal(prev["p"][k], t)
+                                 for k, t in state.params.items()))
+                prev["p"] = {k: t.clone() for k, t in state.params.items()}
+                c_state["opt"] = state.opt_state
+                torch.cuda.synchronize()
+                probe.mark = time.perf_counter()  # the checks are not the next step's time
+
+            args_c = parse_args(base + ["--output_dir", str(Path(tmp) / "out_c"), "--use_8bit_adam",
+                                        "--gradient_accumulation_steps", "2", "--report_to", "none",
+                                        "--max_train_steps", str(FT_ACCUM_STEPS)])
+            pipe = driver.build_pipeline(args_c)
+            params = driver.init_model_params(pipe, args_c)
+            prev["p"] = {k: p.detach().float().clone()
+                         for k, p in params["controlnet"].named_parameters()}
+            probe.reset()
+            torch.cuda.reset_peak_memory_stats()
+            res_c = driver.run_training(args_c, pipe=pipe, params=params, step_hook=hook_c)
+            peak_c = torch.cuda.max_memory_allocated() / 2**30
+            c = {"steps": probe.steps}
+            if res_c["global_step"] != FT_ACCUM_STEPS or moved != [False, True, False, True]:
+                raise AssertionError(f"finetune C: steps {res_c['global_step']}, params moved "
+                                     f"after mini-steps {moved}")
+            _check_train_launches("C", probe.steps)
+            opt = c_state["opt"]
+            q8_bytes = optimizer_state_bytes(opt.inner_opt_state)
+            # int8 codes padded to whole blocks and an f32 scale per block for
+            # both moments; f32 moments for the small tensors
+            want = sum(2 * (-(-t.numel() // BLOCK)) * (BLOCK + 4) if t.numel() >= MIN_QUANTIZED
+                       else 8 * t.numel() for t in prev["p"].values())
+            if q8_bytes != want:
+                raise AssertionError(f"finetune C: 8-bit state {q8_bytes} bytes, want {want}")
+        finally:
+            probe.close()
+
+    # run A: step 2 runs with no write in flight, step 3 right after the
+    # submit of checkpoint-2 (the writer copies and writes during it)
+    step2, step3 = a["steps"][1]["ms"], a["steps"][2]["ms"]
+    out.update({
+        "run_a": a, "run_b": b, "run_c": c,
+        "checkpoint_bytes": a["writes"][0]["bytes"],
+        "params_bytes": held["params_bytes"],
+        "f32_moment_bytes": held["opt_bytes"],
+        "q8_moment_bytes": q8_bytes,
+        "q8_state_with_accumulator_bytes": optimizer_state_bytes(opt),
+        "submits": a["submit_ms"] + b["submit_ms"],
+        "async_write_s": [w["s"] for w in a["writes"] + b["writes"] if w["async"]],
+        "sync_write_s": [w["s"] for w in a["writes"] + b["writes"] if not w["async"]],
+        "step_before_submit_ms": step2,
+        "step_after_submit_ms": step3,
+        "blocked_ms": step3 - step2,
+        "run_b_step_ms": [s["ms"] for s in b["steps"]],
+        "resume_load_s": b["resume_load_s"],
+        "validation_s": [v["s"] for v in a["validations"] + b["validations"]],
+        "val_mse": [v["val_mse"] for v in a["validations"] + b["validations"]],
+        "run_c_update_step_ms": [s["ms"] for s in c["steps"] if s["step"] % 2 == 0],
+        "run_c_accumulate_step_ms": [s["ms"] for s in c["steps"][1:] if s["step"] % 2],
+        "peak_mem_gb_a": peak_a, "peak_mem_gb_c": peak_c,
+    })
+    return out
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -1143,6 +1452,21 @@ def main() -> int:
               f"{e['control_time_s']:.4f} s, fused step {e['fused_step_time_s']} s, "
               f"ControlNet checkpoint write {ev['controlnet_write_s']:.2f} s, load (agent "
               f"weights) {e['diffusion_params_load_s']:.2f} s")
+    ft = finetune_phase(pa, card)
+    print("finetune " + json.dumps(ft))
+    gb = 1e9
+    print(f"finetune ({card}): checkpoint {ft['checkpoint_bytes'] / gb:.3f} GB, async writes "
+          f"{ft['async_write_s']} s, sync writes {ft['sync_write_s']} s, submits "
+          + ", ".join(f"checkpoint-{x['step']} wait {x['wait_ms']:.1f} + copy "
+                      f"{x['copy_ms']:.1f} ms" for x in ft["submits"])
+          + f"; step before submit "
+          f"{ft['step_before_submit_ms']:.1f} ms, after {ft['step_after_submit_ms']:.1f} ms "
+          f"(blocked {ft['blocked_ms']:.1f} ms), run B {ft['run_b_step_ms']} ms; resume "
+          f"load {ft['resume_load_s']:.2f} s; validation {ft['validation_s']} s, val_mse "
+          f"{ft['val_mse']}; moments f32 {ft['f32_moment_bytes'] / gb:.3f} GB, 8-bit "
+          f"{ft['q8_moment_bytes'] / gb:.3f} GB; run C steps update "
+          f"{ft['run_c_update_step_ms']} ms, accumulate {ft['run_c_accumulate_step_ms']} ms; "
+          f"peak {ft['peak_mem_gb_a']:.2f} / {ft['peak_mem_gb_c']:.2f} GiB")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]

@@ -19,9 +19,12 @@ own on ``struct`` and ``memoryview``:
 
 Two contracts sit on top:
 
-1. Diffusion trainers: ``checkpoint-<step>/`` directories, the trained
-   submodel in its own subdirectory (``controlnet/params.msgpack``), or a
-   final model directory (``find_model_checkpoint``).
+1. Diffusion trainers: ``checkpoint-<step>/`` directories holding the
+   trained submodel in its own subdirectory (``controlnet/params.msgpack``),
+   ``train_state.msgpack`` and ``metadata.json``, pruned to a retention
+   limit *before* each save; a final model directory at the output root;
+   ``find_model_checkpoint`` to pick one. ``AsyncCheckpointer`` copies the
+   trees at ``submit`` and writes them on one background thread.
 2. The controller trainer: ``latest.ckpt`` rotated to ``<epoch>.ckpt``,
    each holding ``epoch``, ``num_iters``, the ``agent`` tree and the train
    config as UTF-8 JSON bytes (``config_json``); eval picks latest / last /
@@ -32,8 +35,10 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import struct
 import tempfile
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any
 
@@ -350,6 +355,144 @@ def list_step_checkpoints(output_dir: str | Path) -> list[tuple[int, Path]]:
 def latest_step_checkpoint(output_dir: str | Path) -> Path | None:
     ckpts = list_step_checkpoints(output_dir)
     return ckpts[-1][1] if ckpts else None
+
+
+def save_step_checkpoint(
+    output_dir: str | Path,
+    step: int,
+    *,
+    model_params: Any,
+    model_subdir: str = "controlnet",
+    train_state: Any | None = None,
+    total_limit: int | None = None,
+) -> Path:
+    """Write ``checkpoint-<step>/``: ``<model_subdir>/params.msgpack``,
+    ``train_state.msgpack`` and ``metadata.json`` (``{"step": step}``). With
+    ``total_limit``, the oldest step checkpoints are removed first, down to
+    ``total_limit - 1``. (The JAX package's ``extra`` trees hold pix2pix's
+    EMA, which comes with that trainer.)"""
+    output_dir = Path(output_dir)
+    if total_limit is not None:
+        existing = list_step_checkpoints(output_dir)
+        for _, old in existing[:max(len(existing) - (total_limit - 1), 0)]:
+            shutil.rmtree(old)
+    ckpt_dir = output_dir / f"checkpoint-{step}"
+    save_pytree(model_params, ckpt_dir / model_subdir / "params.msgpack")
+    if train_state is not None:
+        save_pytree(train_state, ckpt_dir / "train_state.msgpack")
+    with open(ckpt_dir / "metadata.json", "w") as f:
+        json.dump({"step": step}, f, indent=2)
+    return ckpt_dir
+
+
+def save_final_model(output_dir: str | Path, model_params: Any,
+                     model_subdir: str | None = None) -> Path:
+    """The final model at the output root: ``[<model_subdir>/]params.msgpack``."""
+    output_dir = Path(output_dir)
+    target = output_dir / model_subdir if model_subdir else output_dir
+    save_pytree(model_params, target / "params.msgpack")
+    return target
+
+
+def snapshot(tree: Any) -> Any:
+    """A copy of every tensor of ``tree`` on its own device, contiguous; the
+    trainer updates its tensors in place, so an asynchronous write must be
+    handed copies. The copies are queued on the current stream, before any
+    later in-place update."""
+    return _map_tensors(lambda t: t.detach().clone(memory_format=torch.contiguous_format), tree)
+
+
+def _map_tensors(fn, tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+class AsyncCheckpointer:
+    """Writes checkpoints on one background thread, overlapping the next
+    train steps. ``submit`` copies the trees' tensors before it returns (the
+    trainer updates them in place), so the caller hands it live tensors. At
+    most one write is in flight: ``submit`` first waits for the previous one
+    and raises its error. Directory pruning happens inside the submitted
+    function, so disk operations keep submission order. Call ``wait``
+    before reading checkpoints, and ``close`` at the end.
+
+    On the card the copy is one device-to-device copy per tensor into a
+    flat device arena, queued on the submitter's stream; the writer then
+    brings the arena to a pinned host arena in one copy on a stream of its
+    own, after an event recorded behind the first copy, and writes from
+    views of it. Both arenas live as long as the writer and grow at the
+    ``submit`` that needs more. A copy into pageable memory instead holds
+    the driver while it stages, and the train step's launches wait behind
+    it; one copy per tensor from the writer thread contends for the GIL."""
+
+    ALIGN = 64  # bytes between two tensors' slices of the arenas
+
+    def __init__(self) -> None:
+        self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
+        self._pending: Future | None = None
+        self._stream = None
+        self._device_arena: torch.Tensor | None = None
+        self._host_arena: torch.Tensor | None = None
+
+    def submit(self, fn, /, *args, **kwargs) -> None:
+        self.wait()
+        tree = (args, kwargs)
+        cuda = []
+        _map_tensors(lambda t: cuda.append(t) if t.is_cuda else None, tree)
+        if not cuda:
+            self._pending = self._executor.submit(self._write, None, 0, fn, snapshot(tree))
+            return
+        spans, total = {}, 0
+        for t in cuda:
+            spans[id(t)] = (total, t.numel() * t.element_size())
+            total += -(-spans[id(t)][1] // self.ALIGN) * self.ALIGN
+        if self._device_arena is None or self._device_arena.numel() < total:
+            self._device_arena = self._host_arena = None
+            self._device_arena = torch.empty(total, dtype=torch.uint8, device=cuda[0].device)
+            self._host_arena = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+
+        def place(arena, t):
+            start, n = spans[id(t)]
+            return arena[start:start + n].view(t.dtype).view(t.shape) if n else None
+
+        dst = [place(self._device_arena, t) for t in cuda if spans[id(t)][1]]
+        torch._foreach_copy_(dst, [t.detach() for t in cuda if spans[id(t)][1]])
+        ready = torch.cuda.Event()
+        ready.record()
+        host = _map_tensors(lambda t: (place(self._host_arena, t) if spans[id(t)][1]
+                                       else torch.empty(t.shape, dtype=t.dtype))
+                            if t.is_cuda else t.detach().clone(), tree)
+        self._pending = self._executor.submit(self._write, ready, total, fn, host)
+
+    def _write(self, ready, nbytes: int, fn, tree):
+        if ready is not None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            self._stream.wait_event(ready)
+            with torch.cuda.stream(self._stream):
+                self._host_arena[:nbytes].copy_(self._device_arena[:nbytes], non_blocking=True)
+            self._stream.synchronize()
+        args, kwargs = tree
+        return fn(*args, **kwargs)
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            try:
+                self._pending.result()
+            finally:
+                self._pending = None
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._executor.shutdown(wait=True)
+            self._device_arena = self._host_arena = None
 
 
 def find_model_checkpoint(ckpt_path: str | Path, model_subdir: str = "controlnet") -> Path:

@@ -1,8 +1,10 @@
-"""Metric logging to an append-friendly ``metrics.jsonl``.
+"""Metric logging: stdout, an append-friendly ``metrics.jsonl``, and
+TensorBoard or W&B where the package is there.
 
-Counterpart of ``genima_tpu/core/logging.py::MetricLogger`` with its JSONL
-backend only: the eval config keeps W&B and TensorBoard off (the eval CLI
-refuses ``wandb.use``).
+Counterpart of ``genima_tpu/core/logging.py``'s ``MetricLogger``.
+A backend whose package does not import is dropped, as the JAX package
+drops it, but with one printed line naming it; ``metrics.jsonl`` is always
+written. Images go to TensorBoard / W&B only (callers keep PNGs on disk).
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -22,10 +24,28 @@ def _to_scalar(v: Any) -> Any:
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str | Path):
+    def __init__(self, log_dir: str | Path, use_tb: bool = False, use_wandb: bool = False,
+                 wandb_kwargs: Optional[dict] = None):
         self.log_dir = Path(log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
+        self._tb = None
+        self._wandb = None
+        if use_tb:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                print(f"MetricLogger: TensorBoard off ({e}); metrics.jsonl only")
+            else:
+                self._tb = SummaryWriter(log_dir=str(self.log_dir / "tb"))
+        if use_wandb:
+            try:
+                import wandb
+            except ImportError as e:
+                print(f"MetricLogger: wandb off ({e}); metrics.jsonl only")
+            else:
+                self._wandb = wandb
+                wandb.init(dir=str(self.log_dir), **(wandb_kwargs or {}))
 
     def log_metrics(self, metrics: dict, step: int, prefix: str | None = None,
                     echo: bool = True) -> None:
@@ -37,6 +57,12 @@ class MetricLogger:
         record = {"step": int(step), "time": time.time(), **scalars}
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+        if self._tb is not None:
+            for k, v in scalars.items():
+                if isinstance(v, (int, float)):
+                    self._tb.add_scalar(k, v, step)
+        if self._wandb is not None:
+            self._wandb.log(scalars, step=step)
         if echo:
             parts = " | ".join(
                 f"{k}: {v:.5g}" if isinstance(v, float) else f"{k}: {v}"
@@ -44,5 +70,20 @@ class MetricLogger:
             )
             print(f"[step {step}] {parts}")
 
+    def log_images(self, images: dict, step: int, prefix: str | None = None) -> None:
+        """HWC uint8 images to TensorBoard / W&B."""
+        if self._tb is not None:
+            for k, v in images.items():
+                self._tb.add_image(f"{prefix}/{k}" if prefix else k, np.asarray(v), step,
+                                   dataformats="HWC")
+        if self._wandb is not None:
+            self._wandb.log({(f"{prefix}/{k}" if prefix else k): self._wandb.Image(np.asarray(v))
+                             for k, v in images.items()}, step=step)
+
     def close(self) -> None:
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
+        if self._wandb is not None:
+            self._wandb.finish()
+

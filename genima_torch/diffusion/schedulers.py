@@ -23,17 +23,27 @@ class SchedulerConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"  # or "linear"
+    prediction_type: str = "epsilon"  # or "v_prediction": the trainer's target
     timestep_spacing: str = "leading"  # "leading" | "trailing" | "linspace"
     steps_offset: int = 1
 
 
 def make_alphas_cumprod(config: SchedulerConfig) -> np.ndarray:
-    """SD's "scaled_linear" betas (the only schedule SD and sd-turbo use)."""
-    betas = np.linspace(
-        config.beta_start**0.5, config.beta_end**0.5,
-        config.num_train_timesteps, dtype=np.float64,
-    ) ** 2
+    """SD's "scaled_linear" betas (linear in sqrt(beta)), or "linear"."""
+    n = config.num_train_timesteps
+    if config.beta_schedule == "scaled_linear":
+        betas = np.linspace(config.beta_start**0.5, config.beta_end**0.5, n, dtype=np.float64) ** 2
+    elif config.beta_schedule == "linear":
+        betas = np.linspace(config.beta_start, config.beta_end, n, dtype=np.float64)
+    else:
+        raise ValueError(f"Unknown beta_schedule {config.beta_schedule}")
     return np.cumprod(1.0 - betas).astype(np.float32)
+
+
+def _acp(alphas_cumprod: torch.Tensor, sample: torch.Tensor, timesteps: torch.Tensor):
+    acp = alphas_cumprod.to(sample.device)[timesteps].to(sample.dtype)
+    return acp.reshape(acp.shape + (1,) * (sample.ndim - acp.ndim))
 
 
 def add_noise(alphas_cumprod: torch.Tensor, sample: torch.Tensor, noise: torch.Tensor,
@@ -41,9 +51,15 @@ def add_noise(alphas_cumprod: torch.Tensor, sample: torch.Tensor, noise: torch.T
     """Forward diffusion q(x_t | x_0); ``timesteps`` is (B,) int and indexes
     ``alphas_cumprod`` (which must hold every value: torch indexing raises
     where the reference's gather would clamp)."""
-    acp = alphas_cumprod.to(sample.device)[timesteps].to(sample.dtype)
-    acp = acp.reshape(acp.shape + (1,) * (sample.ndim - acp.ndim))
+    acp = _acp(alphas_cumprod, sample, timesteps)
     return torch.sqrt(acp) * sample + torch.sqrt(1.0 - acp) * noise
+
+
+def get_velocity(alphas_cumprod: torch.Tensor, sample: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+    """The v-prediction target (Salimans & Ho): sqrt(acp) noise - sqrt(1 - acp) x_0."""
+    acp = _acp(alphas_cumprod, sample, timesteps)
+    return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * sample
 
 
 def _spaced_timesteps(config: SchedulerConfig, num_inference_steps: int) -> np.ndarray:

@@ -13,11 +13,19 @@ the card); the ControlNet module is a working copy in that dtype, refreshed
 from the f32 master weights (``TrainState.params``) before every step, and
 its gradients are taken to f32 for the clip and the update.
 
-The step's three random draws (the VAE sample's normal, the latent noise and
-the timesteps) are a ``Draws``: ``train_step`` takes them from an explicit
-``torch.Generator``, and tests hand both packages the same numbers.
-Gradient accumulation, augmentations, 8-bit Adam and the bf16 first moment
-raise; the SDXL and pix2pix trainers are later slices.
+The optimizer is the JAX trainer's: the f32 AdamW (optionally with a bf16
+first moment) or the 8-bit AdamW behind the global-norm clip, wrapped in
+gradient accumulation when ``gradient_accumulation_steps > 1``
+(``core/optim.py``); ``TrainState.step`` counts mini-steps, as in JAX. With
+``augmentations`` the normalised batch goes through
+``controlnet_train_augment`` before the VAE encode. The target is the noise,
+or the velocity under ``prediction_type="v_prediction"``.
+
+The step's random draws (the VAE sample's normal, the latent noise, the
+timesteps and the augmentations' parameters) are a ``Draws``:
+``train_step`` takes them from an explicit ``torch.Generator``, and tests
+hand both packages the same numbers. The SDXL and pix2pix trainers are
+later slices.
 """
 
 from __future__ import annotations
@@ -30,9 +38,17 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from genima_torch.core.optim import AdamW, AdamWState, clip_by_global_norm_
-from genima_torch.diffusion.schedulers import SchedulerConfig, add_noise, make_alphas_cumprod
+from genima_torch.core.optim import AdamW, AdamW8bit, Clipped, MultiSteps
+from genima_torch.data.augment import (
+    ControlNetAugmentDraws, controlnet_train_augment, parse_augmentations,
+    sample_controlnet_augment_draws,
+)
+from genima_torch.diffusion.schedulers import (
+    SchedulerConfig, add_noise, get_velocity, make_alphas_cumprod,
+)
+from genima_torch.diffusion.train_state import layout_perms
 from genima_torch.weights.init import master_params
+from genima_torch.weights.to_jax import flax_paths
 
 TURBO_TIMESTEPS = (999, 749, 499, 249, 0)  # sd-turbo's ADD grid
 
@@ -44,7 +60,7 @@ class TrainConfig:
     adam_beta2: float = 0.999
     adam_weight_decay: float = 1e-2
     adam_epsilon: float = 1e-8
-    use_8bit_adam: bool = False  # raises: a later slice
+    use_8bit_adam: bool = False  # blockwise int8 moments (core/optim.py)
     max_grad_norm: float = 1.0
     # recompute the ControlNet + UNet forward in the backward instead of
     # keeping its activations (torch.utils.checkpoint)
@@ -52,15 +68,16 @@ class TrainConfig:
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 500
     max_train_steps: int = 15000
-    gradient_accumulation_steps: int = 1  # > 1 raises: a later slice
+    gradient_accumulation_steps: int = 1
     timestep_spacing: str = "uniform"  # or "turbo_timesteps"
     # explicit training-timestep grid; overrides timestep_spacing
     train_timestep_grid: Optional[tuple[int, ...]] = None
     lr_num_cycles: int = 1  # cosine_with_restarts hard restarts
     lr_power: float = 1.0  # polynomial decay exponent
     lr_end: float = 1e-7  # polynomial floor
-    adam_mu_bf16: bool = False  # raises: a later slice
-    augmentations: Optional[str] = None  # raises: a later slice
+    adam_mu_bf16: bool = False  # bf16 first moment (optax mu_dtype)
+    # comma list: colorjitter,elastic,blur,affine,crop (data/augment.py)
+    augmentations: Optional[str] = None
     scheduler_config: SchedulerConfig = SchedulerConfig()
 
 
@@ -70,13 +87,14 @@ class Draws(NamedTuple):
     sample_noise: torch.Tensor  # (B, h, w, 4) standard normal: the VAE sample
     noise: torch.Tensor  # (B, h, w, 4) standard normal: the diffusion noise
     timesteps: torch.Tensor  # (B,) int
+    augment: Optional[ControlNetAugmentDraws] = None  # with cfg.augmentations
 
 
 @dataclasses.dataclass
 class TrainState:
     params: dict[str, torch.Tensor]  # f32 master weights of the ControlNet
-    opt_state: AdamWState
-    step: int = 0
+    opt_state: Any  # of the trainer's ``tx``: AdamWState, Adam8bitState, MultiStepsState
+    step: int = 0  # mini-steps taken
 
 
 def sample_train_timesteps(
@@ -177,34 +195,45 @@ class ControlNetTrainer:
     frozen (the reference freezes them too)."""
 
     def __init__(self, pipe, cfg: TrainConfig):
-        for flag, unsupported in (
-            ("gradient_accumulation_steps > 1", cfg.gradient_accumulation_steps > 1),
-            ("augmentations", bool(cfg.augmentations)),
-            ("use_8bit_adam", cfg.use_8bit_adam),
-            ("adam_mu_bf16", cfg.adam_mu_bf16),
-        ):
-            if unsupported:
-                raise NotImplementedError(f"{flag} is not ported yet")
         if not pipe.vae_encoder:
             raise ValueError("the trainer needs a pipeline built with vae_encoder=True")
+        if cfg.scheduler_config.prediction_type not in ("epsilon", "v_prediction"):
+            raise ValueError(f"Unknown prediction_type {cfg.scheduler_config.prediction_type}")
+        parse_augmentations(cfg.augmentations)  # raises on an unknown name
         self.pipe = pipe
         self.cfg = cfg
         self.alphas_cumprod = torch.from_numpy(
             make_alphas_cumprod(cfg.scheduler_config)
         ).to(pipe.device)
         self.lr_schedule = make_lr_schedule(cfg)
-        self.optimizer = AdamW(
-            self.lr_schedule, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
-            cfg.adam_weight_decay,
-        )
+        self.tx = None  # built by create_state: the 8-bit AdamW needs the layouts
+        self.paths: dict[str, tuple[str, ...]] = {}  # parameter name -> flax path
         self.frozen: dict[str, nn.Module] = {}
         self.controlnet: Optional[nn.Module] = None  # the working copy
+
+    def _make_tx(self, perms: dict[str, tuple[int, ...]]):
+        """clip -> AdamW (f32, bf16 first moment, or 8-bit), in gradient
+        accumulation when k > 1: the JAX trainer's optax chain."""
+        cfg = self.cfg
+        if cfg.use_8bit_adam:
+            adam = AdamW8bit(self.lr_schedule, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
+                             cfg.adam_weight_decay, perms=perms)
+        else:
+            adam = AdamW(self.lr_schedule, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
+                         cfg.adam_weight_decay,
+                         mu_dtype=torch.bfloat16 if cfg.adam_mu_bf16 else torch.float32)
+        tx = Clipped(adam, cfg.max_grad_norm)
+        if cfg.gradient_accumulation_steps > 1:
+            tx = MultiSteps(tx, cfg.gradient_accumulation_steps)
+        return tx
 
     def create_state(self, params: dict[str, nn.Module]) -> TrainState:
         self.frozen = {k: m.requires_grad_(False) for k, m in params.items() if k != "controlnet"}
         self.controlnet = params["controlnet"]
         master = master_params(self.controlnet)
-        return TrainState(params=master, opt_state=self.optimizer.init(master))
+        self.paths = flax_paths(self.controlnet, "diffusers_controlnet")
+        self.tx = self._make_tx(layout_perms(master, self.paths))
+        return TrainState(params=master, opt_state=self.tx.init(master))
 
     def sample_draws(self, bsz: int, resolution: int, generator: torch.Generator) -> Draws:
         h = resolution // self.pipe.vae_scale_factor
@@ -214,16 +243,24 @@ class ControlNetTrainer:
             sample_noise=torch.randn(shape, generator=generator, device=dev),
             noise=torch.randn(shape, generator=generator, device=dev),
             timesteps=sample_train_timesteps(self.cfg, generator, bsz),
+            augment=(sample_controlnet_augment_draws(
+                self.cfg.augmentations, resolution, resolution, generator)
+                if self.cfg.augmentations else None),
         )
 
     def loss(self, batch: dict[str, Any], draws: Draws) -> torch.Tensor:
-        """MSE of the noise prediction; differentiable in the working
-        ControlNet's parameters."""
+        """MSE of the noise (or velocity) prediction; differentiable in the
+        working ControlNet's parameters."""
         pipe, dev, dtype = self.pipe, self.pipe.device, self.pipe.dtype
         pixel_values, cond_values = normalize_image_batch(
             torch.as_tensor(batch["pixel_values"], device=dev),
             torch.as_tensor(batch["conditioning_pixel_values"], device=dev),
         )  # (B, H, W, 3) in [-1, 1] / [0, 1]
+        if self.cfg.augmentations:
+            augment = ControlNetAugmentDraws(*(
+                None if t is None else t.to(dev) for t in draws.augment))
+            pixel_values, cond_values = controlnet_train_augment(
+                pixel_values, cond_values, self.cfg.augmentations, augment)
         noise = _nchw(draws.noise.to(dev, torch.float32))
         timesteps = draws.timesteps.to(dev)
         with torch.no_grad():
@@ -248,17 +285,26 @@ class ControlNetTrainer:
             eps = torch.utils.checkpoint.checkpoint(model_eps, noisy, cond, use_reentrant=False)
         else:
             eps = model_eps(noisy, cond)
-        return torch.mean((eps.float() - noise) ** 2)
+        if self.cfg.scheduler_config.prediction_type == "v_prediction":
+            target = get_velocity(self.alphas_cumprod, latents, noise, timesteps)
+        else:
+            target = noise
+        return torch.mean((eps.float() - target) ** 2)
+
+    @torch.no_grad()
+    def sync_working_copy(self, state: TrainState) -> nn.Module:
+        """Refresh the working ControlNet from the master weights; returns it."""
+        for name, p in self.controlnet.named_parameters():
+            p.copy_(state.params[name])
+        return self.controlnet
 
     def gradients(
         self, state: TrainState, batch: dict[str, Any], draws: Draws
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """Loss and f32 gradients w.r.t. the ControlNet at ``state.params``."""
-        cn = self.controlnet
-        with torch.no_grad():
-            for name, p in cn.named_parameters():
-                p.copy_(state.params[name])
-                p.grad = None
+        cn = self.sync_working_copy(state)
+        for p in cn.parameters():
+            p.grad = None
         loss = self.loss(batch, draws)
         loss.backward()
         grads = {name: p.grad.float() for name, p in cn.named_parameters()}
@@ -270,8 +316,8 @@ class ControlNetTrainer:
         self, state: TrainState, batch: dict[str, Any], draws: Draws
     ) -> tuple[TrainState, dict[str, Any]]:
         loss, grads = self.gradients(state, batch, draws)
-        grad_norm = clip_by_global_norm_(grads, self.cfg.max_grad_norm)
-        opt_state = self.optimizer.step_(state.params, grads, state.opt_state)
+        # grad_norm: of this mini-step's gradients, before the clip
+        opt_state, grad_norm = self.tx.step_(state.params, grads, state.opt_state)
         metrics = {"loss": loss, "lr": self.lr_schedule(state.step), "grad_norm": grad_norm}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 

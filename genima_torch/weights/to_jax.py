@@ -45,30 +45,56 @@ def _flax_tokens(module_path: list[str]) -> list[str]:
     return out
 
 
+def layout_perm(leaf: str, ndim: int) -> tuple[int, ...] | None:
+    """The permutation of a tensor's dims into the reference's layout: conv
+    kernels OIHW -> HWIO, dense kernels (O, I) -> (I, O); None: as it is."""
+    if leaf == "kernel" and ndim == 4:
+        return (2, 3, 1, 0)
+    if leaf == "kernel" and ndim == 2:
+        return (1, 0)
+    return None
+
+
+def flax_layout(t: torch.Tensor, leaf: str) -> torch.Tensor:
+    """``t`` in the reference's layout: a view, no copy."""
+    perm = layout_perm(leaf, t.ndim)
+    return t.detach() if perm is None else t.detach().permute(perm)
+
+
 def _flax_array(t: torch.Tensor, leaf: str) -> np.ndarray:
     x = t.detach().cpu()
-    x = (x.float() if x.is_floating_point() else x).numpy()
-    if leaf == "kernel":
-        if x.ndim == 4:  # OIHW -> HWIO
-            x = x.transpose(2, 3, 1, 0)
-        elif x.ndim == 2:  # (O, I) -> (I, O)
-            x = x.T
-    return np.ascontiguousarray(x)
+    return np.ascontiguousarray(flax_layout(x.float() if x.is_floating_point() else x, leaf).numpy())
 
 
-def tree_from_module(module: nn.Module, family: str) -> dict:
-    """The flax params tree of ``module`` (float leaves in f32)."""
-    tree: dict = {}
-    for key, t in module.state_dict().items():
+def flax_paths(module: nn.Module, family: str) -> dict[str, tuple[str, ...]]:
+    """State-dict key -> the flax path a JAX model of the same configuration
+    keeps that tensor under."""
+    paths = {}
+    for key in module.state_dict():
         *mod_path, leaf = key.split(".")
         owner = module.get_submodule(".".join(mod_path)) if mod_path else module
         path = (*_flax_tokens(mod_path), _flax_leaf(owner, leaf))
         if torch_name(path, family) != key:
             raise KeyError(f"no flax path maps to {key!r} under family {family!r}")
+        paths[key] = path
+    return paths
+
+
+def nest(leaves: dict[tuple[str, ...], object]) -> dict:
+    """A nested dict tree from (path -> leaf)."""
+    tree: dict = {}
+    for path, leaf in leaves.items():
         node = tree
         for token in path[:-1]:
             node = node.setdefault(token, {})
         if path[-1] in node:
-            raise KeyError(f"two state-dict keys map to flax path {'/'.join(path)}")
-        node[path[-1]] = _flax_array(t, path[-1])
+            raise KeyError(f"two leaves map to flax path {'/'.join(path)}")
+        node[path[-1]] = leaf
     return tree
+
+
+def tree_from_module(module: nn.Module, family: str) -> dict:
+    """The flax params tree of ``module`` (float leaves in f32)."""
+    sd = module.state_dict()
+    return nest({path: _flax_array(sd[k], path[-1])
+                 for k, path in flax_paths(module, family).items()})

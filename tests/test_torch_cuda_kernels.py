@@ -505,3 +505,32 @@ def test_new_kernels_reject_what_they_cannot_take(cuda):
     xc = torch.zeros(1, 4, 4, 12, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
         fc.fused_conv3x3(xc, torch.zeros(3, 3, 12, 8, device=cuda), torch.zeros(8, device=cuda))
+
+
+@pytest.mark.cuda
+def test_async_checkpointer_copies_device_tensors_to_the_host(cuda, tmp_path):
+    """``submit`` copies the trees' device tensors (f32, bf16, a transposed
+    view, empty, a CPU tensor) into its arenas, grown by a larger second
+    tree; an in-place update queued after ``submit`` does not reach the
+    file."""
+    from genima_torch.core import checkpoint as ckpt
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    writer = ckpt.AsyncCheckpointer()
+    for i, rows in enumerate((10, 1000)):
+        a = torch.randn(rows, 301, device=cuda, generator=g)
+        tree = {"a": a, "at": a.t(), "b": torch.randn(37, device=cuda, generator=g).bfloat16(),
+                "c": torch.zeros(0, 3, device=cuda), "cpu": torch.arange(5.0),
+                "step": np.asarray(i, np.int32)}
+        want = {k: v.cpu().clone(memory_format=torch.contiguous_format)
+                if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+        writer.submit(ckpt.save_pytree, tree, tmp_path / f"t{i}.msgpack")
+        a.add_(1.0)
+        tree["cpu"].add_(1.0)
+        writer.wait()
+        back = ckpt.load_pytree(tmp_path / f"t{i}.msgpack")
+        for k in ("a", "at", "cpu"):
+            assert torch.equal(torch.from_numpy(back[k]), want[k]), k
+        assert torch.equal(back["b"], want["b"]) and back["c"].shape == (0, 3)
+        assert back["step"] == i
+    writer.close()

@@ -53,3 +53,23 @@ def test_eval_path_imports_none_of_the_packages_the_card_lacks():
     out = subprocess.run([sys.executable, "-c", EVAL_PATH], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+TRAIN_PATH = """
+import importlib, sys
+for name in ("core.optim", "core.preemption", "core.logging", "core.checkpoint", "data.augment",
+             "diffusion.schedulers", "diffusion.train_state", "diffusion.training",
+             "diffusion.driver", "weights.load_pretrained", "cli._diffusion_args",
+             "cli.train_controlnet_genima"):
+    importlib.import_module("genima_torch." + name)
+absent = ("jax", "jaxlib", "genima_tpu", "flax", "optax", "safetensors", "tensorboard", "wandb")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
+assert not bad, bad
+"""
+
+
+def test_train_path_imports_none_of_the_packages_the_card_lacks():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", TRAIN_PATH], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -28,7 +28,7 @@ from genima_tpu.nn.controlnet import controlnet_params_from_unet as jax_from_une
 from genima_tpu.nn.unet import UNetConfig as JaxUNetConfig
 from genima_tpu.nn.vae import AutoencoderKL as JaxVAE, VAEConfig as JaxVAEConfig
 
-from genima_torch.cli.train_controlnet_genima import main as cli_main, parse_args
+from genima_torch.cli.train_controlnet_genima import parse_args
 from genima_torch.core.optim import AdamW, clip_by_global_norm_
 from genima_torch.core.rng import seed_everything
 from genima_torch.data import dataset, tokenizer
@@ -178,12 +178,7 @@ def test_sample_train_timesteps_out_of_range_raises(grid):
     assert np.asarray(t).min() >= min(grid)  # drawn, no error
 
 
-def test_trainer_refuses_what_is_not_ported():
-    pipe = _tiny_port_pipe()
-    for kw in (dict(gradient_accumulation_steps=2), dict(augmentations="crop"),
-               dict(use_8bit_adam=True), dict(adam_mu_bf16=True)):
-        with pytest.raises(NotImplementedError):
-            training.ControlNetTrainer(pipe, training.TrainConfig(**kw))
+def test_trainer_needs_the_vae_encoder():
     with pytest.raises(ValueError, match="vae_encoder"):
         training.ControlNetTrainer(
             SDControlNetPipeline(unet_cfg=UNetConfig.tiny(), vae_cfg=VAEConfig.tiny_test(),
@@ -397,7 +392,7 @@ def _cli_args(data, *extra):
         "--train_batch_size", str(BSZ), "--max_train_steps", "2", "--seed", "0",
         "--device", "cpu", "--mixed_precision", "no",
         "--enable_xformers_memory_efficient_attention", "--dataloader_num_workers", "2",
-        *extra,
+        "--output_dir", f"{data}_out", "--report_to", "none", *extra,
     ])
 
 
@@ -411,7 +406,7 @@ def test_run_training_takes_two_steps(tmp_path, capsys):
     )
     assert result["global_step"] == 2 and np.isfinite(result["final_loss"])
     assert steps == [(1, 0.0), (2, pytest.approx(5e-6))]
-    assert '"step": 1' in capsys.readouterr().out  # logged at step 1
+    assert "[step 1] train/loss" in capsys.readouterr().out  # logged at step 1
 
 
 def test_run_training_matches_jax_config(tmp_path):
@@ -424,16 +419,6 @@ def test_run_training_matches_jax_config(tmp_path):
     assert (got.lr_scheduler, got.lr_warmup_steps, got.max_train_steps) == ("cosine", 3, 7)
     assert got.train_timestep_grid == (999, 499)
     assert got.scheduler_config.timestep_spacing == "trailing"
-
-
-@pytest.mark.parametrize("flag", [
-    ["--resume_from_checkpoint", "latest"], ["--checkpointing_steps", "10"],
-    ["--validation_steps", "5"], ["--report_to", "tensorboard"], ["--use_8bit_adam"],
-    ["--gradient_accumulation_steps", "2"], ["--augmentations", "crop"],
-])
-def test_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        cli_main(["--data_path", str(tmp_path), "--tasks", "toy", "--device", "cpu", *flag])
 
 
 @pytest.mark.parametrize("argv", [
