@@ -82,6 +82,26 @@
    on the previous write and its copy apart, the step right after a submit
    against the one before it, the resume's load, validation, run C's steps,
    peak memory.
+9. ACT controller training: ``genima_torch.cli.train_act.main`` at the
+   published controller width (``ACTConfig()``, ResNet-18 width 64 over 4
+   views at 256x256, CLIP ViT-B/32 text, batch 8, augmentations, AdamW at
+   5e-5 / 1e-5 for the backbone), f32, seeded weights made on the card, on
+   4 fake demos of 40 steps (156 samples, 20 steps an epoch): 2 epochs with
+   a checkpoint each, a resume of the same directory to epoch 3, then
+   ``eval_act`` for one episode from it. Fails on a non-finite loss, a
+   swallowed update exception, a frozen BatchNorm tensor or the CLIP tower
+   not bit-unchanged, a parameter group that did not move, a work dir
+   without ``latest.ckpt`` and ``1.ckpt`` as the JAX package rotates them,
+   a payload not equal to the live master weights bit for bit, a
+   ``config.yaml`` the port's own reader does not read back, a resume not
+   at epoch 2 with 40 updates, non-finite eval actions, any B1-B5 launch,
+   and a first-step loss more than 1e-2 (relative) from the same step run
+   by the port on the CPU in f32 with the same batch and draws. Times: the
+   step (median after step 2, host clock), the update's augmentation,
+   forward + backward and optimizer by CUDA events, samples/s, epoch
+   seconds, the checkpoint's bytes and write seconds, the resume's load,
+   peak memory, and the update with cuDNN's TF32 off and on in turns (on
+   is PyTorch's default for convolutions, which the CLI leaves alone).
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -1373,6 +1393,371 @@ def finetune_phase(pa, card: str) -> dict:
     return out
 
 
+# phase 9: ACT controller training at full width
+ACT_DEMOS, ACT_BATCH, ACT_EPOCHS, ACT_RESUME_EPOCHS = 4, 8, 2, 3
+ACT_EVAL_LENGTH, ACT_HORIZON = 40, 20
+# the card's first-step loss vs the port's CPU run in f32 on the same batch
+# and draws: TF32 is off, so only summation order differs (cuDNN vs oneDNN)
+ACT_LOSS_REL_TOL = 1e-2
+
+
+def _kernel_counters() -> dict:
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.kernels import packed_attention as pa
+    from genima_torch.kernels import w8_matmul as w8
+
+    return {"B1": pa.packed_flash_attention, "B2a": pa.packed_attention_forward_lse,
+            "B2b": pa.packed_attention_backward, "B3": fa.flash_attention,
+            "B4": fc.fused_conv3x3, "B5": w8.w8_matmul}
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_to_cpu(v) for v in x)
+    if hasattr(x, "_fields"):  # NamedTuple
+        return type(x)(*(_to_cpu(v) for v in x))
+    return x
+
+
+class _ActTrainProbe:
+    """Wraps, for phase 9, what shows what ``train_act`` ran: each update
+    (host ms after a synchronise, CUDA-event ms of the whole update, the
+    augmentation and the optimizer chain, the loss), the first update's
+    inputs (params, clip tower, batch, draws with its dropout masks kept),
+    the workspace's state when training starts and its resume, each epoch's
+    seconds, each checkpoint write, and the eval agent's actions."""
+
+    def __init__(self):
+        from genima_torch.control import policy, replay, trainer
+        from genima_torch.core import checkpoint as ckpt
+        from genima_torch.core import optim
+
+        self.updates, self.epochs, self.writes, self.resumes, self.actions = [], [], [], [], []
+        self.first, self.starts = None, []
+        self._saved = []
+        probe = self
+
+        def wrap(owner, name, make):
+            orig = getattr(owner, name)
+            self._saved.append((owner, name, orig))
+            setattr(owner, name, make(orig))
+
+        def events(key):
+            def make(orig):
+                def fn(*args, **kwargs):
+                    start, end = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                    start.record()
+                    out = orig(*args, **kwargs)
+                    end.record()
+                    probe._events.setdefault(key, []).append((start, end))
+                    return out
+                return fn
+            return make
+
+        def sample_draws(orig):
+            def fn(agent, batch, generator, record_dropout=False):
+                return orig(agent, batch, generator, record_dropout=probe.first is None)
+            return fn
+
+        def update(orig):
+            def fn(agent, state, batch, draws):
+                if probe.first is None:
+                    probe.first = {"tree": _to_cpu(state.tree()), "batch": _to_cpu(batch),
+                                   "draws": _to_cpu(draws._replace(dropout=None)),
+                                   "clip": _to_cpu(agent.clip_params.state_dict()),
+                                   "dropout": draws.dropout}
+                probe._events = {}
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                out = orig(agent, state, batch, draws)
+                end.record()
+                loss = float(out[1]["loss"])
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                ev = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in probe._events.items()}
+                probe.updates.append({"host_ms": (now - h0) * 1e3, "end": now, "loss": loss,
+                                      "update_ms": start.elapsed_time(end),
+                                      "augment_ms": ev.get("augment", 0.0),
+                                      "optimizer_ms": ev.get("optimizer", 0.0)})
+                if "dropout_masks" not in probe.first:
+                    probe.first["dropout_masks"] = [m.cpu() for m in draws.dropout.masks]
+                    probe.first["loss"] = loss
+                return out
+            return fn
+
+        def train(orig):
+            def fn(ws, *args, **kwargs):
+                torch.cuda.synchronize()
+                probe.starts.append({
+                    "epoch": ws._epoch, "num_iters": ws._num_iters,
+                    "labels": dict(ws.agent.tx.labels),
+                    "master": {k: t.clone() for k, t in ws.state.master.items()},
+                    "clip": {k: t.clone() for k, t in ws.agent.clip_params.state_dict().items()}})
+                return orig(ws, *args, **kwargs)
+            return fn
+
+        def resume(orig):
+            def fn(ws):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig(ws)
+                torch.cuda.synchronize()
+                if ws.resumed:
+                    probe.resumes.append({"s": time.perf_counter() - t0, "epoch": ws._epoch,
+                                          "num_iters": ws._num_iters})
+            return fn
+
+        def epoch_iter(orig):
+            def fn(buf):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = 0
+                for batch in orig(buf):
+                    n += len(batch["images"])
+                    yield batch
+                torch.cuda.synchronize()
+                probe.epochs.append({"s": time.perf_counter() - t0, "samples": n})
+            return fn
+
+        def save(orig):
+            def fn(ckpt_dir, **kwargs):
+                t0 = time.perf_counter()
+                out = orig(ckpt_dir, **kwargs)
+                probe.writes.append({"epoch": kwargs["epoch"], "s": time.perf_counter() - t0,
+                                     "bytes": out.stat().st_size})
+                return out
+            return fn
+
+        def act(orig):
+            def fn(agent, *args, **kwargs):
+                out = orig(agent, *args, **kwargs)
+                probe.actions.append(out.float().cpu())
+                return out
+            return fn
+
+        wrap(policy.GenimaACTAgent, "sample_draws", sample_draws)
+        wrap(policy.GenimaACTAgent, "update", update)
+        wrap(policy.GenimaACTAgent, "act", act)
+        wrap(policy, "act_train_augment", events("augment"))
+        wrap(optim.MultiTransform, "step_", events("optimizer"))
+        wrap(trainer.ControllerWorkspace, "train", train)
+        wrap(trainer.ControllerWorkspace, "_maybe_resume", resume)
+        wrap(replay.EpochReplayBuffer, "__iter__", epoch_iter)
+        wrap(ckpt, "save_epoch_checkpoint", save)
+
+    def close(self) -> None:
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+
+
+def _act_cpu_loss(cfg: dict, first: dict) -> float:
+    """The first update's loss, recomputed by the port on the CPU in f32
+    from the same params, clip tower, batch and draws (dropout replayed)."""
+    from genima_torch.control.policy import build_agent
+    from genima_torch.nn.act import ReplayDropout
+
+    agent = build_agent(cfg, device="cpu", dtype=torch.float32)
+    params = agent.load_params(_numpy_tree(first["tree"]))
+    clip = agent._build_clip()
+    clip.load_state_dict(first["clip"])
+    agent.clip_params = clip
+    draws = first["draws"]._replace(dropout=ReplayDropout(first["dropout_masks"]))
+    with torch.no_grad():
+        loss, _ = agent.loss(params, first["batch"], draws)
+    return float(loss)
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def act_train_phase(card: str) -> dict:
+    """Phase 9: ``train_act`` at the published controller width (ACTConfig(),
+    ResNet-18 width 64 over 4 views at 256x256, CLIP ViT-B/32 text, batch 8,
+    augmentations, split-LR AdamW) for 2 epochs on 4 fake demos, a resume to
+    epoch 3, then ``eval_act`` for one episode from the same directory."""
+    import numpy as np
+
+    from genima_torch.cli import eval_act, train_act
+    from genima_torch.core import checkpoint as ckpt
+    from genima_torch.core.config import parse_yaml
+
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp) / "controller"
+        argv = [f"work_dir={work}", "device=cuda", "env.factory=fake", "env.task=fake_reach",
+                "env.image_size=256", f"num_demos={ACT_DEMOS}", f"batch_size={ACT_BATCH}",
+                "checkpoint_every=1", "num_checkpoints=3"]
+        probe = _ActTrainProbe()
+        try:
+            t0 = time.perf_counter()
+            ws = train_act.main(argv + [f"num_train_epochs={ACT_EPOCHS}"])
+            torch.cuda.synchronize()
+            run1_s = time.perf_counter() - t0
+            run1_updates = list(probe.updates)
+            start = probe.starts[0]
+            names = sorted(p.name for p in work.iterdir())
+            if ws.update_failures:
+                raise AssertionError(f"act train: {len(ws.update_failures)} swallowed update "
+                                     f"exceptions, first:\n{ws.update_failures[0]}")
+            bad = [u["loss"] for u in run1_updates if not math.isfinite(u["loss"])]
+            if bad or not run1_updates:
+                raise AssertionError(f"act train: non-finite losses {bad[:4]}")
+            # the frozen BN tensors and the CLIP tower bit-unchanged; every
+            # trained group moved
+            moved = {g: 0 for g in ("main", "backbone")}
+            for k, t in ws.state.master.items():
+                group = start["labels"][k]
+                same = torch.equal(t, start["master"][k])
+                if group == "frozen" and not same:
+                    raise AssertionError(f"act train: frozen tensor {k} moved")
+                if group != "frozen" and not same:
+                    moved[group] += 1
+            if not all(moved.values()):
+                raise AssertionError(f"act train: a parameter group did not move: {moved}")
+            clip_now = ws.agent.clip_params.state_dict()
+            if any(not torch.equal(clip_now[k], v) for k, v in start["clip"].items()):
+                raise AssertionError("act train: the CLIP tower moved")
+            # latest.ckpt and 1.ckpt as the JAX package rotates them, the
+            # payload = the live master weights, config.yaml read back
+            want = {"latest.ckpt", "1.ckpt", "config.yaml", "action_stats.json",
+                    "proprio_stats.json", "metrics.jsonl"}
+            if not want <= set(names) or any(n.endswith(".ckpt") and n not in want
+                                             for n in names):
+                raise AssertionError(f"act train: work dir holds {names}")
+            t0 = time.perf_counter()
+            payload = ckpt.load_epoch_checkpoint(work / ckpt.LATEST_NAME)
+            load_s = time.perf_counter() - t0
+            if int(payload["epoch"]) != ACT_EPOCHS or int(
+                    ckpt.load_epoch_checkpoint(work / "1.ckpt")["epoch"]) != 1:
+                raise AssertionError("act train: checkpoint epochs")
+            live = {k: v.detach().cpu().numpy() for k, v in
+                    _flat_tree(ws.state.tree()).items()}
+            stored = _flat_tree(payload["agent"])
+            if set(live) != set(stored) or any(not np.array_equal(np.asarray(stored[k]), v)
+                                               for k, v in live.items()):
+                raise AssertionError("act train: the payload's params are not the live "
+                                     "master weights")
+            if parse_yaml((work / "config.yaml").read_text()) != ws._config_dict():
+                raise AssertionError("act train: config.yaml does not read back")
+            steps_per_epoch = -(-len(ws.replay) // ACT_BATCH)
+            # the first step's loss against the port's CPU run in f32
+            cpu_loss = _act_cpu_loss(ws._config_dict(), probe.first)
+            card_loss = probe.first["loss"]
+            loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+            if not loss_rel <= ACT_LOSS_REL_TOL:
+                raise AssertionError(f"act train: first loss {card_loss} on the card, {cpu_loss} "
+                                     f"on the CPU (rel {loss_rel})")
+            n_params = {g: sum(t.numel() for k, t in ws.state.master.items()
+                               if start["labels"][k] == g) for g in ("main", "backbone", "frozen")}
+            tf32 = _act_tf32_turns(ws, probe)
+            del ws
+
+            # resume to epoch 3 from the same dir
+            t0 = time.perf_counter()
+            ws2 = train_act.main(argv + [f"num_train_epochs={ACT_RESUME_EPOCHS}"])
+            torch.cuda.synchronize()
+            run2_s = time.perf_counter() - t0
+            r = probe.resumes[-1] if probe.resumes else None
+            if r is None or (r["epoch"], r["num_iters"]) != (ACT_EPOCHS,
+                                                            ACT_EPOCHS * steps_per_epoch):
+                raise AssertionError(f"act train: resume {r}, want epoch {ACT_EPOCHS}, num_iters "
+                                     f"{ACT_EPOCHS * steps_per_epoch}")
+            if ws2.update_failures or ws2._epoch != ACT_RESUME_EPOCHS:
+                raise AssertionError(f"act train: resumed run ended at {ws2._epoch}, "
+                                     f"{len(ws2.update_failures)} swallowed exceptions")
+            del ws2
+
+            # the port's eval on the controller it trained
+            n_actions = len(probe.actions)
+            logs = eval_act.main([f"controller_ckpt={work}", "device=cuda", "task=fake_reach",
+                                  "env.factory=fake", "env.image_size=256",
+                                  f"episode_length={ACT_EVAL_LENGTH}", "num_eval_episodes=1",
+                                  f"execution_horizon={ACT_HORIZON}"])
+            torch.cuda.synchronize()
+            acts = probe.actions[n_actions:]
+            if (logs["results"]["total_episodes"] != 1 or logs["results"]["env_exception_episodes"]
+                    or not acts or not all(bool(torch.isfinite(a).all()) for a in acts)):
+                raise AssertionError(f"act eval: results {logs['results']}, "
+                                     f"{len(acts)} action chunks")
+        finally:
+            probe.close()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if any(launches.values()):
+            raise AssertionError(f"act train: kernels launched on the ACT path: {launches}")
+        ends = [u["end"] for u in run1_updates]
+        steady = run1_updates[2:]
+        out.update({
+            "steps_per_epoch": steps_per_epoch, "samples_per_epoch": probe.epochs[0]["samples"],
+            "params": n_params, "first_loss_card": card_loss, "first_loss_cpu": cpu_loss,
+            "first_loss_rel": loss_rel, "losses": [u["loss"] for u in run1_updates],
+            "step_ms_median": 1e3 * float(np.median(np.diff(ends)[1:])),
+            "update_host_ms_median": float(np.median([u["host_ms"] for u in steady])),
+            "update_ms_median": float(np.median([u["update_ms"] for u in steady])),
+            "augment_ms_median": float(np.median([u["augment_ms"] for u in steady])),
+            "optimizer_ms_median": float(np.median([u["optimizer_ms"] for u in steady])),
+            "fwd_bwd_ms_median": float(np.median([u["update_ms"] - u["augment_ms"]
+                                                  - u["optimizer_ms"] for u in steady])),
+            "epoch_s": [e["s"] for e in probe.epochs],
+            "samples_per_s": probe.epochs[1]["samples"] / probe.epochs[1]["s"],
+            "checkpoint_bytes": probe.writes[-1]["bytes"],
+            "checkpoint_write_s": [w["s"] for w in probe.writes],
+            "payload_load_s": load_s, "resume_load_s": probe.resumes[-1]["s"],
+            "run1_s": run1_s, "run2_s": run2_s, "eval_episode_steps":
+                [e["steps"] for e in logs["eval_episodes"]],
+            "launches": launches,
+            "update_ms_median_cudnn_tf32_off": float(np.median(tf32[False])),
+            "update_ms_median_cudnn_tf32_on": float(np.median(tf32[True])),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        })
+    return out
+
+
+def _act_tf32_turns(ws, probe) -> dict:
+    """Update ms (CUDA events) on the first batch with cuDNN's TF32 off (as
+    the rest of this script runs) and on (PyTorch's default for
+    convolutions, which the CLI leaves as it is), in turns off, on, on, off,
+    twice. These updates go on from the trained state; the run's checks and
+    checkpoints are behind them."""
+    batch = {k: v.to(ws.agent.device) for k, v in probe.first["batch"].items()}
+    times = {False: [], True: []}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for flag in (False, True, True, False) * 2:
+            torch.backends.cudnn.allow_tf32 = flag
+            ws.state, _ = ws.agent.update(ws.state, batch, ws.agent.sample_draws(batch, ws.generator))
+            times[flag].append(probe.updates[-1]["update_ms"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return times
+
+
+def _flat_tree(tree, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, (*prefix, k)))
+        else:
+            out[(*prefix, k)] = v
+    return out
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -1467,6 +1852,17 @@ def main() -> int:
           f"{ft['q8_moment_bytes'] / gb:.3f} GB; run C steps update "
           f"{ft['run_c_update_step_ms']} ms, accumulate {ft['run_c_accumulate_step_ms']} ms; "
           f"peak {ft['peak_mem_gb_a']:.2f} / {ft['peak_mem_gb_c']:.2f} GiB")
+    at = act_train_phase(card)
+    print("act_train " + json.dumps(at))
+    print(f"act_train ({card}): step {at['step_ms_median']:.1f} ms (update "
+          f"{at['update_ms_median']:.1f}: augmentation {at['augment_ms_median']:.2f}, "
+          f"forward + backward {at['fwd_bwd_ms_median']:.1f}, optimizer "
+          f"{at['optimizer_ms_median']:.2f}), {at['samples_per_s']:.1f} samples/s, epochs "
+          f"{[round(x, 3) for x in at['epoch_s']]} s; checkpoint {at['checkpoint_bytes'] / 1e6:.1f} "
+          f"MB written in {at['checkpoint_write_s']} s, resume load {at['resume_load_s']:.3f} s; "
+          f"first loss {at['first_loss_card']:.6f} (CPU {at['first_loss_cpu']:.6f}); update "
+          f"with cuDNN TF32 off / on {at['update_ms_median_cudnn_tf32_off']:.1f} / "
+          f"{at['update_ms_median_cudnn_tf32_on']:.1f} ms; peak {at['peak_mem_gb']:.2f} GiB")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]

@@ -7,7 +7,9 @@ PyTorch's idiom inside: NCHW convolutions, ``nn.Module`` trees.
 
 Every entry point takes ``device`` and defaults to ``"cuda"``; asking for
 CUDA on a host without it raises instead of falling back to the CPU. On the
-card parameters are stored and computed in bf16, on the CPU in f32.
+card the serving and eval paths compute in bf16, the trainers keep f32
+master weights (the ACT trainer also computes in f32); on the CPU
+everything is f32.
 """
 
 from __future__ import annotations

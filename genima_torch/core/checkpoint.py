@@ -25,8 +25,9 @@ Two contracts sit on top:
    limit *before* each save; a final model directory at the output root;
    ``find_model_checkpoint`` to pick one. ``AsyncCheckpointer`` copies the
    trees at ``submit`` and writes them on one background thread.
-2. The controller trainer: ``latest.ckpt`` rotated to ``<epoch>.ckpt``,
-   each holding ``epoch``, ``num_iters``, the ``agent`` tree and the train
+2. The controller trainer: ``latest.ckpt`` rotated to ``<epoch>.ckpt``
+   and pruned to ``num_checkpoints`` (``save_epoch_checkpoint``), each
+   holding ``epoch``, ``num_iters``, the ``agent`` tree and the train
    config as UTF-8 JSON bytes (``config_json``); eval picks latest / last /
    last_three / an epoch (``select_eval_checkpoints``).
 """
@@ -535,6 +536,26 @@ def epoch_payload(epoch: int, num_iters: int, agent_params: Any,
     if config is not None:
         payload["config_json"] = np.frombuffer(json.dumps(config).encode("utf-8"), np.uint8)
     return payload
+
+
+def save_epoch_checkpoint(ckpt_dir: str | Path, *, epoch: int, num_iters: int,
+                          agent_params: Any, config: dict | None = None,
+                          num_checkpoints: int = 3) -> Path:
+    """Rotate ``latest.ckpt`` to ``<its epoch>.ckpt``, write the new
+    ``latest.ckpt`` (``epoch_payload``), then remove the oldest rotated
+    files down to ``num_checkpoints``."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    latest = ckpt_dir / LATEST_NAME
+    if latest.exists():
+        prev_epoch = int(load_pytree(latest).get("epoch", -1))
+        if prev_epoch >= 0:
+            shutil.move(str(latest), str(ckpt_dir / f"{prev_epoch}.ckpt"))
+    save_pytree(epoch_payload(epoch, num_iters, agent_params, config), latest)
+    rotated = list_epoch_checkpoints(ckpt_dir)
+    for _, old in rotated[:max(len(rotated) - num_checkpoints, 0)]:
+        old.unlink()
+    return latest
 
 
 def load_epoch_checkpoint(path: str | Path) -> dict:

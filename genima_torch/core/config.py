@@ -11,7 +11,9 @@ path. Override values are parsed here with PyYAML's rules for plain
 scalars and flow lists/maps (``5`` -> int, ``5.0e-05`` -> float, ``1e-3``
 -> str, ``null`` -> None, ``[a, b]`` -> list), the same values the JAX
 package gets from ``yaml.safe_load``. ``load_yaml`` imports PyYAML only
-when called, and raises naming it where it is absent.
+when called, and raises naming it where it is absent. ``save_yaml`` writes
+a config as ``yaml.safe_dump`` does (``config.yaml`` beside the controller's
+checkpoints), and ``parse_yaml`` reads such a file back without PyYAML.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import copy
 import functools
 import importlib
+import json
+import math
 import re
 from pathlib import Path
 from typing import Any, Callable
@@ -75,6 +79,160 @@ def load_yaml(path: str | Path) -> Config:
         ) from e
     with open(path) as f:
         return _wrap(yaml.safe_load(f) or {})
+
+
+# -- YAML out, and back in without PyYAML -------------------------------------------
+
+_PLAIN = re.compile(r"^[A-Za-z0-9_./$()~+][A-Za-z0-9_./${}()~+=, -]*$")
+
+
+def _yaml_str(s: str) -> str:
+    """A string as a YAML scalar that ``yaml.safe_load`` reads back as that
+    string: plain where it is unambiguous, else single- or double-quoted."""
+    if _PLAIN.match(s) and not s.endswith(" ") and _scalar(s) == s:
+        return s
+    if s.isprintable():
+        return "'" + s.replace("'", "''") + "'"
+    return json.dumps(s)  # JSON's escapes are YAML double-quoted escapes
+
+
+def _yaml_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        # PyYAML's representer: YAML 1.1 floats need a '.' before the exponent
+        return text.replace("e", ".0e", 1) if "." not in text and "e" in text else text
+    if isinstance(v, str):
+        return _yaml_str(v)
+    raise TypeError(f"cannot write {type(v).__name__} to YAML")
+
+
+def _yaml_block(v: Any, indent: int) -> list[str]:
+    """Lines of a non-empty mapping or sequence, block style, as
+    ``yaml.safe_dump`` lays them out (a sequence under a key not indented)."""
+    pad = " " * indent
+    lines = []
+    if isinstance(v, dict):
+        for k, x in v.items():
+            key = _yaml_str(str(k))
+            if isinstance(x, dict) and x:
+                lines += [f"{pad}{key}:"] + _yaml_block(x, indent + 2)
+            elif isinstance(x, (list, tuple)) and x:
+                lines += [f"{pad}{key}:"] + _yaml_block(x, indent)
+            else:
+                lines.append(f"{pad}{key}: {_yaml_value(x)}")
+        return lines
+    for x in v:
+        if isinstance(x, (dict, list, tuple)) and x:
+            inner = _yaml_block(x, indent + 2)
+            lines += [f"{pad}- {inner[0][indent + 2:]}"] + inner[1:]
+        else:
+            lines.append(f"{pad}- {_yaml_value(x)}")
+    return lines
+
+
+def _yaml_value(v: Any) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, (list, tuple)):
+        return "[]"
+    return _yaml_scalar(v)
+
+
+def dump_yaml(data: Any) -> str:
+    """``data`` (dicts, lists, str, int, float, bool, None) as block YAML."""
+    data = _unwrap(data)
+    if isinstance(data, (dict, list, tuple)) and data:
+        return "\n".join(_yaml_block(data, 0)) + "\n"
+    return _yaml_value(data) + "\n"
+
+
+def save_yaml(cfg: Config | dict, path: str | Path) -> None:
+    """Write ``cfg`` as YAML (what ``yaml.safe_dump(cfg, sort_keys=False)``
+    writes, read back by ``yaml.safe_load`` or ``parse_yaml`` to the same
+    dict)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(dump_yaml(cfg))
+
+
+_KEY = re.compile(r"""^('(?:[^']|'')*'|"(?:[^"\\]|\\.)*"|[^\s'"#\[\]{}-][^:#]*?|-[^\s:#][^:#]*?)"""
+                  r"\s*:(?:\s+(.*)|)$")
+
+
+def _one_value(text: str) -> Any:
+    p = _Flow(text)
+    value = p.value(False)
+    p.ws()
+    if p.i != len(p.s) and not p.s[p.i:].startswith("#"):
+        raise ValueError(f"cannot read YAML value {text!r}")
+    return value
+
+
+def _is_item(content: str) -> bool:
+    return content == "-" or content.startswith("- ")
+
+
+def _yaml_node(lines: list[tuple[int, str]], i: int, indent: int) -> tuple[Any, int]:
+    """The block node whose lines start at ``lines[i]``, at ``indent``;
+    returns it and the index of the first line after it."""
+    if _is_item(lines[i][1]):
+        out = []
+        while i < len(lines) and lines[i][0] == indent and _is_item(lines[i][1]):
+            rest = lines[i][1][1:].lstrip()
+            if not rest:  # the item's node starts on the next line
+                value, i = _yaml_node(lines, i + 1, lines[i + 1][0])
+            elif _is_item(rest) or _KEY.match(rest):  # a node inline after "- "
+                inner = indent + len(lines[i][1]) - len(rest)
+                value, i = _yaml_node(lines[:i] + [(inner, rest)] + lines[i + 1:], i, inner)
+            else:
+                value, i = _one_value(rest), i + 1
+            out.append(value)
+        return out, i
+    out = {}
+    while i < len(lines) and lines[i][0] == indent and not _is_item(lines[i][1]):
+        m = _KEY.match(lines[i][1])
+        if not m:
+            raise ValueError(f"cannot read YAML line {lines[i][1]!r}")
+        key, rest = _one_value(m.group(1)), m.group(2)
+        i += 1
+        if rest is not None and not rest.startswith("#"):
+            out[key] = _one_value(rest)
+        elif i < len(lines) and (lines[i][0] > indent
+                                 or (lines[i][0] == indent and _is_item(lines[i][1]))):
+            out[key], i = _yaml_node(lines, i, lines[i][0])
+        else:
+            out[key] = None
+    return out, i
+
+
+def parse_yaml(text: str) -> Any:
+    """The port's own reader of block YAML as ``dump_yaml`` (and
+    ``yaml.safe_dump``) writes it: nested block mappings and sequences of
+    the scalars and flow collections ``parse_value`` reads; comments and
+    blank lines skipped. Anchors, tags, multi-line scalars and several
+    documents are not read."""
+    lines = []
+    for raw in text.splitlines():
+        content = raw.strip()
+        if content and not content.startswith("#") and content != "---":
+            lines.append((len(raw) - len(raw.lstrip(" ")), content))
+    if not lines:
+        return None
+    if len(lines) == 1 and not _is_item(lines[0][1]) and not _KEY.match(lines[0][1]):
+        return _one_value(lines[0][1])
+    value, i = _yaml_node(lines, 0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"cannot read YAML from line {lines[i][1]!r}")
+    return value
 
 
 def merge(base: dict, override: dict) -> Config:

@@ -30,6 +30,10 @@ mu_dtype=bf16 if adam_mu_bf16)`` or ``genima_tpu/core/optim.py::adamw_8bit``.
   mean ``acc + (g - acc) / (n + 1)`` and runs the wrapped update on the mean
   every k-th mini-step; the parameters stay as they are in between.
 
+``MultiTransform`` is the ACT controller's chain
+(``genima_tpu/control/policy.py``): an optional clip over every gradient,
+then an ``AdamW`` per labelled parameter group; the ``frozen`` group stays.
+
 ``Clipped.step_`` and ``MultiSteps.step_`` return the new state and the
 global norm of the gradients they were given (the clip's own norm, so a
 train step computes it once).
@@ -274,6 +278,39 @@ class MultiSteps:
         inner, _ = self.inner.step_(params, state.acc_grads, state.inner_opt_state)
         torch._foreach_zero_(acc)
         return MultiStepsState(0, state.gradient_step + 1, inner, state.acc_grads), norm
+
+
+# -- the ACT controller's chain ------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiTransform:
+    """The ACT agent's ``optax.chain([clip_by_global_norm(max_norm)],
+    multi_transform({group: adamw, ...}, labels))``: an optional clip over
+    *all* gradients (the ``frozen`` group's too), then each labelled group
+    through its own ``AdamW`` (own count and moments); a group without a
+    transform (``frozen``) is optax's ``set_to_zero``: never moved."""
+
+    transforms: Mapping[str, AdamW]
+    labels: Mapping[str, str]  # parameter name -> group
+    max_norm: Optional[float] = None
+
+    def _group(self, tree: dict, group: str) -> dict:
+        return {k: v for k, v in tree.items() if self.labels[k] == group}
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict[str, AdamWState]:
+        return {g: tx.init(self._group(params, g)) for g, tx in self.transforms.items()}
+
+    @torch.no_grad()
+    def step_(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
+              state: dict[str, AdamWState]) -> tuple[dict[str, AdamWState], Optional[torch.Tensor]]:
+        """Clips ``grads`` in place (with ``max_norm``), then updates each
+        group's ``params`` in place; returns the new state and the norm
+        before the clip (None without one)."""
+        norm = clip_by_global_norm_(grads, self.max_norm) if self.max_norm else None
+        new = {g: tx.step_(self._group(params, g), self._group(grads, g), state[g])
+               for g, tx in self.transforms.items()}
+        return new, norm
 
 
 def optimizer_state_bytes(state) -> int:

@@ -1,9 +1,14 @@
-"""The ControlNet trainer's image augmentations, on NHWC float tensors.
+"""The trainers' image augmentations, on NHWC float tensors.
 
-Counterpart of ``genima_tpu/data/augment.py``'s ``controlnet_train_augment``
-and the ops it uses (the reference's ``augment_data``): colour jitter,
-elastic and blur on the conditioning image only; one affine transform, the
-same for image and conditioning; one reflect-pad-2 random crop of the pair.
+Counterpart of ``genima_tpu/data/augment.py``'s two recipes and the ops
+they use. ``controlnet_train_augment`` (the reference's ``augment_data``):
+colour jitter, elastic and blur on the conditioning image only; one affine
+transform, the same for image and conditioning; one reflect-pad-2 random
+crop of the pair. ``act_train_augment`` (the ACT policy's train-time
+transforms) on [0, 255] images: each of elastic (alpha 80, sigma 10),
+colour jitter and a zero-pad-4 random crop applied with probability 1/2
+(one decision for the whole batch, ``random_apply``), then gaussian noise
+of std 5.
 
 Each op takes its random parameters as tensors and draws nothing:
 ``sample_controlnet_augment_draws`` draws them from a ``torch.Generator`` in
@@ -14,13 +19,12 @@ both from one key), scaled by ``w`` and by ``h``.
 
 ``bilinear_sample`` is the JAX package's gather (clamp to the edge before
 the floor, or a constant fill outside), not ``grid_sample``, whose edge
-handling differs. The ACT recipe (``act_train_augment``, ``random_apply``,
-``add_gaussian_noise``) comes with the ACT trainer.
+handling differs.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +34,7 @@ ELASTIC = (80.0, 10.0)  # alpha, sigma
 BLUR_KERNEL, BLUR_SIGMA = 3, (0.1, 2.0)
 AFFINE_DEGREES, AFFINE_TRANSLATE, AFFINE_SCALE = (0.0, 10.0), (0.1, 0.1), (0.9, 1.1)
 CROP_PAD = 2
+ACT_CROP_PAD, ACT_NOISE_STD, ACT_APPLY_P = 4, 5.0, 0.5
 
 
 # -- colour jitter ------------------------------------------------------------------
@@ -189,16 +194,36 @@ def random_affine(images: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
 
 
 def random_crop_with_pad(images: torch.Tensor, offset: torch.Tensor,
-                         padding: int = CROP_PAD) -> torch.Tensor:
-    """Reflect-pad by ``padding``, then crop back to (H, W) at ``offset``
-    (oy, ox), each in [0, 2 * padding]; on the device, no host sync."""
+                         padding: int = CROP_PAD, mode: str = "reflect") -> torch.Tensor:
+    """Pad by ``padding`` (``mode`` "reflect", or "constant": zeros), then
+    crop back to (H, W) at ``offset`` (oy, ox), each in [0, 2 * padding];
+    on the device, no host sync."""
     b, h, w, c = images.shape
     oy, ox = offset.unbind(0)
-    rows = _reflect_index(h, padding, images.device).index_select(
-        0, oy + torch.arange(h, device=images.device))
-    cols = _reflect_index(w, padding, images.device).index_select(
-        0, ox + torch.arange(w, device=images.device))
+    rows = oy + torch.arange(h, device=images.device)
+    cols = ox + torch.arange(w, device=images.device)
+    if mode == "constant":
+        padded = F.pad(images, (0, 0, padding, padding, padding, padding))
+        return padded.index_select(1, rows).index_select(2, cols)
+    if mode != "reflect":
+        raise ValueError(f"padding mode {mode!r}: reflect or constant")
+    rows = _reflect_index(h, padding, images.device).index_select(0, rows)
+    cols = _reflect_index(w, padding, images.device).index_select(0, cols)
     return images.index_select(1, rows).index_select(2, cols)
+
+
+def add_gaussian_noise(images: torch.Tensor, noise: torch.Tensor, std: float = ACT_NOISE_STD,
+                       mean: float = 0.0) -> torch.Tensor:
+    """AddGaussianNoise: ``noise`` is standard normal of the images' shape;
+    ``std`` in the images' units (5 on [0, 255] pixels)."""
+    return images + noise * std + mean
+
+
+def random_apply(fn: Callable[[torch.Tensor], torch.Tensor], images: torch.Tensor,
+                 apply: bool) -> torch.Tensor:
+    """torchvision RandomApply with its decision drawn beforehand: one
+    decision for the whole batch."""
+    return fn(images) if apply else images
 
 
 # -- the recipe ----------------------------------------------------------------------
@@ -273,3 +298,48 @@ def controlnet_train_augment(pixel_values: torch.Tensor, conditioning: torch.Ten
         both = random_crop_with_pad(torch.cat([pixel_values, conditioning], dim=-1), draws.crop)
         pixel_values, conditioning = both.chunk(2, dim=-1)
     return pixel_values, conditioning
+
+
+class ACTAugmentDraws(NamedTuple):
+    """The random parameters of one ``act_train_augment`` call: whether
+    elastic, colour jitter and the crop apply, and their draws (None where
+    an op does not apply), then the noise."""
+
+    apply: tuple[bool, bool, bool]
+    elastic: Optional[torch.Tensor]  # (2, H, W) uniform in [-1, 1]
+    jitter: Optional[torch.Tensor]  # (4,) see color_jitter
+    crop: Optional[torch.Tensor]  # (2,) long in [0, 2 * ACT_CROP_PAD]
+    noise: torch.Tensor  # (N, H, W, 3) standard normal
+
+
+def sample_act_augment_draws(n: int, h: int, w: int,
+                             generator: torch.Generator) -> ACTAugmentDraws:
+    """Draws for ``act_train_augment`` on (n, h, w, 3) images, in the JAX
+    package's ranges, from ``generator`` (on its device). The three
+    decisions come to the host (on the card, a wait for the device)."""
+    dev = generator.device
+    apply = tuple(bool(a) for a in (torch.rand(3, generator=generator, device=dev)
+                                     < ACT_APPLY_P).tolist())
+    br, co, sa, hu = JITTER
+    return ACTAugmentDraws(
+        apply=apply,
+        elastic=_uniform(generator, (2, h, w), -1.0, 1.0) if apply[0] else None,
+        jitter=torch.cat([
+            _uniform(generator, (1,), 1 - br, 1 + br), _uniform(generator, (1,), 1 - co, 1 + co),
+            _uniform(generator, (1,), 1 - sa, 1 + sa), _uniform(generator, (1,), -hu, hu),
+        ]) if apply[1] else None,
+        crop=torch.randint(0, 2 * ACT_CROP_PAD + 1, (2,), generator=generator,
+                           device=dev) if apply[2] else None,
+        noise=torch.randn((n, h, w, 3), generator=generator, device=dev),
+    )
+
+
+def act_train_augment(images: torch.Tensor, draws: ACTAugmentDraws) -> torch.Tensor:
+    """The ACT policy's train-time recipe on (N, H, W, 3) floats in [0, 255]."""
+    x = images / 255.0
+    x = random_apply(lambda t: elastic_transform(t, draws.elastic), x, draws.apply[0])
+    x = random_apply(lambda t: color_jitter(t, draws.jitter), x, draws.apply[1])
+    x = x * 255.0
+    x = random_apply(lambda t: random_crop_with_pad(t, draws.crop, ACT_CROP_PAD, "constant"),
+                     x, draws.apply[2])
+    return add_gaussian_noise(x, draws.noise)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from genima_torch.core.optim import Adam8bitState, AdamWState, Moment, MultiStepsState
-from genima_torch.weights.to_jax import flax_layout, layout_perm, nest
+from genima_torch.weights.to_jax import layout_perm, nest, params_tree
 
 Paths = Mapping[str, tuple[str, ...]]  # parameter name -> flax path
 
@@ -47,11 +47,6 @@ def layout_perms(params: Mapping[str, torch.Tensor], paths: Paths) -> dict[str, 
         if perm is not None:
             out[k] = perm
     return out
-
-
-def params_tree(tensors: Mapping[str, torch.Tensor], paths: Paths) -> dict:
-    """A params-shaped flax tree of views of ``tensors``."""
-    return nest({paths[k]: flax_layout(t, paths[k][-1]) for k, t in tensors.items()})
 
 
 def _leaves(tree: Mapping, stop=lambda node: False, prefix=()) -> dict:

@@ -43,6 +43,9 @@ class Env:
     def step(self, action):
         raise NotImplementedError
 
+    def close(self) -> None:
+        """Release what the env holds (gymnasium's ``Env.close``)."""
+
     @property
     def unwrapped(self) -> "Env":
         return self

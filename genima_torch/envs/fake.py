@@ -5,8 +5,8 @@ factory's eval env): a scripted 7-DoF "reach the joint configuration" task
 with 4 cameras whose images encode the joint state (colored bars, or the
 goal-observable marker scene), seeded ``reset_to_demo`` for reproducible
 eval episodes, and the RLBench observation dict (CHW ``{cam}_rgb``,
-``low_dim_state`` = [gripper_open, joints], ``lang_tokens``). Demo
-collection belongs to the ACT training slice and is not ported yet.
+``low_dim_state`` = [gripper_open, joints], ``lang_tokens``), and the
+scripted demos the controller trainer learns from.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 
 from genima_torch.envs import core
 from genima_torch.envs.core import Box
+from genima_torch.envs.demo import DemoStep, compute_action_stats, compute_proprio_stats
 
 CAMERAS = ("wrist", "front", "right_shoulder", "left_shoulder")
 # per-camera color tints so views are distinguishable
@@ -334,18 +335,76 @@ class FakeRLBenchEnv(core.Env):
 
     # -- demos ---------------------------------------------------------------
 
+    def get_demo(self, idx: int) -> list[DemoStep]:
+        """Scripted linear-interpolation demo with joint_position_action."""
+        self._episode_init(idx)
+        start, target = self._joints.copy(), self._target.copy()
+        steps = []
+        T = self.demo_length
+        for t in range(T):
+            alpha = t / (T - 1)
+            joints = (1 - alpha) * start + alpha * target
+            gripper = 1.0 if alpha < 0.8 else self._target_gripper
+            self._joints, self._gripper_open = joints.astype(np.float32), gripper
+            obs = self._obs()
+            misc = {
+                "joint_position_action": np.concatenate([joints, [gripper]]),
+                "descriptions": self.descriptions[0],
+            }
+            gripper_matrix = None
+            if self.goal_observable:
+                # the synthetic camera model + marker "FK" that lets these
+                # demos export to the RLBench dataset format and feed the
+                # REAL sphere renderer (rendering/render_data.py reads
+                # joint_poses + per-camera intrinsics/extrinsics from misc)
+                markers = joint_marker_positions(joints)
+                misc["joint_poses"] = {
+                    j: np.concatenate(
+                        [markers[j], [0.0, 0.0, 0.0, 1.0]]
+                    ).astype(np.float32)
+                    for j in CONTROLLED_JOINTS
+                }
+                for cam in self.cameras:
+                    misc[f"{cam}_camera_intrinsics"] = fake_camera_intrinsics(
+                        self.image_size
+                    )
+                    misc[f"{cam}_camera_extrinsics"] = fake_camera_extrinsics(
+                        cam
+                    )
+                gripper_matrix = np.eye(4, dtype=np.float32)
+                gripper_matrix[:3, 3] = gripper_marker_position()
+            steps.append(
+                DemoStep(
+                    joint_positions=joints.astype(np.float32),
+                    gripper_open=gripper,
+                    observation={
+                        k: v for k, v in obs.items() if k != "lang_tokens"
+                    },
+                    gripper_matrix=gripper_matrix,
+                    misc=misc,
+                )
+            )
+        return steps
+
+    def get_demos(self, n: int) -> list[list[DemoStep]]:
+        return [self.get_demo(i) for i in range(n)]
+
 
 class FakeRLBenchFactory:
-    """The fake env's factory, for eval: ``make_eval_env`` wraps a fresh
+    """The fake env's factory (``GenimaRLBenchFactory``'s API,
+    ``controller/env/rlbench.py:255-383``): ``make_eval_env`` wraps a fresh
     env in the controller's wrapper stack, with the normalization stats
     loaded from ``stats_path`` (or given). Multi-task: each task gets its
-    own description and episode stream."""
+    own description and episode stream; ``collect_or_fetch_demos`` takes
+    ``num_demos`` per task and pools them, stats over the pool, as RoboBase
+    does."""
 
     def __init__(self, task_names=None, **env_kwargs):
         self.env_kwargs = env_kwargs
         self.task_names = list(
             task_names if task_names else [env_kwargs.get("task_name", "fake_reach")]
         )
+        self._raw_demos = None
         self.action_stats = None
         self.proprio_stats = None
 
@@ -376,4 +435,23 @@ class FakeRLBenchFactory:
             proprio_stats=proprio_stats if proprio_stats is not None else self.proprio_stats,
             stats_path=stats_path,
             use_onehot_time=use_onehot_time,
+        )
+
+    def collect_or_fetch_demos(self, num_demos: int) -> list[list[DemoStep]]:
+        self._raw_demos = []
+        for task in self.task_names:
+            self._raw_demos.extend(self.make_env(task).get_demos(num_demos))
+        self.action_stats = compute_action_stats(self._raw_demos)
+        self.proprio_stats = compute_proprio_stats(self._raw_demos)
+        return self._raw_demos
+
+    def load_demos_into_replay(self, buffer, cameras=CAMERAS, lang_tokens=None,
+                               tokenizer=None, onehot_time_len=None) -> None:
+        from genima_torch.envs.demo import load_demos_into_replay
+
+        if self._raw_demos is None:
+            raise RuntimeError("collect_or_fetch_demos first")
+        load_demos_into_replay(
+            buffer, self._raw_demos, list(cameras), self.action_stats, self.proprio_stats,
+            lang_tokens=lang_tokens, tokenizer=tokenizer, onehot_time_len=onehot_time_len,
         )

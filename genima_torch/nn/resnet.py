@@ -17,15 +17,20 @@ from torch import nn
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm with fixed statistics and affine (DETR FrozenBatchNorm2d)."""
+    """BatchNorm with fixed statistics and affine (DETR FrozenBatchNorm2d).
+
+    The four tensors are parameters, as in the JAX package: in training they
+    get gradients, which count in the global norm of an optional gradient
+    clip, and the optimizer never moves them (its ``frozen`` group). Their
+    state-dict names are torchvision's."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.running_mean = nn.Parameter(torch.zeros(features))
+        self.running_var = nn.Parameter(torch.ones(features))
 
     def forward(self, x):
         inv = self.weight.float() / torch.sqrt(self.running_var.float() + self.eps)

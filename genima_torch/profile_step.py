@@ -1,6 +1,6 @@
 """Where a step's time goes on the card.
 
-    python -m genima_torch.profile_step [--path serve|train] [--steps 3] [--out FILE]
+    python -m genima_torch.profile_step [--path serve|train|act] [--steps 3] [--out FILE]
         [--backend fused] [--conv_backend xla]
 
 ``serve`` (the default) builds the full-width fused control step
@@ -8,14 +8,17 @@
 ``--conv_backend`` (``--backend pallas+w8 --conv_backend fused`` is the
 opt-in serving configuration); ``train`` builds a full-width ControlNet fine-tune
 step (sd-turbo width, batch 4, 512x512, bf16 compute, f32 master weights,
-packed attention kernels; seeded random weights and a random uint8 batch).
-It warms the step up, then:
+packed attention kernels; seeded random weights and a random uint8 batch);
+``act`` one ACT controller update at the trainer's defaults (``ACTConfig()``,
+ResNet-18 width 64, 4 views at 256x256, batch 8, augmentations, f32 under
+PyTorch's TF32 defaults; seeded weights, a random batch, fresh draws each
+step). It warms the step up, then:
 
 * times each top-level model's forward per step with CUDA events recorded
   by forward hooks (serve: ControlNet, UNet, VAE decoder, the two CLIP
   towers, the ResNet encoder, the ACT actor; train: VAE encoder, CLIP,
-  ControlNet, UNet, forward only), so each span includes any device idle
-  inside it;
+  ControlNet, UNet, forward only; act: CLIP, the ResNet encoder, the
+  actor, forward only), so each span includes any device idle inside it;
 * profiles one step with ``torch.profiler`` and reports the device-busy
   share (summed kernel time over the step's wall time), device time by
   kernel family, and the top kernels.
@@ -105,6 +108,33 @@ def train_step():
     return step, watched
 
 
+def act_step():
+    """One ACT controller update at the trainer's defaults, and the models
+    to time in it."""
+    from genima_torch.control.policy import GenimaACTAgent
+
+    agent = GenimaACTAgent(device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = [agent.create_state(*agent.init_params(gen))]
+    b, c = 8, agent.act_cfg
+    batch = {
+        "images": torch.rand((b, agent.num_views, agent.image_size, agent.image_size, 3),
+                             generator=gen, device="cuda") * 255.0,
+        "qpos": torch.randn((b, c.state_dim), generator=gen, device="cuda"),
+        "actions": torch.randn((b, c.num_queries, c.action_dim), generator=gen, device="cuda"),
+        "is_pad": torch.zeros((b, c.num_queries), dtype=torch.bool, device="cuda"),
+        "lang_tokens": torch.randint(0, 49406, (b, 77), generator=gen, device="cuda"),
+    }
+
+    def step():
+        state[0], _ = agent.update(state[0], batch, agent.sample_draws(batch, gen))
+
+    params = state[0].params
+    watched = {"clip_lang": agent.clip_params, "resnet_encoder": params["encoder"],
+               "act_actor": params["actor"]}
+    return step, watched
+
+
 def module_spans(step, watched):
     """Per-model device ms over one step, from forward-hook CUDA events."""
     events = collections.defaultdict(list)
@@ -134,7 +164,7 @@ def module_spans(step, watched):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("serve", "train"), default="serve")
+    ap.add_argument("--path", choices=("serve", "train", "act"), default="serve")
     ap.add_argument("--steps", type=int, default=3, help="warm-up steps")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--backend", default="fused", help="serve: attention backend spec")
@@ -146,7 +176,10 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    step, watched = serve_step(a.backend, a.conv_backend) if a.path == "serve" else train_step()
+    if a.path == "serve":
+        step, watched = serve_step(a.backend, a.conv_backend)
+    else:
+        step, watched = train_step() if a.path == "train" else act_step()
     for _ in range(a.steps):
         step()
     torch.cuda.reset_peak_memory_stats()

@@ -1,4 +1,5 @@
-"""Base-model weights from a local directory into the pipeline's modules.
+"""Pretrained weights from local files: the base models into the pipeline's
+modules, and a torchvision ResNet-18 into the ACT controller's backbone.
 
 Counterpart of ``genima_tpu/weights/load_pretrained.py`` and of
 ``load_torch_file`` in ``genima_tpu/weights/torch_port.py``. For each model
@@ -135,3 +136,20 @@ def load_pretrained_pipeline(base_dir: str | Path, params: dict[str, nn.Module])
             continue
         report[name] = load_submodel(sub, module, family) or "no-weights-file"
     return report
+
+
+def load_torchvision_resnet(backbone: nn.Module, path: str | Path) -> list[str]:
+    """A torchvision ``resnet18`` state dict into the ACT's ResNet backbone,
+    not strictly, as the JAX package loads it: ``fc.*`` and every tensor the
+    backbone lacks are dropped, the backbone's tensors the file lacks (FiLM)
+    keep their values; a tensor of another shape raises. Returns the names
+    loaded."""
+    target = backbone.state_dict()
+    sd = {k: v for k, v in load_torch_file(path).items()
+          if k in target and not k.startswith("fc.")}
+    bad = [k for k, v in sd.items() if tuple(v.shape) != tuple(target[k].shape)]
+    if bad:
+        raise ValueError(f"{path}: misshapen tensors for the backbone: {bad[:4]}")
+    backbone.load_state_dict({k: v.to(target[k].device, target[k].dtype) for k, v in sd.items()},
+                             strict=False)
+    return sorted(sd)

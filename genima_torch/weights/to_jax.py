@@ -93,6 +93,12 @@ def nest(leaves: dict[tuple[str, ...], object]) -> dict:
     return tree
 
 
+def params_tree(tensors: dict[str, torch.Tensor], paths: dict[str, tuple[str, ...]]) -> dict:
+    """A params-shaped flax tree of views of ``tensors`` (name -> tensor),
+    each under its flax path (``paths``, name -> path)."""
+    return nest({paths[k]: flax_layout(t, paths[k][-1]) for k, t in tensors.items()})
+
+
 def tree_from_module(module: nn.Module, family: str) -> dict:
     """The flax params tree of ``module`` (float leaves in f32)."""
     sd = module.state_dict()

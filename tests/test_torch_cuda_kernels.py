@@ -534,3 +534,56 @@ def test_async_checkpointer_copies_device_tensors_to_the_host(cuda, tmp_path):
         assert torch.equal(back["b"], want["b"]) and back["c"].shape == (0, 3)
         assert back["step"] == i
     writer.close()
+
+
+@pytest.mark.cuda
+def test_act_update_on_cuda_matches_the_cpu(cuda):
+    """One ACT update (augmentation, dropout, the CVAE loss, a binding clip,
+    the split AdamW) on the card against the CPU, f32 with TF32 off, from
+    the same params, batch and draws; the frozen BatchNorm tensors stay."""
+    from genima_torch.control.policy import ACTDraws, GenimaACTAgent
+    from genima_torch.data.augment import sample_act_augment_draws
+    from genima_torch.nn.act import ACTConfig, RandomDropout, ReplayDropout
+    from genima_torch.nn.clip_text import CLIPTextConfig
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        states, agents, modules = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            agent = GenimaACTAgent(act_cfg=ACTConfig.tiny(num_queries=6),
+                                   clip_cfg=CLIPTextConfig.tiny(projection_dim=16),
+                                   resnet_width=8, actor_grad_clip=0.05, device=dev,
+                                   dtype=torch.float32)
+            params, clip = agent.init_params(torch.Generator(dev).manual_seed(0))
+            if dev == "cuda":  # the CPU's seeded weights on both
+                for part, module in params.items():
+                    module.load_state_dict(modules["cpu"][0][part].state_dict())
+                clip.load_state_dict(modules["cpu"][1].state_dict())
+            modules[dev] = params, clip
+            states[dev], agents[dev] = agent.create_state(params, clip), agent
+        rng = np.random.RandomState(0)
+        batch = {"images": torch.from_numpy(rng.uniform(0, 255, (2, 4, 32, 32, 3)).astype(np.float32)),
+                 "qpos": torch.randn(2, 8), "actions": torch.randn(2, 8, 8),
+                 "is_pad": torch.zeros(2, 8, dtype=torch.bool),
+                 "lang_tokens": torch.randint(0, 1000, (2, 77))}
+        g = torch.Generator(cuda).manual_seed(1)
+        aug = sample_act_augment_draws(8, 32, 32, g)
+        drop = RandomDropout(g, record=True)
+        draws = ACTDraws(aug, torch.randn(2, 8, generator=g, device=cuda), drop)
+        before = {k: t.clone() for k, t in states["cuda"].master.items()}
+        states["cuda"], m_cuda = agents["cuda"].update(
+            states["cuda"], {k: v.to(cuda) for k, v in batch.items()}, draws)
+        cpu_draws = ACTDraws(aug._replace(**{f: getattr(aug, f).cpu() for f in
+                                             ("elastic", "jitter", "crop", "noise")
+                                             if getattr(aug, f) is not None}),
+                             draws.latent_eps.cpu(), ReplayDropout([m.cpu() for m in drop.masks]))
+        states["cpu"], m_cpu = agents["cpu"].update(states["cpu"], batch, cpu_draws)
+        torch.testing.assert_close(m_cuda["loss"].cpu(), m_cpu["loss"], rtol=1e-4, atol=0)
+        labels = agents["cuda"].tx.labels
+        for k, t in states["cuda"].master.items():
+            torch.testing.assert_close(t.cpu(), states["cpu"].master[k], rtol=1e-4, atol=1e-5)
+            if labels[k] == "frozen":
+                assert torch.equal(t, before[k]), k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

@@ -23,7 +23,7 @@ from genima_tpu.nn.vae import AutoencoderKL as JaxVAE, VAEConfig as JaxVAEConfig
 
 from genima_torch.control.policy import GenimaACTAgent
 from genima_torch.nn import layers as tl
-from genima_torch.nn.act import TRAIN_ONLY_SUBTREES, ACTConfig, GenimaACTModel
+from genima_torch.nn.act import ACTConfig, GenimaACTModel
 from genima_torch.nn.clip_text import CLIPTextConfig, CLIPTextModel
 from genima_torch.nn.controlnet import ControlNetModel, embed_conditioning
 from genima_torch.nn.resnet import ImageEncoderACT
@@ -269,8 +269,7 @@ def test_image_encoder_and_actor(small_inputs):
                       torch.from_numpy(lang))
     _close(ttok.detach(), tokens)
     _close(tpos, pos)
-    tact = _port(lambda: GenimaACTModel(ACTConfig.tiny(num_queries=6)),
-                 drop_subtrees(ap, TRAIN_ONLY_SUBTREES), "act")
+    tact = _port(lambda: GenimaACTModel(ACTConfig.tiny(num_queries=6)), ap, "act")
     got = tact(ttok, tpos, torch.from_numpy(qpos), task_emb=torch.from_numpy(lang))
     _close(got.actions.detach(), want.actions)
     _close(got.is_pad_logits.detach(), want.is_pad_logits)

@@ -23,7 +23,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", CODE], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 56  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 64  # every module was walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -71,5 +71,25 @@ assert not bad, bad
 def test_train_path_imports_none_of_the_packages_the_card_lacks():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", TRAIN_PATH], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+ACT_TRAIN_PATH = """
+import importlib, sys
+for name in ("nn.act", "nn.resnet", "core.optim", "core.config", "core.checkpoint",
+             "core.preemption", "core.logging", "data.augment", "data.tokenizer", "envs.demo",
+             "envs.fake", "envs.rlbench", "control.policy", "control.replay", "control.trainer",
+             "weights.load_pretrained", "weights.openai_clip", "cli.train_act"):
+    importlib.import_module("genima_torch." + name)
+absent = ("yaml", "msgpack", "flax", "jax", "jaxlib", "gymnasium", "PIL", "genima_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
+assert not bad, bad
+"""
+
+
+def test_act_train_path_imports_none_of_the_packages_the_card_lacks():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", ACT_TRAIN_PATH], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr

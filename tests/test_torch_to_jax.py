@@ -22,11 +22,11 @@ from genima_tpu.nn.controlnet import ControlNetModel as JaxControlNet
 from genima_tpu.nn.unet import UNetConfig as JaxUNetConfig
 from genima_tpu.weights.torch_port import port_torch_state_dict
 
-from genima_torch.nn.act import TRAIN_ONLY_SUBTREES, ACTConfig, GenimaACTModel
+from genima_torch.nn.act import ACTConfig, GenimaACTModel
 from genima_torch.nn.controlnet import ControlNetModel
 from genima_torch.nn.resnet import ImageEncoderACT
 from genima_torch.nn.unet import UNetConfig
-from genima_torch.weights.from_jax import drop_subtrees, load_from_jax
+from genima_torch.weights.from_jax import load_from_jax
 from genima_torch.weights.init import build_module
 from genima_torch.weights.to_jax import tree_from_module
 
@@ -58,7 +58,7 @@ def trees():
     return {
         "diffusers_controlnet": _randomised(_np(cn), 3),
         "torchvision_resnet": _randomised(_np(params["encoder"]), 4),
-        "act": _randomised(drop_subtrees(_np(params["actor"]), TRAIN_ONLY_SUBTREES), 5),
+        "act": _randomised(_np(params["actor"]), 5),
     }
 
 
