@@ -103,6 +103,23 @@
    peak memory, and the update with cuDNN's TF32 off and on in turns (on
    is PyTorch's default for convolutions, which the CLI leaves alone).
 
+10. Lockstep-batched eval (run right after phase 7, on its checkpoints):
+   ``eval_genima.main`` with ``num_parallel_envs=4``, 5 episodes (the
+   second round: 1 counted and 3 uncounted slots), guidance 0, beside run
+   S, the serial harness on the same 5 episodes (each run's loop time, less
+   the checkpoint load and the gen-time probe, gives its control steps a
+   second). Run A overlaps two cohorts of 2 envs
+   (``eval_overlap=true``): every generate launches B1 105 times at batch
+   2, targets (2,512,512,3) uint8, actions (2,20,8) finite. Run B is one
+   batch of 4 (B1 at batch 4) with run A's episode count and per-episode
+   steps. Then, on the device worker's stream: one ``BatchedGenimaStep`` at
+   4 envs, row by row against ``FusedGenimaStep`` at batch 1 (the
+   ``ROW_*`` limits), its time by events and host clock beside the serial
+   step's and N=2's; the opt-in batched step (pinned 230 B3 / 25 B4 / 1380
+   B5 / 0 B1 a step, rows held likewise); B3/B4/B5 at every batch-4 shape
+   against their plain versions; B5 split-K calls on two streams at once
+   bit-equal to the same calls one after the other.
+
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
 same sums of its bound and library time), one ``{"kernels": [...]}`` line,
@@ -175,6 +192,11 @@ CONV_SHAPES = [
 W8_SHAPES = sorted(
     {(m, k, n) for m, c, _ in OPT_LEVELS for k, n in ((c, c), (c, 8 * c), (4 * c, c))}
     | {(CONTEXT[0], CONTEXT[1], c) for _, c, _ in OPT_LEVELS})
+# phase 10: N lockstep envs batch every opt-in kernel's input by N
+PARALLEL_ENVS = 4
+BATCHED_FLASH_SHAPES = [(PARALLEL_ENVS, *shape[1:]) for shape in FLASH_SHAPES]
+BATCHED_CONV_SHAPES = [(PARALLEL_ENVS, *shape[1:]) for shape in CONV_SHAPES]
+BATCHED_W8_SHAPES = sorted({(PARALLEL_ENVS * m, k, n) for m, k, n in W8_SHAPES})
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention", "fused_conv",
                   "w8_matmul"]
 CONV_REL_TOL = 2e-2  # bf16 activation and output roundings: error / max |y|
@@ -478,8 +500,10 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return out
 
 
-def opt_kernel_phase() -> list[dict]:
-    """B3, B4 and B5 at every shape of the opt-in serving path."""
+def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
+                     w8_shapes=W8_SHAPES, seed: int = 2) -> list[dict]:
+    """B3, B4 and B5 at every shape of the opt-in serving path (or of its
+    lockstep batch of N envs)."""
     import torch.nn.functional as F
 
     from genima_torch.kernels import flash_attention as fa
@@ -490,9 +514,9 @@ def opt_kernel_phase() -> list[dict]:
     regs = {name: ptxas_report(_build.build_log(name))
             for name in ("flash_attention", "fused_conv", "w8_matmul")}
     fa_lib, conv_lib, w8_lib = fa._library(), fc._library(), w8._library()
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for b, sq, sk, c, h in FLASH_SHAPES:
+    for b, sq, sk, c, h in flash_shapes:
         q, k, v = (torch.randn(b, s, h, c // h, generator=gen, device="cuda").bfloat16()
                    for s in (sq, sk, sk))
         got = fa.flash_attention(q, k, v)
@@ -523,7 +547,7 @@ def opt_kernel_phase() -> list[dict]:
             **regs["flash_attention"].get(f"{plan.nwg}x{plan.bn}x0", {}),
         })
 
-    for b, h, w, c, o in CONV_SHAPES:
+    for b, h, w, c, o in conv_shapes:
         x = torch.randn(b, h, w, c, generator=gen, device="cuda").bfloat16()
         gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
         beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
@@ -569,7 +593,7 @@ def opt_kernel_phase() -> list[dict]:
             **regs["fused_conv"].get(f"{plan.bn}x{plan.rows}", {}),
         })
 
-    for m, k, n in W8_SHAPES:
+    for m, k, n in w8_shapes:
         x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
         w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)
         got = w8.w8_matmul(x, w_q, scale)
@@ -937,15 +961,11 @@ class _EvalProbe:
 
         self.pa = pa
         self.generate_calls, self.fused_calls, self.split_actions = [], [], []
-        self.first_fused, self.targets = None, []
+        self.first_fused, self.targets, self.step_actions = None, [], []
         self.load = {}
         self._saved = []
         probe = self
-
-        def wrap(cls, name, make):
-            orig = getattr(cls, name)
-            self._saved.append((cls, name, orig))
-            setattr(cls, name, make(orig))
+        wrap = self.wrap
 
         def generate(orig):
             def fn(pipe_self, *args, **kwargs):
@@ -962,6 +982,8 @@ class _EvalProbe:
                 before = pa.packed_flash_attention.launches
                 out = orig(step_self, *args, **kwargs)
                 probe.fused_calls.append(pa.packed_flash_attention.launches - before)
+                probe.step_actions.append((tuple(out[0].shape),
+                                           bool(torch.isfinite(out[0]).all())))
                 if probe.first_fused is None:
                     probe.first_fused = (step_self, args, kwargs,
                                          tuple(t.clone() for t in out))
@@ -993,17 +1015,22 @@ class _EvalProbe:
         wrap(SDControlNetAgent, "_load_params", timed("diffusion_params_s"))
         wrap(GenimaEvalWorkspace, "load_controller_ckpt", timed("controller_ckpt_s"))
 
+    def wrap(self, cls, name, make) -> None:
+        orig = getattr(cls, name)
+        self._saved.append((cls, name, orig))
+        setattr(cls, name, make(orig))
+
     def close(self) -> None:
         for cls, name, orig in reversed(self._saved):
             setattr(cls, name, orig)
 
 
-def _run_eval_cli(pa, argv: list[str]) -> tuple[dict, "_EvalProbe"]:
+def _run_eval_cli(pa, argv: list[str], probe_cls=None) -> tuple[dict, "_EvalProbe"]:
     from genima_torch.cli import eval_genima
 
     pa.packed_flash_attention.launches = 0
     pa.packed_flash_attention.launches_by_shape.clear()
-    probe = _EvalProbe(pa)
+    probe = (probe_cls or _EvalProbe)(pa)
     try:
         logs = eval_genima.main(argv)
     finally:
@@ -1017,91 +1044,90 @@ def _last_metrics(ctrl_dir: Path) -> dict:
     return json.loads(lines[-1])
 
 
-def eval_phase(pa, card: str) -> dict:
-    """Phase 7: the eval CLI at full width on checkpoints written here."""
+def eval_phase(pa, card: str, written: dict) -> dict:
+    """Phase 7: the eval CLI at full width on the checkpoints
+    ``write_eval_checkpoints`` wrote."""
     import numpy as np
 
-    with tempfile.TemporaryDirectory() as tmp:
-        written = write_eval_checkpoints(Path(tmp))
-        ctrl_dir = written["controller_dir"]
-        argv = [
-            f"controller_ckpt={ctrl_dir}", f"diffusion_ckpt={written['diffusion_dir']}",
-            "task=fake_reach", "env.factory=fake", "env.image_size=256",
-            "image_resolution=512", "num_diffusion_steps=5",
-            f"episode_length={EVAL_EPISODE_LENGTH}", f"execution_horizon={EVAL_HORIZON}",
-            "device=cuda",
-        ]
-        out = {"card": card}
-        for name, extra, episodes in (
-            ("fused", ["guidance_scale=0.0"], EVAL_EPISODES),
-            ("cfg", [f"guidance_scale={EVAL_GUIDANCE}"], 1),
-        ):
-            logs, probe = _run_eval_cli(pa, argv + extra + [f"num_eval_episodes={episodes}"])
-            results = logs["results"]
-            if results["total_episodes"] != episodes or results["env_exception_episodes"]:
-                raise AssertionError(f"eval {name}: results {results}")
-            control_steps = sum(-(-e["steps"] // EVAL_HORIZON) for e in logs["eval_episodes"])
-            batch = 1 if name == "fused" else 2
-            # fused: a generate per control step inside FusedGenimaStep, plus the
-            # two of the one-off gen-time measurement; CFG: one per control step
-            want_generates = control_steps + (2 if name == "fused" else 0)
-            if len(probe.generate_calls) != want_generates:
-                raise AssertionError(f"eval {name}: {len(probe.generate_calls)} generate calls, "
-                                     f"want {want_generates}")
-            for delta in probe.generate_calls:
-                if sum(delta.values()) != LAUNCHES_PER_STEP or {k[0] for k in delta} != {batch}:
-                    raise AssertionError(f"eval {name}: a generate launched B1 {dict(delta)}")
-            for t in probe.targets:
-                if t.shape != (1, 512, 512, 3) or t.dtype != torch.uint8:
-                    raise AssertionError(f"eval {name}: target {tuple(t.shape)} {t.dtype}")
-            if name == "fused":
-                if probe.fused_calls != [LAUNCHES_PER_STEP] * control_steps:
-                    raise AssertionError(f"eval fused: B1 launches per step {probe.fused_calls}")
-                step_self, args, kwargs, (actions, target) = probe.first_fused
-                if actions.shape != (1, 20, 8) or not torch.isfinite(actions).all():
-                    raise AssertionError(f"eval fused: actions {tuple(actions.shape)}")
-                # the harness's step against FusedGenimaStep called directly
-                from genima_torch.eval.fused import FusedGenimaStep
+    ctrl_dir = written["controller_dir"]
+    argv = [
+        f"controller_ckpt={ctrl_dir}", f"diffusion_ckpt={written['diffusion_dir']}",
+        "task=fake_reach", "env.factory=fake", "env.image_size=256",
+        "image_resolution=512", "num_diffusion_steps=5",
+        f"episode_length={EVAL_EPISODE_LENGTH}", f"execution_horizon={EVAL_HORIZON}",
+        "device=cuda",
+    ]
+    out = {"card": card}
+    for name, extra, episodes in (
+        ("fused", ["guidance_scale=0.0"], EVAL_EPISODES),
+        ("cfg", [f"guidance_scale={EVAL_GUIDANCE}"], 1),
+    ):
+        logs, probe = _run_eval_cli(pa, argv + extra + [f"num_eval_episodes={episodes}"])
+        results = logs["results"]
+        if results["total_episodes"] != episodes or results["env_exception_episodes"]:
+            raise AssertionError(f"eval {name}: results {results}")
+        control_steps = sum(-(-e["steps"] // EVAL_HORIZON) for e in logs["eval_episodes"])
+        batch = 1 if name == "fused" else 2
+        # fused: a generate per control step inside FusedGenimaStep, plus the
+        # two of the one-off gen-time measurement; CFG: one per control step
+        want_generates = control_steps + (2 if name == "fused" else 0)
+        if len(probe.generate_calls) != want_generates:
+            raise AssertionError(f"eval {name}: {len(probe.generate_calls)} generate calls, "
+                                 f"want {want_generates}")
+        for delta in probe.generate_calls:
+            if sum(delta.values()) != LAUNCHES_PER_STEP or {k[0] for k in delta} != {batch}:
+                raise AssertionError(f"eval {name}: a generate launched B1 {dict(delta)}")
+        for t in probe.targets:
+            if t.shape != (1, 512, 512, 3) or t.dtype != torch.uint8:
+                raise AssertionError(f"eval {name}: target {tuple(t.shape)} {t.dtype}")
+        if name == "fused":
+            if probe.fused_calls != [LAUNCHES_PER_STEP] * control_steps:
+                raise AssertionError(f"eval fused: B1 launches per step {probe.fused_calls}")
+            step_self, args, kwargs, (actions, target) = probe.first_fused
+            if actions.shape != (1, 20, 8) or not torch.isfinite(actions).all():
+                raise AssertionError(f"eval fused: actions {tuple(actions.shape)}")
+            # the harness's step against FusedGenimaStep called directly
+            from genima_torch.eval.fused import FusedGenimaStep
 
-                dag = probe.load["diffusion_params_s_owner"]
-                direct = FusedGenimaStep(dag, step_self.controller, step_self.obs_size)
-                d_actions, d_target = direct(*args, **kwargs)
-                torch.cuda.synchronize()
-                step_err = (d_actions.float() - actions.float()).abs().max().item()
-                if not (torch.equal(d_target, target) and step_err <= DIRECT_STEP_TOL):
-                    raise AssertionError(f"eval fused: harness step vs direct FusedGenimaStep: "
-                                         f"actions err {step_err}, target equal "
-                                         f"{torch.equal(d_target, target)}")
-                # the ControlNet the agent loaded: the written tree, cast to bf16
-                loaded = dag.params["controlnet"].state_dict()
-                diff = [k for k, v in written["controlnet_state"].items()
-                        if not torch.equal(loaded[k], v)]
-                if diff or loaded[next(iter(loaded))].dtype != torch.bfloat16:
-                    raise AssertionError(f"eval: loaded ControlNet differs at {diff[:3]}")
-                out["harness_vs_direct_step_actions_err"] = step_err
-            else:
-                if len(probe.split_actions) != control_steps or not all(
-                        a.shape == (20, 8) and bool(np.isfinite(a).all())
-                        for a in probe.split_actions):
-                    raise AssertionError("eval cfg: split-path actions missing or not finite")
-                out["cfg_launches_by_shape"] = {
-                    "x".join(map(str, k)): v
-                    for k, v in pa.packed_flash_attention.launches_by_shape.items()}
-            metrics = _last_metrics(ctrl_dir)
-            out[name] = {
-                "episodes": results["total_episodes"],
-                "control_steps": control_steps,
-                "steps": [e["steps"] for e in logs["eval_episodes"]],
-                "b1_launches_per_generate": [sum(d.values()) for d in probe.generate_calls],
-                "gen_time_s": metrics["eval_genima/gen_time"],
-                "control_time_s": metrics["eval_genima/control_time"],
-                "fused_step_time_s": metrics.get("eval_genima/fused_step_time"),
-                "diffusion_params_load_s": probe.load["diffusion_params_s"],
-                "controller_ckpt_load_s": probe.load["controller_ckpt_s"],
-            }
-        out.update({k: written[k] for k in ("controller_write_s", "controlnet_write_s",
-                                             "controlnet_params", "controlnet_file_bytes")})
-        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            dag = probe.load["diffusion_params_s_owner"]
+            direct = FusedGenimaStep(dag, step_self.controller, step_self.obs_size)
+            d_actions, d_target = direct(*args, **kwargs)
+            torch.cuda.synchronize()
+            step_err = (d_actions.float() - actions.float()).abs().max().item()
+            if not (torch.equal(d_target, target) and step_err <= DIRECT_STEP_TOL):
+                raise AssertionError(f"eval fused: harness step vs direct FusedGenimaStep: "
+                                     f"actions err {step_err}, target equal "
+                                     f"{torch.equal(d_target, target)}")
+            # the ControlNet the agent loaded: the written tree, cast to bf16
+            loaded = dag.params["controlnet"].state_dict()
+            diff = [k for k, v in written["controlnet_state"].items()
+                    if not torch.equal(loaded[k], v)]
+            if diff or loaded[next(iter(loaded))].dtype != torch.bfloat16:
+                raise AssertionError(f"eval: loaded ControlNet differs at {diff[:3]}")
+            out["harness_vs_direct_step_actions_err"] = step_err
+        else:
+            if len(probe.split_actions) != control_steps or not all(
+                    a.shape == (20, 8) and bool(np.isfinite(a).all())
+                    for a in probe.split_actions):
+                raise AssertionError("eval cfg: split-path actions missing or not finite")
+            out["cfg_launches_by_shape"] = {
+                "x".join(map(str, k)): v
+                for k, v in pa.packed_flash_attention.launches_by_shape.items()}
+        metrics = _last_metrics(ctrl_dir)
+        out[name] = {
+            "episodes": results["total_episodes"],
+            "control_steps": control_steps,
+            "steps": [e["steps"] for e in logs["eval_episodes"]],
+            "b1_launches_per_generate": [sum(d.values()) for d in probe.generate_calls],
+            "gen_time_s": metrics["eval_genima/gen_time"],
+            "control_time_s": metrics["eval_genima/control_time"],
+            "fused_step_time_s": metrics.get("eval_genima/fused_step_time"),
+            "diffusion_params_load_s": probe.load["diffusion_params_s"],
+            "controller_ckpt_load_s": probe.load["controller_ckpt_s"],
+        }
+    out.update({k: written[k] for k in ("controller_write_s", "controlnet_write_s",
+                                         "controlnet_params", "controlnet_file_bytes")})
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
@@ -1758,6 +1784,264 @@ def _flat_tree(tree, prefix=()) -> dict:
     return out
 
 
+# phase 10: lockstep-batched eval at full width
+BATCHED_EPISODES = 5  # round 1: 4 counted slots; round 2: 1 counted, 3 uncounted
+BATCHED_STEPS = 3  # opt-in batched steps with their launches pinned
+TIMED_STEPS = 3
+# a BatchedGenimaStep row against FusedGenimaStep at batch 1 on the row's
+# inputs, bf16: cuDNN and cuBLAS may pick other algorithms at batch 4 than at
+# batch 1, and the 5 denoise steps carry the rounding into the targets. The
+# first chip call measured at most 5 levels (mean 0.47) and 0.047 on the
+# actions over the 8 rows of both configurations (PERF.md, PR 10); the
+# limits leave about twice that.
+ROW_TARGET_MAX_LEVELS = 12
+ROW_TARGET_MEAN_LEVELS = 1.0
+ROW_ACTION_ATOL = 0.1
+
+
+class _BatchedEvalProbe(_EvalProbe):
+    """``_EvalProbe`` plus the eval loop's host time, the gen-time probe's
+    time and estimate, and each env chunk's time (the env threads')."""
+
+    def __init__(self, pa):
+        super().__init__(pa)
+        from genima_torch.eval.harness import GenimaEvalWorkspace
+        from genima_torch.eval.parallel import ParallelGenimaEvalWorkspace
+
+        self.eval_s, self.gen_probe, self.env_chunk_s = [], [], []
+        probe = self
+
+        def timed(into, keep_result=False):
+            def make(orig):
+                def fn(ws, *args, **kwargs):
+                    t0 = time.perf_counter()
+                    out = orig(ws, *args, **kwargs)
+                    wall = time.perf_counter() - t0
+                    into.append({"wall_s": wall, "gen_time_s": out} if keep_result else wall)
+                    return out
+                return fn
+            return make
+
+        for cls in (GenimaEvalWorkspace, ParallelGenimaEvalWorkspace):
+            self.wrap(cls, "eval_checkpoints", timed(self.eval_s))
+        self.wrap(GenimaEvalWorkspace, "_measure_gen_time", timed(self.gen_probe, True))
+        self.wrap(ParallelGenimaEvalWorkspace, "_measure_batched_gen",
+                  timed(self.gen_probe, True))
+        self.wrap(ParallelGenimaEvalWorkspace, "_step_slot", timed(self.env_chunk_s))
+
+    def loop_s(self) -> float:
+        """The eval's host time less the checkpoint load and the probe."""
+        return (sum(self.eval_s) - self.load["controller_ckpt_s"]
+                - sum(p["wall_s"] for p in self.gen_probe))
+
+
+def _row_slice(args: dict, i: int) -> dict:
+    rows = ("tiled_u8", "prompt_embeds", "latents", "qpos", "lang_tokens")
+    return {k: v[i:i + 1] if k in rows else v for k, v in args.items()}
+
+
+def _row_errors(step, args: dict) -> dict:
+    """Each row of one batched step against ``FusedGenimaStep`` at batch 1
+    on that row's inputs (run on the device worker)."""
+    from genima_torch.eval.fused import FusedGenimaStep
+
+    serial = FusedGenimaStep(step.diffusion_agent, step.controller, step.obs_size)
+    actions, target = step(**args)
+    t_max, t_mean, a_max = [], [], []
+    for i in range(args["qpos"].shape[0]):
+        a, t = serial(**_row_slice(args, i))
+        diff = (t.int() - target[i:i + 1].int()).abs().float()
+        t_max.append(diff.max().item())
+        t_mean.append(diff.mean().item())
+        a_max.append((a.float() - actions[i:i + 1].float()).abs().max().item())
+    finite = bool(torch.isfinite(actions).all())
+    out = {"target_max_levels": t_max, "target_mean_levels": t_mean, "actions_max_abs": a_max,
+           "actions_finite": finite}
+    if not (finite and max(t_max) <= ROW_TARGET_MAX_LEVELS
+            and max(t_mean) <= ROW_TARGET_MEAN_LEVELS and max(a_max) <= ROW_ACTION_ATOL):
+        raise AssertionError(f"batched step rows vs FusedGenimaStep at batch 1: {out}")
+    return out
+
+
+def _worker_ms(worker, fn, iters: int = TIMED_STEPS) -> dict:
+    """One warm-up, then ``iters`` calls of ``fn`` on the device worker's
+    stream: CUDA events on that stream, and the host clock after it
+    synchronises."""
+    def run():
+        fn()
+        ev, host = [], []
+        for _ in range(iters):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            worker.synchronize()
+            h0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            worker.synchronize()
+            host.append((time.perf_counter() - h0) * 1e3)
+            ev.append(start.elapsed_time(end))
+        return {"events_ms": ev, "host_ms": host}
+    return worker.submit(run).result()
+
+
+def two_stream_b5() -> dict:
+    """B5 split-K calls at the batched shapes, issued on two streams at once,
+    against the same calls one after the other: bit for bit."""
+    from genima_torch.kernels import w8_matmul as w8
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = [shape for shape in BATCHED_W8_SHAPES if w8.plan(*shape).split > 1]
+    calls = []
+    for m, k, n in shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        calls.append((x, *w8.quantize_weight(
+            torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)))
+    want = [w8.w8_matmul(*c) for c in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(5):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                order = range(len(calls)) if i == 0 else reversed(range(len(calls)))
+                got += [(j, w8.w8_matmul(*calls[j])) for j in order]
+    torch.cuda.synchronize()
+    bad = sorted({shapes[j] for j, out in got if not torch.equal(out, want[j])})
+    if bad:
+        raise AssertionError(f"B5 split-K on two streams differs at {bad}")
+    return {"shapes": ["x".join(map(str, x)) for x in shapes], "calls": len(got)}
+
+
+def batched_eval_phase(pa, card: str, written: dict) -> dict:
+    """Phase 10: ``eval_genima`` with 4 lockstep envs (runs A and B), one
+    batched step's rows against the serial step, the opt-in batched step's
+    launches, B5 on two streams, and the batched step's times, on phase
+    7's checkpoints."""
+    from genima_torch.eval.fused import FusedGenimaStep
+    from genima_torch.eval.main_path import build_main_path
+    from genima_torch.eval.parallel import DeviceWorker
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.kernels import w8_matmul as w8
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card}
+    ctrl_dir = written["controller_dir"]
+    argv = [
+        f"controller_ckpt={ctrl_dir}", f"diffusion_ckpt={written['diffusion_dir']}",
+        "task=fake_reach", "env.factory=fake", "env.image_size=256",
+        "image_resolution=512", "num_diffusion_steps=5", "guidance_scale=0.0",
+        f"episode_length={EVAL_EPISODE_LENGTH}", f"execution_horizon={EVAL_HORIZON}",
+        f"num_eval_episodes={BATCHED_EPISODES}", f"num_parallel_envs={PARALLEL_ENVS}",
+        "device=cuda",
+    ]
+    # run S: the serial harness on the same episodes, for its loop's time
+    logs, probe = _run_eval_cli(pa, [a for a in argv if "num_parallel_envs" not in a],
+                                _BatchedEvalProbe)
+    control_steps = sum(-(-e["steps"] // EVAL_HORIZON) for e in logs["eval_episodes"])
+    if (logs["results"]["total_episodes"] != BATCHED_EPISODES
+            or logs["results"]["env_exception_episodes"]
+            or probe.fused_calls != [LAUNCHES_PER_STEP] * control_steps):
+        raise AssertionError(f"serial eval: {logs['results']}, B1 per step {probe.fused_calls}")
+    out["S"] = {"episode_steps": [e["steps"] for e in logs["eval_episodes"]],
+                "control_steps": control_steps, "loop_s": probe.loop_s(),
+                "control_steps_per_s": control_steps / probe.loop_s(),
+                "fused_step_time_s": _last_metrics(ctrl_dir)["eval_genima/fused_step_time"]}
+    for run, overlap, batch in (("A", True, PARALLEL_ENVS // 2), ("B", False, PARALLEL_ENVS)):
+        logs, probe = _run_eval_cli(pa, argv + [f"eval_overlap={str(overlap).lower()}"],
+                                    _BatchedEvalProbe)
+        results = logs["results"]
+        if (results["total_episodes"] != BATCHED_EPISODES or results["env_exception_episodes"]
+                or results["num_parallel_envs"] != PARALLEL_ENVS):
+            raise AssertionError(f"batched eval {run}: results {results}")
+        steps = len(probe.fused_calls)
+        # a generate per batched step, and the gen-time probe's warm-up and timed one
+        if len(probe.generate_calls) != steps + 2 or len(probe.gen_probe) != 1:
+            raise AssertionError(f"batched eval {run}: {len(probe.generate_calls)} generates "
+                                 f"for {steps} batched steps")
+        for delta in probe.generate_calls:
+            if sum(delta.values()) != LAUNCHES_PER_STEP or {k[0] for k in delta} != {batch}:
+                raise AssertionError(f"batched eval {run}: a generate launched B1 {dict(delta)}")
+        for t in probe.targets:
+            if t.shape != (batch, 512, 512, 3) or t.dtype != torch.uint8:
+                raise AssertionError(f"batched eval {run}: target {tuple(t.shape)} {t.dtype}")
+        if any(a != ((batch, EVAL_HORIZON, 8), True) for a in probe.step_actions):
+            raise AssertionError(f"batched eval {run}: actions {probe.step_actions}")
+        episode_steps = [e["steps"] for e in logs["eval_episodes"]]
+        control_steps = sum(-(-x // EVAL_HORIZON) for x in episode_steps)
+        loop_s = probe.loop_s()
+        metrics = _last_metrics(ctrl_dir)
+        out[run] = {
+            "eval_overlap": overlap, "batch": batch, "episodes": results["total_episodes"],
+            "episode_steps": episode_steps, "control_steps": control_steps,
+            "batched_steps": steps, "generates": len(probe.generate_calls),
+            "launches_by_shape": {"x".join(map(str, k)): v for k, v in
+                                  pa.packed_flash_attention.launches_by_shape.items()},
+            "loop_s": loop_s, "rounds_per_s": steps / loop_s,
+            "control_steps_per_s": control_steps / loop_s,
+            "control_steps_per_s_per_env": control_steps / loop_s / PARALLEL_ENVS,
+            "gen_probe": probe.gen_probe[0],
+            "env_chunk_ms_median": 1e3 * sorted(probe.env_chunk_s)[len(probe.env_chunk_s) // 2],
+            "gen_time_s": metrics["eval_genima/gen_time"],
+            "control_time_s": metrics["eval_genima/control_time"],
+            "fused_step_time_s": metrics["eval_genima/fused_step_time"],
+        }
+    for run in ("S", "B"):
+        if out[run]["episode_steps"] != out["A"]["episode_steps"]:
+            raise AssertionError(f"eval run {run}'s episode steps "
+                                 f"{out[run]['episode_steps']} != run A's "
+                                 f"{out['A']['episode_steps']}")
+
+    worker = DeviceWorker(torch.device("cuda"))
+    try:
+        step, args = build_main_path(device="cuda", seed=0, n_envs=PARALLEL_ENVS)
+        out["rows_default"] = worker.submit(_row_errors, step, args).result()
+        serial = FusedGenimaStep(step.diffusion_agent, step.controller, step.obs_size)
+        two = {k: v[:2] if k in ("tiled_u8", "prompt_embeds", "latents", "qpos", "lang_tokens")
+               else v for k, v in args.items()}
+        out["step_ms"] = {
+            "serial": _worker_ms(worker, lambda: serial(**_row_slice(args, 0))),
+            "n2": _worker_ms(worker, lambda: step(**two)),
+            f"n{PARALLEL_ENVS}": _worker_ms(worker, lambda: step(**args)),
+        }
+        del step, args, serial, two
+
+        step, args = build_main_path(device="cuda", seed=0, backend=OPT_BACKEND,
+                                     conv_backend=OPT_CONV_BACKEND, n_envs=PARALLEL_ENVS)
+        counters = {"B1": pa.packed_flash_attention, "B3": fa.flash_attention,
+                    "B4": fc.fused_conv3x3, "B5": w8.w8_matmul}
+        for fn in counters.values():
+            fn.launches = 0
+            fn.launches_by_shape.clear()
+        per_step = []
+        for _ in range(BATCHED_STEPS):
+            before = {k: fn.launches for k, fn in counters.items()}
+            actions, target = worker.submit(lambda: step(**args)).result()
+            per_step.append({k: fn.launches - before[k] for k, fn in counters.items()})
+            if per_step[-1] != OPT_LAUNCHES:
+                raise AssertionError(f"opt-in batched step launches {per_step[-1]}, "
+                                     f"want {OPT_LAUNCHES}")
+        out["opt_launches_per_step"] = per_step
+        out["opt_launches_by_shape"] = {
+            k: {"x".join(map(str, shape)): n for shape, n in fn.launches_by_shape.items()}
+            for k, fn in counters.items()}
+        if (actions.shape != (PARALLEL_ENVS, EVAL_HORIZON, 8)
+                or target.shape != (PARALLEL_ENVS, 512, 512, 3)):
+            raise AssertionError(f"opt-in batched step: {tuple(actions.shape)}, "
+                                 f"{tuple(target.shape)}")
+        out["rows_opt_in"] = worker.submit(_row_errors, step, args).result()
+        out["step_ms"][f"opt_in_n{PARALLEL_ENVS}"] = _worker_ms(worker, lambda: step(**args))
+        del step, args, actions, target
+    finally:
+        worker.close()
+    out["two_stream_b5"] = two_stream_b5()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.time() - t0
+    return out
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -1815,6 +2099,17 @@ def main() -> int:
     cfg_kernels = kernel_phase(pa, CFG_LEVELS, seed=3)
     train_kernels = training_kernel_phase(pa)
     opt_kernels = opt_kernel_phase()
+    batched_kernels = opt_kernel_phase(BATCHED_FLASH_SHAPES, BATCHED_CONV_SHAPES,
+                                       BATCHED_W8_SHAPES, seed=4)
+    # B1 in phase 10 runs at the shapes of the CFG rows (a cohort of 2 envs)
+    # and of the trainer's batch-4 rows (4 envs): the same rows, their
+    # launches counted on that path
+    cohort_kernels = [dict(r, path=f"eval num_parallel_envs={PARALLEL_ENVS}, overlap on")
+                      for r in cfg_kernels]
+    batch4_kernels = [dict(r, path=f"eval num_parallel_envs={PARALLEL_ENVS}, overlap off")
+                      for r in train_kernels if r["name"] == "packed_flash_attention"]
+    for r in batched_kernels:
+        r["path"] = f"opt-in batched step, {PARALLEL_ENVS} envs"
     path = path_phase(pa)
     _fill_launches(kernels, {"B1": path["launches_by_shape"]}, {"packed_flash_attention": "B1"})
     print("path " + json.dumps(path))
@@ -1827,7 +2122,12 @@ def main() -> int:
     _fill_launches(opt_kernels, opt["launches_by_shape"],
                    {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
     print("opt_path " + json.dumps(opt))
-    ev = eval_phase(pa, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        # phases 7 and 10 evaluate the same checkpoints
+        written = write_eval_checkpoints(Path(tmp))
+        ev = eval_phase(pa, card, written)
+        del written["controlnet_state"]
+        bt = batched_eval_phase(pa, card, written)
     _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]},
                    {"packed_flash_attention": "B1"})
     print("eval " + json.dumps(ev))
@@ -1863,12 +2163,37 @@ def main() -> int:
           f"first loss {at['first_loss_card']:.6f} (CPU {at['first_loss_cpu']:.6f}); update "
           f"with cuDNN TF32 off / on {at['update_ms_median_cudnn_tf32_off']:.1f} / "
           f"{at['update_ms_median_cudnn_tf32_on']:.1f} ms; peak {at['peak_mem_gb']:.2f} GiB")
+    _fill_launches(batched_kernels, bt["opt_launches_by_shape"],
+                   {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
+    _fill_launches(cohort_kernels, {"B1": bt["A"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    _fill_launches(batch4_kernels, {"B1": bt["B"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    print("batched_eval " + json.dumps(bt))
+    ms = bt["step_ms"]
+    print(f"batched_eval ({card}): step ms by events on the worker stream (host clock) "
+          + ", ".join(f"{k} {min(v['events_ms']):.1f} ({min(v['host_ms']):.1f})"
+                      for k, v in ms.items())
+          + f"; run S (serial): {bt['S']['control_steps_per_s']:.2f} control steps/s, fused step "
+          f"{bt['S']['fused_step_time_s']:.4f} s; " + "; ".join(
+              f"run {r} ({bt[r]['batch']} a step): {bt[r]['rounds_per_s']:.2f} rounds/s, "
+              f"{bt[r]['control_steps_per_s']:.2f} control steps/s "
+              f"({bt[r]['control_steps_per_s_per_env']:.2f} per env), gen probe "
+              f"{bt[r]['gen_time_s']:.4f} s, fused step {bt[r]['fused_step_time_s']:.4f} s, env "
+              f"chunk {bt[r]['env_chunk_ms_median']:.1f} ms" for r in ("A", "B"))
+          + f"; rows max |d target| default {max(bt['rows_default']['target_max_levels'])} "
+          f"opt-in {max(bt['rows_opt_in']['target_max_levels'])} levels; peak "
+          f"{bt['peak_mem_gb']:.2f} GiB; phase {bt['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
         + [("opt_in", r, OPT_STEPS) for r in opt_kernels]
-        + [("cfg_control", r, ev["cfg"]["control_steps"]) for r in cfg_kernels])))
-    print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels}))
+        + [("cfg_control", r, ev["cfg"]["control_steps"]) for r in cfg_kernels]
+        + [("eval_cohort_n2", r, bt["A"]["generates"]) for r in cohort_kernels]
+        + [("eval_batched_n4", r, bt["B"]["generates"]) for r in batch4_kernels]
+        + [("opt_in_batched_n4", r, BATCHED_STEPS) for r in batched_kernels])))
+    print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels
+                      + cohort_kernels + batch4_kernels + batched_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ EVAL_ACT = {
     "eval_type": "latest",
     "train_cfg_path": "${controller_ckpt}/config.yaml",
     "num_eval_episodes": 50,
+    "num_parallel_envs": 1,  # > 1: lockstep-batched ACT over N envs
     "dataset_root": None,
     "save_video": False,
     "video_fps": 30,

@@ -12,8 +12,12 @@ checkpoint has no JSON). ``device=`` picks the card (``cuda``, the default)
 or ``cpu``. Differences from the JAX defaults: ``controller_ckpt`` must be
 given, ``diffusion_ckpt`` defaults to none (the seeded random ControlNet)
 and media go under the controller directory unless ``save_image_path`` is
-set. ``num_parallel_envs > 1`` (lockstep batched eval) and the real
-simulator are not ported yet and raise.
+set. ``num_parallel_envs > 1`` runs the lockstep-batched eval
+(``eval/parallel.py``): on the fake factory N envs in this process, on any
+other factory N spawned children (``envs/subprocess_env.py``), whose
+simulator the port does not drive yet (``envs/rlbench.py`` raises in each
+child). Mesh serving (``eval_data_parallel``, ``eval_tensor_parallel > 1``)
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ EVAL_GENIMA = {
     "train_cfg_path": "${controller_ckpt}/config.yaml",
     "num_eval_episodes": 50,
     "num_parallel_envs": 1,
+    # with num_parallel_envs > 1: two cohorts, one stepping its envs while
+    # the card runs the other's step
+    "eval_overlap": True,
     "eval_data_parallel": False,
     "eval_mesh_devices": 0,
     "eval_tensor_parallel": 0,
@@ -182,10 +189,9 @@ def build_diffusion_agent(eval_cfg):
 def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
     eval_cfg, train_cfg = load_train_and_eval_cfg(
         argv if argv is not None else sys.argv[1:], defaults)
-    if int(eval_cfg.get("num_parallel_envs", 1)) > 1:
-        raise NotImplementedError(
-            "num_parallel_envs > 1 (lockstep batched eval) is not ported yet (ROADMAP A.8)")
     set_options = [k for k in _NOT_PORTED if eval_cfg.get(k)]
+    if int(eval_cfg.get("eval_tensor_parallel", 0) or 1) > 1:
+        set_options.append("eval_tensor_parallel")
     if set_options:
         raise NotImplementedError(f"not ported: {', '.join(set_options)}")
     if eval_cfg.get("wandb", {}).get("use", False):
@@ -193,7 +199,12 @@ def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
     seed = eval_cfg.get("seed", 2)
     seed_everything(seed)
 
-    eval_env = build_eval_env(eval_cfg, train_cfg, eval_cfg.controller_ckpt)
+    n_par = int(eval_cfg.get("num_parallel_envs", 1))
+    # the real-simulator parallel path builds its envs in child processes:
+    # no env is made in this process for it
+    real_parallel = n_par > 1 and eval_cfg.get("env", {}).get("factory", "rlbench") != "fake"
+    eval_env = None if real_parallel else build_eval_env(
+        eval_cfg, train_cfg, eval_cfg.controller_ckpt)
     controller_agent = build_controller_agent(train_cfg, eval_cfg)
     import torch
 
@@ -203,21 +214,37 @@ def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
 
     diffusion_agent = build_diffusion_agent(eval_cfg) if with_diffusion else None
     logger = MetricLogger(Path(eval_cfg.controller_ckpt) / "eval_logs")
-
-    from genima_torch.eval.harness import GenimaEvalWorkspace
-
-    workspace = GenimaEvalWorkspace(
-        eval_cfg,
-        eval_env,
-        controller_agent,
-        diffusion_agent=diffusion_agent,
-        cameras=eval_cfg.get("env", {}).get("cameras", CAMERAS),
-        logger=logger,
-        tokenizer=load_tokenizer(eval_cfg.get("tokenizer_merges")),
-    )
+    kwargs = dict(diffusion_agent=diffusion_agent,
+                  cameras=eval_cfg.get("env", {}).get("cameras", CAMERAS), logger=logger,
+                  tokenizer=load_tokenizer(eval_cfg.get("tokenizer_merges")))
+    envs = []
     try:
-        return workspace.eval()
+        if n_par > 1:
+            from genima_torch.eval.parallel import ParallelGenimaEvalWorkspace
+
+            if real_parallel:
+                from genima_torch.envs.subprocess_env import start_subprocess_envs
+
+                # one simulator per process: each env in a spawned child,
+                # their start-ups overlapping
+                envs = start_subprocess_envs(build_eval_env, n_par, eval_cfg=eval_cfg,
+                                             train_cfg=train_cfg,
+                                             stats_path=str(eval_cfg.controller_ckpt))
+            else:
+                envs = [eval_env] + [build_eval_env(eval_cfg, train_cfg, eval_cfg.controller_ckpt)
+                                     for _ in range(n_par - 1)]
+            workspace = ParallelGenimaEvalWorkspace(eval_cfg, envs, controller_agent, **kwargs)
+            try:
+                return workspace.eval()
+            finally:
+                workspace.close()
+
+        from genima_torch.eval.harness import GenimaEvalWorkspace
+
+        return GenimaEvalWorkspace(eval_cfg, eval_env, controller_agent, **kwargs).eval()
     finally:
+        for env in envs if real_parallel else []:
+            env.close()
         logger.close()
 
 

@@ -92,13 +92,16 @@ class SDControlNetAgent:
         self._latent_gen = torch.Generator(device=self.device).manual_seed(self.seed)
 
     def _next_latents(self, batch: int) -> torch.Tensor:
-        """(batch, res/f, res/f, 4) standard-normal latents, NHWC (f: the
-        VAE's downscale)."""
         if self._latent_gen is None:
             self.new_episode()
+        return self.draw_latents(batch, self._latent_gen)
+
+    def draw_latents(self, batch: int, generator: torch.Generator) -> torch.Tensor:
+        """(batch, res/f, res/f, 4) standard-normal latents, NHWC (f: the
+        VAE's downscale), drawn from ``generator``."""
         lat = self.resolution // self.pipe.vae_scale_factor
         return torch.randn(batch, lat, lat, self.pipe.vae_cfg.latent_channels,
-                           generator=self._latent_gen, device=self.device)
+                           generator=generator, device=self.device)
 
     # -- prompts ---------------------------------------------------------------
 

@@ -3,7 +3,9 @@
 Counterpart of ``genima_tpu/eval/fused.py::FusedGenimaStep``, with the same
 call signature: the 5-step ControlNet denoise loop and VAE decode, the
 untile into camera views, and the ACT forward, in one call under
-``torch.inference_mode``.
+``torch.inference_mode``. The serial harness calls it for one environment
+(n = 1); ``eval.parallel.BatchedGenimaStep`` is the same call for n
+environments' rows stacked env-major.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ class FusedGenimaStep:
     (``control.policy.GenimaACTAgent``)."""
 
     def __init__(self, diffusion_agent, controller_agent, obs_size: int = 256):
+        self.diffusion_agent = diffusion_agent
         self.pipe = diffusion_agent.pipe
         self._gen = diffusion_agent.fused_generate
         self.controller = controller_agent
@@ -30,22 +33,23 @@ class FusedGenimaStep:
         diffusion_params,
         controller_params,
         clip_params,
-        tiled_u8,  # (fs, 2S, 2S, 3) uint8
-        prompt_embeds,  # (fs, 77, hidden)
-        latents,  # (fs, h, w, 4)
-        qpos,  # (1, state_dim*fs)
-        lang_tokens,  # (1, 77)
+        tiled_u8,  # (n*fs, 2S, 2S, 3) uint8
+        prompt_embeds,  # (n*fs, 77, hidden)
+        latents,  # (n*fs, h, w, 4)
+        qpos,  # (n, state_dim*fs)
+        lang_tokens,  # (n, 77)
         key=None,  # ancestral-noise key of other samplers; unused here
         num_inference_steps: int = 5,
     ):
         target = self._gen(
             diffusion_params, tiled_u8, prompt_embeds, latents, key,
             num_inference_steps=num_inference_steps,
-        )  # (fs, 2S, 2S, 3) uint8
-        cams = untile_to_cameras(target.float(), target_size=self.obs_size)
-        act_images = cams.transpose(0, 1).reshape(
-            1, -1, self.obs_size, self.obs_size, 3
-        )
+        )  # (n*fs, 2S, 2S, 3) uint8
+        cams = untile_to_cameras(target.float(), target_size=self.obs_size)  # (n*fs, V, S, S, 3)
+        n, s = qpos.shape[0], self.obs_size
+        fs, v = cams.shape[0] // n, cams.shape[1]
+        # per env: camera-major, then frame order
+        act_images = cams.reshape(n, fs, v, s, s, 3).transpose(1, 2).reshape(n, v * fs, s, s, 3)
         actions = self.controller._act_impl(
             controller_params, clip_params, act_images, qpos, lang_tokens
         )

@@ -27,11 +27,13 @@ EOT_ID = 49407  # CLIP end-of-text, the highest id: where the text towers pool
 
 
 def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
-                    conv_backend: str = "xla"):
+                    conv_backend: str = "xla", n_envs: int = 1):
     """Returns ``(step, args)``; ``step(**args)`` runs one control step.
     ``backend`` and ``conv_backend`` are the pipeline's (the default path, or
     the opt-in serving configuration ``"pallas+w8"`` / ``"fused"``, whose
-    int8 weights ``init_params`` quantizes from the seeded floats)."""
+    int8 weights ``init_params`` quantizes from the seeded floats). With
+    ``n_envs > 1`` the step is ``eval.parallel.BatchedGenimaStep`` and each
+    input holds one row per env (frame stack 1), each row drawn apart."""
     pipe = SDControlNetPipeline(device=device, backend=backend, conv_backend=conv_backend)
     dag = SDControlNetAgent(
         pipe, params=pipe.init_params(torch.Generator(device=pipe.device).manual_seed(seed)))
@@ -42,18 +44,23 @@ def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
     )
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     lat = RESOLUTION // dag.pipe.vae_scale_factor
-    ids = torch.randint(0, EOT_ID - 1, (2, 77), generator=gen, device=device)
+    n = n_envs
+    ids = torch.randint(0, EOT_ID - 1, (2 * n, 77), generator=gen, device=device)
     ids[:, 12] = EOT_ID
     args = dict(
         diffusion_params=dag.params,
         controller_params=act_params,
         clip_params=clip,
-        tiled_u8=torch.randint(0, 256, (1, RESOLUTION, RESOLUTION, 3), generator=gen,
+        tiled_u8=torch.randint(0, 256, (n, RESOLUTION, RESOLUTION, 3), generator=gen,
                                device=device, dtype=torch.uint8),
-        prompt_embeds=dag.embed_prompt_ids(ids[:1].cpu()),
-        latents=torch.randn(1, lat, lat, 4, generator=gen, device=device),
-        qpos=torch.randn(1, 8, generator=gen, device=device),
-        lang_tokens=ids[1:],
+        prompt_embeds=dag.embed_prompt_ids(ids[:n].cpu()),
+        latents=torch.randn(n, lat, lat, 4, generator=gen, device=device),
+        qpos=torch.randn(n, 8, generator=gen, device=device),
+        lang_tokens=ids[n:],
         num_inference_steps=5,
     )
-    return FusedGenimaStep(dag, act_agent, obs_size=OBS_SIZE), args
+    if n == 1:
+        return FusedGenimaStep(dag, act_agent, obs_size=OBS_SIZE), args
+    from genima_torch.eval.parallel import BatchedGenimaStep
+
+    return BatchedGenimaStep(dag, act_agent, obs_size=OBS_SIZE), args

@@ -154,25 +154,26 @@ def make_plan(m: int, k: int, n: int, bt: int, split: int = 1, stages: int | Non
                 tickets=tiles if split > 1 else 0, why_short=why)
 
 
-# per-device split-K workspace and tile counters, grown on demand and
-# reused by every call on that device (calls are ordered on one stream; two
-# streams running split calls at once would share the counters). Growing
+# split-K workspace and tile counters per (device, stream), grown on demand
+# and reused by every call on that stream: calls on one stream are ordered,
+# and two streams running split calls at once never share counters. Growing
 # zeroes the new counters: the one launch besides the kernel's, once per
 # larger plan, never per call.
-_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _workspace(device: torch.device, p: Plan) -> tuple[int, int]:
+def _workspace(device: torch.device, p: Plan, stream: torch.cuda.Stream) -> tuple[int, int]:
     if p.split == 1:
         return 0, 0
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    ws, tickets = _scratch.get(idx, (None, None))
+    key = (idx, stream.cuda_stream)
+    ws, tickets = _scratch.get(key, (None, None))
     if ws is None or ws.numel() < p.workspace_floats or tickets.numel() < p.tickets:
         need_ws = max(p.workspace_floats, 0 if ws is None else ws.numel())
         need_t = max(p.tickets, 0 if tickets is None else tickets.numel())
         ws = torch.empty(need_ws, device=device, dtype=torch.float32)
         tickets = torch.zeros(need_t, device=device, dtype=torch.int32)
-        _scratch[idx] = (ws, tickets)
+        _scratch[key] = (ws, tickets)
     return ws.data_ptr(), tickets.data_ptr()
 
 
@@ -230,10 +231,10 @@ def _forward(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.T
     out = torch.empty(m, n, device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
-        ws, tickets = _workspace(x.device, p)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = torch.cuda.current_stream(x.device)
+        ws, tickets = _workspace(x.device, p, stream)
         rc = lib.w8_matmul(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                           m, n, k, p.bt, p.split, p.stages, ws, tickets, stream)
+                           m, n, k, p.bt, p.split, p.stages, ws, tickets, stream.cuda_stream)
     w8_matmul.launches += 1
     w8_matmul.launches_by_shape[(m, k, n)] += 1
     if rc != 0:

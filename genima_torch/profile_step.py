@@ -1,12 +1,15 @@
 """Where a step's time goes on the card.
 
-    python -m genima_torch.profile_step [--path serve|train|act] [--steps 3] [--out FILE]
-        [--backend fused] [--conv_backend xla]
+    python -m genima_torch.profile_step [--path serve|batched|train|act] [--n 4] [--steps 3]
+        [--out FILE] [--backend fused] [--conv_backend xla]
 
 ``serve`` (the default) builds the full-width fused control step
 (``eval.main_path``) under the pipeline's ``--backend`` and
 ``--conv_backend`` (``--backend pallas+w8 --conv_backend fused`` is the
-opt-in serving configuration); ``train`` builds a full-width ControlNet fine-tune
+opt-in serving configuration); ``batched`` builds the lockstep-batched step
+for ``--n`` envs (``eval.parallel.BatchedGenimaStep``) and profiles it
+beside the serial step on the same models and the first env's inputs, in
+one process; ``train`` builds a full-width ControlNet fine-tune
 step (sd-turbo width, batch 4, 512x512, bf16 compute, f32 master weights,
 packed attention kernels; seeded random weights and a random uint8 batch);
 ``act`` one ACT controller update at the trainer's defaults (``ACTConfig()``,
@@ -62,16 +65,33 @@ def family(name: str) -> str:
     return "other"
 
 
-def serve_step(backend: str = "fused", conv_backend: str = "xla"):
-    """The fused control step and the models to time in it."""
-    step, args = build_main_path("cuda", backend=backend, conv_backend=conv_backend)
+def _serve_watched(args):
     p, c = args["diffusion_params"], args["controller_params"]
-    watched = {
+    return {
         "controlnet": p["controlnet"], "unet": p["unet"], "vae_decoder": p["vae"].decoder,
         "clip_prompt": p["text_encoder"], "clip_lang": args["clip_params"],
         "resnet_encoder": c["encoder"], "act_actor": c["actor"],
     }
-    return lambda: step(**args), watched
+
+
+def serve_step(backend: str = "fused", conv_backend: str = "xla"):
+    """The fused control step and the models to time in it."""
+    step, args = build_main_path("cuda", backend=backend, conv_backend=conv_backend)
+    return lambda: step(**args), _serve_watched(args)
+
+
+def batched_steps(n: int, backend: str = "fused", conv_backend: str = "xla"):
+    """The batched step for ``n`` envs and the serial step on the same
+    models (the first env's inputs), each with the models to time in it."""
+    from genima_torch.eval.fused import FusedGenimaStep
+
+    step, args = build_main_path("cuda", backend=backend, conv_backend=conv_backend, n_envs=n)
+    serial = FusedGenimaStep(step.diffusion_agent, step.controller, step.obs_size)
+    rows = ("tiled_u8", "prompt_embeds", "latents", "qpos", "lang_tokens")
+    one = {k: v[:1] if k in rows else v for k, v in args.items()}
+    watched = _serve_watched(args)
+    return {"serial": (lambda: serial(**one), watched),
+            f"batched_n{n}": (lambda: step(**args), watched)}
 
 
 def train_step():
@@ -162,25 +182,10 @@ def module_spans(step, watched):
     return start.elapsed_time(end), spans
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("serve", "train", "act"), default="serve")
-    ap.add_argument("--steps", type=int, default=3, help="warm-up steps")
-    ap.add_argument("--out", default=None, help="also write the JSON here")
-    ap.add_argument("--backend", default="fused", help="serve: attention backend spec")
-    ap.add_argument("--conv_backend", default="xla", help="serve: VAE decoder convs")
-    a = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step needs a CUDA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    if a.path == "serve":
-        step, watched = serve_step(a.backend, a.conv_backend)
-    else:
-        step, watched = train_step() if a.path == "train" else act_step()
-    for _ in range(a.steps):
+def profile(step, watched, warmup: int) -> dict:
+    """Per-model spans by events, then one step under ``torch.profiler``:
+    the device-busy share, device time by kernel family, the top kernels."""
+    for _ in range(warmup):
         step()
     torch.cuda.reset_peak_memory_stats()
     step_ms, spans = module_spans(step, watched)
@@ -202,10 +207,7 @@ def main() -> None:
     fams = collections.Counter()
     for name, ms in kernels.items():
         fams[family(name)] += ms
-    out = {
-        "card": card,
-        "path": a.path,
-        **({"backend": a.backend, "conv_backend": a.conv_backend} if a.path == "serve" else {}),
+    return {
         "step_ms_events": step_ms,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "profiled_step_wall_ms": wall_ms,
@@ -219,6 +221,34 @@ def main() -> None:
             for n, ms in kernels.most_common(15)
         ],
     }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("serve", "batched", "train", "act"), default="serve")
+    ap.add_argument("--n", type=int, default=4, help="batched: lockstep envs")
+    ap.add_argument("--steps", type=int, default=3, help="warm-up steps")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--backend", default="fused", help="serve, batched: attention backend spec")
+    ap.add_argument("--conv_backend", default="xla", help="serve, batched: VAE decoder convs")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    out = {"card": card, "path": a.path}
+    if a.path in ("serve", "batched"):
+        out.update(backend=a.backend, conv_backend=a.conv_backend)
+    if a.path == "serve":
+        out.update(profile(*serve_step(a.backend, a.conv_backend), a.steps))
+    elif a.path == "batched":
+        out["n_envs"] = a.n
+        for name, (step, watched) in batched_steps(a.n, a.backend, a.conv_backend).items():
+            out[name] = profile(step, watched, a.steps)
+    else:
+        out.update(profile(*(train_step() if a.path == "train" else act_step()), a.steps))
     text = json.dumps(out, indent=1)
     print(text)
     if a.out:

@@ -78,11 +78,19 @@ PORT_DIFFERENCES = {"diffusion_ckpt", "controller_ckpt", "dataset_root", "save_i
                     "diffusion_agent"}
 
 
+# keys the port adds to the JAX configs, and why: the device to run on;
+# eval_overlap, which the JAX lockstep workspace reads with a default of
+# true (genima_tpu/eval/parallel.py); num_parallel_envs for eval_act, which
+# runs eval_genima's main, whose config has it (JAX's eval_act.yaml does not)
+PORT_ONLY = {"eval_genima": {"device": "cuda", "eval_overlap": True},
+             "eval_act": {"device": "cuda", "num_parallel_envs": 1}}
+
+
 @pytest.mark.parametrize("name, port", [("eval_genima", EVAL_GENIMA), ("eval_act", EVAL_ACT)])
 def test_eval_defaults_follow_the_jax_configs(name, port):
     jax_defaults = jcfg.load_yaml(JAX_CFGS / f"{name}.yaml").to_dict()
-    assert set(port) == set(jax_defaults) | {"device"}
-    assert port["device"] == "cuda"
+    assert set(port) == set(jax_defaults) | set(PORT_ONLY[name])
+    assert {k: port[k] for k in PORT_ONLY[name]} == PORT_ONLY[name]
     for key, value in jax_defaults.items():
         if key not in PORT_DIFFERENCES:
             assert port[key] == value, key

@@ -475,6 +475,42 @@ def test_w8_matmul_is_bit_deterministic(cuda, m, k, n):
         assert torch.equal(w8.w8_matmul(x, w_q, scale), first)
 
 
+# the split-K shapes of the lockstep-batched eval at 4 envs: 4 x 64 tokens
+# of the innermost level and 4 x 77 prompt tokens of the cross K/V
+W8_TWO_STREAM_SHAPES = [(256, 1280, 1280), (256, 5120, 1280), (308, 1024, 320),
+                        (308, 1024, 1280)]
+
+
+@pytest.mark.cuda
+def test_w8_split_k_on_two_streams_at_once_matches_one_after_the_other(cuda):
+    """Split-K partials and tile tickets belong to a stream: the same calls
+    issued on two streams at once give the bits they give one after the
+    other on one stream."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    calls = []
+    for m, k, n in W8_TWO_STREAM_SHAPES:
+        assert w8.plan(m, k, n).split > 1
+        x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+        calls.append((x, *w8.quantize_weight(
+            torch.randn(n, k, generator=gen, device=cuda) / k ** 0.5)))
+    want = [w8.w8_matmul(*c) for c in calls]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    got = {0: [], 1: []}
+    for _ in range(10):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                order = range(len(calls)) if i == 0 else reversed(range(len(calls)))
+                got[i] += [(j, w8.w8_matmul(*calls[j])) for j in order]
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        for j, out in got[i]:
+            assert torch.equal(out, want[j]), (i, W8_TWO_STREAM_SHAPES[j])
+    keys = {key for key in w8._scratch if key[0] == (cuda.index or 0)}
+    assert {(cuda.index or 0, s.cuda_stream) for s in streams} <= keys
+
+
 @pytest.mark.cuda
 def test_w8_matmul_autograd_on_cuda(cuda):
     """Under autograd the kernel still runs the forward and the output keeps

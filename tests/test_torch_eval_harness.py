@@ -248,9 +248,9 @@ def test_eval_act_cli_matches_jax(trained, tmp_path):
 
 def test_cli_refuses_what_is_not_ported(trained, tmp_path):
     pdir = _copy(trained, tmp_path, "port")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        eval_genima.main([f"controller_ckpt={pdir}", "device=cpu", "num_parallel_envs=2"]
-                         + CLI_ARGS)
+    with pytest.raises(NotImplementedError, match="eval_data_parallel"):
+        eval_genima.main([f"controller_ckpt={pdir}", "device=cpu", "num_parallel_envs=2",
+                          "eval_data_parallel=true"] + CLI_ARGS)
     with pytest.raises(FileNotFoundError, match="clip_weights"):
         eval_act.main([f"controller_ckpt={pdir}", "device=cpu",
                        f"clip_weights={tmp_path / 'missing.pt'}"] + CLI_ARGS)

@@ -12,7 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import CONV_SHAPES, FLASH_SHAPES, SD_LEVELS, TRAIN_LEVELS, W8_SHAPES
+from chip_smoke import (BATCHED_CONV_SHAPES, BATCHED_FLASH_SHAPES, BATCHED_W8_SHAPES,
+                        CONV_SHAPES, FLASH_SHAPES, SD_LEVELS, TRAIN_LEVELS, W8_SHAPES)
 from genima_torch.kernels import flash_attention as fa
 from genima_torch.kernels import fused_conv as fc
 from genima_torch.kernels import packed_attention as pa
@@ -24,9 +25,11 @@ SMEM_LIMIT = 232448
 # shapes the card tests add to the path's: one token, K that is not a
 # multiple of the 128-wide K tile, N of one 8-column group
 W8_EXTRA = [(1, 1024, 8), (77, 1040, 320), (256, 1040, 1280), (5, 48, 24)]
+# the serving path's shapes, then those of the lockstep-batched eval (4 envs)
+W8_PLAN_SHAPES = list(dict.fromkeys(W8_SHAPES + BATCHED_W8_SHAPES + W8_EXTRA))
 
 
-@pytest.mark.parametrize("m,k,n", W8_SHAPES + W8_EXTRA)
+@pytest.mark.parametrize("m,k,n", W8_PLAN_SHAPES)
 def test_w8_plan_fills_the_card_or_says_why(m, k, n):
     p = w8.plan(m, k, n)
     assert p.blocks == p.grid[0] * p.grid[1] * p.grid[2]
@@ -39,7 +42,7 @@ def test_w8_plan_fills_the_card_or_says_why(m, k, n):
         assert not p.why_short
 
 
-@pytest.mark.parametrize("m,k,n", W8_SHAPES + W8_EXTRA)
+@pytest.mark.parametrize("m,k,n", W8_PLAN_SHAPES)
 def test_w8_plan_covers_k_exactly_and_fits(m, k, n):
     p = w8.plan(m, k, n)
     assert p.k_tiles * w8.BK >= k > (p.k_tiles - 1) * w8.BK
@@ -75,6 +78,30 @@ def test_w8_plan_rejects_unsupported_shapes(m, k, n):
         w8.plan(m, k, n)
 
 
+def test_w8_split_k_scratch_is_keyed_by_device_and_stream(monkeypatch):
+    """Two streams never share a split-K workspace or its tile tickets; one
+    stream reuses its own, and grows it (zeroed tickets) only for a larger
+    plan. A CPU device with an index and stand-in streams take the card's
+    place."""
+    monkeypatch.setattr(w8, "_scratch", {})
+    dev = torch.device("cpu", 0)
+    s1, s2 = types.SimpleNamespace(cuda_stream=11), types.SimpleNamespace(cuda_stream=22)
+    small, large = w8.plan(64, 1280, 1280), w8.plan(308, 1024, 1280)  # 4 envs' cross K/V
+    assert 1 < small.split and 1 < large.split
+    assert small.workspace_floats < large.workspace_floats and small.tickets < large.tickets
+    a = w8._workspace(dev, small, s1)
+    b = w8._workspace(dev, small, s2)
+    assert set(w8._scratch) == {(0, 11), (0, 22)}
+    assert a[0] != b[0] and a[1] != b[1]
+    assert w8._workspace(dev, small, s1) == a  # reused, not grown
+    grown = w8._workspace(dev, large, s1)
+    ws, tickets = w8._scratch[(0, 11)]
+    assert grown != a and ws.numel() == large.workspace_floats
+    assert tickets.numel() == large.tickets and not tickets.any()
+    assert w8._workspace(dev, small, s2) == b  # the other stream's is untouched
+    assert w8._workspace(dev, w8.plan(1024, 640, 640), s1) == (0, 0)  # no split, no scratch
+
+
 def test_w8_make_plan_rejects_impossible_launches():
     with pytest.raises(ValueError):
         w8.make_plan(64, 1024, 1280, bt=64, split=9)  # 8 K tiles
@@ -84,7 +111,8 @@ def test_w8_make_plan_rejects_impossible_launches():
         w8.make_plan(64, 1024, 1280, bt=64, split=1, stages=1)
 
 
-@pytest.mark.parametrize("shape", CONV_SHAPES + [(2, 33, 66, 136, 256), (2, 33, 130, 136, 3)])
+@pytest.mark.parametrize("shape", CONV_SHAPES + BATCHED_CONV_SHAPES
+                         + [(2, 33, 66, 136, 256), (2, 33, 130, 136, 3)])
 def test_conv_plan_fills_the_card_or_says_why(shape):
     b, h, w, c, o = shape
     p = fc.plan(*shape)
@@ -125,9 +153,10 @@ def test_conv_plan_rejects_unsupported_shapes(shape):
 
 
 # B3: (B, Sq, Sk, heads) of the opt-in path, and the card tests' ragged ones
-FLASH_PLAN_SHAPES = [(b, sq, sk, h) for b, sq, sk, _, h in FLASH_SHAPES] + [
-    (1, sq, sk, 2) for sq in (130, 200) for sk in (1, 77, 129)] + [
-    (2, 100, 77, 3), (2, 33, 16, 1), (2, 200, 129, 3), (4, 4096, 4096, 5)]
+FLASH_PLAN_SHAPES = list(dict.fromkeys(
+    [(b, sq, sk, h) for b, sq, sk, _, h in FLASH_SHAPES + BATCHED_FLASH_SHAPES] + [
+        (1, sq, sk, 2) for sq in (130, 200) for sk in (1, 77, 129)] + [
+        (2, 100, 77, 3), (2, 33, 16, 1), (2, 200, 129, 3), (4, 4096, 4096, 5)]))
 
 
 @pytest.mark.parametrize("b,sq,sk,h", FLASH_PLAN_SHAPES)

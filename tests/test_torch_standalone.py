@@ -93,3 +93,23 @@ def test_act_train_path_imports_none_of_the_packages_the_card_lacks():
     out = subprocess.run([sys.executable, "-c", ACT_TRAIN_PATH], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+PARALLEL_EVAL_PATH = """
+import importlib, sys
+for name in ("eval.parallel", "envs.subprocess_env", "envs.fake", "envs.wrappers", "eval.video",
+             "cli.eval_genima", "cli.eval_act"):
+    importlib.import_module("genima_torch." + name)
+absent = ("jax", "jaxlib", "genima_tpu", "flax", "msgpack", "yaml", "gymnasium")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
+assert not bad, bad
+"""
+
+
+def test_parallel_eval_path_imports_none_of_the_packages_the_card_lacks():
+    """What ``num_parallel_envs > 1`` imports in the CLIs, the workspace, and
+    the env children (``envs.subprocess_env`` and the modules it runs)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", PARALLEL_EVAL_PATH], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
