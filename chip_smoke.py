@@ -119,6 +119,26 @@
    B5 / 0 B1 a step, rows held likewise); B3/B4/B5 at every batch-4 shape
    against their plain versions; B5 split-K calls on two streams at once
    bit-equal to the same calls one after the other.
+11. Rendering, pretraining, the controller on rendered data and the gate:
+   (a) 8 goal-observable fake demos of 60 steps at 256x256 over the 4
+   non-overhead cameras, exported, then ``RenderData`` on the card with
+   ``RENDER``'s values (both draw sets, joints 1/3/5, the cameras' scales)
+   except the learning gate's sphere radius 0.11 and 4 episode threads:
+   frames/s by the host clock, one camera-episode's render call by events,
+   and episode 0 rendered again on the CPU (at most 0.1% of pixels more
+   than 1 level apart). (b) 3 ``VAETrainer`` and 3 ``UNetPretrainer``
+   steps at sd-turbo geometry (512x512 tiles, 64x64 latents, batch 4,
+   bf16 compute with f32 masters) on the rendered tiles: each UNet step
+   launches B2a and B2b 15 times and B1 never, VAE steps none, no
+   fallback, finite losses, the frozen models bit-unchanged in each stage;
+   ``save_base_model`` (bytes, write s), then 2 steps of
+   ``run_training --pretrained_model_name_or_path <base>`` (its UNet must
+   be the written one; the fine-tune's pinned launches); the PNG decoder
+   the loader used. (c) 1 epoch of ``train_act env.factory=rendered`` at
+   ``ACTConfig()`` width on the rendered tree, then ``run_learning_gate``
+   at a cut ``GateConfig`` (10 steps a stage, 8 demos, 1 ACT epoch, 2
+   eval episodes), whose ``learning_gate.json`` must hold the JAX keys;
+   neither launches a kernel.
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -137,6 +157,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2042,6 +2063,301 @@ def batched_eval_phase(pa, card: str, written: dict) -> dict:
     return out
 
 
+# phase 11: the dataset-rendering path, base-model pretraining, the
+# controller on the rendered tree and the learning gate
+RENDER_TASK = "fake_reach_visual"
+RENDER_EPISODES, RENDER_STEPS, RENDER_SIZE = 8, 60, 256
+RENDER_CAMERAS = ["wrist", "front", "right_shoulder", "left_shoulder"]
+# the learning gate's sphere radius: in the fake world's units RENDER's 0.01
+# (times the cameras' scales) is below a pixel
+RENDER_RADIUS = 0.11
+RENDER_THREADS = 8  # RenderData's episode pool, one episode each (RENDER's num_processes is 1)
+# card vs CPU, as the CPU test holds the port to JAX: pixels more than 1
+# level apart (hit-mask flips and stripe edges) per pixel rendered
+RENDER_MAX_SHARE = 1e-3
+PRETRAIN_STEPS, PRETRAIN_BATCH = 3, 4
+# per UNet pretrain step at batch 4: all 15 UNet self-attentions with S >= 256
+# (2 down + 3 up blocks per level x 3 levels) need their gradient: B2a
+# forward, B2b backward, none B1; the VAE steps launch none
+PRETRAIN_LAUNCHES = {"B1": 0, "B2a": 15, "B2b": 15, "fallbacks": 0}
+VAE_LAUNCHES = {"B1": 0, "B2a": 0, "B2b": 0, "fallbacks": 0}
+BASE_FINETUNE_STEPS = 2
+GATE_KEYS = ["config", "val_mse_init", "cn_final_loss", "val_mse_final", "trained_success",
+             "untrained_success", "elapsed_s", "passed"]
+
+
+def _tree_bytes(root: Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def render_pretrain_phase(pa, card: str) -> dict:
+    """Phase 11: (a) render 8 exported fake demos with ``RenderData`` on the
+    card, held to the CPU on one episode; (b) 3 ``VAETrainer`` and 3
+    ``UNetPretrainer`` steps at sd-turbo geometry on the rendered tiles,
+    ``save_base_model``, then 2 fine-tune steps from that base model;
+    (c) 1 epoch of ``train_act env.factory=rendered`` at ACTConfig() width
+    and a cut learning gate."""
+    import dataclasses
+
+    import numpy as np
+
+    from genima_torch import native
+    from genima_torch.cli import train_act
+    from genima_torch.cli.train_controlnet_genima import parse_args
+    from genima_torch.core.config import RENDER
+    from genima_torch.data.dataset import DiffusionDataLoader, index_rendered_dataset
+    from genima_torch.data.tokenizer import HashTokenizer
+    from genima_torch.diffusion import driver
+    from genima_torch.diffusion.pipeline import SDControlNetPipeline
+    from genima_torch.diffusion.pretrain import pretrain_base_model, save_base_model
+    from genima_torch.envs.export import export_demos_rlbench_format
+    from genima_torch.envs.fake import FakeRLBenchFactory
+    from genima_torch.eval.learning_gate import GateConfig, run_learning_gate
+    from genima_torch.rendering import render_data
+
+    counters = {"B1": pa.packed_flash_attention, "B2a": pa.packed_attention_forward_lse,
+                "B2b": pa.packed_attention_backward}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+            fn.launches_by_shape.clear()
+        pa.PackedFlashAttention.fallbacks = 0
+
+    def counts():
+        return {**{k: fn.launches for k, fn in counters.items()},
+                "fallbacks": pa.PackedFlashAttention.fallbacks}
+
+    out: dict = {"card": card}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- (a) render -----------------------------------------------------------
+        t0 = time.time()
+        demos = FakeRLBenchFactory(
+            task_name=RENDER_TASK, image_size=RENDER_SIZE, demo_length=RENDER_STEPS,
+            episode_length=RENDER_STEPS, goal_observable=True, seed=0,
+        ).collect_or_fetch_demos(RENDER_EPISODES)
+        export_demos_rlbench_format(demos, tmp / "raw", RENDER_TASK)
+        del demos
+        out["demos_export_s"] = time.time() - t0
+        scales = dict(zip(RENDER["cameras"], RENDER["camera_scales"]))
+        cfg = {**RENDER, "dataset_root": str(tmp / "raw"), "save_path": str(tmp),
+               "textures_path": None, "task": RENDER_TASK, "episodes": RENDER_EPISODES,
+               "num_processes": RENDER_THREADS, "cameras": RENDER_CAMERAS,
+               "image_width": RENDER_SIZE, "image_height": RENDER_SIZE,
+               "camera_scales": [scales[c] for c in RENDER_CAMERAS],
+               "render": {**RENDER["render"], "sphere": {"radius": RENDER_RADIUS}}}
+        # each render call, tagged with its episode; episode 0's inputs and
+        # outputs are kept to hold the card to the CPU
+        frames_fn, demo_fn = render_data.render_frames, render_data.RenderData.render_demo
+        calls, episode0, local = [], [], threading.local()
+
+        def recording(*args, **kw):
+            result = frames_fn(*args, **kw)
+            calls.append(local.episode)
+            if local.episode == 0:
+                episode0.append((args, kw, [x.cpu() for x in result]))
+            return result
+
+        def tagged(self, episode):
+            local.episode = episode
+            return demo_fn(self, episode)
+
+        render_data.render_frames, render_data.RenderData.render_demo = recording, tagged
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_data.RenderData(cfg, device="cuda").generate()
+            out["render_s"] = time.perf_counter() - t0
+        finally:
+            render_data.render_frames, render_data.RenderData.render_demo = frames_fn, demo_fn
+        frames = RENDER_EPISODES * len(RENDER_CAMERAS) * (RENDER_STEPS - 1)
+        if sorted(calls) != sorted(list(range(RENDER_EPISODES)) * len(RENDER_CAMERAS)):
+            raise AssertionError(f"render calls by episode {sorted(calls)}: want one a camera")
+        out["render_frames"] = frames
+        out["render_frames_per_s"] = frames / out["render_s"]
+        args, kw, _ = episode0[0]
+        out["render_call_ms"] = cuda_ms(lambda: frames_fn(*args, **kw), 10)
+        out["render_call_frames"] = int(args[1].shape[0])
+        # the same function on the CPU, on episode 0's inputs
+        far = total = 0
+        t0 = time.perf_counter()
+        for args, kw, card_out in episode0:
+            cpu = frames_fn(*_to_cpu(list(args)), **kw)
+            for x, y in zip(card_out, cpu):
+                d = (x.short() - y.short()).abs().amax(-1)
+                far, total = far + int((d > 1).sum()), total + d.numel()
+        out["render_cpu_episode_s"] = time.perf_counter() - t0
+        del episode0, args, kw
+        out["render_vs_cpu_far_pixels"], out["render_vs_cpu_pixels"] = far, total
+        if not (total > 0 and far <= RENDER_MAX_SHARE * total):
+            raise AssertionError(f"render card vs CPU: {far} of {total} pixels > 1 level apart")
+        rendered = tmp / "raw_rgb_rendered"
+
+        # -- (b) pretrain at sd-turbo geometry ---------------------------------------
+        samples = index_rendered_dataset(rendered, tasks=[RENDER_TASK],
+                                         num_demos=RENDER_EPISODES)
+        loader = DiffusionDataLoader(samples, HashTokenizer(), batch_size=PRETRAIN_BATCH,
+                                     resolution=512, seed=0, num_workers=4, emit_uint8=True)
+        t0 = time.time()
+        pipe = SDControlNetPipeline(device="cuda", vae_encoder=True)
+        params = pipe.init_params(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        out["pretrain_setup_s"] = time.time() - t0
+
+        def snapshot(names):
+            return {n: {k: t.clone() for k, t in params[n].state_dict().items()} for n in names}
+
+        def changed(snap):
+            return [f"{n}.{k}" for n, sd in snap.items() for k, t in sd.items()
+                    if not torch.equal(t, params[n].state_dict()[k])]
+
+        frozen_vae_stage = snapshot(("unet", "text_encoder", "controlnet"))
+        unet_init = frozen_vae_stage["unet"]
+        steps = {"vae": [], "unet": []}
+        marks = [time.perf_counter()]
+        stage_checks = {}
+
+        def hook(stage, step, state, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            steps[stage].append({"ms": (marks[-1] - marks[-2]) * 1e3, "counts": counts(),
+                                 "loss": float(metrics["loss"])})
+            if stage == "vae" and step == PRETRAIN_STEPS:
+                stage_checks["vae_stage_changed"] = changed(frozen_vae_stage)
+            if stage == "unet" and step == 1:
+                stage_checks["unet_stage"] = snapshot(("vae", "text_encoder", "controlnet"))
+
+        masters: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        pretrain_base_model(pipe, params, loader, vae_steps=PRETRAIN_STEPS,
+                            unet_steps=PRETRAIN_STEPS, seed=0, log_every=1, masters=masters,
+                            step_hook=hook)
+        out["pretrain_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        out["pretrain_launches_by_shape"] = {
+            k: {"x".join(map(str, s)): n for s, n in fn.launches_by_shape.items()}
+            for k, fn in counters.items()}
+        if stage_checks["vae_stage_changed"]:
+            raise AssertionError(f"frozen towers changed in the VAE stage: "
+                                 f"{stage_checks['vae_stage_changed'][:3]}")
+        unet_stage_changed = changed(stage_checks.pop("unet_stage"))
+        if unet_stage_changed:
+            raise AssertionError(f"frozen towers changed in the UNet stage: "
+                                 f"{unet_stage_changed[:3]}")
+        prev = dict(VAE_LAUNCHES)
+        for stage, want in (("vae", VAE_LAUNCHES), ("unet", PRETRAIN_LAUNCHES)):
+            if len(steps[stage]) != PRETRAIN_STEPS:
+                raise AssertionError(f"pretrain {stage}: {len(steps[stage])} steps")
+            for i, s in enumerate(steps[stage]):
+                delta = {k: s["counts"][k] - prev[k] for k in want}
+                prev = s["counts"]
+                if delta != want:
+                    raise AssertionError(f"pretrain {stage} step {i + 1} launches {delta}, "
+                                         f"want {want}")
+            losses = [s["loss"] for s in steps[stage]]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"pretrain {stage} losses {losses}")
+            out[f"{stage}_losses"] = losses
+            out[f"{stage}_step_ms"] = [s["ms"] for s in steps[stage]]
+        out["unet_launches_per_step"] = PRETRAIN_LAUNCHES
+        moved = max((masters["unet"][k] - t.float()).abs().max().item()
+                    for k, t in unet_init.items())
+        if not moved > 0:
+            raise AssertionError("the UNet did not move")
+        del frozen_vae_stage, unet_init
+        out["decoder"] = dict(loader.decoded)
+        out["native_build_error"] = native.build_error
+        t0 = time.perf_counter()
+        base = save_base_model(tmp / "base", params, masters)
+        out["base_write_s"] = time.perf_counter() - t0
+        out["base_bytes"] = _tree_bytes(base)
+        unet_master = {k: v.to(torch.bfloat16) for k, v in masters["unet"].items()}
+        del params, pipe, masters
+        torch.cuda.empty_cache()
+
+        # the fine-tune from the written base model
+        args = parse_args([
+            "--data_path", str(rendered), "--tasks", RENDER_TASK, "--resolution", "512",
+            "--train_batch_size", str(TRAIN_BATCH), "--max_train_steps",
+            str(BASE_FINETUNE_STEPS), "--seed", "0", "--device", "cuda",
+            "--mixed_precision", "bf16", "--enable_xformers_memory_efficient_attention",
+            "--pretrained_model_name_or_path", str(base), "--dataloader_num_workers", "4",
+            "--output_dir", str(tmp / "ft"), "--report_to", "none",
+        ])
+        pipe = driver.build_pipeline(args)
+        t0 = time.perf_counter()
+        params = driver.init_model_params(pipe, args)
+        torch.cuda.synchronize()
+        out["base_load_s"] = time.perf_counter() - t0
+        loaded = params["unet"].state_dict()
+        if not all(torch.equal(loaded[k], v) for k, v in unet_master.items()):
+            raise AssertionError("the fine-tune's UNet is not the written base model's")
+        del unet_master
+        ft_steps = []
+        ft_marks = [time.perf_counter()]
+
+        def ft_hook(step, state, metrics):
+            torch.cuda.synchronize()
+            ft_marks.append(time.perf_counter())
+            ft_steps.append({"ms": (ft_marks[-1] - ft_marks[-2]) * 1e3, "counts": counts(),
+                             "loss": float(metrics["loss"])})
+
+        zero()
+        result = driver.run_training(args, pipe=pipe, params=params, step_hook=ft_hook)
+        if result["global_step"] != BASE_FINETUNE_STEPS or len(ft_steps) != BASE_FINETUNE_STEPS:
+            raise AssertionError(f"fine-tune from the base took {result['global_step']} steps")
+        prev = {k: 0 for k in TRAIN_LAUNCHES}
+        for i, s in enumerate(ft_steps):
+            delta = {k: s["counts"][k] - prev[k] for k in TRAIN_LAUNCHES}
+            prev = s["counts"]
+            if delta != TRAIN_LAUNCHES:
+                raise AssertionError(f"fine-tune from the base, step {i + 1}: launches {delta}")
+        if not all(math.isfinite(s["loss"]) for s in ft_steps):
+            raise AssertionError(f"fine-tune from the base: losses {ft_steps}")
+        out["base_finetune_losses"] = [s["loss"] for s in ft_steps]
+        out["base_finetune_step_ms"] = [s["ms"] for s in ft_steps]
+        del params, pipe
+        torch.cuda.empty_cache()
+
+        # -- (c) the controller on the rendered tree, and the gate --------------------
+        zero()
+        t0 = time.perf_counter()
+        ws = train_act.main([
+            f"work_dir={tmp / 'ctrl'}", "device=cuda", "num_train_epochs=1", "checkpoint_every=1",
+            "env.factory=rendered", f"env.dataset_root={rendered}",
+            f"env.train_tasks=[{RENDER_TASK}]", "+env.eval_env_factory=fake",
+            f"env.image_size={RENDER_SIZE}", "+env.goal_observable=true",
+            f"num_demos={RENDER_EPISODES}",
+        ])
+        torch.cuda.synchronize()
+        out["act_epoch_s"] = time.perf_counter() - t0
+        records = [json.loads(x) for x in (tmp / "ctrl" / "metrics.jsonl").read_text().split("\n")
+                   if x]
+        loss = records[-1]["train_act/loss"]
+        if ws.update_failures or not ws._num_iters or not math.isfinite(loss):
+            raise AssertionError(f"train_act on the rendered tree: {ws._num_iters} updates, "
+                                 f"loss {loss}, failures {ws.update_failures[:1]}")
+        out["act_updates"], out["act_loss"] = ws._num_iters, loss
+        del ws
+        gate_cfg = GateConfig(vae_steps=10, unet_steps=10, cn_steps=10, num_demos=8,
+                              act_epochs=1, eval_episodes=2)
+        t0 = time.perf_counter()
+        run_learning_gate(tmp / "gate", gate_cfg, device="cuda")
+        out["gate_cut_s"] = time.perf_counter() - t0
+        saved = json.loads((tmp / "gate" / "learning_gate.json").read_text())
+        if list(saved) != GATE_KEYS or saved["config"] != dataclasses.asdict(gate_cfg):
+            raise AssertionError(f"learning_gate.json keys {list(saved)}")
+        out["gate_cut"] = {k: v for k, v in saved.items() if k != "config"}
+        if any(counts().values()):
+            raise AssertionError(f"controller and gate launched kernels: {counts()}")
+        if not all(np.isfinite([saved["val_mse_init"], saved["val_mse_final"]])):
+            raise AssertionError(f"gate val_mse {saved}")
+    out["phase_s"] = time.time() - t_phase
+    return out
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -2098,6 +2414,10 @@ def main() -> int:
     kernels = kernel_phase(pa)
     cfg_kernels = kernel_phase(pa, CFG_LEVELS, seed=3)
     train_kernels = training_kernel_phase(pa)
+    # B2a and B2b in phase 11's UNet pretrain run at the trainer's batch-4
+    # shapes: the same rows, their launches counted on that path
+    pretrain_kernels = [dict(r, path="pretrain UNet (phase 11)") for r in train_kernels
+                        if r["name"] != "packed_flash_attention"]
     opt_kernels = opt_kernel_phase()
     batched_kernels = opt_kernel_phase(BATCHED_FLASH_SHAPES, BATCHED_CONV_SHAPES,
                                        BATCHED_W8_SHAPES, seed=4)
@@ -2163,6 +2483,23 @@ def main() -> int:
           f"first loss {at['first_loss_card']:.6f} (CPU {at['first_loss_cpu']:.6f}); update "
           f"with cuDNN TF32 off / on {at['update_ms_median_cudnn_tf32_off']:.1f} / "
           f"{at['update_ms_median_cudnn_tf32_on']:.1f} ms; peak {at['peak_mem_gb']:.2f} GiB")
+    rp = render_pretrain_phase(pa, card)
+    _fill_launches(pretrain_kernels, rp["pretrain_launches_by_shape"], {
+        "packed_attention_forward_lse": "B2a", "packed_attention_backward": "B2b"})
+    print("render_pretrain " + json.dumps(rp))
+    print(f"render_pretrain ({card}): render {rp['render_frames_per_s']:.1f} frames/s by the host "
+          f"clock ({rp['render_frames']} frames at {RENDER_SIZE}^2 in {rp['render_s']:.2f} s, "
+          f"{RENDER_THREADS} episode threads), one camera-episode's render call "
+          f"({rp['render_call_frames']} frames) {rp['render_call_ms']:.2f} ms by events; card vs "
+          f"CPU {rp['render_vs_cpu_far_pixels']} of {rp['render_vs_cpu_pixels']} pixels > 1 level; "
+          f"VAE steps {[round(x, 1) for x in rp['vae_step_ms']]} ms, UNet steps "
+          f"{[round(x, 1) for x in rp['unet_step_ms']]} ms (batch {PRETRAIN_BATCH}, 512^2), peak "
+          f"{rp['pretrain_peak_mem_gb']:.2f} GiB; base model {rp['base_bytes'] / 1e9:.3f} GB written "
+          f"in {rp['base_write_s']:.2f} s, loaded in {rp['base_load_s']:.2f} s; fine-tune from it "
+          f"{[round(x, 1) for x in rp['base_finetune_step_ms']]} ms; PNG decoder "
+          f"{rp['decoder']} (native build error: {rp['native_build_error']}); train_act on the "
+          f"rendered tree {rp['act_updates']} updates in {rp['act_epoch_s']:.1f} s; cut gate "
+          f"{rp['gate_cut_s']:.1f} s; phase {rp['phase_s']:.1f} s")
     _fill_launches(batched_kernels, bt["opt_launches_by_shape"],
                    {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
     _fill_launches(cohort_kernels, {"B1": bt["A"]["launches_by_shape"]},
@@ -2191,9 +2528,11 @@ def main() -> int:
         + [("cfg_control", r, ev["cfg"]["control_steps"]) for r in cfg_kernels]
         + [("eval_cohort_n2", r, bt["A"]["generates"]) for r in cohort_kernels]
         + [("eval_batched_n4", r, bt["B"]["generates"]) for r in batch4_kernels]
-        + [("opt_in_batched_n4", r, BATCHED_STEPS) for r in batched_kernels])))
+        + [("opt_in_batched_n4", r, BATCHED_STEPS) for r in batched_kernels]
+        + [("pretrain_unet", r, PRETRAIN_STEPS) for r in pretrain_kernels])))
     print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels
-                      + cohort_kernels + batch4_kernels + batched_kernels}))
+                      + cohort_kernels + batch4_kernels + batched_kernels
+                      + pretrain_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

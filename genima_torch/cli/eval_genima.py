@@ -17,7 +17,13 @@ set. ``num_parallel_envs > 1`` runs the lockstep-batched eval
 other factory N spawned children (``envs/subprocess_env.py``), whose
 simulator the port does not drive yet (``envs/rlbench.py`` raises in each
 child). Mesh serving (``eval_data_parallel``, ``eval_tensor_parallel > 1``)
-is not ported and raises.
+and Colosseum variations are not ported and raise; so does
+``autoencoder=taesd`` (the agent's tiny VAE). The reference's speed toggles
+(``torch_compile``, ``channel_last``, ``allow_tf32``, ``vae_slicing``,
+``upcast_vae``, ``fused_projections``) and ``temporal_agg`` are accepted
+and change nothing, as in the JAX package, whose modules read none of
+them; a line names the ones that are set. ``wandb.use`` sends the metrics
+to W&B where it is installed (``metrics.jsonl`` always).
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ EVAL_GENIMA = {
     # true: long self-attention through the packed kernel ("fused"); false:
     # the library attention ("xla")
     "enable_xformers_memory_efficient_attention": True,
-    # the reference's other speed toggles; none is ported, and setting one raises
+    # the reference's other speed toggles: accepted, no effect (NO_OP_KEYS)
     "torch_compile": False,
     "channel_last": False,
     "allow_tf32": False,
@@ -84,8 +90,10 @@ EVAL_GENIMA = {
     "wandb": {"use": False, "project": "genima", "name": "eval_genima"},
 }
 
-_NOT_PORTED = ("torch_compile", "channel_last", "allow_tf32", "vae_slicing", "upcast_vae",
-               "fused_projections", "temporal_agg", "colosseum_use", "eval_data_parallel")
+# keys the JAX config declares and no JAX module reads
+NO_OP_KEYS = ("torch_compile", "channel_last", "allow_tf32", "vae_slicing", "upcast_vae",
+              "fused_projections", "temporal_agg")
+_NOT_PORTED = ("colosseum_use", "eval_data_parallel")
 
 
 def load_train_cfg(eval_cfg) -> Config | None:
@@ -194,8 +202,9 @@ def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
         set_options.append("eval_tensor_parallel")
     if set_options:
         raise NotImplementedError(f"not ported: {', '.join(set_options)}")
-    if eval_cfg.get("wandb", {}).get("use", False):
-        raise NotImplementedError("W&B logging is not ported; metrics go to metrics.jsonl")
+    no_ops = [k for k in NO_OP_KEYS if eval_cfg.get(k)]
+    if no_ops:
+        print(f"no effect here, as in the JAX package: {', '.join(no_ops)}")
     seed = eval_cfg.get("seed", 2)
     seed_everything(seed)
 
@@ -213,7 +222,10 @@ def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
     load_eval_clip(eval_cfg, train_cfg, controller_agent)
 
     diffusion_agent = build_diffusion_agent(eval_cfg) if with_diffusion else None
-    logger = MetricLogger(Path(eval_cfg.controller_ckpt) / "eval_logs")
+    wandb_cfg = eval_cfg.get("wandb", {})
+    logger = MetricLogger(
+        Path(eval_cfg.controller_ckpt) / "eval_logs", use_wandb=wandb_cfg.get("use", False),
+        wandb_kwargs={"project": wandb_cfg.get("project"), "name": wandb_cfg.get("name")})
     kwargs = dict(diffusion_agent=diffusion_agent,
                   cameras=eval_cfg.get("env", {}).get("cameras", CAMERAS), logger=logger,
                   tokenizer=load_tokenizer(eval_cfg.get("tokenizer_merges")))

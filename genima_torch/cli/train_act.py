@@ -7,7 +7,9 @@ Counterpart of ``genima_tpu/cli/train_act.py`` and its config
 Python data (``--config-name F`` reads a YAML file instead, with PyYAML).
 ``device=`` picks the card (``cuda``, the default) or ``cpu``; the agent
 computes in f32, as the JAX agent does by default. One device, no mesh;
-only ``env.factory=fake`` is driven.
+``env.factory=fake`` collects demos from the fake env, ``env.factory=rendered``
+reads them from the rendered dataset at ``env.dataset_root`` (closed-loop
+envs from ``env.eval_env_factory=fake``).
 """
 
 from __future__ import annotations

@@ -531,3 +531,38 @@ def parse_cli(argv: list[str]) -> tuple[list[str], dict]:
             overrides.append(a)
             i += 1
     return overrides, flags
+
+
+# ``genima_tpu/cfgs/render.yaml`` (the reference's render/cfgs/render.yaml)
+# as Python data, in the file's key order: the defaults of
+# ``python -m genima_torch.cli.render_data``
+RENDER = {
+    "dataset_root": "/tmp/",
+    "save_path": None,
+    "textures_path": "./textures",
+    "cameras": ["wrist", "front", "right_shoulder", "left_shoulder", "overhead"],
+    "camera_scales": [3.0, 8.0, 6.5, 6.5, 6.5],
+    "task": "take_lid_off_saucepan",
+    "episodes": 100,
+    "episode_offset": 0,
+    "variation": 0,
+    "num_processes": 1,
+    "image_width": 256,
+    "image_height": 256,
+    "znear": 1e-05,
+    "zfar": 3.0,
+    "action_horizon": 20,
+    "alpha_blend": 0.7,
+    "seed": 0,
+    "render": {
+        "sphere": {"radius": 0.01},
+        "joints": {
+            "wrist": [1, 3, 5],
+            "front": [1, 3, 5],
+            "right_shoulder": [1, 3, 5],
+            "left_shoulder": [1, 3, 5],
+            "overhead": [],
+        },
+    },
+    "draw": {"rgb_rendered": True, "rnd_bg": True},
+}

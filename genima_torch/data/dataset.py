@@ -13,18 +13,25 @@ DataLoader:
   / "a robot arm executing '<desc>' from <camera> perspective";
 * ``num_demos`` cap with natural episode ordering; ``predict_future`` pairs
   observation t with frame t + horizon;
-* the loader shuffles per epoch, decodes PNGs with PIL in a thread pool,
-  resizes / center-crops, and tokenizes prompts, emitting NHWC numpy batches
-  (uint8 with ``emit_uint8``; the trainer normalises on the device).
+* the loader shuffles per epoch, decodes PNGs, resizes / center-crops,
+  and tokenizes prompts, emitting NHWC numpy batches (uint8 with
+  ``emit_uint8``; the trainer normalises on the device). With
+  ``use_native`` (the default on hosts with 4 or more cores) a batch goes
+  through the C++ decoder (``genima_torch.native``, plain bilinear with no
+  antialiasing, as the JAX package's); where that library is unavailable
+  or a decode fails, the batch is decoded with PIL in a thread pool.
+  ``decoded`` counts the batches each decoder made, so a fallback shows.
 
-The native C++ PNG decoder and multi-process sharding come with later
-slices. ``DevicePrefetcher`` copies each batch to the device from pinned
-memory without blocking, one or two batches ahead of the step.
+Multi-process sharding comes with a later slice. ``DevicePrefetcher``
+copies each batch to the device from pinned memory without blocking, one
+or two batches ahead of the step.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
 import pickle
 import queue
 import random
@@ -142,6 +149,7 @@ class DiffusionDataLoader:
         num_workers: int = 8,
         drop_last: bool = True,
         proportion_empty_prompts: float = 0.0,
+        use_native: bool | None = None,
         emit_uint8: bool = False,
     ):
         self.samples = samples
@@ -154,12 +162,39 @@ class DiffusionDataLoader:
         self.num_workers = num_workers
         self.emit_uint8 = emit_uint8
         self._rng = np.random.RandomState(seed)
+        if use_native is None:
+            # the C++ decoder wins through threading; single-core hosts are
+            # better served by PIL's SIMD decode
+            use_native = (os.cpu_count() or 1) >= 4
+        self.use_native = use_native
+        self.decoded: collections.Counter = collections.Counter()  # batches by decoder
 
     def __len__(self) -> int:
         n = len(self.samples) // self.batch_size
         if not self.drop_last and len(self.samples) % self.batch_size:
             n += 1
         return n
+
+    def _load_batch_native(self, batch_samples: list[Sample]):
+        """The threaded C++ decode of one batch; None -> the PIL path."""
+        from genima_torch.native import decode_png_batch, decode_png_batch_u8
+
+        try:
+            img_bytes = [Path(s.image_path).read_bytes() for s in batch_samples]
+            cond_bytes = [Path(s.conditioning_image_path).read_bytes() for s in batch_samples]
+        except OSError:
+            return None
+        if self.emit_uint8:
+            pixels = decode_png_batch_u8(img_bytes, self.resolution, n_threads=self.num_workers)
+            conds = decode_png_batch_u8(cond_bytes, self.resolution, n_threads=self.num_workers)
+        else:
+            pixels = decode_png_batch(img_bytes, self.resolution, mode=1,
+                                      n_threads=self.num_workers)
+            conds = decode_png_batch(cond_bytes, self.resolution, mode=0,
+                                     n_threads=self.num_workers)
+        if pixels is None or conds is None:
+            return None
+        return list(zip(pixels, conds))
 
     def _load_one(self, sample: Sample) -> tuple[np.ndarray, np.ndarray]:
         with Image.open(sample.image_path) as img, Image.open(sample.conditioning_image_path) as cnd:
@@ -181,7 +216,10 @@ class DiffusionDataLoader:
                 if self.drop_last and len(idx) < self.batch_size:
                     return
                 batch_samples = [self.samples[i] for i in idx]
-                decoded = list(pool.map(self._load_one, batch_samples))
+                native = self._load_batch_native(batch_samples) if self.use_native else None
+                decoded = native if native is not None else list(
+                    pool.map(self._load_one, batch_samples))
+                self.decoded["native" if native is not None else "pil"] += 1
                 texts = [
                     "" if self._rng.rand() < self.proportion_empty_prompts else s.text
                     for s in batch_samples

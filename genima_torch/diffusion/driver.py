@@ -323,7 +323,7 @@ def run_training(
                 if args.validation_steps and step % args.validation_steps == 0:
                     trainer.sync_working_copy(state)  # the updated master weights
                     val_mse = log_validation(pipe, {**trainer.frozen, MODEL_SUBDIR:
-                                                    trainer.controlnet},
+                                                    trainer.model},
                                              loader, args, logger, step)
                 if guard.requested:
                     writer.wait()

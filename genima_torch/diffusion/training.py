@@ -192,7 +192,10 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 class ControlNetTrainer:
     """Trains ``params["controlnet"]``; the UNet, VAE and text encoder stay
-    frozen (the reference freezes them too)."""
+    frozen (the reference freezes them too). ``TRAINED`` names the model a
+    subclass trains instead, and its weight family (``diffusion/pretrain.py``)."""
+
+    TRAINED = ("controlnet", "diffusers_controlnet")
 
     def __init__(self, pipe, cfg: TrainConfig):
         if not pipe.vae_encoder:
@@ -209,7 +212,7 @@ class ControlNetTrainer:
         self.tx = None  # built by create_state: the 8-bit AdamW needs the layouts
         self.paths: dict[str, tuple[str, ...]] = {}  # parameter name -> flax path
         self.frozen: dict[str, nn.Module] = {}
-        self.controlnet: Optional[nn.Module] = None  # the working copy
+        self.model: Optional[nn.Module] = None  # the working copy of the trained model
 
     def _make_tx(self, perms: dict[str, tuple[int, ...]]):
         """clip -> AdamW (f32, bf16 first moment, or 8-bit), in gradient
@@ -228,10 +231,11 @@ class ControlNetTrainer:
         return tx
 
     def create_state(self, params: dict[str, nn.Module]) -> TrainState:
-        self.frozen = {k: m.requires_grad_(False) for k, m in params.items() if k != "controlnet"}
-        self.controlnet = params["controlnet"]
-        master = master_params(self.controlnet)
-        self.paths = flax_paths(self.controlnet, "diffusers_controlnet")
+        name, family = self.TRAINED
+        self.frozen = {k: m.requires_grad_(False) for k, m in params.items() if k != name}
+        self.model = params[name]
+        master = master_params(self.model)
+        self.paths = flax_paths(self.model, family)
         self.tx = self._make_tx(layout_perms(master, self.paths))
         return TrainState(params=master, opt_state=self.tx.init(master))
 
@@ -274,7 +278,7 @@ class ControlNetTrainer:
         t = timesteps.float()
 
         def model_eps(noisy, cond):
-            down, mid = self.controlnet(noisy, t, context, cond)
+            down, mid = self.model(noisy, t, context, cond)
             return self.frozen["unet"](
                 noisy, t, context,
                 down_block_additional_residuals=down,
@@ -293,22 +297,23 @@ class ControlNetTrainer:
 
     @torch.no_grad()
     def sync_working_copy(self, state: TrainState) -> nn.Module:
-        """Refresh the working ControlNet from the master weights; returns it."""
-        for name, p in self.controlnet.named_parameters():
+        """Refresh the working copy of the trained model from the master
+        weights; returns it."""
+        for name, p in self.model.named_parameters():
             p.copy_(state.params[name])
-        return self.controlnet
+        return self.model
 
     def gradients(
         self, state: TrainState, batch: dict[str, Any], draws: Draws
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """Loss and f32 gradients w.r.t. the ControlNet at ``state.params``."""
-        cn = self.sync_working_copy(state)
-        for p in cn.parameters():
+        """Loss and f32 gradients w.r.t. the trained model at ``state.params``."""
+        model = self.sync_working_copy(state)
+        for p in model.parameters():
             p.grad = None
         loss = self.loss(batch, draws)
         loss.backward()
-        grads = {name: p.grad.float() for name, p in cn.named_parameters()}
-        for p in cn.parameters():
+        grads = {name: p.grad.float() for name, p in model.named_parameters()}
+        for p in model.parameters():
             p.grad = None
         return loss.detach(), grads
 

@@ -1,11 +1,14 @@
 """The env factory dispatch.
 
 Counterpart of ``genima_tpu/envs/rlbench.py::make_factory`` for the fake
-env only: the RLBench simulator (CoppeliaSim / PyRep) and the rendered-demo
-factory are not driven by the port, and asking for them raises.
+env and the rendered-demo factory (demos from an on-disk dataset tree,
+closed-loop envs from ``env.eval_env_factory``). The RLBench simulator
+(CoppeliaSim / PyRep) is not driven by the port, and asking for it raises.
 """
 
 from __future__ import annotations
+
+CAMERAS = ("wrist", "front", "right_shoulder", "left_shoulder")
 
 
 def _train_tasks(env_cfg: dict) -> list[str]:
@@ -20,22 +23,41 @@ def _train_tasks(env_cfg: dict) -> list[str]:
 
 
 def make_factory(env_cfg: dict):
-    """``env.factory: fake`` -> ``FakeRLBenchFactory``; any other factory
-    raises, naming what is missing."""
+    """``env.factory: fake`` -> ``FakeRLBenchFactory``; ``rendered`` ->
+    ``RenderedDemoFactory`` over ``env.dataset_root``, its eval envs from
+    the factory ``env.eval_env_factory`` names; any other factory raises,
+    naming what is missing."""
     kind = env_cfg.get("factory", "rlbench")
-    if kind != "fake":
-        raise NotImplementedError(
-            f"env.factory={kind!r} needs the RLBench simulator (CoppeliaSim, PyRep) or "
-            "the rendered-demo factory, which the port does not drive yet; use "
-            "env.factory=fake")
-    from genima_torch.envs.fake import FakeRLBenchFactory
-
     tasks = _train_tasks(env_cfg)
-    return FakeRLBenchFactory(
-        task_names=tasks,
-        task_name=tasks[0],
-        episode_length=env_cfg.get("episode_length", 60),
-        image_size=env_cfg.get("image_size", 64),
-        goal_observable=env_cfg.get("goal_observable", False),
-        success_tol=env_cfg.get("success_tol", 0.1),
-    )
+    if kind == "fake":
+        from genima_torch.envs.fake import FakeRLBenchFactory
+
+        return FakeRLBenchFactory(
+            task_names=tasks,
+            task_name=tasks[0],
+            episode_length=env_cfg.get("episode_length", 60),
+            image_size=env_cfg.get("image_size", 64),
+            goal_observable=env_cfg.get("goal_observable", False),
+            success_tol=env_cfg.get("success_tol", 0.1),
+        )
+    if kind == "rendered":
+        # demos from an on-disk (rendered) dataset tree, the reference's
+        # train-act flow (env.dataset_root points at rendered data,
+        # controller/env/rlbench.py:301-383)
+        from genima_torch.envs.rendered import RenderedDemoFactory
+
+        inner_kind = env_cfg.get("eval_env_factory")
+        eval_factory = None
+        if inner_kind:
+            eval_factory = make_factory({**env_cfg, "factory": inner_kind})
+        return RenderedDemoFactory(
+            dataset_root=env_cfg["dataset_root"],
+            task_names=tasks,
+            variation=env_cfg.get("variation", 0),
+            cameras=tuple(env_cfg.get("cameras", CAMERAS)),
+            eval_factory=eval_factory,
+        )
+    raise NotImplementedError(
+        f"env.factory={kind!r} needs the RLBench simulator (CoppeliaSim, PyRep), which "
+        "the port does not drive; use env.factory=fake, or env.factory=rendered with "
+        "env.dataset_root and env.eval_env_factory=fake")

@@ -15,6 +15,8 @@ rule, so a name the rules cannot invert raises.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
@@ -66,6 +68,41 @@ def _flax_array(t: torch.Tensor, leaf: str) -> np.ndarray:
     return np.ascontiguousarray(flax_layout(x.float() if x.is_floating_point() else x, leaf).numpy())
 
 
+def _hf_clip_tokens(module_path: list[str]) -> list[str]:
+    """The CLIP text tower's HF module path as flax tokens: JAX keeps the
+    embeddings, layers and final norm at the top level and joins ``mlp.fc1``
+    into ``mlp_fc1``."""
+    parts = [p for p in module_path if p not in ("text_model", "embeddings", "encoder")]
+    if parts[:1] == ["position_embedding"]:
+        return []  # a raw flax param, the leaf itself
+    if len(parts) >= 2 and parts[-2] == "mlp":
+        parts = [*parts[:-2], f"mlp_{parts[-1]}"]
+    return _flax_tokens(parts)
+
+
+def _vae_tokens(module_path: list[str]) -> list[str]:
+    """The VAE's diffusers module path as flax tokens: JAX names a down or up
+    block's resnets ``down_blocks_<i>_resnets_<j>`` and its resampling conv
+    ``down_blocks_<i>_downsample`` (``up_blocks_<i>_upsample``)."""
+    tokens = _flax_tokens(module_path)
+    out: list[str] = []
+    i = 0
+    while i < len(tokens):
+        t = tokens[i]
+        nxt = tokens[i + 1] if i + 1 < len(tokens) else ""
+        if re.match(r"^(down|up)_blocks_\d+$", t) and nxt.startswith("resnets_"):
+            out.append(f"{t}_{nxt}")
+            i += 2
+        elif (re.match(r"^(down|up)_blocks_\d+$", t) and nxt in ("downsamplers_0", "upsamplers_0")
+              and tokens[i + 2:i + 3] == ["conv"]):
+            out.append(f"{t}_{nxt[:-len('rs_0')]}")
+            i += 3
+        else:
+            out.append(t)
+            i += 1
+    return out
+
+
 def flax_paths(module: nn.Module, family: str) -> dict[str, tuple[str, ...]]:
     """State-dict key -> the flax path a JAX model of the same configuration
     keeps that tensor under."""
@@ -73,7 +110,14 @@ def flax_paths(module: nn.Module, family: str) -> dict[str, tuple[str, ...]]:
     for key in module.state_dict():
         *mod_path, leaf = key.split(".")
         owner = module.get_submodule(".".join(mod_path)) if mod_path else module
-        path = (*_flax_tokens(mod_path), _flax_leaf(owner, leaf))
+        if family == "hf_clip" and mod_path[-1:] == ["position_embedding"]:
+            path = ("position_embedding",)
+        elif family == "hf_clip":
+            path = (*_hf_clip_tokens(mod_path), _flax_leaf(owner, leaf))
+        elif family == "diffusers_vae":
+            path = (*_vae_tokens(mod_path), _flax_leaf(owner, leaf))
+        else:
+            path = (*_flax_tokens(mod_path), _flax_leaf(owner, leaf))
         if torch_name(path, family) != key:
             raise KeyError(f"no flax path maps to {key!r} under family {family!r}")
         paths[key] = path

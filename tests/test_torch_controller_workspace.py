@@ -56,6 +56,17 @@ TINY = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny models run on one intra-op thread: the suite runs files in
+    parallel workers, and a pool of spinning threads per worker at these
+    sizes costs far more time than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _assert_trees_equal(got, want, path=""):
     assert sorted(got) == sorted(want), path
     for k in want:

@@ -623,3 +623,99 @@ def test_act_update_on_cuda_matches_the_cpu(cuda):
                 assert torch.equal(t, before[k]), k
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_render_on_cuda_matches_the_cpu(cuda):
+    """The sphere renderer and compositors on the card against the CPU on the
+    same seeded frames: hit masks by a count (at most 0.1% of pixels, where a
+    ray grazes a sphere), images within 1 uint8 level elsewhere except on
+    stripe edges (the same 0.1%)."""
+    from genima_torch.rendering.render_data import render_frames
+    from genima_torch.rendering.spheres import render_spheres
+
+    rng = np.random.RandomState(0)
+    n, s, size = 8, 4, 96
+    frames = {
+        "intr": np.tile(np.array([[80, 0, 48], [0, 80, 48], [0, 0, 1]], np.float32), (n, 1, 1)),
+        "pose": np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)),
+        "centers": rng.uniform([-0.3, -0.3, 0.8], [0.3, 0.3, 1.6], (n, s, 3)).astype(np.float32),
+        "rots": np.tile(np.eye(3, dtype=np.float32), (n, s, 1, 1)),
+        "radii": rng.uniform(0.05, 0.25, (n, s)).astype(np.float32),
+        "stripes": rng.uniform(0, 1, (n, s, 3)).astype(np.float32),
+        "factors": rng.uniform(0.5, 1, (n, s, 3)).astype(np.float32),
+    }
+    frames["pose"][:, :3, 3] = rng.uniform(-0.1, 0.1, (n, 3))
+    rgb = rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+    tex = rng.uniform(0, 1, (n, 1, 1, 3)).astype(np.float32)
+    blend = rng.uniform(0.7, 1, n).astype(np.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            t = {k: torch.from_numpy(v).to(dev) for k, v in frames.items()}
+            keys = ("intr", "pose", "centers", "rots", "radii", "stripes", "factors")
+            _, mask = render_spheres(*(t[k] for k in keys), size, size)
+            full, rnd = render_frames(t, torch.from_numpy(rgb).to(dev),
+                                      torch.from_numpy(tex).to(dev),
+                                      torch.from_numpy(blend).to(dev), size, size)
+            out[dev] = [x.cpu().numpy().astype(np.int16) for x in (mask, full, rnd)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    total = n * size * size
+    assert out["cpu"][0].sum() > 0.05 * total  # the spheres cover the frames in part
+    assert (out["cpu"][0] != out["cuda"][0]).sum() <= 1e-3 * total
+    for i in (1, 2):
+        assert (np.abs(out["cpu"][i] - out["cuda"][i]).max(-1) > 1).sum() <= 1e-3 * total
+
+
+@pytest.mark.cuda
+def test_unet_pretrain_step_on_cuda_matches_library_attention(cuda):
+    """One bf16 ``UNetPretrainer`` step's UNet gradients on the card, through
+    the packed LSE forward (B2a) and backward (B2b) kernels, against the same
+    step with the library attention: relative global-norm difference and the
+    worst self-attention projection's within the fine-tune's 0.1
+    (``chip_smoke.TRAIN_GRAD_REL_TOL``). 128 channels in 2 heads at 16x16
+    latents: 3 self-attentions of 256 tokens with head dim 64 (the mid
+    block's 64-token one takes the library attention both ways)."""
+    from genima_torch.diffusion.pipeline import SDControlNetPipeline
+    from genima_torch.diffusion.pretrain import UNetPretrainer
+    from genima_torch.diffusion.training import TrainConfig
+    from genima_torch.nn.clip_text import CLIPTextConfig
+    from genima_torch.nn.layers import set_attention_backend
+    from genima_torch.nn.unet import UNetConfig
+    from genima_torch.nn.vae import VAEConfig
+
+    pipe = SDControlNetPipeline(
+        unet_cfg=UNetConfig.tiny(block_out_channels=(128, 128), num_heads=(2, 2)),
+        vae_cfg=VAEConfig.tiny_test(), text_cfg=CLIPTextConfig.tiny(), device="cuda",
+        vae_encoder=True)
+    params = pipe.init_params(torch.Generator(cuda).manual_seed(0))
+    trainer = UNetPretrainer(pipe, TrainConfig())
+    state = trainer.create_state(params)
+    rng = np.random.RandomState(1)
+    batch = {"pixel_values": torch.from_numpy(rng.randint(0, 256, (4, 32, 32, 3)).astype(np.uint8)),
+             "conditioning_pixel_values": torch.zeros(4, 32, 32, 3, dtype=torch.uint8),
+             "input_ids": torch.from_numpy(rng.randint(0, 1000, (4, 77)))}
+    draws = trainer.sample_draws(4, 32, torch.Generator(cuda).manual_seed(2))
+    counters = (pa.packed_attention_forward_lse, pa.packed_attention_backward)
+    before = [f.launches for f in counters]
+    grads = {}
+    for backend in ("fused", "xla"):
+        set_attention_backend(params["unet"], backend)
+        grads[backend] = trainer.gradients(state, batch, draws)[1]
+        if backend == "fused":
+            assert [f.launches - b for f, b in zip(counters, before)] == [3, 3]
+    set_attention_backend(params["unet"], "fused")
+
+    def norm(ts):
+        return torch.stack([t.norm() for t in ts]).norm().item()
+
+    f, x = grads["fused"], grads["xla"]
+    diff = {k: f[k] - x[k] for k in x}
+    assert norm(x.values()) > 0
+    assert norm(diff.values()) / norm(x.values()) <= 0.1
+    attn = [k for k in x if ".attn1.to_" in k and k.endswith("weight")]
+    assert len(attn) == 16  # 4 projections x (1 down, 2 up, 1 mid-block) attentions
+    assert max(diff[k].norm().item() / x[k].norm().item() for k in attn) <= 0.1

@@ -63,6 +63,17 @@ EVAL_ARGS = [
 PORT_KEYS_ONLY = {"env_exception_episodes"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny models run on one intra-op thread: the suite runs files in
+    parallel workers, and a pool of spinning threads per worker at these
+    sizes costs far more time than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     work = tmp_path_factory.mktemp("ctrl")
@@ -259,6 +270,51 @@ def test_cli_refuses_what_is_not_ported(trained, tmp_path):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="cuda"):
             eval_act.main([f"controller_ckpt={pdir}"] + CLI_ARGS)
+
+
+NO_OP_ARGS = ["torch_compile=true", "channel_last=true", "allow_tf32=true", "vae_slicing=true",
+              "upcast_vae=true", "fused_projections=true", "temporal_agg=true", "wandb.use=true"]
+
+
+@pytest.mark.parametrize("cli", ["eval_act", "eval_genima"])
+def test_cli_runs_with_the_no_op_keys_and_wandb(trained, tmp_path, monkeypatch, capsys, cli):
+    """The seven keys ``eval_genima.yaml`` declares and no JAX module reads
+    run as no-ops (one line names them); ``wandb.use`` reaches the logger.
+    ``eval_act.yaml`` declares none of the seven (in JAX too), so there they
+    are added with ``+``."""
+    pdir = _copy(trained, tmp_path, "port")
+    loggers = []
+
+    class RecordingLogger(eval_genima.MetricLogger):
+        def __init__(self, *a, **kw):
+            loggers.append(kw)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(eval_genima, "MetricLogger", RecordingLogger)
+    if cli == "eval_act":
+        logs = eval_act.main([f"controller_ckpt={pdir}", "device=cpu"] + CLI_ARGS
+                             + [f"+{a}" for a in NO_OP_ARGS[:-1]] + NO_OP_ARGS[-1:])
+    else:
+        logs = eval_genima.main([f"controller_ckpt={pdir}", "device=cpu"] + CLI_ARGS + TINY_AGENT
+                                + NO_OP_ARGS + ["episode_length=6", "diffusion_agent._target_="
+                                                "genima_torch.eval.agents.make_tiny_sd_agent"])
+    assert logs["results"]["total_episodes"] == 1
+    assert loggers[0]["use_wandb"] is True
+    out = capsys.readouterr().out
+    assert ("no effect here, as in the JAX package: torch_compile, channel_last, allow_tf32, "
+            "vae_slicing, upcast_vae, fused_projections, temporal_agg") in out
+
+
+@pytest.mark.parametrize("argv,error,match", [
+    (["colosseum_use=true"], NotImplementedError, "colosseum_use"),
+    (["eval_data_parallel=true"], NotImplementedError, "eval_data_parallel"),
+    (["eval_tensor_parallel=2"], NotImplementedError, "eval_tensor_parallel"),
+    (["autoencoder=taesd"], NotImplementedError, "tiny VAE"),
+])
+def test_cli_still_refuses_the_unported_options(trained, tmp_path, argv, error, match):
+    pdir = _copy(trained, tmp_path, "port")
+    with pytest.raises(error, match=match):
+        eval_genima.main([f"controller_ckpt={pdir}", "device=cpu"] + CLI_ARGS + argv)
 
 
 def test_harness_saves_videos_and_debug_images(trained, diffusion_params, tmp_path):

@@ -44,6 +44,17 @@ IMAGE, BSZ = 32, 2
 AUGMENTATIONS = "colorjitter,elastic,blur,affine,crop"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny models run on one intra-op thread: the suite runs files in
+    parallel workers, and a pool of spinning threads per worker at these
+    sizes costs far more time than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port_pipe():
     return SDControlNetPipeline(
         unet_cfg=UNetConfig.tiny(), vae_cfg=VAEConfig.tiny_test(),

@@ -39,6 +39,17 @@ STEPS = 2
 ACTION_ATOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny models run on one intra-op thread: the suite runs files in
+    parallel workers, and a pool of spinning threads per worker at these
+    sizes costs far more time than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), tree)
 

@@ -36,6 +36,17 @@ ATOL = 1e-4
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny models run on one intra-op thread: the suite runs files in
+    parallel workers, and a pool of spinning threads per worker at these
+    sizes costs far more time than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port(factory, tree, family):
     module = build_module(factory, CPU, torch.float32)
     return load_from_jax(module, jax.tree_util.tree_map(np.asarray, tree), family)

@@ -23,7 +23,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", CODE], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 64  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 74  # every module was walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -111,5 +111,26 @@ def test_parallel_eval_path_imports_none_of_the_packages_the_card_lacks():
     the env children (``envs.subprocess_env`` and the modules it runs)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", PARALLEL_EVAL_PATH], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+RENDER_PRETRAIN_PATH = """
+import importlib, sys
+for name in ("rendering.spheres", "rendering.compositor", "rendering.render_data", "envs.export",
+             "envs.rendered", "envs.rlbench", "native", "data.dataset", "diffusion.pretrain",
+             "eval.learning_gate", "cli.render_data"):
+    importlib.import_module("genima_torch." + name)
+absent = ("jax", "jaxlib", "genima_tpu", "flax", "msgpack", "yaml")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
+assert not bad, bad
+"""
+
+
+def test_render_and_pretrain_path_imports_none_of_the_packages_the_card_lacks():
+    """What ``render_data``, the rendered-demo factory, the pretrainers and
+    the learning gate import."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", RENDER_PRETRAIN_PATH], cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

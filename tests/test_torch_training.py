@@ -48,6 +48,17 @@ IMAGE = 32  # 16x16 latents: 256-token self-attention takes the packed path
 BSZ = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny models run on one intra-op thread: the suite runs files in
+    parallel workers, and a pool of spinning threads per worker at these
+    sizes costs far more time than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(lambda x: np.array(x, np.float32), tree)
 
@@ -230,21 +241,24 @@ def _make_rendered_dataset(root, task="toy", episodes=2, frames=4, size=IMAGE):
     return root
 
 
+@pytest.mark.parametrize("use_native", [False, True])  # PIL, or the C++ decoder in both
 @pytest.mark.parametrize("emit_uint8", [True, False])
-def test_dataset_copy_matches_jax(tmp_path, emit_uint8):
+def test_dataset_copy_matches_jax(tmp_path, emit_uint8, use_native):
     root = _make_rendered_dataset(tmp_path, size=40)
     want = jax_dataset.index_rendered_dataset(root, ["toy"])
     got = dataset.index_rendered_dataset(root, ["toy"])
     assert [vars(s) for s in got] == [vars(s) for s in want] and len(got) == 6
     tok = tokenizer.HashTokenizer()
     jl = jax_dataset.DiffusionDataLoader(want, tok, batch_size=2, resolution=IMAGE, seed=3,
-                                         num_workers=2, use_native=False, emit_uint8=emit_uint8)
+                                         num_workers=2, use_native=use_native,
+                                         emit_uint8=emit_uint8)
     pl = dataset.DiffusionDataLoader(got, tok, batch_size=2, resolution=IMAGE, seed=3,
-                                     num_workers=2, emit_uint8=emit_uint8)
+                                     num_workers=2, use_native=use_native, emit_uint8=emit_uint8)
     assert len(pl) == len(jl) == 3
     for a, b in zip(pl, jl):
         for k in b:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert pl.decoded == {"native" if use_native else "pil": 3}
     batches = list(dataset.DevicePrefetcher(pl, "cpu"))
     assert len(batches) == 3 and batches[0]["pixel_values"].shape == (2, IMAGE, IMAGE, 3)
 

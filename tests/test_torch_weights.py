@@ -129,3 +129,29 @@ def test_random_init_is_seeded_and_scaled():
     assert abs(w.std().item() - w.shape[1] ** -0.5) < 0.2 * w.shape[1] ** -0.5
     assert torch.equal(a["conv_norm_out.weight"], torch.ones(32))
     assert torch.equal(a["conv_out.bias"], torch.zeros(4))
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_clip_text_matches_real_transformers_goldens(act):
+    """The one oracle outside JAX: ``tests/fixtures/clip_text_golden_hf.npz``
+    holds weights, ids and activations written by transformers'
+    ``CLIPTextModelWithProjection``. Its state dict loads into the port's
+    CLIP tower with ``strict=True`` (the port keeps HF's names), and the last
+    and penultimate hidden states and the projected embeddings hold at
+    ``tests/test_weights.py``'s tolerances."""
+    from pathlib import Path
+
+    fx = np.load(Path(__file__).parent / "fixtures" / "clip_text_golden_hf.npz")
+    cfg = CLIPTextConfig(vocab_size=1000, hidden_size=32, intermediate_size=64, num_layers=2,
+                         num_heads=2, hidden_act=act, projection_dim=32)
+    model = CLIPTextModel(cfg)
+    prefix = f"{act}.sd."
+    sd = {k[len(prefix):]: torch.from_numpy(fx[k]) for k in fx.files if k.startswith(prefix)}
+    model.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        out = model(torch.from_numpy(fx[f"{act}.ids"]).long())
+    for got, name in ((out.last_hidden_state, "last_hidden_state"),
+                      (out.penultimate_hidden_state, "penultimate"),
+                      (out.text_embeds, "text_embeds")):
+        np.testing.assert_allclose(got.numpy(), fx[f"{act}.{name}"], atol=2e-5, rtol=1e-4,
+                                   err_msg=f"{act} {name}")
