@@ -139,6 +139,27 @@
    at a cut ``GateConfig`` (10 steps a stage, 8 demos, 1 ACT epoch, 2
    eval episodes), whose ``learning_gate.json`` must hold the JAX keys;
    neither launches a kernel.
+12. The SDXL-turbo ControlNet variant at its published width and depth
+   (``UNetConfig.sdxl``, the SDXL ControlNet, ``CLIPTextConfig.sdxl_one`` +
+   ``sdxl_two``, ``VAEConfig.sdxl``; seeded weights made on the card, bf16).
+   (a) 3 control steps of ``build_main_path(variant="sdxl")`` (512x512, 5
+   Euler-ancestral steps, batch 1): each launches B1 520 times (70 UNet +
+   34 ControlNet self-attentions at >= 256 tokens a denoise step); one
+   denoise step's noise prediction held to the library attention. (b) 3
+   steps of ``run_training(args, "sdxl")`` at the SDXL trainer CLI's
+   defaults (batch 4, 512x512) on seeded PNGs: each launches B1 34, B2a 70,
+   B2b 70 times with no fallback; finite losses, the ControlNet moves, the
+   UNet, VAE and both text encoders stay bit-unchanged; one step's ControlNet
+   gradients held to the library attention. (c) ``eval_genima.main`` with
+   ``SDXLControlNetAgent`` loading (b)'s final save, on phase 7's controller:
+   one serial episode (every generate 520 B1 at batch 1; the loaded
+   ControlNet = the final master weights in bf16; one harness step =
+   ``FusedGenimaStep`` called directly), then 2 episodes at
+   ``num_parallel_envs=2`` in one batch of 2 (520 B1 at batch 2 a generate;
+   the first batched step's rows against ``FusedGenimaStep`` at batch 1
+   within phase 10's limits). Times: control step by events, train step by
+   the host clock, the final save's write, each eval run's load and loop,
+   peak memory.
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -151,6 +172,7 @@ Exits non-zero, printing no result, without a GPU or without the package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -652,15 +674,21 @@ def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
 
 
 def _denoise_eps(pipe, unet, cn, args) -> torch.Tensor:
-    """One denoise step's noise prediction at the first timestep."""
+    """One denoise step's noise prediction at the first timestep (SDXL's
+    prompt embeddings are the (hidden, pooled) pair)."""
     state = pipe.scheduler.set_timesteps(5)
     with torch.inference_mode():
         x = args["latents"].permute(0, 3, 1, 2) * float(state.init_noise_sigma)
         x = pipe.scheduler.scale_model_input(state, x.contiguous(), 0).to(pipe.dtype)
         t = torch.full((1,), float(state.timesteps[0]), device="cuda")
         cond = args["tiled_u8"].permute(0, 3, 1, 2).to(pipe.dtype).contiguous() / 255.0
-        down, mid = cn(x, t, args["prompt_embeds"], cond, cond_is_embedded=False)
-        return unet(x, t, args["prompt_embeds"], down, mid).float()
+        embeds, added = args["prompt_embeds"], None
+        if isinstance(embeds, tuple):
+            embeds, pooled = embeds
+            added = {"text_embeds": pooled,
+                     "time_ids": pipe.make_time_ids(1, args["tiled_u8"].shape[1])}
+        down, mid = cn(x, t, embeds, cond, cond_is_embedded=False, added_cond_kwargs=added)
+        return unet(x, t, embeds, down, mid, added_cond_kwargs=added).float()
 
 
 def opt_path_phase() -> dict:
@@ -975,7 +1003,7 @@ class _EvalProbe:
     the agent's and controller's checkpoint load times."""
 
     def __init__(self, pa):
-        from genima_torch.diffusion.pipeline import SDControlNetPipeline
+        from genima_torch.diffusion.pipeline import SDControlNetPipeline, SDXLControlNetPipeline
         from genima_torch.eval.agents import SDControlNetAgent
         from genima_torch.eval.fused import FusedGenimaStep
         from genima_torch.eval.harness import GenimaEvalWorkspace
@@ -1031,6 +1059,7 @@ class _EvalProbe:
             return make
 
         wrap(SDControlNetPipeline, "generate", generate)
+        wrap(SDXLControlNetPipeline, "generate", generate)  # its own generate
         wrap(FusedGenimaStep, "__call__", fused_call)
         wrap(GenimaEvalWorkspace, "_controller_act_device", act_device)
         wrap(SDControlNetAgent, "_load_params", timed("diffusion_params_s"))
@@ -2358,6 +2387,332 @@ def render_pretrain_phase(pa, card: str) -> dict:
     return out
 
 
+# phase 12: the SDXL-turbo ControlNet variant at full width
+SDXL_STEPS = 3  # control steps, then train steps
+# per denoise step, the UNet's self-attentions at >= 256 tokens (down level 1:
+# 2 blocks x 2 layers; level 2: 2 x 10; mid 10; up level 2: 3 x 10; up level
+# 1: 3 x 2; level 0 has none) and the ControlNet's (4 + 20 + 10); x 5 steps
+SDXL_LAUNCHES_PER_STEP = 5 * (70 + 34)
+# per train step at batch 4: the ControlNet's 34 and the UNet up path's 36
+# take gradients (B2a forward, B2b backward); the UNet's down path and mid
+# block (34) need none (B1)
+SDXL_TRAIN_LAUNCHES = {"B1": 34, "B2a": 70, "B2b": 70, "fallbacks": 0}
+# the B1/B2a/B2b shapes of the SDXL path: SD's levels 1 and 2 (S, C, heads)
+SDXL_KEYS = {f"{b}x{s}x{s}x{c}" for b in (1, TRAIN_BATCH) for _, s, c, _ in SD_LEVELS[1:]}
+SDXL_AGENT = "genima_torch.eval.agents.SDXLControlNetAgent"
+
+
+def _sdxl_serve(pa) -> dict:
+    """(a): control steps at sdxl-turbo width, B1 pinned, one noise
+    prediction against the library attention."""
+    from genima_torch.eval.main_path import build_main_path
+    from genima_torch.nn.layers import set_attention_backend
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    step, args = build_main_path(device="cuda", seed=0, variant="sdxl")
+    torch.cuda.synchronize()
+    out = {"setup_s": time.time() - t0, "params": {
+        k: sum(p.numel() for p in m.parameters()) for k, m in args["diffusion_params"].items()}}
+    pa.packed_flash_attention.launches = 0
+    pa.packed_flash_attention.launches_by_shape.clear()
+    step_ms, host_ms = [], []
+    for _ in range(SDXL_STEPS):
+        before = pa.packed_flash_attention.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        actions, target = step(**args)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        n = pa.packed_flash_attention.launches - before
+        if n != SDXL_LAUNCHES_PER_STEP:
+            raise AssertionError(f"sdxl: {n} B1 launches in a control step, "
+                                 f"want {SDXL_LAUNCHES_PER_STEP}")
+    out["launches_by_shape"] = {"x".join(map(str, k)): v
+                                for k, v in pa.packed_flash_attention.launches_by_shape.items()}
+    if actions.shape != (1, EVAL_HORIZON, 8) or not torch.isfinite(actions).all():
+        raise AssertionError(f"sdxl actions {tuple(actions.shape)}")
+    if target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8:
+        raise AssertionError(f"sdxl target {tuple(target.shape)} {target.dtype}")
+
+    unet, cn = args["diffusion_params"]["unet"], args["diffusion_params"]["controlnet"]
+    eps = {}
+    for backend in ("fused", "xla"):
+        set_attention_backend(unet, backend)
+        set_attention_backend(cn, backend)
+        eps[backend] = _denoise_eps(step.pipe, unet, cn, args)
+    rel = _rel_err(eps["fused"], eps["xla"])
+    if not (torch.isfinite(eps["fused"]).all() and rel <= EPS_REL_TOL):
+        raise AssertionError(f"sdxl eps kernel vs library attention: rel err {rel}")
+    out.update(step_ms=step_ms, host_step_ms=host_ms, eps_rel_err_vs_library_attention=rel,
+               actions_abs_max=actions.abs().max().item(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def _to_host(module_or_tensors) -> dict:
+    items = (module_or_tensors.state_dict().items() if hasattr(module_or_tensors, "state_dict")
+             else module_or_tensors.items())
+    return {k: t.detach().to("cpu", copy=True) for k, t in items}
+
+
+def _sdxl_train(pa, root: Path) -> dict:
+    """(b): the SDXL fine-tune through the driver, launches pinned, frozen
+    models held, one step's gradients against the library attention."""
+    from genima_torch.cli.train_controlnet_sdxl_genima import parse_args
+    from genima_torch.data.dataset import to_device
+    from genima_torch.data.tokenizer import HashTokenizer
+    from genima_torch.diffusion import driver
+    from genima_torch.diffusion.training import SDXLControlNetTrainer, TrainState
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from genima_torch.nn.layers import set_attention_backend
+
+    write_rendered_dataset(root / "data")
+    args = parse_args([
+        "--data_path", str(root / "data"), "--tasks", "toy_task", "--resolution", "512",
+        "--train_batch_size", str(TRAIN_BATCH), "--max_train_steps", str(SDXL_STEPS),
+        "--seed", "0", "--device", "cuda", "--mixed_precision", "bf16",
+        "--enable_xformers_memory_efficient_attention", "--dataloader_num_workers", "4",
+        "--output_dir", str(root / "out"), "--report_to", "none",
+    ])
+    t0 = time.time()
+    pipe = driver.build_pipeline(args, "sdxl")
+    params = driver.init_model_params(pipe, args)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    frozen = {name: _to_host(params[name])
+              for name in ("unet", "vae", "text_encoder", "text_encoder_2")}
+    cn_init = _to_host(dict(params["controlnet"].named_parameters()))
+    steps, last = [], {}
+
+    def hook(step, state, metrics):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), _ft_counts(pa)
+        steps.append({"ms": (now - last["mark"]) * 1e3, "loss": float(metrics["loss"]),
+                      "launches": {k: counts[k] - last["counts"][k] for k in counts}})
+        last["mark"], last["counts"] = now, counts
+        if step == SDXL_STEPS:  # the final master weights, which the driver saves
+            last["master"] = _to_host(state.params)
+
+    _ft_zero(pa)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    last["mark"], last["counts"] = time.perf_counter(), _ft_counts(pa)
+    t0 = time.time()
+    result = driver.run_training(args, "sdxl", pipe=pipe, params=params, step_hook=hook)
+    run_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches_by_shape = {
+        k: {"x".join(map(str, sh)): n for sh, n in fn.launches_by_shape.items()}
+        for k, fn in (("B1", pa.packed_flash_attention),
+                      ("B2a", pa.packed_attention_forward_lse),
+                      ("B2b", pa.packed_attention_backward))}
+    if result["global_step"] != SDXL_STEPS or len(steps) != SDXL_STEPS:
+        raise AssertionError(f"sdxl train took {result['global_step']} steps")
+    for i, st in enumerate(steps):
+        if st["launches"] != SDXL_TRAIN_LAUNCHES:
+            raise AssertionError(f"sdxl train step {i + 1} launches {st['launches']}, "
+                                 f"want {SDXL_TRAIN_LAUNCHES}")
+        if not math.isfinite(st["loss"]):
+            raise AssertionError(f"sdxl train step {i + 1} loss {st['loss']}")
+    for name, before in frozen.items():
+        after = params[name].state_dict()
+        changed = [k for k, t in before.items() if not torch.equal(t.to("cuda"), after[k])]
+        if changed:
+            raise AssertionError(f"sdxl frozen {name} changed: {changed[:3]}")
+    moved = max((last["master"][k] - v).abs().max().item() for k, v in cn_init.items())
+    if not moved > 0:
+        raise AssertionError("sdxl: the ControlNet did not move")
+    final = root / "out" / "controlnet" / "params.msgpack"
+    del frozen, cn_init
+
+    # one step's ControlNet gradients: kernels vs the library attention (no
+    # optimizer state: only the master weights are read)
+    trainer = SDXLControlNetTrainer(pipe, driver.train_config(args, SDXL_STEPS), 512)
+    state = trainer.create_state(params)
+    state = TrainState(state.params, None, 0)
+    batch = to_device(next(iter(driver.make_train_dataset(args, HashTokenizer()))), pipe.device)
+    draws = trainer.sample_draws(TRAIN_BATCH, 512, torch.Generator(device="cuda").manual_seed(7))
+    grads = {}
+    for run, backend, sdpa in (("fused", "fused", None), ("xla", "xla", None),
+                               ("xla_efficient", "xla", SDPBackend.EFFICIENT_ATTENTION)):
+        for name in ("unet", "controlnet"):
+            set_attention_backend(params[name], backend)
+        with sdpa_kernel(sdpa) if sdpa is not None else contextlib.nullcontext():
+            grads[run] = _to_host(trainer.gradients(state, batch, draws)[1])
+    for name in ("unet", "controlnet"):
+        set_attention_backend(params[name], "fused")
+
+    report = _grad_report(grads["fused"], grads["xla"], grads["xla_efficient"])
+    global_rel, attn_rel = report["global_rel"], report["attn_rel_floored"]
+    if not (global_rel <= TRAIN_GRAD_REL_TOL and attn_rel <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"sdxl ControlNet grads kernels vs library: {json.dumps(report)}")
+    return {
+        "setup_s": setup_s, "run_s": run_s, "step_ms": [st["ms"] for st in steps],
+        "losses": [st["loss"] for st in steps],
+        "launches_per_step": [st["launches"] for st in steps],
+        "launches_by_shape": launches_by_shape, "controlnet_max_move": moved,
+        "grad_rel_norm_diff_vs_library_attention": global_rel,
+        "grad_attn_proj_rel_norm_diff_vs_library_attention": report["attn_rel"],
+        "grad_attn_proj_rel_floored": attn_rel,
+        "grad_library_backends_rel_norm_diff": report["lib_global_rel"],
+        "grad_worst_attn": report["worst_attn"],
+        "final_save_bytes": final.stat().st_size, "peak_mem_gb": peak_gb,
+        "master": last["master"],
+    }
+
+
+# a self-attention projection's gradient is held to the library's relative to
+# its own norm, or to this share of the largest projection gradient's where
+# it is smaller: in SDXL's 10-layer stacks some q/k gradients sit at ~1e-4
+# of the largest, where the library's own two SDPA backends disagree by as
+# much (the report's lib_rel), so their own relative difference is rounding
+GRAD_PROJ_FLOOR = 1e-2
+
+
+def _grad_report(got: dict, want: dict, other: dict) -> dict:
+    """Kernel (``got``) against library (``want``) gradients: the global
+    relative norm difference, and per self-attention projection its own
+    relative difference (``rel``), that against the floor
+    (``GRAD_PROJ_FLOOR``), its norm over the largest projection's, and the
+    library's other SDPA backend (``other``) against ``want`` (``lib_rel``),
+    worst first."""
+    def norm(ts):
+        return torch.stack([t.float().norm() for t in ts]).norm().item()
+
+    if not norm(want.values()) > 0:
+        raise AssertionError("library gradients are all zero")
+    diff = {k: got[k] - want[k] for k in want}
+    attn = [k for k in want if ".attn1.to_" in k and k.endswith("weight")]
+    top = max(want[k].norm().item() for k in attn)
+    rows = []
+    for k in attn:
+        n, d = want[k].norm().item(), diff[k].norm().item()
+        rows.append({"key": k, "rel": d / n, "rel_floored": d / max(n, GRAD_PROJ_FLOOR * top),
+                     "norm_over_max": n / top,
+                     "lib_rel": (other[k] - want[k]).norm().item() / n})
+    rows.sort(key=lambda r: -r["rel"])
+    return {"global_rel": norm(diff.values()) / norm(want.values()),
+            "lib_global_rel": norm([other[k] - want[k] for k in want]) / norm(want.values()),
+            "attn_rel": rows[0]["rel"], "attn_rel_floored": max(r["rel_floored"] for r in rows),
+            "worst_attn": rows[:8]}
+
+
+def _sdxl_eval(pa, ctrl_dir: Path, diffusion_dir: Path, master: dict) -> dict:
+    """(c): the eval CLI with the SDXL agent on the fine-tune's final save:
+    one serial episode, then 2 episodes in one batch of 2."""
+    from genima_torch.eval.fused import FusedGenimaStep
+
+    argv = [
+        f"controller_ckpt={ctrl_dir}", f"diffusion_ckpt={diffusion_dir}",
+        f"diffusion_agent._target_={SDXL_AGENT}", "task=fake_reach", "env.factory=fake",
+        "env.image_size=256", "image_resolution=512", "num_diffusion_steps=5",
+        "guidance_scale=0.0", f"episode_length={EVAL_EPISODE_LENGTH}",
+        f"execution_horizon={EVAL_HORIZON}", "device=cuda",
+    ]
+    out = {}
+    for run, extra, episodes, batch in (
+        ("S", [], 1, 1),
+        ("B", ["num_parallel_envs=2", "eval_overlap=false"], 2, 2),
+    ):
+        logs, probe = _run_eval_cli(pa, argv + extra + [f"num_eval_episodes={episodes}"],
+                                    _BatchedEvalProbe)
+        results = logs["results"]
+        if results["total_episodes"] != episodes or results["env_exception_episodes"]:
+            raise AssertionError(f"sdxl eval {run}: results {results}")
+        steps = len(probe.fused_calls)
+        # a generate per (batched) control step, and the gen-time probe's two
+        if len(probe.generate_calls) != steps + 2:
+            raise AssertionError(f"sdxl eval {run}: {len(probe.generate_calls)} generates for "
+                                 f"{steps} steps")
+        for delta in probe.generate_calls:
+            if sum(delta.values()) != SDXL_LAUNCHES_PER_STEP or {k[0] for k in delta} != {batch}:
+                raise AssertionError(f"sdxl eval {run}: a generate launched B1 {dict(delta)}")
+        for t in probe.targets:
+            if t.shape != (batch, 512, 512, 3) or t.dtype != torch.uint8:
+                raise AssertionError(f"sdxl eval {run}: target {tuple(t.shape)} {t.dtype}")
+        if any(a != ((batch, EVAL_HORIZON, 8), True) for a in probe.step_actions):
+            raise AssertionError(f"sdxl eval {run}: actions {probe.step_actions}")
+        launches_by_shape = {"x".join(map(str, k)): v for k, v in
+                             pa.packed_flash_attention.launches_by_shape.items()}
+        step_self, args, kwargs, (actions, target) = probe.first_fused
+        torch.cuda.synchronize()
+        dag = probe.load["diffusion_params_s_owner"]
+        serial = FusedGenimaStep(dag, step_self.controller, step_self.obs_size)
+        r = {}
+        if run == "S":
+            # the ControlNet the agent loaded: the final master weights in bf16
+            loaded = dag.params["controlnet"].state_dict()
+            bad = [k for k, v in master.items()
+                   if not torch.equal(loaded[k], v.to("cuda", loaded[k].dtype))]
+            if bad or loaded[next(iter(loaded))].dtype != torch.bfloat16:
+                raise AssertionError(f"sdxl eval: loaded ControlNet differs at {bad[:3]}")
+            d_actions, d_target = serial(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = (d_actions.float() - actions.float()).abs().max().item()
+            if not (torch.equal(d_target, target) and err <= DIRECT_STEP_TOL):
+                raise AssertionError(f"sdxl eval: harness step vs FusedGenimaStep: actions err "
+                                     f"{err}, target equal {torch.equal(d_target, target)}")
+            r["harness_vs_direct_step_actions_err"] = err
+        else:
+            # the first batched step's rows against FusedGenimaStep at batch 1
+            params, ctrl, clip, tiled, (hidden, pooled), latents, qpos, lang = args
+            t_max, t_mean, a_max = [], [], []
+            for i in range(batch):
+                row = slice(i, i + 1)
+                a, t = serial(params, ctrl, clip, tiled[row], (hidden[row], pooled[row]),
+                              latents[row], qpos[row], lang[row],
+                              noise=kwargs["noise"][:, row],
+                              num_inference_steps=kwargs["num_inference_steps"])
+                diff = (t.int() - target[row].int()).abs().float()
+                t_max.append(diff.max().item())
+                t_mean.append(diff.mean().item())
+                a_max.append((a.float() - actions[row].float()).abs().max().item())
+            r["rows"] = {"target_max_levels": t_max, "target_mean_levels": t_mean,
+                         "actions_max_abs": a_max}
+            if not (max(t_max) <= ROW_TARGET_MAX_LEVELS and max(t_mean) <= ROW_TARGET_MEAN_LEVELS
+                    and max(a_max) <= ROW_ACTION_ATOL):
+                raise AssertionError(f"sdxl batched rows vs FusedGenimaStep: {r['rows']}")
+        metrics = _last_metrics(ctrl_dir)
+        out[run] = {
+            **r, "episodes": results["total_episodes"], "control_steps": steps,
+            "b1_launches_per_generate": [sum(d.values()) for d in probe.generate_calls],
+            "launches_by_shape": launches_by_shape,
+            "diffusion_params_load_s": probe.load["diffusion_params_s"],
+            "loop_s": probe.loop_s(),
+            "gen_time_s": metrics["eval_genima/gen_time"],
+            "control_time_s": metrics["eval_genima/control_time"],
+            "fused_step_time_s": metrics.get("eval_genima/fused_step_time"),
+        }
+        del probe, dag, serial, step_self, args, kwargs, actions, target
+        torch.cuda.empty_cache()
+    return out
+
+
+def sdxl_phase(pa, card: str, ctrl_dir: Path, root: Path) -> dict:
+    """Phase 12: serving, the fine-tune and the eval CLI at sdxl-turbo width."""
+    import gc
+
+    t_phase = time.time()
+    out = {"card": card, "serve": _sdxl_serve(pa)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = _sdxl_train(pa, root)
+    master = train.pop("master")
+    out["train"] = train
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["eval"] = _sdxl_eval(pa, ctrl_dir, root / "out", master)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.time() - t_phase
+    return out
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -2430,6 +2785,11 @@ def main() -> int:
                       for r in train_kernels if r["name"] == "packed_flash_attention"]
     for r in batched_kernels:
         r["path"] = f"opt-in batched step, {PARALLEL_ENVS} envs"
+    # phase 12 runs B1 at SD's levels 1 and 2 (batch 1 serving, batch 4 in
+    # the trainer's frozen path) and B2a/B2b at the batch-4 ones: the same rows
+    sdxl_kernels = [dict(r, path="sdxl control step") for r in kernels if r["key"] in SDXL_KEYS]
+    sdxl_train_kernels = [dict(r, path="sdxl train step") for r in train_kernels
+                          if r["key"] in SDXL_KEYS]
     path = path_phase(pa)
     _fill_launches(kernels, {"B1": path["launches_by_shape"]}, {"packed_flash_attention": "B1"})
     print("path " + json.dumps(path))
@@ -2448,6 +2808,7 @@ def main() -> int:
         ev = eval_phase(pa, card, written)
         del written["controlnet_state"]
         bt = batched_eval_phase(pa, card, written)
+        sx = sdxl_phase(pa, card, written["controller_dir"], Path(tmp) / "sdxl")
     _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]},
                    {"packed_flash_attention": "B1"})
     print("eval " + json.dumps(ev))
@@ -2521,6 +2882,27 @@ def main() -> int:
           + f"; rows max |d target| default {max(bt['rows_default']['target_max_levels'])} "
           f"opt-in {max(bt['rows_opt_in']['target_max_levels'])} levels; peak "
           f"{bt['peak_mem_gb']:.2f} GiB; phase {bt['phase_s']:.1f} s")
+    _fill_launches(sdxl_kernels, {"B1": sx["serve"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    _fill_launches(sdxl_train_kernels, sx["train"]["launches_by_shape"], {
+        "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
+        "packed_attention_backward": "B2b"})
+    print("sdxl " + json.dumps(sx))
+    sv, tr, ev12 = sx["serve"], sx["train"], sx["eval"]
+    print(f"sdxl ({card}): control step {[round(x, 1) for x in sv['step_ms']]} ms by events "
+          f"(host {[round(x, 1) for x in sv['host_step_ms']]}), eps rel err "
+          f"{sv['eps_rel_err_vs_library_attention']:.4f}, peak {sv['peak_mem_gb']:.2f} GiB; "
+          f"train steps {[round(x, 1) for x in tr['step_ms']]} ms (batch {TRAIN_BATCH}), grads "
+          f"rel {tr['grad_rel_norm_diff_vs_library_attention']:.4f} (the library's two SDPA "
+          f"backends {tr['grad_library_backends_rel_norm_diff']:.4f}), worst projection "
+          f"{tr['grad_attn_proj_rel_norm_diff_vs_library_attention']:.3f} (floored "
+          f"{tr['grad_attn_proj_rel_floored']:.4f}), peak "
+          f"{tr['peak_mem_gb']:.2f} GiB, final save {tr['final_save_bytes'] / 1e9:.3f} GB; eval "
+          + "; ".join(f"run {r}: {ev12[r]['control_steps']} steps, fused step "
+                      f"{ev12[r]['fused_step_time_s']:.4f} s, agent load "
+                      f"{ev12[r]['diffusion_params_load_s']:.2f} s, loop {ev12[r]['loop_s']:.2f} s"
+                      for r in ("S", "B"))
+          + f"; phase {sx['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -2529,10 +2911,12 @@ def main() -> int:
         + [("eval_cohort_n2", r, bt["A"]["generates"]) for r in cohort_kernels]
         + [("eval_batched_n4", r, bt["B"]["generates"]) for r in batch4_kernels]
         + [("opt_in_batched_n4", r, BATCHED_STEPS) for r in batched_kernels]
-        + [("pretrain_unet", r, PRETRAIN_STEPS) for r in pretrain_kernels])))
+        + [("pretrain_unet", r, PRETRAIN_STEPS) for r in pretrain_kernels]
+        + [("sdxl_control", r, SDXL_STEPS) for r in sdxl_kernels]
+        + [("sdxl_train", r, SDXL_STEPS) for r in sdxl_train_kernels])))
     print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels
                       + cohort_kernels + batch4_kernels + batched_kernels
-                      + pretrain_kernels}))
+                      + pretrain_kernels + sdxl_kernels + sdxl_train_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

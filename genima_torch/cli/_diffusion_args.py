@@ -1,11 +1,12 @@
-"""Argument parser of the port's ControlNet trainer.
+"""Argument parser of the port's ControlNet trainers (SD and SDXL).
 
-Every flag and default of the JAX package's SD trainer
-(``genima_tpu/cli/_diffusion_args.py::build_parser("sd")``), whose names
-are the reference's (``diffusion/train_controlnet_genima.py``), so launch
-scripts carry over; plus ``--device``, the card (the default) or the CPU.
-Flags that do nothing in the JAX trainer do nothing here either, and their
-help says so.
+Every flag and default of the JAX package's trainers
+(``genima_tpu/cli/_diffusion_args.py::build_parser("sd")`` and
+``("sdxl")``), whose names are the reference's
+(``diffusion/train_controlnet_genima.py``,
+``train_controlnet_sdxl_genima.py``), so launch scripts carry over; plus
+``--device``, the card (the default) or the CPU. Flags that do nothing in
+the JAX trainer do nothing here either, and their help says so.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import argparse
 NO_OP = "accepted for launch-script compatibility; does nothing"
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Genima sd trainer (PyTorch)")
+def build_parser(variant: str = "sd") -> argparse.ArgumentParser:
+    if variant not in ("sd", "sdxl"):
+        raise ValueError(f"variant {variant!r}: the port has the sd and sdxl trainers")
+    p = argparse.ArgumentParser(description=f"Genima {variant} trainer (PyTorch)")
     add = p.add_argument
 
     add("--device", type=str, default="cuda", choices=["cuda", "cpu"])
@@ -110,4 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--enable_xformers_memory_efficient_attention", action="store_true",
         help="route long self-attention through the packed flash-attention kernels")
     add("--allow_tf32", action="store_true", help=NO_OP)
+    if variant == "sdxl":
+        add("--pretrained_vae_model_name_or_path", type=str, default=None,
+            help=NO_OP + " (the VAE comes from --pretrained_model_name_or_path, "
+                 "as in the JAX trainer)")
     return p

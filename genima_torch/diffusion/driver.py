@@ -1,7 +1,9 @@
-"""Training driver behind ``python -m genima_torch.cli.train_controlnet_genima``.
+"""Training driver behind ``python -m genima_torch.cli.train_controlnet_genima``
+and ``train_controlnet_sdxl_genima``.
 
-Counterpart of ``genima_tpu/diffusion/driver.py`` for the SD ControlNet
-fine-tune on one device: seed, dataset and loader, models (seeded random
+Counterpart of ``genima_tpu/diffusion/driver.py`` for the SD and SDXL
+ControlNet fine-tunes (``variant="sd"`` / ``"sdxl"``) on one device: seed,
+dataset and loader, models (seeded random
 weights, then base weights from ``--pretrained_model_name_or_path`` when it
 is a directory), the ControlNet from ``--controlnet_model_name_or_path`` or
 ``from_unet``, the optimizer and its schedule, resume from ``latest`` or a
@@ -12,7 +14,8 @@ path, and the step loop:
   device and written on a background thread, pruned to
   ``--checkpoints_total_limit``;
 * validation every ``--validation_steps``: 4-step, guidance-0 sampling of
-  random samples with the updated master weights, a cond | target |
+  random samples with the updated master weights (SDXL: its ancestral
+  noise from a generator seeded 1, as the reference's ``key(1)``), a cond | target |
   generated | error-map grid per sample as a PNG under
   ``<output>/<logging_dir>/validation/``, and ``validation/val_mse``;
 * on SIGTERM (or ``PreemptionGuard.request``): wait for the writer, write a
@@ -23,7 +26,7 @@ then the final save of the f32 master weights to
 ``<output>/<logging_dir>/metrics.jsonl`` and, with ``--report_to``, to
 TensorBoard / W&B where installed. Checkpoints are the JAX package's trees
 (``diffusion/train_state.py``), so either package resumes the other's.
-The SDXL and pix2pix variants (and pix2pix's EMA) are later slices.
+The pix2pix variant (and its EMA) is a later slice.
 """
 
 from __future__ import annotations
@@ -43,9 +46,11 @@ from genima_torch.core.rng import seed_everything
 from genima_torch.data.dataset import DevicePrefetcher, DiffusionDataLoader, index_rendered_dataset
 from genima_torch.data.tokenizer import load_tokenizer
 from genima_torch.diffusion import train_state as ts
-from genima_torch.diffusion.pipeline import SDControlNetPipeline
+from genima_torch.diffusion.pipeline import SDControlNetPipeline, SDXLControlNetPipeline
 from genima_torch.diffusion.schedulers import SchedulerConfig
-from genima_torch.diffusion.training import ControlNetTrainer, TrainConfig, TrainState
+from genima_torch.diffusion.training import (
+    ControlNetTrainer, SDXLControlNetTrainer, TrainConfig, TrainState,
+)
 from genima_torch.nn.controlnet import controlnet_params_from_unet
 from genima_torch.weights.load_pretrained import load_pretrained_pipeline
 
@@ -54,11 +59,15 @@ MODEL_SUBDIR = "controlnet"
 VALIDATION_STEPS, VALIDATION_GUIDANCE = 4, 0.0
 
 
-def build_pipeline(args, device: Any = None) -> SDControlNetPipeline:
-    """sd-turbo + ControlNet with the VAE's encoder; the packed attention
-    kernels with ``--enable_xformers_memory_efficient_attention``; bf16
-    unless ``--mixed_precision no``."""
-    return SDControlNetPipeline(
+PIPELINES = {"sd": SDControlNetPipeline, "sdxl": SDXLControlNetPipeline}
+
+
+def build_pipeline(args, variant: str = "sd", device: Any = None) -> SDControlNetPipeline:
+    """sd-turbo (or sdxl-turbo) + ControlNet with the VAE's encoder; the
+    packed attention kernels with
+    ``--enable_xformers_memory_efficient_attention``; bf16 unless
+    ``--mixed_precision no``."""
+    return PIPELINES[variant](
         dtype=torch.float32 if args.mixed_precision == "no" else torch.bfloat16,
         backend="fused" if args.enable_xformers_memory_efficient_attention else "xla",
         device=device if device is not None else args.device,
@@ -98,7 +107,7 @@ def make_train_dataset(args, tokenizer) -> DiffusionDataLoader:
 
 
 def init_model_params(pipe: SDControlNetPipeline, args, tree: Optional[dict] = None) -> dict:
-    """The four models: from the reference's param ``tree`` when given, else
+    """The pipeline's models: from the reference's param ``tree`` when given, else
     seeded random weights made on the device; then base weights from
     ``--pretrained_model_name_or_path`` when it is a directory; then the
     ControlNet from ``--controlnet_model_name_or_path`` when it exists,
@@ -209,7 +218,8 @@ def _validation_samples(loader: DiffusionDataLoader, args) -> list:
 def log_validation(pipe: SDControlNetPipeline, params: dict, loader: DiffusionDataLoader, args,
                    logger: MetricLogger, step: int) -> float:
     """Sample each validation image (4 steps, guidance 0, latents seeded
-    ``seed + j``), write its cond | target | generated | error-map grid
+    ``seed + j``; SDXL's ancestral noise from a generator seeded 1 for each
+    image, as the reference's ``key(1)``), write its cond | target | generated | error-map grid
     (``(gen - gt) / sqrt(mse) * 255``, shifted to uint8) and log
     ``validation/val_mse``."""
     from PIL import Image
@@ -224,9 +234,16 @@ def log_validation(pipe: SDControlNetPipeline, params: dict, loader: DiffusionDa
         gen = torch.Generator(device=pipe.device).manual_seed((args.seed or 0) + j)
         latents = torch.randn(1, lat, lat, pipe.vae_cfg.latent_channels, generator=gen,
                               device=pipe.device)
-        image = pipe.generate(params, torch.tensor(cond_u8[None]), embeds, latents,
-                              num_inference_steps=VALIDATION_STEPS,
-                              guidance_scale=VALIDATION_GUIDANCE)
+        cond = torch.tensor(cond_u8[None])
+        if isinstance(pipe, SDXLControlNetPipeline):
+            noise = torch.randn(VALIDATION_STEPS, *latents.shape, device=pipe.device,
+                                generator=torch.Generator(device=pipe.device).manual_seed(1))
+            image = pipe.generate(params, cond, *embeds, latents, noise,
+                                  num_inference_steps=VALIDATION_STEPS)
+        else:
+            image = pipe.generate(params, cond, embeds, latents,
+                                  num_inference_steps=VALIDATION_STEPS,
+                                  guidance_scale=VALIDATION_GUIDANCE)
         image = image[0].cpu().numpy().astype(np.float32)
         # the reference's round trip through [-1, 1] and [0, 1] (its grid
         # truncates what the trip leaves below an integer)
@@ -252,13 +269,15 @@ def log_validation(pipe: SDControlNetPipeline, params: dict, loader: DiffusionDa
 
 def run_training(
     args,
+    variant: str = "sd",
     pipe: Optional[SDControlNetPipeline] = None,
     params: Optional[dict] = None,
     step_hook: Optional[Callable[[int, TrainState, dict], None]] = None,
     preemption: Optional[PreemptionGuard] = None,
 ) -> dict:
-    """Train the ControlNet for ``max_train_steps`` (or the epochs' worth)
-    and save it. ``pipe`` and ``params`` default to ``build_pipeline`` and
+    """Train the ``variant``'s ControlNet ("sd" or "sdxl") for
+    ``max_train_steps`` (or the epochs' worth) and save it. ``pipe`` and
+    ``params`` default to ``build_pipeline`` and
     ``init_model_params``; ``step_hook(step, state, metrics)`` runs after
     every step; ``preemption`` defaults to a guard installed on SIGTERM for
     the run (a caller's guard is polled, not installed)."""
@@ -266,14 +285,16 @@ def run_training(
     if args.seed is not None:
         seed_everything(args.seed)
     tokenizer = load_tokenizer(args.tokenizer_name, model_dir=args.pretrained_model_name_or_path)
-    pipe = pipe if pipe is not None else build_pipeline(args, device)
+    pipe = pipe if pipe is not None else build_pipeline(args, variant, device)
     loader = make_train_dataset(args, tokenizer)
     if len(loader) == 0:
         raise ValueError(
             f"{len(loader.samples)} samples cannot fill one batch of {args.train_batch_size}"
         )
     max_steps = args.max_train_steps or args.num_train_epochs * len(loader)
-    trainer = ControlNetTrainer(pipe, train_config(args, max_steps))
+    cfg = train_config(args, max_steps)
+    trainer = (SDXLControlNetTrainer(pipe, cfg, args.resolution) if variant == "sdxl"
+               else ControlNetTrainer(pipe, cfg))
     params = params if params is not None else init_model_params(pipe, args)
     state = trainer.create_state(params)
 

@@ -24,8 +24,9 @@ or the velocity under ``prediction_type="v_prediction"``.
 The step's random draws (the VAE sample's normal, the latent noise, the
 timesteps and the augmentations' parameters) are a ``Draws``:
 ``train_step`` takes them from an explicit ``torch.Generator``, and tests
-hand both packages the same numbers. The SDXL and pix2pix trainers are
-later slices.
+hand both packages the same numbers. ``SDXLControlNetTrainer`` conditions
+on both frozen text encoders and SDXL's ``add_time_ids``. The pix2pix
+trainer is a later slice.
 """
 
 from __future__ import annotations
@@ -252,6 +253,11 @@ class ControlNetTrainer:
                 if self.cfg.augmentations else None),
         )
 
+    def text_condition(self, ids: torch.Tensor) -> tuple[torch.Tensor, Optional[dict]]:
+        """(B, 77) token ids -> (the frozen encoder's context, no added
+        conditioning)."""
+        return self.frozen["text_encoder"](ids).last_hidden_state, None
+
     def loss(self, batch: dict[str, Any], draws: Draws) -> torch.Tensor:
         """MSE of the noise (or velocity) prediction; differentiable in the
         working ControlNet's parameters."""
@@ -273,16 +279,17 @@ class ControlNetTrainer:
             latents = latents * pipe.vae_cfg.scaling_factor
             noisy = add_noise(self.alphas_cumprod, latents, noise, timesteps).to(dtype)
             ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)
-            context = self.frozen["text_encoder"](ids).last_hidden_state
+            context, added = self.text_condition(ids)
         cond = _nchw(cond_values).to(dtype)
         t = timesteps.float()
 
         def model_eps(noisy, cond):
-            down, mid = self.model(noisy, t, context, cond)
+            down, mid = self.model(noisy, t, context, cond, added_cond_kwargs=added)
             return self.frozen["unet"](
                 noisy, t, context,
                 down_block_additional_residuals=down,
                 mid_block_additional_residual=mid,
+                added_cond_kwargs=added,
             )
 
         if self.cfg.gradient_checkpointing:
@@ -333,3 +340,20 @@ class ControlNetTrainer:
         (B, 77) token ids), its draws taken from ``generator``."""
         bsz, resolution = batch["pixel_values"].shape[:2]
         return self.step_with_draws(state, batch, self.sample_draws(bsz, resolution, generator))
+
+
+class SDXLControlNetTrainer(ControlNetTrainer):
+    """The SDXL ControlNet fine-tune: the context is both frozen encoders'
+    penultimate hidden states side by side, the added conditioning encoder
+    2's pooled embeds and ``make_time_ids(batch, resolution)``. Both
+    encoders run inside the step, as in the JAX package (the reference
+    precomputes the embeddings and frees the encoders, the same numbers)."""
+
+    def __init__(self, pipe, cfg: TrainConfig, resolution: int = 512):
+        super().__init__(pipe, cfg)
+        self.resolution = resolution
+
+    def text_condition(self, ids: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        hidden, pooled = self.pipe.encode_ids(self.frozen, ids)
+        return hidden, {"text_embeds": pooled,
+                        "time_ids": self.pipe.make_time_ids(ids.shape[0], self.resolution)}

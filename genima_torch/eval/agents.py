@@ -1,7 +1,7 @@
-"""The SD-ControlNet diffusion agent: the eval-time wrapper around the pipeline.
+"""The diffusion agents: the eval-time wrappers around the pipelines.
 
-Counterpart of ``SDControlNetAgent`` and its ``DiffusionAgent`` lifecycle in
-``genima_tpu/eval/agents.py``:
+Counterpart of ``SDControlNetAgent``, ``SDXLControlNetAgent`` and their
+``DiffusionAgent`` lifecycle in ``genima_tpu/eval/agents.py``:
 
 - weights (``_load_params``): the seeded random init on the device, then
   the ``sd_ckpt`` base trees (``params.msgpack``) over it, then the
@@ -15,9 +15,13 @@ Counterpart of ``SDControlNetAgent`` and its ``DiffusionAgent`` lifecycle in
   ``torch.Generator(seed)``; the JAX package draws other numbers, so tests
   inject latents);
 - ``infer_device`` / ``infer`` with classifier-free guidance, and
-  ``fused_generate``, the hook ``eval.fused.FusedGenimaStep`` calls.
+  ``fused_generate``, the hook ``eval.fused.FusedGenimaStep`` calls;
+- for SDXL, a second per-episode generator, seeded ``seed + 1``, for the
+  ancestral noise (``draw_noise``: one block per denoise step), so that
+  drawing it leaves the latent stream as it was; prompt embeddings are the
+  (hidden, pooled) pair.
 
-SDXL and InstructPix2Pix agents, and the tiny VAE, are not ported yet.
+The InstructPix2Pix agent and the tiny VAE are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 
 from genima_torch.core import checkpoint as ckpt
 from genima_torch.data.tokenizer import load_tokenizer
-from genima_torch.diffusion.pipeline import SDControlNetPipeline
+from genima_torch.diffusion.pipeline import SDControlNetPipeline, SDXLControlNetPipeline
 from genima_torch.nn.clip_text import CLIPTextConfig
 from genima_torch.nn.unet import UNetConfig
 from genima_torch.nn.vae import VAEConfig
@@ -41,6 +45,8 @@ from genima_torch.nn.vae import VAEConfig
 class SDControlNetAgent:
     """SD-turbo + ControlNet. ``pipe`` defaults to the full-width pipeline
     on ``device``; ``params`` to the weights ``_load_params`` assembles."""
+
+    PIPELINE = SDControlNetPipeline
 
     pipe: Optional[SDControlNetPipeline] = None
     params: Optional[dict] = None
@@ -60,13 +66,14 @@ class SDControlNetAgent:
             raise NotImplementedError(
                 f"autoencoder={self.autoencoder!r}: the tiny VAE is not ported")
         if self.pipe is None:
-            self.pipe = SDControlNetPipeline(backend=self.backend, device=self.device)
+            self.pipe = self.PIPELINE(backend=self.backend, device=self.device)
         self.device = self.pipe.device
         self.tokenizer = load_tokenizer(self.tokenizer_merges, model_dir=self.sd_ckpt)
         if self.params is None:
             self.params = self._load_params()
         self._prompt_cache: dict[tuple, torch.Tensor] = {}  # by token ids
         self._latent_gen: Optional[torch.Generator] = None
+        self._noise_gen: Optional[torch.Generator] = None  # SDXL's ancestral noise
 
     # -- weights ---------------------------------------------------------------
 
@@ -103,13 +110,22 @@ class SDControlNetAgent:
         return torch.randn(batch, lat, lat, self.pipe.vae_cfg.latent_channels,
                            generator=generator, device=self.device)
 
+    def draw_noise(self, steps: int, batch: int, generator: torch.Generator):
+        """The sampler's in-loop noise for one generate: none (Euler
+        discrete injects none)."""
+        return None
+
+    def _next_noise(self, batch: int, steps: int):
+        return None
+
     # -- prompts ---------------------------------------------------------------
 
     def _embed_prompts(self, prompts: list[str]) -> torch.Tensor:
         return self.embed_prompt_ids(np.asarray(self.tokenizer(list(prompts))))
 
     def embed_prompt_ids(self, input_ids) -> torch.Tensor:
-        """(B, 77) token ids -> cached (B, 77, hidden) prompt embeddings."""
+        """(B, 77) token ids -> cached prompt embeddings: (B, 77, hidden),
+        or SDXL's ((B, 77, hidden), (B, pooled))."""
         ids = torch.as_tensor(input_ids, dtype=torch.long)
         key = (tuple(ids.shape), tuple(ids.flatten().tolist()))
         if key not in self._prompt_cache:
@@ -144,12 +160,58 @@ class SDControlNetAgent:
             images, prompts, negative_prompts, num_inference_steps, guidance_scale
         ).cpu().numpy()
 
-    def fused_generate(self, params, cond, embeds, latents, key,
+    def fused_generate(self, params, cond, embeds, latents, noise,
                        num_inference_steps: int = 5):
-        # key unused: Euler-discrete turbo sampling injects no noise
+        # noise unused: Euler-discrete turbo sampling injects none
         return self.pipe.generate(
             params, cond, embeds, latents, num_inference_steps=num_inference_steps
         )
+
+
+@dataclasses.dataclass(eq=False)
+class SDXLControlNetAgent(SDControlNetAgent):
+    """SDXL-turbo + ControlNet: prompt embeddings are (hidden, pooled), and
+    each generate takes one ancestral-noise block a denoise step from the
+    episode's noise generator (seeded ``seed + 1``). No guidance."""
+
+    PIPELINE = SDXLControlNetPipeline
+
+    def new_episode(self) -> None:
+        super().new_episode()
+        self._noise_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+
+    def draw_noise(self, steps: int, batch: int, generator: torch.Generator) -> torch.Tensor:
+        """(steps, batch, res/f, res/f, 4) standard-normal ancestral noise,
+        NHWC, drawn from ``generator``."""
+        lat = self.resolution // self.pipe.vae_scale_factor
+        return torch.randn(steps, batch, lat, lat, self.pipe.vae_cfg.latent_channels,
+                           generator=generator, device=self.device)
+
+    def _next_noise(self, batch: int, steps: int) -> torch.Tensor:
+        if self._noise_gen is None:
+            self._noise_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        return self.draw_noise(steps, batch, self._noise_gen)
+
+    def infer_device(self, images, prompts, negative_prompts=None,
+                     num_inference_steps=None, guidance_scale=None) -> torch.Tensor:
+        """(B, H, W, 3) uint8 tiled observations -> (B, H, W, 3) uint8
+        targets on the device; turbo sampling ignores the negative prompts
+        and the guidance scale, as the reference's SDXL agent does."""
+        steps = num_inference_steps or self.num_inference_steps
+        cond = torch.as_tensor(images).to(self.device)
+        if cond.dtype != torch.uint8:
+            cond = cond.float() / 255.0
+        embeds = self._embed_prompts(prompts)
+        latents = self._next_latents(cond.shape[0])
+        noise = self._next_noise(cond.shape[0], steps)
+        return self.fused_generate(self.params, cond, embeds, latents, noise,
+                                   num_inference_steps=steps)
+
+    def fused_generate(self, params, cond, embeds, latents, noise,
+                       num_inference_steps: int = 5):
+        hidden, pooled = embeds
+        return self.pipe.generate(params, cond, hidden, pooled, latents, noise,
+                                  num_inference_steps=num_inference_steps)
 
 
 def make_tiny_sd_agent(resolution: int = 64, device: Any = "cuda", backend: str = "fused",
@@ -168,3 +230,25 @@ def make_tiny_sd_agent(resolution: int = 64, device: Any = "cuda", backend: str 
     )
     kw.pop("sd_ckpt", None)
     return SDControlNetAgent(pipe=pipe, resolution=resolution, **kw)
+
+
+def make_tiny_sdxl_agent(resolution: int = 64, device: Any = "cuda", backend: str = "fused",
+                         conv_backend: str = "xla", **kw) -> SDXLControlNetAgent:
+    """Tiny-config SDXL agent (the reference's ``make_tiny_sdxl_agent``
+    widths), f32, targetable from the eval CLI like ``make_tiny_sd_agent``."""
+    pipe = SDXLControlNetPipeline(
+        unet_cfg=UNetConfig.tiny(
+            addition_embed_type="text_time", addition_time_embed_dim=8,
+            cross_attention_dim=48,
+            projection_class_embeddings_input_dim=16 + 6 * 8,  # pooled 16, 6 ids x 8
+        ),
+        vae_cfg=VAEConfig.tiny_test(scaling_factor=0.13025),
+        text_cfg=CLIPTextConfig.tiny(hidden_size=16, num_heads=2),
+        text_cfg_2=CLIPTextConfig.tiny(hidden_size=32, projection_dim=16),
+        dtype=torch.float32,
+        device=device,
+        backend=backend,
+        conv_backend=conv_backend,
+    )
+    kw.pop("sd_ckpt", None)
+    return SDXLControlNetAgent(pipe=pipe, resolution=resolution, **kw)

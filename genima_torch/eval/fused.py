@@ -34,15 +34,15 @@ class FusedGenimaStep:
         controller_params,
         clip_params,
         tiled_u8,  # (n*fs, 2S, 2S, 3) uint8
-        prompt_embeds,  # (n*fs, 77, hidden)
+        prompt_embeds,  # (n*fs, 77, hidden), or SDXL's (that, (n*fs, pooled))
         latents,  # (n*fs, h, w, 4)
         qpos,  # (n, state_dim*fs)
         lang_tokens,  # (n, 77)
-        key=None,  # ancestral-noise key of other samplers; unused here
+        noise=None,  # SDXL's ancestral noise (steps, n*fs, h, w, 4); else None
         num_inference_steps: int = 5,
     ):
         target = self._gen(
-            diffusion_params, tiled_u8, prompt_embeds, latents, key,
+            diffusion_params, tiled_u8, prompt_embeds, latents, noise,
             num_inference_steps=num_inference_steps,
         )  # (n*fs, 2S, 2S, 3) uint8
         cams = untile_to_cameras(target.float(), target_size=self.obs_size)  # (n*fs, V, S, S, 3)

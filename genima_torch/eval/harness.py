@@ -137,6 +137,8 @@ class GenimaEvalWorkspace:
         dag = self.diffusion_agent
         embeds = dag._embed_prompts(prompts)
         latents = dag._next_latents(fs)
+        steps = self.eval_cfg.get("num_diffusion_steps", 5)
+        noise = dag._next_noise(fs, steps)
         qpos = obs["low_dim_state"].reshape(1, -1).astype(np.float32)
         obs_size = obs[f"{self.cameras[0]}_rgb"].shape[-1]
         actions, target = self._fused(obs_size)(
@@ -148,7 +150,8 @@ class GenimaEvalWorkspace:
             latents,
             torch.from_numpy(qpos),
             torch.from_numpy(np.asarray(lang_tokens)),
-            num_inference_steps=self.eval_cfg.get("num_diffusion_steps", 5),
+            noise=noise,
+            num_inference_steps=steps,
         )
         return actions[0].float().cpu().numpy(), target
 

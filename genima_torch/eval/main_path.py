@@ -1,13 +1,17 @@
-"""The main path at full width: sd-turbo ControlNet + VAE + ACT, random weights.
+"""The main path at full width: sd-turbo (or sdxl-turbo) ControlNet + VAE +
+ACT, random weights.
 
 ``build_main_path`` assembles what a user of the fused control step would:
 an ``SDControlNetAgent`` at SD-2.1 / sd-turbo width (``UNetConfig.sd21``,
-``VAEConfig.sd``, ``CLIPTextConfig.sd21``), a ``GenimaACTAgent`` (``ACTConfig()``,
-ViT-B/32 text tower, ResNet-18 width 64) and a ``FusedGenimaStep`` over four
-256x256 views, with seeded scaled-normal weights made on the device and
-seeded inputs: a 512x512 uint8 tiled observation, standard-normal latents,
-qpos and token ids. ``chip_smoke.py`` and ``genima_torch.profile_step`` drive
-it.
+``VAEConfig.sd``, ``CLIPTextConfig.sd21``), or with ``variant="sdxl"`` an
+``SDXLControlNetAgent`` at sdxl-turbo width (``UNetConfig.sdxl``,
+``VAEConfig.sdxl``, ``CLIPTextConfig.sdxl_one`` + ``sdxl_two``), a
+``GenimaACTAgent`` (``ACTConfig()``, ViT-B/32 text tower, ResNet-18 width
+64) and a ``FusedGenimaStep`` over four 256x256 views, with seeded
+scaled-normal weights made on the device and seeded inputs: a 512x512 uint8
+tiled observation, standard-normal latents (and SDXL's ancestral noise),
+qpos and token ids. ``chip_smoke.py`` and ``genima_torch.profile_step``
+drive it.
 """
 
 from __future__ import annotations
@@ -17,8 +21,7 @@ from typing import Any
 import torch
 
 from genima_torch.control.policy import GenimaACTAgent
-from genima_torch.diffusion.pipeline import SDControlNetPipeline
-from genima_torch.eval.agents import SDControlNetAgent
+from genima_torch.eval.agents import SDControlNetAgent, SDXLControlNetAgent
 from genima_torch.eval.fused import FusedGenimaStep
 
 RESOLUTION = 512
@@ -26,17 +29,24 @@ OBS_SIZE = 256
 EOT_ID = 49407  # CLIP end-of-text, the highest id: where the text towers pool
 
 
+VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent}
+
+
 def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
-                    conv_backend: str = "xla", n_envs: int = 1):
+                    conv_backend: str = "xla", n_envs: int = 1, variant: str = "sd"):
     """Returns ``(step, args)``; ``step(**args)`` runs one control step.
     ``backend`` and ``conv_backend`` are the pipeline's (the default path, or
     the opt-in serving configuration ``"pallas+w8"`` / ``"fused"``, whose
     int8 weights ``init_params`` quantizes from the seeded floats). With
     ``n_envs > 1`` the step is ``eval.parallel.BatchedGenimaStep`` and each
-    input holds one row per env (frame stack 1), each row drawn apart."""
-    pipe = SDControlNetPipeline(device=device, backend=backend, conv_backend=conv_backend)
-    dag = SDControlNetAgent(
-        pipe, params=pipe.init_params(torch.Generator(device=pipe.device).manual_seed(seed)))
+    input holds one row per env (frame stack 1), each row drawn apart.
+    ``variant="sdxl"``: ``prompt_embeds`` is the (hidden, pooled) pair and
+    ``noise`` the (5, n, 64, 64, 4) ancestral noise."""
+    agent_cls = VARIANTS[variant]
+    pipe = agent_cls.PIPELINE(device=device, backend=backend, conv_backend=conv_backend)
+    dag = agent_cls(
+        pipe, params=pipe.init_params(torch.Generator(device=pipe.device).manual_seed(seed)),
+        resolution=RESOLUTION)
     device = dag.pipe.device
     act_agent = GenimaACTAgent(device=device)
     act_params, clip = act_agent.init_params(
@@ -57,6 +67,7 @@ def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
         latents=torch.randn(n, lat, lat, 4, generator=gen, device=device),
         qpos=torch.randn(n, 8, generator=gen, device=device),
         lang_tokens=ids[n:],
+        noise=dag.draw_noise(5, n, gen),
         num_inference_steps=5,
     )
     if n == 1:

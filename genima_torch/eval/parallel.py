@@ -8,7 +8,9 @@ does N episodes' work for each launch the host makes.
 
 Episode semantics are the serial harness's: a ``reset_to_demo`` restore per
 episode, a latent generator per episode seeded with the agent's ``seed``
-(the port's serial contract, ``eval/agents.py``), the same success
+and an ancestral-noise generator seeded ``seed + 1`` (SDXL; the port's
+serial contract, ``eval/agents.py``), so a batched episode draws what its
+serial run draws whatever its cohort, the same success
 accounting, JSON schema and running printout. Environments step in a
 thread pool. Episodes that end early stay in the batch with their last
 observation (a static batch) but are not stepped or counted.
@@ -41,6 +43,14 @@ import torch
 from genima_torch.envs.wrappers import rewrap_obs
 from genima_torch.eval.fused import FusedGenimaStep
 from genima_torch.eval.harness import GenimaEvalWorkspace
+
+
+def _cat_rows(parts: list):
+    """Row-concatenate prompt embeddings: tensors, or SDXL's (hidden,
+    pooled) pairs element by element."""
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(xs) for xs in zip(*parts))
+    return torch.cat(parts)
 
 
 class BatchedGenimaStep(FusedGenimaStep):
@@ -157,21 +167,31 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
         generator (the serial agent's contract: a fixed seed per episode)."""
         return self.diffusion_agent.draw_latents(fs, slot["gen"])
 
+    def _cohort_noise(self, csl, fs: int, steps: int):
+        """The cohort's (steps, n*fs, h, w, 4) ancestral noise, each slot's
+        block from its episode's own noise generator; None for a sampler
+        that injects none."""
+        blocks = [self.diffusion_agent.draw_noise(steps, fs, s["noise_gen"]) for s in csl]
+        return None if blocks[0] is None else torch.cat(blocks, dim=1)
+
     def _cohort_step(self, csl, tiled, qpos, lang, fs: int, obs_size: int):
         """One cohort's batched step: the upload, prompt embeddings, latent
-        draws, the step and the actions' download, all on the worker."""
+        and noise draws, the step and the actions' download, all on the
+        worker."""
         dag = self.diffusion_agent
-        embeds = torch.cat([dag._embed_prompts(self._prompts(s["goal"], fs)[0]) for s in csl])
+        steps = self.eval_cfg.get("num_diffusion_steps", 5)
+        embeds = _cat_rows([dag._embed_prompts(self._prompts(s["goal"], fs)[0]) for s in csl])
         latents = torch.cat([self._slot_latents(s, fs) for s in csl])
+        noise = self._cohort_noise(csl, fs, steps)
         tiled = self._worker.upload(tiled)
         actions, _ = self._batched(obs_size)(
             dag.params, self.controller_params, self.controller_agent.clip_params,
             tiled, embeds, latents, torch.from_numpy(qpos), torch.from_numpy(lang),
-            num_inference_steps=self.eval_cfg.get("num_diffusion_steps", 5),
+            noise=noise, num_inference_steps=steps,
         )
-        return actions.float().cpu().numpy(), (tiled, embeds, latents)
+        return actions.float().cpu().numpy(), (tiled, embeds, latents, noise)
 
-    def _measure_batched_gen(self, tiled, embeds, latents) -> float:
+    def _measure_batched_gen(self, tiled, embeds, latents, noise) -> float:
         """The batched diffusion half timed once (after one warm-up) on a
         cohort's own inputs, to split the step's time into the reference's
         gen / control phases. It draws nothing from any slot's generator."""
@@ -179,7 +199,7 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
         steps = self.eval_cfg.get("num_diffusion_steps", 5)
 
         def gen():
-            dag.fused_generate(dag.params, tiled, embeds, latents, None,
+            dag.fused_generate(dag.params, tiled, embeds, latents, noise,
                                num_inference_steps=steps)
             self._worker.synchronize()
 
@@ -322,8 +342,8 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
         return {
             "env": env, "ep": episode_idx, "obs": obs, "goal": goal,
             "lang": self._lang_tokens(goal, obs), "gen": self._latent_generator(seed),
-            "done": False, "reward": 0.0, "steps": 0,
-            "pose": pose_fn() if callable(pose_fn) else None,
+            "noise_gen": self._latent_generator(seed + 1), "done": False, "reward": 0.0,
+            "steps": 0, "pose": pose_fn() if callable(pose_fn) else None,
         }
 
     def _revive(self, si: int) -> bool:
@@ -363,12 +383,12 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
 
     def _placeholder_slot(self) -> dict:
         """A done, uncounted slot for a retired env: keeps the batch at its
-        size without touching any environment. Its generator is its own."""
+        size without touching any environment. Its generators are its own."""
         obs, goal, lang = self._any_obs
         return {
             "env": None, "ep": -1, "obs": obs, "goal": goal, "lang": lang,
-            "gen": self._latent_generator(0), "done": True, "counted": False,
-            "reward": 0.0, "steps": 0, "pose": None,
+            "gen": self._latent_generator(0), "noise_gen": self._latent_generator(1),
+            "done": True, "counted": False, "reward": 0.0, "steps": 0, "pose": None,
         }
 
     def _step_slot(self, slot, actions, execution_horizon, episode_length) -> None:

@@ -1,7 +1,10 @@
 """CLIP text transformer in PyTorch (HF ``CLIPTextModel`` attribute paths).
 
 Counterpart of ``genima_tpu/nn/clip_text.py``: the SD-turbo prompt encoder
-(``sd21``) and the controller's ViT-B/32 text tower (``vit_b_32``).
+(``sd21``), SDXL's two prompt encoders (``sdxl_one``: the SD 1.5 tower,
+quick_gelu; ``sdxl_two``: OpenCLIP bigG, gelu, with its text projection;
+SDXL concatenates their penultimate hidden states and pools from the
+second) and the controller's ViT-B/32 text tower (``vit_b_32``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,24 @@ class CLIPTextConfig:
     def sd21(**kw) -> "CLIPTextConfig":
         """stabilityai/sd-turbo text_encoder (OpenCLIP ViT-H, truncated)."""
         return CLIPTextConfig(**kw)
+
+    @staticmethod
+    def sd15(**kw) -> "CLIPTextConfig":
+        return CLIPTextConfig(
+            hidden_size=768, intermediate_size=3072, num_layers=12, num_heads=12,
+            hidden_act="quick_gelu", **kw,
+        )
+
+    @staticmethod
+    def sdxl_one(**kw) -> "CLIPTextConfig":
+        return CLIPTextConfig.sd15(**kw)
+
+    @staticmethod
+    def sdxl_two(**kw) -> "CLIPTextConfig":
+        return CLIPTextConfig(
+            hidden_size=1280, intermediate_size=5120, num_layers=32, num_heads=20,
+            hidden_act="gelu", projection_dim=1280, **kw,
+        )
 
     @staticmethod
     def vit_b_32(**kw) -> "CLIPTextConfig":

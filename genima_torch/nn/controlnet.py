@@ -7,7 +7,7 @@ whose outputs are added to the frozen UNet's skip connections.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -61,13 +61,14 @@ class ControlNetModel(DownPath):
         controlnet_cond: torch.Tensor,  # (B, 3, H, W) in [0, 1], or embedded
         conditioning_scale: float = 1.0,
         cond_is_embedded: bool = False,
+        added_cond_kwargs: Optional[dict] = None,  # SDXL: text_embeds, time_ids
     ) -> tuple[list[torch.Tensor], torch.Tensor]:
         """``cond_is_embedded=True``: ``controlnet_cond`` is the precomputed
         conditioning embedding (``embed_conditioning``), hoisted out of the
         denoise loop."""
         dtype = self.dtype
         context = encoder_hidden_states.to(dtype)
-        emb = self.time_embed(timesteps, sample.shape[0])
+        emb = self.time_embed(timesteps, sample.shape[0], added_cond_kwargs)
         cond = controlnet_cond.to(dtype)
         if not cond_is_embedded:
             cond = self.controlnet_cond_embedding(cond)
@@ -87,9 +88,10 @@ def embed_conditioning(controlnet: ControlNetModel, cond: torch.Tensor) -> torch
 
 
 # top-level subtrees the ControlNet shares with the UNet (diffusers
-# ControlNetModel.from_unet copies these; the cond embedding and zero convs
-# keep their own init)
-_SHARED_PREFIXES = ("conv_in.", "time_embedding.", "down_blocks.", "mid_block.")
+# ControlNetModel.from_unet copies these, SDXL's add_embedding included; the
+# cond embedding and zero convs keep their own init)
+_SHARED_PREFIXES = ("conv_in.", "time_embedding.", "add_embedding.", "down_blocks.",
+                    "mid_block.")
 
 
 def controlnet_params_from_unet(

@@ -1,8 +1,10 @@
-"""UNet2DCondition in PyTorch: the SD-turbo epsilon predictor.
+"""UNet2DCondition in PyTorch: the SD-turbo / SDXL-turbo epsilon predictor.
 
-Counterpart of ``genima_tpu/nn/unet.py`` for the SD 2.1 family (sd-turbo):
-NCHW inside, diffusers attribute paths, ControlNet residual injection. The
-SDXL text_time conditioning and the 8-channel pix2pix input are later slices.
+Counterpart of ``genima_tpu/nn/unet.py``: NCHW inside, diffusers attribute
+paths, ControlNet residual injection, and SDXL's text_time
+micro-conditioning (``addition_embed_type="text_time"``: the pooled text
+embeds and the sinusoidal embedding of the 6 ``time_ids`` through
+``add_embedding``, added to the time embedding).
 """
 
 from __future__ import annotations
@@ -37,6 +39,11 @@ class UNetConfig:
     num_heads: Sequence[int] = (5, 10, 20, 20)
     transformer_layers_per_block: Sequence[int] = (1, 1, 1, 1)
     cross_attention_dim: int = 1024
+    # SDXL "text_time" micro-conditioning; the add_embedding's input is the
+    # pooled text embeds and 6 time_ids x addition_time_embed_dim
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
 
@@ -44,6 +51,20 @@ class UNetConfig:
     def sd21(**kw) -> "UNetConfig":
         """stabilityai/sd-turbo == distilled SD 2.1 base (512px)."""
         return UNetConfig(**kw)
+
+    @staticmethod
+    def sdxl(**kw) -> "UNetConfig":
+        """stabilityai/sdxl-turbo UNet (1280 pooled + 6 x 256 = 2816)."""
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            down_block_has_attn=(False, True, True),
+            num_heads=(5, 10, 20),
+            transformer_layers_per_block=(1, 2, 10),
+            cross_attention_dim=2048,
+            addition_embed_type="text_time",
+            projection_class_embeddings_input_dim=2816,
+            **kw,
+        )
 
     @staticmethod
     def tiny(**kw) -> "UNetConfig":
@@ -159,8 +180,9 @@ def skip_channels(cfg: UNetConfig) -> list[int]:
 
 
 class DownPath(nn.Module):
-    """conv_in, time embedding, down blocks and mid block: the part the UNet
-    and the ControlNet share (diffusers ``from_unet`` copies exactly these)."""
+    """conv_in, time embedding (and SDXL's add embedding), down blocks and
+    mid block: the part the UNet and the ControlNet share (diffusers
+    ``from_unet`` copies exactly these)."""
 
     def __init__(self, cfg: UNetConfig, backend: str):
         super().__init__()
@@ -169,6 +191,11 @@ class DownPath(nn.Module):
         temb_ch = c0 * 4
         self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(c0, temb_ch)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_ch)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r}")
         n = len(cfg.block_out_channels)
         self.down_blocks = nn.ModuleList(
             DownBlock(
@@ -183,7 +210,11 @@ class DownPath(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
 
-    def time_embed(self, timesteps: torch.Tensor, batch: int) -> torch.Tensor:
+    def time_embed(self, timesteps: torch.Tensor, batch: int,
+                   added_cond_kwargs: Optional[dict] = None) -> torch.Tensor:
+        """The time embedding; under text_time plus ``add_embedding`` of
+        ``added_cond_kwargs``' ``text_embeds`` (B, pooled) and the
+        sinusoidal embedding of its ``time_ids`` (B, 6)."""
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(batch)
         cfg = self.cfg
@@ -191,7 +222,19 @@ class DownPath(nn.Module):
             timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
             cfg.freq_shift,
         ).to(self.dtype)
-        return self.time_embedding(t_emb)
+        emb = self.time_embedding(t_emb)
+        if cfg.addition_embed_type != "text_time":
+            return emb
+        if added_cond_kwargs is None:
+            raise ValueError("a text_time UNet needs added_cond_kwargs")
+        text_embeds = added_cond_kwargs["text_embeds"]
+        time_ids = added_cond_kwargs["time_ids"].to(text_embeds.device)
+        ids_emb = get_timestep_embedding(
+            time_ids.reshape(-1), cfg.addition_time_embed_dim, cfg.flip_sin_to_cos,
+            cfg.freq_shift,
+        ).to(self.dtype).reshape(text_embeds.shape[0], -1)
+        add = torch.cat([text_embeds.to(self.dtype), ids_emb], dim=-1)
+        return emb + self.add_embedding(add)
 
     def run_down(self, x, emb, context):
         residuals = [x]
@@ -230,10 +273,11 @@ class UNet2DConditionModel(DownPath):
         encoder_hidden_states: torch.Tensor,  # (B, S, cross_dim)
         down_block_additional_residuals: Optional[list] = None,
         mid_block_additional_residual: Optional[torch.Tensor] = None,
+        added_cond_kwargs: Optional[dict] = None,  # SDXL: text_embeds, time_ids
     ) -> torch.Tensor:
         dtype = self.dtype
         context = encoder_hidden_states.to(dtype)
-        emb = self.time_embed(timesteps, sample.shape[0])
+        emb = self.time_embed(timesteps, sample.shape[0], added_cond_kwargs)
         x = self.conv_in(sample.to(dtype))
         x, residuals = self.run_down(x, emb, context)
         if down_block_additional_residuals is not None:

@@ -41,6 +41,10 @@ class VAEConfig:
         return VAEConfig(**kw)
 
     @staticmethod
+    def sdxl(**kw) -> "VAEConfig":
+        return VAEConfig(scaling_factor=0.13025, **kw)
+
+    @staticmethod
     def tiny_test(**kw) -> "VAEConfig":
         defaults = dict(block_out_channels=(16, 32), layers_per_block=1)
         defaults.update(kw)

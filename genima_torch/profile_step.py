@@ -1,17 +1,18 @@
 """Where a step's time goes on the card.
 
     python -m genima_torch.profile_step [--path serve|batched|train|act] [--n 4] [--steps 3]
-        [--out FILE] [--backend fused] [--conv_backend xla]
+        [--out FILE] [--backend fused] [--conv_backend xla] [--variant sd|sdxl]
 
 ``serve`` (the default) builds the full-width fused control step
-(``eval.main_path``) under the pipeline's ``--backend`` and
+(``eval.main_path``; ``--variant sdxl``: at sdxl-turbo width) under the pipeline's ``--backend`` and
 ``--conv_backend`` (``--backend pallas+w8 --conv_backend fused`` is the
 opt-in serving configuration); ``batched`` builds the lockstep-batched step
 for ``--n`` envs (``eval.parallel.BatchedGenimaStep``) and profiles it
 beside the serial step on the same models and the first env's inputs, in
 one process; ``train`` builds a full-width ControlNet fine-tune
-step (sd-turbo width, batch 4, 512x512, bf16 compute, f32 master weights,
-packed attention kernels; seeded random weights and a random uint8 batch);
+step (sd-turbo width, or sdxl-turbo's under ``--variant sdxl``, batch 4,
+512x512, bf16 compute, f32 master weights, packed attention kernels;
+seeded random weights and a random uint8 batch);
 ``act`` one ACT controller update at the trainer's defaults (``ACTConfig()``,
 ResNet-18 width 64, 4 views at 256x256, batch 8, augmentations, f32 under
 PyTorch's TF32 defaults; seeded weights, a random batch, fresh draws each
@@ -24,7 +25,8 @@ step). It warms the step up, then:
   actor, forward only), so each span includes any device idle inside it;
 * profiles one step with ``torch.profiler`` and reports the device-busy
   share (summed kernel time over the step's wall time), device time by
-  kernel family, and the top kernels.
+  kernel family, the top kernels, and the launches each hand-written
+  kernel's wrapper counted in that step (B1-B5).
 
 Prints one JSON object (and writes it to ``--out``). Needs a GPU.
 """
@@ -65,18 +67,34 @@ def family(name: str) -> str:
     return "other"
 
 
+def kernel_counters() -> dict:
+    """The launch counter of each hand-written kernel's wrapper."""
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.kernels import packed_attention as pa
+    from genima_torch.kernels import w8_matmul as w8
+
+    return {"B1": pa.packed_flash_attention, "B2a": pa.packed_attention_forward_lse,
+            "B2b": pa.packed_attention_backward, "B3": fa.flash_attention,
+            "B4": fc.fused_conv3x3, "B5": w8.w8_matmul}
+
+
 def _serve_watched(args):
     p, c = args["diffusion_params"], args["controller_params"]
-    return {
+    watched = {
         "controlnet": p["controlnet"], "unet": p["unet"], "vae_decoder": p["vae"].decoder,
         "clip_prompt": p["text_encoder"], "clip_lang": args["clip_params"],
         "resnet_encoder": c["encoder"], "act_actor": c["actor"],
     }
+    if "text_encoder_2" in p:
+        watched["clip_prompt_2"] = p["text_encoder_2"]
+    return watched
 
 
-def serve_step(backend: str = "fused", conv_backend: str = "xla"):
+def serve_step(backend: str = "fused", conv_backend: str = "xla", variant: str = "sd"):
     """The fused control step and the models to time in it."""
-    step, args = build_main_path("cuda", backend=backend, conv_backend=conv_backend)
+    step, args = build_main_path("cuda", backend=backend, conv_backend=conv_backend,
+                                 variant=variant)
     return lambda: step(**args), _serve_watched(args)
 
 
@@ -88,25 +106,27 @@ def batched_steps(n: int, backend: str = "fused", conv_backend: str = "xla"):
     step, args = build_main_path("cuda", backend=backend, conv_backend=conv_backend, n_envs=n)
     serial = FusedGenimaStep(step.diffusion_agent, step.controller, step.obs_size)
     rows = ("tiled_u8", "prompt_embeds", "latents", "qpos", "lang_tokens")
-    one = {k: v[:1] if k in rows else v for k, v in args.items()}
+    one = {k: v[:1] if k in rows else v for k, v in args.items()}  # noise: None under sd
     watched = _serve_watched(args)
     return {"serial": (lambda: serial(**one), watched),
             f"batched_n{n}": (lambda: step(**args), watched)}
 
 
-def train_step():
+def train_step(variant: str = "sd"):
     """One ControlNet fine-tune step at the trainer CLI's defaults (batch 4,
     512x512, bf16), and the models to time in it."""
-    from genima_torch.cli.train_controlnet_genima import parse_args
+    from genima_torch.cli._diffusion_args import build_parser
     from genima_torch.diffusion import driver
-    from genima_torch.diffusion.training import ControlNetTrainer
+    from genima_torch.diffusion.training import ControlNetTrainer, SDXLControlNetTrainer
 
-    args = parse_args(["--device", "cuda", "--seed", "0",
-                       "--enable_xformers_memory_efficient_attention"])
+    args = build_parser(variant).parse_args(
+        ["--device", "cuda", "--seed", "0", "--enable_xformers_memory_efficient_attention"])
     batch_size, resolution = args.train_batch_size, args.resolution
-    pipe = driver.build_pipeline(args)
+    pipe = driver.build_pipeline(args, variant)
     params = driver.init_model_params(pipe, args)
-    trainer = ControlNetTrainer(pipe, driver.train_config(args, max_steps=1000))
+    cfg = driver.train_config(args, max_steps=1000)
+    trainer = (SDXLControlNetTrainer(pipe, cfg, resolution) if variant == "sdxl"
+               else ControlNetTrainer(pipe, cfg))
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (batch_size, resolution, resolution, 3)
     batch = {
@@ -125,6 +145,8 @@ def train_step():
         "vae_encoder": params["vae"].encoder, "clip_prompt": params["text_encoder"],
         "controlnet_fwd": params["controlnet"], "unet_fwd": params["unet"],
     }
+    if "text_encoder_2" in params:
+        watched["clip_prompt_2"] = params["text_encoder_2"]
     return step, watched
 
 
@@ -191,12 +213,15 @@ def profile(step, watched, warmup: int) -> dict:
     step_ms, spans = module_spans(step, watched)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counters = kernel_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         h0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - h0) * 1e3
+    hand_written = {k: fn.launches - before[k] for k, fn in counters.items()}
     kernels = collections.Counter()
     counts = collections.Counter()
     for ev in prof.events():
@@ -214,6 +239,7 @@ def profile(step, watched, warmup: int) -> dict:
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "kernel_launches": sum(counts.values()),
+        "hand_written_launches": hand_written,
         "by_family_ms": dict(fams.most_common()),
         "by_model_ms": spans,
         "top_kernels": [
@@ -231,24 +257,29 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--backend", default="fused", help="serve, batched: attention backend spec")
     ap.add_argument("--conv_backend", default="xla", help="serve, batched: VAE decoder convs")
+    ap.add_argument("--variant", choices=("sd", "sdxl"), default="sd",
+                    help="serve, train: sd-turbo or sdxl-turbo width")
     a = ap.parse_args()
+    if a.variant != "sd" and a.path not in ("serve", "train"):
+        raise SystemExit("--variant sdxl applies to --path serve and --path train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    out = {"card": card, "path": a.path}
+    out = {"card": card, "path": a.path, "variant": a.variant}
     if a.path in ("serve", "batched"):
         out.update(backend=a.backend, conv_backend=a.conv_backend)
     if a.path == "serve":
-        out.update(profile(*serve_step(a.backend, a.conv_backend), a.steps))
+        out.update(profile(*serve_step(a.backend, a.conv_backend, a.variant), a.steps))
     elif a.path == "batched":
         out["n_envs"] = a.n
         for name, (step, watched) in batched_steps(a.n, a.backend, a.conv_backend).items():
             out[name] = profile(step, watched, a.steps)
     else:
-        out.update(profile(*(train_step() if a.path == "train" else act_step()), a.steps))
+        out.update(profile(*(train_step(a.variant) if a.path == "train" else act_step()),
+                           a.steps))
     text = json.dumps(out, indent=1)
     print(text)
     if a.out:

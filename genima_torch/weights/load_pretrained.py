@@ -4,7 +4,8 @@ modules, and a torchvision ResNet-18 into the ACT controller's backbone.
 Counterpart of ``genima_tpu/weights/load_pretrained.py`` and of
 ``load_torch_file`` in ``genima_tpu/weights/torch_port.py``. For each model
 of the pipeline, ``<dir>/<name>/`` (``unet/``, ``vae/``, ``text_encoder/``,
-``controlnet/``: the HF hub layout of ``stabilityai/sd-turbo``) gives the
+``controlnet/``, and SDXL's ``text_encoder_2/``: the HF hub layout of
+``stabilityai/sd-turbo`` and ``stabilityai/sdxl-turbo``) gives the
 first that exists of:
 
 * ``params.msgpack``: the reference's flax tree, through the port's codec
@@ -42,6 +43,8 @@ FAMILIES = {
     "vae": "diffusers_vae",
     "text_encoder": "hf_clip",
 }
+# every pipeline model's: SDXL adds a second prompt encoder (text_encoder_2/)
+MODEL_FAMILIES = {**FAMILIES, "text_encoder_2": "hf_clip"}
 WEIGHT_FILES = (
     "diffusion_pytorch_model.safetensors",
     "model.safetensors",
@@ -127,7 +130,7 @@ def load_pretrained_pipeline(base_dir: str | Path, params: dict[str, nn.Module])
     base_dir = Path(base_dir)
     report = {}
     for name, module in params.items():
-        family = FAMILIES.get(name)
+        family = MODEL_FAMILIES.get(name)
         if family is None:
             continue
         sub = base_dir / name
