@@ -160,6 +160,30 @@
    within phase 10's limits). Times: control step by events, train step by
    the host clock, the final save's write, each eval run's load and loop,
    peak memory.
+13. InstructPix2Pix and the tiny VAE at sd-turbo width (seeded weights made
+   on the card, bf16), under a temporary directory removed when the phase
+   ends. (a) ``run_training(args, "pix2pix")`` with the pix2pix trainer
+   CLI's defaults (batch 4, 512x512) and ``--use_ema
+   --conditioning_dropout_prob 0.05``: run A takes 2 steps and writes one
+   step checkpoint (limit 1; f32 UNet, both moments, ``ema.msgpack``) and a
+   validation; run B resumes it to step 4, its EMA the written one bit for
+   bit. Each step launches B2a and B2b 15 times and B1 never, no fallback;
+   finite losses, the UNet moves, the EMA trails it, the VAE and CLIP stay
+   bit-unchanged, the final save is the EMA bit for bit; one step's UNet
+   gradients held to the library attention as in phase 12. (b)
+   ``eval_genima.main`` with ``SDPix2PixAgent`` loading the final save
+   (``<out>/unet``) on phase 7's controller, serially and in one batch of 2
+   (75 B1 a generate; the loaded UNet = the EMA in bf16; one harness step =
+   ``FusedGenimaStep``; rows within phase 10's limits), then one control
+   step of ``build_main_path(variant="pix2pix", backend="pallas+w8",
+   conv_backend="fused")`` pinned at 160 B3 / 960 B5 / 25 B4 / 0 B1. (c) 20
+   ``distill_tiny_vae`` steps at 512x512, batch 4, from the full-width
+   KL-VAE (the tiny VAE's PSNR against it must rise), ``save_base_model``
+   with ``tiny_vae/``, then ``eval_genima.main`` with ``autoencoder=taesd``
+   and ``sd_ckpt`` on that snapshot (105 B1 a generate; the loaded tiny VAE
+   = the distilled masters in bf16), one generate with the KL decoder on
+   ``conv_backend="fused"`` (0 B4: the tiny VAE decodes), and both decodes
+   at batch 1 by CUDA events.
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -176,6 +200,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1003,7 +1028,9 @@ class _EvalProbe:
     the agent's and controller's checkpoint load times."""
 
     def __init__(self, pa):
-        from genima_torch.diffusion.pipeline import SDControlNetPipeline, SDXLControlNetPipeline
+        from genima_torch.diffusion.pipeline import (
+            SDControlNetPipeline, SDPix2PixPipeline, SDXLControlNetPipeline,
+        )
         from genima_torch.eval.agents import SDControlNetAgent
         from genima_torch.eval.fused import FusedGenimaStep
         from genima_torch.eval.harness import GenimaEvalWorkspace
@@ -1060,6 +1087,7 @@ class _EvalProbe:
 
         wrap(SDControlNetPipeline, "generate", generate)
         wrap(SDXLControlNetPipeline, "generate", generate)  # its own generate
+        wrap(SDPix2PixPipeline, "generate", generate)  # its own generate
         wrap(FusedGenimaStep, "__call__", fused_call)
         wrap(GenimaEvalWorkspace, "_controller_act_device", act_device)
         wrap(SDControlNetAgent, "_load_params", timed("diffusion_params_s"))
@@ -2603,14 +2631,17 @@ def _grad_report(got: dict, want: dict, other: dict) -> dict:
             "worst_attn": rows[:8]}
 
 
-def _sdxl_eval(pa, ctrl_dir: Path, diffusion_dir: Path, master: dict) -> dict:
-    """(c): the eval CLI with the SDXL agent on the fine-tune's final save:
-    one serial episode, then 2 episodes in one batch of 2."""
+def _variant_eval(pa, ctrl_dir: Path, diffusion_dir: Path, master: dict, agent: str,
+                  submodel: str, launches: int, tag: str) -> dict:
+    """The eval CLI with ``agent`` on a fine-tune's final save: one serial
+    episode, then 2 episodes in one batch of 2. Every generate launches B1
+    ``launches`` times; the loaded ``submodel`` must be ``master`` in bf16
+    (phase 12: SDXL's ControlNet; phase 13: the pix2pix UNet)."""
     from genima_torch.eval.fused import FusedGenimaStep
 
     argv = [
         f"controller_ckpt={ctrl_dir}", f"diffusion_ckpt={diffusion_dir}",
-        f"diffusion_agent._target_={SDXL_AGENT}", "task=fake_reach", "env.factory=fake",
+        f"diffusion_agent._target_={agent}", "task=fake_reach", "env.factory=fake",
         "env.image_size=256", "image_resolution=512", "num_diffusion_steps=5",
         "guidance_scale=0.0", f"episode_length={EVAL_EPISODE_LENGTH}",
         f"execution_horizon={EVAL_HORIZON}", "device=cuda",
@@ -2624,20 +2655,20 @@ def _sdxl_eval(pa, ctrl_dir: Path, diffusion_dir: Path, master: dict) -> dict:
                                     _BatchedEvalProbe)
         results = logs["results"]
         if results["total_episodes"] != episodes or results["env_exception_episodes"]:
-            raise AssertionError(f"sdxl eval {run}: results {results}")
+            raise AssertionError(f"{tag} eval {run}: results {results}")
         steps = len(probe.fused_calls)
         # a generate per (batched) control step, and the gen-time probe's two
         if len(probe.generate_calls) != steps + 2:
-            raise AssertionError(f"sdxl eval {run}: {len(probe.generate_calls)} generates for "
+            raise AssertionError(f"{tag} eval {run}: {len(probe.generate_calls)} generates for "
                                  f"{steps} steps")
         for delta in probe.generate_calls:
-            if sum(delta.values()) != SDXL_LAUNCHES_PER_STEP or {k[0] for k in delta} != {batch}:
-                raise AssertionError(f"sdxl eval {run}: a generate launched B1 {dict(delta)}")
+            if sum(delta.values()) != launches or {k[0] for k in delta} != {batch}:
+                raise AssertionError(f"{tag} eval {run}: a generate launched B1 {dict(delta)}")
         for t in probe.targets:
             if t.shape != (batch, 512, 512, 3) or t.dtype != torch.uint8:
-                raise AssertionError(f"sdxl eval {run}: target {tuple(t.shape)} {t.dtype}")
+                raise AssertionError(f"{tag} eval {run}: target {tuple(t.shape)} {t.dtype}")
         if any(a != ((batch, EVAL_HORIZON, 8), True) for a in probe.step_actions):
-            raise AssertionError(f"sdxl eval {run}: actions {probe.step_actions}")
+            raise AssertionError(f"{tag} eval {run}: actions {probe.step_actions}")
         launches_by_shape = {"x".join(map(str, k)): v for k, v in
                              pa.packed_flash_attention.launches_by_shape.items()}
         step_self, args, kwargs, (actions, target) = probe.first_fused
@@ -2646,28 +2677,31 @@ def _sdxl_eval(pa, ctrl_dir: Path, diffusion_dir: Path, master: dict) -> dict:
         serial = FusedGenimaStep(dag, step_self.controller, step_self.obs_size)
         r = {}
         if run == "S":
-            # the ControlNet the agent loaded: the final master weights in bf16
-            loaded = dag.params["controlnet"].state_dict()
+            # the model the agent loaded: the final master weights in bf16
+            loaded = dag.params[submodel].state_dict()
             bad = [k for k, v in master.items()
                    if not torch.equal(loaded[k], v.to("cuda", loaded[k].dtype))]
             if bad or loaded[next(iter(loaded))].dtype != torch.bfloat16:
-                raise AssertionError(f"sdxl eval: loaded ControlNet differs at {bad[:3]}")
+                raise AssertionError(f"{tag} eval: loaded {submodel} differs at {bad[:3]}")
             d_actions, d_target = serial(*args, **kwargs)
             torch.cuda.synchronize()
             err = (d_actions.float() - actions.float()).abs().max().item()
             if not (torch.equal(d_target, target) and err <= DIRECT_STEP_TOL):
-                raise AssertionError(f"sdxl eval: harness step vs FusedGenimaStep: actions err "
+                raise AssertionError(f"{tag} eval: harness step vs FusedGenimaStep: actions err "
                                      f"{err}, target equal {torch.equal(d_target, target)}")
             r["harness_vs_direct_step_actions_err"] = err
         else:
             # the first batched step's rows against FusedGenimaStep at batch 1
-            params, ctrl, clip, tiled, (hidden, pooled), latents, qpos, lang = args
+            params, ctrl, clip, tiled, embeds, latents, qpos, lang = args
+            noise = kwargs["noise"]
             t_max, t_mean, a_max = [], [], []
             for i in range(batch):
                 row = slice(i, i + 1)
-                a, t = serial(params, ctrl, clip, tiled[row], (hidden[row], pooled[row]),
+                row_embeds = (tuple(e[row] for e in embeds) if isinstance(embeds, tuple)
+                              else embeds[row])  # SDXL's (hidden, pooled)
+                a, t = serial(params, ctrl, clip, tiled[row], row_embeds,
                               latents[row], qpos[row], lang[row],
-                              noise=kwargs["noise"][:, row],
+                              noise=None if noise is None else noise[:, row],
                               num_inference_steps=kwargs["num_inference_steps"])
                 diff = (t.int() - target[row].int()).abs().float()
                 t_max.append(diff.max().item())
@@ -2677,10 +2711,11 @@ def _sdxl_eval(pa, ctrl_dir: Path, diffusion_dir: Path, master: dict) -> dict:
                          "actions_max_abs": a_max}
             if not (max(t_max) <= ROW_TARGET_MAX_LEVELS and max(t_mean) <= ROW_TARGET_MEAN_LEVELS
                     and max(a_max) <= ROW_ACTION_ATOL):
-                raise AssertionError(f"sdxl batched rows vs FusedGenimaStep: {r['rows']}")
+                raise AssertionError(f"{tag} batched rows vs FusedGenimaStep: {r['rows']}")
         metrics = _last_metrics(ctrl_dir)
         out[run] = {
             **r, "episodes": results["total_episodes"], "control_steps": steps,
+            "generates": len(probe.generate_calls),
             "b1_launches_per_generate": [sum(d.values()) for d in probe.generate_calls],
             "launches_by_shape": launches_by_shape,
             "diffusion_params_load_s": probe.load["diffusion_params_s"],
@@ -2707,7 +2742,384 @@ def sdxl_phase(pa, card: str, ctrl_dir: Path, root: Path) -> dict:
     out["train"] = train
     gc.collect()
     torch.cuda.empty_cache()
-    out["eval"] = _sdxl_eval(pa, ctrl_dir, root / "out", master)
+    out["eval"] = _variant_eval(pa, ctrl_dir, root / "out", master, SDXL_AGENT, "controlnet",
+                                SDXL_LAUNCHES_PER_STEP, "sdxl")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.time() - t_phase
+    return out
+
+
+# phase 13: InstructPix2Pix (EMA, conditioning dropout) and the tiny VAE
+PIX2PIX_AGENT = "genima_torch.eval.agents.SDPix2PixAgent"
+PIX2PIX_CKPT_AT, PIX2PIX_STEPS = 2, 4  # run A: 2 steps, a checkpoint at 2; run B: a resume to 4
+# per denoise step the UNet's 15 self-attentions at >= 256 tokens (2 down + 3
+# up blocks at each of its three attention levels; the 64-token mid block
+# takes the library attention) x 5 steps; no ControlNet
+PIX2PIX_LAUNCHES_PER_STEP = 5 * 15
+# the whole UNet trains: its 15 take gradients (B2a forward, B2b backward)
+PIX2PIX_TRAIN_LAUNCHES = {"B1": 0, "B2a": 15, "B2b": 15, "fallbacks": 0}
+# opt-in: 16 transformers x (self + cross) x 5 steps = 160 B3; 12 int8 linears
+# x 16 x 5 = 960 B5; the KL decoder's 25 B4; no B1
+PIX2PIX_OPT_LAUNCHES = {"B1": 0, "B3": 160, "B4": 25, "B5": 960}
+DISTILL_STEPS = 20  # tiny-VAE distillation steps at 512^2, batch 4
+DECODE_ITERS = 10
+
+
+class _Pix2PixProbe:
+    """Wraps, for phase 13 (a), the step-checkpoint writer (seconds, bytes)
+    and the resume (seconds; its EMA held to ``want_ema`` bit for bit, on
+    the host). ``close`` puts the originals back."""
+
+    def __init__(self, driver, ckpt):
+        self.driver, self.ckpt = driver, ckpt
+        self.orig = (ckpt.save_step_checkpoint, driver.restore_checkpoint)
+        self.writes, self.restores, self.want_ema = [], [], None
+        ckpt.save_step_checkpoint = self._save
+        driver.restore_checkpoint = self._restore
+
+    def _save(self, output_dir, step, **kwargs):
+        t0 = time.perf_counter()
+        d = self.orig[0](output_dir, step, **kwargs)
+        self.writes.append({"step": step, "s": time.perf_counter() - t0,
+                            "bytes": _tree_bytes(d), "files": sorted(
+                                str(f.relative_to(d)) for f in d.rglob("*") if f.is_file())})
+        return d
+
+    def _restore(self, trainer, state, resume_dir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig[1](trainer, state, resume_dir)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        bad = (["<no EMA>"] if out.ema is None else
+               [k for k, v in self.want_ema.items() if not torch.equal(out.ema[k].cpu(), v)])
+        if bad:
+            raise AssertionError(f"pix2pix resume: EMA not the written one at {bad[:3]}")
+        self.restores.append({"s": dt, "step": out.step})
+        return out
+
+    def close(self) -> None:
+        self.ckpt.save_step_checkpoint, self.driver.restore_checkpoint = self.orig
+
+
+def _pix2pix_train(pa, root: Path) -> dict:
+    """(a): the pix2pix fine-tune through the trainer CLI's parser and the
+    driver with EMA and conditioning dropout: run A checkpoints at step 2,
+    run B resumes it to step 4; launches pinned, frozen models held, the
+    final save = the EMA, one step's UNet gradients against the library
+    attention."""
+    from genima_torch.cli.train_instruct_pix2pix_genima import parse_args
+    from genima_torch.core import checkpoint as ckpt
+    from genima_torch.data.dataset import to_device
+    from genima_torch.data.tokenizer import HashTokenizer
+    from genima_torch.diffusion import driver
+    from genima_torch.diffusion import train_state as ts
+    from genima_torch.diffusion.training import Pix2PixTrainer, TrainState
+    from genima_torch.nn.layers import set_attention_backend
+    from genima_torch.weights.to_jax import flax_paths
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    write_rendered_dataset(root / "data")
+    out_dir = root / "out"
+    argv = ["--data_path", str(root / "data"), "--tasks", "toy_task", "--seed", "0",
+            "--device", "cuda", "--enable_xformers_memory_efficient_attention",
+            "--dataloader_num_workers", "4", "--output_dir", str(out_dir),
+            "--report_to", "none", "--use_ema", "--conditioning_dropout_prob", "0.05",
+            "--checkpoints_total_limit", "1"]
+    # run A checkpoints and validates at its last step; run B does neither
+    run_a = ["--max_train_steps", str(PIX2PIX_CKPT_AT), "--checkpointing_steps",
+             str(PIX2PIX_CKPT_AT), "--validation_steps", str(PIX2PIX_CKPT_AT)]
+    args = parse_args(argv + run_a)
+    if (args.train_batch_size, args.resolution) != (TRAIN_BATCH, 512):
+        raise AssertionError("the pix2pix parser's defaults moved")
+    t0 = time.time()
+    pipe = driver.build_pipeline(args, "pix2pix")
+    params = driver.init_model_params(pipe, args)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    frozen = {name: _to_host(params[name]) for name in ("vae", "text_encoder")}
+    unet_init = _to_host(params["unet"])
+    steps, last = [], {}
+
+    def hook(step, state, metrics):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), _ft_counts(pa)
+        steps.append({"step": step, "ms": (now - last["mark"]) * 1e3,
+                      "loss": float(metrics["loss"]),
+                      "launches": {k: counts[k] - last["counts"][k] for k in counts}})
+        last["mark"], last["counts"] = now, counts
+        if step == PIX2PIX_CKPT_AT:  # what run A's checkpoint holds
+            probe.want_ema = _to_host(state.ema)
+        if step == PIX2PIX_STEPS:
+            last["ema"], last["master"] = _to_host(state.ema), _to_host(state.params)
+
+    probe = _Pix2PixProbe(driver, ckpt)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for run, extra in (("A", run_a),
+                           ("B", ["--max_train_steps", str(PIX2PIX_STEPS),
+                                  "--checkpointing_steps", "0", "--validation_steps", "0",
+                                  "--resume_from_checkpoint", "latest"])):
+            _ft_zero(pa)
+            torch.cuda.synchronize()
+            last["mark"], last["counts"] = time.perf_counter(), _ft_counts(pa)
+            t0 = time.time()
+            runs[run] = driver.run_training(parse_args(argv + extra), "pix2pix", pipe=pipe,
+                                            params=params, step_hook=hook)
+            runs[run]["s"] = time.time() - t0
+            if run == "A":
+                launches_by_shape = {
+                    k: {"x".join(map(str, sh)): n for sh, n in fn.launches_by_shape.items()}
+                    for k, fn in (("B1", pa.packed_flash_attention),
+                                  ("B2a", pa.packed_attention_forward_lse),
+                                  ("B2b", pa.packed_attention_backward))}
+    finally:
+        probe.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if [st["step"] for st in steps] != list(range(1, PIX2PIX_STEPS + 1)):
+        raise AssertionError(f"pix2pix train steps {[st['step'] for st in steps]}")
+    if runs["B"]["global_step"] != PIX2PIX_STEPS or len(probe.restores) != 1:
+        raise AssertionError(f"pix2pix resume: {runs['B']}, restores {probe.restores}")
+    for st in steps:
+        if st["launches"] != PIX2PIX_TRAIN_LAUNCHES or not math.isfinite(st["loss"]):
+            raise AssertionError(f"pix2pix train step {st['step']}: launches {st['launches']}, "
+                                 f"want {PIX2PIX_TRAIN_LAUNCHES}; loss {st['loss']}")
+    files = probe.writes[0]["files"] if probe.writes else []
+    if len(probe.writes) != 1 or "ema.msgpack" not in files or not math.isfinite(
+            runs["A"]["val_mse"]):
+        raise AssertionError(f"pix2pix checkpoint: {probe.writes}, val_mse {runs['A']['val_mse']}")
+    for name, before in frozen.items():
+        after = params[name].state_dict()
+        changed = [k for k, t in before.items() if not torch.equal(t.to("cuda"), after[k])]
+        if changed:
+            raise AssertionError(f"pix2pix frozen {name} changed: {changed[:3]}")
+    moved = max((last["master"][k] - v.float()).abs().max().item() for k, v in unet_init.items())
+    lag = max((last["ema"][k] - last["master"][k]).abs().max().item() for k in last["ema"])
+    if not (moved > 0 and lag > 0):
+        raise AssertionError(f"pix2pix: the UNet moved {moved}, the EMA trails by {lag}")
+    # the final save is the EMA, bit for bit
+    t0 = time.time()
+    final = out_dir / "unet" / "params.msgpack"
+    saved = ts.params_from_tree(ckpt.load_pytree(final),
+                                flax_paths(params["unet"], "diffusers_unet"), last["ema"])
+    final_load_s = time.time() - t0
+    bad = [k for k, v in last["ema"].items() if not torch.equal(saved[k], v)]
+    if bad:
+        raise AssertionError(f"pix2pix final save is not the EMA at {bad[:3]}")
+    del saved, frozen, unet_init
+    shutil.rmtree(out_dir / f"checkpoint-{PIX2PIX_CKPT_AT}", ignore_errors=True)
+
+    # one step's UNet gradients: kernels vs the library attention
+    trainer = Pix2PixTrainer(pipe, driver.train_config(args, PIX2PIX_STEPS),
+                             conditioning_dropout_prob=args.conditioning_dropout_prob,
+                             null_token_ids=HashTokenizer()([""]))
+    state = trainer.create_state(params)
+    state = TrainState(state.params, None, 0)
+    torch.cuda.empty_cache()
+    batch = to_device(next(iter(driver.make_train_dataset(args, HashTokenizer()))), pipe.device)
+    draws = trainer.sample_draws(TRAIN_BATCH, 512, torch.Generator(device="cuda").manual_seed(7))
+    grads = {}
+    for run, backend, sdpa in (("fused", "fused", None), ("xla", "xla", None),
+                               ("xla_efficient", "xla", SDPBackend.EFFICIENT_ATTENTION)):
+        set_attention_backend(params["unet"], backend)
+        with sdpa_kernel(sdpa) if sdpa is not None else contextlib.nullcontext():
+            grads[run] = _to_host(trainer.gradients(state, batch, draws)[1])
+    set_attention_backend(params["unet"], "fused")
+    del state, trainer
+    report = _grad_report(grads["fused"], grads["xla"], grads["xla_efficient"])
+    del grads
+    if not (report["global_rel"] <= TRAIN_GRAD_REL_TOL
+            and report["attn_rel_floored"] <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"pix2pix UNet grads kernels vs library: {json.dumps(report)}")
+    write = probe.writes[0]
+    return {
+        "setup_s": setup_s, "run_s": {k: v["s"] for k, v in runs.items()},
+        "step_ms": [st["ms"] for st in steps], "losses": [st["loss"] for st in steps],
+        # host clock, less each run's first step (run B's holds the resume)
+        "steady_step_ms": [st["ms"] for st in steps if st["step"] not in (1, PIX2PIX_CKPT_AT + 1)],
+        "launches_per_step": [st["launches"] for st in steps],
+        "launches_by_shape": launches_by_shape, "unet_max_move": moved, "ema_lag": lag,
+        "val_mse": runs["A"]["val_mse"],
+        "checkpoint_bytes": write["bytes"], "checkpoint_files": write["files"],
+        "checkpoint_write_s": write["s"], "resume_s": probe.restores[0]["s"],
+        "final_save_bytes": final.stat().st_size, "final_load_s": final_load_s,
+        "grad_rel_norm_diff_vs_library_attention": report["global_rel"],
+        "grad_attn_proj_rel_norm_diff_vs_library_attention": report["attn_rel"],
+        "grad_attn_proj_rel_floored": report["attn_rel_floored"],
+        "grad_library_backends_rel_norm_diff": report["lib_global_rel"],
+        "grad_worst_attn": report["worst_attn"][:3], "peak_mem_gb": peak_gb,
+        "ema": last["ema"],
+    }
+
+
+def _pix2pix_opt_in(pa) -> dict:
+    """(b): one control step of the pix2pix path under the opt-in backends,
+    its launches pinned."""
+    from genima_torch.eval.main_path import build_main_path
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.kernels import w8_matmul as w8
+
+    step, args = build_main_path(device="cuda", seed=0, backend=OPT_BACKEND,
+                                 conv_backend=OPT_CONV_BACKEND, variant="pix2pix")
+    counters = {"B1": pa.packed_flash_attention, "B3": fa.flash_attention,
+                "B4": fc.fused_conv3x3, "B5": w8.w8_matmul}
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    actions, target = step(**args)
+    end.record()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != PIX2PIX_OPT_LAUNCHES:
+        raise AssertionError(f"pix2pix opt-in step launches {launches}, "
+                             f"want {PIX2PIX_OPT_LAUNCHES}")
+    if (actions.shape != (1, EVAL_HORIZON, 8) or not torch.isfinite(actions).all()
+            or target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8):
+        raise AssertionError(f"pix2pix opt-in: actions {tuple(actions.shape)}, target "
+                             f"{tuple(target.shape)} {target.dtype}")
+    return {"launches": launches, "step_ms_first": start.elapsed_time(end),
+            "launches_by_shape": {
+                k: {"x".join(map(str, sh)): n for sh, n in fn.launches_by_shape.items()}
+                for k, fn in counters.items()}}
+
+
+def _tiny_vae(pa, root: Path, ctrl_dir: Path) -> dict:
+    """(c): distil the tiny VAE from the full-width KL-VAE at 512^2, save a
+    base-model snapshot with it, and run the eval CLI with
+    ``autoencoder=taesd`` on that snapshot; its decode timed against the KL
+    decoder's."""
+    from genima_torch.cli.train_instruct_pix2pix_genima import parse_args
+    from genima_torch.data.tokenizer import HashTokenizer
+    from genima_torch.diffusion import driver
+    from genima_torch.diffusion.pipeline import SDControlNetPipeline
+    from genima_torch.diffusion.pretrain import (
+        distill_tiny_vae, save_base_model, tiny_vae_decode_psnr,
+    )
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.nn.vae import AutoencoderKL, AutoencoderTiny
+    from genima_torch.weights.init import build_module, init_random_
+
+    pipe = SDControlNetPipeline(device="cuda", vae_encoder=True, use_tiny_vae=True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = {"vae": init_random_(build_module(
+                  lambda: AutoencoderKL(pipe.vae_cfg, encoder=True), pipe.device, pipe.dtype), gen),
+              "tiny_vae": init_random_(build_module(
+                  lambda: AutoencoderTiny(n_levels=len(pipe.vae_cfg.block_out_channels) - 1),
+                  pipe.device, pipe.dtype), gen)}
+    args = parse_args(["--data_path", str(root / "data"), "--tasks", "toy_task", "--seed", "0",
+                       "--dataloader_num_workers", "4"])
+    loader = driver.make_train_dataset(args, HashTokenizer())
+    images = torch.from_numpy(next(iter(loader))["pixel_values"]).to("cuda")
+    psnr = [tiny_vae_decode_psnr(pipe, params, images)]
+    masters, step_ms, mark = {}, [], {}
+    _ft_zero(pa)
+
+    def hook(tag, step, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - mark["t"]) * 1e3)
+        mark["t"] = now
+
+    torch.cuda.synchronize()
+    mark["t"] = time.perf_counter()
+    t0 = time.time()
+    distill_tiny_vae(pipe, params, loader, steps=DISTILL_STEPS, lr=1e-3, masters=masters,
+                     step_hook=hook, log_every=DISTILL_STEPS)
+    distill_s = time.time() - t0
+    psnr.append(tiny_vae_decode_psnr(pipe, params, images))
+    if not (math.isfinite(psnr[1]) and psnr[1] > psnr[0]):
+        raise AssertionError(f"tiny VAE distillation: PSNR {psnr[0]} -> {psnr[1]}")
+    if any(_ft_counts(pa).values()):
+        raise AssertionError(f"the distiller launched {_ft_counts(pa)}")
+    t0 = time.time()
+    save_base_model(root / "base", params, masters)
+    save_s = time.time() - t0
+    if not (root / "base" / "tiny_vae" / "params.msgpack").exists():
+        raise AssertionError("save_base_model wrote no tiny_vae/params.msgpack")
+    tiny_master = {k: v.cpu() for k, v in masters["tiny_vae"].items()}
+    del params, masters
+    torch.cuda.empty_cache()
+
+    # the eval CLI, the default agent decoding with the distilled tiny VAE
+    argv = [f"controller_ckpt={ctrl_dir}", f"sd_ckpt={root / 'base'}", "autoencoder=taesd",
+            "task=fake_reach", "env.factory=fake", "env.image_size=256", "image_resolution=512",
+            "num_diffusion_steps=5", "guidance_scale=0.0", f"episode_length={EVAL_EPISODE_LENGTH}",
+            f"execution_horizon={EVAL_HORIZON}", "device=cuda", "num_eval_episodes=1"]
+    logs, probe = _run_eval_cli(pa, argv, _BatchedEvalProbe)
+    results = logs["results"]
+    if results["total_episodes"] != 1 or results["env_exception_episodes"]:
+        raise AssertionError(f"taesd eval: results {results}")
+    for delta in probe.generate_calls:
+        if sum(delta.values()) != LAUNCHES_PER_STEP or {k[0] for k in delta} != {1}:
+            raise AssertionError(f"taesd eval: a generate launched B1 {dict(delta)}")
+    dag = probe.load["diffusion_params_s_owner"]
+    loaded = dag.params["tiny_vae"].state_dict() if dag.pipe.use_tiny_vae else {}
+    bad = [k for k, v in tiny_master.items()
+           if k not in loaded or not torch.equal(loaded[k], v.to("cuda", loaded[k].dtype))]
+    if bad:
+        raise AssertionError(f"taesd eval: the loaded tiny VAE differs at {bad[:3]}")
+    # the KL decoder on the fused convs: the tiny VAE decodes, so no B4 runs
+    dag.params["vae"].decoder.conv_backend = OPT_CONV_BACKEND
+    fc.fused_conv3x3.launches = 0
+    b1 = pa.packed_flash_attention.launches
+    obs = torch.randint(0, 256, (1, 512, 512, 3), dtype=torch.uint8, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+    target = dag.infer_device(obs, ["reach the target"])
+    torch.cuda.synchronize()
+    fused_launches = {"B1": pa.packed_flash_attention.launches - b1,
+                      "B4": fc.fused_conv3x3.launches}
+    if fused_launches != {"B1": LAUNCHES_PER_STEP, "B4": 0} or target.shape != (1, 512, 512, 3):
+        raise AssertionError(f"taesd under conv_backend=fused: {fused_launches}")
+    dag.params["vae"].decoder.conv_backend = "xla"
+    z = torch.randn(1, 4, 64, 64, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(6)).to(dag.pipe.dtype)
+    with torch.inference_mode():
+        tiny_ms = cuda_ms(lambda: dag.params["tiny_vae"].decode(z), DECODE_ITERS)
+        full_ms = cuda_ms(lambda: dag.params["vae"].decode(z / pipe.vae_cfg.scaling_factor),
+                          DECODE_ITERS)
+    metrics = _last_metrics(ctrl_dir)
+    out = {"psnr_db": psnr, "distill_steps": DISTILL_STEPS, "distill_s": distill_s,
+           "distill_step_ms": step_ms, "base_save_s": save_s,
+           "base_bytes": _tree_bytes(root / "base"),
+           "eval_generates": len(probe.generate_calls),
+           "eval_fused_step_time_s": metrics.get("eval_genima/fused_step_time"),
+           "eval_agent_load_s": probe.load["diffusion_params_s"],
+           "fused_conv_launches": fused_launches,
+           "tiny_decode_ms": tiny_ms, "full_decode_ms": full_ms}
+    del probe, dag
+    torch.cuda.empty_cache()
+    return out
+
+
+def pix2pix_phase(pa, card: str, ctrl_dir: Path) -> dict:
+    """Phase 13: the pix2pix fine-tune, its eval and opt-in step, and the
+    tiny VAE, at sd-turbo width; everything written under a temporary
+    directory removed when the phase ends."""
+    import gc
+
+    t_phase = time.time()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        train = _pix2pix_train(pa, root)
+        ema = train.pop("ema")
+        out["train"] = train
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["eval"] = _variant_eval(pa, ctrl_dir, root / "out" / "unet", ema, PIX2PIX_AGENT,
+                                    "unet", PIX2PIX_LAUNCHES_PER_STEP, "pix2pix")
+        del ema
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["opt_in"] = _pix2pix_opt_in(pa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tiny_vae"] = _tiny_vae(pa, root, ctrl_dir)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     out["phase_s"] = time.time() - t_phase
     return out
@@ -2790,6 +3202,14 @@ def main() -> int:
     sdxl_kernels = [dict(r, path="sdxl control step") for r in kernels if r["key"] in SDXL_KEYS]
     sdxl_train_kernels = [dict(r, path="sdxl train step") for r in train_kernels
                           if r["key"] in SDXL_KEYS]
+    # phase 13 runs B1 at the SD control shapes (batch 1 serially, batch 2 in
+    # the lockstep eval), B2a/B2b at the trainer's batch-4 ones and B3/B4/B5
+    # at the opt-in step's: the same rows, their launches counted on its paths
+    pix2pix_kernels = [dict(r, path="pix2pix control step (eval, serial)") for r in kernels]
+    pix2pix_n2_kernels = [dict(r, path="pix2pix eval num_parallel_envs=2") for r in cfg_kernels]
+    pix2pix_train_kernels = [dict(r, path="pix2pix train step") for r in train_kernels
+                             if r["name"] != "packed_flash_attention"]
+    pix2pix_opt_kernels = [dict(r, path="pix2pix opt-in step") for r in opt_kernels]
     path = path_phase(pa)
     _fill_launches(kernels, {"B1": path["launches_by_shape"]}, {"packed_flash_attention": "B1"})
     print("path " + json.dumps(path))
@@ -2809,6 +3229,8 @@ def main() -> int:
         del written["controlnet_state"]
         bt = batched_eval_phase(pa, card, written)
         sx = sdxl_phase(pa, card, written["controller_dir"], Path(tmp) / "sdxl")
+        shutil.rmtree(Path(tmp) / "sdxl", ignore_errors=True)
+        px = pix2pix_phase(pa, card, written["controller_dir"])
     _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]},
                    {"packed_flash_attention": "B1"})
     print("eval " + json.dumps(ev))
@@ -2903,6 +3325,32 @@ def main() -> int:
                       f"{ev12[r]['diffusion_params_load_s']:.2f} s, loop {ev12[r]['loop_s']:.2f} s"
                       for r in ("S", "B"))
           + f"; phase {sx['phase_s']:.1f} s")
+    _fill_launches(pix2pix_kernels, {"B1": px["eval"]["S"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    _fill_launches(pix2pix_n2_kernels, {"B1": px["eval"]["B"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    _fill_launches(pix2pix_train_kernels, px["train"]["launches_by_shape"], {
+        "packed_attention_forward_lse": "B2a", "packed_attention_backward": "B2b"})
+    _fill_launches(pix2pix_opt_kernels, px["opt_in"]["launches_by_shape"],
+                   {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
+    print("pix2pix " + json.dumps(px))
+    tr13, ev13, tv = px["train"], px["eval"], px["tiny_vae"]
+    print(f"pix2pix ({card}): train steps {[round(x, 1) for x in tr13['steady_step_ms']]} ms by "
+          f"the host clock after each run's first (batch {TRAIN_BATCH}, 512^2, EMA, dropout 0.05), "
+          f"peak {tr13['peak_mem_gb']:.2f} "
+          f"GiB; checkpoint {tr13['checkpoint_bytes'] / 1e9:.3f} GB written in "
+          f"{tr13['checkpoint_write_s']:.2f} s, resumed in {tr13['resume_s']:.2f} s; final save "
+          f"{tr13['final_save_bytes'] / 1e9:.3f} GB; grads rel "
+          f"{tr13['grad_rel_norm_diff_vs_library_attention']:.4f} (the library's two SDPA backends "
+          f"{tr13['grad_library_backends_rel_norm_diff']:.4f}), worst projection floored "
+          f"{tr13['grad_attn_proj_rel_floored']:.4f}; eval "
+          + "; ".join(f"run {r}: {ev13[r]['control_steps']} steps, fused step "
+                      f"{ev13[r]['fused_step_time_s']:.4f} s, agent load "
+                      f"{ev13[r]['diffusion_params_load_s']:.2f} s" for r in ("S", "B"))
+          + f"; opt-in step {px['opt_in']['launches']}; tiny VAE PSNR "
+          f"{tv['psnr_db'][0]:.2f} -> {tv['psnr_db'][1]:.2f} dB over {tv['distill_steps']} steps "
+          f"({tv['distill_s']:.1f} s), decode at batch 1 {tv['tiny_decode_ms']:.3f} ms vs the KL "
+          f"decoder's {tv['full_decode_ms']:.3f} ms by events; phase {px['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -2913,10 +3361,16 @@ def main() -> int:
         + [("opt_in_batched_n4", r, BATCHED_STEPS) for r in batched_kernels]
         + [("pretrain_unet", r, PRETRAIN_STEPS) for r in pretrain_kernels]
         + [("sdxl_control", r, SDXL_STEPS) for r in sdxl_kernels]
-        + [("sdxl_train", r, SDXL_STEPS) for r in sdxl_train_kernels])))
+        + [("sdxl_train", r, SDXL_STEPS) for r in sdxl_train_kernels]
+        + [("pix2pix_control", r, px["eval"]["S"]["generates"]) for r in pix2pix_kernels]
+        + [("pix2pix_control_n2", r, px["eval"]["B"]["generates"]) for r in pix2pix_n2_kernels]
+        + [("pix2pix_train", r, PIX2PIX_CKPT_AT) for r in pix2pix_train_kernels]
+        + [("pix2pix_opt_in", r, 1) for r in pix2pix_opt_kernels])))
     print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels
                       + cohort_kernels + batch4_kernels + batched_kernels
-                      + pretrain_kernels + sdxl_kernels + sdxl_train_kernels}))
+                      + pretrain_kernels + sdxl_kernels + sdxl_train_kernels
+                      + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
+                      + pix2pix_opt_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

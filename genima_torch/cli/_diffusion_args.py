@@ -1,10 +1,12 @@
-"""Argument parser of the port's ControlNet trainers (SD and SDXL).
+"""Argument parser of the port's diffusion trainers (SD and SDXL ControlNet,
+InstructPix2Pix).
 
 Every flag and default of the JAX package's trainers
-(``genima_tpu/cli/_diffusion_args.py::build_parser("sd")`` and
-``("sdxl")``), whose names are the reference's
+(``genima_tpu/cli/_diffusion_args.py::build_parser("sd")``, ``("sdxl")``
+and ``("pix2pix")``), whose names are the reference's
 (``diffusion/train_controlnet_genima.py``,
-``train_controlnet_sdxl_genima.py``), so launch scripts carry over; plus
+``train_controlnet_sdxl_genima.py``, ``train_instruct_pix2pix_genima.py``),
+so launch scripts carry over; plus
 ``--device``, the card (the default) or the CPU. Flags that do nothing in
 the JAX trainer do nothing here either, and their help says so.
 """
@@ -17,8 +19,8 @@ NO_OP = "accepted for launch-script compatibility; does nothing"
 
 
 def build_parser(variant: str = "sd") -> argparse.ArgumentParser:
-    if variant not in ("sd", "sdxl"):
-        raise ValueError(f"variant {variant!r}: the port has the sd and sdxl trainers")
+    if variant not in ("sd", "sdxl", "pix2pix"):
+        raise ValueError(f"variant {variant!r}: the port has the sd, sdxl and pix2pix trainers")
     p = argparse.ArgumentParser(description=f"Genima {variant} trainer (PyTorch)")
     add = p.add_argument
 
@@ -113,6 +115,13 @@ def build_parser(variant: str = "sd") -> argparse.ArgumentParser:
     add("--enable_xformers_memory_efficient_attention", action="store_true",
         help="route long self-attention through the packed flash-attention kernels")
     add("--allow_tf32", action="store_true", help=NO_OP)
+    if variant == "pix2pix":
+        add("--conditioning_dropout_prob", type=float, default=None,
+            help="drop the prompt where a uniform draw is < 2p, the image where p <= it < 3p")
+        add("--use_ema", action="store_true",
+            help="keep an EMA (decay 0.9999) of the UNet; it is the final save")
+        add("--original_image_column", type=str, default="conditioning_image", help=NO_OP)
+        add("--edited_image_column", type=str, default="image", help=NO_OP)
     if variant == "sdxl":
         add("--pretrained_vae_model_name_or_path", type=str, default=None,
             help=NO_OP + " (the VAE comes from --pretrained_model_name_or_path, "

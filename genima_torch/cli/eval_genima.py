@@ -16,9 +16,12 @@ set. ``num_parallel_envs > 1`` runs the lockstep-batched eval
 (``eval/parallel.py``): on the fake factory N envs in this process, on any
 other factory N spawned children (``envs/subprocess_env.py``), whose
 simulator the port does not drive yet (``envs/rlbench.py`` raises in each
-child). Mesh serving (``eval_data_parallel``, ``eval_tensor_parallel > 1``)
-and Colosseum variations are not ported and raise; so does
-``autoencoder=taesd`` (the agent's tiny VAE). The reference's speed toggles
+child). ``diffusion_agent._target_`` picks the agent
+(``genima_torch.eval.agents.SDControlNetAgent`` by default,
+``SDXLControlNetAgent``, ``SDPix2PixAgent``, or a ``make_tiny_*`` factory);
+``autoencoder=taesd`` decodes with its tiny VAE. Mesh serving
+(``eval_data_parallel``, ``eval_tensor_parallel > 1``) and Colosseum
+variations are not ported and raise. The reference's speed toggles
 (``torch_compile``, ``channel_last``, ``allow_tf32``, ``vae_slicing``,
 ``upcast_vae``, ``fused_projections``) and ``temporal_agg`` are accepted
 and change nothing, as in the JAX package, whose modules read none of

@@ -366,12 +366,13 @@ def save_step_checkpoint(
     model_subdir: str = "controlnet",
     train_state: Any | None = None,
     total_limit: int | None = None,
+    extra: dict | None = None,
 ) -> Path:
     """Write ``checkpoint-<step>/``: ``<model_subdir>/params.msgpack``,
-    ``train_state.msgpack`` and ``metadata.json`` (``{"step": step}``). With
-    ``total_limit``, the oldest step checkpoints are removed first, down to
-    ``total_limit - 1``. (The JAX package's ``extra`` trees hold pix2pix's
-    EMA, which comes with that trainer.)"""
+    ``train_state.msgpack``, each tree of ``extra`` as ``<name>.msgpack``
+    (the pix2pix trainer's ``ema``) and ``metadata.json`` (``{"step":
+    step}``). With ``total_limit``, the oldest step checkpoints are removed
+    first, down to ``total_limit - 1``."""
     output_dir = Path(output_dir)
     if total_limit is not None:
         existing = list_step_checkpoints(output_dir)
@@ -381,6 +382,8 @@ def save_step_checkpoint(
     save_pytree(model_params, ckpt_dir / model_subdir / "params.msgpack")
     if train_state is not None:
         save_pytree(train_state, ckpt_dir / "train_state.msgpack")
+    for name, tree in (extra or {}).items():
+        save_pytree(tree, ckpt_dir / f"{name}.msgpack")
     with open(ckpt_dir / "metadata.json", "w") as f:
         json.dump({"step": step}, f, indent=2)
     return ckpt_dir

@@ -1,13 +1,14 @@
-"""Training driver behind ``python -m genima_torch.cli.train_controlnet_genima``
-and ``train_controlnet_sdxl_genima``.
+"""Training driver behind ``python -m genima_torch.cli.train_controlnet_genima``,
+``train_controlnet_sdxl_genima`` and ``train_instruct_pix2pix_genima``.
 
 Counterpart of ``genima_tpu/diffusion/driver.py`` for the SD and SDXL
-ControlNet fine-tunes (``variant="sd"`` / ``"sdxl"``) on one device: seed,
+ControlNet fine-tunes (``variant="sd"`` / ``"sdxl"``) and the
+InstructPix2Pix UNet fine-tune (``variant="pix2pix"``) on one device: seed,
 dataset and loader, models (seeded random
 weights, then base weights from ``--pretrained_model_name_or_path`` when it
 is a directory), the ControlNet from ``--controlnet_model_name_or_path`` or
-``from_unet``, the optimizer and its schedule, resume from ``latest`` or a
-path, and the step loop:
+``from_unet`` (pix2pix has none), the optimizer and its schedule, resume
+from ``latest`` or a path, and the step loop:
 
 * train metrics (loss, lr, steps/s) at step 1 and every 50 steps;
 * a ``checkpoint-<step>/`` every ``--checkpointing_steps``, copied on the
@@ -15,18 +16,20 @@ path, and the step loop:
   ``--checkpoints_total_limit``;
 * validation every ``--validation_steps``: 4-step, guidance-0 sampling of
   random samples with the updated master weights (SDXL: its ancestral
-  noise from a generator seeded 1, as the reference's ``key(1)``), a cond | target |
+  noise from a generator seeded 1, as the reference's ``key(1)``; pix2pix:
+  the condition as ``cond * 2 - 1``), a cond | target |
   generated | error-map grid per sample as a PNG under
   ``<output>/<logging_dir>/validation/``, and ``validation/val_mse``;
 * on SIGTERM (or ``PreemptionGuard.request``): wait for the writer, write a
   checkpoint synchronously, stop;
 
-then the final save of the f32 master weights to
-``<output>/controlnet/params.msgpack``. Metrics go to
+then the final save of the f32 master weights (pix2pix under
+``--use_ema``: the EMA) to ``<output>/<model>/params.msgpack``, where the
+model is ``controlnet``, or pix2pix's ``unet``. Metrics go to
 ``<output>/<logging_dir>/metrics.jsonl`` and, with ``--report_to``, to
 TensorBoard / W&B where installed. Checkpoints are the JAX package's trees
-(``diffusion/train_state.py``), so either package resumes the other's.
-The pix2pix variant (and its EMA) is a later slice.
+(``diffusion/train_state.py``; pix2pix's EMA as ``ema.msgpack`` beside
+them), so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -46,10 +49,12 @@ from genima_torch.core.rng import seed_everything
 from genima_torch.data.dataset import DevicePrefetcher, DiffusionDataLoader, index_rendered_dataset
 from genima_torch.data.tokenizer import load_tokenizer
 from genima_torch.diffusion import train_state as ts
-from genima_torch.diffusion.pipeline import SDControlNetPipeline, SDXLControlNetPipeline
+from genima_torch.diffusion.pipeline import (
+    SDControlNetPipeline, SDPix2PixPipeline, SDXLControlNetPipeline,
+)
 from genima_torch.diffusion.schedulers import SchedulerConfig
 from genima_torch.diffusion.training import (
-    ControlNetTrainer, SDXLControlNetTrainer, TrainConfig, TrainState,
+    ControlNetTrainer, Pix2PixTrainer, SDXLControlNetTrainer, TrainConfig, TrainState,
 )
 from genima_torch.nn.controlnet import controlnet_params_from_unet
 from genima_torch.weights.load_pretrained import load_pretrained_pipeline
@@ -59,12 +64,13 @@ MODEL_SUBDIR = "controlnet"
 VALIDATION_STEPS, VALIDATION_GUIDANCE = 4, 0.0
 
 
-PIPELINES = {"sd": SDControlNetPipeline, "sdxl": SDXLControlNetPipeline}
+PIPELINES = {"sd": SDControlNetPipeline, "sdxl": SDXLControlNetPipeline,
+             "pix2pix": SDPix2PixPipeline}
 
 
 def build_pipeline(args, variant: str = "sd", device: Any = None) -> SDControlNetPipeline:
-    """sd-turbo (or sdxl-turbo) + ControlNet with the VAE's encoder; the
-    packed attention kernels with
+    """sd-turbo (or sdxl-turbo) + ControlNet, or the 8-channel pix2pix
+    UNet, with the VAE's encoder; the packed attention kernels with
     ``--enable_xformers_memory_efficient_attention``; bf16 unless
     ``--mixed_precision no``."""
     return PIPELINES[variant](
@@ -111,7 +117,8 @@ def init_model_params(pipe: SDControlNetPipeline, args, tree: Optional[dict] = N
     seeded random weights made on the device; then base weights from
     ``--pretrained_model_name_or_path`` when it is a directory; then the
     ControlNet from ``--controlnet_model_name_or_path`` when it exists,
-    else from the UNet (the reference's ``ControlNetModel.from_unet``)."""
+    else from the UNet (the reference's ``ControlNetModel.from_unet``), where
+    the pipeline has one."""
     if tree is not None:
         params = pipe.params_from_jax(tree)
     else:
@@ -121,6 +128,8 @@ def init_model_params(pipe: SDControlNetPipeline, args, tree: Optional[dict] = N
         print(f"base weights: {load_pretrained_pipeline(base, params)}")
     elif base:
         print(f"base weights: {base} is not a directory; keeping the seeded weights")
+    if "controlnet" not in params:  # pix2pix trains its UNet
+        return params
     cn_path = args.controlnet_model_name_or_path
     if cn_path and Path(cn_path).exists():
         model_dir = ckpt.find_model_checkpoint(cn_path, MODEL_SUBDIR)
@@ -164,6 +173,18 @@ def train_config(args, max_steps: int) -> TrainConfig:
     )
 
 
+def make_trainer(args, variant: str, pipe: SDControlNetPipeline, cfg: TrainConfig,
+                 tokenizer) -> ControlNetTrainer:
+    """The variant's trainer; pix2pix's null prompt is the tokenizer's ``""``."""
+    if variant == "sdxl":
+        return SDXLControlNetTrainer(pipe, cfg, args.resolution)
+    if variant == "pix2pix":
+        return Pix2PixTrainer(pipe, cfg,
+                              conditioning_dropout_prob=args.conditioning_dropout_prob,
+                              use_ema=args.use_ema, null_token_ids=tokenizer([""]))
+    return ControlNetTrainer(pipe, cfg)
+
+
 # -- checkpoints --------------------------------------------------------------------
 
 
@@ -174,19 +195,31 @@ def checkpoint_trees(trainer: ControlNetTrainer, state: TrainState) -> tuple[dic
              "step": np.asarray(state.step, np.int32)})
 
 
+def extra_trees(trainer: ControlNetTrainer, state: TrainState) -> dict:
+    """The checkpoint's ``<name>.msgpack`` trees: the EMA's, where the
+    state keeps one (views of its tensors)."""
+    return {} if state.ema is None else {"ema": ts.params_tree(state.ema, trainer.paths)}
+
+
 def restore_checkpoint(trainer: ControlNetTrainer, state: TrainState, resume_dir: Path) -> TrainState:
     """``state`` with the params, optimizer state and step of ``resume_dir``
-    (params only when it holds no ``train_state.msgpack``)."""
-    tree = ckpt.load_pytree(resume_dir / MODEL_SUBDIR / "params.msgpack")
+    (params only when it holds no ``train_state.msgpack``), and the EMA of
+    its ``ema.msgpack`` where the state keeps one and the file exists."""
+    tree = ckpt.load_pytree(resume_dir / trainer.TRAINED[0] / "params.msgpack")
     params = ts.params_from_tree(tree, trainer.paths, state.params)
+    ema = state.ema
+    if ema is not None and (resume_dir / "ema.msgpack").exists():
+        ema = ts.params_from_tree(ckpt.load_pytree(resume_dir / "ema.msgpack"), trainer.paths,
+                                  ema, what="ema")
     train_state_path = resume_dir / "train_state.msgpack"
     if not train_state_path.exists():
-        return TrainState(params, state.opt_state, state.step)
+        return TrainState(params, state.opt_state, state.step, ema)
     restored = ckpt.load_pytree(train_state_path)
     return TrainState(
         params,
         ts.opt_state_from_tree(restored["opt_state"], state.opt_state, trainer.paths),
         int(np.asarray(restored["step"])),
+        ema,
     )
 
 
@@ -235,7 +268,10 @@ def log_validation(pipe: SDControlNetPipeline, params: dict, loader: DiffusionDa
         latents = torch.randn(1, lat, lat, pipe.vae_cfg.latent_channels, generator=gen,
                               device=pipe.device)
         cond = torch.tensor(cond_u8[None])
-        if isinstance(pipe, SDXLControlNetPipeline):
+        if isinstance(pipe, SDPix2PixPipeline):
+            image = pipe.generate(params, cond.float() / 255.0 * 2 - 1, embeds, latents,
+                                  num_inference_steps=VALIDATION_STEPS)
+        elif isinstance(pipe, SDXLControlNetPipeline):
             noise = torch.randn(VALIDATION_STEPS, *latents.shape, device=pipe.device,
                                 generator=torch.Generator(device=pipe.device).manual_seed(1))
             image = pipe.generate(params, cond, *embeds, latents, noise,
@@ -275,8 +311,8 @@ def run_training(
     step_hook: Optional[Callable[[int, TrainState, dict], None]] = None,
     preemption: Optional[PreemptionGuard] = None,
 ) -> dict:
-    """Train the ``variant``'s ControlNet ("sd" or "sdxl") for
-    ``max_train_steps`` (or the epochs' worth) and save it. ``pipe`` and
+    """Train the ``variant``'s ControlNet ("sd" or "sdxl") or pix2pix UNet
+    ("pix2pix") for ``max_train_steps`` (or the epochs' worth) and save it. ``pipe`` and
     ``params`` default to ``build_pipeline`` and
     ``init_model_params``; ``step_hook(step, state, metrics)`` runs after
     every step; ``preemption`` defaults to a guard installed on SIGTERM for
@@ -293,8 +329,8 @@ def run_training(
         )
     max_steps = args.max_train_steps or args.num_train_epochs * len(loader)
     cfg = train_config(args, max_steps)
-    trainer = (SDXLControlNetTrainer(pipe, cfg, args.resolution) if variant == "sdxl"
-               else ControlNetTrainer(pipe, cfg))
+    trainer = make_trainer(args, variant, pipe, cfg, tokenizer)
+    subdir = trainer.TRAINED[0]
     params = params if params is not None else init_model_params(pipe, args)
     state = trainer.create_state(params)
 
@@ -337,22 +373,23 @@ def run_training(
                     model_tree, state_tree = checkpoint_trees(trainer, state)
                     writer.submit(  # copies the trees before it returns
                         ckpt.save_step_checkpoint, args.output_dir, step,
-                        model_params=model_tree, model_subdir=MODEL_SUBDIR,
+                        model_params=model_tree, model_subdir=subdir,
                         train_state=state_tree, total_limit=args.checkpoints_total_limit,
+                        extra=extra_trees(trainer, state),
                     )
                     print(f"Saving state to checkpoint-{step} (async)")
                 if args.validation_steps and step % args.validation_steps == 0:
                     trainer.sync_working_copy(state)  # the updated master weights
-                    val_mse = log_validation(pipe, {**trainer.frozen, MODEL_SUBDIR:
-                                                    trainer.model},
+                    val_mse = log_validation(pipe, {**trainer.frozen, subdir: trainer.model},
                                              loader, args, logger, step)
                 if guard.requested:
                     writer.wait()
                     model_tree, state_tree = checkpoint_trees(trainer, state)
                     ckpt.save_step_checkpoint(
                         args.output_dir, step, model_params=model_tree,
-                        model_subdir=MODEL_SUBDIR, train_state=state_tree,
+                        model_subdir=subdir, train_state=state_tree,
                         total_limit=args.checkpoints_total_limit,
+                        extra=extra_trees(trainer, state),
                     )
                     print(f"Preemption requested: saved checkpoint-{step}, exiting "
                           "(resume with --resume_from_checkpoint latest)")
@@ -371,8 +408,8 @@ def run_training(
                 guard.uninstall()
             logger.close()
 
-    ckpt.save_final_model(args.output_dir, ts.params_tree(state.params, trainer.paths),
-                          MODEL_SUBDIR)
+    final = state.ema if state.ema is not None else state.params
+    ckpt.save_final_model(args.output_dir, ts.params_tree(final, trainer.paths), subdir)
     return {
         "global_step": state.step,
         "final_loss": float(metrics["loss"]) if metrics else None,

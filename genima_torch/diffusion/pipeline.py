@@ -1,11 +1,15 @@
-"""SD-turbo / SDXL-turbo + ControlNet sampling: the diffusion half of the
-control step.
+"""SD-turbo / SDXL-turbo + ControlNet and InstructPix2Pix sampling: the
+diffusion half of the control step.
 
-Counterpart of ``SDControlNetPipeline`` and ``SDXLControlNetPipeline`` in
-``genima_tpu/diffusion/pipeline.py``. A pipeline holds configuration; its
-``params`` are a dict of modules (``unet``, ``controlnet``, ``vae``,
-``text_encoder``, and SDXL's ``text_encoder_2``) built by ``init_params`` or
-``params_from_jax``, playing the part of the reference's param trees.
+Counterpart of ``SDControlNetPipeline``, ``SDXLControlNetPipeline`` and
+``SDPix2PixPipeline`` in ``genima_tpu/diffusion/pipeline.py``. A pipeline
+holds configuration; its ``params`` are a dict of modules (``unet``,
+``controlnet``, ``vae``, ``text_encoder``, SDXL's ``text_encoder_2``, and
+with ``use_tiny_vae`` the taesd ``tiny_vae``; pix2pix has no ControlNet)
+built by ``init_params`` or ``params_from_jax``, playing the part of the
+reference's param trees. With ``use_tiny_vae`` the generated latents are
+decoded by the tiny VAE, which takes them scaled, instead of the KL
+decoder.
 Classifier-free guidance runs as the reference's does: with
 ``guidance_scale > 1`` and negative prompt embeddings the batch doubles to
 [negative, positive] (Genima evaluates at ``guidance_scale: 0.0``, which
@@ -29,7 +33,7 @@ from genima_torch.nn.clip_text import CLIPTextConfig, CLIPTextModel
 from genima_torch.nn.controlnet import ControlNetModel, embed_conditioning
 from genima_torch.nn.layers import split_backend
 from genima_torch.nn.unet import UNet2DConditionModel, UNetConfig
-from genima_torch.nn.vae import DECODE_SUBTREES, AutoencoderKL, VAEConfig
+from genima_torch.nn.vae import DECODE_SUBTREES, AutoencoderKL, AutoencoderTiny, VAEConfig
 from genima_torch.weights.from_jax import drop_subtrees, load_from_jax
 from genima_torch.weights.init import build_module, init_random_
 from genima_torch.weights.load_pretrained import MODEL_FAMILIES
@@ -57,6 +61,9 @@ class SDControlNetPipeline:
     # build the VAE's encode half too (the trainer encodes target images;
     # serving only decodes)
     vae_encoder: bool = False
+    # decode generated latents with the distilled AutoencoderTiny (taesd,
+    # the reference's ``autoencoder=taesd``); params then hold "tiny_vae"
+    use_tiny_vae: bool = False
 
     def __post_init__(self):
         split_backend(self.backend)  # raises on an unknown spec
@@ -74,14 +81,20 @@ class SDControlNetPipeline:
         return {
             "unet": lambda: UNet2DConditionModel(self.unet_cfg, backend),
             "controlnet": lambda: ControlNetModel(self.unet_cfg, self.cond_channels, backend),
-            "vae": lambda: AutoencoderKL(
-                self.vae_cfg, encoder=self.vae_encoder, conv_backend=self.conv_backend
-            ),
+            "vae": self._vae,
             "text_encoder": lambda: CLIPTextModel(self.text_cfg),
         }
 
+    def _vae(self) -> AutoencoderKL:
+        return AutoencoderKL(self.vae_cfg, encoder=self.vae_encoder,
+                             conv_backend=self.conv_backend)
+
     def _build(self, backend: Optional[str] = None) -> dict[str, nn.Module]:
         factories = self._factories(backend or self.backend)
+        if self.use_tiny_vae:  # last: the other models' seeded draws stay as they were
+            # one upsampling level per VAE downsample
+            factories["tiny_vae"] = lambda: AutoencoderTiny(
+                n_levels=len(self.vae_cfg.block_out_channels) - 1)
         return {k: build_module(f, self.device, self.dtype) for k, f in factories.items()}
 
     def init_params(self, generator: torch.Generator) -> dict[str, nn.Module]:
@@ -162,9 +175,16 @@ class SDControlNetPipeline:
                 eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
             sample = self.scheduler.step(state, eps.float(), i, sample)
 
-        z = (sample / self.vae_cfg.scaling_factor).to(self.dtype)
-        image = params["vae"].decode(z).float().permute(0, 2, 3, 1).contiguous()
-        return denormalize_to_uint8(image)
+        return denormalize_to_uint8(self.decode_latents(params, sample))
+
+    def decode_latents(self, params: dict, sample: torch.Tensor) -> torch.Tensor:
+        """(B, 4, h, w) scaled latents -> (B, H, W, 3) f32 images in [-1, 1]:
+        the tiny VAE takes them as they are, the KL decoder unscaled."""
+        if self.use_tiny_vae:
+            image = params["tiny_vae"].decode(sample.to(self.dtype))
+        else:
+            image = params["vae"].decode((sample / self.vae_cfg.scaling_factor).to(self.dtype))
+        return image.float().permute(0, 2, 3, 1).contiguous()
 
 
 @dataclasses.dataclass(eq=False)
@@ -250,6 +270,55 @@ class SDXLControlNetPipeline(SDControlNetPipeline):
             )
             sample = self.scheduler.step(state, eps.float(), i, sample, noise[i])
 
-        z = (sample / self.vae_cfg.scaling_factor).to(self.dtype)
-        image = params["vae"].decode(z).float().permute(0, 2, 3, 1).contiguous()
-        return denormalize_to_uint8(image)
+        return denormalize_to_uint8(self.decode_latents(params, sample))
+
+
+@dataclasses.dataclass(eq=False)
+class SDPix2PixPipeline(SDControlNetPipeline):
+    """InstructPix2Pix: an 8-channel UNet, no ControlNet. The conditioning
+    image is VAE-encoded (the posterior's mode, unscaled) once and
+    channel-concatenated with each step's scaled model input; no guidance."""
+
+    unet_cfg: UNetConfig = dataclasses.field(default_factory=UNetConfig.pix2pix)
+    vae_encoder: bool = True  # the conditioning image is encoded
+
+    def _factories(self, backend: str) -> dict:
+        return {
+            "unet": lambda: UNet2DConditionModel(self.unet_cfg, backend),
+            "vae": self._vae,
+            "text_encoder": lambda: CLIPTextModel(self.text_cfg),
+        }
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        params: dict,
+        cond_image: torch.Tensor,  # (B, H, W, 3) uint8, or float in [-1, 1]
+        prompt_embeds: torch.Tensor,  # (B, 77, hidden)
+        latents: torch.Tensor,  # (B, H/8, W/8, 4) standard normal, NHWC
+        num_inference_steps: int = 5,
+    ) -> torch.Tensor:
+        """Denoise loop + decode: (B, H, W, 3) uint8 targets."""
+        unet = params["unet"]
+        state = self.scheduler.set_timesteps(num_inference_steps)
+        cond = cond_image.to(self.device)
+        if cond.dtype == torch.uint8:
+            cond = cond.to(self.dtype) / 127.5 - 1.0
+        cond = cond.to(self.dtype).permute(0, 3, 1, 2).contiguous()
+        embeds = prompt_embeds.to(self.device, self.dtype)
+        # the posterior's mode, with no scaling factor (diffusers'
+        # prepare_image_latents)
+        image_latents = params["vae"].encode(cond).mode().float().to(self.dtype)
+
+        sample = latents.to(self.device, torch.float32).permute(0, 3, 1, 2).contiguous()
+        sample = sample * float(state.init_noise_sigma)
+        for i in range(num_inference_steps):
+            model_in = self.scheduler.scale_model_input(state, sample, i).to(self.dtype)
+            model_in = torch.cat([model_in, image_latents], dim=1)
+            t = torch.full(
+                (model_in.shape[0],), float(state.timesteps[i]), device=self.device
+            )
+            eps = unet(model_in, t, embeds)
+            sample = self.scheduler.step(state, eps.float(), i, sample)
+
+        return denormalize_to_uint8(self.decode_latents(params, sample))

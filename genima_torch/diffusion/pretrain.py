@@ -21,14 +21,19 @@ timesteps, which JAX takes from ``split(key, 3)``). ``save_base_model``
 writes ``<dir>/{vae,unet,text_encoder}/params.msgpack`` and the one-file
 ``params.msgpack`` in the JAX package's trees, which both packages'
 ``load_pretrained_pipeline`` (``--pretrained_model_name_or_path``) and the
-eval agents' ``sd_ckpt`` read. The tiny-VAE distiller and mesh training are
-later work.
+eval agents' ``sd_ckpt`` read. ``TinyVAEDistiller`` / ``distill_tiny_vae``
+train the taesd decoder (``params["tiny_vae"]``, a pipeline built with
+``use_tiny_vae``) to match the KL decoder on the same scaled latents, and
+``tiny_vae_decode_psnr`` measures how far apart the two decodes are;
+``save_base_model`` writes ``tiny_vae/`` too. Mesh training is later work.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any, Callable, Optional
+
+import math
 
 import torch
 
@@ -41,7 +46,8 @@ from genima_torch.diffusion.training import (
 )
 from genima_torch.weights.to_jax import flax_paths, tree_from_module
 
-BASE_MODELS = {"vae": "diffusers_vae", "unet": "diffusers_unet", "text_encoder": "hf_clip"}
+BASE_MODELS = {"vae": "diffusers_vae", "unet": "diffusers_unet", "text_encoder": "hf_clip",
+               "text_encoder_2": "hf_clip", "tiny_vae": "tiny_vae"}
 
 
 class VAETrainer(ControlNetTrainer):
@@ -103,6 +109,33 @@ class UNetPretrainer(ControlNetTrainer):
         return torch.mean((eps.float() - target) ** 2)
 
 
+def _run_stage(trainer: ControlNetTrainer, params: dict, loader, steps: int, tag: str,
+               seed: int, log_every: int, masters: Optional[dict],
+               step_hook: Optional[Callable], what: str = "pretrain") -> None:
+    """``steps`` steps of ``trainer`` on ``loader``'s batches (cycled), its
+    draws from a generator seeded with ``seed``; the trained module then
+    holds the final master weights (frozen), and ``masters[tag]`` them."""
+    pipe = trainer.pipe
+    state = trainer.create_state(params)
+    generator = torch.Generator(device=pipe.device).manual_seed(seed)
+    it = iter(loader)
+    for step in range(steps):
+        try:
+            batch = next(it)
+        except StopIteration:
+            it = iter(loader)
+            batch = next(it)
+        state, metrics = trainer.train_step(state, to_device(batch, pipe.device), generator)
+        if step_hook is not None:
+            step_hook(tag, step + 1, state, metrics)
+        if step % log_every == 0 or step == steps - 1:
+            print(f"{what}[{tag}] step {step}: loss={float(metrics['loss']):.5f}")
+    trainer.sync_working_copy(state)
+    trainer.model.requires_grad_(False)
+    if masters is not None:
+        masters[tag] = state.params
+
+
 def pretrain_base_model(
     pipe,
     params: dict,
@@ -126,24 +159,7 @@ def pretrain_base_model(
     ``step_hook(stage, step, state, metrics)`` runs after every step."""
 
     def run(trainer, steps: int, tag: str) -> None:
-        state = trainer.create_state(params)
-        generator = torch.Generator(device=pipe.device).manual_seed(seed)
-        it = iter(loader)
-        for step in range(steps):
-            try:
-                batch = next(it)
-            except StopIteration:
-                it = iter(loader)
-                batch = next(it)
-            state, metrics = trainer.train_step(state, to_device(batch, pipe.device), generator)
-            if step_hook is not None:
-                step_hook(tag, step + 1, state, metrics)
-            if step % log_every == 0 or step == steps - 1:
-                print(f"pretrain[{tag}] step {step}: loss={float(metrics['loss']):.5f}")
-        trainer.sync_working_copy(state)
-        trainer.model.requires_grad_(False)
-        if masters is not None:
-            masters[tag] = state.params
+        _run_stage(trainer, params, loader, steps, tag, seed, log_every, masters, step_hook)
 
     run(VAETrainer(pipe, TrainConfig(
         learning_rate=vae_lr, max_train_steps=vae_steps, lr_scheduler="cosine",
@@ -156,11 +172,83 @@ def pretrain_base_model(
     return params
 
 
+class TinyVAEDistiller(ControlNetTrainer):
+    """Trains ``params["tiny_vae"]`` (its decoder's output; the encoder
+    gets no gradient) to match the full KL decoder: MSE between the tiny
+    decode of the posterior mode's scaled latents and the KL decode of the
+    same latents, the taesd recipe, for domains no released taesd covers.
+    No random draw."""
+
+    TRAINED = ("tiny_vae", "tiny_vae")
+
+    def create_state(self, params: dict) -> TrainState:
+        if "tiny_vae" not in params:
+            raise ValueError("params has no 'tiny_vae' model: build the pipeline with "
+                             "use_tiny_vae=True (init_params then makes it)")
+        return super().create_state(params)
+
+    def sample_draws(self, bsz: int, resolution: int, generator: torch.Generator) -> Draws:
+        return Draws(sample_noise=None, noise=None, timesteps=None)
+
+    def loss(self, batch: dict[str, Any], draws: Draws) -> torch.Tensor:
+        dev, dtype, sf = self.pipe.device, self.pipe.dtype, self.pipe.vae_cfg.scaling_factor
+        pixel_values, _ = normalize_image_batch(
+            torch.as_tensor(batch["pixel_values"], device=dev),
+            torch.as_tensor(batch["conditioning_pixel_values"], device=dev),
+        )
+        with torch.no_grad():
+            vae = self.frozen["vae"]
+            # deterministic teacher latents, scaled as serving hands them over
+            z = vae.encode(_nchw(pixel_values).to(dtype)).mode().float() * sf
+            teacher = vae.decode((z / sf).to(dtype))
+        student = self.model.decode(z.to(dtype))
+        return torch.mean((student.float() - teacher.float()) ** 2)
+
+
+def distill_tiny_vae(
+    pipe,
+    params: dict,
+    loader,
+    steps: int = 300,
+    lr: float = 1e-3,
+    seed: int = 0,
+    log_every: int = 50,
+    masters: Optional[dict] = None,
+    step_hook: Optional[Callable[[str, int, TrainState, dict], None]] = None,
+) -> dict:
+    """Train ``params["tiny_vae"]`` to mimic the full decoder on ``loader``'s
+    images (cosine schedule, no weight decay); returns ``params`` with the
+    module holding the trained weights (``masters["tiny_vae"]`` the f32
+    masters, when given). ``tiny_vae_decode_psnr`` then says whether
+    serving can decode with it for this domain."""
+    cfg = TrainConfig(learning_rate=lr, max_train_steps=steps, lr_scheduler="cosine",
+                      lr_warmup_steps=min(50, steps // 4), adam_weight_decay=0.0)
+    _run_stage(TinyVAEDistiller(pipe, cfg), params, loader, steps, "tiny_vae", seed, log_every,
+               masters, step_hook, what="distill")
+    return params
+
+
+@torch.no_grad()
+def tiny_vae_decode_psnr(pipe, params: dict, images) -> float:
+    """PSNR in dB (a [-1, 1] signal: peak 2) of the tiny decode against the
+    KL decode of the same posterior-mode latents; ``images`` (B, H, W, 3)
+    uint8, or float in [-1, 1]."""
+    x = torch.as_tensor(images).to(pipe.device)
+    if x.dtype == torch.uint8:
+        x = x.float() / 127.5 - 1.0
+    z = params["vae"].encode(_nchw(x).to(pipe.dtype)).mode().float()
+    teacher = params["vae"].decode(z.to(pipe.dtype)).float()
+    student = params["tiny_vae"].decode((z * pipe.vae_cfg.scaling_factor).to(pipe.dtype)).float()
+    mse = float(torch.mean((student - teacher) ** 2))
+    return 10.0 * math.log10(4.0 / max(mse, 1e-12))
+
+
 def save_base_model(out_dir: str | Path, params: dict, masters: Optional[dict] = None) -> Path:
     """HF-hub-style snapshot: ``<dir>/<model>/params.msgpack`` for every base
     model present, and the one-file ``<dir>/params.msgpack`` (all but the
     ControlNet) for the eval agents' ``sd_ckpt``. A model in ``masters``
-    (``pretrain_base_model``'s) is written from its f32 master weights, the
+    (``pretrain_base_model``'s, ``distill_tiny_vae``'s) is written from its
+    f32 master weights, the
     others from their modules (float leaves in f32)."""
     out_dir = Path(out_dir)
     trees = {}

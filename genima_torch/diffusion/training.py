@@ -25,8 +25,10 @@ The step's random draws (the VAE sample's normal, the latent noise, the
 timesteps and the augmentations' parameters) are a ``Draws``:
 ``train_step`` takes them from an explicit ``torch.Generator``, and tests
 hand both packages the same numbers. ``SDXLControlNetTrainer`` conditions
-on both frozen text encoders and SDXL's ``add_time_ids``. The pix2pix
-trainer is a later slice.
+on both frozen text encoders and SDXL's ``add_time_ids``.
+``Pix2PixTrainer`` trains the whole 8-channel InstructPix2Pix UNet with
+conditioning dropout (its ``random_p`` draw an input too) and an optional
+EMA of the f32 master weights, ``TrainState.ema``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import dataclasses
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -89,13 +92,15 @@ class Draws(NamedTuple):
     noise: torch.Tensor  # (B, h, w, 4) standard normal: the diffusion noise
     timesteps: torch.Tensor  # (B,) int
     augment: Optional[ControlNetAugmentDraws] = None  # with cfg.augmentations
+    random_p: Optional[torch.Tensor] = None  # (B,) uniform: pix2pix's conditioning dropout
 
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict[str, torch.Tensor]  # f32 master weights of the ControlNet
+    params: dict[str, torch.Tensor]  # f32 master weights of the trained model
     opt_state: Any  # of the trainer's ``tx``: AdamWState, Adam8bitState, MultiStepsState
     step: int = 0  # mini-steps taken
+    ema: Optional[dict[str, torch.Tensor]] = None  # pix2pix ``--use_ema``: f32, like params
 
 
 def sample_train_timesteps(
@@ -319,7 +324,11 @@ class ControlNetTrainer:
             p.grad = None
         loss = self.loss(batch, draws)
         loss.backward()
-        grads = {name: p.grad.float() for name, p in model.named_parameters()}
+        # a parameter the loss does not reach (the tiny VAE's encoder under
+        # the distiller) gets a zero gradient, as jax.grad gives it
+        grads = {name: p.grad.float() if p.grad is not None
+                 else torch.zeros_like(p, dtype=torch.float32)
+                 for name, p in model.named_parameters()}
         for p in model.parameters():
             p.grad = None
         return loss.detach(), grads
@@ -331,7 +340,7 @@ class ControlNetTrainer:
         # grad_norm: of this mini-step's gradients, before the clip
         opt_state, grad_norm = self.tx.step_(state.params, grads, state.opt_state)
         metrics = {"loss": loss, "lr": self.lr_schedule(state.step), "grad_norm": grad_norm}
-        return TrainState(state.params, opt_state, state.step + 1), metrics
+        return TrainState(state.params, opt_state, state.step + 1, state.ema), metrics
 
     def train_step(
         self, state: TrainState, batch: dict[str, Any], generator: torch.Generator
@@ -357,3 +366,109 @@ class SDXLControlNetTrainer(ControlNetTrainer):
         hidden, pooled = self.pipe.encode_ids(self.frozen, ids)
         return hidden, {"text_embeds": pooled,
                         "time_ids": self.pipe.make_time_ids(ids.shape[0], self.resolution)}
+
+
+class Pix2PixTrainer(ControlNetTrainer):
+    """The InstructPix2Pix fine-tune: trains the whole 8-channel UNet. The
+    target latents are the VAE posterior's sample x scaling factor; the
+    conditioning image (``cond * 2 - 1``) is encoded to its posterior's
+    mode, unscaled, and channel-concatenated with the noisy latents. With
+    ``conditioning_dropout_prob`` p, a sample's prompt becomes the null
+    prompt's context (``null_token_ids``, else all-zero ids) where
+    ``random_p < 2p``, and its image latents zero where ``p <= random_p <
+    3p``. With ``use_ema``, ``ema' = d * ema + (1 - d) * params`` over the
+    f32 masters after every step (one foreach pass), starting from a copy
+    of the params; no warmup schedule. No augmentations, as in the JAX
+    trainer."""
+
+    TRAINED = ("unet", "diffusers_unet")
+
+    def __init__(self, pipe, cfg: TrainConfig, conditioning_dropout_prob: Optional[float] = 0.05,
+                 use_ema: bool = False, ema_decay: float = 0.9999, null_token_ids=None):
+        super().__init__(pipe, cfg)
+        self.conditioning_dropout_prob = conditioning_dropout_prob
+        self.use_ema = use_ema
+        self.ema_decay = ema_decay
+        self.null_token_ids = null_token_ids
+        self._null_context: Optional[torch.Tensor] = None
+
+    def create_state(self, params: dict[str, nn.Module]) -> TrainState:
+        state = super().create_state(params)
+        if self.use_ema:
+            state.ema = {k: v.clone() for k, v in state.params.items()}
+        self._null_context = None
+        return state
+
+    def sample_draws(self, bsz: int, resolution: int, generator: torch.Generator) -> Draws:
+        h = resolution // self.pipe.vae_scale_factor
+        shape = (bsz, h, h, self.pipe.vae_cfg.latent_channels)
+        dev = generator.device
+        return Draws(
+            sample_noise=torch.randn(shape, generator=generator, device=dev),
+            noise=torch.randn(shape, generator=generator, device=dev),
+            timesteps=sample_train_timesteps(self.cfg, generator, bsz),
+            random_p=(torch.rand(bsz, generator=generator, device=dev)
+                      if self.conditioning_dropout_prob else None),
+        )
+
+    def null_context(self, length: int) -> torch.Tensor:
+        """(1, 77, hidden) context of the null prompt (the frozen encoder's:
+        made once)."""
+        if self._null_context is None:
+            ids = (torch.zeros((1, length), dtype=torch.long) if self.null_token_ids is None
+                   else torch.as_tensor(np.asarray(self.null_token_ids), dtype=torch.long))
+            with torch.no_grad():
+                self._null_context = self.frozen["text_encoder"](
+                    ids.to(self.pipe.device)).last_hidden_state
+        return self._null_context
+
+    def loss(self, batch: dict[str, Any], draws: Draws) -> torch.Tensor:
+        pipe, dev, dtype = self.pipe, self.pipe.device, self.pipe.dtype
+        pixel_values, cond_values = normalize_image_batch(
+            torch.as_tensor(batch["pixel_values"], device=dev),
+            torch.as_tensor(batch["conditioning_pixel_values"], device=dev),
+        )  # edited target in [-1, 1], original in [0, 1]
+        noise = _nchw(draws.noise.to(dev, torch.float32))
+        timesteps = draws.timesteps.to(dev)
+        with torch.no_grad():
+            vae = self.frozen["vae"]
+            dist = vae.encode(_nchw(pixel_values).to(dtype))
+            latents = dist.sample(_nchw(draws.sample_noise.to(dev))).float()
+            latents = latents * pipe.vae_cfg.scaling_factor
+            image_latents = vae.encode(_nchw(cond_values * 2.0 - 1.0).to(dtype)).mode().float()
+            noisy = add_noise(self.alphas_cumprod, latents, noise, timesteps)
+            ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)
+            context = self.frozen["text_encoder"](ids).last_hidden_state
+            p = self.conditioning_dropout_prob
+            if p:
+                random_p = draws.random_p.to(dev)
+                drop_prompt = (random_p < 2 * p)[:, None, None]
+                context = torch.where(drop_prompt, self.null_context(ids.shape[1]), context)
+                keep_image = 1.0 - ((random_p >= p) & (random_p < 3 * p)).float()
+                image_latents = image_latents * keep_image[:, None, None, None]
+            model_in = torch.cat([noisy.to(dtype), image_latents.to(dtype)], dim=1)
+        t = timesteps.float()
+
+        def model_eps(model_in):
+            return self.model(model_in, t, context)
+
+        if self.cfg.gradient_checkpointing:
+            eps = torch.utils.checkpoint.checkpoint(model_eps, model_in, use_reentrant=False)
+        else:
+            eps = model_eps(model_in)
+        if self.cfg.scheduler_config.prediction_type == "v_prediction":
+            target = get_velocity(self.alphas_cumprod, latents, noise, timesteps)
+        else:
+            target = noise
+        return torch.mean((eps.float() - target) ** 2)
+
+    def step_with_draws(
+        self, state: TrainState, batch: dict[str, Any], draws: Draws
+    ) -> tuple[TrainState, dict[str, Any]]:
+        state, metrics = super().step_with_draws(state, batch, draws)
+        if state.ema is not None:
+            with torch.no_grad():
+                names = list(state.ema)
+                torch._foreach_lerp_([state.ema[k] for k in names],
+                                     [state.params[k] for k in names], 1.0 - self.ema_decay)
+        return state, metrics

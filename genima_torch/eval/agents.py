@@ -19,9 +19,12 @@ Counterpart of ``SDControlNetAgent``, ``SDXLControlNetAgent`` and their
 - for SDXL, a second per-episode generator, seeded ``seed + 1``, for the
   ancestral noise (``draw_noise``: one block per denoise step), so that
   drawing it leaves the latent stream as it was; prompt embeddings are the
-  (hidden, pooled) pair.
-
-The InstructPix2Pix agent and the tiny VAE are not ported yet.
+  (hidden, pooled) pair;
+- ``SDPix2PixAgent``: the fine-tuned submodel is the UNet (``unet/``),
+  the observation conditions the sampler in [-1, 1], and no noise is drawn;
+- ``autoencoder="taesd"`` builds the pipeline with ``use_tiny_vae`` (the
+  tiny VAE decodes), its weights from ``sd_ckpt``'s ``tiny_vae`` tree when
+  there is one.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import torch
 
 from genima_torch.core import checkpoint as ckpt
 from genima_torch.data.tokenizer import load_tokenizer
-from genima_torch.diffusion.pipeline import SDControlNetPipeline, SDXLControlNetPipeline
+from genima_torch.diffusion.pipeline import (
+    SDControlNetPipeline, SDPix2PixPipeline, SDXLControlNetPipeline,
+)
 from genima_torch.nn.clip_text import CLIPTextConfig
 from genima_torch.nn.unet import UNetConfig
 from genima_torch.nn.vae import VAEConfig
@@ -47,6 +52,7 @@ class SDControlNetAgent:
     on ``device``; ``params`` to the weights ``_load_params`` assembles."""
 
     PIPELINE = SDControlNetPipeline
+    SUBMODEL = "controlnet"  # the fine-tuned model diffusion_ckpt holds
 
     pipe: Optional[SDControlNetPipeline] = None
     params: Optional[dict] = None
@@ -58,15 +64,13 @@ class SDControlNetAgent:
     num_inference_steps: int = 5
     guidance_scale: float = 0.0
     seed: int = 2  # per-episode latent seed (the reference's diffusion_seed)
-    autoencoder: str = ""
+    autoencoder: str = ""  # "taesd": decode with the tiny VAE
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.autoencoder:
-            raise NotImplementedError(
-                f"autoencoder={self.autoencoder!r}: the tiny VAE is not ported")
         if self.pipe is None:
-            self.pipe = self.PIPELINE(backend=self.backend, device=self.device)
+            self.pipe = self.PIPELINE(backend=self.backend, device=self.device,
+                                      use_tiny_vae=self.autoencoder == "taesd")
         self.device = self.pipe.device
         self.tokenizer = load_tokenizer(self.tokenizer_merges, model_dir=self.sd_ckpt)
         if self.params is None:
@@ -87,10 +91,10 @@ class SDControlNetAgent:
                 if name in params:
                     self.pipe.load_tree(params, name, tree)
         if self.diffusion_ckpt and Path(self.diffusion_ckpt).exists():
-            model_dir = ckpt.find_model_checkpoint(self.diffusion_ckpt, "controlnet")
-            self.pipe.load_tree(params, "controlnet",
+            model_dir = ckpt.find_model_checkpoint(self.diffusion_ckpt, self.SUBMODEL)
+            self.pipe.load_tree(params, self.SUBMODEL,
                                 ckpt.load_pytree(model_dir / "params.msgpack"))
-            print(f"Loaded controlnet checkpoint from {model_dir}")
+            print(f"Loaded {self.SUBMODEL} checkpoint from {model_dir}")
         return params
 
     # -- episode RNG -----------------------------------------------------------
@@ -214,11 +218,41 @@ class SDXLControlNetAgent(SDControlNetAgent):
                                   num_inference_steps=num_inference_steps)
 
 
+@dataclasses.dataclass(eq=False)
+class SDPix2PixAgent(SDControlNetAgent):
+    """InstructPix2Pix: the fine-tuned UNet is the submodel (``unet/``);
+    the observation conditions the sampler in [-1, 1]; no noise is drawn."""
+
+    PIPELINE = SDPix2PixPipeline
+    SUBMODEL = "unet"
+
+    def infer_device(self, images, prompts, negative_prompts=None,
+                     num_inference_steps=None, guidance_scale=None) -> torch.Tensor:
+        """(B, H, W, 3) uint8 tiled observations (float ones in [0, 255])
+        -> (B, H, W, 3) uint8 targets on the device; no guidance, as the
+        reference's pix2pix agent."""
+        steps = num_inference_steps or self.num_inference_steps
+        cond = torch.as_tensor(images).to(self.device)
+        if cond.dtype != torch.uint8:
+            cond = cond.float() / 127.5 - 1.0
+        embeds = self._embed_prompts(prompts)
+        latents = self._next_latents(cond.shape[0])
+        return self.pipe.generate(self.params, cond, embeds, latents,
+                                  num_inference_steps=steps)
+
+    def fused_generate(self, params, cond, embeds, latents, noise,
+                       num_inference_steps: int = 5):
+        # noise unused: pix2pix turbo sampling injects none
+        return self.pipe.generate(params, cond, embeds, latents,
+                                  num_inference_steps=num_inference_steps)
+
+
 def make_tiny_sd_agent(resolution: int = 64, device: Any = "cuda", backend: str = "fused",
                        conv_backend: str = "xla", **kw) -> SDControlNetAgent:
     """Tiny-config agent for tests and smoke runs, f32, targetable from the
     eval CLI (``diffusion_agent._target_``): ``kw`` are the agent's fields
-    (``sd_ckpt`` is dropped: base trees of the full-width models do not fit)."""
+    (``sd_ckpt`` is dropped: base trees of the full-width models do not fit;
+    ``autoencoder="taesd"`` gives the pipeline its tiny VAE)."""
     pipe = SDControlNetPipeline(
         unet_cfg=UNetConfig.tiny(),
         vae_cfg=VAEConfig.tiny_test(),
@@ -227,6 +261,7 @@ def make_tiny_sd_agent(resolution: int = 64, device: Any = "cuda", backend: str 
         device=device,
         backend=backend,
         conv_backend=conv_backend,
+        use_tiny_vae=kw.get("autoencoder") == "taesd",
     )
     kw.pop("sd_ckpt", None)
     return SDControlNetAgent(pipe=pipe, resolution=resolution, **kw)
@@ -249,6 +284,25 @@ def make_tiny_sdxl_agent(resolution: int = 64, device: Any = "cuda", backend: st
         device=device,
         backend=backend,
         conv_backend=conv_backend,
+        use_tiny_vae=kw.get("autoencoder") == "taesd",
     )
     kw.pop("sd_ckpt", None)
     return SDXLControlNetAgent(pipe=pipe, resolution=resolution, **kw)
+
+
+def make_tiny_pix2pix_agent(resolution: int = 64, device: Any = "cuda", backend: str = "fused",
+                            **kw) -> SDPix2PixAgent:
+    """Tiny-config InstructPix2Pix agent (the reference's
+    ``make_tiny_pix2pix_agent`` widths), f32, targetable from the eval CLI
+    like ``make_tiny_sd_agent``."""
+    pipe = SDPix2PixPipeline(
+        unet_cfg=UNetConfig.tiny(in_channels=8),
+        vae_cfg=VAEConfig.tiny_test(),
+        text_cfg=CLIPTextConfig.tiny(),
+        dtype=torch.float32,
+        device=device,
+        backend=backend,
+        use_tiny_vae=kw.get("autoencoder") == "taesd",
+    )
+    kw.pop("sd_ckpt", None)
+    return SDPix2PixAgent(pipe=pipe, resolution=resolution, **kw)

@@ -1,11 +1,13 @@
 """The main path at full width: sd-turbo (or sdxl-turbo) ControlNet + VAE +
-ACT, random weights.
+ACT, or the InstructPix2Pix UNet + VAE + ACT, random weights.
 
 ``build_main_path`` assembles what a user of the fused control step would:
 an ``SDControlNetAgent`` at SD-2.1 / sd-turbo width (``UNetConfig.sd21``,
-``VAEConfig.sd``, ``CLIPTextConfig.sd21``), or with ``variant="sdxl"`` an
+``VAEConfig.sd``, ``CLIPTextConfig.sd21``), with ``variant="sdxl"`` an
 ``SDXLControlNetAgent`` at sdxl-turbo width (``UNetConfig.sdxl``,
-``VAEConfig.sdxl``, ``CLIPTextConfig.sdxl_one`` + ``sdxl_two``), a
+``VAEConfig.sdxl``, ``CLIPTextConfig.sdxl_one`` + ``sdxl_two``), or with
+``variant="pix2pix"`` an ``SDPix2PixAgent`` (``UNetConfig.pix2pix``: sd-turbo
+width, 8 input channels; the VAE with its encoder), a
 ``GenimaACTAgent`` (``ACTConfig()``, ViT-B/32 text tower, ResNet-18 width
 64) and a ``FusedGenimaStep`` over four 256x256 views, with seeded
 scaled-normal weights made on the device and seeded inputs: a 512x512 uint8
@@ -21,7 +23,7 @@ from typing import Any
 import torch
 
 from genima_torch.control.policy import GenimaACTAgent
-from genima_torch.eval.agents import SDControlNetAgent, SDXLControlNetAgent
+from genima_torch.eval.agents import SDControlNetAgent, SDPix2PixAgent, SDXLControlNetAgent
 from genima_torch.eval.fused import FusedGenimaStep
 
 RESOLUTION = 512
@@ -29,7 +31,7 @@ OBS_SIZE = 256
 EOT_ID = 49407  # CLIP end-of-text, the highest id: where the text towers pool
 
 
-VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent}
+VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent, "pix2pix": SDPix2PixAgent}
 
 
 def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",

@@ -223,30 +223,41 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Spatial transformer (SD 2.x linear projection). Tokens are row-major
-    (h, w), as the reference's ``reshape(b, h*w, c)`` of NHWC."""
+    """Spatial transformer. Tokens are row-major (h, w), as the reference's
+    ``reshape(b, h*w, c)`` of NHWC. ``use_linear_projection`` (SD 2.x,
+    SDXL): ``proj_in`` / ``proj_out`` are linears on the tokens; without it
+    (SD 1.x) they are 1x1 convs on the feature map, and stay float under
+    ``+w8``, as in the reference."""
 
     def __init__(self, in_channels: int, heads: int, cross_attention_dim: int,
-                 num_layers: int = 1, backend: str = "fused"):
+                 num_layers: int = 1, backend: str = "fused",
+                 use_linear_projection: bool = True):
         super().__init__()
         c = in_channels
         w8 = split_backend(backend)[1]
+        self.use_linear_projection = use_linear_projection
         self.norm = group_norm(c, 1e-6)
-        self.proj_in = make_dense(w8, c, c)
+        self.proj_in = make_dense(w8, c, c) if use_linear_projection else nn.Conv2d(c, c, 1)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(c, heads, cross_attention_dim, backend)
             for _ in range(num_layers)
         )
-        self.proj_out = make_dense(w8, c, c)
+        self.proj_out = make_dense(w8, c, c) if use_linear_projection else nn.Conv2d(c, c, 1)
 
     def forward(self, x, context):
         b, c, h, w = x.shape
         residual = x
-        x = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        x = self.proj_in(x)
+        x = self.norm(x)
+        if self.use_linear_projection:
+            x = self.proj_in(x.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            x = self.proj_in(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
             x = block(x, context)
-        x = self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        if self.use_linear_projection:
+            x = self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        else:
+            x = self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2))
         return x + residual
 
 

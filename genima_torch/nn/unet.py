@@ -39,6 +39,9 @@ class UNetConfig:
     num_heads: Sequence[int] = (5, 10, 20, 20)
     transformer_layers_per_block: Sequence[int] = (1, 1, 1, 1)
     cross_attention_dim: int = 1024
+    # the transformers' proj_in / proj_out: linears (SD 2.x, SDXL) or 1x1
+    # convs (SD 1.x)
+    use_linear_projection: bool = True
     # SDXL "text_time" micro-conditioning; the add_embedding's input is the
     # pooled text embeds and 6 time_ids x addition_time_embed_dim
     addition_embed_type: Optional[str] = None
@@ -53,6 +56,17 @@ class UNetConfig:
         return UNetConfig(**kw)
 
     @staticmethod
+    def sd15(**kw) -> "UNetConfig":
+        """SD 1.5: 768-wide CLIP context, 8 heads at every level (head dims
+        40/80/160), conv projections."""
+        return UNetConfig(
+            cross_attention_dim=768,
+            num_heads=(8, 8, 8, 8),
+            use_linear_projection=False,
+            **kw,
+        )
+
+    @staticmethod
     def sdxl(**kw) -> "UNetConfig":
         """stabilityai/sdxl-turbo UNet (1280 pooled + 6 x 256 = 2816)."""
         return UNetConfig(
@@ -65,6 +79,12 @@ class UNetConfig:
             projection_class_embeddings_input_dim=2816,
             **kw,
         )
+
+    @staticmethod
+    def pix2pix(**kw) -> "UNetConfig":
+        """InstructPix2Pix: 8 input channels, the noisy latents and the
+        conditioning image's latents side by side."""
+        return UNetConfig(in_channels=8, **kw)
 
     @staticmethod
     def tiny(**kw) -> "UNetConfig":
@@ -97,6 +117,7 @@ class DownBlock(nn.Module):
                 Transformer2DModel(
                     out_ch, cfg.num_heads[level], cfg.cross_attention_dim,
                     cfg.transformer_layers_per_block[level], backend,
+                    cfg.use_linear_projection,
                 )
                 for _ in range(cfg.layers_per_block)
             )
@@ -128,6 +149,7 @@ class MidBlock(nn.Module):
             Transformer2DModel(
                 channels, cfg.num_heads[-1], cfg.cross_attention_dim,
                 cfg.transformer_layers_per_block[-1], backend,
+                cfg.use_linear_projection,
             )
         ])
 
@@ -153,6 +175,7 @@ class UpBlock(nn.Module):
                 Transformer2DModel(
                     out_ch, cfg.num_heads[level], cfg.cross_attention_dim,
                     cfg.transformer_layers_per_block[level], backend,
+                    cfg.use_linear_projection,
                 )
                 for _ in in_chs
             )

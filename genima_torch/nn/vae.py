@@ -8,7 +8,9 @@ weights across then keeps just the JAX tree's ``DECODE_SUBTREES``; the
 ControlNet trainer builds it with ``encoder=True`` and loads the whole tree.
 ``conv_backend="fused"`` runs the decoder's up-block resnets and its output
 conv through the fused GN-SiLU-conv3x3 kernel, with the same parameters.
-``AutoencoderTiny`` belongs to a later slice.
+``AutoencoderTiny`` is taesd, the distilled VAE the reference can decode
+with (``autoencoder=taesd``): plain convs and ReLUs, latents already in the
+scaled space.
 """
 
 from __future__ import annotations
@@ -234,3 +236,95 @@ class AutoencoderKL(nn.Module):
         """z: (B, 4, h, w) *unscaled* latents -> (B, 3, H, W) in [-1, 1]."""
         z = z.to(self.post_quant_conv.weight.dtype)
         return self.decoder(self.post_quant_conv(z))
+
+
+class _TaesdBlock(nn.Module):
+    """taesd's residual block: three 3x3 convs with ReLUs between, a 1x1
+    skip when the width changes, ReLU of the sum."""
+
+    def __init__(self, in_ch: int, channels: int):
+        super().__init__()
+        self.conv_0 = nn.Conv2d(in_ch, channels, 3, padding=1)
+        self.conv_2 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv_4 = nn.Conv2d(channels, channels, 3, padding=1)
+        if in_ch != channels:
+            self.skip = nn.Conv2d(in_ch, channels, 1, bias=False)
+
+    def forward(self, x):
+        h = self.conv_4(F.relu(self.conv_2(F.relu(self.conv_0(x)))))
+        if hasattr(self, "skip"):
+            x = self.skip(x)
+        return F.relu(h + x)
+
+
+class _TaesdEncoder(nn.Module):
+    """conv_in, block_in, then per level a stride-2 conv (``down_<l>``) and
+    ``blocks_per_level`` blocks (``block_<l>_<b>``), conv_out."""
+
+    def __init__(self, out_channels: int, width: int, n_levels: int, blocks_per_level: int):
+        super().__init__()
+        self.n_levels, self.blocks_per_level = n_levels, blocks_per_level
+        self.conv_in = nn.Conv2d(3, width, 3, padding=1)
+        self.block_in = _TaesdBlock(width, width)
+        for lvl in range(n_levels):
+            setattr(self, f"down_{lvl}", nn.Conv2d(width, width, 3, stride=2, padding=1,
+                                                   bias=False))
+            for b in range(blocks_per_level):
+                setattr(self, f"block_{lvl}_{b}", _TaesdBlock(width, width))
+        self.conv_out = nn.Conv2d(width, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        x = self.block_in(self.conv_in(x))
+        for lvl in range(self.n_levels):
+            x = getattr(self, f"down_{lvl}")(x)
+            for b in range(self.blocks_per_level):
+                x = getattr(self, f"block_{lvl}_{b}")(x)
+        return self.conv_out(x)
+
+
+class _TaesdDecoder(nn.Module):
+    """The latent clamp ``tanh(z / 3) * 3``, conv_in + ReLU, then per level
+    ``blocks_per_level`` blocks, a nearest 2x upsample and a conv
+    (``up_<l>``), block_out, conv_out."""
+
+    def __init__(self, latent_channels: int, out_channels: int, width: int, n_levels: int,
+                 blocks_per_level: int):
+        super().__init__()
+        self.n_levels, self.blocks_per_level = n_levels, blocks_per_level
+        self.conv_in = nn.Conv2d(latent_channels, width, 3, padding=1)
+        for lvl in range(n_levels):
+            for b in range(blocks_per_level):
+                setattr(self, f"block_{lvl}_{b}", _TaesdBlock(width, width))
+            setattr(self, f"up_{lvl}", nn.Conv2d(width, width, 3, padding=1, bias=False))
+        self.block_out = _TaesdBlock(width, width)
+        self.conv_out = nn.Conv2d(width, out_channels, 3, padding=1)
+
+    def forward(self, z):
+        x = F.relu(self.conv_in(torch.tanh(z / 3.0) * 3.0))
+        for lvl in range(self.n_levels):
+            for b in range(self.blocks_per_level):
+                x = getattr(self, f"block_{lvl}_{b}")(x)
+            x = getattr(self, f"up_{lvl}")(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return self.conv_out(self.block_out(x))
+
+
+class AutoencoderTiny(nn.Module):
+    """taesd: ``encode`` maps (B, 3, H, W) in [-1, 1] straight to scaled
+    latents (no distribution, no scaling factor) and ``decode`` maps scaled
+    latents back. Attribute paths are the reference's flax names (family
+    ``tiny_vae``)."""
+
+    def __init__(self, latent_channels: int = 4, width: int = 64, n_levels: int = 3,
+                 blocks_per_level: int = 3):
+        super().__init__()
+        self.encoder = _TaesdEncoder(latent_channels, width, n_levels, blocks_per_level)
+        self.decoder = _TaesdDecoder(latent_channels, 3, width, n_levels, blocks_per_level)
+
+    def forward(self, x):
+        return self.decode(self.encode(x))
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x.to(self.encoder.conv_in.weight.dtype))
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z.to(self.decoder.conv_in.weight.dtype))

@@ -1,16 +1,19 @@
 """Where a step's time goes on the card.
 
     python -m genima_torch.profile_step [--path serve|batched|train|act] [--n 4] [--steps 3]
-        [--out FILE] [--backend fused] [--conv_backend xla] [--variant sd|sdxl]
+        [--out FILE] [--backend fused] [--conv_backend xla] [--variant sd|sdxl|pix2pix]
 
 ``serve`` (the default) builds the full-width fused control step
-(``eval.main_path``; ``--variant sdxl``: at sdxl-turbo width) under the pipeline's ``--backend`` and
+(``eval.main_path``; ``--variant sdxl``: at sdxl-turbo width; ``--variant
+pix2pix``: the InstructPix2Pix UNet at sd-turbo width) under the pipeline's ``--backend`` and
 ``--conv_backend`` (``--backend pallas+w8 --conv_backend fused`` is the
 opt-in serving configuration); ``batched`` builds the lockstep-batched step
 for ``--n`` envs (``eval.parallel.BatchedGenimaStep``) and profiles it
 beside the serial step on the same models and the first env's inputs, in
 one process; ``train`` builds a full-width ControlNet fine-tune
-step (sd-turbo width, or sdxl-turbo's under ``--variant sdxl``, batch 4,
+step (sd-turbo width, or sdxl-turbo's under ``--variant sdxl``; the
+pix2pix UNet fine-tune, EMA and conditioning dropout 0.05 on, under
+``--variant pix2pix``; batch 4,
 512x512, bf16 compute, f32 master weights, packed attention kernels;
 seeded random weights and a random uint8 batch);
 ``act`` one ACT controller update at the trainer's defaults (``ACTConfig()``,
@@ -82,12 +85,16 @@ def kernel_counters() -> dict:
 def _serve_watched(args):
     p, c = args["diffusion_params"], args["controller_params"]
     watched = {
-        "controlnet": p["controlnet"], "unet": p["unet"], "vae_decoder": p["vae"].decoder,
+        "unet": p["unet"], "vae_decoder": p["vae"].decoder,
         "clip_prompt": p["text_encoder"], "clip_lang": args["clip_params"],
         "resnet_encoder": c["encoder"], "act_actor": c["actor"],
     }
+    if "controlnet" in p:
+        watched["controlnet"] = p["controlnet"]
     if "text_encoder_2" in p:
         watched["clip_prompt_2"] = p["text_encoder_2"]
+    if hasattr(p["vae"], "encoder"):  # pix2pix encodes its conditioning image
+        watched["vae_encoder"] = p["vae"].encoder
     return watched
 
 
@@ -113,20 +120,22 @@ def batched_steps(n: int, backend: str = "fused", conv_backend: str = "xla"):
 
 
 def train_step(variant: str = "sd"):
-    """One ControlNet fine-tune step at the trainer CLI's defaults (batch 4,
-    512x512, bf16), and the models to time in it."""
+    """One fine-tune step at the trainer CLI's defaults (batch 4, 512x512,
+    bf16; pix2pix with ``--use_ema --conditioning_dropout_prob 0.05``), and
+    the models to time in it."""
     from genima_torch.cli._diffusion_args import build_parser
+    from genima_torch.data.tokenizer import HashTokenizer
     from genima_torch.diffusion import driver
-    from genima_torch.diffusion.training import ControlNetTrainer, SDXLControlNetTrainer
 
-    args = build_parser(variant).parse_args(
-        ["--device", "cuda", "--seed", "0", "--enable_xformers_memory_efficient_attention"])
+    argv = ["--device", "cuda", "--seed", "0", "--enable_xformers_memory_efficient_attention"]
+    if variant == "pix2pix":
+        argv += ["--use_ema", "--conditioning_dropout_prob", "0.05"]
+    args = build_parser(variant).parse_args(argv)
     batch_size, resolution = args.train_batch_size, args.resolution
     pipe = driver.build_pipeline(args, variant)
     params = driver.init_model_params(pipe, args)
     cfg = driver.train_config(args, max_steps=1000)
-    trainer = (SDXLControlNetTrainer(pipe, cfg, resolution) if variant == "sdxl"
-               else ControlNetTrainer(pipe, cfg))
+    trainer = driver.make_trainer(args, variant, pipe, cfg, HashTokenizer())
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (batch_size, resolution, resolution, 3)
     batch = {
@@ -143,8 +152,10 @@ def train_step(variant: str = "sd"):
 
     watched = {
         "vae_encoder": params["vae"].encoder, "clip_prompt": params["text_encoder"],
-        "controlnet_fwd": params["controlnet"], "unet_fwd": params["unet"],
+        "unet_fwd": params["unet"],
     }
+    if "controlnet" in params:
+        watched["controlnet_fwd"] = params["controlnet"]
     if "text_encoder_2" in params:
         watched["clip_prompt_2"] = params["text_encoder_2"]
     return step, watched
@@ -257,11 +268,11 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--backend", default="fused", help="serve, batched: attention backend spec")
     ap.add_argument("--conv_backend", default="xla", help="serve, batched: VAE decoder convs")
-    ap.add_argument("--variant", choices=("sd", "sdxl"), default="sd",
-                    help="serve, train: sd-turbo or sdxl-turbo width")
+    ap.add_argument("--variant", choices=("sd", "sdxl", "pix2pix"), default="sd",
+                    help="serve, train: sd-turbo, sdxl-turbo or the pix2pix UNet")
     a = ap.parse_args()
     if a.variant != "sd" and a.path not in ("serve", "train"):
-        raise SystemExit("--variant sdxl applies to --path serve and --path train")
+        raise SystemExit(f"--variant {a.variant} applies to --path serve and --path train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
     card = subprocess.run(

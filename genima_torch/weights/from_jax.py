@@ -79,6 +79,7 @@ _TOKEN_FNS: dict[str, Callable[[str], str]] = {
     "hf_clip": _hf_clip_token,
     "torchvision_resnet": _torchvision_token,
     "act": lambda token: token,
+    "tiny_vae": lambda token: token,  # AutoencoderTiny keeps the flax names
 }
 
 # flax leaf -> torch suffix

@@ -43,8 +43,9 @@ FAMILIES = {
     "vae": "diffusers_vae",
     "text_encoder": "hf_clip",
 }
-# every pipeline model's: SDXL adds a second prompt encoder (text_encoder_2/)
-MODEL_FAMILIES = {**FAMILIES, "text_encoder_2": "hf_clip"}
+# every pipeline model's: SDXL adds a second prompt encoder (text_encoder_2/),
+# ``use_tiny_vae`` the taesd decoder (tiny_vae/, as ``save_base_model`` writes it)
+MODEL_FAMILIES = {**FAMILIES, "text_encoder_2": "hf_clip", "tiny_vae": "tiny_vae"}
 WEIGHT_FILES = (
     "diffusion_pytorch_model.safetensors",
     "model.safetensors",

@@ -3,9 +3,11 @@
 Counterpart of ``genima_tpu/weights/quantize.py``: every targeted linear of
 a UNet or ControlNet (``_TARGET_NAMES``: the attention projections, GEGLU's
 ``proj``, the feed-forward output and the transformers' ``proj_in`` /
-``proj_out``) becomes a ``W8Linear`` holding ``kernel_q`` (int8), ``scale``
+``proj_out`` where they are linears) becomes a ``W8Linear`` holding ``kernel_q`` (int8), ``scale``
 (f32 per output column) and its bias. The VAE and the text encoder pass
-through. Use with a ``<attn>+w8`` backend. Unlike the JAX version, which
+through, and so do the 1x1-conv ``proj_in`` / ``proj_out`` of a UNet built
+without ``use_linear_projection`` (the reference quantizes 2-D kernels
+only). Use with a ``<attn>+w8`` backend. Unlike the JAX version, which
 returns a new tree, the modules are changed in place.
 """
 

@@ -124,8 +124,13 @@ def test_prompt_cache_latents_and_cfg_infer():
     images = np.random.RandomState(0).randint(0, 256, (1, 64, 64, 3)).astype(np.uint8)
     out = agent.infer(images, ["x"], ["y"], num_inference_steps=1, guidance_scale=2.0)
     assert out.shape == (1, 64, 64, 3) and out.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="tiny VAE"):
-        make_tiny_sd_agent(device="cpu", autoencoder="taesd")
+    # autoencoder="taesd": the pipeline decodes with its tiny VAE
+    taesd = make_tiny_sd_agent(device="cpu", seed=4, autoencoder="taesd")
+    assert taesd.pipe.use_tiny_vae and "tiny_vae" in taesd.params
+    plain = make_tiny_sd_agent(device="cpu", seed=4)
+    outs = [a.infer(images, ["x"], num_inference_steps=1) for a in (taesd, plain)]
+    assert outs[0].shape == (1, 64, 64, 3) and outs[0].dtype == np.uint8
+    assert not np.array_equal(outs[0], outs[1])
 
 
 TRAIN_CFG = {

@@ -50,7 +50,7 @@ from genima_torch.eval.agents import SDControlNetAgent
 from genima_torch.eval.harness import GenimaEvalWorkspace
 from genima_torch.nn.clip_text import CLIPTextConfig
 from genima_torch.nn.unet import UNetConfig
-from genima_torch.nn.vae import VAEConfig
+from genima_torch.nn.vae import AutoencoderTiny, VAEConfig
 
 ACTION_ATOL = 5e-4
 FRAME_STACK = 2
@@ -309,12 +309,27 @@ def test_cli_runs_with_the_no_op_keys_and_wandb(trained, tmp_path, monkeypatch, 
     (["colosseum_use=true"], NotImplementedError, "colosseum_use"),
     (["eval_data_parallel=true"], NotImplementedError, "eval_data_parallel"),
     (["eval_tensor_parallel=2"], NotImplementedError, "eval_tensor_parallel"),
-    (["autoencoder=taesd"], NotImplementedError, "tiny VAE"),
 ])
 def test_cli_still_refuses_the_unported_options(trained, tmp_path, argv, error, match):
     pdir = _copy(trained, tmp_path, "port")
     with pytest.raises(error, match=match):
         eval_genima.main([f"controller_ckpt={pdir}", "device=cpu"] + CLI_ARGS + argv)
+
+
+def test_cli_runs_the_tiny_vae_with_autoencoder_taesd(trained, tmp_path, monkeypatch):
+    """``autoencoder=taesd`` reaches the agent, whose pipeline then decodes
+    every control step's latents with the tiny VAE."""
+    decodes = []
+    real = AutoencoderTiny.decode
+    monkeypatch.setattr(AutoencoderTiny, "decode",
+                        lambda self, z: decodes.append(tuple(z.shape)) or real(self, z))
+    pdir = _copy(trained, tmp_path, "port")
+    logs = eval_genima.main([f"controller_ckpt={pdir}", "device=cpu"] + CLI_ARGS + TINY_AGENT
+                            + ["episode_length=6", "autoencoder=taesd", "diffusion_agent._target_="
+                               "genima_torch.eval.agents.make_tiny_sd_agent"])
+    assert logs["results"]["total_episodes"] == 1
+    assert logs["results"]["env_exception_episodes"] == 0
+    assert decodes and all(shape[1:] == (4, 32, 32) for shape in decodes)
 
 
 def test_harness_saves_videos_and_debug_images(trained, diffusion_params, tmp_path):

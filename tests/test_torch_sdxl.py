@@ -223,7 +223,6 @@ def test_sdxl_configs_mirror_jax():
     assert dataclasses.asdict(VAEConfig.sdxl()) == dataclasses.asdict(JaxVAEConfig.sdxl())
     want = dataclasses.asdict(JaxUNetConfig.sdxl())
     want.pop("sample_size")  # flax's init shape; the port builds no sample
-    want.pop("use_linear_projection")  # the port's transformers project linearly
     got = dataclasses.asdict(UNetConfig.sdxl())
     assert {k: tuple(v) if isinstance(v, (list, tuple)) else v for k, v in got.items()} == {
         k: tuple(v) if isinstance(v, (list, tuple)) else v for k, v in want.items()}

@@ -326,8 +326,12 @@ def test_parser_has_every_jax_sdxl_flag_and_default():
     assert got.pop("device") == (("--device",), "cuda", False, None, ("cuda", "cpu"))
     assert got == want
     assert "pretrained_vae_model_name_or_path" not in flags(build_parser())
-    with pytest.raises(ValueError, match="pix2pix"):
-        build_parser("pix2pix")
+    # the pix2pix trainer's: JAX's four extra flags and defaults, plus --device
+    got, want = flags(build_parser("pix2pix")), flags(jax_build_parser("pix2pix"))
+    assert got.pop("device") == (("--device",), "cuda", False, None, ("cuda", "cpu"))
+    assert got == want
+    assert {"conditioning_dropout_prob", "use_ema", "original_image_column",
+            "edited_image_column"} <= set(got) - set(flags(build_parser()))
 
 
 def test_trainer_cli_trains_validates_and_saves(tmp_path, monkeypatch):
