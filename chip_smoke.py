@@ -185,6 +185,34 @@
    ``conv_backend="fused"`` (0 B4: the tiny VAE decodes), and both decodes
    at batch 1 by CUDA events.
 
+14. Multi-GPU training and mesh serving, on the one card (under the phase
+   7 temporary directory). (a) 2 ranks spawned on ``cuda:0`` in a gloo
+   group (NCCL refuses two ranks on one device; ``file://`` rendezvous)
+   each run ``run_training`` for the SD ControlNet at full width with
+   ``--train_batch_size 2 --max_train_steps 2 --lr_scheduler constant`` on
+   phase 6's seeded PNGs: each step launches B1 6 / B2a 15 / B2b 15 times a
+   rank with no fallback, the ranks' f32 ControlNets are bit-equal after
+   each step (a checksum of every tensor's words), rank 0's draws are the
+   first rows of the global ones, rank 0 alone writes (the final save, one
+   metrics line), and step 1 is held to one process's
+   step on the concatenated batch of 4 from the same weights and draws: the
+   averaged gradients within 1e-2 (relative norm), and the update within
+   1e-6 of one process's optimizer on those gradients. The update against
+   the batch-4 step's own is printed, not held: Adam's first step, ~lr x
+   sign(g), follows bf16 rounding wherever the gradient is near zero. (b) One NCCL rank takes one step, so
+   the trainers' real backend runs on the card. (c) 2 gloo ranks of
+   ``train_act`` at phase 9's cut for one epoch: the same updates, bit-equal
+   masters, rank 0 alone writes. (b) and (c) run at once. (d) ``eval_genima``
+   with ``eval_data_parallel=true num_parallel_envs=2`` (a 1x1 mesh on one
+   card: 105 B1 at batch 1 a generate), then, through the API,
+   ``make_mesh(1, 2, [cuda:0, cuda:0])`` with sd-turbo's weights split by
+   ``shard_params_tp``: one denoise step's noise prediction against the
+   whole UNet + ControlNet (max error within the 5e-2 of the
+   kernel-vs-library check) and against the same models in f32 (no further
+   than 1.5x the whole bf16 models are), and 3 TP control steps of
+   ``BatchedGenimaStep(mesh=)`` at 105 B1 each beside 3 whole ones. One card
+   cannot show multi-GPU scaling: the times say what the machinery costs.
+
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
 same sums of its bound and library time), one ``{"kernels": [...]}`` line,
@@ -197,6 +225,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -450,14 +479,14 @@ def _bwd_kernel_report() -> dict:
     return out
 
 
-def training_kernel_phase(pa) -> list[dict]:
-    """B2a, B1 and B2b at the three SD levels at batch 4."""
+def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
+    """B2a, B1 and B2b at the three SD levels at batch 4 (or ``levels``')."""
     import torch.nn.functional as F
 
     bwd_report = _bwd_kernel_report()
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for b, s, c, h in TRAIN_LEVELS:
+    for b, s, c, h in levels:
         q, k, v, do = (
             torch.randn(b, s, c, generator=gen, device="cuda").bfloat16() for _ in range(4)
         )
@@ -1565,8 +1594,9 @@ class _ActTrainProbe:
             return make
 
         def sample_draws(orig):
-            def fn(agent, batch, generator, record_dropout=False):
-                return orig(agent, batch, generator, record_dropout=probe.first is None)
+            def fn(agent, batch, generator, record_dropout=False, mesh=None):
+                return orig(agent, batch, generator, record_dropout=probe.first is None,
+                            mesh=mesh)
             return fn
 
         def update(orig):
@@ -3125,6 +3155,389 @@ def pix2pix_phase(pa, card: str, ctrl_dir: Path) -> dict:
     return out
 
 
+# phase 14: data-parallel training and mesh serving on one card
+DP_WORLD, DP_BATCH, DP_STEPS = 2, 2, 2  # ranks on cuda:0, per-rank batch, steps
+DP_LEVELS = [(DP_BATCH, s, c, h) for _, s, c, h in SD_LEVELS]
+# the data-parallel step 1 vs one process at batch 4 on the same weights and
+# draws: the averaged gradients within DP_REL_TOL; the update within
+# DP_UPDATE_REL_TOL of one process's optimizer on those gradients. Against
+# the batch-4 step's own update Adam's first step (~lr x sign(g), eps 1e-8)
+# follows bf16 rounding wherever |g| is near the two gradients' disagreement:
+# printed, not held
+DP_REL_TOL = 1e-2
+DP_UPDATE_REL_TOL = 1e-6
+DP_TIMEOUT_S = 300  # each collective: a lost rank fails the phase well inside the limit
+# the TP-sharded noise prediction vs the whole UNet + ControlNet on the same
+# bf16 inputs: max abs error over max abs within EPS_REL_TOL (the limit of
+# the kernel-vs-library check: a split layer's cuBLAS calls round otherwise),
+# and no further from the same models in f32 than TP_F32_RATIO times the
+# whole bf16 models are
+TP_F32_RATIO = 1.5
+TP_STEPS = 3
+
+
+def _checksum(tensors: dict) -> list:
+    """Per tensor, the sum of its 32-bit words as int64: equal bits give equal
+    sums (a bit-level fingerprint, made on the card)."""
+    return [int(t.detach().contiguous().view(torch.int32).sum(dtype=torch.int64))
+            for _, t in sorted(tensors.items())]
+
+
+def _dp_argv(data_dir: str, out_dir: str, steps: int) -> list[str]:
+    return ["--data_path", data_dir, "--tasks", "toy_task", "--resolution", "512",
+            "--train_batch_size", str(DP_BATCH), "--max_train_steps", str(steps),
+            "--lr_scheduler", "constant", "--seed", "0", "--device", "cuda",
+            "--mixed_precision", "bf16", "--enable_xformers_memory_efficient_attention",
+            "--dataloader_num_workers", "2", "--output_dir", out_dir, "--report_to", "none",
+            "--checkpointing_steps", "0"]
+
+
+def _dp_finetune_rank(rank: int, world: int, backend: str, init_file: str, data_dir: str,
+                      out_dir: str, steps: int, reference: bool) -> None:
+    """One rank of phase 14 (a) / (b): ``run_training`` at full width over
+    the process group, its launches, step and all-reduce times, a checksum
+    of the ControlNet's masters after each step; with ``reference``, rank 0
+    then leaves the group and takes one single-process step on the
+    concatenated global batch from the same initial weights and draws."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from genima_torch.cli.train_controlnet_genima import parse_args
+    from genima_torch.core import distributed as dist
+    from genima_torch.diffusion import driver, training
+    from genima_torch.kernels import packed_attention as pa
+
+    t_start = time.perf_counter()
+    dist.initialize(init_method=f"file://{init_file}", world_size=world, rank=rank,
+                    backend=backend, device="cuda:0", timeout_s=DP_TIMEOUT_S)
+    args = parse_args(_dp_argv(data_dir, str(Path(out_dir) / "run"), steps))
+    pipe = driver.build_pipeline(args)
+    params = driver.init_model_params(pipe, args)
+    cn_init = {k: t.clone() for k, t in params["controlnet"].state_dict().items()}
+    counters = {"B1": pa.packed_flash_attention, "B2a": pa.packed_attention_forward_lse,
+                "B2b": pa.packed_attention_backward}
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+    pa.PackedFlashAttention.fallbacks = 0
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    rec = {"rank": rank, "world": world, "backend": torch.distributed.get_backend(),
+           "all_reduce_ms": [], "step_ms": [], "losses": [], "launches": [], "checksums": []}
+    first: dict = {}
+    real_reduce, real_step = training.all_reduce_mean_, training.ControlNetTrainer.step_with_draws
+
+    def timed_reduce(grads, *scalars):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_reduce(grads, *scalars)
+        torch.cuda.synchronize()
+        rec["all_reduce_ms"].append((time.perf_counter() - t0) * 1e3)
+        first.setdefault("grads", {k: v.clone() for k, v in grads.items()})
+        return out
+
+    def recording_step(self, state, batch, draws):
+        first.setdefault("batch", {k: v.cpu() for k, v in batch.items()})
+        first.setdefault("draws", draws)
+        return real_step(self, state, batch, draws)
+
+    marks = [time.perf_counter()]
+
+    def hook(step, state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        rec["step_ms"].append((marks[-1] - marks[-2]) * 1e3)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        counts["fallbacks"] = pa.PackedFlashAttention.fallbacks
+        rec["launches"].append(counts)
+        rec["losses"].append(float(metrics["loss"]))
+        rec["checksums"].append(_checksum(state.params))
+        if step == 1:
+            first["params"] = {k: v.clone() for k, v in state.params.items()}
+
+    training.all_reduce_mean_ = timed_reduce
+    training.ControlNetTrainer.step_with_draws = recording_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        result = driver.run_training(args, pipe=pipe, params=params, step_hook=hook)
+    finally:
+        training.all_reduce_mean_ = real_reduce
+        training.ControlNetTrainer.step_with_draws = real_step
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["global_step"] = result["global_step"]
+    rec["launches_by_shape"] = {k: {"x".join(map(str, s)): n for s, n in fn.launches_by_shape.items()}
+                                for k, fn in counters.items()}
+    batches = [first["batch"]]
+    if world > 1:
+        batches = [None] * world
+        torch.distributed.all_gather_object(batches, first["batch"])
+    dist.shutdown()
+    if reference and rank == 0:
+        # one process, the concatenated batch, the same initial weights and draws
+        params["controlnet"].load_state_dict(cn_init)
+        trainer = training.ControlNetTrainer(pipe, driver.train_config(args, steps, world))
+        state = trainer.create_state(params)
+        start = {k: v.clone() for k, v in state.params.items()}
+        batch = {k: torch.cat([b[k] for b in batches]).to(pipe.device) for k in batches[0]}
+        gen = torch.Generator(device=pipe.device).manual_seed((args.seed or 0) + 1234)
+        draws = trainer.sample_draws(DP_BATCH * world, 512, gen)
+        rows = slice(0, DP_BATCH)
+        rec["draws_equal_global_rows"] = all(
+            torch.equal(getattr(first["draws"], f)[...], getattr(draws, f)[rows])
+            for f in ("sample_noise", "noise", "timesteps"))
+        got = {}
+        training.all_reduce_mean_ = lambda g, *s: (got.update({k: v.clone() for k, v in g.items()})
+                                                   or s)
+        try:
+            state, metrics = trainer.step_with_draws(state, batch, draws)
+        finally:
+            training.all_reduce_mean_ = real_reduce
+
+        def rel(a: dict, b: dict) -> float:
+            num = sum(float((a[k].double() - b[k].double()).norm() ** 2) for k in b)
+            return (num / sum(float(b[k].double().norm() ** 2) for k in b)) ** 0.5
+
+        rec["grad_rel_norm_diff_vs_one_process"] = rel(first["grads"], got)
+        upd = {k: first["params"][k] - start[k] for k in start}
+        ref_upd = {k: state.params[k] - start[k] for k in start}
+        rec["update_rel_norm_diff_vs_one_process"] = rel(upd, ref_upd)
+        n = sum(t.numel() for t in upd.values())
+        rec["sign_flipped_share"] = sum(
+            int((torch.sign(upd[k]) != torch.sign(ref_upd[k])).sum()) for k in upd) / n
+        # one process's optimizer on the ranks' averaged gradients
+        mine = {k: v.clone() for k, v in start.items()}
+        trainer.tx.step_(mine, {k: v.clone() for k, v in first["grads"].items()},
+                         trainer.tx.init(mine))
+        rec["update_rel_norm_diff_vs_one_process_on_the_same_gradients"] = rel(
+            upd, {k: mine[k] - start[k] for k in start})
+        rec["update_bit_equal_to_one_process_on_the_same_gradients"] = all(
+            torch.equal(mine[k], first["params"][k]) for k in start)
+        rec["one_process_loss"] = float(metrics["loss"])
+    rec["process_s"] = time.perf_counter() - t_start
+    Path(out_dir, f"{backend}_rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _act_dp_rank(rank: int, init_file: str, work_dir: str, out_dir: str) -> None:
+    """One rank of phase 14 (c): ``train_act`` at phase 9's cut for one
+    epoch over a 2-rank gloo group on the card."""
+    from genima_torch.cli import train_act
+    from genima_torch.core import distributed as dist
+
+    t0 = time.perf_counter()
+    dist.initialize(init_method=f"file://{init_file}", world_size=DP_WORLD, rank=rank,
+                    backend="gloo", device="cuda:0", timeout_s=DP_TIMEOUT_S)
+    torch.cuda.reset_peak_memory_stats()
+    ws = train_act.main([f"work_dir={work_dir}", "device=cuda", "env.factory=fake",
+                         "env.task=fake_reach", "env.image_size=256", f"num_demos={ACT_DEMOS}",
+                         f"batch_size={ACT_BATCH}", "checkpoint_every=1", "num_train_epochs=1"])
+    rec = {"rank": rank, "updates": ws._num_iters, "update_failures": len(ws.update_failures),
+           "checksums": _checksum(ws.state.master), "mesh": ws.mesh is not None,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "process_s": time.perf_counter() - t0}
+    dist.shutdown()
+    Path(out_dir, f"act_rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _spawn(jobs: list) -> None:
+    """Start every (target, args) in a spawned process at once and wait for
+    all; any that fails fails the phase."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=a) for fn, a in jobs]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join()
+    bad = [(p.name, p.exitcode) for p in procs if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"phase 14: processes failed: {bad}")
+
+
+def _dp_checks(recs: list, steps: int) -> None:
+    for r in recs:
+        if r["global_step"] != steps or len(r["launches"]) != steps:
+            raise AssertionError(f"dp rank {r['rank']}: {r['global_step']} steps")
+        prev = {k: 0 for k in r["launches"][0]}
+        for i, c in enumerate(r["launches"]):
+            d = {k: c[k] - prev[k] for k in c}
+            prev = c
+            if d != TRAIN_LAUNCHES:
+                raise AssertionError(f"dp rank {r['rank']} step {i + 1} launches {d}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"dp rank {r['rank']} losses {r['losses']}")
+    for step in range(steps):
+        sums = {tuple(r["checksums"][step]) for r in recs}
+        if len(sums) != 1:
+            raise AssertionError(f"dp: the ranks' ControlNets differ after step {step + 1}")
+
+
+def _mesh_serving(pa, written: dict) -> dict:
+    """Phase 14 (d): the eval CLI over a 1x1 mesh, then the TP-sharded
+    control step through the API."""
+    from genima_torch.core.mesh import make_mesh
+    from genima_torch.core.tp import ColumnSharded, shard_params_tp
+    from genima_torch.eval.main_path import build_main_path
+    from genima_torch.eval.parallel import BatchedGenimaStep
+    from genima_torch.nn.layers import set_attention_backend
+
+    out = {}
+    ctrl_dir = written["controller_dir"]
+    argv = [f"controller_ckpt={ctrl_dir}", f"diffusion_ckpt={written['diffusion_dir']}",
+            "task=fake_reach", "env.factory=fake", "env.image_size=256", "image_resolution=512",
+            "num_diffusion_steps=5", f"episode_length={EVAL_HORIZON}",
+            f"execution_horizon={EVAL_HORIZON}", "device=cuda", "guidance_scale=0.0",
+            "num_parallel_envs=2", "num_eval_episodes=2", "eval_data_parallel=true"]
+    t0 = time.perf_counter()
+    logs, probe = _run_eval_cli(pa, argv)
+    results = logs["results"]
+    if results["total_episodes"] != 2 or results["env_exception_episodes"]:
+        raise AssertionError(f"mesh eval: results {results}")
+    for delta in probe.generate_calls:
+        if sum(delta.values()) != LAUNCHES_PER_STEP or {k[0] for k in delta} != {1}:
+            raise AssertionError(f"mesh eval: a generate launched B1 {dict(delta)}")
+    out["eval"] = {"generates": len(probe.generate_calls), "s": time.perf_counter() - t0,
+                   "steps": [e["steps"] for e in logs["eval_episodes"]],
+                   "launches_by_shape": {"x".join(map(str, k)): v for k, v in
+                                         pa.packed_flash_attention.launches_by_shape.items()}}
+
+    # the API: sd-turbo's weights split over a 1x2 (data x fsdp) mesh of one card
+    step, args = build_main_path(device="cuda", seed=0)
+    mesh = make_mesh(n_data=1, n_fsdp=2, devices=["cuda:0", "cuda:0"])
+    params = args["diffusion_params"]
+    sharded = shard_params_tp(params, mesh)
+    out["column_sharded_layers"] = sum(isinstance(m, ColumnSharded)
+                                       for mod in sharded.values() for m in mod.modules())
+    pipe = step.pipe
+    embeds = args["prompt_embeds"]
+    state = pipe.scheduler.set_timesteps(5)
+    # the same models in f32 (library attention: the kernels take bf16)
+    f32 = {k: copy.deepcopy(params[k]).float() for k in ("unet", "controlnet")}
+    for m in f32.values():
+        set_attention_backend(m, "xla")
+    with torch.inference_mode():
+        x = args["latents"].permute(0, 3, 1, 2) * float(state.init_noise_sigma)
+        x = pipe.scheduler.scale_model_input(state, x.contiguous(), 0).to(pipe.dtype)
+        t = torch.full((1,), float(state.timesteps[0]), device="cuda")
+        cond = args["tiled_u8"].permute(0, 3, 1, 2).to(pipe.dtype).contiguous() / 255.0
+        eps = {}
+        for name, models in (("whole", params), ("tp", sharded)):
+            down, mid = models["controlnet"](x, t, embeds, cond, cond_is_embedded=False)
+            eps[name] = models["unet"](x, t, embeds, down, mid).float()
+        down, mid = f32["controlnet"](x.float(), t, embeds.float(), cond.float(),
+                                      cond_is_embedded=False)
+        eps["f32"] = f32["unet"](x.float(), t, embeds.float(), down, mid)
+        del f32, down, mid
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    rel_max = ((eps["tp"] - eps["whole"]).abs().max() / eps["whole"].abs().max()).item()
+    out.update(tp_eps_rel_norm_diff=rel(eps["tp"], eps["whole"]), tp_eps_rel_max_err=rel_max,
+               tp_eps_rel_norm_diff_vs_f32=rel(eps["tp"], eps["f32"]),
+               whole_eps_rel_norm_diff_vs_f32=rel(eps["whole"], eps["f32"]))
+    if not (torch.isfinite(eps["tp"]).all() and rel_max <= EPS_REL_TOL
+            and out["tp_eps_rel_norm_diff_vs_f32"]
+            <= TP_F32_RATIO * out["whole_eps_rel_norm_diff_vs_f32"]):
+        raise AssertionError(f"TP noise prediction: {json.dumps(out)}")
+    del sharded, eps
+
+    tp_step = BatchedGenimaStep(step.diffusion_agent, step.controller, step.obs_size, mesh=mesh)
+    timings, outs = {}, {}
+    try:
+        # the whole models first, then the TP step with the counts zeroed just before
+        for name, fn in (("whole", step), ("tp", tp_step)):
+            pa.packed_flash_attention.launches = 0
+            pa.packed_flash_attention.launches_by_shape.clear()
+            timings[name] = []
+            for _ in range(TP_STEPS):
+                before = pa.packed_flash_attention.launches
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                actions, target = fn(**args)
+                torch.cuda.synchronize()
+                timings[name].append((time.perf_counter() - h0) * 1e3)
+                n = pa.packed_flash_attention.launches - before
+                if n != LAUNCHES_PER_STEP:
+                    raise AssertionError(f"{name} control step launched B1 {n} times")
+                if actions.shape != (1, 20, 8) or not torch.isfinite(actions.float()).all():
+                    raise AssertionError(f"{name} actions {tuple(actions.shape)}")
+                if target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8:
+                    raise AssertionError(f"{name} target {tuple(target.shape)} {target.dtype}")
+            outs[name] = (actions.float().cpu(), target.cpu())
+    finally:
+        tp_step.close()
+    out["tp_step_ms"], out["whole_step_ms"] = timings["tp"], timings["whole"]
+    out["tp_launches_by_shape"] = {
+        "x".join(map(str, k)): v for k, v in pa.packed_flash_attention.launches_by_shape.items()}
+    out["tp_vs_whole_actions_max_abs"] = (outs["tp"][0] - outs["whole"][0]).abs().max().item()
+    out["tp_vs_whole_target_max_levels"] = (
+        outs["tp"][1].int() - outs["whole"][1].int()).abs().max().item()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def distributed_phase(pa, card: str, written: dict) -> dict:
+    """Phase 14: (a) 2 gloo ranks fine-tune data-parallel on one card, held
+    to one process on the concatenated batch; (b) one NCCL rank; (c) 2
+    gloo ranks of ACT training; (d) mesh serving."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_rendered_dataset(root / "data")
+        t0 = time.perf_counter()
+        _spawn([(_dp_finetune_rank, (r, DP_WORLD, "gloo", str(root / "rdv_a"), str(root / "data"),
+                                     tmp, DP_STEPS, True)) for r in range(DP_WORLD)])
+        out["a_s"] = time.perf_counter() - t0
+        recs = [json.loads((root / f"gloo_rank{r}.json").read_text()) for r in range(DP_WORLD)]
+        _dp_checks(recs, DP_STEPS)
+        ref = recs[0]
+        if not ref["draws_equal_global_rows"]:
+            raise AssertionError("dp: rank 0's draws are not the global draws' first rows")
+        same = ref["update_rel_norm_diff_vs_one_process_on_the_same_gradients"]
+        if not (ref["grad_rel_norm_diff_vs_one_process"] <= DP_REL_TOL
+                and same <= DP_UPDATE_REL_TOL):
+            raise AssertionError(
+                f"dp: step 1 vs one process: gradients rel norm diff "
+                f"{ref['grad_rel_norm_diff_vs_one_process']}, update on the same gradients "
+                f"{same} (against the batch-4 step's update "
+                f"{ref['update_rel_norm_diff_vs_one_process']})")
+        run = root / "run"
+        names = sorted(p.name for p in run.iterdir())
+        lines = (run / "logs" / "metrics.jsonl").read_text().splitlines()
+        if names != ["controlnet", "logs"] or len(lines) != 1:
+            raise AssertionError(f"dp: rank 0 alone must write: {names}, {len(lines)} lines")
+        out["a"] = recs
+
+        t0 = time.perf_counter()
+        _spawn([(_dp_finetune_rank, (0, 1, "nccl", str(root / "rdv_b"), str(root / "data"),
+                                     str(root / "b"), 1, False))]
+               + [(_act_dp_rank, (r, str(root / "rdv_c"), str(root / "act"), tmp))
+                  for r in range(DP_WORLD)])
+        out["bc_s"] = time.perf_counter() - t0
+        nccl = json.loads((root / "b" / "nccl_rank0.json").read_text())
+        _dp_checks([nccl], 1)
+        if nccl["backend"] != "nccl":
+            raise AssertionError(f"(b) ran on {nccl['backend']}")
+        out["b"] = nccl
+        act = [json.loads((root / f"act_rank{r}.json").read_text()) for r in range(DP_WORLD)]
+        if (act[0]["checksums"] != act[1]["checksums"] or act[0]["updates"] != act[1]["updates"]
+                or not act[0]["updates"] or any(a["update_failures"] or not a["mesh"] for a in act)):
+            raise AssertionError(f"act dp: ranks {[(a['updates'], a['update_failures']) for a in act]}"
+                                 " differ or failed")
+        act_lines = (root / "act" / "metrics.jsonl").read_text().splitlines()
+        if len(act_lines) != 1 or not (root / "act" / "latest.ckpt").exists():
+            raise AssertionError(f"act dp: rank 0 alone must write ({len(act_lines)} lines)")
+        loss = json.loads(act_lines[0])["train_act/loss"]
+        if not math.isfinite(loss):
+            raise AssertionError(f"act dp: loss {loss}")
+        out["c"] = {"ranks": act, "loss": loss}
+    torch.cuda.reset_peak_memory_stats()
+    out["d"] = _mesh_serving(pa, written)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -3210,6 +3623,12 @@ def main() -> int:
     pix2pix_train_kernels = [dict(r, path="pix2pix train step") for r in train_kernels
                              if r["name"] != "packed_flash_attention"]
     pix2pix_opt_kernels = [dict(r, path="pix2pix opt-in step") for r in opt_kernels]
+    # phase 14: each rank of the data-parallel fine-tune runs B1/B2a/B2b at
+    # its batch of 2; mesh serving runs B1 at the control step's batch 1
+    dp_kernels = [dict(r, path=f"data-parallel fine-tune, rank 0 of {DP_WORLD} (phase 14)")
+                  for r in training_kernel_phase(pa, DP_LEVELS, seed=5)]
+    mesh_eval_kernels = [dict(r, path="eval over a 1x1 mesh (phase 14)") for r in kernels]
+    tp_kernels = [dict(r, path="TP-sharded control step, 1x2 mesh (phase 14)") for r in kernels]
     path = path_phase(pa)
     _fill_launches(kernels, {"B1": path["launches_by_shape"]}, {"packed_flash_attention": "B1"})
     print("path " + json.dumps(path))
@@ -3231,6 +3650,7 @@ def main() -> int:
         sx = sdxl_phase(pa, card, written["controller_dir"], Path(tmp) / "sdxl")
         shutil.rmtree(Path(tmp) / "sdxl", ignore_errors=True)
         px = pix2pix_phase(pa, card, written["controller_dir"])
+        dp = distributed_phase(pa, card, written)
     _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]},
                    {"packed_flash_attention": "B1"})
     print("eval " + json.dumps(ev))
@@ -3351,6 +3771,37 @@ def main() -> int:
           f"{tv['psnr_db'][0]:.2f} -> {tv['psnr_db'][1]:.2f} dB over {tv['distill_steps']} steps "
           f"({tv['distill_s']:.1f} s), decode at batch 1 {tv['tiny_decode_ms']:.3f} ms vs the KL "
           f"decoder's {tv['full_decode_ms']:.3f} ms by events; phase {px['phase_s']:.1f} s")
+    _fill_launches(dp_kernels, dp["a"][0]["launches_by_shape"], {
+        "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
+        "packed_attention_backward": "B2b"})
+    _fill_launches(mesh_eval_kernels, {"B1": dp["d"]["eval"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    _fill_launches(tp_kernels, {"B1": dp["d"]["tp_launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    print("distributed " + json.dumps(dp))
+    a0, d14 = dp["a"][0], dp["d"]
+    print(f"distributed ({card}): (a) {DP_WORLD} gloo ranks on one card, batch {DP_BATCH} each: "
+          + "; ".join(f"rank {r['rank']} steps {[round(x, 1) for x in r['step_ms']]} ms, "
+                      f"all-reduce {[round(x, 1) for x in r['all_reduce_ms']]} ms, peak "
+                      f"{r['peak_mem_gb']:.2f} GiB" for r in dp["a"])
+          + f"; step 1 vs one process at batch {DP_BATCH * DP_WORLD}: gradients rel norm diff "
+          f"{a0['grad_rel_norm_diff_vs_one_process']:.3e}; update vs one process's optimizer on "
+          f"the same gradients {a0['update_rel_norm_diff_vs_one_process_on_the_same_gradients']:.3e}"
+          f" (bit-equal {a0['update_bit_equal_to_one_process_on_the_same_gradients']}), vs the "
+          f"batch-4 step's update {a0['update_rel_norm_diff_vs_one_process']:.3e} "
+          f"({a0['sign_flipped_share']:.2e} of signs flipped); {dp['a_s']:.1f} s. (b) nccl at world "
+          f"1: step {[round(x, 1) for x in dp['b']['step_ms']]} ms, all-reduce "
+          f"{[round(x, 2) for x in dp['b']['all_reduce_ms']]} ms. (c) ACT on {DP_WORLD} ranks: "
+          f"{dp['c']['ranks'][0]['updates']} updates each, peak "
+          f"{[round(r['peak_mem_gb'], 2) for r in dp['c']['ranks']]} GiB; (b)+(c) "
+          f"{dp['bc_s']:.1f} s. (d) eval over a 1x1 mesh {d14['eval']['generates']} generates in "
+          f"{d14['eval']['s']:.1f} s; TP 1x2 step {[round(x, 1) for x in d14['tp_step_ms']]} ms "
+          f"vs whole {[round(x, 1) for x in d14['whole_step_ms']]} ms by the host clock, eps rel "
+          f"norm diff {d14['tp_eps_rel_norm_diff']:.3e} (max err / max "
+          f"{d14['tp_eps_rel_max_err']:.3e}); vs f32 TP {d14['tp_eps_rel_norm_diff_vs_f32']:.3e}, "
+          f"whole {d14['whole_eps_rel_norm_diff_vs_f32']:.3e}; "
+          f"{d14['column_sharded_layers']} layers split, peak "
+          f"{d14['peak_mem_gb']:.2f} GiB; phase {dp['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -3365,12 +3816,16 @@ def main() -> int:
         + [("pix2pix_control", r, px["eval"]["S"]["generates"]) for r in pix2pix_kernels]
         + [("pix2pix_control_n2", r, px["eval"]["B"]["generates"]) for r in pix2pix_n2_kernels]
         + [("pix2pix_train", r, PIX2PIX_CKPT_AT) for r in pix2pix_train_kernels]
-        + [("pix2pix_opt_in", r, 1) for r in pix2pix_opt_kernels])))
+        + [("pix2pix_opt_in", r, 1) for r in pix2pix_opt_kernels]
+        + [("dp_finetune_rank0", r, DP_STEPS) for r in dp_kernels]
+        + [("mesh_eval_1x1", r, dp["d"]["eval"]["generates"]) for r in mesh_eval_kernels]
+        + [("tp_control_1x2", r, TP_STEPS) for r in tp_kernels])))
     print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels
                       + cohort_kernels + batch4_kernels + batched_kernels
                       + pretrain_kernels + sdxl_kernels + sdxl_train_kernels
                       + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
-                      + pix2pix_opt_kernels}))
+                      + pix2pix_opt_kernels + dp_kernels + mesh_eval_kernels
+                      + tp_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

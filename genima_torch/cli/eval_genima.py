@@ -19,9 +19,16 @@ simulator the port does not drive yet (``envs/rlbench.py`` raises in each
 child). ``diffusion_agent._target_`` picks the agent
 (``genima_torch.eval.agents.SDControlNetAgent`` by default,
 ``SDXLControlNetAgent``, ``SDPix2PixAgent``, or a ``make_tiny_*`` factory);
-``autoencoder=taesd`` decodes with its tiny VAE. Mesh serving
-(``eval_data_parallel``, ``eval_tensor_parallel > 1``) and Colosseum
-variations are not ported and raise. The reference's speed toggles
+``autoencoder=taesd`` decodes with its tiny VAE. With ``num_parallel_envs
+> 1``, ``eval_data_parallel=true`` or ``eval_tensor_parallel=T > 1`` serve
+over a (data x fsdp) mesh of ``eval_mesh_devices`` devices (default: every
+visible card; on the CPU the CPU that many times), ``T`` of them per data
+row: the lockstep batch split over the rows, the diffusion weights split by
+output features over each row's ``T`` devices (``eval/parallel.py``,
+``core/tp.py``); ``T`` must divide the device count and the data rows the
+env count, as in JAX. ``colosseum_use=true`` hands
+``colosseum_task_config`` to the env factory, where the simulator gate
+raises as JAX's does without RLBench. The reference's speed toggles
 (``torch_compile``, ``channel_last``, ``allow_tf32``, ``vae_slicing``,
 ``upcast_vae``, ``fused_projections``) and ``temporal_agg`` are accepted
 and change nothing, as in the JAX package, whose modules read none of
@@ -96,7 +103,6 @@ EVAL_GENIMA = {
 # keys the JAX config declares and no JAX module reads
 NO_OP_KEYS = ("torch_compile", "channel_last", "allow_tf32", "vae_slicing", "upcast_vae",
               "fused_projections", "temporal_agg")
-_NOT_PORTED = ("colosseum_use", "eval_data_parallel")
 
 
 def load_train_cfg(eval_cfg) -> Config | None:
@@ -162,6 +168,9 @@ def build_eval_env(eval_cfg, train_cfg, stats_path):
     env_cfg = dict(eval_cfg.get("env", {}))
     env_cfg.setdefault("task", eval_cfg.task)
     env_cfg["episode_length"] = eval_cfg.get("episode_length", 200)
+    if eval_cfg.get("colosseum_use"):
+        env_cfg["colosseum_use"] = True
+        env_cfg["colosseum_task_config"] = eval_cfg.get("colosseum_task_config")
     factory = make_factory(env_cfg)
     train_cfg = train_cfg or {}
     return factory.make_eval_env(
@@ -197,14 +206,31 @@ def build_diffusion_agent(eval_cfg):
     return instantiate(node)
 
 
+def build_eval_mesh(eval_cfg):
+    """The serving mesh of ``eval_data_parallel`` / ``eval_tensor_parallel``
+    (None without them): ``eval_mesh_devices`` devices (default every
+    visible card; on the CPU the CPU that many times), ``T`` fsdp devices per
+    data row."""
+    n_tp = int(eval_cfg.get("eval_tensor_parallel", 0) or 1)
+    if not (eval_cfg.get("eval_data_parallel", False) or n_tp > 1):
+        return None
+    import torch
+
+    from genima_torch.core.mesh import make_mesh
+
+    on_cpu = torch.device(eval_cfg.get("device", "cuda")).type == "cpu"
+    n_dev = int(eval_cfg.get("eval_mesh_devices", 0)
+                or (1 if on_cpu else torch.cuda.device_count()))
+    if n_dev % n_tp:
+        raise ValueError(
+            f"eval_tensor_parallel ({n_tp}) must divide the mesh device count ({n_dev})")
+    devices = [torch.device("cpu")] * n_dev if on_cpu else None
+    return make_mesh(n_data=n_dev // n_tp, n_fsdp=n_tp, devices=devices)
+
+
 def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
     eval_cfg, train_cfg = load_train_and_eval_cfg(
         argv if argv is not None else sys.argv[1:], defaults)
-    set_options = [k for k in _NOT_PORTED if eval_cfg.get(k)]
-    if int(eval_cfg.get("eval_tensor_parallel", 0) or 1) > 1:
-        set_options.append("eval_tensor_parallel")
-    if set_options:
-        raise NotImplementedError(f"not ported: {', '.join(set_options)}")
     no_ops = [k for k in NO_OP_KEYS if eval_cfg.get(k)]
     if no_ops:
         print(f"no effect here, as in the JAX package: {', '.join(no_ops)}")
@@ -212,6 +238,12 @@ def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
     seed_everything(seed)
 
     n_par = int(eval_cfg.get("num_parallel_envs", 1))
+    # the serving mesh (lockstep eval only, as in JAX), checked before anything is built
+    mesh = build_eval_mesh(eval_cfg) if n_par > 1 else None
+    if mesh is not None:
+        from genima_torch.eval.parallel import check_mesh_divides
+
+        check_mesh_divides(n_par, mesh)
     # the real-simulator parallel path builds its envs in child processes:
     # no env is made in this process for it
     real_parallel = n_par > 1 and eval_cfg.get("env", {}).get("factory", "rlbench") != "fake"
@@ -248,7 +280,8 @@ def main(argv=None, with_diffusion: bool = True, defaults: dict = EVAL_GENIMA):
             else:
                 envs = [eval_env] + [build_eval_env(eval_cfg, train_cfg, eval_cfg.controller_ckpt)
                                      for _ in range(n_par - 1)]
-            workspace = ParallelGenimaEvalWorkspace(eval_cfg, envs, controller_agent, **kwargs)
+            workspace = ParallelGenimaEvalWorkspace(eval_cfg, envs, controller_agent, mesh=mesh,
+                                                    **kwargs)
             try:
                 return workspace.eval()
             finally:

@@ -6,10 +6,19 @@ Counterpart of ``genima_tpu/cli/train_act.py`` and its config
 ``genima_tpu/cfgs/controller.yaml``, whose defaults ``CONTROLLER`` keeps as
 Python data (``--config-name F`` reads a YAML file instead, with PyYAML).
 ``device=`` picks the card (``cuda``, the default) or ``cpu``; the agent
-computes in f32, as the JAX agent does by default. One device, no mesh;
-``env.factory=fake`` collects demos from the fake env, ``env.factory=rendered``
-reads them from the rendered dataset at ``env.dataset_root`` (closed-loop
-envs from ``env.eval_env_factory=fake``).
+computes in f32, as the JAX agent does by default. ``env.factory=fake``
+collects demos from the fake env, ``env.factory=rendered`` reads them from
+the rendered dataset at ``env.dataset_root`` (closed-loop envs from
+``env.eval_env_factory=fake``); ``env.factory=rlbench`` (with
+``env.colosseum_use`` / ``env.colosseum_task_config``) meets the simulator
+gate and raises, as the JAX CLI does without RLBench.
+
+Data-parallel: ``torchrun --nproc_per_node=N -m genima_torch.cli.train_act
+...`` trains one process per GPU (``device=cuda`` becomes
+``cuda:<LOCAL_RANK>``), each at ``batch_size`` on its slice of the demos,
+the gradients averaged over the group (``control/trainer.py``). JAX's rule
+``n_dev > 1 and batch_size % n_dev == 0`` is not copied: the port averages
+whenever more than one process trains, whatever the batch.
 """
 
 from __future__ import annotations
@@ -21,8 +30,10 @@ import torch
 
 from genima_torch.control.policy import build_agent
 from genima_torch.control.trainer import ControllerWorkspace
+from genima_torch.core import distributed as dist
 from genima_torch.core.config import build_config, load_yaml, parse_cli
 from genima_torch.core.logging import MetricLogger
+from genima_torch.core.mesh import process_mesh
 from genima_torch.core.rng import seed_everything
 
 CONTROLLER = {
@@ -107,11 +118,13 @@ def main(argv=None) -> ControllerWorkspace:
     overrides, flags = parse_cli(argv if argv is not None else sys.argv[1:])
     defaults = load_yaml(flags["config_name"]) if "config_name" in flags else CONTROLLER
     cfg = build_config(defaults, overrides)
+    device = dist.process_device(cfg.get("device", "cuda"))
+    dist.initialize(device=device)  # a no-op without a launcher
     seed_everything(cfg.get("seed", 0))
     from genima_torch.envs.rlbench import make_factory
 
     factory = make_factory(dict(cfg.env))
-    agent = build_agent(cfg, device=cfg.get("device", "cuda"), dtype=torch.float32)
+    agent = build_agent(cfg, device=device, dtype=torch.float32)
     work_dir = Path(cfg.get("work_dir") or "./exp_local/genima_controller")
     logger = MetricLogger(
         work_dir,
@@ -120,8 +133,9 @@ def main(argv=None) -> ControllerWorkspace:
         wandb_kwargs={"project": cfg.get("wandb", {}).get("project"),
                       "name": cfg.get("wandb", {}).get("name")},
     )
+    mesh = process_mesh(agent.device) if dist.process_count() > 1 else None
     workspace = ControllerWorkspace(cfg, agent, factory, work_dir,
-                                    num_demos=cfg.get("num_demos", 25), logger=logger)
+                                    num_demos=cfg.get("num_demos", 25), mesh=mesh, logger=logger)
     workspace.state = load_agent_pretrained(agent, cfg, workspace.state,
                                             resumed=workspace.resumed)
     workspace.train()

@@ -17,7 +17,11 @@ then ``MultiTransform``: an optional clip over every gradient, AdamW at
 ``dtype`` and are the master weights themselves when that is f32. The
 random draws (augmentation, the latent noise, the dropout masks) are
 ``ACTDraws``, made by ``sample_draws`` from a ``torch.Generator`` or handed
-in by a caller.
+in by a caller. Data-parallel (one process per GPU): ``sample_draws(...,
+mesh=)`` draws every batch-axis draw (the augmentation noise, the latent
+noise, the dropout masks) at the global batch and keeps this rank's rows,
+and ``update`` averages the gradients and the loss over the process group
+whenever one is live, before the clip.
 """
 
 from __future__ import annotations
@@ -29,11 +33,12 @@ import torch
 from torch import nn
 
 from genima_torch import default_dtype, resolve_device
+from genima_torch.core.distributed import all_reduce_mean_
 from genima_torch.core.optim import AdamW, AdamWState, MultiTransform
 from genima_torch.data.augment import (ACTAugmentDraws, act_train_augment,
                                        sample_act_augment_draws)
-from genima_torch.nn.act import (ACTConfig, DropoutMasks, GenimaACTModel, RandomDropout,
-                                 act_loss)
+from genima_torch.nn.act import (ACTConfig, DropoutMasks, GenimaACTModel, GlobalRowsDropout,
+                                 RandomDropout, act_loss)
 from genima_torch.nn.clip_text import CLIPTextConfig, CLIPTextModel
 from genima_torch.nn.resnet import ImageEncoderACT
 from genima_torch.weights.from_jax import load_from_jax
@@ -204,15 +209,26 @@ class GenimaACTAgent:
         return ACTTrainState(params, live, master, paths, self.tx.init(master))
 
     def sample_draws(self, batch: dict, generator: torch.Generator,
-                     record_dropout: bool = False) -> ACTDraws:
+                     record_dropout: bool = False, mesh=None) -> ACTDraws:
         """The draws of one update on ``batch``, from ``generator`` (on its
-        device); ``record_dropout`` keeps the dropout masks for a replay."""
+        device); ``record_dropout`` keeps the dropout masks for a replay.
+        With ``mesh`` (``core/mesh.py::process_mesh``) each batch-axis draw
+        is made at the global batch and this rank's rows are kept."""
         b, v, h, w, _ = batch["images"].shape
-        augment = (sample_act_augment_draws(b * v, h, w, generator)
+        if mesh is None:
+            gb, rows = b, slice(None)
+        else:
+            gb, start = b * mesh.n_data, b * mesh.data_offset
+            rows = slice(start, start + b)
+        augment = (sample_act_augment_draws(gb * v, h, w, generator)
                    if self.data_augmentation else None)
-        eps = torch.randn((b, self.act_cfg.latent_dim), generator=generator,
-                          device=generator.device)
-        return ACTDraws(augment, eps, RandomDropout(generator, record_dropout))
+        if augment is not None and mesh is not None:
+            augment = augment._replace(noise=augment.noise[rows.start * v:rows.stop * v])
+        eps = torch.randn((gb, self.act_cfg.latent_dim), generator=generator,
+                          device=generator.device)[rows]
+        masks = (RandomDropout(generator, record_dropout) if mesh is None
+                 else GlobalRowsDropout(generator, gb, rows, record_dropout))
+        return ACTDraws(augment, eps, masks)
 
     def loss(self, params: dict[str, nn.Module], batch: dict, draws: ACTDraws
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
@@ -237,13 +253,17 @@ class GenimaACTAgent:
         """One BC step in place: loss, gradients of every parameter (a
         parameter the loss does not reach gets zeros, as in JAX), the
         optimizer chain on the f32 master weights, then the modules take
-        them. Returns the state and the loss parts (0-d device tensors)."""
+        them. Returns the state and the loss parts (0-d device tensors;
+        under a process group, their means over it)."""
         loss, metrics = self.loss(state.params, batch, draws)
         loss.backward()
         grads = {}
         for k, p in state.live.items():
             grads[k] = torch.zeros_like(state.master[k]) if p.grad is None else p.grad.float()
             p.grad = None
+        # data-parallel: the global batch's gradients (before the clip) and loss parts
+        names = list(metrics)
+        metrics = dict(zip(names, all_reduce_mean_(grads, *(metrics[k].detach() for k in names))))
         opt_state, _ = self.tx.step_(state.master, grads, state.opt_state)
         with torch.no_grad():
             for k, p in state.live.items():

@@ -1,7 +1,8 @@
 """Epoch-based episodic replay buffer for BC training.
 
-A copy of ``genima_tpu/control/replay.py`` (numpy only), for one process:
-the same batches under the same seed. It rebuilds the reference's
+A copy of ``genima_tpu/control/replay.py`` (numpy only): the same batches
+under the same seed, and under several processes the same strided slice
+of each epoch's order per rank. It rebuilds the reference's
 ``EpochReplayBuffer`` (``controller/utils/dataloader.py:16-97``, extending
 RoboBase's uniform buffer):
 
@@ -14,7 +15,11 @@ RoboBase's uniform buffer):
   yields batches until the epoch is exhausted (``dataloader.py:75-97``) —
   epoch-exact coverage rather than uniform-with-replacement,
 * batches come out as a dict of stacked numpy arrays, which the trainer
-  copies to the device.
+  copies to the device;
+* with more than one process (``core.distributed``), each rank takes the
+  strided slice ``order[rank::world]`` of the same permutation; with
+  ``drop_last`` every rank then yields the same number of batches (that of
+  the smallest slice), so data-parallel updates stay paired.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+
+from genima_torch.core.distributed import process_count, process_index
 
 
 @dataclasses.dataclass
@@ -139,6 +146,12 @@ class EpochReplayBuffer:
     def __iter__(self) -> Iterator[dict]:
         """One epoch: shuffled pass over every index."""
         order = self._rng.permutation(len(self._index))
+        count = process_count()
+        if count > 1:
+            n_full = len(order) // count  # the smallest rank's slice
+            order = order[process_index()::count]
+            if self.drop_last:
+                order = order[:n_full - n_full % self.batch_size]
         for start in range(0, len(order), self.batch_size):
             chunk = order[start : start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:

@@ -1,7 +1,8 @@
 """Controller training workspace: BC of the ACT agent on demonstrations.
 
 Counterpart of ``genima_tpu/control/trainer.py`` (the reference's
-``ControllerWorkspace``, ``controller/train_act.py``), on one device:
+``ControllerWorkspace``, ``controller/train_act.py``), on one device or
+data-parallel over a process group (``mesh=``, one process per GPU):
 
 * demos collected through the env factory, pooled over its tasks; the
   action and proprio stats written as JSON beside the checkpoints (by the
@@ -22,6 +23,13 @@ Counterpart of ``genima_tpu/control/trainer.py`` (the reference's
 Batches go to the device through pinned memory. The random draws of each
 update come from one ``torch.Generator`` on the agent's device, seeded from
 ``seed + 7``.
+
+With ``mesh`` (``core/mesh.py::process_mesh``) each rank trains on its
+strided slice of every epoch's order at ``batch_size`` (ragged tails
+dropped, so every rank makes the same updates), draws at the global batch
+and keeps its rows, and averages gradients over the group; rank 0 alone
+writes the stats, the checkpoints, ``config.yaml`` and the metrics.
+SIGTERM on any rank stops every rank at the same epoch.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from genima_torch.core import checkpoint as ckpt
+from genima_torch.core import distributed as dist
 from genima_torch.core.config import save_yaml
 from genima_torch.core.logging import MetricLogger
 from genima_torch.core.preemption import PreemptionGuard
@@ -61,12 +70,13 @@ def controller_tokenizer(cfg):
 
 class ControllerWorkspace:
     def __init__(self, cfg, agent, factory, work_dir: str | Path, num_demos: int = 25,
-                 logger: Optional[MetricLogger] = None):
+                 mesh=None, logger: Optional[MetricLogger] = None):
         self.cfg = cfg
         self.agent = agent
         self.factory = factory
         self.work_dir = Path(work_dir)
         self.work_dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
         self.logger = logger or MetricLogger(self.work_dir)
         self.update_failures: list[str] = []
 
@@ -74,19 +84,22 @@ class ControllerWorkspace:
         if not demos:
             raise RuntimeError("no demonstrations collected")
         tokenizer = controller_tokenizer(cfg)
-        # the eval env, made once, writes the stats JSON files
-        factory.make_eval_env(
-            frame_stack=cfg.get("frame_stack", 1),
-            action_sequence=cfg.get("action_sequence", 20),
-            stats_path=str(self.work_dir),
-            use_onehot_time=cfg.get("use_onehot_time", False),
-        ).close()
+        # the eval env, made once, writes the stats JSON files (one writer)
+        if dist.is_main_process():
+            factory.make_eval_env(
+                frame_stack=cfg.get("frame_stack", 1),
+                action_sequence=cfg.get("action_sequence", 20),
+                stats_path=str(self.work_dir),
+                use_onehot_time=cfg.get("use_onehot_time", False),
+            ).close()
 
         self.replay = EpochReplayBuffer(
             batch_size=cfg.get("batch_size", 8),
             action_sequence=cfg.get("action_sequence", 20),
             frame_stack=cfg.get("frame_stack", 1),
             nstep=cfg.get("nstep", 1),
+            # data-parallel batches must pair up across ranks: drop ragged tails
+            drop_last=mesh is not None,
         )
         onehot_len = (int(cfg["env"].get("episode_length", 200))
                       if cfg.get("use_onehot_time", False) else None)
@@ -130,7 +143,8 @@ class ControllerWorkspace:
             ckpt.save_epoch_checkpoint, self.work_dir, epoch=self._epoch,
             num_iters=self._num_iters, agent_params=self.state.tree(), config=cfg_dict,
             num_checkpoints=self.cfg.get("num_checkpoints", 3))
-        save_yaml(cfg_dict, self.work_dir / "config.yaml")
+        if dist.is_main_process():
+            save_yaml(cfg_dict, self.work_dir / "config.yaml")
 
     # -- training ---------------------------------------------------------------------
 
@@ -169,7 +183,7 @@ class ControllerWorkspace:
             for batch in self.replay:
                 try:
                     batch = self._to_device(batch)
-                    draws = self.agent.sample_draws(batch, self.generator)
+                    draws = self.agent.sample_draws(batch, self.generator, mesh=self.mesh)
                     self.state, metrics = self.agent.update(self.state, batch, draws)
                     self._num_iters += 1
                     epoch_metrics.append(metrics)
@@ -186,7 +200,7 @@ class ControllerWorkspace:
             due = self._epoch % checkpoint_every == 0 or self._epoch == num_epochs
             if due:
                 self.save_snapshot()
-            if preemption.requested:
+            if dist.any_process(preemption.requested, self.agent.device):
                 if not due:
                     self.save_snapshot()
                 print(f"Preemption requested: saved latest.ckpt at epoch {self._epoch}, "

@@ -46,6 +46,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from genima_torch.core.distributed import is_main_process
+
 MAX_CHUNK_SIZE = 2**30  # flax.serialization.MAX_CHUNK_SIZE
 _CHUNKED = "__msgpack_chunked_array__"
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -372,8 +374,11 @@ def save_step_checkpoint(
     ``train_state.msgpack``, each tree of ``extra`` as ``<name>.msgpack``
     (the pix2pix trainer's ``ema``) and ``metadata.json`` (``{"step":
     step}``). With ``total_limit``, the oldest step checkpoints are removed
-    first, down to ``total_limit - 1``."""
+    first, down to ``total_limit - 1``. Only the main process writes; the
+    others get the path and touch nothing."""
     output_dir = Path(output_dir)
+    if not is_main_process():
+        return output_dir / f"checkpoint-{step}"
     if total_limit is not None:
         existing = list_step_checkpoints(output_dir)
         for _, old in existing[:max(len(existing) - (total_limit - 1), 0)]:
@@ -391,9 +396,12 @@ def save_step_checkpoint(
 
 def save_final_model(output_dir: str | Path, model_params: Any,
                      model_subdir: str | None = None) -> Path:
-    """The final model at the output root: ``[<model_subdir>/]params.msgpack``."""
+    """The final model at the output root: ``[<model_subdir>/]params.msgpack``
+    (written by the main process only)."""
     output_dir = Path(output_dir)
     target = output_dir / model_subdir if model_subdir else output_dir
+    if not is_main_process():
+        return target
     save_pytree(model_params, target / "params.msgpack")
     return target
 
@@ -432,7 +440,11 @@ class AsyncCheckpointer:
     views of it. Both arenas live as long as the writer and grow at the
     ``submit`` that needs more. A copy into pageable memory instead holds
     the driver while it stages, and the train step's launches wait behind
-    it; one copy per tensor from the writer thread contends for the GIL."""
+    it; one copy per tensor from the writer thread contends for the GIL.
+
+    On a rank other than the main process ``submit`` does nothing: the
+    writers it runs write only there, so it takes no copy and builds no
+    arena (at full width the arenas hold ~14 GB)."""
 
     ALIGN = 64  # bytes between two tensors' slices of the arenas
 
@@ -445,6 +457,8 @@ class AsyncCheckpointer:
 
     def submit(self, fn, /, *args, **kwargs) -> None:
         self.wait()
+        if not is_main_process():
+            return
         tree = (args, kwargs)
         cuda = []
         _map_tensors(lambda t: cuda.append(t) if t.is_cuda else None, tree)
@@ -546,8 +560,10 @@ def save_epoch_checkpoint(ckpt_dir: str | Path, *, epoch: int, num_iters: int,
                           num_checkpoints: int = 3) -> Path:
     """Rotate ``latest.ckpt`` to ``<its epoch>.ckpt``, write the new
     ``latest.ckpt`` (``epoch_payload``), then remove the oldest rotated
-    files down to ``num_checkpoints``."""
+    files down to ``num_checkpoints``. Only the main process writes."""
     ckpt_dir = Path(ckpt_dir)
+    if not is_main_process():
+        return ckpt_dir / LATEST_NAME
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     latest = ckpt_dir / LATEST_NAME
     if latest.exists():

@@ -5,6 +5,8 @@ Counterpart of ``genima_tpu/core/logging.py``'s ``MetricLogger``.
 A backend whose package does not import is dropped, as the JAX package
 drops it, but with one printed line naming it; ``metrics.jsonl`` is always
 written. Images go to TensorBoard / W&B only (callers keep PNGs on disk).
+With ``main_process_only`` (the default) a rank other than 0 keeps a
+logger that writes and prints nothing, so call sites stay unconditional.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Optional
 
 import numpy as np
 
+from genima_torch.core.distributed import is_main_process
+
 
 def _to_scalar(v: Any) -> Any:
     if hasattr(v, "item") and np.ndim(v) == 0:
@@ -25,12 +29,16 @@ def _to_scalar(v: Any) -> Any:
 
 class MetricLogger:
     def __init__(self, log_dir: str | Path, use_tb: bool = False, use_wandb: bool = False,
-                 wandb_kwargs: Optional[dict] = None):
+                 wandb_kwargs: Optional[dict] = None, main_process_only: bool = True):
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
         self._tb = None
         self._wandb = None
+        self._active = not main_process_only or is_main_process()
+        if not self._active:
+            self._jsonl = None
+            return
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
         if use_tb:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -49,6 +57,8 @@ class MetricLogger:
 
     def log_metrics(self, metrics: dict, step: int, prefix: str | None = None,
                     echo: bool = True) -> None:
+        if not self._active:
+            return
         scalars = {}
         for k, v in metrics.items():
             v = _to_scalar(v)
@@ -81,7 +91,8 @@ class MetricLogger:
                              for k, v in images.items()}, step=step)
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
         if self._wandb is not None:

@@ -22,7 +22,10 @@ DataLoader:
   or a decode fails, the batch is decoded with PIL in a thread pool.
   ``decoded`` counts the batches each decoder made, so a fallback shows.
 
-Multi-process sharding comes with a later slice. ``DevicePrefetcher``
+Under several processes (``core.distributed``) each rank decodes the
+strided slice ``order[rank::world]`` of the same shuffled order, and with
+``drop_last`` yields as many batches as the smallest slice holds (also
+``len``), so every rank takes the same number of steps. ``DevicePrefetcher``
 copies each batch to the device from pinned memory without blocking, one
 or two batches ahead of the step.
 """
@@ -44,6 +47,8 @@ from typing import Any
 import numpy as np
 import torch
 from PIL import Image
+
+from genima_torch.core.distributed import process_count, process_index
 
 
 def _natsort_key(name: str):
@@ -170,8 +175,11 @@ class DiffusionDataLoader:
         self.decoded: collections.Counter = collections.Counter()  # batches by decoder
 
     def __len__(self) -> int:
-        n = len(self.samples) // self.batch_size
-        if not self.drop_last and len(self.samples) % self.batch_size:
+        """Batches per epoch on this process."""
+        count = process_count()
+        n_samples = len(self.samples) // count if count > 1 else len(self.samples)
+        n = n_samples // self.batch_size
+        if not self.drop_last and n_samples % self.batch_size:
             n += 1
         return n
 
@@ -210,6 +218,12 @@ class DiffusionDataLoader:
         order = np.arange(len(self.samples))
         if self.shuffle:
             self._rng.shuffle(order)
+        count = process_count()
+        if count > 1:
+            n_full = len(order) // count  # the smallest rank's slice
+            order = order[process_index()::count]
+            if self.drop_last:
+                order = order[:n_full - n_full % self.batch_size]
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             for start in range(0, len(order), self.batch_size):
                 idx = order[start : start + self.batch_size]

@@ -3,7 +3,10 @@
 
 Counterpart of ``genima_tpu/diffusion/driver.py`` for the SD and SDXL
 ControlNet fine-tunes (``variant="sd"`` / ``"sdxl"``) and the
-InstructPix2Pix UNet fine-tune (``variant="pix2pix"``) on one device: seed,
+InstructPix2Pix UNet fine-tune (``variant="pix2pix"``), on one device or
+data-parallel with one process per GPU (``torchrun --nproc_per_node=N``):
+the process group first (``core.distributed.initialize``, a no-op
+without a launcher), then seed,
 dataset and loader, models (seeded random
 weights, then base weights from ``--pretrained_model_name_or_path`` when it
 is a directory), the ControlNet from ``--controlnet_model_name_or_path`` or
@@ -30,6 +33,15 @@ model is ``controlnet``, or pix2pix's ``unet``. Metrics go to
 TensorBoard / W&B where installed. Checkpoints are the JAX package's trees
 (``diffusion/train_state.py``; pix2pix's EMA as ``ema.msgpack`` beside
 them), so either package resumes the other's.
+
+Under N processes each rank steps on its own strided slice of the data at
+``--train_batch_size`` (the global batch is N times that), the gradients
+are averaged over the group, and the JAX driver's scalings hold with
+``n_dev = N``: ``--scale_lr`` multiplies by N too, and the schedule's
+warmup and length are N times the steps. Rank 0 alone logs, validates and
+writes checkpoints; a SIGTERM on any rank stops every rank at the same
+step. A dataset too small for one global batch raises (JAX falls back to
+one device, which a launched world cannot do).
 """
 
 from __future__ import annotations
@@ -43,7 +55,9 @@ import torch
 
 from genima_torch import resolve_device
 from genima_torch.core import checkpoint as ckpt
+from genima_torch.core import distributed as dist
 from genima_torch.core.logging import MetricLogger
+from genima_torch.core.mesh import process_mesh
 from genima_torch.core.preemption import PreemptionGuard
 from genima_torch.core.rng import seed_everything
 from genima_torch.data.dataset import DevicePrefetcher, DiffusionDataLoader, index_rendered_dataset
@@ -142,10 +156,13 @@ def init_model_params(pipe: SDControlNetPipeline, args, tree: Optional[dict] = N
     return params
 
 
-def train_config(args, max_steps: int) -> TrainConfig:
+def train_config(args, max_steps: int, n_dev: int = 1) -> TrainConfig:
+    """The trainer's config; ``n_dev`` data-parallel processes scale the
+    learning rate (under ``--scale_lr``), the warmup and the schedule's
+    length as the JAX driver scales them by its device count."""
     lr = args.learning_rate
     if args.scale_lr:
-        lr *= args.gradient_accumulation_steps * args.train_batch_size
+        lr *= args.gradient_accumulation_steps * args.train_batch_size * n_dev
     return TrainConfig(
         learning_rate=lr,
         adam_beta1=args.adam_beta1,
@@ -158,8 +175,8 @@ def train_config(args, max_steps: int) -> TrainConfig:
         lr_scheduler=args.lr_scheduler,
         lr_num_cycles=args.lr_num_cycles,
         lr_power=args.lr_power,
-        lr_warmup_steps=args.lr_warmup_steps,
-        max_train_steps=max_steps,
+        lr_warmup_steps=args.lr_warmup_steps * n_dev,
+        max_train_steps=max_steps * n_dev,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
         timestep_spacing=args.timestep_spacing,
         train_timestep_grid=(
@@ -174,15 +191,15 @@ def train_config(args, max_steps: int) -> TrainConfig:
 
 
 def make_trainer(args, variant: str, pipe: SDControlNetPipeline, cfg: TrainConfig,
-                 tokenizer) -> ControlNetTrainer:
+                 tokenizer, mesh=None) -> ControlNetTrainer:
     """The variant's trainer; pix2pix's null prompt is the tokenizer's ``""``."""
     if variant == "sdxl":
-        return SDXLControlNetTrainer(pipe, cfg, args.resolution)
+        return SDXLControlNetTrainer(pipe, cfg, args.resolution, mesh=mesh)
     if variant == "pix2pix":
-        return Pix2PixTrainer(pipe, cfg,
+        return Pix2PixTrainer(pipe, cfg, mesh,
                               conditioning_dropout_prob=args.conditioning_dropout_prob,
                               use_ema=args.use_ema, null_token_ids=tokenizer([""]))
-    return ControlNetTrainer(pipe, cfg)
+    return ControlNetTrainer(pipe, cfg, mesh)
 
 
 # -- checkpoints --------------------------------------------------------------------
@@ -317,7 +334,10 @@ def run_training(
     ``init_model_params``; ``step_hook(step, state, metrics)`` runs after
     every step; ``preemption`` defaults to a guard installed on SIGTERM for
     the run (a caller's guard is polled, not installed)."""
-    device = resolve_device(args.device)
+    device = dist.process_device(args.device)
+    dist.initialize(device=device)  # a no-op without a launcher
+    device = resolve_device(device)
+    world = dist.process_count()
     if args.seed is not None:
         seed_everything(args.seed)
     tokenizer = load_tokenizer(args.tokenizer_name, model_dir=args.pretrained_model_name_or_path)
@@ -326,10 +346,12 @@ def run_training(
     if len(loader) == 0:
         raise ValueError(
             f"{len(loader.samples)} samples cannot fill one batch of {args.train_batch_size}"
+            + (f" on each of {world} processes" if world > 1 else "")
         )
     max_steps = args.max_train_steps or args.num_train_epochs * len(loader)
-    cfg = train_config(args, max_steps)
-    trainer = make_trainer(args, variant, pipe, cfg, tokenizer)
+    cfg = train_config(args, max_steps, world)
+    mesh = process_mesh(pipe.device) if dist.group_active() else None
+    trainer = make_trainer(args, variant, pipe, cfg, tokenizer, mesh)
     subdir = trainer.TRAINED[0]
     params = params if params is not None else init_model_params(pipe, args)
     state = trainer.create_state(params)
@@ -377,12 +399,15 @@ def run_training(
                         train_state=state_tree, total_limit=args.checkpoints_total_limit,
                         extra=extra_trees(trainer, state),
                     )
-                    print(f"Saving state to checkpoint-{step} (async)")
-                if args.validation_steps and step % args.validation_steps == 0:
+                    if dist.is_main_process():
+                        print(f"Saving state to checkpoint-{step} (async)")
+                if (args.validation_steps and step % args.validation_steps == 0
+                        and dist.is_main_process()):
                     trainer.sync_working_copy(state)  # the updated master weights
                     val_mse = log_validation(pipe, {**trainer.frozen, subdir: trainer.model},
                                              loader, args, logger, step)
-                if guard.requested:
+                if dist.any_process(guard.requested, pipe.device):
+                    guard.request()  # every rank leaves at this step
                     writer.wait()
                     model_tree, state_tree = checkpoint_trees(trainer, state)
                     ckpt.save_step_checkpoint(

@@ -38,6 +38,7 @@ import math
 import torch
 
 from genima_torch.core import checkpoint as ckpt
+from genima_torch.core.mesh import shard_batch
 from genima_torch.data.dataset import to_device
 from genima_torch.diffusion import train_state as ts
 from genima_torch.diffusion.schedulers import add_noise, get_velocity
@@ -55,14 +56,14 @@ class VAETrainer(ControlNetTrainer):
 
     TRAINED = ("vae", "diffusers_vae")
 
-    def __init__(self, pipe, cfg: TrainConfig, kl_weight: float = 1e-6):
-        super().__init__(pipe, cfg)
+    def __init__(self, pipe, cfg: TrainConfig, mesh=None, kl_weight: float = 1e-6):
+        super().__init__(pipe, cfg, mesh)
         self.kl_weight = kl_weight
 
     def sample_draws(self, bsz: int, resolution: int, generator: torch.Generator) -> Draws:
-        h = resolution // self.pipe.vae_scale_factor
-        shape = (bsz, h, h, self.pipe.vae_cfg.latent_channels)
-        return Draws(sample_noise=torch.randn(shape, generator=generator, device=generator.device),
+        gb, rows = self.global_rows(bsz)
+        return Draws(sample_noise=torch.randn(self.latent_shape(gb, resolution),
+                                              generator=generator, device=generator.device)[rows],
                      noise=None, timesteps=None)
 
     def loss(self, batch: dict[str, Any], draws: Draws) -> torch.Tensor:
@@ -114,7 +115,8 @@ def _run_stage(trainer: ControlNetTrainer, params: dict, loader, steps: int, tag
                step_hook: Optional[Callable], what: str = "pretrain") -> None:
     """``steps`` steps of ``trainer`` on ``loader``'s batches (cycled), its
     draws from a generator seeded with ``seed``; the trained module then
-    holds the final master weights (frozen), and ``masters[tag]`` them."""
+    holds the final master weights (frozen), and ``masters[tag]`` them.
+    With the trainer's mesh, each batch goes through ``shard_batch``."""
     pipe = trainer.pipe
     state = trainer.create_state(params)
     generator = torch.Generator(device=pipe.device).manual_seed(seed)
@@ -125,7 +127,9 @@ def _run_stage(trainer: ControlNetTrainer, params: dict, loader, steps: int, tag
         except StopIteration:
             it = iter(loader)
             batch = next(it)
-        state, metrics = trainer.train_step(state, to_device(batch, pipe.device), generator)
+        batch = (shard_batch(batch, trainer.mesh)[0] if trainer.mesh is not None
+                 else to_device(batch, pipe.device))
+        state, metrics = trainer.train_step(state, batch, generator)
         if step_hook is not None:
             step_hook(tag, step + 1, state, metrics)
         if step % log_every == 0 or step == steps - 1:
@@ -149,6 +153,7 @@ def pretrain_base_model(
     train_timestep_grid: Optional[tuple[int, ...]] = None,
     masters: Optional[dict] = None,
     step_hook: Optional[Callable[[str, int, TrainState, dict], None]] = None,
+    mesh=None,
 ) -> dict:
     """Train the VAE, then the UNet, on ``loader``'s batches (cycled);
     returns ``params`` with both modules holding the trained weights. The
@@ -156,7 +161,9 @@ def pretrain_base_model(
     space the trained VAE defines. Each stage draws from a generator seeded
     with ``seed``. ``masters``, when given, receives each stage's f32
     master weights (name -> tensors) for ``save_base_model``;
-    ``step_hook(stage, step, state, metrics)`` runs after every step."""
+    ``step_hook(stage, step, state, metrics)`` runs after every step.
+    ``mesh`` (``core/mesh.py::process_mesh``) trains data-parallel over the
+    process group, each rank on its loader's batches."""
 
     def run(trainer, steps: int, tag: str) -> None:
         _run_stage(trainer, params, loader, steps, tag, seed, log_every, masters, step_hook)
@@ -164,11 +171,11 @@ def pretrain_base_model(
     run(VAETrainer(pipe, TrainConfig(
         learning_rate=vae_lr, max_train_steps=vae_steps, lr_scheduler="cosine",
         lr_warmup_steps=min(50, vae_steps // 4), adam_weight_decay=0.0,
-    )), vae_steps, "vae")
+    ), mesh), vae_steps, "vae")
     run(UNetPretrainer(pipe, TrainConfig(
         learning_rate=unet_lr, max_train_steps=unet_steps, lr_scheduler="cosine",
         lr_warmup_steps=min(50, unet_steps // 4), train_timestep_grid=train_timestep_grid,
-    )), unet_steps, "unet")
+    ), mesh), unet_steps, "unet")
     return params
 
 
@@ -215,15 +222,17 @@ def distill_tiny_vae(
     log_every: int = 50,
     masters: Optional[dict] = None,
     step_hook: Optional[Callable[[str, int, TrainState, dict], None]] = None,
+    mesh=None,
 ) -> dict:
     """Train ``params["tiny_vae"]`` to mimic the full decoder on ``loader``'s
     images (cosine schedule, no weight decay); returns ``params`` with the
     module holding the trained weights (``masters["tiny_vae"]`` the f32
     masters, when given). ``tiny_vae_decode_psnr`` then says whether
-    serving can decode with it for this domain."""
+    serving can decode with it for this domain. ``mesh``: as in
+    ``pretrain_base_model``."""
     cfg = TrainConfig(learning_rate=lr, max_train_steps=steps, lr_scheduler="cosine",
                       lr_warmup_steps=min(50, steps // 4), adam_weight_decay=0.0)
-    _run_stage(TinyVAEDistiller(pipe, cfg), params, loader, steps, "tiny_vae", seed, log_every,
+    _run_stage(TinyVAEDistiller(pipe, cfg, mesh), params, loader, steps, "tiny_vae", seed, log_every,
                masters, step_hook, what="distill")
     return params
 

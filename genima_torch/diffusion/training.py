@@ -29,6 +29,16 @@ on both frozen text encoders and SDXL's ``add_time_ids``.
 ``Pix2PixTrainer`` trains the whole 8-channel InstructPix2Pix UNet with
 conditioning dropout (its ``random_p`` draw an input too) and an optional
 EMA of the f32 master weights, ``TrainState.ema``.
+
+Data parallelism (``mesh=``, one process per GPU, ``core/mesh.py::
+process_mesh``): each rank steps on its local batch; every draw with a
+batch axis is made at the global batch from the generator every rank seeds
+alike, and rank r takes rows ``[r b, (r + 1) b)``, so a step of N ranks is
+one step on the concatenated batch, as JAX's sharded step draws one key
+for the global batch. Whenever a process group is live the f32 gradients
+and the loss are averaged over it (``core.distributed.all_reduce_mean_``)
+before the clip, so the clip sees the global batch's gradient, and every
+rank applies the same update (the EMA after it).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from genima_torch.core.distributed import all_reduce_mean_
 from genima_torch.core.optim import AdamW, AdamW8bit, Clipped, MultiSteps
 from genima_torch.data.augment import (
     ControlNetAugmentDraws, controlnet_train_augment, parse_augmentations,
@@ -203,7 +214,7 @@ class ControlNetTrainer:
 
     TRAINED = ("controlnet", "diffusers_controlnet")
 
-    def __init__(self, pipe, cfg: TrainConfig):
+    def __init__(self, pipe, cfg: TrainConfig, mesh=None):
         if not pipe.vae_encoder:
             raise ValueError("the trainer needs a pipeline built with vae_encoder=True")
         if cfg.scheduler_config.prediction_type not in ("epsilon", "v_prediction"):
@@ -211,6 +222,7 @@ class ControlNetTrainer:
         parse_augmentations(cfg.augmentations)  # raises on an unknown name
         self.pipe = pipe
         self.cfg = cfg
+        self.mesh = mesh
         self.alphas_cumprod = torch.from_numpy(
             make_alphas_cumprod(cfg.scheduler_config)
         ).to(pipe.device)
@@ -245,14 +257,27 @@ class ControlNetTrainer:
         self.tx = self._make_tx(layout_perms(master, self.paths))
         return TrainState(params=master, opt_state=self.tx.init(master))
 
-    def sample_draws(self, bsz: int, resolution: int, generator: torch.Generator) -> Draws:
+    def global_rows(self, bsz: int) -> tuple[int, slice]:
+        """(the global batch, this process's rows of it) for a local batch
+        of ``bsz``: (bsz, all) without a mesh."""
+        if self.mesh is None:
+            return bsz, slice(None)
+        per_row = bsz // self.mesh.devices.shape[0]
+        start = self.mesh.data_offset * per_row
+        return per_row * self.mesh.n_data, slice(start, start + bsz)
+
+    def latent_shape(self, bsz: int, resolution: int) -> tuple[int, ...]:
         h = resolution // self.pipe.vae_scale_factor
-        shape = (bsz, h, h, self.pipe.vae_cfg.latent_channels)
+        return (bsz, h, h, self.pipe.vae_cfg.latent_channels)
+
+    def sample_draws(self, bsz: int, resolution: int, generator: torch.Generator) -> Draws:
+        gb, rows = self.global_rows(bsz)
+        shape = self.latent_shape(gb, resolution)
         dev = generator.device
         return Draws(
-            sample_noise=torch.randn(shape, generator=generator, device=dev),
-            noise=torch.randn(shape, generator=generator, device=dev),
-            timesteps=sample_train_timesteps(self.cfg, generator, bsz),
+            sample_noise=torch.randn(shape, generator=generator, device=dev)[rows],
+            noise=torch.randn(shape, generator=generator, device=dev)[rows],
+            timesteps=sample_train_timesteps(self.cfg, generator, gb)[rows],
             augment=(sample_controlnet_augment_draws(
                 self.cfg.augmentations, resolution, resolution, generator)
                 if self.cfg.augmentations else None),
@@ -337,6 +362,7 @@ class ControlNetTrainer:
         self, state: TrainState, batch: dict[str, Any], draws: Draws
     ) -> tuple[TrainState, dict[str, Any]]:
         loss, grads = self.gradients(state, batch, draws)
+        (loss,) = all_reduce_mean_(grads, loss)  # the global batch's, before the clip
         # grad_norm: of this mini-step's gradients, before the clip
         opt_state, grad_norm = self.tx.step_(state.params, grads, state.opt_state)
         metrics = {"loss": loss, "lr": self.lr_schedule(state.step), "grad_norm": grad_norm}
@@ -358,8 +384,8 @@ class SDXLControlNetTrainer(ControlNetTrainer):
     encoders run inside the step, as in the JAX package (the reference
     precomputes the embeddings and frees the encoders, the same numbers)."""
 
-    def __init__(self, pipe, cfg: TrainConfig, resolution: int = 512):
-        super().__init__(pipe, cfg)
+    def __init__(self, pipe, cfg: TrainConfig, resolution: int = 512, mesh=None):
+        super().__init__(pipe, cfg, mesh)
         self.resolution = resolution
 
     def text_condition(self, ids: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -383,9 +409,10 @@ class Pix2PixTrainer(ControlNetTrainer):
 
     TRAINED = ("unet", "diffusers_unet")
 
-    def __init__(self, pipe, cfg: TrainConfig, conditioning_dropout_prob: Optional[float] = 0.05,
-                 use_ema: bool = False, ema_decay: float = 0.9999, null_token_ids=None):
-        super().__init__(pipe, cfg)
+    def __init__(self, pipe, cfg: TrainConfig, mesh=None,
+                 conditioning_dropout_prob: Optional[float] = 0.05, use_ema: bool = False,
+                 ema_decay: float = 0.9999, null_token_ids=None):
+        super().__init__(pipe, cfg, mesh)
         self.conditioning_dropout_prob = conditioning_dropout_prob
         self.use_ema = use_ema
         self.ema_decay = ema_decay
@@ -400,14 +427,14 @@ class Pix2PixTrainer(ControlNetTrainer):
         return state
 
     def sample_draws(self, bsz: int, resolution: int, generator: torch.Generator) -> Draws:
-        h = resolution // self.pipe.vae_scale_factor
-        shape = (bsz, h, h, self.pipe.vae_cfg.latent_channels)
+        gb, rows = self.global_rows(bsz)
+        shape = self.latent_shape(gb, resolution)
         dev = generator.device
         return Draws(
-            sample_noise=torch.randn(shape, generator=generator, device=dev),
-            noise=torch.randn(shape, generator=generator, device=dev),
-            timesteps=sample_train_timesteps(self.cfg, generator, bsz),
-            random_p=(torch.rand(bsz, generator=generator, device=dev)
+            sample_noise=torch.randn(shape, generator=generator, device=dev)[rows],
+            noise=torch.randn(shape, generator=generator, device=dev)[rows],
+            timesteps=sample_train_timesteps(self.cfg, generator, gb)[rows],
+            random_p=(torch.rand(gb, generator=generator, device=dev)[rows]
                       if self.conditioning_dropout_prob else None),
         )
 

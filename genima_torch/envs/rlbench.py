@@ -3,12 +3,30 @@
 Counterpart of ``genima_tpu/envs/rlbench.py::make_factory`` for the fake
 env and the rendered-demo factory (demos from an on-disk dataset tree,
 closed-loop envs from ``env.eval_env_factory``). The RLBench simulator
-(CoppeliaSim / PyRep) is not driven by the port, and asking for it raises.
+(CoppeliaSim / PyRep) is not driven by the port: asking for it meets the
+gate JAX meets without RLBench installed and raises ``SimulatorMissing``
+(an ``ImportError``, as JAX's gate raises). With ``env.colosseum_use`` the
+factory takes ``env.colosseum_task_config`` (a Colosseum config: a YAML
+path, or a name of ``cfgs.COLOSSEUM``), as JAX's does, before the gate.
 """
 
 from __future__ import annotations
 
 CAMERAS = ("wrist", "front", "right_shoulder", "left_shoulder")
+
+
+class SimulatorMissing(ImportError, NotImplementedError):
+    """The RLBench simulator is not there: JAX's gate raises ImportError."""
+
+
+def _require_rlbench(colosseum_task_config=None):
+    extra = (f" (Colosseum config {colosseum_task_config!r} needs it too)"
+             if colosseum_task_config else "")
+    raise SimulatorMissing(
+        "rlbench/pyrep are not installed; install CoppeliaSim + PyRep + RLBench or use "
+        "env.factory=fake. The port does not drive the RLBench simulator (CoppeliaSim, "
+        "PyRep): use env.factory=fake, or env.factory=rendered with env.dataset_root and "
+        f"env.eval_env_factory=fake{extra}")
 
 
 def _train_tasks(env_cfg: dict) -> list[str]:
@@ -26,7 +44,7 @@ def make_factory(env_cfg: dict):
     """``env.factory: fake`` -> ``FakeRLBenchFactory``; ``rendered`` ->
     ``RenderedDemoFactory`` over ``env.dataset_root``, its eval envs from
     the factory ``env.eval_env_factory`` names; any other factory raises,
-    naming what is missing."""
+    naming what is missing (``SimulatorMissing``)."""
     kind = env_cfg.get("factory", "rlbench")
     tasks = _train_tasks(env_cfg)
     if kind == "fake":
@@ -57,7 +75,6 @@ def make_factory(env_cfg: dict):
             cameras=tuple(env_cfg.get("cameras", CAMERAS)),
             eval_factory=eval_factory,
         )
-    raise NotImplementedError(
-        f"env.factory={kind!r} needs the RLBench simulator (CoppeliaSim, PyRep), which "
-        "the port does not drive; use env.factory=fake, or env.factory=rendered with "
-        "env.dataset_root and env.eval_env_factory=fake")
+    colosseum_task_config = (env_cfg.get("colosseum_task_config")
+                             if env_cfg.get("colosseum_use") else None)
+    _require_rlbench(colosseum_task_config)

@@ -41,7 +41,15 @@ class FusedGenimaStep:
         noise=None,  # SDXL's ancestral noise (steps, n*fs, h, w, 4); else None
         num_inference_steps: int = 5,
     ):
-        target = self._gen(
+        return self._step(self._gen, self.controller, diffusion_params, controller_params,
+                          clip_params, tiled_u8, prompt_embeds, latents, qpos, lang_tokens,
+                          noise, num_inference_steps)
+
+    def _step(self, gen, controller, diffusion_params, controller_params, clip_params, tiled_u8,
+              prompt_embeds, latents, qpos, lang_tokens, noise, num_inference_steps: int):
+        """The step through ``gen`` (a ``fused_generate``) and ``controller``
+        (an ACT agent): the parts a mesh replica swaps for its device's."""
+        target = gen(
             diffusion_params, tiled_u8, prompt_embeds, latents, noise,
             num_inference_steps=num_inference_steps,
         )  # (n*fs, 2S, 2S, 3) uint8
@@ -50,7 +58,7 @@ class FusedGenimaStep:
         fs, v = cams.shape[0] // n, cams.shape[1]
         # per env: camera-major, then frame order
         act_images = cams.reshape(n, fs, v, s, s, 3).transpose(1, 2).reshape(n, v * fs, s, s, 3)
-        actions = self.controller._act_impl(
+        actions = controller._act_impl(
             controller_params, clip_params, act_images, qpos, lang_tokens
         )
         return actions, target

@@ -26,12 +26,22 @@ On real simulators each env lives in a spawned child
 (``envs/subprocess_env.py``; ``cli/eval_genima.py`` builds them), with the
 demo restore and the observation's re-wrap done there. Classifier-free
 guidance (``guidance_scale > 1``) needs the serial harness: the batched
-step runs positive prompts only. Mesh serving (JAX's ``mesh=``) is not
-ported.
+step runs positive prompts only.
+
+Mesh serving (``mesh=``, a ``core/mesh.py`` (data x fsdp) mesh): the
+lockstep batch is split into ``data`` contiguous chunks, one per data row;
+each row has its replica of both agents on its device and its own
+``DeviceWorker``, and the rows run at once. Parameters are placed once per
+tree identity: copied to each row's device, or, with ``fsdp > 1``, the
+diffusion weights split by output features over the row's devices
+(``core/tp.py``). Actions and targets come back to the host in env order.
+``num_parallel_envs`` must be a multiple of the data rows.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -40,6 +50,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from genima_torch.core import distributed as dist
 from genima_torch.envs.wrappers import rewrap_obs
 from genima_torch.eval.fused import FusedGenimaStep
 from genima_torch.eval.harness import GenimaEvalWorkspace
@@ -60,7 +71,127 @@ class BatchedGenimaStep(FusedGenimaStep):
     chunks and the (N*fs, 2S, 2S, 3) targets. The call signature is
     ``FusedGenimaStep``'s, under ``torch.inference_mode``. The port decodes
     the whole batch in one pass, so JAX's ``decode_mode`` has no
-    counterpart here."""
+    counterpart here.
+
+    With ``mesh``, data row r runs rows ``[r N/D, (r+1) N/D)`` of the batch
+    on its device (a replica of each agent there, its own worker thread),
+    and the call returns host tensors in env order."""
+
+    def __init__(self, diffusion_agent, controller_agent, obs_size: int = 256, mesh=None):
+        super().__init__(diffusion_agent, controller_agent, obs_size)
+        self.mesh = mesh
+        self._param_key = None
+        self._param_cache = None
+        self._rows = []
+        if mesh is not None:
+            for dev in mesh.data_devices:
+                self._rows.append((_replica(diffusion_agent, dev, pipe=True).fused_generate,
+                                   _replica(controller_agent, dev), DeviceWorker(dev)))
+
+    def close(self) -> None:
+        for *_, worker in self._rows:
+            worker.close()
+
+    def placed(self, diffusion_params, controller_params, clip_params) -> list:
+        """Per data row, the three param trees on its devices, made once per
+        tree identity (the key holds the trees themselves, so a reloaded
+        checkpoint can never meet a stale placement)."""
+        key = (diffusion_params, controller_params, clip_params)
+        if self._param_key is None or any(a is not b for a, b in zip(self._param_key, key)):
+            from genima_torch.core.mesh import FSDP_AXIS, replicated
+            from genima_torch.core.tp import shard_params_tp
+
+            rep = replicated(self.mesh)
+            if self.mesh.shape[FSDP_AXIS] > 1:
+                dps = [shard_params_tp(diffusion_params, self.mesh, row=r)
+                       for r in range(len(self._rows))]
+            else:
+                dps = rep.place(diffusion_params)
+            self._param_cache = list(zip(dps, rep.place(controller_params),
+                                         rep.place(clip_params)))
+            self._param_key = key
+        return self._param_cache
+
+    def _split(self, args: tuple, noise):
+        """The batch arguments (tiled, embeds, latents, qpos, lang) and the
+        noise (batch on axis 1) as one chunk per data row."""
+        from genima_torch.core.mesh import shard_batch
+
+        devices = self.mesh.data_devices
+        chunks = shard_batch(args, self.mesh)
+        if noise is None:
+            return chunks, [None] * len(devices)
+        noise_rows = dist.make_global_batch(noise.transpose(0, 1), devices)
+        return chunks, [n.transpose(0, 1) for n in noise_rows]
+
+    def _run_rows(self, fn, *args) -> list:
+        """``fn(r, *args)`` on every data row's worker at once; the results in
+        row order. The caller's uploads finish first."""
+        for dev in {d for d in self.mesh.data_devices if d.type == "cuda"}:
+            torch.cuda.current_stream(dev).synchronize()
+        futures = [worker.submit(fn, r, *args) for r, (*_, worker) in enumerate(self._rows)]
+        return [f.result() for f in futures]
+
+    @torch.inference_mode()
+    def __call__(self, diffusion_params, controller_params, clip_params, tiled_u8,
+                 prompt_embeds, latents, qpos, lang_tokens, noise=None,
+                 num_inference_steps: int = 5):
+        if self.mesh is None:
+            return super().__call__(diffusion_params, controller_params, clip_params, tiled_u8,
+                                    prompt_embeds, latents, qpos, lang_tokens, noise=noise,
+                                    num_inference_steps=num_inference_steps)
+        params = self.placed(diffusion_params, controller_params, clip_params)
+        chunks, noises = self._split((tiled_u8, prompt_embeds, latents, qpos, lang_tokens), noise)
+
+        def row(r):
+            gen, controller, _ = self._rows[r]
+            actions, target = self._step(gen, controller, *params[r], *chunks[r], noises[r],
+                                         num_inference_steps)
+            return actions.float().cpu(), target.cpu()
+
+        out = self._run_rows(row)
+        return torch.cat([a for a, _ in out]), torch.cat([t for _, t in out])
+
+    @torch.inference_mode()
+    def generate(self, diffusion_params, tiled_u8, prompt_embeds, latents, noise=None,
+                 num_inference_steps: int = 5) -> None:
+        """The diffusion half alone (the workspace's gen-time probe), on the
+        mesh's placed params when there is a mesh; waits for the device."""
+        if self.mesh is None:
+            self._gen(diffusion_params, tiled_u8, prompt_embeds, latents, noise,
+                      num_inference_steps=num_inference_steps)
+            return
+        params = self._param_cache
+        chunks, noises = self._split((tiled_u8, prompt_embeds, latents), noise)
+
+        def row(r):
+            self._rows[r][0](params[r][0], *chunks[r], noises[r],
+                             num_inference_steps=num_inference_steps)
+            self._rows[r][2].synchronize()
+
+        self._run_rows(row)
+
+
+def _replica(agent, device: torch.device, pipe: bool = False):
+    """``agent`` itself on its own device, else a shallow copy bound to
+    ``device`` (with a copy of its pipeline there, where it has one); the
+    params are passed to every call, so none are copied here."""
+    if torch.device(agent.device) == device:
+        return agent
+    rep = copy.copy(agent)
+    rep.device = device
+    if pipe:
+        rep.pipe = dataclasses.replace(agent.pipe, device=device)
+    return rep
+
+
+def check_mesh_divides(n_envs: int, mesh) -> None:
+    """The lockstep batch must split evenly over the mesh's data rows."""
+    n_data = mesh.shape["data"]
+    if n_envs % n_data:
+        raise ValueError(
+            f"num_parallel_envs ({n_envs}) must be a multiple of the mesh data size "
+            f"({n_data}) so the lockstep batch shards evenly")
 
 
 class DeviceWorker:
@@ -125,6 +256,7 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
         cameras=("wrist", "front", "right_shoulder", "left_shoulder"),
         logger=None,
         tokenizer=None,
+        mesh=None,
     ):
         eval_envs = list(eval_envs)
         super().__init__(eval_cfg, eval_envs[0], controller_agent, diffusion_agent,
@@ -137,6 +269,9 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
                 "guidance (guidance_scale > 1.0); use the serial harness "
                 "(num_parallel_envs=1) or guidance_scale <= 1.0"
             )
+        if mesh is not None:
+            check_mesh_divides(len(eval_envs), mesh)
+        self.mesh = mesh
         self.eval_envs = eval_envs
         self._pool = ThreadPoolExecutor(max_workers=len(eval_envs))
         self._worker = DeviceWorker(controller_agent.device)
@@ -150,13 +285,15 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
     def close(self) -> None:
         self._pool.shutdown(wait=True)
         self._worker.close()
+        if self._batched_step is not None:
+            self._batched_step.close()
 
     # -- device work (on the worker) ---------------------------------------------
 
     def _batched(self, obs_size: int) -> BatchedGenimaStep:
         if self._batched_step is None:
             self._batched_step = BatchedGenimaStep(
-                self.diffusion_agent, self.controller_agent, obs_size)
+                self.diffusion_agent, self.controller_agent, obs_size, mesh=self.mesh)
         return self._batched_step
 
     def _latent_generator(self, seed: int) -> torch.Generator:
@@ -199,8 +336,8 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
         steps = self.eval_cfg.get("num_diffusion_steps", 5)
 
         def gen():
-            dag.fused_generate(dag.params, tiled, embeds, latents, noise,
-                               num_inference_steps=steps)
+            self._batched_step.generate(dag.params, tiled, embeds, latents, noise,
+                                        num_inference_steps=steps)
             self._worker.synchronize()
 
         gen()
@@ -225,10 +362,11 @@ class ParallelGenimaEvalWorkspace(GenimaEvalWorkspace):
 
     def _cohort_partition(self, slots) -> list[list[int]]:
         """Slot-index cohorts: two halves when pipelining is on and possible
-        (the diffusion path, an even batch), else one."""
+        (the diffusion path, an even batch, halves the mesh's data rows
+        divide), else one."""
         n = len(slots)
         if (not bool(self.eval_cfg.get("eval_overlap", True)) or self.diffusion_agent is None
-                or n < 2 or n % 2):
+                or n < 2 or n % 2 or (self.mesh is not None and (n // 2) % self.mesh.shape["data"])):
             return [list(range(n))]
         return [list(range(n // 2)), list(range(n // 2, n))]
 

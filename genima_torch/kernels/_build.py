@@ -26,6 +26,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+# held while a wrapper counts a launch (several threads launch under a mesh)
+COUNT_LOCK = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # compiler output (ptxas register/smem report)
 

@@ -234,8 +234,9 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                      b, sq, k.shape[1], h, p.nwg, p.bn, p.stages, stream)
-    flash_attention.launches += 1
-    flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1
+    with _build.COUNT_LOCK:  # mesh rows launch from several threads
+        flash_attention.launches += 1
+        flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_fwd launch failed: {lib.flash_attention_error_string(rc).decode()} ({rc})")

@@ -191,8 +191,9 @@ def _launch(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fused_conv3x3(*ptrs, out.data_ptr(), bsz, h, wd, c, o, opad, p.bn, p.rows,
                                p.blocks, stream)
-    fused_conv3x3.launches += 1
-    fused_conv3x3.launches_by_shape[(bsz, h, wd, c, o)] += 1
+    with _build.COUNT_LOCK:  # mesh rows launch from several threads
+        fused_conv3x3.launches += 1
+        fused_conv3x3.launches_by_shape[(bsz, h, wd, c, o)] += 1
     if rc != 0:
         raise RuntimeError(
             f"fused_conv3x3 launch failed: {lib.fused_conv3x3_error_string(rc).decode()} ({rc})")

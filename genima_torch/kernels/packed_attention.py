@@ -295,8 +295,9 @@ def _raise_on(rc: int, what: str, error_string) -> None:
 
 
 def _count(fn, q: torch.Tensor, k: torch.Tensor) -> None:
-    fn.launches += 1
-    fn.launches_by_shape[(q.shape[0], q.shape[1], k.shape[1], q.shape[2])] += 1
+    with _build.COUNT_LOCK:  # mesh rows launch from several threads
+        fn.launches += 1
+        fn.launches_by_shape[(q.shape[0], q.shape[1], k.shape[1], q.shape[2])] += 1
 
 
 def _launch_forward(q, k, v, num_heads, with_lse: bool):

@@ -235,8 +235,9 @@ def _forward(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.T
         ws, tickets = _workspace(x.device, p, stream)
         rc = lib.w8_matmul(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
                            m, n, k, p.bt, p.split, p.stages, ws, tickets, stream.cuda_stream)
-    w8_matmul.launches += 1
-    w8_matmul.launches_by_shape[(m, k, n)] += 1
+    with _build.COUNT_LOCK:  # mesh rows launch from several threads
+        w8_matmul.launches += 1
+        w8_matmul.launches_by_shape[(m, k, n)] += 1
     if rc != 0:
         raise RuntimeError(f"w8_matmul launch failed: {lib.w8_matmul_error_string(rc).decode()} ({rc})")
     return out.reshape(*lead, n)

@@ -72,6 +72,26 @@ class RandomDropout:
         return keep.to(device)
 
 
+class GlobalRowsDropout(RandomDropout):
+    """``RandomDropout`` for one rank of a data-parallel step: a site of
+    local shape (b, ...) draws the mask of the global batch
+    (``global_batch``, ...) and keeps this rank's ``rows`` of it, so N
+    ranks together draw what one process draws on the concatenated batch."""
+
+    def __init__(self, generator: torch.Generator, global_batch: int, rows: slice,
+                 record: bool = False):
+        super().__init__(generator, record)
+        self.global_batch = global_batch
+        self.rows = rows
+
+    def __call__(self, shape, rate: float, device) -> torch.Tensor:
+        keep = torch.rand((self.global_batch, *shape[1:]), generator=self.generator,
+                          device=self.generator.device)[self.rows] < 1.0 - rate
+        if self.masks is not None:
+            self.masks.append(keep)
+        return keep.to(device)
+
+
 class ReplayDropout:
     """The masks of an earlier run (``RandomDropout(record=True).masks``),
     handed out in order; a site of another shape raises."""

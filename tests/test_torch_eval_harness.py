@@ -259,9 +259,10 @@ def test_eval_act_cli_matches_jax(trained, tmp_path):
 
 def test_cli_refuses_what_is_not_ported(trained, tmp_path):
     pdir = _copy(trained, tmp_path, "port")
-    with pytest.raises(NotImplementedError, match="eval_data_parallel"):
+    # mesh serving runs; a mesh whose data rows do not divide the envs does not
+    with pytest.raises(ValueError, match="multiple of the mesh data size"):
         eval_genima.main([f"controller_ckpt={pdir}", "device=cpu", "num_parallel_envs=2",
-                          "eval_data_parallel=true"] + CLI_ARGS)
+                          "eval_data_parallel=true", "eval_mesh_devices=3"] + CLI_ARGS)
     with pytest.raises(FileNotFoundError, match="clip_weights"):
         eval_act.main([f"controller_ckpt={pdir}", "device=cpu",
                        f"clip_weights={tmp_path / 'missing.pt'}"] + CLI_ARGS)
@@ -306,9 +307,14 @@ def test_cli_runs_with_the_no_op_keys_and_wandb(trained, tmp_path, monkeypatch, 
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["colosseum_use=true"], NotImplementedError, "colosseum_use"),
-    (["eval_data_parallel=true"], NotImplementedError, "eval_data_parallel"),
-    (["eval_tensor_parallel=2"], NotImplementedError, "eval_tensor_parallel"),
+    # the simulator gate, with JAX's error type (no RLBench here)
+    (["colosseum_use=true", "colosseum_task_config=random_camera_poses", "env.factory=rlbench"],
+     ImportError, "rlbench/pyrep are not installed"),
+    # JAX's mesh checks
+    (["eval_data_parallel=true", "eval_mesh_devices=3", "num_parallel_envs=2"], ValueError,
+     "multiple of the mesh data size"),
+    (["eval_tensor_parallel=3", "eval_mesh_devices=2", "num_parallel_envs=2"], ValueError,
+     "must divide the mesh device count"),
 ])
 def test_cli_still_refuses_the_unported_options(trained, tmp_path, argv, error, match):
     pdir = _copy(trained, tmp_path, "port")

@@ -521,10 +521,12 @@ def test_clis_refuse_mesh_serving_and_cfg(trained, tmp_path, monkeypatch):
     _tiny_clip(monkeypatch)
     pdir = _copy(trained, tmp_path, "port")
     base = [f"controller_ckpt={pdir}", "device=cpu", "num_parallel_envs=2"] + CLI_ARGS
-    with pytest.raises(NotImplementedError, match="eval_data_parallel"):
-        eval_genima.main(base + ["eval_data_parallel=true"])
-    with pytest.raises(NotImplementedError, match="eval_tensor_parallel"):
-        eval_genima.main(base + ["eval_tensor_parallel=2"])
+    # JAX's checks on the serving mesh: data rows must divide the envs, the
+    # tensor-parallel size the devices
+    with pytest.raises(ValueError, match="multiple of the mesh data size"):
+        eval_genima.main(base + ["eval_data_parallel=true", "eval_mesh_devices=3"])
+    with pytest.raises(ValueError, match="must divide the mesh device count"):
+        eval_genima.main(base + ["eval_tensor_parallel=3", "eval_mesh_devices=2"])
     with pytest.raises(ValueError, match="guidance"):
         eval_genima.main(base + TINY_AGENT + ["guidance_scale=2.0"])
     if not torch.cuda.is_available():  # the default device is the card: no fallback
