@@ -212,6 +212,22 @@
    than 1.5x the whole bf16 models are), and 3 TP control steps of
    ``BatchedGenimaStep(mesh=)`` at 105 B1 each beside 3 whole ones. One card
    cannot show multi-GPU scaling: the times say what the machinery costs.
+15. The attention kernels at SD-1.5's head dims (8 heads at 320/640/1280
+   channels: 40/80/160) and at the SD levels of 768x768 (9216 and 2304
+   tokens). Kernel checks against the plain versions: B1 at batch 1 and 4,
+   B2a (its output B1's bit for bit) and B2b (two calls bit-equal) at batch
+   4, at SD-1.5's three levels and the two 768x768 ones; B3 self and cross
+   (77 keys) at SD-1.5's four levels. Paths: (a) ``build_main_path(variant=
+   "sd15")`` (``UNetConfig.sd15``, ``CLIPTextConfig.sd15``, the SD VAE), 2
+   control steps at 105 B1 each, the noise prediction under the kernels and
+   under ``pallas`` held to the library attention, and one ``pallas`` step
+   at 230 B3 / 0 B1; (b) ``run_training(args, "sd", pipe=sd15_pipeline)``, 3
+   steps at batch 4, 512x512, 6 B1 / 15 B2a / 15 B2b a step, no fallback,
+   frozen models bit-unchanged, one step's ControlNet gradients held to the
+   library attention; (c) the SD fine-tune at ``--resolution 768``, 3 steps
+   at 4 B1 / 10 B2a / 10 B2b (level 2's 576 tokens take the library
+   attention, as in JAX); (d) 2 SD control steps at ``resolution=768``, 70
+   B1 (the untile resizes 384x384 views to 256). Peak memory of each.
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -296,6 +312,27 @@ BATCHED_CONV_SHAPES = [(PARALLEL_ENVS, *shape[1:]) for shape in CONV_SHAPES]
 BATCHED_W8_SHAPES = sorted({(PARALLEL_ENVS * m, k, n) for m, k, n in W8_SHAPES})
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention", "fused_conv",
                   "w8_matmul"]
+# phase 15: SD-1.5's geometry (8 heads at every level: head dims 40/80/160)
+SD15_LEVELS = [(1, 4096, 320, 8), (1, 1024, 640, 8), (1, 256, 1280, 8)]
+SD15_TRAIN_LEVELS = [(TRAIN_BATCH, s, c, h) for _, s, c, h in SD15_LEVELS]
+# B3 under "pallas": self-attention at the four levels, cross-attention over
+# the 77 prompt tokens (SD-1.5's 768-wide CLIP-L context)
+SD15_FLASH_SHAPES = [(1, s, s, c, 8) for s, c, _ in OPT_LEVELS] + [
+    (1, s, CONTEXT[0], c, 8) for s, c, _ in OPT_LEVELS]
+# and the SD levels at 768x768 (96x96 latents): 9216 and 2304 tokens take
+# the packed kernels, 576 (not a multiple of 128) the library attention
+RES_768 = 768
+SD768_LEVELS = [(1, 9216, 320, 5), (1, 2304, 640, 10)]
+SD768_TRAIN_LEVELS = [(TRAIN_BATCH, s, c, h) for _, s, c, h in SD768_LEVELS]
+SD15_STEPS = 2  # SD-1.5 control steps on the default backend
+SD15_TRAIN_STEPS = 3
+# the opt-in step ("pallas"): every attention through B3, as phase 5's B3
+SD15_OPT_LAUNCHES = {"B1": 0, "B3": OPT_LAUNCHES["B3"]}
+# at 768x768 two of the three levels take B1: 7 a level a denoise step x 5
+SD768_LAUNCHES_PER_STEP = 70
+SD768_STEPS = 2  # control steps (the first carries the new shapes' warm-up)
+# per train step at batch 4: phase 6's pins at two levels of three
+SD768_TRAIN_LAUNCHES = {"B1": 4, "B2a": 10, "B2b": 10, "fallbacks": 0}
 CONV_REL_TOL = 2e-2  # bf16 activation and output roundings: error / max |y|
 W8_REL_TOL = 1e-2  # bf16 output rounding: error / max |y|
 OPT_REL_TOL = 5e-2  # each kernel vs the library path through a full model
@@ -318,21 +355,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _forward_report(pa, b: int, s: int, h: int, with_lse: bool) -> dict:
+def _forward_report(pa, b: int, s: int, h: int, d: int, with_lse: bool) -> dict:
     """B1's or B2a's launch plan at a shape, the shared memory its kernel
     asks for (held to ``forward_plan``'s count) and its ptxas registers and
     spills."""
     from genima_torch.kernels import _build
 
-    plan = pa.forward_plan(b, s, s, h)
-    smem = pa._library().packed_attention_smem_bytes(plan.nwg, plan.bn, plan.stages)
+    plan = pa.forward_plan(b, s, s, h, d)
+    smem = pa._library().packed_attention_smem_bytes(plan.nwg, plan.bn, plan.stages, d)
     if smem != plan.smem_bytes:
         raise AssertionError(f"packed forward plan's shared memory {plan.smem_bytes} != {smem}")
     regs = ptxas_report(_build.build_log("packed_attention"))
     return {
         "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
-                 "stages": plan.stages, "blocks": plan.blocks},
-        "smem_bytes": smem, **regs.get(f"{plan.nwg}x{plan.bn}x{int(with_lse)}", {}),
+                 "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms},
+        "smem_bytes": smem,
+        **regs.get(f"{plan.atoms}x{plan.nwg}x{plan.bn}x{int(with_lse)}", {}),
     }
 
 
@@ -342,7 +380,7 @@ def _b1_row(pa, q, k, v, h, err: float) -> dict:
     b, s, c = q.shape
     iters = 100 if b == 1 else 50
 
-    def library():  # SDPA on (B, heads, S, 64) views, back to the packed layout
+    def library():  # SDPA on (B, heads, S, d) views, back to the packed layout
         return F.scaled_dot_product_attention(
             *(x.view(b, s, h, c // h).transpose(1, 2) for x in (q, k, v))
         ).transpose(1, 2).reshape(b, s, c)
@@ -363,7 +401,7 @@ def _b1_row(pa, q, k, v, h, err: float) -> dict:
         "library_ms": cuda_ms(library, iters),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        **_forward_report(pa, b, s, h, with_lse=False),
+        **_forward_report(pa, b, s, h, c // h, with_lse=False),
     }
 
 
@@ -385,73 +423,94 @@ def kernel_phase(pa, levels=SD_LEVELS, seed: int = 0) -> list[dict]:
     return rows
 
 
-def path_phase(pa) -> dict:
+def _sd_serve(pa, variant: str, resolution: int, steps: int, launches: int,
+              opt_in: bool) -> dict:
+    """The serving path (phase 3; SDXL's in phase 12, SD-1.5's and SD's at
+    768x768 in phase 15): control steps of ``build_main_path(variant=,
+    resolution=)``, B1 pinned at ``launches`` a step; one denoise step's
+    noise prediction against the library attention. With ``opt_in``, the
+    same models under ``backend="pallas"`` too: that noise prediction held
+    likewise, and one control step with B3 pinned (``SD15_OPT_LAUNCHES``)."""
     from genima_torch.eval.main_path import build_main_path
+    from genima_torch.kernels import flash_attention as fa
     from genima_torch.nn.layers import set_attention_backend
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    step, args = build_main_path(device="cuda", seed=0)
+    step, args = build_main_path(device="cuda", seed=0, variant=variant, resolution=resolution)
     torch.cuda.synchronize()
-    setup_s = time.time() - t0
+    out = {"setup_s": time.time() - t0, "params": {
+        k: sum(p.numel() for p in m.parameters()) for k, m in args["diffusion_params"].items()}}
 
-    pa.packed_flash_attention.launches = 0
-    pa.packed_flash_attention.launches_by_shape.clear()
-    step_ms, host_ms = [], []
-    for _ in range(PATH_STEPS):
-        before = pa.packed_flash_attention.launches
+    def timed_step():
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         h0 = time.perf_counter()
         start.record()
-        actions, target = step(**args)
+        result = step(**args)
         end.record()
         torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - h0) * 1e3)
-        step_ms.append(start.elapsed_time(end))
+        return result, start.elapsed_time(end), (time.perf_counter() - h0) * 1e3
+
+    pa.packed_flash_attention.launches = 0
+    pa.packed_flash_attention.launches_by_shape.clear()
+    step_ms, host_ms = [], []
+    for _ in range(steps):
+        before = pa.packed_flash_attention.launches
+        (actions, target), ms, host = timed_step()
+        step_ms.append(ms)
+        host_ms.append(host)
         n = pa.packed_flash_attention.launches - before
-        if n != LAUNCHES_PER_STEP:
-            raise AssertionError(f"{n} packed-attention launches in a step, want 105")
-    launches = dict(pa.packed_flash_attention.launches_by_shape)
-    total = pa.packed_flash_attention.launches
+        if n != launches:
+            raise AssertionError(f"{variant} at {resolution}: {n} B1 launches in a control "
+                                 f"step, want {launches}")
+    out["launches_by_shape"] = {"x".join(map(str, k)): v
+                                for k, v in pa.packed_flash_attention.launches_by_shape.items()}
+    if actions.shape != (1, EVAL_HORIZON, 8) or not torch.isfinite(actions).all():
+        raise AssertionError(f"{variant} actions {tuple(actions.shape)}")
+    if target.shape != (1, resolution, resolution, 3) or target.dtype != torch.uint8:
+        raise AssertionError(f"{variant} target {tuple(target.shape)} {target.dtype}")
 
-    if actions.shape != (1, 20, 8) or not torch.isfinite(actions).all():
-        raise AssertionError(f"actions {tuple(actions.shape)} finite={torch.isfinite(actions).all()}")
-    if target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8:
-        raise AssertionError(f"target {tuple(target.shape)} {target.dtype}")
-
-    # one denoise step's noise prediction: kernel vs the library attention
-    pipe = step.pipe
     unet, cn = args["diffusion_params"]["unet"], args["diffusion_params"]["controlnet"]
-    embeds = args["prompt_embeds"]
-    state = pipe.scheduler.set_timesteps(5)
-    with torch.inference_mode():
-        x = args["latents"].permute(0, 3, 1, 2) * float(state.init_noise_sigma)
-        x = pipe.scheduler.scale_model_input(state, x.contiguous(), 0).to(pipe.dtype)
-        t = torch.full((1,), float(state.timesteps[0]), device="cuda")
-        cond = args["tiled_u8"].permute(0, 3, 1, 2).to(pipe.dtype).contiguous() / 255.0
-        eps = {}
-        for backend in ("fused", "xla"):
-            set_attention_backend(unet, backend)
-            set_attention_backend(cn, backend)
-            down, mid = cn(x, t, embeds, cond, cond_is_embedded=False)
-            eps[backend] = unet(x, t, embeds, down, mid).float()
-        set_attention_backend(unet, "fused")
-        set_attention_backend(cn, "fused")
-    rel = ((eps["fused"] - eps["xla"]).abs().max() / eps["xla"].abs().max()).item()
-    if not (torch.isfinite(eps["fused"]).all() and rel <= EPS_REL_TOL):
-        raise AssertionError(f"eps kernel vs library attention: rel err {rel}")
-
-    return {
-        "setup_s": setup_s,
-        "step_ms": step_ms,
-        "host_step_ms": host_ms,
-        "launches_total": total,
-        "launches_by_shape": {"x".join(map(str, k)): v for k, v in launches.items()},
-        "eps_rel_err_vs_library_attention": rel,
-        "actions_abs_max": actions.abs().max().item(),
-        "target_mean": target.float().mean().item(),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-    }
+    backends = ("fused", "pallas", "xla") if opt_in else ("fused", "xla")
+    eps = {}
+    for backend in backends:
+        set_attention_backend(unet, backend)
+        set_attention_backend(cn, backend)
+        eps[backend] = _denoise_eps(step.pipe, unet, cn, args)
+    rel = {b: _rel_err(eps[b], eps["xla"]) for b in backends if b != "xla"}
+    for b, r in rel.items():
+        if not (torch.isfinite(eps[b]).all() and r <= EPS_REL_TOL):
+            raise AssertionError(f"{variant} eps {b} vs library attention: rel err {r}")
+    del eps
+    if opt_in:
+        set_attention_backend(unet, "pallas")
+        set_attention_backend(cn, "pallas")
+        fa.flash_attention.launches = 0
+        fa.flash_attention.launches_by_shape.clear()
+        before = pa.packed_flash_attention.launches
+        (actions, target), ms, host = timed_step()
+        counts = {"B1": pa.packed_flash_attention.launches - before,
+                  "B3": fa.flash_attention.launches}
+        if counts != SD15_OPT_LAUNCHES:
+            raise AssertionError(f"{variant} opt-in step launches {counts}, "
+                                 f"want {SD15_OPT_LAUNCHES}")
+        if not torch.isfinite(actions).all() or target.dtype != torch.uint8:
+            raise AssertionError(f"{variant} opt-in step: actions finite "
+                                 f"{torch.isfinite(actions).all().item()}, target {target.dtype}")
+        out["opt_in"] = {"step_ms": ms, "host_step_ms": host, "launches": counts,
+                         "eps_rel_err_vs_library_attention": rel["pallas"],
+                         "launches_by_shape": {"x".join(map(str, k)): v for k, v in
+                                               fa.flash_attention.launches_by_shape.items()}}
+    set_attention_backend(unet, "fused")
+    set_attention_backend(cn, "fused")
+    out.update(step_ms=step_ms, host_step_ms=host_ms,
+               eps_rel_err_vs_library_attention=rel["fused"],
+               actions_abs_max=actions.abs().max().item(),
+               target_mean=target.float().mean().item(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
 
 
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -459,23 +518,22 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
 
 
-def _bwd_kernel_report() -> dict:
-    """ptxas registers and spills of B2b's two kernels and the shared memory
-    each asks for (held to ``backward_plan``'s count), keyed "dq" and
-    "dkdv"."""
+def _bwd_kernel_report(d: int = 64) -> dict:
+    """ptxas registers and spills of B2b's two kernels at head dim d and the
+    shared memory each asks for (held to ``backward_plan``'s count), keyed
+    "dq" and "dkdv"."""
     from genima_torch.kernels import _build
     from genima_torch.kernels import packed_attention as pa
 
     lib = pa._bwd_library()
     report = ptxas_report(_build.build_log("packed_attention_bwd"))
-    plan = pa.backward_plan(1, 64, 64, 1)
+    plan = pa.backward_plan(1, 64, 64, 1, d)
     out = {}
     for name, dkdv in (("dq", 0), ("dkdv", 1)):
-        smem = lib.packed_attention_bwd_smem_bytes(dkdv)
+        smem = lib.packed_attention_bwd_smem_bytes(dkdv, d)
         if smem != getattr(plan, f"{name}_smem_bytes"):
             raise AssertionError(f"B2b {name} kernel's shared memory {smem} != backward_plan's")
-        regs = next((r for k, r in report.items() if f"_{name}_kernel" in k), {})
-        out[name] = {**regs, "smem_bytes": smem}
+        out[name] = {**report.get(f"{name}{plan.atoms}", {}), "smem_bytes": smem}
     return out
 
 
@@ -483,15 +541,15 @@ def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
     """B2a, B1 and B2b at the three SD levels at batch 4 (or ``levels``')."""
     import torch.nn.functional as F
 
-    bwd_report = _bwd_kernel_report()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for b, s, c, h in levels:
+        bwd_report = _bwd_kernel_report(c // h)
         q, k, v, do = (
             torch.randn(b, s, c, generator=gen, device="cuda").bfloat16() for _ in range(4)
         )
         shape = f"{b}x{s}x{c}/{h}"
-        bp = pa.backward_plan(b, s, s, h)
+        bp = pa.backward_plan(b, s, s, h, c // h)
 
         # B2a: o and L against the plain version
         o, lse = pa.packed_attention_forward_lse(q, k, v, h)
@@ -522,7 +580,7 @@ def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            **_forward_report(pa, b, s, h, with_lse=True),
+            **_forward_report(pa, b, s, h, c // h, with_lse=True),
         })
         # B1 at batch 4 (the UNet down blocks' attention, which needs no gradient)
         rows.append(_b1_row(pa, q, k, v, h, (o1.float() - o_ref.float()).abs().max().item()))
@@ -562,7 +620,7 @@ def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "plan": {"kernels": "dq, then dk/dv", "rows_per_block": pa.BWD_BLOCK_ROWS,
-                     "stages": pa.BWD_STAGES,
+                     "stages": bp.stages, "head_atoms": bp.atoms, "dkdv_passes": bp.passes,
                      "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
             **bwd_report,
         })
@@ -578,7 +636,8 @@ def ptxas_report(log: str) -> dict[str, dict]:
     """Registers and spills of each kernel instantiation in an ``nvcc
     -Xptxas -v`` log, keyed by its template arguments ("128" for
     ``w8_matmul_kernel<128>``, "128x2" for ``fused_conv3x3_kernel<128, 2>``,
-    "2x128x1" for ``attention_fwd_kernel<2, 128, true>``)."""
+    "1x2x128x1" for ``attention_fwd_kernel<1, 2, 128, true>``; B2b's two
+    kernels "dq1" / "dkdv1" for ``packed_attention_bwd_dq_kernel<1>``)."""
     import re
 
     out, key = {}, None
@@ -586,6 +645,9 @@ def ptxas_report(log: str) -> dict[str, dict]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             key = "x".join(re.findall(r"L[ib](\d+)E", m.group(1))) or m.group(1)
+            kind = re.search(r"packed_attention_bwd_(dq|dkdv)_kernel", m.group(1))
+            if kind:
+                key = kind.group(1) + key
             out[key] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -623,8 +685,9 @@ def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
         if not err <= ATTN_TOL:
             raise AssertionError(f"B3 {b}x{sq}x{sk}x{c}/{h}: max abs err {err}")
         heads = [t.transpose(1, 2) for t in (q, k, v)]
-        plan = fa.plan(b, sq, sk, h)
-        if fa_lib.flash_attention_smem_bytes(plan.nwg, plan.bn, plan.stages) != plan.smem_bytes:
+        plan = fa.plan(b, sq, sk, h, c // h)
+        smem = fa_lib.flash_attention_smem_bytes(plan.nwg, plan.bn, plan.stages, c // h)
+        if smem != plan.smem_bytes:
             raise AssertionError(f"B3 plan's shared memory {plan.smem_bytes} != the kernel's")
         bound_ms, bound_by = _bound(4 * b * sq * sk * c, 2 * b * (2 * sq + 2 * sk) * c)
         rows.append({
@@ -636,12 +699,12 @@ def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
             "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 50),
             "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 3),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
-            "library": "scaled_dot_product_attention forward on the same (B, H, S, 64) views",
+            "library": "scaled_dot_product_attention forward on the same (B, H, S, D) views",
             "bound_ms": bound_ms, "bound_by": bound_by,
             "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
-                     "stages": plan.stages, "blocks": plan.blocks},
+                     "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms},
             "smem_bytes": plan.smem_bytes,
-            **regs["flash_attention"].get(f"{plan.nwg}x{plan.bn}x0", {}),
+            **regs["flash_attention"].get(f"{plan.atoms}x{plan.nwg}x{plan.bn}x0", {}),
         })
 
     for b, h, w, c, o in conv_shapes:
@@ -2460,58 +2523,6 @@ SDXL_KEYS = {f"{b}x{s}x{s}x{c}" for b in (1, TRAIN_BATCH) for _, s, c, _ in SD_L
 SDXL_AGENT = "genima_torch.eval.agents.SDXLControlNetAgent"
 
 
-def _sdxl_serve(pa) -> dict:
-    """(a): control steps at sdxl-turbo width, B1 pinned, one noise
-    prediction against the library attention."""
-    from genima_torch.eval.main_path import build_main_path
-    from genima_torch.nn.layers import set_attention_backend
-
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    step, args = build_main_path(device="cuda", seed=0, variant="sdxl")
-    torch.cuda.synchronize()
-    out = {"setup_s": time.time() - t0, "params": {
-        k: sum(p.numel() for p in m.parameters()) for k, m in args["diffusion_params"].items()}}
-    pa.packed_flash_attention.launches = 0
-    pa.packed_flash_attention.launches_by_shape.clear()
-    step_ms, host_ms = [], []
-    for _ in range(SDXL_STEPS):
-        before = pa.packed_flash_attention.launches
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        start.record()
-        actions, target = step(**args)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - h0) * 1e3)
-        step_ms.append(start.elapsed_time(end))
-        n = pa.packed_flash_attention.launches - before
-        if n != SDXL_LAUNCHES_PER_STEP:
-            raise AssertionError(f"sdxl: {n} B1 launches in a control step, "
-                                 f"want {SDXL_LAUNCHES_PER_STEP}")
-    out["launches_by_shape"] = {"x".join(map(str, k)): v
-                                for k, v in pa.packed_flash_attention.launches_by_shape.items()}
-    if actions.shape != (1, EVAL_HORIZON, 8) or not torch.isfinite(actions).all():
-        raise AssertionError(f"sdxl actions {tuple(actions.shape)}")
-    if target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8:
-        raise AssertionError(f"sdxl target {tuple(target.shape)} {target.dtype}")
-
-    unet, cn = args["diffusion_params"]["unet"], args["diffusion_params"]["controlnet"]
-    eps = {}
-    for backend in ("fused", "xla"):
-        set_attention_backend(unet, backend)
-        set_attention_backend(cn, backend)
-        eps[backend] = _denoise_eps(step.pipe, unet, cn, args)
-    rel = _rel_err(eps["fused"], eps["xla"])
-    if not (torch.isfinite(eps["fused"]).all() and rel <= EPS_REL_TOL):
-        raise AssertionError(f"sdxl eps kernel vs library attention: rel err {rel}")
-    out.update(step_ms=step_ms, host_step_ms=host_ms, eps_rel_err_vs_library_attention=rel,
-               actions_abs_max=actions.abs().max().item(),
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    return out
-
-
 def _to_host(module_or_tensors) -> dict:
     items = (module_or_tensors.state_dict().items() if hasattr(module_or_tensors, "state_dict")
              else module_or_tensors.items())
@@ -2764,7 +2775,8 @@ def sdxl_phase(pa, card: str, ctrl_dir: Path, root: Path) -> dict:
     import gc
 
     t_phase = time.time()
-    out = {"card": card, "serve": _sdxl_serve(pa)}
+    out = {"card": card, "serve": _sd_serve(pa, "sdxl", 512, SDXL_STEPS, SDXL_LAUNCHES_PER_STEP,
+                                             opt_in=False)}
     gc.collect()
     torch.cuda.empty_cache()
     train = _sdxl_train(pa, root)
@@ -3538,6 +3550,164 @@ def distributed_phase(pa, card: str, written: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: SD-1.5's geometry (head dims 40/80/160) and the SD path at 768x768
+# ---------------------------------------------------------------------------
+
+def _sd_finetune(pa, root: Path, resolution: int, want: dict, pipe_factory=None,
+                 grad_check: bool = False) -> dict:
+    """``run_training(args, "sd", pipe=)`` for ``SD15_TRAIN_STEPS`` steps at
+    the trainer CLI's batch 4 and ``--resolution``, the pipeline
+    ``pipe_factory(args)`` (else ``driver.build_pipeline``): launches pinned
+    at ``want`` a step, finite losses, the frozen models bit-unchanged, the
+    ControlNet moving; with ``grad_check`` one step's ControlNet gradients
+    against the library attention (as phase 12)."""
+    from genima_torch.cli.train_controlnet_genima import parse_args
+    from genima_torch.data.dataset import to_device
+    from genima_torch.data.tokenizer import HashTokenizer
+    from genima_torch.diffusion import driver
+    from genima_torch.diffusion.training import ControlNetTrainer, TrainState
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from genima_torch.nn.layers import set_attention_backend
+
+    write_rendered_dataset(root / "data", size=resolution)
+    args = parse_args([
+        "--data_path", str(root / "data"), "--tasks", "toy_task",
+        "--resolution", str(resolution), "--train_batch_size", str(TRAIN_BATCH),
+        "--max_train_steps", str(SD15_TRAIN_STEPS), "--seed", "0", "--device", "cuda",
+        "--mixed_precision", "bf16", "--enable_xformers_memory_efficient_attention",
+        "--dataloader_num_workers", "4", "--output_dir", str(root / "out"),
+        "--report_to", "none",
+    ])
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pipe = pipe_factory(args) if pipe_factory else driver.build_pipeline(args)
+    params = driver.init_model_params(pipe, args)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    frozen = {name: {k: t.clone() for k, t in params[name].state_dict().items()}
+              for name in ("unet", "vae", "text_encoder")}
+    cn_init = {k: p.detach().float().clone() for k, p in params["controlnet"].named_parameters()}
+    steps, last = [], {}
+
+    def hook(step, state, metrics):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), _ft_counts(pa)
+        steps.append({"ms": (now - last["mark"]) * 1e3, "loss": float(metrics["loss"]),
+                      "launches": {k: counts[k] - last["counts"][k] for k in counts}})
+        last["mark"], last["counts"] = now, counts
+        if step == SD15_TRAIN_STEPS:
+            last["moved"] = max((state.params[k] - v).abs().max().item()
+                                for k, v in cn_init.items())
+
+    _ft_zero(pa)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    last["mark"], last["counts"] = time.perf_counter(), _ft_counts(pa)
+    result = driver.run_training(args, "sd", pipe=pipe, params=params, step_hook=hook)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches_by_shape = {
+        k: {"x".join(map(str, sh)): n for sh, n in fn.launches_by_shape.items()}
+        for k, fn in (("B1", pa.packed_flash_attention),
+                      ("B2a", pa.packed_attention_forward_lse),
+                      ("B2b", pa.packed_attention_backward))}
+    tag = f"fine-tune at {resolution}"
+    if result["global_step"] != SD15_TRAIN_STEPS or len(steps) != SD15_TRAIN_STEPS:
+        raise AssertionError(f"{tag} took {result['global_step']} steps")
+    for i, st in enumerate(steps):
+        if st["launches"] != want:
+            raise AssertionError(f"{tag} step {i + 1} launches {st['launches']}, want {want}")
+        if not math.isfinite(st["loss"]):
+            raise AssertionError(f"{tag} step {i + 1} loss {st['loss']}")
+    for name, before in frozen.items():
+        after = params[name].state_dict()
+        changed = [k for k, t in before.items() if not torch.equal(t, after[k])]
+        if changed:
+            raise AssertionError(f"{tag}: frozen {name} changed: {changed[:3]}")
+    if not last["moved"] > 0:
+        raise AssertionError(f"{tag}: the ControlNet did not move")
+    del frozen, cn_init
+    out = {"setup_s": setup_s, "step_ms": [st["ms"] for st in steps],
+           "losses": [st["loss"] for st in steps],
+           "launches_per_step": [st["launches"] for st in steps],
+           "launches_by_shape": launches_by_shape, "controlnet_max_move": last["moved"],
+           "peak_mem_gb": peak_gb}
+    if grad_check:
+        trainer = ControlNetTrainer(pipe, driver.train_config(args, SD15_TRAIN_STEPS))
+        state = trainer.create_state(params)
+        state = TrainState(state.params, None, 0)
+        batch = to_device(next(iter(driver.make_train_dataset(args, HashTokenizer()))),
+                          pipe.device)
+        draws = trainer.sample_draws(TRAIN_BATCH, resolution,
+                                     torch.Generator(device="cuda").manual_seed(7))
+        grads = {}
+        for run, backend, sdpa in (("fused", "fused", None), ("xla", "xla", None),
+                                   ("xla_efficient", "xla", SDPBackend.EFFICIENT_ATTENTION)):
+            for name in ("unet", "controlnet"):
+                set_attention_backend(params[name], backend)
+            with sdpa_kernel(sdpa) if sdpa is not None else contextlib.nullcontext():
+                grads[run] = _to_host(trainer.gradients(state, batch, draws)[1])
+        for name in ("unet", "controlnet"):
+            set_attention_backend(params[name], "fused")
+        report = _grad_report(grads["fused"], grads["xla"], grads["xla_efficient"])
+        if not (report["global_rel"] <= TRAIN_GRAD_REL_TOL
+                and report["attn_rel_floored"] <= TRAIN_GRAD_REL_TOL):
+            raise AssertionError(f"{tag} ControlNet grads kernels vs library: "
+                                 f"{json.dumps(report)}")
+        out.update(grad_rel_norm_diff_vs_library_attention=report["global_rel"],
+                   grad_attn_proj_rel_floored=report["attn_rel_floored"],
+                   grad_library_backends_rel_norm_diff=report["lib_global_rel"])
+    return out
+
+
+def head_dims_phase(pa, card: str) -> tuple[dict, dict]:
+    """Phase 15: B1/B2a/B2b/B3 at SD-1.5's head dims and B1/B2a/B2b at the
+    768x768 levels against their plain versions, then (a) SD-1.5 serving
+    with its opt-in step, (b) the SD-1.5 fine-tune, (c) the SD fine-tune at
+    768x768 and (d) one control step at 768x768. Returns the paths' results
+    and the kernel rows by path."""
+    t_phase = time.time()
+    rows = {
+        "sd15_control": kernel_phase(pa, SD15_LEVELS, seed=6),
+        "sd15_train": training_kernel_phase(pa, SD15_TRAIN_LEVELS, seed=7),
+        "sd15_opt_in": opt_kernel_phase(SD15_FLASH_SHAPES, [], [], seed=8),
+        "sd768_control": kernel_phase(pa, SD768_LEVELS, seed=9),
+        "sd768_train": training_kernel_phase(pa, SD768_TRAIN_LEVELS, seed=10),
+    }
+    kernel_s = time.time() - t_phase
+    torch.cuda.empty_cache()
+    out = {"card": card, "kernel_checks_s": kernel_s}
+    out["sd15_serve"] = _sd_serve(pa, "sd15", 512, SD15_STEPS, LAUNCHES_PER_STEP, opt_in=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        from genima_torch.eval.main_path import sd15_pipeline
+
+        out["sd15_train"] = _sd_finetune(
+            pa, Path(tmp) / "sd15", 512, TRAIN_LAUNCHES, grad_check=True,
+            pipe_factory=lambda args: sd15_pipeline(
+                dtype=torch.bfloat16, backend="fused", device=args.device, vae_encoder=True))
+        out["sd768_train"] = _sd_finetune(pa, Path(tmp) / "sd768", RES_768,
+                                          SD768_TRAIN_LAUNCHES)
+    out["sd768_serve"] = _sd_serve(pa, "sd", RES_768, SD768_STEPS, SD768_LAUNCHES_PER_STEP,
+                                   opt_in=False)
+    _fill_launches(rows["sd15_control"], {"B1": out["sd15_serve"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    _fill_launches(rows["sd15_opt_in"], {"B3": out["sd15_serve"]["opt_in"]["launches_by_shape"]},
+                   {"flash_attention": "B3"})
+    _fill_launches(rows["sd768_control"], {"B1": out["sd768_serve"]["launches_by_shape"]},
+                   {"packed_flash_attention": "B1"})
+    for name, run in (("sd15_train", "sd15_train"), ("sd768_train", "sd768_train")):
+        _fill_launches(rows[name], out[run]["launches_by_shape"], {
+            "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
+            "packed_attention_backward": "B2b"})
+    for name, rs in rows.items():
+        for r in rs:
+            r["path"] = f"{name} (phase 15)"
+    out["phase_s"] = time.time() - t_phase
+    return out, rows
+
+
+
 def per_step_sums(rows) -> dict:
     """Per path and kernel, launches per step x ms summed over its shapes,
     beside the same sum of its bound and of its library yardstick: (path,
@@ -3629,7 +3799,7 @@ def main() -> int:
                   for r in training_kernel_phase(pa, DP_LEVELS, seed=5)]
     mesh_eval_kernels = [dict(r, path="eval over a 1x1 mesh (phase 14)") for r in kernels]
     tp_kernels = [dict(r, path="TP-sharded control step, 1x2 mesh (phase 14)") for r in kernels]
-    path = path_phase(pa)
+    path = _sd_serve(pa, "sd", 512, PATH_STEPS, LAUNCHES_PER_STEP, opt_in=False)
     _fill_launches(kernels, {"B1": path["launches_by_shape"]}, {"packed_flash_attention": "B1"})
     print("path " + json.dumps(path))
     train = train_phase(pa)
@@ -3802,6 +3972,22 @@ def main() -> int:
           f"whole {d14['whole_eps_rel_norm_diff_vs_f32']:.3e}; "
           f"{d14['column_sharded_layers']} layers split, peak "
           f"{d14['peak_mem_gb']:.2f} GiB; phase {dp['phase_s']:.1f} s")
+    hd, hd_rows = head_dims_phase(pa, card)
+    print("head_dims " + json.dumps(hd))
+    s15, t15, t768, s768 = hd["sd15_serve"], hd["sd15_train"], hd["sd768_train"], hd["sd768_serve"]
+    print(f"head_dims ({card}): SD-1.5 control step {[round(x, 1) for x in s15['step_ms']]} ms "
+          f"by events (opt-in {s15['opt_in']['step_ms']:.1f}), eps rel err "
+          f"{s15['eps_rel_err_vs_library_attention']:.4f} (opt-in "
+          f"{s15['opt_in']['eps_rel_err_vs_library_attention']:.4f}), peak "
+          f"{s15['peak_mem_gb']:.2f} GiB; SD-1.5 "
+          f"train steps {[round(x, 1) for x in t15['step_ms']]} ms (batch {TRAIN_BATCH}, 512^2), "
+          f"grads rel {t15['grad_rel_norm_diff_vs_library_attention']:.4f} (the library's two "
+          f"SDPA backends {t15['grad_library_backends_rel_norm_diff']:.4f}), peak "
+          f"{t15['peak_mem_gb']:.2f} GiB; SD at 768^2: train steps "
+          f"{[round(x, 1) for x in t768['step_ms']]} ms, peak {t768['peak_mem_gb']:.2f} GiB, "
+          f"control step {[round(x, 1) for x in s768['step_ms']]} ms, eps rel err "
+          f"{s768['eps_rel_err_vs_library_attention']:.4f}, peak {s768['peak_mem_gb']:.2f} GiB; "
+          f"kernel checks {hd['kernel_checks_s']:.1f} s; phase {hd['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -3819,13 +4005,18 @@ def main() -> int:
         + [("pix2pix_opt_in", r, 1) for r in pix2pix_opt_kernels]
         + [("dp_finetune_rank0", r, DP_STEPS) for r in dp_kernels]
         + [("mesh_eval_1x1", r, dp["d"]["eval"]["generates"]) for r in mesh_eval_kernels]
-        + [("tp_control_1x2", r, TP_STEPS) for r in tp_kernels])))
+        + [("tp_control_1x2", r, TP_STEPS) for r in tp_kernels]
+        + [("sd15_control", r, SD15_STEPS) for r in hd_rows["sd15_control"]]
+        + [("sd15_opt_in", r, 1) for r in hd_rows["sd15_opt_in"]]
+        + [("sd15_train", r, SD15_TRAIN_STEPS) for r in hd_rows["sd15_train"]]
+        + [("sd768_control", r, SD768_STEPS) for r in hd_rows["sd768_control"]]
+        + [("sd768_train", r, SD15_TRAIN_STEPS) for r in hd_rows["sd768_train"]])))
     print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels
                       + cohort_kernels + batch4_kernels + batched_kernels
                       + pretrain_kernels + sdxl_kernels + sdxl_train_kernels
                       + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
                       + pix2pix_opt_kernels + dp_kernels + mesh_eval_kernels
-                      + tp_kernels}))
+                      + tp_kernels + [r for rs in hd_rows.values() for r in rs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,75 @@
+"""Time the packed attention kernels of another checkout against this one.
+
+    python -m genima_torch.ab_kernels OTHER_DIR [--profile]
+
+Run from the repository root on a GPU host, with ``OTHER_DIR`` a second
+checkout (``git archive <commit> | tar -x -C OTHER_DIR``). Four processes
+run in turns, the other tree, this one, this one, the other tree, so both
+see the same card and its drift; each builds its own kernels and times B1,
+B2a and B2b at ``chip_smoke.py``'s trainer levels (batch 4) and B1 at the
+serving levels by CUDA events (``chip_smoke.cuda_ms``), or with
+``--profile`` B2b's two kernels by ``torch.profiler``. Prints each key's
+times on both sides and this tree's over the other's.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CODE = r'''
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from genima_torch.kernels import _build, packed_attention as pa
+from genima_torch.tune_kernels import _kernel_ms
+_build.build_all(["packed_attention", "packed_attention_bwd"])
+gen = torch.Generator(device="cuda").manual_seed(1)
+out = {}
+for b, s, c, h in cs.TRAIN_LEVELS + cs.SD_LEVELS:
+    q, k, v, do = (torch.randn(b, s, c, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+    key = f"{b}x{s}x{c}/{h}"
+    bwd = lambda: pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    if PROFILE:
+        if b > 1:
+            for name, ms in _kernel_ms(bwd, 50).items():
+                if "bwd" in name:
+                    out[f"B2b {'dkdv' if 'dkdv' in name else 'dq'} {key}"] = ms
+        continue
+    out["B1 " + key] = cs.cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 100)
+    if b > 1:
+        out["B2a " + key] = cs.cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), 100)
+        out["B2b " + key] = cs.cuda_ms(bwd, 100)
+print("RESULT " + json.dumps(out))
+'''
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0].startswith("-"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    other, here = str(Path(argv[0]).resolve()), str(Path.cwd())
+    code = f"PROFILE = {'--profile' in argv}\n" + CODE
+    runs = []
+    for tree in (other, here, here, other):
+        r = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                           text=True)
+        line = next((x for x in r.stdout.splitlines() if x.startswith("RESULT ")), None)
+        if line is None:
+            print(tree, r.stdout[-2000:], r.stderr[-3000:], file=sys.stderr)
+            return 1
+        runs.append((tree, json.loads(line[len("RESULT "):])))
+    for key in runs[0][1]:
+        a = [r[key] for t, r in runs if t == other]
+        b = [r[key] for t, r in runs if t == here]
+        print(json.dumps({"key": key, "other_ms": a, "this_ms": b,
+                          "this_over_other": sum(b) / sum(a)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

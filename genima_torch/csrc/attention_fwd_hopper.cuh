@@ -1,16 +1,26 @@
-// The flash-attention forward for Hopper (sm_90a) on packed (B, S, heads * 64)
+// The flash-attention forward for Hopper (sm_90a) on packed (B, S, heads * d)
 // bf16 tensors, shared by B1/B2a (packed_attention.cu) and B3
 // (flash_attention.cu).
 //
-// Computes softmax(Q_h K_h^T / 8) V_h for every head h, non-causal, with an
+// Computes softmax(Q_h K_h^T / sqrt(d)) V_h for every head h, non-causal, with an
 // online softmax in f32, P rounded to bf16 before P V, keys at or past Sk
 // masked to -1e30 and query rows at or past Sq never stored. With kWriteLse
 // it also stores L = m + ln(l) per (row, head) into a (B, Sq, heads) f32
 // tensor, the softmax normaliser the backward (packed_attention_bwd.cu)
-// rebuilds P from. (B, S, H, 64) is the packed (B, S, H * 64) layout the
-// projections emit, and a block reads head h as the 64 columns at offset
-// h * 64 with row stride H * 64: no (S, H, D) -> (H, S, D) transpose ever
+// rebuilds P from. (B, S, H, d) is the packed (B, S, H * d) layout the
+// projections emit, and a block reads head h as the d columns at offset
+// h * d with row stride H * d: no (S, H, D) -> (H, S, D) transpose ever
 // touches device memory.
+//
+// Head dims (attention_hopper.cuh): d, a multiple of 8 up to 160, is DA =
+// ceil(d / 64) atoms of 64 columns, a template parameter; each Q, K and V
+// tile is DA 64-column TMA boxes. The consumers zero Q's columns d..64 * DA
+// in shared memory once a block, so S = Q K^T sums over the real d; O's
+// extra columns are computed from V's and never stored. The scale 1/sqrt(d)
+// follows the real d. d = 8..64 (DA = 1) runs every tile below; DA = 2, 3
+// (d = 72..160) take 64-key tiles (and B3's 80-key prompt tile) with one or
+// two consumer warpgroups and one block an SM: a wider O accumulator
+// (32 * DA registers a thread) and DA times the shared memory a stage.
 //
 // Bound: 4 * B * Sq * Sk * C flops on 2 * B * (2 * Sq + 2 * Sk) * C bytes.
 // Self-attention at 4096 and 1024 tokens is bound by tensor-core
@@ -27,7 +37,7 @@
 //   * The producer's first thread TMA-loads the block's Q tile once, then
 //     streams K and V tiles of bn keys (64, 80 or 128) through a ring of
 //     `stages` stages behind "full" / "empty" mbarriers. The maps are 3-D
-//     (C, S, B) with a (64, rows, 1) box at column head * 64, 128-byte
+//     (C, S, B) with a (64, rows, 1) box at column head * d + 64 * atom, 128-byte
 //     swizzled, so TMA zero-fills rows at or past S within the batch: a
 //     ragged last tile never reads the next batch's keys.
 //   * Each consumer warpgroup owns 64 rows of the Q tile. Per K/V tile:
@@ -39,7 +49,8 @@
 //     K. Keys at or past Sk are set to -1e30 in the last tile only; the
 //     online softmax in base 2 on the accumulator; P rounded to bf16 A
 //     fragments in place (the accumulator layout is the A layout); and
-//     O += P V with wgmma m64n64k16, V read MN-major from the same stage.
+//     O += P V with wgmma m64n64k16 an atom, V read MN-major from the same
+//     stage.
 //     The P V group runs while the warpgroup waits for the next tile and
 //     issues its S; a stage goes back to the producer once the group that
 //     reads it has been retired.
@@ -71,38 +82,42 @@ constexpr float kLn2 = 0.6931471805599453f;
 struct FwdParams {
   __nv_bfloat16* o;
   float* lse;  // (B, Sq, heads) f32, written only by the kWriteLse kernels
-  int sq, sk, c, n_tiles, stages;
+  int sq, sk, c, d, heads, n_tiles, stages;
   float scale_log2;
 };
 
-template <int NWG, int BN>
+template <int DA, int NWG, int BN>
 struct FwdCfg {
   static constexpr int kBM = 64 * NWG;  // query rows a block
   // the consumers, then the producer: a warpgroup where setmaxnreg moves
   // registers (it acts on whole warpgroups), else one warp
   static constexpr int kThreads = 128 * NWG + (NWG == 1 ? 32 : 128);
-  static constexpr int kQBytes = kBM * kRowBytes;
-  static constexpr int kKVBytes = BN * kRowBytes;  // one K or V tile (whole KB)
+  static constexpr int kQAtom = kBM * kRowBytes;    // one atom of the Q tile
+  static constexpr int kQBytes = DA * kQAtom;
+  static constexpr int kKVAtom = BN * kRowBytes;    // one atom of a K or V tile (whole KB)
+  static constexpr int kKVBytes = DA * kKVAtom;
   static constexpr int kStage = 2 * kKVBytes;
-  // one 64-key tile's block fits three times on an SM (<= 136 registers)
-  static constexpr int kMinBlocks = NWG == 1 && BN == 64 ? 3 : 1;
+  // one 64-key tile's one-atom block fits three times on an SM (<= 136
+  // registers)
+  static constexpr int kMinBlocks = DA == 1 && NWG == 1 && BN == 64 ? 3 : 1;
   // registers a consumer thread takes from the producer warpgroup's 24
   static constexpr int kConsumerRegs = NWG == 2 ? 240 : 160;
 };
 
 // Dynamic shared memory of a block: alignment slack, the Q tile, the K/V
 // ring and its barriers.
-int fwd_smem_bytes(int nwg, int bn, int stages) {
-  return 1024 + 64 * nwg * kRowBytes + stages * 2 * bn * kRowBytes + 16 * stages + 16;
+int fwd_smem_bytes(int nwg, int bn, int stages, int atoms) {
+  return 1024 + 64 * nwg * kRowBytes * atoms + stages * 2 * bn * kRowBytes * atoms +
+         16 * stages + 16;
 }
 
-template <int NWG, int BN, bool kWriteLse>
-__global__ void __launch_bounds__(FwdCfg<NWG, BN>::kThreads, FwdCfg<NWG, BN>::kMinBlocks)
+template <int DA, int NWG, int BN, bool kWriteLse>
+__global__ void __launch_bounds__(FwdCfg<DA, NWG, BN>::kThreads, FwdCfg<DA, NWG, BN>::kMinBlocks)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v, const FwdParams p) {
   using namespace hopper;
-  using C = FwdCfg<NWG, BN>;
+  using C = FwdCfg<DA, NWG, BN>;
   constexpr int kS = BN / 2;    // score accumulator values a thread
   constexpr int kKS = BN / 16;  // k-steps of P V
   extern __shared__ uint8_t smem_raw[];
@@ -136,16 +151,23 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       prefetch_tensormap(&map_q);
       prefetch_tensormap(&map_k);
       prefetch_tensormap(&map_v);
+      const int col = head * p.d;
       mbar_expect_tx(q_full, C::kQBytes);
-      tma_load_3d(q_tile, &map_q, q_full, head * kHeadDim, q0, batch);
+#pragma unroll
+      for (int a = 0; a < DA; ++a)
+        tma_load_3d(q_tile + a * C::kQAtom, &map_q, q_full, col + a * kAtom, q0, batch);
       int stage = 0;
       uint32_t phase = 0;
       for (int j = 0; j < p.n_tiles; ++j) {
         mbar_wait(&empty[stage], phase ^ 1);
         uint8_t* st = ring + stage * C::kStage;
         mbar_expect_tx(&full[stage], C::kStage);
-        tma_load_3d(st, &map_k, &full[stage], head * kHeadDim, j * BN, batch);
-        tma_load_3d(st + C::kKVBytes, &map_v, &full[stage], head * kHeadDim, j * BN, batch);
+#pragma unroll
+        for (int a = 0; a < DA; ++a) {
+          tma_load_3d(st + a * C::kKVAtom, &map_k, &full[stage], col + a * kAtom, j * BN, batch);
+          tma_load_3d(st + C::kKVBytes + a * C::kKVAtom, &map_v, &full[stage], col + a * kAtom,
+                      j * BN, batch);
+        }
         if (++stage == p.stages) {
           stage = 0;
           phase ^= 1;
@@ -162,11 +184,18 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int t = lane & 3;
 
   mbar_wait(q_full, 0);
-  const uint8_t* q_rows = q_tile + wg * 64 * kRowBytes;  // this warpgroup's 64 rows
+  // this warpgroup's 64 rows (of each atom, C::kQAtom apart)
+  uint8_t* q_rows = q_tile + wg * 64 * kRowBytes;
+  const int tail = p.d - (DA - 1) * kAtom;  // real columns of the last atom
+  if (tail < kAtom) {  // the next head's columns (or TMA's zeros past C): zero them
+    zero_tail(q_rows + (DA - 1) * C::kQAtom, 64, tail, threadIdx.x & 127, 128);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
 
-  float o[32];
+  float o[32 * DA];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < 32 * DA; ++i) o[i] = 0.f;
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   uint32_t pf[kKS][4];
@@ -188,7 +217,10 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_operands(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<BN, 0>(s, desc_k(q_rows, kk), desc_k(ks, kk));
+    for (int a = 0; a < DA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<BN, 0>(s, desc_k(q_rows + a * C::kQAtom, kk), desc_k(ks + a * C::kKVAtom, kk));
     wgmma_commit();
     fence_operands(s);
     wgmma_wait<0>();  // S, and the previous tile's P V
@@ -226,14 +258,17 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       row_sum[r] += s[i];
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < 32 * DA; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
     for (int kk = 0; kk < kKS; ++kk) acc_to_a(pf[kk], s, kk);
     fence_frags(pf);
     fence_operands(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) wgmma_rs<64, 1>(o, pf[kk], desc_mn(vs, kk));
+    for (int a = 0; a < DA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk)
+        wgmma_rs<64, 1>(o + 32 * a, pf[kk], desc_mn(vs + a * C::kKVAtom, kk));
     wgmma_commit();
     fence_operands(o);
     prev = stage;
@@ -252,13 +287,15 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 2);
   }
   const int row0 = q0 + wg * 64 + wq * 16;
-  __nv_bfloat16* rows = p.o + (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * kHeadDim;
-  store_acc(rows, p.c, o, 1.f / row_sum[0], 1.f / row_sum[1], row0 + g < p.sq,
-            row0 + g + 8 < p.sq, g, t);
+  __nv_bfloat16* rows = p.o + (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d;
+#pragma unroll
+  for (int a = 0; a < DA; ++a)
+    store_acc(rows + a * kAtom, p.c, o + 32 * a, 1.f / row_sum[0], 1.f / row_sum[1],
+              row0 + g < p.sq, row0 + g + 8 < p.sq, g, t, p.d - a * kAtom);
   if constexpr (kWriteLse) {
     // L = m + ln(l) in natural-log units: row_max is m * log2(e)
     if (t == 0) {
-      const int heads = p.c / kHeadDim;
+      const int heads = p.heads;
       float* l0 = p.lse + (static_cast<size_t>(batch) * p.sq + row0 + g) * heads + head;
       if (row0 + g < p.sq) l0[0] = (row_max[0] + log2f(row_sum[0])) * kLn2;
       if (row0 + g + 8 < p.sq)
@@ -267,21 +304,22 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int NWG, int BN, bool kWriteLse>
+template <int DA, int NWG, int BN, bool kWriteLse>
 int launch_fwd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-               const FwdParams& p, int batch, int heads, cudaStream_t stream) {
-  using C = FwdCfg<NWG, BN>;
-  const int smem = fwd_smem_bytes(NWG, BN, p.stages);
+               const FwdParams& p, int batch, cudaStream_t stream) {
+  using C = FwdCfg<DA, NWG, BN>;
+  const int smem = fwd_smem_bytes(NWG, BN, p.stages, DA);
   static int configured = 0;  // the largest dynamic shared memory set so far
   if (smem > configured) {
     const cudaError_t e =
-        cudaFuncSetAttribute(attention_fwd_kernel<NWG, BN, kWriteLse>,
+        cudaFuncSetAttribute(attention_fwd_kernel<DA, NWG, BN, kWriteLse>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = smem;
   }
-  const dim3 grid((p.sq + C::kBM - 1) / C::kBM, heads, batch);
-  attention_fwd_kernel<NWG, BN, kWriteLse><<<grid, C::kThreads, smem, stream>>>(mq, mk, mv, p);
+  const dim3 grid((p.sq + C::kBM - 1) / C::kBM, p.heads, batch);
+  attention_fwd_kernel<DA, NWG, BN, kWriteLse><<<grid, C::kThreads, smem, stream>>>(mq, mk, mv,
+                                                                                    p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -291,19 +329,19 @@ int seq_map(CUtensorMap* map, const void* x, int batch, int s, int c, int rows) 
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 2,
                                  static_cast<cuuint64_t>(s) * c * 2};
-  const cuuint32_t box[3] = {kHeadDim, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[3] = {kAtom, static_cast<cuuint32_t>(rows), 1};
   return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box,
                              CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The three maps and the parameters of one launch of the (nwg, bn) kernel
-// with a ring of `stages`; 0, or an error code for a launch that cannot be
-// made.
+// at head dim d with a ring of `stages`; 0, or an error code for a launch
+// that cannot be made.
 int prepare_fwd(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, FwdParams* p, const void* q,
                 const void* k, const void* v, void* o, float* lse, int batch, int sq, int sk,
-                int heads, int nwg, int bn, int stages) {
-  if (sq < 1 || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int c = heads * kHeadDim;
+                int heads, int d, int nwg, int bn, int stages) {
+  if (sq < 1 || sk < 1 || !head_dim_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
+  const int c = heads * d;
   int rc = seq_map(mq, q, batch, sq, c, 64 * nwg);
   if (rc) return rc;
   if ((rc = seq_map(mk, k, batch, sk, c, bn))) return rc;
@@ -313,9 +351,12 @@ int prepare_fwd(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, FwdParams* p,
   p->sq = sq;
   p->sk = sk;
   p->c = c;
+  p->d = d;
+  p->heads = heads;
   p->n_tiles = (sk + bn - 1) / bn;
   p->stages = stages;
-  p->scale_log2 = kLog2e / 8.0f;  // log2(e) / sqrt(64)
+  // log2(e) / sqrt(d), rounded once (at d = 64: kLog2e / 8 exactly)
+  p->scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(d)));
   // a stage goes back to the producer only once the next tile has arrived:
   // more than one tile needs two stages
   if (stages < (p->n_tiles > 1 ? 2 : 1)) return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,19 @@
-// Device helpers of the Hopper attention kernels (B3's forward in
-// flash_attention.cu, B2b's backward in packed_attention_bwd.cu): operands
-// of wgmma m64nNk16 with A in registers and B a 128-byte-swizzled tile of
-// 64-wide bf16 rows in shared memory, as TMA writes it.
+// Device helpers of the Hopper attention kernels (the forward in
+// attention_fwd_hopper.cuh, B2b's backward in packed_attention_bwd.cu):
+// operands of wgmma m64nNk16 with A in registers and B a 128-byte-swizzled
+// tile of 64-wide bf16 rows in shared memory, as TMA writes it.
+//
+// Head dims: a head of d columns (a multiple of 8, 8 to 160) is handled as
+// ceil(d / 64) atoms of 64 columns, the kernels' template parameter DA; d
+// itself is a runtime value. An atom's TMA box at column h * d + 64 * a
+// reaches into the next head's columns (and past C, where TMA zero-fills):
+// every product that contracts over d sees zeros there, because one of its
+// operands has its columns d..64 * DA zeroed (zero_tail in shared memory,
+// or a masked load_a_global into registers), and the columns past d of a
+// product's output are computed and never stored (store_acc's `cols`). So
+// d = 40 and 80 compute on 1.6x the columns they need, d = 160 on 1.2x. A
+// non-finite value in the next head's columns still reaches this head's
+// sums (0 * inf): such a value makes that head's own output non-finite too.
 //
 // Layouts (lane = 4 * g + t, warp w of a warpgroup owns rows 16w..16w+15):
 //   A fragment (16 x 16 bf16 a warp): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
@@ -30,8 +42,9 @@
 
 namespace attn_hopper {
 
-constexpr int kHeadDim = 64;
-constexpr int kRowBytes = kHeadDim * 2;  // one 64-wide bf16 row: the swizzle span
+constexpr int kAtom = 64;                // columns of a head atom
+constexpr int kRowBytes = kAtom * 2;     // one 64-wide bf16 row: the swizzle span
+constexpr int kMaxHeadDim = 160;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;  // the JAX kernels' _NEG_INF
 
@@ -60,18 +73,42 @@ __device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk) {
                            64 * kRowBytes, 1024);
 }
 
+// Atoms of a head of d columns, on the host.
+inline int head_atoms(int d) { return (d + kAtom - 1) / kAtom; }
+
+// Whether the kernels take head dim d.
+inline bool head_dim_ok(int d) { return d >= 8 && d <= kMaxHeadDim && d % 8 == 0; }
+
 // A fragments of a warp's 16 rows x 64 columns of a packed tensor, straight
-// from global memory (row stride ld elements; `rows` points at row 0).
+// from global memory (row stride ld elements; `rows` points at row 0);
+// columns at or past `cols` (a multiple of 8) are neither read nor kept:
+// they are zero.
 __device__ __forceinline__ void load_a_global(uint32_t frag[4][4], const __nv_bfloat16* rows,
-                                              int ld, int g, int t) {
+                                              int ld, int g, int t, int cols) {
   const __nv_bfloat16* p0 = rows + static_cast<size_t>(g) * ld + t * 2;
   const __nv_bfloat16* p8 = p0 + static_cast<size_t>(8) * ld;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    frag[kk][0] = *reinterpret_cast<const uint32_t*>(p0 + kk * 16);
-    frag[kk][1] = *reinterpret_cast<const uint32_t*>(p8 + kk * 16);
-    frag[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + kk * 16 + 8);
-    frag[kk][3] = *reinterpret_cast<const uint32_t*>(p8 + kk * 16 + 8);
+    const bool lo = kk * 16 < cols, hi = kk * 16 + 8 < cols;
+    frag[kk][0] = lo ? *reinterpret_cast<const uint32_t*>(p0 + kk * 16) : 0u;
+    frag[kk][1] = lo ? *reinterpret_cast<const uint32_t*>(p8 + kk * 16) : 0u;
+    frag[kk][2] = hi ? *reinterpret_cast<const uint32_t*>(p0 + kk * 16 + 8) : 0u;
+    frag[kk][3] = hi ? *reinterpret_cast<const uint32_t*>(p8 + kk * 16 + 8) : 0u;
+  }
+}
+
+// Zero columns cols..63 (cols a multiple of 8) of `rows` rows of a
+// 128-byte-swizzled tile of 64-wide bf16 rows (1024-byte aligned), by the
+// `threads` threads numbered `tid`. Generic-proxy writes: the caller fences
+// them for the async proxy (fence_proxy_async) and syncs its threads before
+// a wgmma reads the tile.
+__device__ __forceinline__ void zero_tail(uint8_t* tile, int rows, int cols, int tid,
+                                          int threads) {
+  const int c0 = cols / 8, n = 8 - c0;  // 16-byte chunks to clear a row
+  for (int i = tid; i < rows * n; i += threads) {
+    const int r = i / n, c = c0 + i % n;
+    *reinterpret_cast<uint4*>(tile + r * kRowBytes + ((c ^ (r & 7)) << 4)) =
+        make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -95,18 +132,28 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
 
 // Rows g and g + 8 of a warp's 16 x 64 f32 accumulator, times inv0 / inv8,
 // as bf16 into a packed tensor at `rows` (row stride ld), each row only if
-// its flag is set.
+// its flag is set, columns at or past `cols` (a multiple of 8) never.
 __device__ __forceinline__ void store_acc(__nv_bfloat16* rows, int ld, const float* d, float inv0,
-                                          float inv8, bool ok0, bool ok8, int g, int t) {
+                                          float inv8, bool ok0, bool ok8, int g, int t,
+                                          int cols) {
   __nv_bfloat16* o0 = rows + static_cast<size_t>(g) * ld + t * 2;
   __nv_bfloat16* o8 = o0 + static_cast<size_t>(8) * ld;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
+    if (j * 8 >= cols) continue;
     if (ok0)
       *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16x2(d[4 * j] * inv0, d[4 * j + 1] * inv0);
     if (ok8)
       *reinterpret_cast<uint32_t*>(o8 + j * 8) = pack_bf16x2(d[4 * j + 2] * inv8, d[4 * j + 3] * inv8);
   }
+}
+
+// Tie an accumulator reached through a pointer to this point of the
+// program, as hopper::fence_operands does for an array.
+template <int N>
+__device__ __forceinline__ void fence_acc(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {

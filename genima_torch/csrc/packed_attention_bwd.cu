@@ -1,44 +1,44 @@
 // Packed-layout flash-attention backward for Hopper (sm_90a).
 //
 // Replaces genima_tpu/kernels/packed_attention.py::_flash_backward /
-// _bwd_kernel: dq, dk and dv of softmax(Q_h K_h^T / 8) V_h from q, k, v, o,
-// dO and the forward's L = m + log(l) (packed_attention_fwd_lse), with the
-// TPU kernel's arithmetic:
-//   P  = exp(S / 8 - L), rounded to bf16 before P^T dO;
+// _bwd_kernel: dq, dk and dv of softmax(Q_h K_h^T / sqrt(d)) V_h from q, k,
+// v, o, dO and the forward's L = m + log(l) (packed_attention_fwd_lse), with
+// the TPU kernel's arithmetic:
+//   P  = exp(S / sqrt(d) - L), rounded to bf16 before P^T dO;
 //   dP = dO V^T;  Drow = rowsum(dO * O);
-//   dS = P (dP - Drow) / 8, rounded to bf16;
+//   dS = P (dP - Drow) / sqrt(d), rounded to bf16;
 //   dQ = dS K accumulated in f32 over key tiles; dK = dS^T Q; dV = P^T dO.
 //
-// Layout: every tensor is packed (B, S, heads * 64) bf16, read at column
-// offset h * 64 with row stride C, as the forward reads it. The TPU wrapper
-// transposes to (B * heads, S, 64) around its kernel; the packed kernel
-// exists to avoid those transposes, so this one reads head-strided instead.
-// L is (B, Sq, heads) f32.
+// Layout: every tensor is packed (B, S, heads * d) bf16, read at column
+// offset h * d with row stride C, as the forward reads it; d a multiple of 8
+// up to 160, Sq and Sk any multiples of 64. The TPU wrapper transposes to
+// (B * heads, S, d) around its kernel; the packed kernel exists to avoid
+// those transposes, so this one reads head-strided instead. L is
+// (B, Sq, heads) f32.
 //
 // Bound: 10 * S^2 * C flops (the TPU kernel's cost estimate: S, dP, dV, dQ,
 // dK) over ~16 * S * C bytes, so tensor-core operations bound it.
 //
 // Design: two kernels, no atomics, so two calls give the same bits (the
 // price: S and dP are formed in both, 14 * S^2 * C flops). Each is
-// warp-specialised: a producer warpgroup, whose first thread keeps a
-// 4-stage ring of 64-row tiles full with TMA behind "full" / "empty"
-// mbarriers, and two consumer warpgroups of 64 rows that run wgmma
-// m64n64k16 with A from registers and B from the ring's 128-byte-swizzled
-// tiles; setmaxnreg moves registers from the producer (24) to the
-// consumers (240). Each stage is read K-major by one product and MN-major
-// by another (attention_hopper.cuh).
-//   * dq kernel, one block per (128 query rows, head, batch): Q and dO in
-//     registers. Its prologue computes Drow = rowsum(dO * O) and L * log2(e)
-//     for its rows and writes both, (B, heads, Sq) contiguous, into the
-//     `delta` scratch for the second kernel. Per 64-key tile of K and V:
-//     S = Q K^T and dP = dO V^T (K, V K-major), P and dS in registers,
-//     dQ += bf16(dS) K (K MN-major).
-//   * dk/dv kernel, one block per (128 keys, head, batch): K and V in
-//     registers, dK and dV accumulated in f32. Per 64-query tile of Q and
-//     dO (plus that tile's 64 values of L * log2(e) and Drow, bulk-copied
-//     from the scratch: as (B, Sq, heads) they lie heads * 4 bytes apart,
-//     which no TMA box can take): S^T = K Q^T and dP^T = V dO^T (Q, dO
-//     K-major), P^T and dS^T in registers, already in the A layout of
+// warp-specialised: a producer warpgroup, whose first thread keeps a ring of
+// 64-row tiles full with TMA behind "full" / "empty" mbarriers, and two
+// consumer warpgroups of 64 rows that run wgmma m64n64k16 with B from the
+// ring's 128-byte-swizzled tiles; setmaxnreg moves registers from the
+// producer (24) to the consumers (240). Each stage is read K-major by one
+// product and MN-major by another (attention_hopper.cuh).
+//   * dq kernel, one block per (128 query rows, head, batch): Q and dO
+//     resident. Its prologue computes Drow = rowsum(dO * O) over the real d
+//     columns and L * log2(e) for its rows and writes both, (B, heads, Sq)
+//     contiguous, into the `delta` scratch for the second kernel. Per
+//     64-key tile of K and V: S = Q K^T and dP = dO V^T (K, V K-major), P
+//     and dS in registers, dQ += bf16(dS) K (K MN-major).
+//   * dk/dv kernel, one block per (128 keys, head, batch): K and V
+//     resident, dK and dV accumulated in f32. Per 64-query tile of Q and dO
+//     (plus that tile's 64 values of L * log2(e) and Drow, bulk-copied from
+//     the scratch: as (B, Sq, heads) they lie heads * 4 bytes apart, which
+//     no TMA box can take): S^T = K Q^T and dP^T = V dO^T (Q, dO K-major),
+//     P^T and dS^T in registers, already in the A layout of
 //     dV += bf16(P^T) dO and dK += bf16(dS^T) Q (Q, dO MN-major).
 //   In both, S is waited for before dP, so the exponentials run while dP
 //   finishes; the dk/dv kernel issues dV += P^T dO as soon as P^T is in
@@ -46,6 +46,19 @@
 //   the producer once the groups reading it have been retired. Sq or Sk an
 //   odd multiple of 64 leaves the last block's second warpgroup without
 //   rows: it takes no part.
+//
+// Head dims, as DA = ceil(d / 64) atoms of 64 columns (attention_hopper.cuh):
+//   * d <= 64 (DA = 1): the resident tensors are A fragments in registers,
+//     loaded from global memory with the columns past d zeroed, 4-stage ring.
+//   * d = 72..160 (DA = 2, 3): a warpgroup's f32 accumulators alone would
+//     take 32 * DA registers a thread each, so the resident tensors move to
+//     shared memory (a TMA load a block, wgmma with both operands in shared
+//     memory, their columns past d zeroed there once), and the dk/dv kernel
+//     makes two passes over the query tiles, dV in the first and dK in the
+//     second, holding one accumulator at a time (S^T is formed twice: 16 *
+//     S^2 * C flops in all). DA = 3 rings 2 stages, DA = 2 four.
+//   Every contraction over d sees zeros past d (Q or dO, K or V), and dQ,
+//   dK and dV store their real d columns only.
 
 #include "attention_hopper.cuh"
 
@@ -57,11 +70,21 @@ using namespace attn_hopper;
 constexpr int kNWG = 2;                       // consumer warpgroups a block
 constexpr int kThreads = 128 * kNWG + 128;    // + the producer warpgroup
 constexpr int kBlockRows = 64 * kNWG;
-constexpr int kTileBytes = 64 * kRowBytes;    // a 64-row tile
-constexpr int kStages = 4;
-constexpr int kRing = kStages * 2 * kTileBytes;
-constexpr int kDqSmem = 1024 + kRing + 16 * kStages;
-constexpr int kDkdvSmem = 1024 + kRing + kStages * 2 * 64 * 4 + 16 * kStages;
+constexpr int kAtomTile = 64 * kRowBytes;     // 64 rows x one 64-column atom
+
+template <int DA>
+struct BwdCfg {
+  static constexpr bool kRegA = DA == 1;      // resident tensors in registers
+  static constexpr bool kSplit = DA > 1;      // dV, then dK, in two passes
+  static constexpr int kStages = DA == 3 ? 2 : 4;
+  static constexpr int kTile = DA * kAtomTile;  // a 64-row tile, all atoms
+  static constexpr int kRing = kStages * 2 * kTile;
+  // two resident tensors of 128 rows, and their barrier
+  static constexpr int kRes = kRegA ? 0 : 2 * kNWG * kTile;
+  static constexpr int kResBar = kRegA ? 0 : 16;
+  static constexpr int kDqSmem = 1024 + kRes + kRing + 16 * kStages + kResBar;
+  static constexpr int kDkdvSmem = kDqSmem + kStages * 2 * 64 * 4;
+};
 
 struct Params {
   const __nv_bfloat16 *q, *k, *v, *o, *dout;
@@ -69,17 +92,86 @@ struct Params {
   float* l2;         // (B, heads, Sq): L * log2(e), written by the dq kernel
   float* drow;       // (B, heads, Sq): rowsum(dO * O), written by the dq kernel
   __nv_bfloat16 *dq, *dk, *dv;
-  int sq, sk, c, heads;
+  int sq, sk, c, d, heads;
   float scale_log2, scale;
 };
 
+// acc (64 rows of this warpgroup x 64) += X Y^T over DA atoms, X this
+// warpgroup's 64 resident rows (fragments `f` when DA is 1, else the
+// shared-memory tile `x`, atoms kAtomTile apart) and Y the ring tile `y`.
+template <int DA>
+__device__ __forceinline__ void mma_rows_t(float* acc, const uint32_t (&f)[4][4],
+                                           const uint8_t* x, const uint8_t* y) {
+  if constexpr (DA == 1) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(acc, f[kk], desc_k(y, kk));
+  } else {
+#pragma unroll
+    for (int a = 0; a < DA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<64, 0>(acc, desc_k(x + a * kAtomTile, kk), desc_k(y + a * kAtomTile, kk));
+  }
+}
+
+// acc (64 x 64 * DA) += A Y over the 64 rows of the ring tile `y` (MN-major),
+// A given as the four bf16 A fragments `af`.
+template <int DA>
+__device__ __forceinline__ void mma_acc(float* acc, const uint32_t (&af)[4][4], const uint8_t* y) {
+#pragma unroll
+  for (int a = 0; a < DA; ++a)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<64, 1>(acc + 32 * a, af[kk], desc_mn(y + a * kAtomTile, kk));
+}
+
+// Resident tiles (DA > 1): wait for the block's TMA load, then zero this
+// warpgroup's columns past d of `n` tensors kNWG * kTile apart.
+template <int DA>
+__device__ __forceinline__ void resident_ready(uint64_t* res_full, uint8_t* tile, int n, int d,
+                                               int wg) {
+  mbar_wait(res_full, 0);
+  const int tail = d - (DA - 1) * kAtom;
+  if (tail < kAtom) {
+    for (int i = 0; i < n; ++i)
+      zero_tail(tile + i * kNWG * BwdCfg<DA>::kTile + (DA - 1) * kAtomTile, 64, tail,
+                threadIdx.x & 127, 128);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
+}
+
+// The producer's loads of two resident tensors (maps m0, m1) for the
+// block's `active` warpgroups of 64 rows from row r0.
+template <int DA>
+__device__ __forceinline__ void load_resident(uint8_t* res, uint64_t* res_full,
+                                              const CUtensorMap* m0, const CUtensorMap* m1,
+                                              int col, int r0, int batch, int active) {
+  constexpr int kTile = BwdCfg<DA>::kTile;
+  mbar_expect_tx(res_full, 2 * active * kTile);
+  for (int w = 0; w < active; ++w)
+#pragma unroll
+    for (int a = 0; a < DA; ++a) {
+      tma_load_3d(res + w * kTile + a * kAtomTile, m0, res_full, col + a * kAtom, r0 + 64 * w,
+                  batch);
+      tma_load_3d(res + (kNWG + w) * kTile + a * kAtomTile, m1, res_full, col + a * kAtom,
+                  r0 + 64 * w, batch);
+    }
+}
+
+template <int DA>
 __global__ void __launch_bounds__(kThreads, 1)
-packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
+packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const __grid_constant__ CUtensorMap map_k,
                                const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using C = BwdCfg<DA>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing);
-  uint64_t* empty = full + kStages;
+  uint8_t* res = align1024(smem_raw);  // Q then dO, 128 rows each (DA > 1)
+  uint8_t* ring = res + C::kRes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::kRing);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* res_full = empty + C::kStages;
 
   const int q0 = blockIdx.x * kBlockRows;
   const int head = blockIdx.y;
@@ -88,10 +180,11 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
   const int n_tiles = p.sk / 64;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], active);
     }
+    if constexpr (!C::kRegA) mbar_init(res_full, 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -104,15 +197,22 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
     if (warp == 4 * kNWG && lane == 0) {
       prefetch_tensormap(&map_k);
       prefetch_tensormap(&map_v);
+      const int col = head * p.d;
+      if constexpr (!C::kRegA)
+        load_resident<DA>(res, res_full, &map_q, &map_do, col, q0, batch, active);
       int stage = 0;
       uint32_t phase = 0;
       for (int j = 0; j < n_tiles; ++j) {
         mbar_wait(&empty[stage], phase ^ 1);
-        uint8_t* st = ring + stage * 2 * kTileBytes;
-        mbar_expect_tx(&full[stage], 2 * kTileBytes);
-        tma_load_3d(st, &map_k, &full[stage], head * kHeadDim, j * 64, batch);
-        tma_load_3d(st + kTileBytes, &map_v, &full[stage], head * kHeadDim, j * 64, batch);
-        if (++stage == kStages) {
+        uint8_t* st = ring + stage * 2 * C::kTile;
+        mbar_expect_tx(&full[stage], 2 * C::kTile);
+#pragma unroll
+        for (int a = 0; a < DA; ++a) {
+          tma_load_3d(st + a * kAtomTile, &map_k, &full[stage], col + a * kAtom, j * 64, batch);
+          tma_load_3d(st + C::kTile + a * kAtomTile, &map_v, &full[stage], col + a * kAtom,
+                      j * 64, batch);
+        }
+        if (++stage == C::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -129,27 +229,50 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
   const int t = lane & 3;
 
   const int row0 = q0 + wg * 64 + wq * 16;  // this warp's first query row
-  const size_t rows_off = (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * kHeadDim;
+  const size_t rows_off = (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d;
   uint32_t qf[4][4], dof[4][4];
-  load_a_global(qf, p.q + rows_off, p.c, g, t);
-  load_a_global(dof, p.dout + rows_off, p.c, g, t);
+  const uint8_t* q_res = res + wg * C::kTile;
+  const uint8_t* do_res = res + (kNWG + wg) * C::kTile;
+  if constexpr (C::kRegA) {
+    load_a_global(qf, p.q + rows_off, p.c, g, t, p.d);
+    load_a_global(dof, p.dout + rows_off, p.c, g, t, p.d);
+  } else {
+    resident_ready<DA>(res_full, res + wg * C::kTile, 2, p.d, wg);
+  }
 
   // Prologue: Drow and L * log2(e) for rows g and g + 8 (f32 products of
-  // the bf16 values, summed as the TPU wrapper sums them), kept in
-  // registers and written for the dk/dv kernel.
+  // the bf16 values over the real d columns, summed as the TPU wrapper sums
+  // them), kept in registers and written for the dk/dv kernel.
   float drow[2] = {0.f, 0.f}, l2[2];
-  {
+  if constexpr (C::kRegA) {  // dO's fragments are in registers: O's alongside
     uint32_t of[4][4];
-    load_a_global(of, p.o + rows_off, p.c, g, t);
+    load_a_global(of, p.o + rows_off, p.c, g, t, p.d);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 a = unpack_bf16x2(dof[kk][i]);
-        const float2 b = unpack_bf16x2(of[kk][i]);
-        drow[i & 1] += a.x * b.x + a.y * b.y;  // regs 0, 2: row g; 1, 3: row g + 8
+        const float2 x = unpack_bf16x2(dof[kk][i]);
+        const float2 y = unpack_bf16x2(of[kk][i]);
+        drow[i & 1] += x.x * y.x + x.y * y.y;  // regs 0, 2: row g; 1, 3: row g + 8
       }
     }
+  } else {
+#pragma unroll
+    for (int a = 0; a < DA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int col = a * kAtom + kk * 16 + hi * 8 + 2 * t;
+          if (col >= p.d) continue;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const size_t off = rows_off + static_cast<size_t>(g + 8 * r) * p.c + col;
+            const float2 x = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.dout + off));
+            const float2 y = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.o + off));
+            drow[r] += x.x * y.x + x.y * y.y;
+          }
+        }
   }
   const size_t lrow = (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
   const size_t srow = (static_cast<size_t>(batch) * p.heads + head) * p.sq + row0 + g;
@@ -164,9 +287,9 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
     }
   }
 
-  float dq[32];
+  float dq[32 * DA];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int i = 0; i < 32 * DA; ++i) dq[i] = 0.f;
   uint32_t dsf[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) dsf[kk][0] = dsf[kk][1] = dsf[kk][2] = dsf[kk][3] = 0u;
@@ -177,19 +300,17 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
   int prev = -1;  // the stage the dQ group in flight reads
   for (int j = 0; j < n_tiles; ++j) {
     mbar_wait(&full[stage], phase);
-    const uint8_t* ks = ring + stage * 2 * kTileBytes;
-    const uint8_t* vs = ks + kTileBytes;
+    const uint8_t* ks = ring + stage * 2 * C::kTile;
+    const uint8_t* vs = ks + C::kTile;
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
     fence_operands(s);
     fence_operands(dp);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(s, qf[kk], desc_k(ks, kk));  // S = Q K^T
+    mma_rows_t<DA>(s, qf, q_res, ks);  // S = Q K^T
     wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(dp, dof[kk], desc_k(vs, kk));  // dP = dO V^T
+    mma_rows_t<DA>(dp, dof, do_res, vs);  // dP = dO V^T
     wgmma_commit();
     fence_operands(s);
     fence_operands(dp);
@@ -208,12 +329,11 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
     fence_frags(dsf);
     fence_operands(dq);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 1>(dq, dsf[kk], desc_mn(ks, kk));  // dQ += dS K
+    mma_acc<DA>(dq, dsf, ks);  // dQ += dS K
     wgmma_commit();
     fence_operands(dq);
     prev = stage;
-    if (++stage == kStages) {
+    if (++stage == C::kStages) {
       stage = 0;
       phase ^= 1;
     }
@@ -221,29 +341,144 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k,
   wgmma_wait<0>();
   fence_operands(dq);
   fence_frags(dsf);
-  store_acc(p.dq + rows_off, p.c, dq, 1.f, 1.f, true, true, g, t);
+#pragma unroll
+  for (int a = 0; a < DA; ++a)
+    store_acc(p.dq + rows_off + a * kAtom, p.c, dq + 32 * a, 1.f, 1.f, true, true, g, t,
+              p.d - a * kAtom);
 }
 
+// One pass of the dk/dv kernel's consumers over the n_tiles query tiles of
+// the ring: dV += P^T dO (kDV) and / or dK += dS^T Q (kDK), into the
+// accumulators dv and dk (64 keys x 64 * DA, f32). The ring position
+// (stage, phase) carries over to the next pass; a pass of two hands its
+// last stage back once its groups have been retired.
+template <int DA, bool kDV, bool kDK>
+__device__ __forceinline__ void dkdv_pass(float* dv, float* dk, const uint32_t (&kf)[4][4],
+                                          const uint32_t (&vf)[4][4], const uint8_t* k_res,
+                                          const uint8_t* v_res, const uint8_t* ring,
+                                          const float* rows_ring, uint64_t* full,
+                                          uint64_t* empty, int n_tiles, const Params& p,
+                                          bool arrives, int t, int& stage, uint32_t& phase) {
+  using C = BwdCfg<DA>;
+  uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pf[kk][r] = dsf[kk][r] = 0u;
+  int prev = -1;  // the stage the dV/dK group in flight reads
+  for (int i = 0; i < n_tiles; ++i) {
+    mbar_wait(&full[stage], phase);
+    const uint8_t* qs = ring + stage * 2 * C::kTile;
+    const uint8_t* dos = qs + C::kTile;
+    const float* rs = rows_ring + stage * 2 * 64;
+    // transposed scores: rows are this warp's keys g, g + 8; accumulator
+    // value e of column group j is query 8j + 2t + (e & 1) of the tile
+    float s[32], dp[kDK ? 32 : 1];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    fence_operands(s);
+    if constexpr (kDK) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dp[e] = 0.f;
+      fence_operands(dp);
+    }
+    wgmma_fence();
+    mma_rows_t<DA>(s, kf, k_res, qs);  // S^T = K Q^T
+    wgmma_commit();
+    if constexpr (kDK) {
+      mma_rows_t<DA>(dp, vf, v_res, dos);  // dP^T = V dO^T
+      wgmma_commit();
+      fence_operands(dp);
+    }
+    fence_operands(s);
+    // S^T, and the previous tile's dV and dK groups
+    if constexpr (kDK) wgmma_wait<1>(); else wgmma_wait<0>();
+    fence_operands(s);
+    fence_frags(pf);
+    fence_frags(dsf);
+    if (prev >= 0 && arrives) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(rs + 8 * j + 2 * t);
+      s[4 * j] = exp2_approx(fmaf(s[4 * j], p.scale_log2, -l.x));
+      s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], p.scale_log2, -l.y));
+      s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], p.scale_log2, -l.x));
+      s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], p.scale_log2, -l.y));
+    }
+    if constexpr (kDV) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(pf[kk], s, kk);
+      fence_frags(pf);
+      fence_acc<32 * DA>(dv);
+      wgmma_fence();
+      mma_acc<DA>(dv, pf, dos);  // dV += P^T dO
+      wgmma_commit();
+      fence_acc<32 * DA>(dv);
+    }
+    if constexpr (kDK) {
+      // dP^T; the dV group runs on under the dS math
+      if constexpr (kDV) wgmma_wait<1>(); else wgmma_wait<0>();
+      fence_operands(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(rs + 64 + 8 * j + 2 * t);
+        dp[4 * j] = s[4 * j] * (dp[4 * j] - d.x) * p.scale;
+        dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d.y) * p.scale;
+        dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d.x) * p.scale;
+        dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d.y) * p.scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(dsf[kk], dp, kk);
+      fence_frags(dsf);
+      fence_acc<32 * DA>(dk);
+      wgmma_fence();
+      mma_acc<DA>(dk, dsf, qs);  // dK += dS^T Q
+      wgmma_commit();
+      fence_acc<32 * DA>(dk);
+    }
+    prev = stage;
+    if (++stage == C::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  if constexpr (kDV) fence_acc<32 * DA>(dv);
+  if constexpr (kDK) fence_acc<32 * DA>(dk);
+  fence_frags(pf);
+  fence_frags(dsf);
+  if constexpr (!(kDV && kDK))
+    if (prev >= 0 && arrives) mbar_arrive(&empty[prev]);
+}
+
+template <int DA>
 __global__ void __launch_bounds__(kThreads, 1)
 packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
-                                 const __grid_constant__ CUtensorMap map_do, const Params p) {
+                                 const __grid_constant__ CUtensorMap map_do,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using C = BwdCfg<DA>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = align1024(smem_raw);
-  float* rows_ring = reinterpret_cast<float*>(ring + kRing);  // [stage][L2 | Drow][64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(rows_ring + kStages * 2 * 64);
-  uint64_t* empty = full + kStages;
+  uint8_t* res = align1024(smem_raw);  // K then V, 128 keys each (DA > 1)
+  uint8_t* ring = res + C::kRes;
+  float* rows_ring = reinterpret_cast<float*>(ring + C::kRing);  // [stage][L2 | Drow][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_ring + C::kStages * 2 * 64);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* res_full = empty + C::kStages;
 
   const int k0 = blockIdx.x * kBlockRows;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int active = min(kNWG, (p.sk - k0) / 64);
   const int n_tiles = p.sq / 64;
+  constexpr int kPasses = C::kSplit ? 2 : 1;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], active);
     }
+    if constexpr (!C::kRegA) mbar_init(res_full, 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -256,19 +491,27 @@ packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     if (warp == 4 * kNWG && lane == 0) {
       prefetch_tensormap(&map_q);
       prefetch_tensormap(&map_do);
+      const int col = head * p.d;
+      if constexpr (!C::kRegA)
+        load_resident<DA>(res, res_full, &map_k, &map_v, col, k0, batch, active);
       const size_t bh = (static_cast<size_t>(batch) * p.heads + head) * p.sq;
       int stage = 0;
       uint32_t phase = 0;
-      for (int i = 0; i < n_tiles; ++i) {
+      for (int n = 0; n < kPasses * n_tiles; ++n) {
+        const int i = n % n_tiles;
         mbar_wait(&empty[stage], phase ^ 1);
-        uint8_t* st = ring + stage * 2 * kTileBytes;
+        uint8_t* st = ring + stage * 2 * C::kTile;
         float* rs = rows_ring + stage * 2 * 64;
-        mbar_expect_tx(&full[stage], 2 * kTileBytes + 2 * 64 * 4);
-        tma_load_3d(st, &map_q, &full[stage], head * kHeadDim, i * 64, batch);
-        tma_load_3d(st + kTileBytes, &map_do, &full[stage], head * kHeadDim, i * 64, batch);
+        mbar_expect_tx(&full[stage], 2 * C::kTile + 2 * 64 * 4);
+#pragma unroll
+        for (int a = 0; a < DA; ++a) {
+          tma_load_3d(st + a * kAtomTile, &map_q, &full[stage], col + a * kAtom, i * 64, batch);
+          tma_load_3d(st + C::kTile + a * kAtomTile, &map_do, &full[stage], col + a * kAtom,
+                      i * 64, batch);
+        }
         bulk_load(rs, p.l2 + bh + i * 64, 64 * 4, &full[stage]);
         bulk_load(rs + 64, p.drow + bh + i * 64, 64 * 4, &full[stage]);
-        if (++stage == kStages) {
+        if (++stage == C::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -283,101 +526,61 @@ packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wq = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
+  const bool arrives = wq == 0 && lane == 0;
 
   const size_t keys_off =
-      (static_cast<size_t>(batch) * p.sk + k0 + wg * 64 + wq * 16) * p.c + head * kHeadDim;
+      (static_cast<size_t>(batch) * p.sk + k0 + wg * 64 + wq * 16) * p.c + head * p.d;
   uint32_t kf[4][4], vf[4][4];
-  load_a_global(kf, p.k + keys_off, p.c, g, t);
-  load_a_global(vf, p.v + keys_off, p.c, g, t);
-  float dk[32], dv[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-  uint32_t pf[4][4], dsf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pf[kk][r] = dsf[kk][r] = 0u;
-  fence_operands(dk);
-  fence_operands(dv);
+  const uint8_t* k_res = res + wg * C::kTile;
+  const uint8_t* v_res = res + (kNWG + wg) * C::kTile;
+  if constexpr (C::kRegA) {
+    load_a_global(kf, p.k + keys_off, p.c, g, t, p.d);
+    load_a_global(vf, p.v + keys_off, p.c, g, t, p.d);
+  } else {
+    resident_ready<DA>(res_full, res + wg * C::kTile, 2, p.d, wg);
+  }
 
   int stage = 0;
   uint32_t phase = 0;
-  int prev = -1;  // the stage the dV/dK group in flight reads
-  for (int i = 0; i < n_tiles; ++i) {
-    mbar_wait(&full[stage], phase);
-    const uint8_t* qs = ring + stage * 2 * kTileBytes;
-    const uint8_t* dos = qs + kTileBytes;
-    const float* rs = rows_ring + stage * 2 * 64;
-    // transposed scores: rows are this warp's keys g, g + 8; accumulator
-    // value e of column group j is query 8j + 2t + (e & 1) of the tile
-    float s[32], dp[32];
+  if constexpr (C::kSplit) {
+    {
+      float dv[32 * DA];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
-    fence_operands(s);
-    fence_operands(dp);
-    wgmma_fence();
+      for (int i = 0; i < 32 * DA; ++i) dv[i] = 0.f;
+      fence_operands(dv);
+      dkdv_pass<DA, true, false>(dv, nullptr, kf, vf, k_res, v_res, ring, rows_ring, full, empty,
+                                 n_tiles, p, arrives, t, stage, phase);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(s, kf[kk], desc_k(qs, kk));  // S^T = K Q^T
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 0>(dp, vf[kk], desc_k(dos, kk));  // dP^T = V dO^T
-    wgmma_commit();
-    fence_operands(s);
-    fence_operands(dp);
-    wgmma_wait<1>();  // S^T, and the previous tile's dV and dK groups
-    fence_operands(s);
-    fence_frags(pf);
-    fence_frags(dsf);
-    if (prev >= 0 && wq == 0 && lane == 0) mbar_arrive(&empty[prev]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(rs + 8 * j + 2 * t);
-      s[4 * j] = exp2_approx(fmaf(s[4 * j], p.scale_log2, -l.x));
-      s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], p.scale_log2, -l.y));
-      s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], p.scale_log2, -l.x));
-      s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], p.scale_log2, -l.y));
+      for (int a = 0; a < DA; ++a)
+        store_acc(p.dv + keys_off + a * kAtom, p.c, dv + 32 * a, 1.f, 1.f, true, true, g, t,
+                  p.d - a * kAtom);
     }
+    float dk[32 * DA];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(pf[kk], s, kk);
-    fence_frags(pf);
-    fence_operands(dv);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 1>(dv, pf[kk], desc_mn(dos, kk));  // dV += P^T dO
-    wgmma_commit();
-    fence_operands(dv);
-    wgmma_wait<1>();  // dP^T; the dV group runs on under the dS math
-    fence_operands(dp);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 d = *reinterpret_cast<const float2*>(rs + 64 + 8 * j + 2 * t);
-      dp[4 * j] = s[4 * j] * (dp[4 * j] - d.x) * p.scale;
-      dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d.y) * p.scale;
-      dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d.x) * p.scale;
-      dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d.y) * p.scale;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(dsf[kk], dp, kk);
-    fence_frags(dsf);
+    for (int i = 0; i < 32 * DA; ++i) dk[i] = 0.f;
     fence_operands(dk);
-    wgmma_fence();
+    dkdv_pass<DA, false, true>(nullptr, dk, kf, vf, k_res, v_res, ring, rows_ring, full, empty,
+                               n_tiles, p, arrives, t, stage, phase);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 1>(dk, dsf[kk], desc_mn(qs, kk));  // dK += dS^T Q
-    wgmma_commit();
+    for (int a = 0; a < DA; ++a)
+      store_acc(p.dk + keys_off + a * kAtom, p.c, dk + 32 * a, 1.f, 1.f, true, true, g, t,
+                p.d - a * kAtom);
+  } else {
+    float dk[32 * DA], dv[32 * DA];
+#pragma unroll
+    for (int i = 0; i < 32 * DA; ++i) dk[i] = dv[i] = 0.f;
     fence_operands(dk);
-    prev = stage;
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
+    fence_operands(dv);
+    dkdv_pass<DA, true, true>(dv, dk, kf, vf, k_res, v_res, ring, rows_ring, full, empty,
+                              n_tiles, p, arrives, t, stage, phase);
+#pragma unroll
+    for (int a = 0; a < DA; ++a) {
+      store_acc(p.dk + keys_off + a * kAtom, p.c, dk + 32 * a, 1.f, 1.f, true, true, g, t,
+                p.d - a * kAtom);
+      store_acc(p.dv + keys_off + a * kAtom, p.c, dv + 32 * a, 1.f, 1.f, true, true, g, t,
+                p.d - a * kAtom);
     }
   }
-  wgmma_wait<0>();
-  fence_operands(dk);
-  fence_operands(dv);
-  fence_frags(pf);
-  fence_frags(dsf);
-  store_acc(p.dk + keys_off, p.c, dk, 1.f, 1.f, true, true, g, t);
-  store_acc(p.dv + keys_off, p.c, dv, 1.f, 1.f, true, true, g, t);
 }
 
 // A (C, S, B) map of a packed (B, S, C) bf16 tensor with a (64, 64, 1) box.
@@ -386,28 +589,54 @@ int seq_map(CUtensorMap* map, const void* x, int batch, int s, int c) {
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 2,
                                  static_cast<cuuint64_t>(s) * c * 2};
-  const cuuint32_t box[3] = {kHeadDim, 64, 1};
+  const cuuint32_t box[3] = {kAtom, 64, 1};
   return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box,
                              CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int DA>
+int launch_bwd(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap& mk,
+               const CUtensorMap& mv, const Params& p, int batch, cudaStream_t st) {
+  using C = BwdCfg<DA>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(packed_attention_bwd_dq_kernel<DA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDqSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(packed_attention_bwd_dkdv_kernel<DA>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDkdvSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  packed_attention_bwd_dq_kernel<DA>
+      <<<dim3((p.sq + kBlockRows - 1) / kBlockRows, p.heads, batch), kThreads, C::kDqSmem, st>>>(
+          mq, mdo, mk, mv, p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_attention_bwd_dkdv_kernel<DA>
+      <<<dim3((p.sk + kBlockRows - 1) / kBlockRows, p.heads, batch), kThreads, C::kDkdvSmem,
+         st>>>(mq, mdo, mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// dq, dk, dv of packed (B, S, heads * 64) bf16 attention, from the forward's
+// dq, dk, dv of packed (B, S, heads * d) bf16 attention, from the forward's
 // o and (B, Sq, heads) f32 lse and the output gradient dout; Sq and Sk
-// multiples of 64. `delta` is a (2, B, heads, Sq) f32 scratch the first
-// kernel fills with L * log2(e) and rowsum(dO * O) for the second. Needs
-// 16-byte aligned tensors (the wrapper checks). Launches both kernels on
-// `stream`, does not synchronise, and returns 0 or the first error code for
-// packed_attention_bwd_error_string.
+// multiples of 64, d a multiple of 8 up to 160. `delta` is a
+// (2, B, heads, Sq) f32 scratch the first kernel fills with L * log2(e) and
+// rowsum(dO * O) for the second. Needs 16-byte aligned tensors (the wrapper
+// checks). Launches both kernels on `stream`, does not synchronise, and
+// returns 0 or the first error code for packed_attention_bwd_error_string.
 int packed_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* lse, const void* dout, void* delta, void* dq, void* dk,
-                         void* dv, int batch, int sq, int sk, int heads, void* stream) {
-  if (sq < 64 || sk < 64 || sq % 64 || sk % 64) return static_cast<int>(cudaErrorInvalidValue);
+                         void* dv, int batch, int sq, int sk, int heads, int d, void* stream) {
+  if (sq < 64 || sk < 64 || sq % 64 || sk % 64 || !head_dim_ok(d))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const int c = heads * kHeadDim;
+  const int c = heads * d;
   CUtensorMap mq, mk, mv, mdo;
   int rc;
   if ((rc = seq_map(&mq, q, batch, sq, c))) return rc;
@@ -430,30 +659,27 @@ int packed_attention_bwd(const void* q, const void* k, const void* v, const void
   p.sq = sq;
   p.sk = sk;
   p.c = c;
+  p.d = d;
   p.heads = heads;
-  p.scale = 0.125f;  // 1 / sqrt(64)
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // 0.125 at d = 64
   p.scale_log2 = kLog2e * p.scale;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(packed_attention_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(packed_attention_bwd_dkdv_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
+  switch (head_atoms(d)) {
+    case 1: return launch_bwd<1>(mq, mdo, mk, mv, p, batch, st);
+    case 2: return launch_bwd<2>(mq, mdo, mk, mv, p, batch, st);
+    default: return launch_bwd<3>(mq, mdo, mk, mv, p, batch, st);
   }
-  packed_attention_bwd_dq_kernel<<<dim3((sq + kBlockRows - 1) / kBlockRows, heads, batch),
-                                   kThreads, kDqSmem, st>>>(mk, mv, p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  packed_attention_bwd_dkdv_kernel<<<dim3((sk + kBlockRows - 1) / kBlockRows, heads, batch),
-                                     kThreads, kDkdvSmem, st>>>(mq, mdo, p);
-  return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory each of the two kernels asks for.
-int packed_attention_bwd_smem_bytes(int dkdv) { return dkdv ? kDkdvSmem : kDqSmem; }
+// Shared memory each of the two kernels asks for at head dim d (0 for a d
+// there is no kernel for).
+int packed_attention_bwd_smem_bytes(int dkdv, int d) {
+  if (!head_dim_ok(d)) return 0;
+  switch (head_atoms(d)) {
+    case 1: return dkdv ? BwdCfg<1>::kDkdvSmem : BwdCfg<1>::kDqSmem;
+    case 2: return dkdv ? BwdCfg<2>::kDkdvSmem : BwdCfg<2>::kDqSmem;
+    default: return dkdv ? BwdCfg<3>::kDkdvSmem : BwdCfg<3>::kDqSmem;
+  }
+}
 
 const char* packed_attention_bwd_error_string(int code) { return hopper_host::error_string(code); }
 

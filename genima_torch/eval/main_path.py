@@ -1,5 +1,6 @@
-"""The main path at full width: sd-turbo (or sdxl-turbo) ControlNet + VAE +
-ACT, or the InstructPix2Pix UNet + VAE + ACT, random weights.
+"""The main path at full width: sd-turbo (or sdxl-turbo, or SD-1.5's
+geometry) ControlNet + VAE + ACT, or the InstructPix2Pix UNet + VAE + ACT,
+random weights.
 
 ``build_main_path`` assembles what a user of the fused control step would:
 an ``SDControlNetAgent`` at SD-2.1 / sd-turbo width (``UNetConfig.sd21``,
@@ -7,7 +8,10 @@ an ``SDControlNetAgent`` at SD-2.1 / sd-turbo width (``UNetConfig.sd21``,
 ``SDXLControlNetAgent`` at sdxl-turbo width (``UNetConfig.sdxl``,
 ``VAEConfig.sdxl``, ``CLIPTextConfig.sdxl_one`` + ``sdxl_two``), or with
 ``variant="pix2pix"`` an ``SDPix2PixAgent`` (``UNetConfig.pix2pix``: sd-turbo
-width, 8 input channels; the VAE with its encoder), a
+width, 8 input channels; the VAE with its encoder), with ``variant="sd15"``
+an ``SDControlNetAgent`` on ``sd15_pipeline`` (``UNetConfig.sd15``: 8 heads
+at 320/640/1280 channels, head dims 40/80/160; ``CLIPTextConfig.sd15``: the
+768-wide CLIP-L; the SD VAE), a
 ``GenimaACTAgent`` (``ACTConfig()``, ViT-B/32 text tower, ResNet-18 width
 64) and a ``FusedGenimaStep`` over four 256x256 views, with seeded
 scaled-normal weights made on the device and seeded inputs: a 512x512 uint8
@@ -23,19 +27,37 @@ from typing import Any
 import torch
 
 from genima_torch.control.policy import GenimaACTAgent
+from genima_torch.diffusion.pipeline import SDControlNetPipeline
 from genima_torch.eval.agents import SDControlNetAgent, SDPix2PixAgent, SDXLControlNetAgent
 from genima_torch.eval.fused import FusedGenimaStep
+from genima_torch.nn.clip_text import CLIPTextConfig
+from genima_torch.nn.unet import UNetConfig
 
 RESOLUTION = 512
 OBS_SIZE = 256
 EOT_ID = 49407  # CLIP end-of-text, the highest id: where the text towers pool
 
 
-VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent, "pix2pix": SDPix2PixAgent}
+def sd15_pipeline(**kw) -> SDControlNetPipeline:
+    """SD-1.5 geometry, as a JAX user builds it: ``SDControlNetPipeline``
+    with ``UNetConfig.sd15()`` and ``CLIPTextConfig.sd15()`` in its config
+    fields (the SD VAE); ``kw`` as the pipeline's own."""
+    return SDControlNetPipeline(unet_cfg=UNetConfig.sd15(), text_cfg=CLIPTextConfig.sd15(), **kw)
+
+
+class SD15ControlNetAgent(SDControlNetAgent):
+    """``SDControlNetAgent`` on ``sd15_pipeline``."""
+
+    PIPELINE = staticmethod(sd15_pipeline)
+
+
+VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent, "pix2pix": SDPix2PixAgent,
+            "sd15": SD15ControlNetAgent}
 
 
 def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
-                    conv_backend: str = "xla", n_envs: int = 1, variant: str = "sd"):
+                    conv_backend: str = "xla", n_envs: int = 1, variant: str = "sd",
+                    resolution: int = RESOLUTION):
     """Returns ``(step, args)``; ``step(**args)`` runs one control step.
     ``backend`` and ``conv_backend`` are the pipeline's (the default path, or
     the opt-in serving configuration ``"pallas+w8"`` / ``"fused"``, whose
@@ -43,19 +65,21 @@ def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
     ``n_envs > 1`` the step is ``eval.parallel.BatchedGenimaStep`` and each
     input holds one row per env (frame stack 1), each row drawn apart.
     ``variant="sdxl"``: ``prompt_embeds`` is the (hidden, pooled) pair and
-    ``noise`` the (5, n, 64, 64, 4) ancestral noise."""
+    ``noise`` the (5, n, 64, 64, 4) ancestral noise. ``resolution`` is the
+    tiled observation's side (the eval CLI's ``image_resolution``: 768 gives
+    96x96 latents and 384x384 views, resized to ``OBS_SIZE`` for ACT)."""
     agent_cls = VARIANTS[variant]
     pipe = agent_cls.PIPELINE(device=device, backend=backend, conv_backend=conv_backend)
     dag = agent_cls(
         pipe, params=pipe.init_params(torch.Generator(device=pipe.device).manual_seed(seed)),
-        resolution=RESOLUTION)
+        resolution=resolution)
     device = dag.pipe.device
     act_agent = GenimaACTAgent(device=device)
     act_params, clip = act_agent.init_params(
         torch.Generator(device=device).manual_seed(seed + 1)
     )
     gen = torch.Generator(device=device).manual_seed(seed + 2)
-    lat = RESOLUTION // dag.pipe.vae_scale_factor
+    lat = resolution // dag.pipe.vae_scale_factor
     n = n_envs
     ids = torch.randint(0, EOT_ID - 1, (2 * n, 77), generator=gen, device=device)
     ids[:, 12] = EOT_ID
@@ -63,7 +87,7 @@ def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
         diffusion_params=dag.params,
         controller_params=act_params,
         clip_params=clip,
-        tiled_u8=torch.randint(0, 256, (n, RESOLUTION, RESOLUTION, 3), generator=gen,
+        tiled_u8=torch.randint(0, 256, (n, resolution, resolution, 3), generator=gen,
                                device=device, dtype=torch.uint8),
         prompt_embeds=dag.embed_prompt_ids(ids[:n].cpu()),
         latents=torch.randn(n, lat, lat, 4, generator=gen, device=device),

@@ -19,11 +19,12 @@ prompt tokens; under ``"pallas_self"`` only self-attention does.
   wgmma with the online softmax in registers, keys past Sk masked to -1e30
   in the last tile and query rows past Sq never stored. ``plan`` picks the
   consumer warpgroups, the key tile and the ring depth per shape. It reads
-  (B, S, H, 64) in place with row stride H*64; the JAX wrapper's
+  (B, S, H, D) in place with row stride H*D; the JAX wrapper's
   transposes to (B*H, S, D) are a TPU tiling artifact and are not ported.
-  Takes bf16 and head_dim 64; anything else raises. Bound: tensor-core
-  operations for long self-attention, bytes for cross-attention over 77
-  keys.
+  Takes bf16 and every head dim D that is a multiple of 8 from 8 to 160
+  (SD-1.5's 40/80/160 among them), read as ceil(D / 64) atoms of 64
+  columns; anything else raises. Bound: tensor-core operations for long
+  self-attention, bytes for cross-attention over 77 keys.
 * CPU: ``flash_attention_reference``, the same arithmetic in plain PyTorch
   (f32 scores, P rounded to v's dtype before P V). The wrapper takes it only
   for tensors that lie on the CPU.
@@ -41,7 +42,21 @@ import torch
 
 from genima_torch.kernels import _build
 
-HEAD_DIM = 64
+HEAD_DIM = 64  # the head dim of the sd-turbo / SDXL geometry, the plans' default
+ATOM = 64  # columns of a head atom: the kernels read a head as ceil(d / 64) of them
+MAX_HEAD_DIM = 160
+
+
+def head_atoms(d: int) -> int:
+    """64-column atoms of a head of ``d`` columns (mirrors ``head_atoms`` in
+    ``csrc/attention_hopper.cuh``)."""
+    return -(-d // ATOM)
+
+
+def check_head_dim(d: int) -> None:
+    """Raises for a head dim the attention kernels do not take."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 8 from 8 to {MAX_HEAD_DIM}")
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -57,10 +72,14 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_SM = 233472  # shared memory of an SM (228 KB; 1 KB of it reserved per block)
+SMEM_BLOCK = 232448  # dynamic shared memory a block may ask for (227 KB)
 REGISTERS_SM = 65536
 # (consumer warpgroups of 64 query rows, keys a K/V tile): the kernel's
-# instantiations
+# instantiations at head dims up to 64 (one atom)
 TILES = ((1, 64), (1, 80), (1, 128), (2, 64), (2, 80), (2, 128), (3, 128))
+# and at 72..160 (two or three atoms): one block an SM, whose O accumulator
+# (32 registers a thread an atom) and K/V stages grow with the atoms
+WIDE_TILES = ((1, 64), (1, 80), (2, 64))
 MAX_STAGES = 4
 LONG_KEY_LOOP = 4  # K/V tiles from which two or three consumer warpgroups pay
 # time per 64 query rows of a three-warpgroup block against a two-warpgroup
@@ -72,7 +91,8 @@ THREE_WG_ROW_COST = 0.9
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """One call's launch: ``nwg`` consumer warpgroups (64 query rows each),
-    ``bn`` keys a K/V tile, a ring of ``stages`` K/V stages."""
+    ``bn`` keys a K/V tile, a ring of ``stages`` K/V stages, heads of
+    ``atoms`` 64-column atoms."""
 
     nwg: int
     bn: int
@@ -81,6 +101,7 @@ class Plan:
     grid: tuple[int, int, int]  # (query tiles, heads, batch)
     smem_bytes: int
     why_short: str  # why the grid is under one wave ("" if it is not)
+    atoms: int = 1
 
     @property
     def blocks(self) -> int:
@@ -98,9 +119,10 @@ class Plan:
 
     @property
     def blocks_per_sm(self) -> int:
-        """The kernel's launch bounds: the one-warpgroup, 64-key block is
-        held to 136 registers a thread so that three share an SM."""
-        return 3 if (self.nwg, self.bn) == (1, 64) else 1
+        """The kernel's launch bounds: the one-warpgroup, 64-key block of a
+        one-atom head is held to 136 registers a thread so that three share
+        an SM."""
+        return 3 if (self.nwg, self.bn, self.atoms) == (1, 64, 1) else 1
 
     @property
     def max_registers(self) -> int:
@@ -110,12 +132,17 @@ class Plan:
         return min(255, REGISTERS_SM // (self.threads * self.blocks_per_sm) // 8 * 8)
 
 
-def smem_bytes(nwg: int, bn: int, stages: int) -> int:
+def smem_bytes(nwg: int, bn: int, stages: int, atoms: int = 1) -> int:
     """Dynamic shared memory of one block: 1 KB of alignment slack, the Q
     tile, the K/V ring and the barriers. Mirrors ``fwd_smem_bytes`` in
     ``csrc/attention_fwd_hopper.cuh``, which ``flash_attention_smem_bytes``
     and ``packed_attention_smem_bytes`` return."""
-    return 1024 + 64 * nwg * 128 + stages * 2 * bn * 128 + 16 * stages + 16
+    return 1024 + (64 * nwg * 128 + stages * 2 * bn * 128) * atoms + 16 * stages + 16
+
+
+def tiles_for(d: int) -> tuple:
+    """B3's instantiations at head dim ``d``."""
+    return TILES if head_atoms(d) == 1 else WIDE_TILES
 
 
 def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
@@ -124,9 +151,10 @@ def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> Plan:
+def plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS) -> Plan:
     """Consumer warpgroups, key tile and ring depth for a (B, Sq, Sk, heads)
-    call, by the rules ``python -m genima_torch.tune_kernels attn`` chose:
+    call at head dim ``d``, by the rules ``python -m genima_torch.tune_kernels
+    attn`` chose at d = 64:
 
     * key tile: 64 keys when Sk <= 64, 80 when Sk <= 80 (the 77 prompt
       tokens in one tile: TMA zero-fills keys 77-79 and the mask drops
@@ -138,11 +166,21 @@ def plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> Plan:
       where a block's fixed cost dominates and more, smaller blocks finish
       first;
     * ring: as deep as the K/V tiles need, at most four stages.
+
+    Two- and three-atom heads (d = 72..160) take 64-key tiles (80 for the
+    prompt), two warpgroups for a key loop of ``LONG_KEY_LOOP`` tiles or
+    more, and as deep a ring as shared memory leaves (three stages for two
+    warpgroups at three atoms).
     """
     _check_shape(b, sq, sk, h)
+    check_head_dim(d)
+    if head_atoms(d) > 1:
+        bn = 80 if 64 < sk <= 80 else 64
+        return make_plan(b, sq, sk, h, 2 if -(-sk // bn) >= LONG_KEY_LOOP else 1, bn, d=d,
+                         sms=sms)
     bn = 64 if sk <= 64 else 80 if sk <= 80 else 128
     nwg = long_loop_warpgroups(b, sq, h, sms) if -(-sk // bn) >= LONG_KEY_LOOP else 1
-    return make_plan(b, sq, sk, h, nwg, bn, sms=sms)
+    return make_plan(b, sq, sk, h, nwg, bn, d=d, sms=sms)
 
 
 def long_loop_warpgroups(b: int, sq: int, h: int, sms: int = SMS) -> int:
@@ -160,19 +198,30 @@ def long_loop_warpgroups(b: int, sq: int, h: int, sms: int = SMS) -> int:
     return 3 if cost(3) <= cost(2) else 2
 
 
+def max_stages(nwg: int, bn: int, atoms: int) -> int:
+    """The deepest ring (at most ``MAX_STAGES``) a block's shared memory
+    holds."""
+    return max(s for s in range(1, MAX_STAGES + 1)
+               if s == 1 or smem_bytes(nwg, bn, s, atoms) <= SMEM_BLOCK)
+
+
 def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int | None = None,
-              sms: int = SMS, tiles=TILES) -> Plan:
+              sms: int = SMS, tiles=None, d: int = HEAD_DIM) -> Plan:
     """The launch for a chosen tile of ``tiles`` (the instantiations of the
-    kernel's source); the ring depth as ``plan`` derives it unless given."""
+    kernel's source, by default B3's at head dim ``d``); the ring depth as
+    ``plan`` derives it unless given."""
     _check_shape(b, sq, sk, h)
-    if (nwg, bn) not in tiles:
-        raise ValueError(f"no kernel for {nwg} warpgroups x {bn}-key tiles")
+    check_head_dim(d)
+    atoms = head_atoms(d)
+    if (nwg, bn) not in (tiles_for(d) if tiles is None else tiles):
+        raise ValueError(f"no kernel for {nwg} warpgroups x {bn}-key tiles at head_dim {d}")
     kv_tiles = -(-sk // bn)
+    deepest = max_stages(nwg, bn, atoms)
     if stages is None:
-        stages = min(kv_tiles, MAX_STAGES)
+        stages = min(kv_tiles, deepest)
     # a stage goes back to the producer only once the next tile has arrived
-    if not (2 if kv_tiles > 1 else 1) <= stages <= MAX_STAGES:
-        raise ValueError(f"{stages} stages for {kv_tiles} K/V tiles")
+    if not (2 if kv_tiles > 1 else 1) <= stages <= deepest:
+        raise ValueError(f"{stages} stages for {kv_tiles} K/V tiles at head_dim {d}")
     grid = (-(-sq // (64 * nwg)), h, b)
     blocks = grid[0] * grid[1] * grid[2]
     why = ""
@@ -181,23 +230,24 @@ def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int |
         if nwg > 1:
             why += f", {nwg} warpgroups sharing each of {kv_tiles} K/V tiles"
     return Plan(nwg=nwg, bn=bn, stages=stages, kv_tiles=kv_tiles, grid=grid,
-                smem_bytes=smem_bytes(nwg, bn, stages), why_short=why)
+                smem_bytes=smem_bytes(nwg, bn, stages, atoms), why_short=why, atoms=atoms)
 
 
-def _plan_for(b: int, sq: int, sk: int, h: int) -> Plan:
+def _plan_for(b: int, sq: int, sk: int, h: int, d: int) -> Plan:
     """The plan a call launches (``tune_kernels`` and the card tests swap in
     others)."""
-    return plan(b, sq, sk, h)
+    return plan(b, sq, sk, h, d)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    # pointers, then (B, Sq, Sk, heads, d) and the plan's (nwg, bn, stages), then the stream
+    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p
     ]
     lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -215,8 +265,7 @@ def _check_cuda_inputs(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if k.shape != (b, k.shape[1], h, d) or v.shape != k.shape or k.shape[1] < 1:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d != HEAD_DIM:
-        raise ValueError(f"head_dim {d} != {HEAD_DIM}")
+    check_head_dim(d)
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -226,14 +275,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_inputs(q, k, v)
-    b, sq, h, _ = q.shape
-    p = _plan_for(b, sq, k.shape[1], h)
+    b, sq, h, d = q.shape
+    p = _plan_for(b, sq, k.shape[1], h, d)
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     b, sq, k.shape[1], h, p.nwg, p.bn, p.stages, stream)
+                                     b, sq, k.shape[1], h, d, p.nwg, p.bn, p.stages, stream)
     with _build.COUNT_LOCK:  # mesh rows launch from several threads
         flash_attention.launches += 1
         flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1

@@ -23,7 +23,7 @@ it runs B1 and records nothing for autograd.
   ``csrc/attention_fwd_hopper.cuh``, instantiated without and with the L
   store. A producer warp or warpgroup TMA-loads the block's Q tile and
   streams K/V tiles through an mbarrier ring over 3-D (C, S, B) maps at
-  column offset ``h * 64``; one to three consumer warpgroups of 64 query
+  column offset ``h * d``; one to three consumer warpgroups of 64 query
   rows run S = Q K^T and O += P V on wgmma with the online softmax in f32
   registers;
   ``forward_plan`` picks the warpgroups, the key tile and the ring depth,
@@ -36,8 +36,12 @@ it runs B1 and records nothing for autograd.
   flops and the backward 10*S^2*C on ~8*S*C and ~16*S*C bytes, so at the
   SD levels tensor-core operations bound both; the design keeps scores out
   of device memory.
-  Takes bf16, head_dim 64, and ``Sq``, ``Sk`` multiples of 64 up to 4096;
-  anything else raises.
+  Takes bf16, every head dim that is a multiple of 8 from 8 to 160 (the
+  tiny configs' 16/32, SD's 64, SD-1.5's 40/80/160; read as ceil(d / 64)
+  atoms of 64 columns, the columns past d zeroed where a product sums over
+  them and never stored), and ``Sq``, ``Sk`` any multiples of 64 (9216 at
+  768x768, 16384 at 1024x1024): the TPU forward's ``_forward_streaming``
+  rows. Anything else raises.
 * CPU: ``packed_attention_reference``, ``packed_attention_lse_reference`` and
   ``packed_attention_backward_reference``, the same arithmetic in plain
   PyTorch (bf16 roundings included). The wrappers take them only for
@@ -57,17 +61,19 @@ import torch
 from genima_torch.kernels import _build
 from genima_torch.kernels import flash_attention as fa
 
-HEAD_DIM = 64
+HEAD_DIM = fa.HEAD_DIM
 BLOCK = 64  # Sq and Sk are multiples of this: the backward's 64-row tiles
-MAX_SEQ = 4096
 # B1/B2a: (consumer warpgroups of 64 query rows, keys a K/V tile), the
-# instantiations of packed_attention.cu: those ``forward_plan`` picks at some
-# shape (Sk is a multiple of 64, so B3's 80-key tile for the 77 prompt
-# tokens is not built; 64-key tiles with two or three warpgroups never beat
-# 128-key ones, tune_kernels packed)
+# instantiations of packed_attention.cu at head dims up to 64: those
+# ``forward_plan`` picks at some shape (Sk is a multiple of 64, so B3's
+# 80-key tile for the 77 prompt tokens is not built; 64-key tiles with two
+# or three warpgroups never beat 128-key ones, tune_kernels packed)
 FORWARD_TILES = ((1, 64), (1, 128), (2, 128), (3, 128))
+# and at 72..160 (two or three 64-column atoms): one block an SM
+WIDE_FORWARD_TILES = ((1, 64), (2, 64))
 # B2b: query rows (dq kernel) or keys (dk/dv kernel) a block, two consumer
-# warpgroups of 64, and the depth of each kernel's TMA ring
+# warpgroups of 64, and the depth of each kernel's TMA ring (at one or two
+# atoms; three atoms ring two stages)
 BWD_BLOCK_ROWS = 128
 BWD_STAGES = 4
 BWD_THREADS = 384  # two consumer warpgroups and the producer warpgroup
@@ -77,16 +83,21 @@ REGISTERS_SM = 65536
 
 @dataclasses.dataclass(frozen=True)
 class BackwardPlan:
-    """B2b's two launches for a (B, Sq, Sk, heads) call: the dq kernel's
-    grid walks query blocks, the dk/dv kernel's key blocks, each over
-    (blocks, heads, batch); shared memory mirrors
-    ``packed_attention_bwd_smem_bytes`` in the source."""
+    """B2b's two launches for a (B, Sq, Sk, heads) call at head dim d: the
+    dq kernel's grid walks query blocks, the dk/dv kernel's key blocks, each
+    over (blocks, heads, batch); shared memory mirrors
+    ``packed_attention_bwd_smem_bytes`` in the source. Heads of two or three
+    atoms keep the block's resident tensors in shared memory and make two
+    passes over the queries in the dk/dv kernel (``passes``)."""
 
     dq_grid: tuple[int, int, int]
     dkdv_grid: tuple[int, int, int]
     dq_smem_bytes: int
     dkdv_smem_bytes: int
     why_short: str  # why a grid is under one wave ("" if neither is)
+    atoms: int = 1
+    stages: int = BWD_STAGES
+    passes: int = 1
 
     @property
     def max_registers(self) -> int:
@@ -95,27 +106,35 @@ class BackwardPlan:
         return min(255, REGISTERS_SM // BWD_THREADS // 8 * 8)
 
 
-def backward_plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> BackwardPlan:
-    """The fixed tiling of B2b (128-row blocks, a 4-stage ring of 64-row
-    tiles) at one shape; raises for a shape the kernels do not take."""
+def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
+                  sms: int = SMS) -> BackwardPlan:
+    """The fixed tiling of B2b (128-row blocks, a ring of 64-row tiles) at
+    one shape; raises for a shape the kernels do not take."""
     _check_shape(b, sq, sk, h)
-    ring = BWD_STAGES * 2 * BLOCK * HEAD_DIM * 2  # a Q/dO or K/V pair of tiles a stage
+    fa.check_head_dim(d)
+    atoms = fa.head_atoms(d)
+    stages = 2 if atoms == 3 else BWD_STAGES
+    tile = BLOCK * fa.ATOM * 2 * atoms  # 64 rows of every atom
+    ring = stages * 2 * tile  # a Q/dO or K/V pair of tiles a stage
+    # two resident tensors of 128 rows and their barrier (more than one atom)
+    resident = 0 if atoms == 1 else 2 * BWD_BLOCK_ROWS // BLOCK * tile + 16
     dq = (-(-sq // BWD_BLOCK_ROWS), h, b)
     dkdv = (-(-sk // BWD_BLOCK_ROWS), h, b)
     short = [f"{name}: {g[0]} blocks of {BWD_BLOCK_ROWS} {what} x {h} heads x batch {b}"
              for name, g, what in (("dq", dq, "queries"), ("dk/dv", dkdv, "keys"))
              if g[0] * h * b < sms]
+    dq_smem = 1024 + resident + ring + 16 * stages
     return BackwardPlan(
-        dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=1024 + ring + 16 * BWD_STAGES,
+        dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=dq_smem,
         # + each stage's 64 values of L * log2(e) and Drow
-        dkdv_smem_bytes=1024 + ring + BWD_STAGES * 2 * BLOCK * 4 + 16 * BWD_STAGES,
-        why_short="; ".join(short))
+        dkdv_smem_bytes=dq_smem + stages * 2 * BLOCK * 4,
+        why_short="; ".join(short), atoms=atoms, stages=stages, passes=1 if atoms == 1 else 2)
 
 
 def _check_seq(sq: int, sk: int) -> None:
     for name, s in (("Sq", sq), ("Sk", sk)):
-        if s % BLOCK or not 0 < s <= MAX_SEQ:
-            raise ValueError(f"{name}={s} must be a multiple of {BLOCK} up to {MAX_SEQ}")
+        if s % BLOCK or s <= 0:
+            raise ValueError(f"{name}={s} must be a positive multiple of {BLOCK}")
 
 
 def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
@@ -125,12 +144,18 @@ def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
     _check_seq(sq, sk)
 
 
+def forward_tiles(d: int) -> tuple:
+    """B1/B2a's instantiations at head dim ``d``."""
+    return FORWARD_TILES if fa.head_atoms(d) == 1 else WIDE_FORWARD_TILES
+
+
 @functools.lru_cache(maxsize=None)
-def forward_plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> fa.Plan:
+def forward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
+                 sms: int = SMS) -> fa.Plan:
     """Consumer warpgroups, key tile and ring depth of B1 and B2a (one plan
     for both: the key tile sets the order of the online-softmax updates) for
-    a (B, Sq, Sk, heads) call, by the rules ``python -m genima_torch.tune_kernels
-    packed`` chose:
+    a (B, Sq, Sk, heads) call at head dim ``d``, by the rules ``python -m
+    genima_torch.tune_kernels packed`` chose at d = 64:
 
     * a key loop of ``fa.LONG_KEY_LOOP`` 128-key tiles or more: two or
       three consumer warpgroups (128 or 192 query rows a block, sharing
@@ -142,22 +167,29 @@ def forward_plan(b: int, sq: int, sk: int, h: int, sms: int = SMS) -> fa.Plan:
       0.0111 on 128-key tiles); 64-key tiles also when Sk is 64;
     * ring: as deep as the K/V tiles need, at most four stages.
 
+    Two- and three-atom heads (d = 72..160) take 64-key tiles, two
+    warpgroups for a key loop of ``fa.LONG_KEY_LOOP`` tiles or more, and as
+    deep a ring as shared memory leaves.
+
     Raises for a shape the kernel does not take.
     """
-    if -(-sk // 128) >= fa.LONG_KEY_LOOP:
+    fa.check_head_dim(d)
+    if fa.head_atoms(d) > 1:
+        nwg, bn = (2 if -(-sk // 64) >= fa.LONG_KEY_LOOP else 1), 64
+    elif -(-sk // 128) >= fa.LONG_KEY_LOOP:
         nwg, bn = fa.long_loop_warpgroups(b, sq, h, sms), 128
     else:
         nwg, bn = 1, 64 if sk <= 64 or -(-sq // 64) * h * b > sms else 128
-    return make_forward_plan(b, sq, sk, h, nwg, bn, sms=sms)
+    return make_forward_plan(b, sq, sk, h, nwg, bn, sms=sms, d=d)
 
 
 def make_forward_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int,
-                      stages: int | None = None, sms: int = SMS) -> fa.Plan:
+                      stages: int | None = None, sms: int = SMS, d: int = HEAD_DIM) -> fa.Plan:
     """B1/B2a's launch for a chosen tile; the ring depth as ``forward_plan``
     derives it unless given. The shared memory mirrors
     ``packed_attention_smem_bytes`` in the source."""
     _check_shape(b, sq, sk, h)
-    return fa.make_plan(b, sq, sk, h, nwg, bn, stages, sms=sms, tiles=FORWARD_TILES)
+    return fa.make_plan(b, sq, sk, h, nwg, bn, stages, sms=sms, tiles=forward_tiles(d), d=d)
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -221,11 +253,11 @@ def packed_attention_backward_reference(
 
 
 def kernel_tiles(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """Whether the kernels' 64-row tiles cover Sq and Sk (multiples of 64 up
-    to 4096). The backward takes a shape only then; otherwise autograd
+    """Whether the kernels' 64-row tiles cover Sq and Sk (multiples of 64,
+    of any length). The backward takes a shape only then; otherwise autograd
     recomputes through the plain version, as the TPU package does where
     ``_bwd_kernel_applicable`` is false (kv=77 cross-attention)."""
-    return all(s % BLOCK == 0 and 0 < s <= MAX_SEQ for s in (q.shape[1], k.shape[1]))
+    return all(s % BLOCK == 0 and s > 0 for s in (q.shape[1], k.shape[1]))
 
 
 def _check_cuda_inputs(q, k, v, num_heads) -> None:
@@ -240,8 +272,9 @@ def _check_cuda_inputs(q, k, v, num_heads) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if k.shape != (b, sk, c) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if c != num_heads * HEAD_DIM:
-        raise ValueError(f"channels {c} != {num_heads} heads x {HEAD_DIM}")
+    if num_heads < 1 or c % num_heads:
+        raise ValueError(f"channels {c} do not split into {num_heads} heads")
+    fa.check_head_dim(c // num_heads)
     _check_seq(sq, sk)
 
 
@@ -251,24 +284,24 @@ def _device(q: torch.Tensor) -> str:
     return q.device.type
 
 
-def _plan_for(b: int, sq: int, sk: int, h: int) -> fa.Plan:
+def _plan_for(b: int, sq: int, sk: int, h: int, d: int) -> fa.Plan:
     """The plan a B1 or B2a call launches (``tune_kernels`` and the card
     tests swap in others)."""
-    return forward_plan(b, sq, sk, h)
+    return forward_plan(b, sq, sk, h, d)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("packed_attention")
-    # pointers, then (B, Sq, Sk, heads) and the plan's (nwg, bn, stages), then the stream
-    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    # pointers, then (B, Sq, Sk, heads, d) and the plan's (nwg, bn, stages), then the stream
+    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p
     ]
-    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_fwd.restype = lib.packed_attention_fwd_lse.restype = ctypes.c_int
-    lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.packed_attention_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_error_string.restype = ctypes.c_char_p
@@ -278,11 +311,12 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("packed_attention_bwd")
-    lib.packed_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    # pointers, then (B, Sq, Sk, heads, d), then the stream
+    lib.packed_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_bwd.restype = ctypes.c_int
-    lib.packed_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.packed_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.packed_attention_bwd_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -302,15 +336,16 @@ def _count(fn, q: torch.Tensor, k: torch.Tensor) -> None:
 
 def _launch_forward(q, k, v, num_heads, with_lse: bool):
     _check_cuda_inputs(q, k, v, num_heads)
-    b, sq, _ = q.shape
-    p = _plan_for(b, sq, k.shape[1], num_heads)
+    b, sq, c = q.shape
+    d = c // num_heads
+    p = _plan_for(b, sq, k.shape[1], num_heads, d)
     out = torch.empty_like(q)
     lse = torch.empty(b, sq, num_heads, device=q.device, dtype=torch.float32) if with_lse else None
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        dims = (b, sq, k.shape[1], num_heads, p.nwg, p.bn, p.stages, stream)
+        dims = (b, sq, k.shape[1], num_heads, d, p.nwg, p.bn, p.stages, stream)
         if with_lse:
             rc = lib.packed_attention_fwd_lse(*args, lse.data_ptr(), *dims)
         else:
@@ -351,7 +386,7 @@ def packed_attention_backward(
             raise ValueError(f"{name} must be contiguous {dtype} on {q.device}")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (*q.shape[:2], num_heads):
         raise ValueError(f"shapes o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
-    b, sq, _ = q.shape
+    b, sq, c = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # L * log2(e) and rowsum(dO * O) as (B, heads, Sq), written by the first
     # kernel for the second
@@ -362,7 +397,7 @@ def packed_attention_backward(
         rc = lib.packed_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, k.shape[1], num_heads, stream,
+            b, sq, k.shape[1], num_heads, c // num_heads, stream,
         )
     _count(packed_attention_backward, q, k)
     _raise_on(rc, "packed_attention_bwd", lib.packed_attention_bwd_error_string)

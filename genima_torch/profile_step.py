@@ -1,17 +1,19 @@
 """Where a step's time goes on the card.
 
     python -m genima_torch.profile_step [--path serve|batched|train|act] [--n 4] [--steps 3]
-        [--out FILE] [--backend fused] [--conv_backend xla] [--variant sd|sdxl|pix2pix]
+        [--out FILE] [--backend fused] [--conv_backend xla] [--variant sd|sdxl|pix2pix|sd15]
 
 ``serve`` (the default) builds the full-width fused control step
 (``eval.main_path``; ``--variant sdxl``: at sdxl-turbo width; ``--variant
-pix2pix``: the InstructPix2Pix UNet at sd-turbo width) under the pipeline's ``--backend`` and
+pix2pix``: the InstructPix2Pix UNet at sd-turbo width; ``--variant sd15``:
+SD-1.5's geometry, head dims 40/80/160) under the pipeline's ``--backend`` and
 ``--conv_backend`` (``--backend pallas+w8 --conv_backend fused`` is the
 opt-in serving configuration); ``batched`` builds the lockstep-batched step
 for ``--n`` envs (``eval.parallel.BatchedGenimaStep``) and profiles it
 beside the serial step on the same models and the first env's inputs, in
 one process; ``train`` builds a full-width ControlNet fine-tune
-step (sd-turbo width, or sdxl-turbo's under ``--variant sdxl``; the
+step (sd-turbo width, or sdxl-turbo's under ``--variant sdxl``, SD-1.5's
+under ``--variant sd15``; the
 pix2pix UNet fine-tune, EMA and conditioning dropout 0.05 on, under
 ``--variant pix2pix``; batch 4,
 512x512, bf16 compute, f32 master weights, packed attention kernels;
@@ -130,12 +132,20 @@ def train_step(variant: str = "sd"):
     argv = ["--device", "cuda", "--seed", "0", "--enable_xformers_memory_efficient_attention"]
     if variant == "pix2pix":
         argv += ["--use_ema", "--conditioning_dropout_prob", "0.05"]
-    args = build_parser(variant).parse_args(argv)
+    # SD-1.5 trains as "sd" does, on a pipeline built with its configs
+    trainer_variant = "sd" if variant == "sd15" else variant
+    args = build_parser(trainer_variant).parse_args(argv)
     batch_size, resolution = args.train_batch_size, args.resolution
-    pipe = driver.build_pipeline(args, variant)
+    if variant == "sd15":
+        from genima_torch.eval.main_path import sd15_pipeline
+
+        pipe = sd15_pipeline(dtype=torch.bfloat16, backend="fused", device="cuda",
+                             vae_encoder=True)
+    else:
+        pipe = driver.build_pipeline(args, variant)
     params = driver.init_model_params(pipe, args)
     cfg = driver.train_config(args, max_steps=1000)
-    trainer = driver.make_trainer(args, variant, pipe, cfg, HashTokenizer())
+    trainer = driver.make_trainer(args, trainer_variant, pipe, cfg, HashTokenizer())
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (batch_size, resolution, resolution, 3)
     batch = {
@@ -268,8 +278,8 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--backend", default="fused", help="serve, batched: attention backend spec")
     ap.add_argument("--conv_backend", default="xla", help="serve, batched: VAE decoder convs")
-    ap.add_argument("--variant", choices=("sd", "sdxl", "pix2pix"), default="sd",
-                    help="serve, train: sd-turbo, sdxl-turbo or the pix2pix UNet")
+    ap.add_argument("--variant", choices=("sd", "sdxl", "pix2pix", "sd15"), default="sd",
+                    help="serve, train: sd-turbo, sdxl-turbo, the pix2pix UNet or SD-1.5")
     a = ap.parse_args()
     if a.variant != "sd" and a.path not in ("serve", "train"):
         raise SystemExit(f"--variant {a.variant} applies to --path serve and --path train")

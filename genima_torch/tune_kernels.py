@@ -1,13 +1,16 @@
 """Time every launch plan of B3 (flash attention), B4 (fused conv) or B5
 (int8 matmul) at the opt-in serving path's shapes, of B1/B2a (the packed
 forward) at the serving and the trainer's shapes, or B2b (the flash
-backward) at the trainer's, beside the plan the wrapper picks.
+backward) at the trainer's, beside the plan the wrapper picks. The attention
+modes also take SD-1.5's head dims (40/80/160) and the SD levels at 768x768
+(9216 and 2304 tokens).
 
     python -m genima_torch.tune_kernels {attn,packed,bwd,w8,conv}
 
 Run from the repository root: the shapes and the timer are
-``chip_smoke.py``'s (``FLASH_SHAPES``/``SD_LEVELS``/``TRAIN_LEVELS``/
-``W8_SHAPES``/``CONV_SHAPES``, ``cuda_ms``). Prints one JSON line per shape:
+``chip_smoke.py``'s (``FLASH_SHAPES``/``SD15_FLASH_SHAPES``/``SD_LEVELS``/
+``TRAIN_LEVELS``/``SD15_LEVELS``/``SD768_LEVELS``/``W8_SHAPES``/
+``CONV_SHAPES``, ``cuda_ms``). Prints one JSON line per shape:
 ms of each candidate plan, of the default plan, and of the library yardstick
 (``scaled_dot_product_attention`` forward for B1/B2a/B3, its autograd
 backward for B2b, ``torch.matmul`` on the dequantised weight for B5). Needs
@@ -28,24 +31,27 @@ def tune_attn(shapes, cuda_ms) -> None:
     from genima_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for b, sq, sk, _, h in shapes:
-        q, k, v = (torch.randn(b, s, h, 64, generator=gen, device="cuda").bfloat16()
+    for b, sq, sk, c, h in shapes:
+        hd = c // h
+        q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda").bfloat16()
                    for s in (sq, sk, sk))
         heads = [t.transpose(1, 2) for t in (q, k, v)]
         times = {}
-        for nwg, bn in fa.TILES:
+        for nwg, bn in fa.tiles_for(hd):
             tiles = -(-sk // bn)
             if bn == 80 and sk > 80:  # the 80-key tile is for the 77 prompt tokens
                 continue
-            for stages in range(2 if tiles > 1 else 1, min(tiles, fa.MAX_STAGES) + 1):
-                p = fa.make_plan(b, sq, sk, h, nwg, bn, stages)
+            deepest = fa.max_stages(nwg, bn, fa.head_atoms(hd))
+            for stages in range(2 if tiles > 1 else 1, min(tiles, deepest) + 1):
+                p = fa.make_plan(b, sq, sk, h, nwg, bn, stages, d=hd)
                 fa._plan_for = lambda *a, p=p: p
                 times[f"{nwg}wg/bn{bn}/stages{stages}"] = cuda_ms(
                     lambda: fa.flash_attention(q, k, v), 50)
         fa._plan_for = lambda *a: fa.plan(*a)
-        d = fa.plan(b, sq, sk, h)
+        d = fa.plan(b, sq, sk, h, hd)
         print(json.dumps({
-            "shape": f"{b}x{sq}x{sk}/{h}", "default": f"{d.nwg}wg/bn{d.bn}/stages{d.stages}",
+            "shape": f"{b}x{sq}x{sk}x{c}/{h}",
+            "default": f"{d.nwg}wg/bn{d.bn}/stages{d.stages}",
             "default_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 50),
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
             "plans_ms": times}))
@@ -65,16 +71,18 @@ def tune_packed(shapes, cuda_ms) -> None:
                    for _ in range(3))
         heads = [x.view(b, s, h, c // h).transpose(1, 2) for x in (q, k, v)]
         times, lse_times = {}, {}
-        for nwg, bn in pa.FORWARD_TILES:
+        hd = c // h
+        for nwg, bn in pa.forward_tiles(hd):
             tiles = -(-s // bn)
-            for stages in range(2 if tiles > 1 else 1, min(tiles, fa.MAX_STAGES) + 1):
-                p = pa.make_forward_plan(b, s, s, h, nwg, bn, stages)
+            deepest = fa.max_stages(nwg, bn, fa.head_atoms(hd))
+            for stages in range(2 if tiles > 1 else 1, min(tiles, deepest) + 1):
+                p = pa.make_forward_plan(b, s, s, h, nwg, bn, stages, d=hd)
                 pa._plan_for = lambda *a, p=p: p
                 name = f"{nwg}wg/bn{bn}/stages{stages}"
                 times[name] = cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 50)
                 lse_times[name] = cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), 50)
         pa._plan_for = lambda *a: pa.forward_plan(*a)
-        d = pa.forward_plan(b, s, s, h)
+        d = pa.forward_plan(b, s, s, h, hd)
         print(json.dumps({
             "shape": f"{b}x{s}x{c}/{h}", "default": f"{d.nwg}wg/bn{d.bn}/stages{d.stages}",
             "default_ms": cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 50),
@@ -100,7 +108,7 @@ def _kernel_ms(fn, calls: int = 20) -> dict[str, float]:
 
 
 def tune_bwd(shapes, cuda_ms) -> None:
-    """B2b has one plan (two 128-row kernels, a 4-stage ring): timed beside
+    """B2b has one plan a head dim (two 128-row kernels, a ring): timed beside
     SDPA's backward and B2a, the forward that feeds it, with the device time
     of each of its two kernels."""
     import torch.nn.functional as F
@@ -191,11 +199,13 @@ def main(argv=None) -> int:
     import chip_smoke
 
     if argv == ["attn"]:
-        tune_attn(chip_smoke.FLASH_SHAPES, chip_smoke.cuda_ms)
+        tune_attn(chip_smoke.FLASH_SHAPES + chip_smoke.SD15_FLASH_SHAPES, chip_smoke.cuda_ms)
     elif argv == ["packed"]:
-        tune_packed(chip_smoke.SD_LEVELS + chip_smoke.TRAIN_LEVELS, chip_smoke.cuda_ms)
+        tune_packed(chip_smoke.SD_LEVELS + chip_smoke.TRAIN_LEVELS + chip_smoke.SD15_LEVELS
+                    + chip_smoke.SD15_TRAIN_LEVELS + chip_smoke.SD768_LEVELS, chip_smoke.cuda_ms)
     elif argv == ["bwd"]:
-        tune_bwd(chip_smoke.TRAIN_LEVELS, chip_smoke.cuda_ms)
+        tune_bwd(chip_smoke.TRAIN_LEVELS + chip_smoke.SD15_TRAIN_LEVELS
+                 + chip_smoke.SD768_TRAIN_LEVELS, chip_smoke.cuda_ms)
     elif argv == ["w8"]:
         tune_w8(chip_smoke.W8_SHAPES, chip_smoke.cuda_ms)
     else:

@@ -115,10 +115,10 @@ def _forward_into(out, lse, q, k, v, h, p):
     """B2a straight through the C entry point, into caller-owned o and L
     that may reach past q's batch."""
     lib = pa._library()
-    b, sq, _ = q.shape
+    b, sq, c = q.shape
     rc = lib.packed_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq,
-        k.shape[1], h, p.nwg, p.bn, p.stages, torch.cuda.current_stream().cuda_stream)
+        k.shape[1], h, c // h, p.nwg, p.bn, p.stages, torch.cuda.current_stream().cuda_stream)
     assert rc == 0, lib.packed_attention_error_string(rc)
 
 
@@ -236,6 +236,93 @@ def test_requires_grad_on_cuda_gets_gradients(cuda):
 
 
 # ---------------------------------------------------------------------------
+# B1, B2a, B2b at every head dim (multiples of 8 up to 160: the tiny
+# configs' 16/32, SD-1.5's 40/80/160) and at the SD levels of 768x768 (9216
+# and 2304 tokens)
+# ---------------------------------------------------------------------------
+
+HEAD_DIMS = [16, 32, 40, 80, 128, 160]
+# (B, S, C, heads) of SD-1.5 (8 heads at every level) at the trainer's batch
+SD15_SHAPES = [(4, 4096, 320, 8), (4, 1024, 640, 8), (4, 256, 1280, 8)]
+# the SD levels at 768x768: B1 at batch 1, B2b on one sample (the plain
+# backward's f32 scores of a 9216-token row take 1.7 GB a head)
+LONG_SHAPES = [(1, 9216, 320, 5), (1, 2304, 640, 10)]
+
+
+def _check_packed_attention(q, k, v, do, h):
+    """B1, B2a (o bit-equal to B1's, L) and B2b against the plain versions."""
+    o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+    o1 = pa.packed_flash_attention(q, k, v, h)
+    got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(o, o1)
+    want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+        rel = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert rel <= GRAD_REL_TOL, f"{name}: max err {rel} of max |grad|"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("h", [1, 3])
+def test_packed_attention_at_every_head_dim_matches_plain_version(cuda, d, h):
+    """Batch 2, 320 tokens (an odd multiple of 64: the last 128-row block
+    half empty), one or three heads: the last head's atoms reach past C,
+    the others' into the next head's columns."""
+    q, k, v, do = _bf16_inputs(cuda, 2, 320, h * d, seed=d + h)
+    _check_packed_attention(q, k, v, do, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,h", SD15_SHAPES)
+def test_packed_attention_at_sd15_levels_matches_plain_version(cuda, b, s, c, h):
+    q, k, v, do = _bf16_inputs(cuda, b, s, c, seed=s + c)
+    _check_packed_attention(q, k, v, do, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,h", LONG_SHAPES)
+def test_packed_attention_past_4096_tokens_matches_plain_version(cuda, b, s, c, h):
+    q, k, v, do = _bf16_inputs(cuda, b, s, c, seed=s)
+    _check_packed_attention(q, k, v, do, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 160])
+@pytest.mark.parametrize("nwg,bn", pa.WIDE_FORWARD_TILES)
+def test_packed_attention_every_wide_plan_matches_plain_version(cuda, monkeypatch, d, nwg, bn):
+    """Two- and three-atom heads: each instantiation at every ring depth
+    shared memory leaves it, batch 2 x 1024 tokens x 2 heads."""
+    b, s, h = 2, 1024, 2
+    q, k, v = _bf16_inputs(cuda, b, s, h * d, seed=nwg + d, n=3)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    deepest = fa.max_stages(nwg, bn, fa.head_atoms(d))
+    for stages in range(2, deepest + 1):
+        p = pa.make_forward_plan(b, s, s, h, nwg, bn, stages, d=d)
+        monkeypatch.setattr(pa, "_plan_for", lambda *a, p=p: p)
+        o1 = pa.packed_flash_attention(q, k, v, h)
+        o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o1.float(), o_ref.float(), atol=1e-2, rtol=0)
+        torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+        assert torch.equal(o, o1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_backward_kernel_at_wide_heads_is_bit_deterministic(cuda, d):
+    q, k, v, o, lse, do = _backward_inputs(cuda, 2, 320, 192, 2 * d, 2, seed=d)
+    first = pa.packed_attention_backward(q, k, v, o, lse, do, 2)
+    again = pa.packed_attention_backward(q, k, v, o, lse, do, 2)
+    for x, y in zip(again, first):
+        assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
 # B3, B4, B5: the serving pipeline's opt-in backends
 # ---------------------------------------------------------------------------
 
@@ -313,6 +400,38 @@ def test_flash_attention_every_plan_matches_plain_version(cuda, monkeypatch, nwg
     tiles = -(-sk // bn)
     for stages in sorted({fa.make_plan(b, sq, sk, h, nwg, bn).stages, 2 if tiles > 1 else 1}):
         p = fa.make_plan(b, sq, sk, h, nwg, bn, stages)
+        monkeypatch.setattr(fa, "_plan_for", lambda *s, p=p: p)
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 40, 80, 160])
+@pytest.mark.parametrize("sq,sk", [(4096, 4096), (256, 77), (64, 64), (130, 129)])
+def test_flash_attention_at_every_head_dim_matches_plain_version(cuda, d, sq, sk):
+    """SD-1.5's self- and cross-attention geometry (8 heads), and ragged
+    edges."""
+    gen = torch.Generator(device=cuda).manual_seed(d + sq + sk)
+    q, k, v = (torch.randn(1, s, 8, d, generator=gen, device=cuda).bfloat16()
+               for s in (sq, sk, sk))
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), fa.flash_attention_reference(q, k, v).float(),
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 160])
+@pytest.mark.parametrize("nwg,bn", fa.WIDE_TILES)
+def test_flash_attention_every_wide_plan_matches_plain_version(cuda, monkeypatch, d, nwg, bn):
+    b, sq, sk, h = 2, 200, 77 if bn == 80 else 1024, 3
+    q, k, v = (torch.randn(b, s, h, d, device=cuda).bfloat16() for s in (sq, sk, sk))
+    want = fa.flash_attention_reference(q, k, v).float()
+    tiles = -(-sk // bn)
+    deepest = fa.max_stages(nwg, bn, fa.head_atoms(d))
+    for stages in range(2 if tiles > 1 else 1, min(tiles, deepest) + 1):
+        p = fa.make_plan(b, sq, sk, h, nwg, bn, stages, d=d)
         monkeypatch.setattr(fa, "_plan_for", lambda *s, p=p: p)
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -535,9 +654,12 @@ def test_new_kernels_reject_what_they_cannot_take(cuda):
     w_q = torch.zeros(8, 40, device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match="multiple of 16"):
         w8.w8_matmul(x, w_q, torch.ones(8, device=cuda))
-    q = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q, q, q)
+    for d in (36, 168):  # not a multiple of 8; above 160
+        q = torch.zeros(1, 8, 2, d, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="head_dim"):
+            pa.packed_flash_attention(*(q.new_zeros(1, 64, 2 * d),) * 3, 2)
     xc = torch.zeros(1, 4, 4, 12, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
         fc.fused_conv3x3(xc, torch.zeros(3, 3, 12, 8, device=cuda), torch.zeros(8, device=cuda))

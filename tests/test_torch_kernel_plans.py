@@ -269,11 +269,12 @@ def test_backward_plan_fits_shared_memory_and_registers():
     assert 24 * 128 + 240 * 256 <= p.max_registers * pa.BWD_THREADS <= pa.REGISTERS_SM
 
 
-@pytest.mark.parametrize("b,sq,sk,h", [(1, 65, 64, 1), (1, 64, 100, 1), (1, 8192, 64, 1),
-                                       (1, 0, 64, 1), (0, 64, 64, 1), (1, 64, 64, 0)])
-def test_backward_plan_rejects_what_the_kernels_cannot_take(b, sq, sk, h):
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 65, 64, 1, 64), (1, 64, 100, 1, 64),
+                                         (1, 64, 64, 1, 168), (1, 0, 64, 1, 64),
+                                         (0, 64, 64, 1, 64), (1, 64, 64, 0, 64)])
+def test_backward_plan_rejects_what_the_kernels_cannot_take(b, sq, sk, h, d):
     with pytest.raises(ValueError):
-        pa.backward_plan(b, sq, sk, h)
+        pa.backward_plan(b, sq, sk, h, d)
 
 
 # B1/B2a: (B, Sq, Sk, heads) of the control step (batch 1) and the train step
@@ -318,16 +319,28 @@ def test_forward_tiles_and_smem_mirror_the_sources():
     """The (nwg, bn) instantiations each source launches are its plan's
     tiles, and the plans' shared memory is ``fwd_smem_bytes``, read from
     the CUDA sources."""
-    for src, tiles in (("packed_attention.cu", pa.FORWARD_TILES),
-                       ("flash_attention.cu", fa.TILES)):
-        launched = re.findall(r"launch_fwd<(\d), (\d+), \w+>", (SRC / src).read_text())
-        assert sorted({(int(n), int(b)) for n, b in launched}) == sorted(tiles), src
-    body = re.search(r"int fwd_smem_bytes\(int nwg, int bn, int stages\) \{\s*return ([^;]+);",
+    for src, tiles, wide in (("packed_attention.cu", pa.FORWARD_TILES, pa.WIDE_FORWARD_TILES),
+                             ("flash_attention.cu", fa.TILES, fa.WIDE_TILES)):
+        # launch_fwd<atoms, nwg, bn, lse>: before the one-atom branch, every
+        # head's; in it, "1"; in its else branch, "DA" for two and three atoms
+        common, branches = (SRC / src).read_text().split("if constexpr (DA == 1)")
+        one_atom, wider = branches.split("} else {")
+
+        def found(text, atoms):
+            return {(int(n), int(b)) for n, b in
+                    re.findall(rf"launch_fwd<{atoms}, (\d), (\d+), \w+>", text)}
+
+        assert sorted(found(common, "DA") | found(one_atom, "1")) == sorted(tiles), src
+        assert sorted(found(common, "DA") | found(wider, "DA")) == sorted(wide), src
+    body = re.search(r"int fwd_smem_bytes\(int nwg, int bn, int stages, int atoms\) \{"
+                     r"\s*return ([^;]+);",
                      (SRC / "attention_fwd_hopper.cuh").read_text()).group(1)
-    for nwg, bn in pa.FORWARD_TILES:
-        for stages in range(1, fa.MAX_STAGES + 1):
-            want = eval(body, {"nwg": nwg, "bn": bn, "stages": stages, "kRowBytes": 128})
-            assert fa.smem_bytes(nwg, bn, stages) == want
+    for atoms, tiles in ((1, pa.FORWARD_TILES + fa.TILES), (2, fa.WIDE_TILES), (3, fa.WIDE_TILES)):
+        for nwg, bn in tiles:
+            for stages in range(1, fa.MAX_STAGES + 1):
+                want = eval(f"({body})", {"nwg": nwg, "bn": bn, "stages": stages,
+                                          "kRowBytes": 128, "atoms": atoms})
+                assert fa.smem_bytes(nwg, bn, stages, atoms) == want
 
 
 @pytest.mark.parametrize("nwg,bn", pa.FORWARD_TILES)
@@ -347,11 +360,12 @@ def test_forward_plan_fits_shared_memory_and_registers(nwg, bn, b, sq, sk, h):
             assert p.max_registers == 128 and 24 * 128 + 160 * 384 <= 128 * p.threads
 
 
-@pytest.mark.parametrize("b,sq,sk,h", [(1, 65, 64, 1), (1, 64, 100, 1), (1, 8192, 64, 1),
-                                       (1, 0, 64, 1), (0, 64, 64, 1), (1, 64, 64, 0)])
-def test_forward_plan_rejects_what_the_kernel_cannot_take(b, sq, sk, h):
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 65, 64, 1, 64), (1, 64, 100, 1, 64),
+                                         (1, 64, 64, 1, 168), (1, 0, 64, 1, 64),
+                                         (0, 64, 64, 1, 64), (1, 64, 64, 0, 64)])
+def test_forward_plan_rejects_what_the_kernel_cannot_take(b, sq, sk, h, d):
     with pytest.raises(ValueError):
-        pa.forward_plan(b, sq, sk, h)
+        pa.forward_plan(b, sq, sk, h, d)
 
 
 def test_make_forward_plan_rejects_impossible_launches():
@@ -398,6 +412,6 @@ def test_b1_and_b2a_launch_one_plan(monkeypatch, b, sq, sk, h):
     o, lse = pa._launch_forward(q, k, k, h, with_lse=True)
     assert out.shape == o.shape == q.shape and lse.shape == (b, sq, h)
     p = pa.forward_plan(b, sq, sk, h)
-    assert calls["B1"][4:] == (b, sq, sk, h, p.nwg, p.bn, p.stages, 7)
+    assert calls["B1"][4:] == (b, sq, sk, h, 64, p.nwg, p.bn, p.stages, 7)
     assert calls["B2a"][5:] == calls["B1"][4:]
     assert pa.packed_flash_attention.launches == pa.packed_attention_forward_lse.launches == 1

@@ -147,7 +147,7 @@ def test_cpu_training_never_touches_the_kernels(monkeypatch):
 
 
 @pytest.mark.parametrize("sq,sk,tiles", [
-    (256, 256, True), (4096, 64, True), (128, 77, False), (96, 128, False), (8192, 128, False),
+    (256, 256, True), (4096, 64, True), (128, 77, False), (96, 128, False), (16384, 9216, True),
 ])
 def test_kernel_tiles(sq, sk, tiles):
     assert pa.kernel_tiles(torch.empty(1, sq, 64), torch.empty(1, sk, 64)) == tiles
