@@ -228,6 +228,26 @@
    at 4 B1 / 10 B2a / 10 B2b (level 2's 576 tokens take the library
    attention, as in JAX); (d) 2 SD control steps at ``resolution=768``, 70
    B1 (the untile resizes 384x384 views to 256). Peak memory of each.
+   Under ``pallas`` each backend's noise prediction is made twice in turns
+   and its digest printed, beside the inputs' and weights' digests.
+16. The opt-in backends on every geometry the JAX package builds, and the
+   attention kernels at any head dim. A sweep of B1 (batch 1 x 4096), B2a
+   and B2b (batch 4 x 1024) and B3 (1000 queries, self and over 77 keys)
+   at 8 heads of d = 36 (zero-padded to 40), 40, 100, 168, 200 and 256
+   (four atoms) against their plain versions, printed as
+   ``head_dim_sweep`` (no path runs those dims); B3, B4 and B5 at SD's
+   768x768 shapes and B5 at the cross-attention K/V of K = 768 (SD-1.5's
+   CLIP-L) and 2048 (SDXL's towers). Paths, each 2 control steps with
+   every kernel's launches pinned, its build's and steps' peaks, and one
+   denoise step's noise prediction held to the library path with each
+   kernel in place (as phase 5): (a) ``build_main_path(variant=
+   "pix2pix15")`` (InstructPix2Pix at SD-1.5 geometry) on the default
+   backend (75 B1) and under ``pallas+w8`` / fused (160 B3 / 25 B4 / 800
+   B5), and ``run_training(args, "pix2pix", pipe=pix2pix15_pipeline(...))``
+   with EMA, 2 steps at 0 B1 / 15 B2a / 15 B2b, frozen models bit-unchanged;
+   (b) SD-1.5 under ``pallas+w8`` / fused (230 / 25 / 1150); (c) SD at
+   768x768 likewise (230 / 25 / 1380); (d) SDXL-turbo under ``pallas``
+   (1040 B3) and (e) under ``pallas+w8`` / fused (1040 / 25 / 5360).
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -283,6 +303,7 @@ TRAIN_GRAD_REL_TOL = 0.1
 # the opt-in serving configuration: "pallas+w8" attention, fused VAE convs
 OPT_BACKEND, OPT_CONV_BACKEND = "pallas+w8", "fused"
 OPT_STEPS = 3
+OPT16_STEPS = 2  # phase 16: control steps a path, the first carrying its new shapes' warm-up
 # per control step (5 denoise steps): B3 = 46 attentions per denoise step
 # (16 UNet + 7 ControlNet transformer blocks, self and cross) x 5; B5 = 12
 # int8 linears per transformer block x 23 x 5; B4 = 12 decoder resnets x 2
@@ -312,6 +333,10 @@ BATCHED_CONV_SHAPES = [(PARALLEL_ENVS, *shape[1:]) for shape in CONV_SHAPES]
 BATCHED_W8_SHAPES = sorted({(PARALLEL_ENVS * m, k, n) for m, k, n in W8_SHAPES})
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention", "fused_conv",
                   "w8_matmul"]
+# each kernel row's name -> the label its path counts its launches under
+COUNTERS = {"packed_flash_attention": "B1", "flash_attention": "B3", "fused_conv3x3": "B4",
+            "w8_matmul": "B5", "packed_attention_forward_lse": "B2a",
+            "packed_attention_backward": "B2b"}
 # phase 15: SD-1.5's geometry (8 heads at every level: head dims 40/80/160)
 SD15_LEVELS = [(1, 4096, 320, 8), (1, 1024, 640, 8), (1, 256, 1280, 8)]
 SD15_TRAIN_LEVELS = [(TRAIN_BATCH, s, c, h) for _, s, c, h in SD15_LEVELS]
@@ -360,9 +385,11 @@ def _forward_report(pa, b: int, s: int, h: int, d: int, with_lse: bool) -> dict:
     asks for (held to ``forward_plan``'s count) and its ptxas registers and
     spills."""
     from genima_torch.kernels import _build
+    from genima_torch.kernels import flash_attention as fa
 
     plan = pa.forward_plan(b, s, s, h, d)
-    smem = pa._library().packed_attention_smem_bytes(plan.nwg, plan.bn, plan.stages, d)
+    smem = pa._library().packed_attention_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                                     fa.padded_head_dim(d))
     if smem != plan.smem_bytes:
         raise AssertionError(f"packed forward plan's shared memory {plan.smem_bytes} != {smem}")
     regs = ptxas_report(_build.build_log("packed_attention"))
@@ -430,7 +457,10 @@ def _sd_serve(pa, variant: str, resolution: int, steps: int, launches: int,
     resolution=)``, B1 pinned at ``launches`` a step; one denoise step's
     noise prediction against the library attention. With ``opt_in``, the
     same models under ``backend="pallas"`` too: that noise prediction held
-    likewise, and one control step with B3 pinned (``SD15_OPT_LAUNCHES``)."""
+    likewise, and one control step with B3 pinned (``SD15_OPT_LAUNCHES``);
+    and each backend's noise prediction made twice in turns, to say which
+    side of a kernel-vs-library comparison is not bit-repeatable (each
+    prediction's digest is printed, so two runs can be compared too)."""
     from genima_torch.eval.main_path import build_main_path
     from genima_torch.kernels import flash_attention as fa
     from genima_torch.nn.layers import set_attention_backend
@@ -474,15 +504,26 @@ def _sd_serve(pa, variant: str, resolution: int, steps: int, launches: int,
 
     unet, cn = args["diffusion_params"]["unet"], args["diffusion_params"]["controlnet"]
     backends = ("fused", "pallas", "xla") if opt_in else ("fused", "xla")
-    eps = {}
-    for backend in backends:
-        set_attention_backend(unet, backend)
-        set_attention_backend(cn, backend)
-        eps[backend] = _denoise_eps(step.pipe, unet, cn, args)
-    rel = {b: _rel_err(eps[b], eps["xla"]) for b in backends if b != "xla"}
+    eps = {b: [] for b in backends}
+    for _ in range(2 if opt_in else 1):
+        for backend in backends:
+            set_attention_backend(unet, backend)
+            set_attention_backend(cn, backend)
+            eps[backend].append(_denoise_eps(step.pipe, unet, cn, args))
+    rel = {b: _rel_err(eps[b][0], eps["xla"][0]) for b in backends if b != "xla"}
     for b, r in rel.items():
-        if not (torch.isfinite(eps[b]).all() and r <= EPS_REL_TOL):
+        if not (torch.isfinite(eps[b][0]).all() and r <= EPS_REL_TOL):
             raise AssertionError(f"{variant} eps {b} vs library attention: rel err {r}")
+    if opt_in:
+        out["eps_repeat"] = {b: {
+            "bit_equal": torch.equal(*eps[b]), "digests": [_digest(e) for e in eps[b]],
+            "rel_err_vs_library_second": _rel_err(eps[b][1], eps["xla"][1]) if b != "xla" else 0.0,
+        } for b in backends}
+        # what both sides start from: the seeded weights and inputs
+        out["eps_repeat"]["inputs"] = {
+            "digests": [_digest(args[k]) for k in ("latents", "prompt_embeds", "tiled_u8")]
+            + [_digest(torch.cat([p.detach().flatten() for p in list(m.parameters())[:8]]))
+               for m in (unet, cn)]}
     del eps
     if opt_in:
         set_attention_backend(unet, "pallas")
@@ -513,6 +554,14 @@ def _sd_serve(pa, variant: str, resolution: int, steps: int, launches: int,
     return out
 
 
+def _digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import hashlib
+
+    raw = t.detach().contiguous().flatten().view(torch.uint8).cpu()  # any dtype, bf16 too
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     ops_s, bytes_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
@@ -523,6 +572,7 @@ def _bwd_kernel_report(d: int = 64) -> dict:
     shared memory each asks for (held to ``backward_plan``'s count), keyed
     "dq" and "dkdv"."""
     from genima_torch.kernels import _build
+    from genima_torch.kernels import flash_attention as fa
     from genima_torch.kernels import packed_attention as pa
 
     lib = pa._bwd_library()
@@ -530,7 +580,7 @@ def _bwd_kernel_report(d: int = 64) -> dict:
     plan = pa.backward_plan(1, 64, 64, 1, d)
     out = {}
     for name, dkdv in (("dq", 0), ("dkdv", 1)):
-        smem = lib.packed_attention_bwd_smem_bytes(dkdv, d)
+        smem = lib.packed_attention_bwd_smem_bytes(dkdv, fa.padded_head_dim(d))
         if smem != getattr(plan, f"{name}_smem_bytes"):
             raise AssertionError(f"B2b {name} kernel's shared memory {smem} != backward_plan's")
         out[name] = {**report.get(f"{name}{plan.atoms}", {}), "smem_bytes": smem}
@@ -619,7 +669,7 @@ def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
                 lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), 50),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "plan": {"kernels": "dq, then dk/dv", "rows_per_block": pa.BWD_BLOCK_ROWS,
+            "plan": {"kernels": "dq, then dk/dv", "rows_per_block": bp.rows,
                      "stages": bp.stages, "head_atoms": bp.atoms, "dkdv_passes": bp.passes,
                      "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
             **bwd_report,
@@ -686,7 +736,8 @@ def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
             raise AssertionError(f"B3 {b}x{sq}x{sk}x{c}/{h}: max abs err {err}")
         heads = [t.transpose(1, 2) for t in (q, k, v)]
         plan = fa.plan(b, sq, sk, h, c // h)
-        smem = fa_lib.flash_attention_smem_bytes(plan.nwg, plan.bn, plan.stages, c // h)
+        smem = fa_lib.flash_attention_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                                 fa.padded_head_dim(c // h))
         if smem != plan.smem_bytes:
             raise AssertionError(f"B3 plan's shared memory {plan.smem_bytes} != the kernel's")
         bound_ms, bound_by = _bound(4 * b * sq * sk * c, 2 * b * (2 * sq + 2 * sk) * c)
@@ -808,32 +859,62 @@ def _denoise_eps(pipe, unet, cn, args) -> torch.Tensor:
         return unet(x, t, embeds, down, mid, added_cond_kwargs=added).float()
 
 
-def opt_path_phase() -> dict:
-    """The control step under the opt-in backends, its launches pinned, and
-    each kernel held in place against the library path."""
-    import copy
+def _denoise_eps_any(pipe, params, args) -> torch.Tensor:
+    """``_denoise_eps`` for the ControlNet variants; for InstructPix2Pix the
+    UNet on the scaled latents beside the conditioning image's (the VAE
+    posterior's mode), as ``SDPix2PixPipeline.generate`` feeds it."""
+    if "controlnet" in params:
+        return _denoise_eps(pipe, params["unet"], params["controlnet"], args)
+    state = pipe.scheduler.set_timesteps(5)
+    with torch.inference_mode():
+        x = args["latents"].permute(0, 3, 1, 2) * float(state.init_noise_sigma)
+        x = pipe.scheduler.scale_model_input(state, x.contiguous(), 0).to(pipe.dtype)
+        t = torch.full((1,), float(state.timesteps[0]), device="cuda")
+        cond = (args["tiled_u8"].to(pipe.dtype) / 127.5 - 1.0).permute(0, 3, 1, 2).contiguous()
+        image_latents = params["vae"].encode(cond).mode().float().to(pipe.dtype)
+        return params["unet"](torch.cat([x, image_latents], dim=1), t,
+                              args["prompt_embeds"]).float()
 
+
+def _serve(variant: str, resolution: int, backend: str, conv_backend: str, pins: dict,
+           steps: int = OPT16_STEPS) -> dict:
+    """A serving path (phase 5's opt-in step, phase 13's, phase 16's):
+    control steps of ``build_main_path(variant=, resolution=, backend=,
+    conv_backend=)``, every kernel's launches pinned at ``pins`` a step, the
+    result's shape, dtype and finiteness held; the build's peak (under
+    ``+w8`` the float weights are drawn, then quantized in place). Then, on
+    the same models, one denoise step's noise prediction against the
+    library path with each kernel in place: the attention kernel against
+    the library attention on the same weights; under ``+w8`` the int8
+    models (B5) against the float models on the dequantised weights; with
+    the fused decoder (B4) its decode against the default decoder's."""
     from genima_torch.eval.main_path import build_main_path
     from genima_torch.kernels import flash_attention as fa
     from genima_torch.kernels import fused_conv as fc
     from genima_torch.kernels import packed_attention as pa
     from genima_torch.kernels import w8_matmul as w8
-    from genima_torch.nn.layers import set_attention_backend
+    from genima_torch.nn.layers import set_attention_backend, split_backend
     from genima_torch.weights.quantize import dequantize_dense_tree
 
-    t0 = time.time()
-    step, args = build_main_path(device="cuda", seed=0, backend=OPT_BACKEND,
-                                 conv_backend=OPT_CONV_BACKEND)
-    torch.cuda.synchronize()
-    setup_s = time.time() - t0
+    tag = f"{variant} at {resolution} under {backend} / {conv_backend}"
     counters = {"B1": pa.packed_flash_attention, "B3": fa.flash_attention,
                 "B4": fc.fused_conv3x3, "B5": w8.w8_matmul}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    step, args = build_main_path(device="cuda", seed=0, variant=variant, resolution=resolution,
+                                 backend=backend, conv_backend=conv_backend)
+    torch.cuda.synchronize()
+    params = args["diffusion_params"]
+    out = {"setup_s": time.time() - t0,
+           "build_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "params": {k: sum(p.numel() for p in m.parameters()) for k, m in params.items()}}
     for fn in counters.values():
         fn.launches = 0
         fn.launches_by_shape.clear()
     torch.cuda.reset_peak_memory_stats()
     step_ms, host_ms, per_step = [], [], []
-    for _ in range(OPT_STEPS):
+    for _ in range(steps):
         before = {k: fn.launches for k, fn in counters.items()}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -845,58 +926,56 @@ def opt_path_phase() -> dict:
         host_ms.append((time.perf_counter() - h0) * 1e3)
         step_ms.append(start.elapsed_time(end))
         per_step.append({k: fn.launches - before[k] for k, fn in counters.items()})
-        if per_step[-1] != OPT_LAUNCHES:
-            raise AssertionError(f"opt-in step launches {per_step[-1]}, want {OPT_LAUNCHES}")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    launches_by_shape = {
-        k: {"x".join(map(str, s)): n for s, n in fn.launches_by_shape.items()}
-        for k, fn in counters.items()
-    }
-    if actions.shape != (1, 20, 8) or not torch.isfinite(actions).all():
-        raise AssertionError(f"actions {tuple(actions.shape)} finite={torch.isfinite(actions).all()}")
-    if target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8:
-        raise AssertionError(f"target {tuple(target.shape)} {target.dtype}")
+        if per_step[-1] != pins:
+            raise AssertionError(f"{tag}: control step launches {per_step[-1]}, want {pins}")
+    out.update(step_ms=step_ms, host_step_ms=host_ms, launches_per_step=per_step,
+               step_peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               launches_by_shape={k: {"x".join(map(str, sh)): n for sh, n in
+                                      fn.launches_by_shape.items()}
+                                  for k, fn in counters.items()})
+    if actions.shape != (1, EVAL_HORIZON, 8) or not torch.isfinite(actions).all():
+        raise AssertionError(f"{tag}: actions {tuple(actions.shape)}")
+    if target.shape != (1, resolution, resolution, 3) or target.dtype != torch.uint8:
+        raise AssertionError(f"{tag}: target {tuple(target.shape)} {target.dtype}")
 
     pipe = step.pipe
-    params = args["diffusion_params"]
-    unet, cn = params["unet"], params["controlnet"]
-    eps = {"pallas+w8": _denoise_eps(pipe, unet, cn, args)}
-    for m in (unet, cn):  # (a) B3 in place: the library attention, same int8 weights
-        set_attention_backend(m, "xla+w8")
-    eps["xla+w8"] = _denoise_eps(pipe, unet, cn, args)
-    for m in (unet, cn):
-        set_attention_backend(m, OPT_BACKEND)
-    # (b) B5 in place: float models on the dequantised weights w_q * scale
-    f_unet, f_cn = (dequantize_dense_tree(copy.deepcopy(m)) for m in (unet, cn))
-    for m in (f_unet, f_cn):
-        set_attention_backend(m, "xla")
-    eps["xla"] = _denoise_eps(pipe, f_unet, f_cn, args)
-    del f_unet, f_cn
-    # (c) B4 in place: the fused decode against the default decoder
-    vae = params["vae"]
-    z = args["latents"].permute(0, 3, 1, 2).contiguous().to(pipe.dtype)
-    with torch.inference_mode():
-        fused_img = vae.decode(z).float()
-        vae.decoder.conv_backend = "xla"
-        xla_img = vae.decode(z).float()
-        vae.decoder.conv_backend = OPT_CONV_BACKEND
-    errs = {
-        "eps_pallas_vs_library_attention_same_int8": _rel_err(eps["pallas+w8"], eps["xla+w8"]),
-        "eps_int8_vs_dequantised_float": _rel_err(eps["xla+w8"], eps["xla"]),
-        "vae_fused_vs_default_decode": _rel_err(fused_img, xla_img),
-    }
-    finite = all(torch.isfinite(t).all() for t in (*eps.values(), fused_img))
+    models = [m for k, m in params.items() if k in ("unet", "controlnet")]
+    attn, int8 = split_backend(backend)
+    library = "xla+w8" if int8 else "xla"
+    eps = {backend: _denoise_eps_any(pipe, params, args)}
+    for m in models:
+        set_attention_backend(m, library)
+    eps[library] = _denoise_eps_any(pipe, params, args)
+    for m in models:
+        set_attention_backend(m, backend)
+    errs = {"eps_rel_err_vs_library_attention": _rel_err(eps[backend], eps[library])}
+    if int8:
+        floats = dict(params)
+        for k in ("unet", "controlnet"):
+            if k in params:
+                floats[k] = dequantize_dense_tree(copy.deepcopy(params[k]))
+                set_attention_backend(floats[k], "xla")
+        eps["xla"] = _denoise_eps_any(pipe, floats, args)
+        del floats
+        errs["eps_int8_vs_dequantised_float"] = _rel_err(eps[library], eps["xla"])
+    if conv_backend == "fused":
+        vae = params["vae"]
+        z = args["latents"].permute(0, 3, 1, 2).contiguous().to(pipe.dtype)
+        with torch.inference_mode():
+            fused_img = vae.decode(z).float()
+            vae.decoder.conv_backend = "xla"
+            xla_img = vae.decode(z).float()
+            vae.decoder.conv_backend = conv_backend
+        errs["vae_fused_vs_default_decode"] = _rel_err(fused_img, xla_img)
+        eps["decode"] = fused_img
+    finite = all(torch.isfinite(t).all() for t in eps.values())
     if not (finite and all(e <= OPT_REL_TOL for e in errs.values())):
-        raise AssertionError(f"opt-in path vs library path: {errs} (finite={finite})")
-    return {
-        "backend": OPT_BACKEND, "conv_backend": OPT_CONV_BACKEND,
-        "setup_s": setup_s, "step_ms": step_ms, "host_step_ms": host_ms,
-        "launches_per_step": per_step, "launches_by_shape": launches_by_shape,
-        **errs,
-        "actions_abs_max": actions.abs().max().item(),
-        "target_mean": target.float().mean().item(),
-        "peak_mem_gb": peak_gb,
-    }
+        raise AssertionError(f"{tag} vs the library path: {errs} (finite={finite})")
+    del eps, step, args, params, models
+    torch.cuda.empty_cache()
+    out.update(errs, actions_abs_max=actions.abs().max().item(),
+               target_mean=target.float().mean().item())
+    return out
 
 
 def write_rendered_dataset(root: Path, episodes: int = 2, frames: int = 5, size: int = 512):
@@ -2995,41 +3074,6 @@ def _pix2pix_train(pa, root: Path) -> dict:
     }
 
 
-def _pix2pix_opt_in(pa) -> dict:
-    """(b): one control step of the pix2pix path under the opt-in backends,
-    its launches pinned."""
-    from genima_torch.eval.main_path import build_main_path
-    from genima_torch.kernels import flash_attention as fa
-    from genima_torch.kernels import fused_conv as fc
-    from genima_torch.kernels import w8_matmul as w8
-
-    step, args = build_main_path(device="cuda", seed=0, backend=OPT_BACKEND,
-                                 conv_backend=OPT_CONV_BACKEND, variant="pix2pix")
-    counters = {"B1": pa.packed_flash_attention, "B3": fa.flash_attention,
-                "B4": fc.fused_conv3x3, "B5": w8.w8_matmul}
-    for fn in counters.values():
-        fn.launches = 0
-        fn.launches_by_shape.clear()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    actions, target = step(**args)
-    end.record()
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    if launches != PIX2PIX_OPT_LAUNCHES:
-        raise AssertionError(f"pix2pix opt-in step launches {launches}, "
-                             f"want {PIX2PIX_OPT_LAUNCHES}")
-    if (actions.shape != (1, EVAL_HORIZON, 8) or not torch.isfinite(actions).all()
-            or target.shape != (1, 512, 512, 3) or target.dtype != torch.uint8):
-        raise AssertionError(f"pix2pix opt-in: actions {tuple(actions.shape)}, target "
-                             f"{tuple(target.shape)} {target.dtype}")
-    return {"launches": launches, "step_ms_first": start.elapsed_time(end),
-            "launches_by_shape": {
-                k: {"x".join(map(str, sh)): n for sh, n in fn.launches_by_shape.items()}
-                for k, fn in counters.items()}}
-
-
 def _tiny_vae(pa, root: Path, ctrl_dir: Path) -> dict:
     """(c): distil the tiny VAE from the full-width KL-VAE at 512^2, save a
     base-model snapshot with it, and run the eval CLI with
@@ -3158,11 +3202,13 @@ def pix2pix_phase(pa, card: str, ctrl_dir: Path) -> dict:
         del ema
         gc.collect()
         torch.cuda.empty_cache()
-        out["opt_in"] = _pix2pix_opt_in(pa)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30  # _serve resets the count
+        out["opt_in"] = _serve("pix2pix", 512, OPT_BACKEND, OPT_CONV_BACKEND,
+                               PIX2PIX_OPT_LAUNCHES, steps=1)
         gc.collect()
         torch.cuda.empty_cache()
         out["tiny_vae"] = _tiny_vae(pa, root, ctrl_dir)
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_mem_gb"] = max(peak_gb, torch.cuda.max_memory_allocated() / 2**30)
     out["phase_s"] = time.time() - t_phase
     return out
 
@@ -3690,22 +3736,233 @@ def head_dims_phase(pa, card: str) -> tuple[dict, dict]:
                                           SD768_TRAIN_LAUNCHES)
     out["sd768_serve"] = _sd_serve(pa, "sd", RES_768, SD768_STEPS, SD768_LAUNCHES_PER_STEP,
                                    opt_in=False)
-    _fill_launches(rows["sd15_control"], {"B1": out["sd15_serve"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
-    _fill_launches(rows["sd15_opt_in"], {"B3": out["sd15_serve"]["opt_in"]["launches_by_shape"]},
-                   {"flash_attention": "B3"})
-    _fill_launches(rows["sd768_control"], {"B1": out["sd768_serve"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
+    _fill_launches(rows["sd15_control"], {"B1": out["sd15_serve"]["launches_by_shape"]})
+    _fill_launches(rows["sd15_opt_in"], {"B3": out["sd15_serve"]["opt_in"]["launches_by_shape"]})
+    _fill_launches(rows["sd768_control"], {"B1": out["sd768_serve"]["launches_by_shape"]})
     for name, run in (("sd15_train", "sd15_train"), ("sd768_train", "sd768_train")):
-        _fill_launches(rows[name], out[run]["launches_by_shape"], {
-            "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
-            "packed_attention_backward": "B2b"})
+        _fill_launches(rows[name], out[run]["launches_by_shape"])
     for name, rs in rows.items():
         for r in rs:
             r["path"] = f"{name} (phase 15)"
     out["phase_s"] = time.time() - t_phase
     return out, rows
 
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the opt-in backends on every geometry the JAX package builds,
+# InstructPix2Pix at SD-1.5 geometry, and the attention kernels at any head dim
+# ---------------------------------------------------------------------------
+
+# B1/B2a/B2b/B3 at head dims that are not a multiple of 8 (36: zero-padded to
+# 40; 40 beside it gives the pad's cost), of three atoms past 160 (168) and
+# of four (200, 256), 8 heads, at ragged lengths: B1 at batch 1 x 4096, B2a
+# and B2b at batch 4 x 1024, B3 over 1000 queries, self and cross
+SWEEP_HEAD_DIMS = [36, 40, 100, 168, 200, 256]
+SWEEP_HEADS = 8
+# per control step (5 denoise steps); B1 none under the opt-in backends
+# SD-1.5 under "pallas+w8": 46 attentions a denoise step as SD's; 10 int8
+# linears a transformer block, not 12: proj_in / proj_out are 1x1 convs
+# (use_linear_projection=False), float as in JAX; x 23 blocks x 5 = 1150
+SD15_W8_LAUNCHES = {"B1": 0, "B3": 230, "B4": 25, "B5": 1150}
+# SD at 768x768 under "pallas+w8": SD's counts at 96x96 latents
+SD768_W8_LAUNCHES = {"B1": 0, "B3": 230, "B4": 25, "B5": 1380}
+# SDXL: 104 transformer blocks a denoise step (UNet 70, ControlNet 34), self
+# and cross attention each; under "+w8" 10 int8 linears a block and 2 linear
+# projections for each of the 16 Transformer2D models: 1072 a denoise step
+SDXL_PALLAS_LAUNCHES = {"B1": 0, "B3": 1040, "B4": 0, "B5": 0}
+SDXL_W8_LAUNCHES = {"B1": 0, "B3": 1040, "B4": 25, "B5": 5360}
+# InstructPix2Pix at SD-1.5 geometry: phase 13's counts less SD-1.5's two
+# float projections a block under "+w8" (16 blocks x 10 x 5 = 800)
+PIX2PIX15_LAUNCHES = {"B1": PIX2PIX_LAUNCHES_PER_STEP, "B3": 0, "B4": 0, "B5": 0}
+PIX2PIX15_OPT_LAUNCHES = {"B1": 0, "B3": 160, "B4": 25, "B5": 800}
+PIX2PIX15_TRAIN_STEPS = 2  # the first carries the warm-up
+# the new kernel shapes: SD at 768x768 (96x96 latents: 9216/2304/576/144
+# tokens, 144 a ragged tile; the decoder from 96^2 to 768^2), and the
+# cross-attention K/V projections of SD-1.5's CLIP-L (K = 768) and SDXL's
+# two towers side by side (K = 2048)
+SD768_OPT_LEVELS = [(9216, 320, 5), (2304, 640, 10), (576, 1280, 20), (144, 1280, 20)]
+SD768_FLASH_SHAPES = [(1, s, s, c, h) for s, c, h in SD768_OPT_LEVELS] + [
+    (1, s, CONTEXT[0], c, h) for s, c, h in SD768_OPT_LEVELS]
+SD768_CONV_SHAPES = [
+    (1, 96, 96, 512, 512), (1, 192, 192, 512, 512), (1, 384, 384, 512, 256),
+    (1, 384, 384, 256, 256), (1, 768, 768, 256, 128), (1, 768, 768, 128, 128),
+    (1, 768, 768, 128, 3),
+]
+SD768_W8_SHAPES = sorted(
+    {(m, k, n) for m, c, _ in SD768_OPT_LEVELS for k, n in ((c, c), (c, 8 * c), (4 * c, c))}
+    | {(CONTEXT[0], CONTEXT[1], c) for _, c, _ in SD768_OPT_LEVELS})
+CROSS_W8_SHAPES = [(CONTEXT[0], k, c) for k in (768, 2048) for c in (320, 640, 1280)
+                   if k == 768 or c != 320]
+
+
+def head_dim_sweep(pa) -> list[dict]:
+    """B1, B2a, B2b and B3 at ``SWEEP_HEAD_DIMS`` against their plain
+    versions (the limits of phases 2 and 4), timed beside their bound and
+    SDPA. No path runs these head dims: the rows are printed apart from the
+    kernels line."""
+    rows = []
+    for i, d in enumerate(SWEEP_HEAD_DIMS):
+        c = SWEEP_HEADS * d
+        new = (kernel_phase(pa, [(1, 4096, c, SWEEP_HEADS)], seed=20 + i)
+               + training_kernel_phase(pa, [(TRAIN_BATCH, 1024, c, SWEEP_HEADS)], seed=30 + i)
+               + opt_kernel_phase([(1, 1000, 1000, c, SWEEP_HEADS),
+                                   (1, 1000, CONTEXT[0], c, SWEEP_HEADS)], [], [], seed=40 + i))
+        for r in new:
+            r["head_dim"] = d
+            r["path"] = "none (head-dim sweep)"
+            del r["key"]
+        rows += new
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _pix2pix15_train(pa, root: Path) -> dict:
+    """``run_training(args, "pix2pix", pipe=pix2pix15_pipeline(...))`` with
+    the pix2pix trainer CLI's defaults (batch 4, 512x512), ``--use_ema
+    --conditioning_dropout_prob 0.05``, ``PIX2PIX15_TRAIN_STEPS`` steps:
+    launches pinned as phase 13's, finite losses, the UNet moving, the EMA
+    trailing it, the VAE and CLIP bit-unchanged; the final save written."""
+    from genima_torch.cli.train_instruct_pix2pix_genima import parse_args
+    from genima_torch.diffusion import driver
+    from genima_torch.eval.main_path import pix2pix15_pipeline
+
+    write_rendered_dataset(root / "data")
+    args = parse_args([
+        "--data_path", str(root / "data"), "--tasks", "toy_task", "--seed", "0",
+        "--device", "cuda", "--enable_xformers_memory_efficient_attention",
+        "--dataloader_num_workers", "4", "--output_dir", str(root / "out"),
+        "--report_to", "none", "--use_ema", "--conditioning_dropout_prob", "0.05",
+        "--max_train_steps", str(PIX2PIX15_TRAIN_STEPS), "--checkpointing_steps", "0",
+        "--validation_steps", "0"])
+    if (args.train_batch_size, args.resolution) != (TRAIN_BATCH, 512):
+        raise AssertionError("the pix2pix parser's defaults moved")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pipe = pix2pix15_pipeline(dtype=torch.bfloat16, backend="fused", device=args.device,
+                              vae_encoder=True)
+    params = driver.init_model_params(pipe, args)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    frozen = {name: _to_host(params[name]) for name in ("vae", "text_encoder")}
+    unet_init = _to_host(params["unet"])
+    steps, last = [], {}
+
+    def hook(step, state, metrics):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), _ft_counts(pa)
+        steps.append({"ms": (now - last["mark"]) * 1e3, "loss": float(metrics["loss"]),
+                      "launches": {k: counts[k] - last["counts"][k] for k in counts}})
+        last["mark"], last["counts"] = now, counts
+        if step == PIX2PIX15_TRAIN_STEPS:
+            last["ema"], last["master"] = _to_host(state.ema), _to_host(state.params)
+
+    _ft_zero(pa)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    last["mark"], last["counts"] = time.perf_counter(), _ft_counts(pa)
+    result = driver.run_training(args, "pix2pix", pipe=pipe, params=params, step_hook=hook)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches_by_shape = {
+        k: {"x".join(map(str, sh)): n for sh, n in fn.launches_by_shape.items()}
+        for k, fn in (("B1", pa.packed_flash_attention), ("B2a", pa.packed_attention_forward_lse),
+                      ("B2b", pa.packed_attention_backward))}
+    if result["global_step"] != PIX2PIX15_TRAIN_STEPS or len(steps) != PIX2PIX15_TRAIN_STEPS:
+        raise AssertionError(f"pix2pix15 fine-tune took {result['global_step']} steps")
+    for i, st in enumerate(steps):
+        if st["launches"] != PIX2PIX_TRAIN_LAUNCHES or not math.isfinite(st["loss"]):
+            raise AssertionError(f"pix2pix15 train step {i + 1}: launches {st['launches']}, "
+                                 f"want {PIX2PIX_TRAIN_LAUNCHES}; loss {st['loss']}")
+    for name, before in frozen.items():
+        after = params[name].state_dict()
+        changed = [k for k, t in before.items() if not torch.equal(t.to("cuda"), after[k])]
+        if changed:
+            raise AssertionError(f"pix2pix15 frozen {name} changed: {changed[:3]}")
+    moved = max((last["master"][k] - v.float()).abs().max().item() for k, v in unet_init.items())
+    lag = max((last["ema"][k] - last["master"][k]).abs().max().item() for k in last["ema"])
+    if not (moved > 0 and lag > 0):
+        raise AssertionError(f"pix2pix15: the UNet moved {moved}, the EMA trails by {lag}")
+    final = root / "out" / "unet" / "params.msgpack"
+    if not final.is_file():
+        raise AssertionError("pix2pix15: no final save")
+    del frozen, unet_init, last, params, pipe
+    torch.cuda.empty_cache()
+    return {"setup_s": setup_s, "step_ms": [st["ms"] for st in steps],
+            "steady_step_ms": [st["ms"] for st in steps[1:]],
+            "losses": [st["loss"] for st in steps],
+            "launches_per_step": [st["launches"] for st in steps],
+            "launches_by_shape": launches_by_shape, "unet_max_move": moved, "ema_lag": lag,
+            "final_save_bytes": final.stat().st_size, "peak_mem_gb": peak_gb}
+
+
+def _path_rows(pool, launches_by_shape: dict, path: str) -> list[dict]:
+    """Copies of the rows of ``pool`` at the shapes the path launched their
+    kernel at, each with the path's launches; fails if the path launched a
+    kernel at a shape no row of ``pool`` measures."""
+    rows, seen = [], set()
+    for r in pool:
+        kernel = COUNTERS[r["name"]]
+        n = launches_by_shape.get(kernel, {}).get(r["key"], 0)
+        if n and (kernel, r["key"]) not in seen:
+            seen.add((kernel, r["key"]))
+            rows.append(dict(r, path=path, launches=n))
+    missing = [(k, key) for k, by_shape in launches_by_shape.items() for key, n in by_shape.items()
+               if n and (k, key) not in seen]
+    if missing:
+        raise AssertionError(f"{path}: no kernel row measures {missing}")
+    return rows
+
+
+def opt_geometries_phase(pa, card: str, pools: dict) -> tuple[dict, dict, list]:
+    """Phase 16: the attention kernels at any head dim, the new opt-in
+    kernel shapes against their plain versions, then the paths: (a)
+    InstructPix2Pix at SD-1.5 geometry served on the default backend and
+    under ``pallas+w8`` / fused, and trained with EMA; (b) SD-1.5 and (c) SD
+    at 768x768 under ``pallas+w8`` / fused; (d) SDXL-turbo under ``pallas``
+    and (e) under ``pallas+w8`` / fused. ``pools``: the kernel rows of the
+    earlier phases the paths share shapes with ("sd_opt": phase 4's,
+    "sd15_*": phase 15's). Returns the paths, the kernel rows by path and
+    the head-dim sweep's rows."""
+    t_phase = time.time()
+    sweep = head_dim_sweep(pa)
+    measured = opt_kernel_phase(SD768_FLASH_SHAPES, SD768_CONV_SHAPES, SD768_W8_SHAPES, seed=50)
+    cross = opt_kernel_phase([], [], CROSS_W8_SHAPES, seed=51)
+    out = {"card": card, "kernel_checks_s": time.time() - t_phase}
+    torch.cuda.empty_cache()
+    runs = {
+        "pix2pix15_serve": ("pix2pix15", 512, "fused", "xla", PIX2PIX15_LAUNCHES),
+        "pix2pix15_opt_in": ("pix2pix15", 512, OPT_BACKEND, OPT_CONV_BACKEND,
+                             PIX2PIX15_OPT_LAUNCHES),
+        "sd15_opt_in_w8": ("sd15", 512, OPT_BACKEND, OPT_CONV_BACKEND, SD15_W8_LAUNCHES),
+        "sd768_opt_in_w8": ("sd", RES_768, OPT_BACKEND, OPT_CONV_BACKEND, SD768_W8_LAUNCHES),
+        "sdxl_pallas": ("sdxl", 512, "pallas", "xla", SDXL_PALLAS_LAUNCHES),
+        "sdxl_opt_in_w8": ("sdxl", 512, OPT_BACKEND, OPT_CONV_BACKEND, SDXL_W8_LAUNCHES),
+    }
+    for name, run in runs.items():
+        t0 = time.time()
+        out[name] = _serve(*run)
+        out[name]["s"] = time.time() - t0
+        if name == "pix2pix15_serve":
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.time()
+                out["pix2pix15_train"] = _pix2pix15_train(pa, Path(tmp))
+                out["pix2pix15_train"]["s"] = time.time() - t0
+    b3_b4_b5 = ("flash_attention", "fused_conv3x3", "w8_matmul")
+    sd_b4_b5 = [r for r in pools["sd_opt"] if r["name"] in b3_b4_b5[1:]]
+    sd15_opt = pools["sd15_opt_in"] + sd_b4_b5 + cross
+    pool_of = {
+        "pix2pix15_serve": pools["sd15_control"],
+        "pix2pix15_train": pools["sd15_train"],
+        "pix2pix15_opt_in": sd15_opt,
+        "sd15_opt_in_w8": sd15_opt,
+        "sd768_opt_in_w8": measured,
+        "sdxl_pallas": pools["sd_opt"],
+        "sdxl_opt_in_w8": pools["sd_opt"] + cross,
+    }
+    rows = {name: _path_rows(pool, out[name]["launches_by_shape"], f"{name} (phase 16)")
+            for name, pool in pool_of.items()}
+    out["phase_s"] = time.time() - t_phase
+    return out, rows, sweep
 
 
 def per_step_sums(rows) -> dict:
@@ -3724,12 +3981,12 @@ def per_step_sums(rows) -> dict:
     return out
 
 
-def _fill_launches(rows, launches_by_shape: dict, counter: dict) -> None:
+def _fill_launches(rows, launches_by_shape: dict) -> None:
     """Each row's launches on its path, from the counter of its kernel
-    (``counter[name]``) by shape key; a kernel the path never launched at
+    (``COUNTERS[name]``) by shape key; a kernel the path never launched at
     a row's shape fails the run."""
     for row in rows:
-        row["launches"] = launches_by_shape[counter[row["name"]]].get(row.pop("key"), 0)
+        row["launches"] = launches_by_shape[COUNTERS[row["name"]]].get(row["key"], 0)
         if row["launches"] == 0:
             raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
 
@@ -3800,16 +4057,13 @@ def main() -> int:
     mesh_eval_kernels = [dict(r, path="eval over a 1x1 mesh (phase 14)") for r in kernels]
     tp_kernels = [dict(r, path="TP-sharded control step, 1x2 mesh (phase 14)") for r in kernels]
     path = _sd_serve(pa, "sd", 512, PATH_STEPS, LAUNCHES_PER_STEP, opt_in=False)
-    _fill_launches(kernels, {"B1": path["launches_by_shape"]}, {"packed_flash_attention": "B1"})
+    _fill_launches(kernels, {"B1": path["launches_by_shape"]})
     print("path " + json.dumps(path))
     train = train_phase(pa)
-    _fill_launches(train_kernels, train["launches_by_shape"], {
-        "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
-        "packed_attention_backward": "B2b"})
+    _fill_launches(train_kernels, train["launches_by_shape"])
     print("train " + json.dumps(train))
-    opt = opt_path_phase()
-    _fill_launches(opt_kernels, opt["launches_by_shape"],
-                   {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
+    opt = _serve("sd", 512, OPT_BACKEND, OPT_CONV_BACKEND, OPT_LAUNCHES, OPT_STEPS)
+    _fill_launches(opt_kernels, opt["launches_by_shape"])
     print("opt_path " + json.dumps(opt))
     with tempfile.TemporaryDirectory() as tmp:
         # phases 7 and 10 evaluate the same checkpoints
@@ -3821,8 +4075,7 @@ def main() -> int:
         shutil.rmtree(Path(tmp) / "sdxl", ignore_errors=True)
         px = pix2pix_phase(pa, card, written["controller_dir"])
         dp = distributed_phase(pa, card, written)
-    _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
+    _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]})
     print("eval " + json.dumps(ev))
     for name in ("fused", "cfg"):
         e = ev[name]
@@ -3857,8 +4110,7 @@ def main() -> int:
           f"with cuDNN TF32 off / on {at['update_ms_median_cudnn_tf32_off']:.1f} / "
           f"{at['update_ms_median_cudnn_tf32_on']:.1f} ms; peak {at['peak_mem_gb']:.2f} GiB")
     rp = render_pretrain_phase(pa, card)
-    _fill_launches(pretrain_kernels, rp["pretrain_launches_by_shape"], {
-        "packed_attention_forward_lse": "B2a", "packed_attention_backward": "B2b"})
+    _fill_launches(pretrain_kernels, rp["pretrain_launches_by_shape"])
     print("render_pretrain " + json.dumps(rp))
     print(f"render_pretrain ({card}): render {rp['render_frames_per_s']:.1f} frames/s by the host "
           f"clock ({rp['render_frames']} frames at {RENDER_SIZE}^2 in {rp['render_s']:.2f} s, "
@@ -3873,12 +4125,9 @@ def main() -> int:
           f"{rp['decoder']} (native build error: {rp['native_build_error']}); train_act on the "
           f"rendered tree {rp['act_updates']} updates in {rp['act_epoch_s']:.1f} s; cut gate "
           f"{rp['gate_cut_s']:.1f} s; phase {rp['phase_s']:.1f} s")
-    _fill_launches(batched_kernels, bt["opt_launches_by_shape"],
-                   {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
-    _fill_launches(cohort_kernels, {"B1": bt["A"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
-    _fill_launches(batch4_kernels, {"B1": bt["B"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
+    _fill_launches(batched_kernels, bt["opt_launches_by_shape"])
+    _fill_launches(cohort_kernels, {"B1": bt["A"]["launches_by_shape"]})
+    _fill_launches(batch4_kernels, {"B1": bt["B"]["launches_by_shape"]})
     print("batched_eval " + json.dumps(bt))
     ms = bt["step_ms"]
     print(f"batched_eval ({card}): step ms by events on the worker stream (host clock) "
@@ -3894,11 +4143,8 @@ def main() -> int:
           + f"; rows max |d target| default {max(bt['rows_default']['target_max_levels'])} "
           f"opt-in {max(bt['rows_opt_in']['target_max_levels'])} levels; peak "
           f"{bt['peak_mem_gb']:.2f} GiB; phase {bt['phase_s']:.1f} s")
-    _fill_launches(sdxl_kernels, {"B1": sx["serve"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
-    _fill_launches(sdxl_train_kernels, sx["train"]["launches_by_shape"], {
-        "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
-        "packed_attention_backward": "B2b"})
+    _fill_launches(sdxl_kernels, {"B1": sx["serve"]["launches_by_shape"]})
+    _fill_launches(sdxl_train_kernels, sx["train"]["launches_by_shape"])
     print("sdxl " + json.dumps(sx))
     sv, tr, ev12 = sx["serve"], sx["train"], sx["eval"]
     print(f"sdxl ({card}): control step {[round(x, 1) for x in sv['step_ms']]} ms by events "
@@ -3915,14 +4161,10 @@ def main() -> int:
                       f"{ev12[r]['diffusion_params_load_s']:.2f} s, loop {ev12[r]['loop_s']:.2f} s"
                       for r in ("S", "B"))
           + f"; phase {sx['phase_s']:.1f} s")
-    _fill_launches(pix2pix_kernels, {"B1": px["eval"]["S"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
-    _fill_launches(pix2pix_n2_kernels, {"B1": px["eval"]["B"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
-    _fill_launches(pix2pix_train_kernels, px["train"]["launches_by_shape"], {
-        "packed_attention_forward_lse": "B2a", "packed_attention_backward": "B2b"})
-    _fill_launches(pix2pix_opt_kernels, px["opt_in"]["launches_by_shape"],
-                   {"flash_attention": "B3", "fused_conv3x3": "B4", "w8_matmul": "B5"})
+    _fill_launches(pix2pix_kernels, {"B1": px["eval"]["S"]["launches_by_shape"]})
+    _fill_launches(pix2pix_n2_kernels, {"B1": px["eval"]["B"]["launches_by_shape"]})
+    _fill_launches(pix2pix_train_kernels, px["train"]["launches_by_shape"])
+    _fill_launches(pix2pix_opt_kernels, px["opt_in"]["launches_by_shape"])
     print("pix2pix " + json.dumps(px))
     tr13, ev13, tv = px["train"], px["eval"], px["tiny_vae"]
     print(f"pix2pix ({card}): train steps {[round(x, 1) for x in tr13['steady_step_ms']]} ms by "
@@ -3937,17 +4179,13 @@ def main() -> int:
           + "; ".join(f"run {r}: {ev13[r]['control_steps']} steps, fused step "
                       f"{ev13[r]['fused_step_time_s']:.4f} s, agent load "
                       f"{ev13[r]['diffusion_params_load_s']:.2f} s" for r in ("S", "B"))
-          + f"; opt-in step {px['opt_in']['launches']}; tiny VAE PSNR "
+          + f"; opt-in step {px['opt_in']['launches_per_step'][0]}; tiny VAE PSNR "
           f"{tv['psnr_db'][0]:.2f} -> {tv['psnr_db'][1]:.2f} dB over {tv['distill_steps']} steps "
           f"({tv['distill_s']:.1f} s), decode at batch 1 {tv['tiny_decode_ms']:.3f} ms vs the KL "
           f"decoder's {tv['full_decode_ms']:.3f} ms by events; phase {px['phase_s']:.1f} s")
-    _fill_launches(dp_kernels, dp["a"][0]["launches_by_shape"], {
-        "packed_flash_attention": "B1", "packed_attention_forward_lse": "B2a",
-        "packed_attention_backward": "B2b"})
-    _fill_launches(mesh_eval_kernels, {"B1": dp["d"]["eval"]["launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
-    _fill_launches(tp_kernels, {"B1": dp["d"]["tp_launches_by_shape"]},
-                   {"packed_flash_attention": "B1"})
+    _fill_launches(dp_kernels, dp["a"][0]["launches_by_shape"])
+    _fill_launches(mesh_eval_kernels, {"B1": dp["d"]["eval"]["launches_by_shape"]})
+    _fill_launches(tp_kernels, {"B1": dp["d"]["tp_launches_by_shape"]})
     print("distributed " + json.dumps(dp))
     a0, d14 = dp["a"][0], dp["d"]
     print(f"distributed ({card}): (a) {DP_WORLD} gloo ranks on one card, batch {DP_BATCH} each: "
@@ -3988,6 +4226,24 @@ def main() -> int:
           f"control step {[round(x, 1) for x in s768['step_ms']]} ms, eps rel err "
           f"{s768['eps_rel_err_vs_library_attention']:.4f}, peak {s768['peak_mem_gb']:.2f} GiB; "
           f"kernel checks {hd['kernel_checks_s']:.1f} s; phase {hd['phase_s']:.1f} s")
+    p16, p16_rows, sweep = opt_geometries_phase(pa, card, {
+        "sd_opt": opt_kernels, "sd15_control": hd_rows["sd15_control"],
+        "sd15_train": hd_rows["sd15_train"], "sd15_opt_in": hd_rows["sd15_opt_in"]})
+    print("opt_geometries " + json.dumps(p16))
+    print("head_dim_sweep " + json.dumps(sweep))
+    print(f"opt_geometries ({card}): " + "; ".join(
+        f"{name} steps {[round(x, 1) for x in p16[name]['step_ms']]} ms by events, eps "
+        f"{p16[name]['eps_rel_err_vs_library_attention']:.4f}"
+        + (f", int8 {p16[name]['eps_int8_vs_dequantised_float']:.4f}"
+           if "eps_int8_vs_dequantised_float" in p16[name] else "")
+        + (f", decode {p16[name]['vae_fused_vs_default_decode']:.4f}"
+           if "vae_fused_vs_default_decode" in p16[name] else "")
+        + f", build peak {p16[name]['build_peak_mem_gb']:.2f} GiB, step peak "
+        f"{p16[name]['step_peak_mem_gb']:.2f} GiB, {p16[name]['s']:.1f} s"
+        for name in p16 if isinstance(p16[name], dict) and "step_peak_mem_gb" in p16[name])
+        + f"; pix2pix15 train steps {[round(x, 1) for x in p16['pix2pix15_train']['step_ms']]} "
+        f"ms, peak {p16['pix2pix15_train']['peak_mem_gb']:.2f} GiB; kernel checks "
+        f"{p16['kernel_checks_s']:.1f} s; phase {p16['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -4010,13 +4266,16 @@ def main() -> int:
         + [("sd15_opt_in", r, 1) for r in hd_rows["sd15_opt_in"]]
         + [("sd15_train", r, SD15_TRAIN_STEPS) for r in hd_rows["sd15_train"]]
         + [("sd768_control", r, SD768_STEPS) for r in hd_rows["sd768_control"]]
-        + [("sd768_train", r, SD15_TRAIN_STEPS) for r in hd_rows["sd768_train"]])))
-    print(json.dumps({"kernels": kernels + cfg_kernels + train_kernels + opt_kernels
-                      + cohort_kernels + batch4_kernels + batched_kernels
-                      + pretrain_kernels + sdxl_kernels + sdxl_train_kernels
-                      + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
-                      + pix2pix_opt_kernels + dp_kernels + mesh_eval_kernels
-                      + tp_kernels + [r for rs in hd_rows.values() for r in rs]}))
+        + [("sd768_train", r, SD15_TRAIN_STEPS) for r in hd_rows["sd768_train"]]
+        + [(name, r, PIX2PIX15_TRAIN_STEPS if name == "pix2pix15_train" else OPT16_STEPS)
+           for name, rs in p16_rows.items() for r in rs])))
+    rows = (kernels + cfg_kernels + train_kernels + opt_kernels + cohort_kernels
+            + batch4_kernels + batched_kernels + pretrain_kernels + sdxl_kernels
+            + sdxl_train_kernels + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
+            + pix2pix_opt_kernels + dp_kernels + mesh_eval_kernels + tp_kernels
+            + [r for rs in hd_rows.values() for r in rs]
+            + [r for rs in p16_rows.values() for r in rs])
+    print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

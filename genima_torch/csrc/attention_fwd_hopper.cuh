@@ -12,15 +12,20 @@
 // h * d with row stride H * d: no (S, H, D) -> (H, S, D) transpose ever
 // touches device memory.
 //
-// Head dims (attention_hopper.cuh): d, a multiple of 8 up to 160, is DA =
+// Head dims (attention_hopper.cuh): d, a multiple of 8 up to 256, is DA =
 // ceil(d / 64) atoms of 64 columns, a template parameter; each Q, K and V
 // tile is DA 64-column TMA boxes. The consumers zero Q's columns d..64 * DA
 // in shared memory once a block, so S = Q K^T sums over the real d; O's
-// extra columns are computed from V's and never stored. The scale 1/sqrt(d)
-// follows the real d. d = 8..64 (DA = 1) runs every tile below; DA = 2, 3
-// (d = 72..160) take 64-key tiles (and B3's 80-key prompt tile) with one or
-// two consumer warpgroups and one block an SM: a wider O accumulator
-// (32 * DA registers a thread) and DA times the shared memory a stage.
+// extra columns are computed from V's and never stored. The scale
+// 1/sqrt(scale_dim) follows the real head dim (d itself, or fewer columns
+// that the wrapper zero-padded to d). d = 8..64 (DA = 1) runs every tile
+// below; DA = 2, 3 (d = 72..192) take 64-key tiles (and B3's 80-key prompt
+// tile) with one or two consumer warpgroups and one block an SM: a wider O
+// accumulator (32 * DA registers a thread) and DA times the shared memory a
+// stage. DA = 4 (d = 200..256) holds 128 f32 of O a thread: one consumer
+// warpgroup and a one-warp producer (160 threads, so ptxas may give each
+// thread 255 registers), 64-key tiles in a ring of three 64 KB stages, or
+// B3's 80-key prompt tile in two.
 //
 // Bound: 4 * B * Sq * Sk * C flops on 2 * B * (2 * Sq + 2 * Sk) * C bytes.
 // Self-attention at 4096 and 1024 tokens is bound by tensor-core
@@ -33,7 +38,8 @@
 // 64 rows and a producer: a warpgroup when nwg > 1 (setmaxnreg moves
 // registers by warpgroup), else one warp, so that short key loops, where a
 // block's fixed latency dominates, fit two (128-key) or three (64-key)
-// blocks on an SM.
+// blocks on an SM, and a four-atom block's consumers may take 255
+// registers.
 //   * The producer's first thread TMA-loads the block's Q tile once, then
 //     streams K and V tiles of bn keys (64, 80 or 128) through a ring of
 //     `stages` stages behind "full" / "empty" mbarriers. The maps are 3-D
@@ -101,7 +107,9 @@ struct FwdCfg {
   // registers)
   static constexpr int kMinBlocks = DA == 1 && NWG == 1 && BN == 64 ? 3 : 1;
   // registers a consumer thread takes from the producer warpgroup's 24
+  // (NWG > 1; a one-warpgroup block of 160 threads needs no setmaxnreg)
   static constexpr int kConsumerRegs = NWG == 2 ? 240 : 160;
+  static_assert(DA <= 4 && (DA < 4 || NWG == 1), "four atoms: one consumer warpgroup");
 };
 
 // Dynamic shared memory of a block: alignment slack, the Q tile, the K/V
@@ -335,12 +343,13 @@ int seq_map(CUtensorMap* map, const void* x, int batch, int s, int c, int rows) 
 }
 
 // The three maps and the parameters of one launch of the (nwg, bn) kernel
-// at head dim d with a ring of `stages`; 0, or an error code for a launch
-// that cannot be made.
+// on heads of d columns, scaled by 1 / sqrt(scale_dim), with a ring of
+// `stages`; 0, or an error code for a launch that cannot be made.
 int prepare_fwd(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, FwdParams* p, const void* q,
                 const void* k, const void* v, void* o, float* lse, int batch, int sq, int sk,
-                int heads, int d, int nwg, int bn, int stages) {
-  if (sq < 1 || sk < 1 || !head_dim_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
+                int heads, int d, int scale_dim, int nwg, int bn, int stages) {
+  if (sq < 1 || sk < 1 || !head_dim_ok(d, scale_dim))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int c = heads * d;
   int rc = seq_map(mq, q, batch, sq, c, 64 * nwg);
   if (rc) return rc;
@@ -355,8 +364,8 @@ int prepare_fwd(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, FwdParams* p,
   p->heads = heads;
   p->n_tiles = (sk + bn - 1) / bn;
   p->stages = stages;
-  // log2(e) / sqrt(d), rounded once (at d = 64: kLog2e / 8 exactly)
-  p->scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(d)));
+  // log2(e) / sqrt(scale_dim), rounded once (at 64: kLog2e / 8 exactly)
+  p->scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
   // a stage goes back to the producer only once the next tile has arrived:
   // more than one tile needs two stages
   if (stages < (p->n_tiles > 1 ? 2 : 1)) return static_cast<int>(cudaErrorInvalidValue);

@@ -3,15 +3,19 @@
 // operands of wgmma m64nNk16 with A in registers and B a 128-byte-swizzled
 // tile of 64-wide bf16 rows in shared memory, as TMA writes it.
 //
-// Head dims: a head of d columns (a multiple of 8, 8 to 160) is handled as
+// Head dims: a head of d columns (a multiple of 8, 8 to 256) is handled as
 // ceil(d / 64) atoms of 64 columns, the kernels' template parameter DA; d
-// itself is a runtime value. An atom's TMA box at column h * d + 64 * a
+// itself is a runtime value. (A head dim that is not a multiple of 8 reaches
+// the kernels zero-padded to the next one by the wrappers, since TMA needs
+// 16-byte row strides; the scale follows the real head dim, `scale_dim`.)
+// An atom's TMA box at column h * d + 64 * a
 // reaches into the next head's columns (and past C, where TMA zero-fills):
 // every product that contracts over d sees zeros there, because one of its
 // operands has its columns d..64 * DA zeroed (zero_tail in shared memory,
 // or a masked load_a_global into registers), and the columns past d of a
 // product's output are computed and never stored (store_acc's `cols`). So
-// d = 40 and 80 compute on 1.6x the columns they need, d = 160 on 1.2x. A
+// d = 40 and 80 compute on 1.6x the columns they need, d = 160 on 1.2x,
+// d = 200 on 1.28x. A
 // non-finite value in the next head's columns still reaches this head's
 // sums (0 * inf): such a value makes that head's own output non-finite too.
 //
@@ -44,7 +48,7 @@ namespace attn_hopper {
 
 constexpr int kAtom = 64;                // columns of a head atom
 constexpr int kRowBytes = kAtom * 2;     // one 64-wide bf16 row: the swizzle span
-constexpr int kMaxHeadDim = 160;
+constexpr int kMaxHeadDim = 256;  // four atoms
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;  // the JAX kernels' _NEG_INF
 
@@ -76,8 +80,12 @@ __device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk) {
 // Atoms of a head of d columns, on the host.
 inline int head_atoms(int d) { return (d + kAtom - 1) / kAtom; }
 
-// Whether the kernels take head dim d.
-inline bool head_dim_ok(int d) { return d >= 8 && d <= kMaxHeadDim && d % 8 == 0; }
+// Whether the kernels take heads of d columns, scaled by 1 / sqrt(scale_dim):
+// d a multiple of 8 up to 256, scale_dim the real head dim it pads (d itself,
+// or up to 7 columns fewer).
+inline bool head_dim_ok(int d, int scale_dim) {
+  return d >= 8 && d <= kMaxHeadDim && d % 8 == 0 && scale_dim <= d && scale_dim > d - 8;
+}
 
 // A fragments of a warp's 16 rows x 64 columns of a packed tensor, straight
 // from global memory (row stride ld elements; `rows` points at row 0);

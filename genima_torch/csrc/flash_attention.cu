@@ -1,5 +1,6 @@
 // Flash-attention forward on (B, S, H, D) for Hopper (sm_90a), any S, D a
-// multiple of 8 up to 160.
+// multiple of 8 up to 256 (the wrapper zero-pads any other D up to 256 to
+// the next multiple of 8 and passes the real one as scale_dim).
 //
 // Replaces genima_tpu/kernels/flash_attention.py::_flash_forward /
 // _flash_kernel: non-causal softmax(Q K^T / sqrt(D)) V with an online
@@ -14,9 +15,10 @@
 // (packed_attention.cu); its note gives the bound, the design and how head
 // dims other than 64 are read. Here it is instantiated without the L store:
 // at D up to 64 with 1 or 2 consumer warpgroups and 64-, 80- or 128-key
-// tiles, and at 3 with 128-key tiles; at D = 72..160 (two or three
+// tiles, and at 3 with 128-key tiles; at D = 72..192 (two or three
 // 64-column atoms) with 1 warpgroup on 64- or 80-key tiles, or 2 on 64-key
-// ones. kernels/flash_attention.py::plan picks one per shape (python -m
+// ones; at D = 200..256 (four atoms) with 1 warpgroup on 64- or 80-key
+// tiles. kernels/flash_attention.py::plan picks one per shape (python -m
 // genima_torch.tune_kernels attn times every candidate).
 
 #include "attention_fwd_hopper.cuh"
@@ -36,8 +38,10 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
     if (nwg == 2 && bn == 80) return launch_fwd<1, 2, 80, false>(mq, mk, mv, p, batch, s);
     if (nwg == 2) return launch_fwd<1, 2, 128, false>(mq, mk, mv, p, batch, s);
     return launch_fwd<1, 3, 128, false>(mq, mk, mv, p, batch, s);
-  } else {
+  } else if constexpr (DA < 4) {
     return launch_fwd<DA, 2, 64, false>(mq, mk, mv, p, batch, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -47,37 +51,41 @@ extern "C" {
 
 int flash_attention_smem_bytes(int nwg, int bn, int stages, int d);
 
-// softmax(Q_h K_h^T / sqrt(d)) V_h for every head h of (B, S, heads, d)
-// bf16 tensors, Sq and Sk >= 1, with the consumer warpgroups (nwg), key tile
-// (bn) and ring depth of kernels/flash_attention.py::plan. Needs 16-byte
-// aligned tensors (the wrapper checks). Launches on `stream`, does not
-// synchronise; returns 0 or an error code for flash_attention_error_string.
+// softmax(Q_h K_h^T / sqrt(scale_dim)) V_h for every head h of
+// (B, S, heads, d) bf16 tensors, Sq and Sk >= 1, with the consumer
+// warpgroups (nwg), key tile (bn) and ring depth of
+// kernels/flash_attention.py::plan; scale_dim is d, or the real head dim of
+// heads zero-padded to d columns. Needs 16-byte aligned tensors (the wrapper
+// checks). Launches on `stream`, does not synchronise; returns 0 or an error
+// code for flash_attention_error_string.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch, int sq,
-                        int sk, int heads, int d, int nwg, int bn, int stages, void* stream) {
+                        int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
+                        void* stream) {
   if (flash_attention_smem_bytes(nwg, bn, stages, d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   FwdParams p;
   const int rc = prepare_fwd(&mq, &mk, &mv, &p, q, k, v, o, nullptr, batch, sq, sk, heads, d,
-                             nwg, bn, stages);
+                             scale_dim, nwg, bn, stages);
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_atoms(d)) {
     case 1: return launch<1>(mq, mk, mv, p, batch, nwg, bn, s);
     case 2: return launch<2>(mq, mk, mv, p, batch, nwg, bn, s);
-    default: return launch<3>(mq, mk, mv, p, batch, nwg, bn, s);
+    case 3: return launch<3>(mq, mk, mv, p, batch, nwg, bn, s);
+    default: return launch<4>(mq, mk, mv, p, batch, nwg, bn, s);
   }
 }
 
 // Shared memory a block of the (nwg, bn) kernel asks for at `stages` and
 // head dim d; 0 for a launch there is no kernel for.
 int flash_attention_smem_bytes(int nwg, int bn, int stages, int d) {
-  if (!head_dim_ok(d) || stages < 1) return 0;
+  if (!head_dim_ok(d, d) || stages < 1) return 0;
   const int atoms = head_atoms(d);
   const bool tile =
       atoms == 1 ? (nwg == 3 ? bn == 128
                              : (nwg == 1 || nwg == 2) && (bn == 64 || bn == 80 || bn == 128))
-                 : (nwg == 1 && (bn == 64 || bn == 80)) || (nwg == 2 && bn == 64);
+                 : (nwg == 1 && (bn == 64 || bn == 80)) || (atoms < 4 && nwg == 2 && bn == 64);
   return tile ? fwd_smem_bytes(nwg, bn, stages, atoms) : 0;
 }
 

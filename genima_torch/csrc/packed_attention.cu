@@ -8,11 +8,12 @@
 // normaliser the backward (packed_attention_bwd.cu) rebuilds P from.
 //
 // Layout: q, k, v and o are (B, S, heads * d) bf16, row-major, exactly as
-// the to_q / to_k / to_v projections emit them; d a multiple of 8 up to 160,
-// S any multiple of 64. A block reads head h as the d columns at offset
-// h * d with row stride C = heads * d, through 3-D (C, S, B) TMA maps, so no
-// (S, H, D) -> (H, S, D) transpose ever touches device memory. L is
-// (B, S, heads) f32.
+// the to_q / to_k / to_v projections emit them; d a multiple of 8 up to 256
+// (the wrapper zero-pads any other head dim up to 256 to the next multiple
+// of 8 and passes the real one as scale_dim), S any multiple of 64. A block
+// reads head h as the d columns at offset h * d with row stride
+// C = heads * d, through 3-D (C, S, B) TMA maps, so no (S, H, D) ->
+// (H, S, D) transpose ever touches device memory. L is (B, S, heads) f32.
 //
 // The kernel is attention_fwd_hopper.cuh's, shared with B3
 // (flash_attention.cu): a producer warp or warpgroup streams K/V tiles by TMA
@@ -24,8 +25,9 @@
 // bit; kernels/packed_attention.py::forward_plan picks the consumer
 // warpgroups, the key tile (64 or 128: Sq and Sk are multiples of 64) and
 // the ring depth (python -m genima_torch.tune_kernels packed times every
-// candidate). Head dims up to 64 take every tile; 72..160 (two or three
-// 64-column atoms) take 64-key tiles with one or two warpgroups.
+// candidate). Head dims up to 64 take every tile; 72..192 (two or three
+// 64-column atoms) take 64-key tiles with one or two warpgroups; 200..256
+// (four atoms) 64-key tiles with one.
 
 #include "attention_fwd_hopper.cuh"
 
@@ -43,25 +45,29 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
     if (nwg == 1) return launch_fwd<1, 1, 128, kWriteLse>(mq, mk, mv, p, batch, s);
     if (nwg == 2) return launch_fwd<1, 2, 128, kWriteLse>(mq, mk, mv, p, batch, s);
     return launch_fwd<1, 3, 128, kWriteLse>(mq, mk, mv, p, batch, s);
-  } else {
+  } else if constexpr (DA < 4) {
     return launch_fwd<DA, 2, 64, kWriteLse>(mq, mk, mv, p, batch, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <bool kWriteLse>
 int forward(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
-            int sk, int heads, int d, int nwg, int bn, int stages, cudaStream_t s) {
+            int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
+            cudaStream_t s) {
   if (packed_attention_smem_bytes(nwg, bn, stages, d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   FwdParams p;
-  const int rc =
-      prepare_fwd(&mq, &mk, &mv, &p, q, k, v, o, lse, batch, sq, sk, heads, d, nwg, bn, stages);
+  const int rc = prepare_fwd(&mq, &mk, &mv, &p, q, k, v, o, lse, batch, sq, sk, heads, d,
+                             scale_dim, nwg, bn, stages);
   if (rc) return rc;
   switch (head_atoms(d)) {
     case 1: return launch<1, kWriteLse>(mq, mk, mv, p, batch, nwg, bn, s);
     case 2: return launch<2, kWriteLse>(mq, mk, mv, p, batch, nwg, bn, s);
-    default: return launch<3, kWriteLse>(mq, mk, mv, p, batch, nwg, bn, s);
+    case 3: return launch<3, kWriteLse>(mq, mk, mv, p, batch, nwg, bn, s);
+    default: return launch<4, kWriteLse>(mq, mk, mv, p, batch, nwg, bn, s);
   }
 }
 
@@ -72,35 +78,37 @@ extern "C" {
 // Shared memory a block of the (nwg, bn) kernel asks for at `stages` and
 // head dim d; 0 for a launch there is no kernel for.
 int packed_attention_smem_bytes(int nwg, int bn, int stages, int d) {
-  if (!head_dim_ok(d) || stages < 1) return 0;
+  if (!head_dim_ok(d, d) || stages < 1) return 0;
   // one atom: (1, 64) and (1 to 3, 128), as 64-key tiles with more
-  // warpgroups never won; two or three: (1 or 2, 64), what their registers
-  // and shared memory leave
+  // warpgroups never won; two or three: (1 or 2, 64), four: (1, 64), what
+  // their registers and shared memory leave
   const int atoms = head_atoms(d);
   const bool tile = atoms == 1 ? (bn == 64 ? nwg == 1 : bn == 128 && nwg >= 1 && nwg <= 3)
-                               : bn == 64 && (nwg == 1 || nwg == 2);
+                               : bn == 64 && (nwg == 1 || (atoms < 4 && nwg == 2));
   return tile ? fwd_smem_bytes(nwg, bn, stages, atoms) : 0;
 }
 
-// softmax(Q_h K_h^T / sqrt(d)) V_h for every head h of packed
+// softmax(Q_h K_h^T / sqrt(scale_dim)) V_h for every head h of packed
 // (B, S, heads * d) bf16 tensors, with the consumer warpgroups (nwg), key
-// tile (bn) and ring depth of kernels/packed_attention.py::forward_plan.
+// tile (bn) and ring depth of kernels/packed_attention.py::forward_plan;
+// scale_dim is d, or the real head dim of heads zero-padded to d columns.
 // Needs 16-byte aligned tensors (the wrapper checks). Launches on `stream`,
 // does not synchronise; returns 0 or an error code for
 // packed_attention_error_string.
 int packed_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch, int sq,
-                         int sk, int heads, int d, int nwg, int bn, int stages, void* stream) {
-  return forward<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d, nwg, bn, stages,
+                         int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
+                         void* stream) {
+  return forward<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d, scale_dim, nwg, bn, stages,
                         static_cast<cudaStream_t>(stream));
 }
 
 // The same, and L = m + log(l) per (row, head) into the (B, Sq, heads) f32
 // tensor `lse`.
 int packed_attention_fwd_lse(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int batch, int sq, int sk, int heads, int d, int nwg, int bn,
-                             int stages, void* stream) {
-  return forward<true>(q, k, v, o, static_cast<float*>(lse), batch, sq, sk, heads, d, nwg, bn,
-                       stages, static_cast<cudaStream_t>(stream));
+                             int batch, int sq, int sk, int heads, int d, int scale_dim, int nwg,
+                             int bn, int stages, void* stream) {
+  return forward<true>(q, k, v, o, static_cast<float*>(lse), batch, sq, sk, heads, d, scale_dim,
+                       nwg, bn, stages, static_cast<cudaStream_t>(stream));
 }
 
 const char* packed_attention_error_string(int code) { return hopper_host::error_string(code); }

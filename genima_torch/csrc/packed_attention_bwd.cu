@@ -11,10 +11,11 @@
 //
 // Layout: every tensor is packed (B, S, heads * d) bf16, read at column
 // offset h * d with row stride C, as the forward reads it; d a multiple of 8
-// up to 160, Sq and Sk any multiples of 64. The TPU wrapper transposes to
-// (B * heads, S, d) around its kernel; the packed kernel exists to avoid
-// those transposes, so this one reads head-strided instead. L is
-// (B, Sq, heads) f32.
+// up to 256 (the wrapper zero-pads any other head dim up to 256 to the next
+// multiple of 8 and passes the real one as scale_dim), Sq and Sk any
+// multiples of 64. The TPU wrapper transposes to (B * heads, S, d) around
+// its kernel; the packed kernel exists to avoid those transposes, so this
+// one reads head-strided instead. L is (B, Sq, heads) f32.
 //
 // Bound: 10 * S^2 * C flops (the TPU kernel's cost estimate: S, dP, dV, dQ,
 // dK) over ~16 * S * C bytes, so tensor-core operations bound it.
@@ -26,7 +27,8 @@
 // consumer warpgroups of 64 rows that run wgmma m64n64k16 with B from the
 // ring's 128-byte-swizzled tiles; setmaxnreg moves registers from the
 // producer (24) to the consumers (240). Each stage is read K-major by one
-// product and MN-major by another (attention_hopper.cuh).
+// product and MN-major by another (attention_hopper.cuh). At four atoms a
+// block is one consumer warpgroup and a one-warp producer (below).
 //   * dq kernel, one block per (128 query rows, head, batch): Q and dO
 //     resident. Its prologue computes Drow = rowsum(dO * O) over the real d
 //     columns and L * log2(e) for its rows and writes both, (B, heads, Sq)
@@ -50,13 +52,20 @@
 // Head dims, as DA = ceil(d / 64) atoms of 64 columns (attention_hopper.cuh):
 //   * d <= 64 (DA = 1): the resident tensors are A fragments in registers,
 //     loaded from global memory with the columns past d zeroed, 4-stage ring.
-//   * d = 72..160 (DA = 2, 3): a warpgroup's f32 accumulators alone would
-//     take 32 * DA registers a thread each, so the resident tensors move to
-//     shared memory (a TMA load a block, wgmma with both operands in shared
-//     memory, their columns past d zeroed there once), and the dk/dv kernel
-//     makes two passes over the query tiles, dV in the first and dK in the
-//     second, holding one accumulator at a time (S^T is formed twice: 16 *
-//     S^2 * C flops in all). DA = 3 rings 2 stages, DA = 2 four.
+//   * d = 72..256 (DA = 2, 3, 4): a warpgroup's f32 accumulators alone
+//     would take 32 * DA registers a thread each, so the resident tensors
+//     move to shared memory (a TMA load a block, wgmma with both operands in
+//     shared memory, their columns past d zeroed there once), and the dk/dv
+//     kernel makes two passes over the query tiles, dV in the first and dK
+//     in the second, holding one accumulator at a time (S^T is formed twice:
+//     16 * S^2 * C flops in all). DA = 3 and 4 ring 2 stages, DA = 2 four.
+//   * DA = 4: two resident tensors of 128 rows (128 KB) and a 2-stage ring
+//     of 64-row Q/dO or K/V pairs (128 KB) would pass the 227 KB a block
+//     may take, and the dq kernel's dQ (128 f32 a thread), S and dP alone
+//     come to ~210 registers. So a block is one consumer warpgroup of 64
+//     rows and a one-warp producer: 160 threads, which ptxas may give 255
+//     registers each with no setmaxnreg; the resident tensors are 64 rows
+//     (64 KB), the ring 2 x 64 KB.
 //   Every contraction over d sees zeros past d (Q or dO, K or V), and dQ,
 //   dK and dV store their real d columns only.
 
@@ -67,19 +76,21 @@ namespace {
 using namespace hopper;
 using namespace attn_hopper;
 
-constexpr int kNWG = 2;                       // consumer warpgroups a block
-constexpr int kThreads = 128 * kNWG + 128;    // + the producer warpgroup
-constexpr int kBlockRows = 64 * kNWG;
 constexpr int kAtomTile = 64 * kRowBytes;     // 64 rows x one 64-column atom
 
 template <int DA>
 struct BwdCfg {
+  static_assert(DA >= 1 && DA <= 4, "heads of up to 256 columns");
+  static constexpr int kNWG = DA == 4 ? 1 : 2;  // consumer warpgroups a block
+  // + the producer: a warpgroup where setmaxnreg moves registers, else a warp
+  static constexpr int kThreads = 128 * kNWG + (kNWG == 1 ? 32 : 128);
+  static constexpr int kBlockRows = 64 * kNWG;
   static constexpr bool kRegA = DA == 1;      // resident tensors in registers
   static constexpr bool kSplit = DA > 1;      // dV, then dK, in two passes
-  static constexpr int kStages = DA == 3 ? 2 : 4;
+  static constexpr int kStages = DA >= 3 ? 2 : 4;
   static constexpr int kTile = DA * kAtomTile;  // a 64-row tile, all atoms
   static constexpr int kRing = kStages * 2 * kTile;
-  // two resident tensors of 128 rows, and their barrier
+  // two resident tensors of kBlockRows rows, and their barrier
   static constexpr int kRes = kRegA ? 0 : 2 * kNWG * kTile;
   static constexpr int kResBar = kRegA ? 0 : 16;
   static constexpr int kDqSmem = 1024 + kRes + kRing + 16 * kStages + kResBar;
@@ -134,8 +145,8 @@ __device__ __forceinline__ void resident_ready(uint64_t* res_full, uint8_t* tile
   const int tail = d - (DA - 1) * kAtom;
   if (tail < kAtom) {
     for (int i = 0; i < n; ++i)
-      zero_tail(tile + i * kNWG * BwdCfg<DA>::kTile + (DA - 1) * kAtomTile, 64, tail,
-                threadIdx.x & 127, 128);
+      zero_tail(tile + i * BwdCfg<DA>::kNWG * BwdCfg<DA>::kTile + (DA - 1) * kAtomTile, 64,
+                tail, threadIdx.x & 127, 128);
     fence_proxy_async();
     named_barrier(1 + wg, 128);
   }
@@ -148,6 +159,7 @@ __device__ __forceinline__ void load_resident(uint8_t* res, uint64_t* res_full,
                                               const CUtensorMap* m0, const CUtensorMap* m1,
                                               int col, int r0, int batch, int active) {
   constexpr int kTile = BwdCfg<DA>::kTile;
+  constexpr int kNWG = BwdCfg<DA>::kNWG;
   mbar_expect_tx(res_full, 2 * active * kTile);
   for (int w = 0; w < active; ++w)
 #pragma unroll
@@ -160,7 +172,7 @@ __device__ __forceinline__ void load_resident(uint8_t* res, uint64_t* res_full,
 }
 
 template <int DA>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(BwdCfg<DA>::kThreads, 1)
 packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_do,
                                const __grid_constant__ CUtensorMap map_k,
@@ -173,7 +185,8 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* empty = full + C::kStages;
   uint64_t* res_full = empty + C::kStages;
 
-  const int q0 = blockIdx.x * kBlockRows;
+  constexpr int kNWG = C::kNWG;
+  const int q0 = blockIdx.x * C::kBlockRows;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int active = min(kNWG, (p.sq - q0) / 64);
@@ -193,7 +206,7 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int lane = threadIdx.x & 31;
 
   if (warp >= 4 * kNWG) {  // producer warpgroup: K and V tiles
-    setmaxnreg_dec<24>();
+    if constexpr (kNWG >= 2) setmaxnreg_dec<24>();
     if (warp == 4 * kNWG && lane == 0) {
       prefetch_tensormap(&map_k);
       prefetch_tensormap(&map_v);
@@ -221,7 +234,7 @@ packed_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  setmaxnreg_inc<240>();
+  if constexpr (kNWG >= 2) setmaxnreg_inc<240>();
   const int wg = warp >> 2;
   if (wg >= active) return;
   const int wq = warp & 3;
@@ -452,7 +465,7 @@ __device__ __forceinline__ void dkdv_pass(float* dv, float* dk, const uint32_t (
 }
 
 template <int DA>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(BwdCfg<DA>::kThreads, 1)
 packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                                  const __grid_constant__ CUtensorMap map_do,
                                  const __grid_constant__ CUtensorMap map_k,
@@ -466,7 +479,8 @@ packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* empty = full + C::kStages;
   uint64_t* res_full = empty + C::kStages;
 
-  const int k0 = blockIdx.x * kBlockRows;
+  constexpr int kNWG = C::kNWG;
+  const int k0 = blockIdx.x * C::kBlockRows;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int active = min(kNWG, (p.sk - k0) / 64);
@@ -487,7 +501,7 @@ packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int lane = threadIdx.x & 31;
 
   if (warp >= 4 * kNWG) {  // producer warpgroup: Q, dO, L * log2(e), Drow tiles
-    setmaxnreg_dec<24>();
+    if constexpr (kNWG >= 2) setmaxnreg_dec<24>();
     if (warp == 4 * kNWG && lane == 0) {
       prefetch_tensormap(&map_q);
       prefetch_tensormap(&map_do);
@@ -520,7 +534,7 @@ packed_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  setmaxnreg_inc<240>();
+  if constexpr (kNWG >= 2) setmaxnreg_inc<240>();
   const int wg = warp >> 2;
   if (wg >= active) return;
   const int wq = warp & 3;
@@ -609,13 +623,13 @@ int launch_bwd(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap&
     configured = true;
   }
   packed_attention_bwd_dq_kernel<DA>
-      <<<dim3((p.sq + kBlockRows - 1) / kBlockRows, p.heads, batch), kThreads, C::kDqSmem, st>>>(
-          mq, mdo, mk, mv, p);
+      <<<dim3((p.sq + C::kBlockRows - 1) / C::kBlockRows, p.heads, batch), C::kThreads,
+         C::kDqSmem, st>>>(mq, mdo, mk, mv, p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   packed_attention_bwd_dkdv_kernel<DA>
-      <<<dim3((p.sk + kBlockRows - 1) / kBlockRows, p.heads, batch), kThreads, C::kDkdvSmem,
-         st>>>(mq, mdo, mk, mv, p);
+      <<<dim3((p.sk + C::kBlockRows - 1) / C::kBlockRows, p.heads, batch), C::kThreads,
+         C::kDkdvSmem, st>>>(mq, mdo, mk, mv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -625,15 +639,17 @@ extern "C" {
 
 // dq, dk, dv of packed (B, S, heads * d) bf16 attention, from the forward's
 // o and (B, Sq, heads) f32 lse and the output gradient dout; Sq and Sk
-// multiples of 64, d a multiple of 8 up to 160. `delta` is a
+// multiples of 64, d a multiple of 8 up to 256, scale_dim d or the real head
+// dim of heads zero-padded to d columns. `delta` is a
 // (2, B, heads, Sq) f32 scratch the first kernel fills with L * log2(e) and
 // rowsum(dO * O) for the second. Needs 16-byte aligned tensors (the wrapper
 // checks). Launches both kernels on `stream`, does not synchronise, and
 // returns 0 or the first error code for packed_attention_bwd_error_string.
 int packed_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* lse, const void* dout, void* delta, void* dq, void* dk,
-                         void* dv, int batch, int sq, int sk, int heads, int d, void* stream) {
-  if (sq < 64 || sk < 64 || sq % 64 || sk % 64 || !head_dim_ok(d))
+                         void* dv, int batch, int sq, int sk, int heads, int d, int scale_dim,
+                         void* stream) {
+  if (sq < 64 || sk < 64 || sq % 64 || sk % 64 || !head_dim_ok(d, scale_dim))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int c = heads * d;
@@ -661,23 +677,25 @@ int packed_attention_bwd(const void* q, const void* k, const void* v, const void
   p.c = c;
   p.d = d;
   p.heads = heads;
-  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // 0.125 at d = 64
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(scale_dim)));  // 0.125 at 64
   p.scale_log2 = kLog2e * p.scale;
   switch (head_atoms(d)) {
     case 1: return launch_bwd<1>(mq, mdo, mk, mv, p, batch, st);
     case 2: return launch_bwd<2>(mq, mdo, mk, mv, p, batch, st);
-    default: return launch_bwd<3>(mq, mdo, mk, mv, p, batch, st);
+    case 3: return launch_bwd<3>(mq, mdo, mk, mv, p, batch, st);
+    default: return launch_bwd<4>(mq, mdo, mk, mv, p, batch, st);
   }
 }
 
 // Shared memory each of the two kernels asks for at head dim d (0 for a d
 // there is no kernel for).
 int packed_attention_bwd_smem_bytes(int dkdv, int d) {
-  if (!head_dim_ok(d)) return 0;
+  if (!head_dim_ok(d, d)) return 0;
   switch (head_atoms(d)) {
     case 1: return dkdv ? BwdCfg<1>::kDkdvSmem : BwdCfg<1>::kDqSmem;
     case 2: return dkdv ? BwdCfg<2>::kDkdvSmem : BwdCfg<2>::kDqSmem;
-    default: return dkdv ? BwdCfg<3>::kDkdvSmem : BwdCfg<3>::kDqSmem;
+    case 3: return dkdv ? BwdCfg<3>::kDkdvSmem : BwdCfg<3>::kDqSmem;
+    default: return dkdv ? BwdCfg<4>::kDkdvSmem : BwdCfg<4>::kDqSmem;
   }
 }
 

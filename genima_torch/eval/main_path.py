@@ -11,7 +11,10 @@ an ``SDControlNetAgent`` at SD-2.1 / sd-turbo width (``UNetConfig.sd21``,
 width, 8 input channels; the VAE with its encoder), with ``variant="sd15"``
 an ``SDControlNetAgent`` on ``sd15_pipeline`` (``UNetConfig.sd15``: 8 heads
 at 320/640/1280 channels, head dims 40/80/160; ``CLIPTextConfig.sd15``: the
-768-wide CLIP-L; the SD VAE), a
+768-wide CLIP-L; the SD VAE), with ``variant="pix2pix15"`` an
+``SDPix2PixAgent`` on ``pix2pix15_pipeline`` (InstructPix2Pix at SD-1.5
+geometry, the layout of the public instruct-pix2pix model:
+``UNetConfig.sd15(in_channels=8)``, ``CLIPTextConfig.sd15``), a
 ``GenimaACTAgent`` (``ACTConfig()``, ViT-B/32 text tower, ResNet-18 width
 64) and a ``FusedGenimaStep`` over four 256x256 views, with seeded
 scaled-normal weights made on the device and seeded inputs: a 512x512 uint8
@@ -27,7 +30,7 @@ from typing import Any
 import torch
 
 from genima_torch.control.policy import GenimaACTAgent
-from genima_torch.diffusion.pipeline import SDControlNetPipeline
+from genima_torch.diffusion.pipeline import SDControlNetPipeline, SDPix2PixPipeline
 from genima_torch.eval.agents import SDControlNetAgent, SDPix2PixAgent, SDXLControlNetAgent
 from genima_torch.eval.fused import FusedGenimaStep
 from genima_torch.nn.clip_text import CLIPTextConfig
@@ -51,8 +54,23 @@ class SD15ControlNetAgent(SDControlNetAgent):
     PIPELINE = staticmethod(sd15_pipeline)
 
 
+def pix2pix15_pipeline(**kw) -> SDPix2PixPipeline:
+    """InstructPix2Pix at SD-1.5 geometry, as a JAX user builds it:
+    ``SDPix2PixPipeline`` with ``UNetConfig.sd15(in_channels=8)`` and
+    ``CLIPTextConfig.sd15()`` in its config fields; ``kw`` as the
+    pipeline's own."""
+    return SDPix2PixPipeline(unet_cfg=UNetConfig.sd15(in_channels=8),
+                             text_cfg=CLIPTextConfig.sd15(), **kw)
+
+
+class SD15Pix2PixAgent(SDPix2PixAgent):
+    """``SDPix2PixAgent`` on ``pix2pix15_pipeline``."""
+
+    PIPELINE = staticmethod(pix2pix15_pipeline)
+
+
 VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent, "pix2pix": SDPix2PixAgent,
-            "sd15": SD15ControlNetAgent}
+            "sd15": SD15ControlNetAgent, "pix2pix15": SD15Pix2PixAgent}
 
 
 def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",

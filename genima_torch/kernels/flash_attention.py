@@ -21,10 +21,14 @@ prompt tokens; under ``"pallas_self"`` only self-attention does.
   consumer warpgroups, the key tile and the ring depth per shape. It reads
   (B, S, H, D) in place with row stride H*D; the JAX wrapper's
   transposes to (B*H, S, D) are a TPU tiling artifact and are not ported.
-  Takes bf16 and every head dim D that is a multiple of 8 from 8 to 160
-  (SD-1.5's 40/80/160 among them), read as ceil(D / 64) atoms of 64
-  columns; anything else raises. Bound: tensor-core operations for long
-  self-attention, bytes for cross-attention over 77 keys.
+  Takes bf16 and every head dim D from 1 to 256 (SD-1.5's 40/80/160 among
+  them), read as ceil(D / 64) atoms of 64 columns; a D that is not a
+  multiple of 8 is zero-padded to the next one in a scratch copy first
+  (TMA needs 16-byte row strides), the kernel scaled by the real D, and only
+  the D real columns are kept. D above 256 raises: five atoms of f32 O
+  would pass a thread's 255 registers at 64 rows. Bound: tensor-core
+  operations for long self-attention, bytes for cross-attention over 77
+  keys.
 * CPU: ``flash_attention_reference``, the same arithmetic in plain PyTorch
   (f32 scores, P rounded to v's dtype before P V). The wrapper takes it only
   for tensors that lie on the CPU.
@@ -44,7 +48,7 @@ from genima_torch.kernels import _build
 
 HEAD_DIM = 64  # the head dim of the sd-turbo / SDXL geometry, the plans' default
 ATOM = 64  # columns of a head atom: the kernels read a head as ceil(d / 64) of them
-MAX_HEAD_DIM = 160
+MAX_HEAD_DIM = 256  # four atoms: five would hold 160 f32 of O a thread
 
 
 def head_atoms(d: int) -> int:
@@ -53,10 +57,39 @@ def head_atoms(d: int) -> int:
     return -(-d // ATOM)
 
 
+def padded_head_dim(d: int) -> int:
+    """The columns the kernels read a head of ``d`` as: the next multiple
+    of 8 (TMA's 16-byte row strides); the wrappers zero-pad to it."""
+    return -(-d // 8) * 8
+
+
 def check_head_dim(d: int) -> None:
     """Raises for a head dim the attention kernels do not take."""
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be a multiple of 8 from 8 to {MAX_HEAD_DIM}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be from 1 to {MAX_HEAD_DIM}")
+
+
+def pad_heads(x: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., heads * d) or (..., d) -> the same with each head zero-padded
+    to ``padded_head_dim(d)`` columns (a new contiguous tensor), or ``x``
+    itself when d is a multiple of 8."""
+    dp = padded_head_dim(d)
+    if dp == d:
+        return x
+    heads = x.shape[-1] // d
+    return torch.nn.functional.pad(x.reshape(*x.shape[:-1], heads, d), (0, dp - d)).reshape(
+        *x.shape[:-1], heads * dp)
+
+
+def unpad_heads(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Undoes ``pad_heads``: the d real columns of each head, contiguous."""
+    dp = padded_head_dim(d)
+    if dp == d:
+        return x
+    heads = x.shape[-1] // dp
+    # contiguous: at d = 1, or one head, the reshape alone can give a strided view
+    return x.reshape(*x.shape[:-1], heads, dp)[..., :d].reshape(
+        *x.shape[:-1], heads * d).contiguous()
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -77,9 +110,12 @@ REGISTERS_SM = 65536
 # (consumer warpgroups of 64 query rows, keys a K/V tile): the kernel's
 # instantiations at head dims up to 64 (one atom)
 TILES = ((1, 64), (1, 80), (1, 128), (2, 64), (2, 80), (2, 128), (3, 128))
-# and at 72..160 (two or three atoms): one block an SM, whose O accumulator
+# and at 72..192 (two or three atoms): one block an SM, whose O accumulator
 # (32 registers a thread an atom) and K/V stages grow with the atoms
 WIDE_TILES = ((1, 64), (1, 80), (2, 64))
+# and at 200..256 (four atoms): 128 f32 of O a thread, so one consumer
+# warpgroup beside a one-warp producer (160 threads: up to 255 registers)
+WIDEST_TILES = ((1, 64), (1, 80))
 MAX_STAGES = 4
 LONG_KEY_LOOP = 4  # K/V tiles from which two or three consumer warpgroups pay
 # time per 64 query rows of a three-warpgroup block against a two-warpgroup
@@ -142,7 +178,7 @@ def smem_bytes(nwg: int, bn: int, stages: int, atoms: int = 1) -> int:
 
 def tiles_for(d: int) -> tuple:
     """B3's instantiations at head dim ``d``."""
-    return TILES if head_atoms(d) == 1 else WIDE_TILES
+    return {1: TILES, 4: WIDEST_TILES}.get(head_atoms(d), WIDE_TILES)
 
 
 def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
@@ -167,17 +203,19 @@ def plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS) ->
       first;
     * ring: as deep as the K/V tiles need, at most four stages.
 
-    Two- and three-atom heads (d = 72..160) take 64-key tiles (80 for the
+    Two- and three-atom heads (d = 72..192) take 64-key tiles (80 for the
     prompt), two warpgroups for a key loop of ``LONG_KEY_LOOP`` tiles or
     more, and as deep a ring as shared memory leaves (three stages for two
-    warpgroups at three atoms).
+    warpgroups at three atoms); four-atom heads (d = 200..256) the same
+    tiles with one warpgroup (three stages of 64 keys, two of 80).
     """
     _check_shape(b, sq, sk, h)
     check_head_dim(d)
-    if head_atoms(d) > 1:
+    atoms = head_atoms(d)
+    if atoms > 1:
         bn = 80 if 64 < sk <= 80 else 64
-        return make_plan(b, sq, sk, h, 2 if -(-sk // bn) >= LONG_KEY_LOOP else 1, bn, d=d,
-                         sms=sms)
+        nwg = 2 if atoms < 4 and -(-sk // bn) >= LONG_KEY_LOOP else 1
+        return make_plan(b, sq, sk, h, nwg, bn, d=d, sms=sms)
     bn = 64 if sk <= 64 else 80 if sk <= 80 else 128
     nwg = long_loop_warpgroups(b, sq, h, sms) if -(-sk // bn) >= LONG_KEY_LOOP else 1
     return make_plan(b, sq, sk, h, nwg, bn, d=d, sms=sms)
@@ -242,8 +280,9 @@ def _plan_for(b: int, sq: int, sk: int, h: int, d: int) -> Plan:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    # pointers, then (B, Sq, Sk, heads, d) and the plan's (nwg, bn, stages), then the stream
-    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    # pointers, then (B, Sq, Sk, heads, padded d, d) and the plan's (nwg, bn,
+    # stages), then the stream
+    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
     lib.flash_attention_fwd.restype = ctypes.c_int
@@ -277,19 +316,21 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
     p = _plan_for(b, sq, k.shape[1], h, d)
-    out = torch.empty_like(q)
+    dp = padded_head_dim(d)
+    qp, kp, vp = (pad_heads(x, d) for x in (q, k, v))
+    out = torch.empty_like(qp)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     b, sq, k.shape[1], h, d, p.nwg, p.bn, p.stages, stream)
+        rc = lib.flash_attention_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+                                     b, sq, k.shape[1], h, dp, d, p.nwg, p.bn, p.stages, stream)
     with _build.COUNT_LOCK:  # mesh rows launch from several threads
         flash_attention.launches += 1
         flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_fwd launch failed: {lib.flash_attention_error_string(rc).decode()} ({rc})")
-    return out
+    return unpad_heads(out, d)
 
 
 class FlashAttention(torch.autograd.Function):

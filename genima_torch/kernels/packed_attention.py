@@ -36,12 +36,15 @@ it runs B1 and records nothing for autograd.
   flops and the backward 10*S^2*C on ~8*S*C and ~16*S*C bytes, so at the
   SD levels tensor-core operations bound both; the design keeps scores out
   of device memory.
-  Takes bf16, every head dim that is a multiple of 8 from 8 to 160 (the
-  tiny configs' 16/32, SD's 64, SD-1.5's 40/80/160; read as ceil(d / 64)
-  atoms of 64 columns, the columns past d zeroed where a product sums over
-  them and never stored), and ``Sq``, ``Sk`` any multiples of 64 (9216 at
-  768x768, 16384 at 1024x1024): the TPU forward's ``_forward_streaming``
-  rows. Anything else raises.
+  Takes bf16, every head dim from 1 to 256 (the tiny configs' 16/32, SD's
+  64, SD-1.5's 40/80/160; read as ceil(d / 64) atoms of 64 columns, the
+  columns past d zeroed where a product sums over them and never stored; a
+  d that is not a multiple of 8 zero-padded to the next one in scratch
+  copies first, as TMA needs 16-byte row strides, with the kernels scaled
+  by the real d and only its d columns kept), and ``Sq``, ``Sk`` any
+  multiples of 64 (9216 at 768x768, 16384 at 1024x1024): the TPU forward's
+  ``_forward_streaming`` rows. Anything else raises (d above 256: five
+  atoms of f32 accumulator would pass a thread's registers).
 * CPU: ``packed_attention_reference``, ``packed_attention_lse_reference`` and
   ``packed_attention_backward_reference``, the same arithmetic in plain
   PyTorch (bf16 roundings included). The wrappers take them only for
@@ -69,11 +72,14 @@ BLOCK = 64  # Sq and Sk are multiples of this: the backward's 64-row tiles
 # 80-key tile for the 77 prompt tokens is not built; 64-key tiles with two
 # or three warpgroups never beat 128-key ones, tune_kernels packed)
 FORWARD_TILES = ((1, 64), (1, 128), (2, 128), (3, 128))
-# and at 72..160 (two or three 64-column atoms): one block an SM
+# and at 72..192 (two or three 64-column atoms): one block an SM
 WIDE_FORWARD_TILES = ((1, 64), (2, 64))
+# and at 200..256 (four atoms): one consumer warpgroup, 160 threads
+WIDEST_FORWARD_TILES = ((1, 64),)
 # B2b: query rows (dq kernel) or keys (dk/dv kernel) a block, two consumer
 # warpgroups of 64, and the depth of each kernel's TMA ring (at one or two
-# atoms; three atoms ring two stages)
+# atoms; three and four atoms ring two stages, and four take one consumer
+# warpgroup of 64 rows beside a one-warp producer)
 BWD_BLOCK_ROWS = 128
 BWD_STAGES = 4
 BWD_THREADS = 384  # two consumer warpgroups and the producer warpgroup
@@ -98,12 +104,15 @@ class BackwardPlan:
     atoms: int = 1
     stages: int = BWD_STAGES
     passes: int = 1
+    rows: int = BWD_BLOCK_ROWS  # query rows or keys a block
+    threads: int = BWD_THREADS
 
     @property
     def max_registers(self) -> int:
-        """ptxas's cap from the launch bounds (one block an SM): 168, from
-        which setmaxnreg moves the producer to 24 and the consumers to 240."""
-        return min(255, REGISTERS_SM // BWD_THREADS // 8 * 8)
+        """ptxas's cap from the launch bounds (one block an SM): 168 at 384
+        threads, from which setmaxnreg moves the producer to 24 and the
+        consumers to 240; 255 at four atoms' 160."""
+        return min(255, REGISTERS_SM // self.threads // 8 * 8)
 
 
 def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
@@ -113,14 +122,15 @@ def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
     _check_shape(b, sq, sk, h)
     fa.check_head_dim(d)
     atoms = fa.head_atoms(d)
-    stages = 2 if atoms == 3 else BWD_STAGES
+    stages = 2 if atoms >= 3 else BWD_STAGES
+    rows, threads = (BLOCK, 160) if atoms == 4 else (BWD_BLOCK_ROWS, BWD_THREADS)
     tile = BLOCK * fa.ATOM * 2 * atoms  # 64 rows of every atom
     ring = stages * 2 * tile  # a Q/dO or K/V pair of tiles a stage
-    # two resident tensors of 128 rows and their barrier (more than one atom)
-    resident = 0 if atoms == 1 else 2 * BWD_BLOCK_ROWS // BLOCK * tile + 16
-    dq = (-(-sq // BWD_BLOCK_ROWS), h, b)
-    dkdv = (-(-sk // BWD_BLOCK_ROWS), h, b)
-    short = [f"{name}: {g[0]} blocks of {BWD_BLOCK_ROWS} {what} x {h} heads x batch {b}"
+    # two resident tensors of a block's rows and their barrier (more than one atom)
+    resident = 0 if atoms == 1 else 2 * rows // BLOCK * tile + 16
+    dq = (-(-sq // rows), h, b)
+    dkdv = (-(-sk // rows), h, b)
+    short = [f"{name}: {g[0]} blocks of {rows} {what} x {h} heads x batch {b}"
              for name, g, what in (("dq", dq, "queries"), ("dk/dv", dkdv, "keys"))
              if g[0] * h * b < sms]
     dq_smem = 1024 + resident + ring + 16 * stages
@@ -128,7 +138,8 @@ def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
         dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=dq_smem,
         # + each stage's 64 values of L * log2(e) and Drow
         dkdv_smem_bytes=dq_smem + stages * 2 * BLOCK * 4,
-        why_short="; ".join(short), atoms=atoms, stages=stages, passes=1 if atoms == 1 else 2)
+        why_short="; ".join(short), atoms=atoms, stages=stages, passes=1 if atoms == 1 else 2,
+        rows=rows, threads=threads)
 
 
 def _check_seq(sq: int, sk: int) -> None:
@@ -146,7 +157,7 @@ def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
 
 def forward_tiles(d: int) -> tuple:
     """B1/B2a's instantiations at head dim ``d``."""
-    return FORWARD_TILES if fa.head_atoms(d) == 1 else WIDE_FORWARD_TILES
+    return {1: FORWARD_TILES, 4: WIDEST_FORWARD_TILES}.get(fa.head_atoms(d), WIDE_FORWARD_TILES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,15 +178,17 @@ def forward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
       0.0111 on 128-key tiles); 64-key tiles also when Sk is 64;
     * ring: as deep as the K/V tiles need, at most four stages.
 
-    Two- and three-atom heads (d = 72..160) take 64-key tiles, two
+    Two- and three-atom heads (d = 72..192) take 64-key tiles, two
     warpgroups for a key loop of ``fa.LONG_KEY_LOOP`` tiles or more, and as
-    deep a ring as shared memory leaves.
+    deep a ring as shared memory leaves; four-atom heads (d = 200..256)
+    64-key tiles, one warpgroup, three stages.
 
     Raises for a shape the kernel does not take.
     """
     fa.check_head_dim(d)
-    if fa.head_atoms(d) > 1:
-        nwg, bn = (2 if -(-sk // 64) >= fa.LONG_KEY_LOOP else 1), 64
+    atoms = fa.head_atoms(d)
+    if atoms > 1:
+        nwg, bn = (2 if atoms < 4 and -(-sk // 64) >= fa.LONG_KEY_LOOP else 1), 64
     elif -(-sk // 128) >= fa.LONG_KEY_LOOP:
         nwg, bn = fa.long_loop_warpgroups(b, sq, h, sms), 128
     else:
@@ -293,11 +306,12 @@ def _plan_for(b: int, sq: int, sk: int, h: int, d: int) -> fa.Plan:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("packed_attention")
-    # pointers, then (B, Sq, Sk, heads, d) and the plan's (nwg, bn, stages), then the stream
-    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    # pointers, then (B, Sq, Sk, heads, padded d, d) and the plan's (nwg, bn,
+    # stages), then the stream
+    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
-    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_fwd.restype = lib.packed_attention_fwd_lse.restype = ctypes.c_int
@@ -311,8 +325,8 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("packed_attention_bwd")
-    # pointers, then (B, Sq, Sk, heads, d), then the stream
-    lib.packed_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    # pointers, then (B, Sq, Sk, heads, padded d, d), then the stream
+    lib.packed_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_bwd.restype = ctypes.c_int
@@ -339,13 +353,15 @@ def _launch_forward(q, k, v, num_heads, with_lse: bool):
     b, sq, c = q.shape
     d = c // num_heads
     p = _plan_for(b, sq, k.shape[1], num_heads, d)
-    out = torch.empty_like(q)
+    qp, kp, vp = (fa.pad_heads(x, d) for x in (q, k, v))
+    out = torch.empty_like(qp)
     lse = torch.empty(b, sq, num_heads, device=q.device, dtype=torch.float32) if with_lse else None
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        dims = (b, sq, k.shape[1], num_heads, d, p.nwg, p.bn, p.stages, stream)
+        args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr())
+        dims = (b, sq, k.shape[1], num_heads, fa.padded_head_dim(d), d, p.nwg, p.bn, p.stages,
+                stream)
         if with_lse:
             rc = lib.packed_attention_fwd_lse(*args, lse.data_ptr(), *dims)
         else:
@@ -353,6 +369,7 @@ def _launch_forward(q, k, v, num_heads, with_lse: bool):
     _count(packed_attention_forward_lse if with_lse else packed_flash_attention, q, k)
     _raise_on(rc, "packed_attention_fwd" + ("_lse" if with_lse else ""),
               lib.packed_attention_error_string)
+    out = fa.unpad_heads(out, d)
     return (out, lse) if with_lse else out
 
 
@@ -387,7 +404,9 @@ def packed_attention_backward(
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (*q.shape[:2], num_heads):
         raise ValueError(f"shapes o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
     b, sq, c = q.shape
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    d = c // num_heads
+    qp, kp, vp, op, dop = (fa.pad_heads(x, d) for x in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
     # L * log2(e) and rowsum(dO * O) as (B, heads, Sq), written by the first
     # kernel for the second
     delta = torch.empty(2, b, num_heads, sq, device=q.device, dtype=torch.float32)
@@ -395,13 +414,13 @@ def packed_attention_backward(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.packed_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, k.shape[1], num_heads, c // num_heads, stream,
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(), lse.data_ptr(),
+            dop.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, k.shape[1], num_heads, fa.padded_head_dim(d), d, stream,
         )
     _count(packed_attention_backward, q, k)
     _raise_on(rc, "packed_attention_bwd", lib.packed_attention_bwd_error_string)
-    return dq, dk, dv
+    return tuple(fa.unpad_heads(x, d) for x in (dq, dk, dv))
 
 
 class PackedFlashAttention(torch.autograd.Function):

@@ -118,7 +118,8 @@ def _forward_into(out, lse, q, k, v, h, p):
     b, sq, c = q.shape
     rc = lib.packed_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq,
-        k.shape[1], h, c // h, p.nwg, p.bn, p.stages, torch.cuda.current_stream().cuda_stream)
+        k.shape[1], h, c // h, c // h, p.nwg, p.bn, p.stages,
+        torch.cuda.current_stream().cuda_stream)
     assert rc == 0, lib.packed_attention_error_string(rc)
 
 
@@ -320,6 +321,101 @@ def test_backward_kernel_at_wide_heads_is_bit_deterministic(cuda, d):
     again = pa.packed_attention_backward(q, k, v, o, lse, do, 2)
     for x, y in zip(again, first):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# every head dim from 1 to 256: four atoms (200..256) and dims that are not a
+# multiple of 8 (zero-padded to the next one by the wrappers)
+# ---------------------------------------------------------------------------
+
+ANY_HEAD_DIMS = [36, 100, 168, 200, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS + [1, 7])
+def test_packed_attention_at_any_head_dim_matches_plain_version(cuda, d):
+    """B1, B2a and B2b at batch 2, 320 tokens (an odd multiple of 64: the
+    last 128-row block half empty; at four atoms the blocks are 64 rows)
+    and three heads, against the plain versions."""
+    q, k, v, do = _bf16_inputs(cuda, 2, 320, 3 * d, seed=d)
+    _check_packed_attention(q, k, v, do, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+@pytest.mark.parametrize("sq,sk", [(200, 129), (130, 77), (1024, 1024)])
+def test_flash_attention_at_any_head_dim_matches_plain_version(cuda, d, sq, sk):
+    """B3 across ragged tile edges and over the 77 prompt tokens."""
+    gen = torch.Generator(device=cuda).manual_seed(d + sq + sk)
+    q, k, v = (torch.randn(2, s, 3, d, generator=gen, device=cuda).bfloat16()
+               for s in (sq, sk, sk))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), fa.flash_attention_reference(q, k, v).float(),
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [200, 256])
+def test_four_atom_plans_at_every_ring_depth_match_plain_version(cuda, monkeypatch, d):
+    """B1/B2a's and B3's four-atom instantiations at every ring depth that
+    shared memory leaves them."""
+    b, s, h = 2, 1024, 2
+    q, k, v = _bf16_inputs(cuda, b, s, h * d, seed=d + 1, n=3)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    for nwg, bn in pa.WIDEST_FORWARD_TILES:
+        for stages in range(2, fa.max_stages(nwg, bn, 4) + 1):
+            p = pa.make_forward_plan(b, s, s, h, nwg, bn, stages, d=d)
+            monkeypatch.setattr(pa, "_plan_for", lambda *a, p=p: p)
+            o1 = pa.packed_flash_attention(q, k, v, h)
+            o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(o1.float(), o_ref.float(), atol=1e-2, rtol=0)
+            torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+            assert torch.equal(o, o1)
+    for nwg, bn in fa.WIDEST_TILES:
+        sk = 77 if bn == 80 else 1024
+        q4, k4, v4 = (x.view(b, -1, h, d)[:, :n] for x, n in ((q, 200), (k, sk), (v, sk)))
+        q4, k4, v4 = (x.contiguous() for x in (q4, k4, v4))
+        want = fa.flash_attention_reference(q4, k4, v4).float()
+        tiles = -(-sk // bn)
+        for stages in range(2 if tiles > 1 else 1, min(tiles, fa.max_stages(nwg, bn, 4)) + 1):
+            p = fa.make_plan(b, 200, sk, h, nwg, bn, stages, d=d)
+            monkeypatch.setattr(fa, "_plan_for", lambda *a, p=p: p)
+            got = fa.flash_attention(q4, k4, v4)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [36, 200, 256])
+def test_backward_kernel_at_any_head_dim_is_bit_deterministic(cuda, d):
+    q, k, v, o, lse, do = _backward_inputs(cuda, 2, 320, 192, 2 * d, 2, seed=d)
+    first = pa.packed_attention_backward(q, k, v, o, lse, do, 2)
+    again = pa.packed_attention_backward(q, k, v, o, lse, do, 2)
+    for x, y in zip(again, first):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_autograd_at_a_padded_head_dim_matches_plain_version(cuda):
+    """``PackedFlashAttention`` at d = 36 (B2a forward, B2b backward, both
+    on zero-padded 40-column heads) against the plain version's autograd."""
+    q, k, v, do = _bf16_inputs(cuda, 2, 256, 5 * 36, seed=36)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fallbacks = pa.PackedFlashAttention.fallbacks
+    out = pa.packed_flash_attention(*leaves, 5)
+    out.backward(do)
+    assert pa.PackedFlashAttention.fallbacks == fallbacks
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    pa.packed_attention_reference(*ref, 5).backward(do)
+    torch.testing.assert_close(out.float(), pa.packed_attention_reference(q, k, v, 5).float(),
+                               atol=1e-2, rtol=0)
+    for name, x, y in zip(("dq", "dk", "dv"), leaves, ref):
+        rel = ((x.grad.float() - y.grad.float()).abs().max() / y.grad.float().abs().max()).item()
+        assert rel <= GRAD_REL_TOL, f"{name}: max err {rel} of max |grad|"
 
 
 # ---------------------------------------------------------------------------
@@ -654,7 +750,7 @@ def test_new_kernels_reject_what_they_cannot_take(cuda):
     w_q = torch.zeros(8, 40, device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match="multiple of 16"):
         w8.w8_matmul(x, w_q, torch.ones(8, device=cuda))
-    for d in (36, 168):  # not a multiple of 8; above 160
+    for d in (264, 320):  # above 256: five atoms of f32 O would pass a thread's registers
         q = torch.zeros(1, 8, 2, d, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention(q, q, q)

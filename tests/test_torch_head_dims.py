@@ -1,10 +1,12 @@
 """The attention kernels at every head dim and length the TPU kernels take.
 
-SD-1.5's geometry (8 heads at 320/640/1280 channels: head dims 40/80/160)
-and the SD levels at 768x768 (9216 and 2304 tokens). On the CPU:
+SD-1.5's geometry (8 heads at 320/640/1280 channels: head dims 40/80/160),
+the SD levels at 768x768 (9216 and 2304 tokens), and any head dim from 1 to
+256 (36: not a multiple of 8, zero-padded for the CUDA kernels; 200 and
+256: four 64-column atoms). On the CPU:
 
 * the port's plain versions of B1, B2a, B2b and B3 against the JAX kernels
-  in interpret mode at d = 40, 80 and 160;
+  in interpret mode at d = 40, 80, 160, 36, 200 and 256;
 * a tiny UNet with SD-1.5's traits (heads of 40 and 80 columns, conv
   projections) through a 2-step ControlNet ``generate`` in both packages,
   on the same weights and latents, its long self-attentions routed to the
@@ -39,7 +41,7 @@ from genima_torch.nn.clip_text import CLIPTextConfig
 from genima_torch.nn.unet import UNetConfig
 from genima_torch.nn.vae import VAEConfig
 
-HEAD_DIMS = [40, 80, 160]
+HEAD_DIMS = [40, 80, 160, 36, 200, 256]
 # the tolerances of test_torch_packed_attention.py (B1, f32), of
 # test_torch_packed_attention_bwd.py (B2a's o and L; the custom VJP's
 # gradients) and of test_torch_flash_attention.py (B3): f32 sums in another
@@ -182,8 +184,9 @@ def _bf16(*shape):
     (1, 256, 256, 160, 2, None),     # d 80
     (1, 256, 256, 320, 2, None),     # d 160
     (1, 9216, 9216, 320, 5, None),   # 768x768, level 0
-    (1, 256, 256, 336, 2, "head_dim"),   # d 168: above 160
-    (1, 256, 256, 72, 2, "head_dim"),    # d 36: not a multiple of 8
+    (1, 256, 256, 336, 2, None),     # d 168: three atoms
+    (1, 256, 256, 72, 2, None),      # d 36: zero-padded to 40 for the kernels
+    (1, 256, 256, 528, 2, "head_dim"),   # d 264: above 256
     (1, 256, 256, 100, 3, "split"),      # 100 channels do not split into 3 heads
     (1, 9248, 9248, 320, 5, "multiple of 64"),
 ])
@@ -198,7 +201,8 @@ def test_packed_input_checks_take_the_new_shapes(b, sq, sk, c, h, match):
 
 
 @pytest.mark.parametrize("d,match", [(40, None), (80, None), (160, None), (8, None),
-                                     (168, "head_dim"), (36, "head_dim")])
+                                     (168, None), (36, None), (264, "head_dim"),
+                                     (0, "head_dim")])
 def test_flash_input_checks_take_the_new_head_dims(d, match):
     q = _bf16(1, 64, 8, d)
     if match is None:
@@ -253,3 +257,50 @@ def test_flash_plan_takes_the_new_shapes(sq, sk, h, d):
     assert (p.nwg, p.bn) in fa.tiles_for(d)
     assert p.kv_tiles * p.bn >= sk > (p.kv_tiles - 1) * p.bn
     assert p.smem_bytes == fa.smem_bytes(p.nwg, p.bn, p.stages, p.atoms) <= SMEM_LIMIT
+
+
+# four atoms (d 200..256) and dims that are not a multiple of 8, at the
+# shapes the card tests and chip_smoke.py give the kernels
+ANY_D_SHAPES = [(b, s, h, d) for d in (1, 7, 36, 100, 168, 200, 256)
+                for b, s, h in ((2, 320, 3), (4, 4096, 8), (1, 9216, 5))]
+
+
+@pytest.mark.parametrize("b,s,h,d", ANY_D_SHAPES)
+def test_plans_at_any_head_dim_fit_the_card(b, s, h, d):
+    """B1/B2a's, B3's and B2b's plans read a head as the atoms of its
+    zero-padded width and fit the 227 KB a block may take and the 255
+    registers a thread may hold; four atoms take one consumer warpgroup."""
+    atoms = fa.head_atoms(fa.padded_head_dim(d))
+    assert atoms == fa.head_atoms(d) and fa.padded_head_dim(d) % 8 == 0
+    for p in (pa.forward_plan(b, s, s, h, d), fa.plan(b, s, s, h, d), fa.plan(b, s, 77, h, d)):
+        assert p.atoms == atoms and p.smem_bytes <= SMEM_LIMIT
+        assert p.blocks_per_sm * (p.smem_bytes + 1024) <= fa.SMEM_SM
+        assert p.blocks_per_sm * p.threads * p.max_registers <= fa.REGISTERS_SM
+        assert p.max_registers <= 255
+        assert p.stages >= (2 if p.kv_tiles > 1 else 1)
+        if atoms == 4:
+            # 128 f32 of O a thread: one warpgroup, 160 threads, 255 registers
+            assert (p.nwg, p.threads, p.max_registers) == (1, 160, 255)
+    bp = pa.backward_plan(b, s, s, h, d)
+    assert max(bp.dq_smem_bytes, bp.dkdv_smem_bytes) <= SMEM_LIMIT and bp.max_registers <= 255
+    assert bp.dq_grid == bp.dkdv_grid == (-(-s // bp.rows), h, b)
+    if atoms == 4:
+        assert (bp.rows, bp.threads, bp.stages, bp.max_registers) == (64, 160, 2, 255)
+    else:
+        assert bp.threads * bp.max_registers <= fa.REGISTERS_SM and bp.rows == pa.BWD_BLOCK_ROWS
+
+
+@pytest.mark.parametrize("d", [1, 7, 36, 100, 200, 256])
+@pytest.mark.parametrize("h", [1, 3])
+def test_padded_heads_round_trip(d, h):
+    """The wrappers' zero-padding of each head to the next multiple of 8
+    columns keeps the real columns in place and zeros the rest."""
+    x = torch.randn(2, 5, h * d)
+    p = fa.pad_heads(x, d)
+    dp = fa.padded_head_dim(d)
+    assert p.shape == (2, 5, h * dp) and p.is_contiguous()
+    heads = p.view(2, 5, h, dp)
+    assert torch.equal(heads[..., :d], x.view(2, 5, h, d))
+    assert not heads[..., d:].any()
+    back = fa.unpad_heads(p, d)
+    assert back.is_contiguous() and torch.equal(back, x)

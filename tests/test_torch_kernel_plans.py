@@ -270,7 +270,7 @@ def test_backward_plan_fits_shared_memory_and_registers():
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(1, 65, 64, 1, 64), (1, 64, 100, 1, 64),
-                                         (1, 64, 64, 1, 168), (1, 0, 64, 1, 64),
+                                         (1, 64, 64, 1, 264), (1, 0, 64, 1, 64),
                                          (0, 64, 64, 1, 64), (1, 64, 64, 0, 64)])
 def test_backward_plan_rejects_what_the_kernels_cannot_take(b, sq, sk, h, d):
     with pytest.raises(ValueError):
@@ -319,12 +319,16 @@ def test_forward_tiles_and_smem_mirror_the_sources():
     """The (nwg, bn) instantiations each source launches are its plan's
     tiles, and the plans' shared memory is ``fwd_smem_bytes``, read from
     the CUDA sources."""
-    for src, tiles, wide in (("packed_attention.cu", pa.FORWARD_TILES, pa.WIDE_FORWARD_TILES),
-                             ("flash_attention.cu", fa.TILES, fa.WIDE_TILES)):
+    for src, tiles, wide, widest in (
+            ("packed_attention.cu", pa.FORWARD_TILES, pa.WIDE_FORWARD_TILES,
+             pa.WIDEST_FORWARD_TILES),
+            ("flash_attention.cu", fa.TILES, fa.WIDE_TILES, fa.WIDEST_TILES)):
         # launch_fwd<atoms, nwg, bn, lse>: before the one-atom branch, every
-        # head's; in it, "1"; in its else branch, "DA" for two and three atoms
+        # head's; in it, "1"; in the next, "DA" for two and three atoms; the
+        # last (four atoms) launches nothing more
         common, branches = (SRC / src).read_text().split("if constexpr (DA == 1)")
-        one_atom, wider = branches.split("} else {")
+        one_atom, rest = branches.split("} else if constexpr (DA < 4) {")
+        wider, widest_branch = rest.split("} else {", 1)
 
         def found(text, atoms):
             return {(int(n), int(b)) for n, b in
@@ -332,10 +336,13 @@ def test_forward_tiles_and_smem_mirror_the_sources():
 
         assert sorted(found(common, "DA") | found(one_atom, "1")) == sorted(tiles), src
         assert sorted(found(common, "DA") | found(wider, "DA")) == sorted(wide), src
+        assert not found(widest_branch.split("}")[0], "DA"), src
+        assert sorted(found(common, "DA")) == sorted(widest), src
     body = re.search(r"int fwd_smem_bytes\(int nwg, int bn, int stages, int atoms\) \{"
                      r"\s*return ([^;]+);",
                      (SRC / "attention_fwd_hopper.cuh").read_text()).group(1)
-    for atoms, tiles in ((1, pa.FORWARD_TILES + fa.TILES), (2, fa.WIDE_TILES), (3, fa.WIDE_TILES)):
+    for atoms, tiles in ((1, pa.FORWARD_TILES + fa.TILES), (2, fa.WIDE_TILES), (3, fa.WIDE_TILES),
+                         (4, fa.WIDEST_TILES)):
         for nwg, bn in tiles:
             for stages in range(1, fa.MAX_STAGES + 1):
                 want = eval(f"({body})", {"nwg": nwg, "bn": bn, "stages": stages,
@@ -361,7 +368,7 @@ def test_forward_plan_fits_shared_memory_and_registers(nwg, bn, b, sq, sk, h):
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(1, 65, 64, 1, 64), (1, 64, 100, 1, 64),
-                                         (1, 64, 64, 1, 168), (1, 0, 64, 1, 64),
+                                         (1, 64, 64, 1, 264), (1, 0, 64, 1, 64),
                                          (0, 64, 64, 1, 64), (1, 64, 64, 0, 64)])
 def test_forward_plan_rejects_what_the_kernel_cannot_take(b, sq, sk, h, d):
     with pytest.raises(ValueError):
@@ -412,6 +419,6 @@ def test_b1_and_b2a_launch_one_plan(monkeypatch, b, sq, sk, h):
     o, lse = pa._launch_forward(q, k, k, h, with_lse=True)
     assert out.shape == o.shape == q.shape and lse.shape == (b, sq, h)
     p = pa.forward_plan(b, sq, sk, h)
-    assert calls["B1"][4:] == (b, sq, sk, h, 64, p.nwg, p.bn, p.stages, 7)
+    assert calls["B1"][4:] == (b, sq, sk, h, 64, 64, p.nwg, p.bn, p.stages, 7)
     assert calls["B2a"][5:] == calls["B1"][4:]
     assert pa.packed_flash_attention.launches == pa.packed_attention_forward_lse.launches == 1
