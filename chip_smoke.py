@@ -248,6 +248,26 @@
    (b) SD-1.5 under ``pallas+w8`` / fused (230 / 25 / 1150); (c) SD at
    768x768 likewise (230 / 25 / 1380); (d) SDXL-turbo under ``pallas``
    (1040 B3) and (e) under ``pallas+w8`` / fused (1040 / 25 / 5360).
+17. Float32 through every kernel, TF32 off on every side. Kernel checks of
+   the f32 kernels (FFMA on the CUDA cores; B5 rounds x to bf16 as it loads
+   it, the TPU body's cast) against their f32 plain versions: B1 at SD's
+   levels, B1/B2a/B2b at the trainer's batch 4, B3/B4/B5 at the opt-in
+   path's shapes, then B1/B2a/B2b/B3 at SD-1.5's levels, at 768x768's and
+   a head-dim sweep (d = 1, 36, 64, 100, 160, 200, 256), printed as
+   ``f32_shape_checks``. Limits: attention and L max abs err 1e-4 at
+   unit-scale inputs, B2b and B4 1e-4 of max |grad| or |y|, B5 1e-2 of
+   max |y| and bit-equal over two calls; B2a's output B1's bit for bit.
+   Paths: (a) ``build_main_path(dtype=torch.float32)`` on the default
+   backend, 2 control steps at 105 B1 each; (b) the same under
+   ``pallas+w8`` / fused at 230 B3 / 25 B4 / 1380 B5 / 0 B1, each noise
+   prediction within 1e-3 (relative) of the library path's (under ``+w8``
+   the attention kernel is held on the float models: the int8 layers round
+   their inputs to bf16, so those comparisons keep phase 5's 5e-2), the
+   fused decode within 1e-3 of the default one; (c) ``run_training`` with
+   ``--mixed_precision no --enable_xformers_memory_efficient_attention`` at
+   batch 4, 512x512, 2 steps at 6 B1 / 15 B2a / 15 B2b / 0 fallbacks, frozen
+   models bit-unchanged, step 1's ControlNet gradients within 1e-3
+   (relative norm) of the library attention's. Step ms by events and peaks.
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -687,17 +707,23 @@ def ptxas_report(log: str) -> dict[str, dict]:
     -Xptxas -v`` log, keyed by its template arguments ("128" for
     ``w8_matmul_kernel<128>``, "128x2" for ``fused_conv3x3_kernel<128, 2>``,
     "1x2x128x1" for ``attention_fwd_kernel<1, 2, 128, true>``; B2b's two
-    kernels "dq1" / "dkdv1" for ``packed_attention_bwd_dq_kernel<1>``)."""
+    kernels "dq1" / "dkdv1" for ``packed_attention_bwd_dq_kernel<1>``); the
+    f32 kernels with an "f32_" in front ("f32_1x1" for
+    ``attention_f32_fwd_kernel<1, true>``, "f32_dq4", "f32_64" for
+    ``fused_conv3x3_f32_kernel<64>``, "f32_" for ``w8_matmul_f32_kernel``)."""
     import re
 
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            key = "x".join(re.findall(r"L[ib](\d+)E", m.group(1))) or m.group(1)
-            kind = re.search(r"packed_attention_bwd_(dq|dkdv)_kernel", m.group(1))
+            f32 = "attn_f32" in m.group(1) or "_f32_kernel" in m.group(1)
+            key = "x".join(re.findall(r"L[ib](\d+)E", m.group(1))) or ("" if f32 else m.group(1))
+            kind = re.search(r"_(dq|dkdv)_kernel", m.group(1))
             if kind:
                 key = kind.group(1) + key
+            if f32:
+                key = "f32_" + key
             out[key] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -877,7 +903,7 @@ def _denoise_eps_any(pipe, params, args) -> torch.Tensor:
 
 
 def _serve(variant: str, resolution: int, backend: str, conv_backend: str, pins: dict,
-           steps: int = OPT16_STEPS) -> dict:
+           steps: int = OPT16_STEPS, dtype=None, eps_tol: float = OPT_REL_TOL) -> dict:
     """A serving path (phase 5's opt-in step, phase 13's, phase 16's):
     control steps of ``build_main_path(variant=, resolution=, backend=,
     conv_backend=)``, every kernel's launches pinned at ``pins`` a step, the
@@ -887,7 +913,13 @@ def _serve(variant: str, resolution: int, backend: str, conv_backend: str, pins:
     library path with each kernel in place: the attention kernel against
     the library attention on the same weights; under ``+w8`` the int8
     models (B5) against the float models on the dequantised weights; with
-    the fused decoder (B4) its decode against the default decoder's."""
+    the fused decoder (B4) its decode against the default decoder's.
+    ``dtype`` is ``build_main_path``'s (phase 17: f32). With ``eps_tol``
+    below ``OPT_REL_TOL`` the attention kernel's and the fused decoder's
+    comparisons are held to it; under ``+w8`` the attention kernel is then
+    also held to it on the float models (the dequantised weights), since the
+    int8 layers round their inputs to bf16, which f32-level differences
+    upstream flip, and those comparisons stay at ``OPT_REL_TOL``."""
     from genima_torch.eval.main_path import build_main_path
     from genima_torch.kernels import flash_attention as fa
     from genima_torch.kernels import fused_conv as fc
@@ -903,7 +935,7 @@ def _serve(variant: str, resolution: int, backend: str, conv_backend: str, pins:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     step, args = build_main_path(device="cuda", seed=0, variant=variant, resolution=resolution,
-                                 backend=backend, conv_backend=conv_backend)
+                                 backend=backend, conv_backend=conv_backend, dtype=dtype)
     torch.cuda.synchronize()
     params = args["diffusion_params"]
     out = {"setup_s": time.time() - t0,
@@ -949,6 +981,7 @@ def _serve(variant: str, resolution: int, backend: str, conv_backend: str, pins:
     for m in models:
         set_attention_backend(m, backend)
     errs = {"eps_rel_err_vs_library_attention": _rel_err(eps[backend], eps[library])}
+    limits = {"eps_rel_err_vs_library_attention": OPT_REL_TOL if int8 else eps_tol}
     if int8:
         floats = dict(params)
         for k in ("unet", "controlnet"):
@@ -956,8 +989,17 @@ def _serve(variant: str, resolution: int, backend: str, conv_backend: str, pins:
                 floats[k] = dequantize_dense_tree(copy.deepcopy(params[k]))
                 set_attention_backend(floats[k], "xla")
         eps["xla"] = _denoise_eps_any(pipe, floats, args)
-        del floats
         errs["eps_int8_vs_dequantised_float"] = _rel_err(eps[library], eps["xla"])
+        limits["eps_int8_vs_dequantised_float"] = OPT_REL_TOL
+        if eps_tol < OPT_REL_TOL:  # the attention kernel alone, on the float models
+            for k in ("unet", "controlnet"):
+                if k in floats:
+                    set_attention_backend(floats[k], attn)
+            eps["float_" + attn] = _denoise_eps_any(pipe, floats, args)
+            errs["eps_float_models_rel_err_vs_library_attention"] = _rel_err(
+                eps["float_" + attn], eps["xla"])
+            limits["eps_float_models_rel_err_vs_library_attention"] = eps_tol
+        del floats
     if conv_backend == "fused":
         vae = params["vae"]
         z = args["latents"].permute(0, 3, 1, 2).contiguous().to(pipe.dtype)
@@ -967,10 +1009,12 @@ def _serve(variant: str, resolution: int, backend: str, conv_backend: str, pins:
             xla_img = vae.decode(z).float()
             vae.decoder.conv_backend = conv_backend
         errs["vae_fused_vs_default_decode"] = _rel_err(fused_img, xla_img)
+        limits["vae_fused_vs_default_decode"] = eps_tol
         eps["decode"] = fused_img
     finite = all(torch.isfinite(t).all() for t in eps.values())
-    if not (finite and all(e <= OPT_REL_TOL for e in errs.values())):
-        raise AssertionError(f"{tag} vs the library path: {errs} (finite={finite})")
+    if not (finite and all(errs[k] <= limits[k] for k in errs)):
+        raise AssertionError(f"{tag} vs the library path: {errs}, limits {limits} "
+                             f"(finite={finite})")
     del eps, step, args, params, models
     torch.cuda.empty_cache()
     out.update(errs, actions_abs_max=actions.abs().max().item(),
@@ -3601,13 +3645,15 @@ def distributed_phase(pa, card: str, written: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def _sd_finetune(pa, root: Path, resolution: int, want: dict, pipe_factory=None,
-                 grad_check: bool = False) -> dict:
-    """``run_training(args, "sd", pipe=)`` for ``SD15_TRAIN_STEPS`` steps at
-    the trainer CLI's batch 4 and ``--resolution``, the pipeline
-    ``pipe_factory(args)`` (else ``driver.build_pipeline``): launches pinned
-    at ``want`` a step, finite losses, the frozen models bit-unchanged, the
-    ControlNet moving; with ``grad_check`` one step's ControlNet gradients
-    against the library attention (as phase 12)."""
+                 grad_check: bool = False, precision: str = "bf16",
+                 steps: int = SD15_TRAIN_STEPS, grad_tol: float = TRAIN_GRAD_REL_TOL) -> dict:
+    """``run_training(args, "sd", pipe=)`` for ``steps`` steps at the
+    trainer CLI's batch 4, ``--resolution`` and ``--mixed_precision
+    precision``, the pipeline ``pipe_factory(args)`` (else
+    ``driver.build_pipeline``): launches pinned at ``want`` a step, finite
+    losses, the frozen models bit-unchanged, the ControlNet moving; with
+    ``grad_check`` one step's ControlNet gradients against the library
+    attention (as phase 12), held to ``grad_tol``."""
     from genima_torch.cli.train_controlnet_genima import parse_args
     from genima_torch.data.dataset import to_device
     from genima_torch.data.tokenizer import HashTokenizer
@@ -3621,8 +3667,8 @@ def _sd_finetune(pa, root: Path, resolution: int, want: dict, pipe_factory=None,
     args = parse_args([
         "--data_path", str(root / "data"), "--tasks", "toy_task",
         "--resolution", str(resolution), "--train_batch_size", str(TRAIN_BATCH),
-        "--max_train_steps", str(SD15_TRAIN_STEPS), "--seed", "0", "--device", "cuda",
-        "--mixed_precision", "bf16", "--enable_xformers_memory_efficient_attention",
+        "--max_train_steps", str(steps), "--seed", "0", "--device", "cuda",
+        "--mixed_precision", precision, "--enable_xformers_memory_efficient_attention",
         "--dataloader_num_workers", "4", "--output_dir", str(root / "out"),
         "--report_to", "none",
     ])
@@ -3635,15 +3681,15 @@ def _sd_finetune(pa, root: Path, resolution: int, want: dict, pipe_factory=None,
     frozen = {name: {k: t.clone() for k, t in params[name].state_dict().items()}
               for name in ("unet", "vae", "text_encoder")}
     cn_init = {k: p.detach().float().clone() for k, p in params["controlnet"].named_parameters()}
-    steps, last = [], {}
+    records, last = [], {}
 
     def hook(step, state, metrics):
         torch.cuda.synchronize()
         now, counts = time.perf_counter(), _ft_counts(pa)
-        steps.append({"ms": (now - last["mark"]) * 1e3, "loss": float(metrics["loss"]),
+        records.append({"ms": (now - last["mark"]) * 1e3, "loss": float(metrics["loss"]),
                       "launches": {k: counts[k] - last["counts"][k] for k in counts}})
         last["mark"], last["counts"] = now, counts
-        if step == SD15_TRAIN_STEPS:
+        if step == steps:
             last["moved"] = max((state.params[k] - v).abs().max().item()
                                 for k, v in cn_init.items())
 
@@ -3658,10 +3704,10 @@ def _sd_finetune(pa, root: Path, resolution: int, want: dict, pipe_factory=None,
         for k, fn in (("B1", pa.packed_flash_attention),
                       ("B2a", pa.packed_attention_forward_lse),
                       ("B2b", pa.packed_attention_backward))}
-    tag = f"fine-tune at {resolution}"
-    if result["global_step"] != SD15_TRAIN_STEPS or len(steps) != SD15_TRAIN_STEPS:
+    tag = f"fine-tune at {resolution} ({precision})"
+    if result["global_step"] != steps or len(records) != steps:
         raise AssertionError(f"{tag} took {result['global_step']} steps")
-    for i, st in enumerate(steps):
+    for i, st in enumerate(records):
         if st["launches"] != want:
             raise AssertionError(f"{tag} step {i + 1} launches {st['launches']}, want {want}")
         if not math.isfinite(st["loss"]):
@@ -3674,13 +3720,13 @@ def _sd_finetune(pa, root: Path, resolution: int, want: dict, pipe_factory=None,
     if not last["moved"] > 0:
         raise AssertionError(f"{tag}: the ControlNet did not move")
     del frozen, cn_init
-    out = {"setup_s": setup_s, "step_ms": [st["ms"] for st in steps],
-           "losses": [st["loss"] for st in steps],
-           "launches_per_step": [st["launches"] for st in steps],
+    out = {"setup_s": setup_s, "step_ms": [st["ms"] for st in records],
+           "losses": [st["loss"] for st in records],
+           "launches_per_step": [st["launches"] for st in records],
            "launches_by_shape": launches_by_shape, "controlnet_max_move": last["moved"],
            "peak_mem_gb": peak_gb}
     if grad_check:
-        trainer = ControlNetTrainer(pipe, driver.train_config(args, SD15_TRAIN_STEPS))
+        trainer = ControlNetTrainer(pipe, driver.train_config(args, steps))
         state = trainer.create_state(params)
         state = TrainState(state.params, None, 0)
         batch = to_device(next(iter(driver.make_train_dataset(args, HashTokenizer()))),
@@ -3697,8 +3743,7 @@ def _sd_finetune(pa, root: Path, resolution: int, want: dict, pipe_factory=None,
         for name in ("unet", "controlnet"):
             set_attention_backend(params[name], "fused")
         report = _grad_report(grads["fused"], grads["xla"], grads["xla_efficient"])
-        if not (report["global_rel"] <= TRAIN_GRAD_REL_TOL
-                and report["attn_rel_floored"] <= TRAIN_GRAD_REL_TOL):
+        if not (report["global_rel"] <= grad_tol and report["attn_rel_floored"] <= grad_tol):
             raise AssertionError(f"{tag} ControlNet grads kernels vs library: "
                                  f"{json.dumps(report)}")
         out.update(grad_rel_norm_diff_vs_library_attention=report["global_rel"],
@@ -3963,6 +4008,300 @@ def opt_geometries_phase(pa, card: str, pools: dict) -> tuple[dict, dict, list]:
             for name, pool in pool_of.items()}
     out["phase_s"] = time.time() - t_phase
     return out, rows, sweep
+
+
+# ---------------------------------------------------------------------------
+# phase 17: float32 through every kernel (--mixed_precision no, f32 serving)
+# ---------------------------------------------------------------------------
+
+# the f32 kernels run FFMA on the CUDA cores: H100 SXM FP32, 67 TFLOP/s
+PEAK_F32_FLOPS = 67e12
+# f32 kernels against their f32 plain versions: attention's max abs err at
+# unit-scale inputs and L's; B2b's and B4's max err over max |grad| or |y|
+F32_TOL = 1e-4
+# B5 keeps the TPU body's bf16 product: as phase 4's, error / max |y|
+F32_W8_REL_TOL = W8_REL_TOL
+F32_EPS_REL_TOL = 1e-3  # a full-width f32 noise prediction against the library path's
+F32_GRAD_REL_TOL = 1e-3  # step 1's ControlNet gradients against the library attention's
+F32_SERVE_LAUNCHES = {"B1": LAUNCHES_PER_STEP, "B3": 0, "B4": 0, "B5": 0}
+F32_SERVE_STEPS = 2
+F32_TRAIN_STEPS = 2
+F32_SWEEP_DIMS = (1, 36, 64, 100, 160, 200, 256)
+F32_SOURCES = {"B1": "genima_torch/csrc/attention_f32.cuh",
+               "B4": "genima_torch/csrc/fused_conv.cu", "B5": "genima_torch/csrc/w8_matmul.cu"}
+
+
+def _f32_bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """``_bound`` against the f32 kernels' peak, FFMA's."""
+    ops_s, bytes_s = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
+
+
+def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> list[dict]:
+    """B1 (with ``train`` also B2a and B2b) on seeded f32 (B, S, C) inputs
+    at ``levels`` against their plain versions at ``F32_TOL``; B2a's output
+    must be B1's bit for bit and two B2b calls must give the same bits."""
+    import torch.nn.functional as F
+
+    from genima_torch.kernels import _build
+
+    regs = ptxas_report(_build.build_log("packed_attention"))
+    bregs = ptxas_report(_build.build_log("packed_attention_bwd"))
+    lib, blib = pa._library(), pa._bwd_library()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for b, s, c, h in levels:
+        d = c // h
+        q, k, v, do = (torch.randn(b, s, c, generator=gen, device="cuda") for _ in range(4))
+        tag = f"f32 {b}x{s}x{c}/{h}"
+        plan = pa._plan_for(b, s, s, h, d, dtype=torch.float32)
+        if lib.packed_attention_f32_smem_bytes(d) != plan.smem_bytes:
+            raise AssertionError(f"{tag}: f32 plan's shared memory {plan.smem_bytes} != the kernel's")
+        o1 = pa.packed_flash_attention(q, k, v, h)
+        o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+        torch.cuda.synchronize()
+        err = (o1 - o_ref).abs().max().item()
+        if not (o1.dtype == torch.float32 and err <= F32_TOL):
+            raise AssertionError(f"B1 {tag}: {o1.dtype}, max abs err {err}")
+        heads = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
+        common = {"route": "cuda", "dtype": "float32", "source": F32_SOURCES["B1"],
+                  "shape": f"{b}x{s}x{c}/{h}", "key": f"{b}x{s}x{s}x{c}", "launches": None,
+                  "plan": {"query_rows": plan.rows, "threads": plan.threads,
+                           "blocks": plan.blocks, "head_atoms": plan.atoms},
+                  "smem_bytes": plan.smem_bytes}
+        bound_ms, bound_by = _f32_bound(4 * b * s * s * c, 4 * 4 * b * s * c)
+        rows.append({"name": "packed_flash_attention",
+                     "replaces": "genima_tpu/kernels/packed_attention.py:194", **common,
+                     "max_abs_err": err,
+                     "ms": cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), iters),
+                     "plain_ms": cuda_ms(lambda: pa.packed_attention_reference(q, k, v, h), 2),
+                     "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     **regs.get(f"f32_{plan.atoms}x0", {})})
+        if not train:
+            continue
+        o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+        torch.cuda.synchronize()
+        o_err, lse_err = (o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item()
+        if not (o_err <= F32_TOL and lse_err <= F32_TOL and torch.equal(o, o1)):
+            raise AssertionError(f"B2a {tag}: o err {o_err}, L err {lse_err}, "
+                                 f"o == B1's {torch.equal(o, o1)}")
+        bound_ms, bound_by = _f32_bound(4 * b * s * s * c, 4 * 4 * b * s * c + 4 * b * s * h)
+        rows.append({"name": "packed_attention_forward_lse",
+                     "replaces": "genima_tpu/kernels/packed_attention.py:274", **common,
+                     "max_abs_err": max(o_err, lse_err), "o_abs_err": o_err,
+                     "lse_abs_err": lse_err,
+                     "ms": cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), iters),
+                     "plain_ms": cuda_ms(lambda: pa.packed_attention_lse_reference(q, k, v, h), 2),
+                     "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     **regs.get(f"f32_{plan.atoms}x1", {})})
+        got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+        again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+        want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
+        torch.cuda.synchronize()
+        rel = max(_rel_err(x, y) for x, y in zip(got, want))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not (rel <= F32_TOL and same and got[0].dtype == torch.float32):
+            raise AssertionError(f"B2b {tag}: max err {rel} of max |grad|, repeat equal {same}")
+        bp = pa.backward_plan(b, s, s, h, d, dtype=torch.float32)
+        smem = [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1)]
+        if smem != [bp.dq_smem_bytes, bp.dkdv_smem_bytes]:
+            raise AssertionError(f"B2b {tag}: f32 plan's shared memory != the kernels' {smem}")
+        leaves = [x.detach().requires_grad_() for x in heads]
+        out = F.scaled_dot_product_attention(*leaves)
+        go = do.view(b, s, h, d).transpose(1, 2)
+        bound_ms, bound_by = _f32_bound(10 * b * s * s * c, 4 * 8 * b * s * c + 4 * b * s * h)
+        rows.append({
+            "name": "packed_attention_backward",
+            "replaces": "genima_tpu/kernels/packed_attention.py:380", **common,
+            "plan": {"kernels": "dq, then dk/dv", "rows_per_block": bp.rows,
+                     "threads": bp.threads, "head_atoms": bp.atoms,
+                     "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
+            "smem_bytes": smem,
+            "max_abs_err": max((x - y).abs().max().item() for x, y in zip(got, want)),
+            "max_rel_err": rel,
+            "ms": cuda_ms(lambda: pa.packed_attention_backward(q, k, v, o, lse, do, h), iters),
+            "plain_ms": cuda_ms(
+                lambda: pa.packed_attention_backward_reference(q, k, v, o, lse, do, h), 2),
+            "library_ms": cuda_ms(
+                lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), iters),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "dq": bregs.get(f"f32_dq{bp.atoms}", {}), "dkdv": bregs.get(f"f32_dkdv{bp.atoms}", {}),
+        })
+        del out, leaves, got, again, want
+    return rows
+
+
+def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5) -> list[dict]:
+    """B3, B4 and B5 on seeded f32 inputs at the opt-in path's shapes
+    against their plain versions (B3 and B4 at ``F32_TOL``, B5 at
+    ``F32_W8_REL_TOL`` and bit-equal over two calls), timed beside their
+    FFMA bound and the library call in f32 (TF32 off)."""
+    import torch.nn.functional as F
+
+    from genima_torch.kernels import _build
+    from genima_torch.kernels import flash_attention as fa
+    from genima_torch.kernels import fused_conv as fc
+    from genima_torch.kernels import w8_matmul as w8
+
+    regs = {name: ptxas_report(_build.build_log(name))
+            for name in ("flash_attention", "fused_conv", "w8_matmul")}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for b, sq, sk, c, h in flash_shapes:
+        d = c // h
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda") for s in (sq, sk, sk))
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not (got.dtype == torch.float32 and err <= F32_TOL):
+            raise AssertionError(f"B3 f32 {b}x{sq}x{sk}x{c}/{h}: {got.dtype}, max abs err {err}")
+        plan = fa._plan_for(b, sq, sk, h, d, dtype=torch.float32)
+        if fa._library().flash_attention_f32_smem_bytes(d) != plan.smem_bytes:
+            raise AssertionError("B3 f32 plan's shared memory != the kernel's")
+        heads = [t.transpose(1, 2) for t in (q, k, v)]
+        bound_ms, bound_by = _f32_bound(4 * b * sq * sk * c, 4 * b * (2 * sq + 2 * sk) * c)
+        rows.append({
+            "name": "flash_attention", "route": "cuda", "dtype": "float32",
+            "source": F32_SOURCES["B1"], "replaces": "genima_tpu/kernels/flash_attention.py:129",
+            "shape": f"{b}x{sq}x{sk}x{c}/{h}", "key": f"{b}x{sq}x{sk}x{c}",
+            "launches": None, "max_abs_err": err,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), iters),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 2),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
+            "library": "scaled_dot_product_attention forward in f32 on the same views",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": {"query_rows": plan.rows, "threads": plan.threads, "blocks": plan.blocks,
+                     "head_atoms": plan.atoms},
+            "smem_bytes": plan.smem_bytes,
+            **regs["flash_attention"].get(f"f32_{plan.atoms}x0", {}),
+        })
+
+    for b, hh, ww, c, o in conv_shapes:
+        x = torch.randn(b, hh, ww, c, generator=gen, device="cuda")
+        gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+        scale, shift = fc.fold_group_norm(x, gamma, beta, 32, 1e-6)
+        wt = torch.randn(3, 3, c, o, generator=gen, device="cuda") / (3 * c ** 0.5)
+        bias = torch.randn(o, generator=gen, device="cuda")
+        res = torch.randn(b, hh, ww, o, generator=gen, device="cuda") if c == o else None
+        args = (x, wt, bias, scale, shift, None, res)
+        got = fc.fused_conv3x3(*args)
+        want = fc.fused_conv3x3_reference(*args)
+        torch.cuda.synchronize()
+        rel = _rel_err(got, want)
+        if not (got.dtype == torch.float32 and rel <= F32_TOL):
+            raise AssertionError(f"B4 f32 {b}x{hh}x{ww}x{c}->{o}: max err {rel} of max |y|")
+        plan = fc._plan_for(b, hh, ww, c, o, dtype=torch.float32)
+        if fc._library().fused_conv3x3_f32_smem_bytes(plan.bn) != plan.smem_bytes:
+            raise AssertionError("B4 f32 plan's shared memory != the kernel's")
+        act = x * scale[:, None, None] + shift[:, None, None]
+        act = (act * torch.sigmoid(act)).permute(0, 3, 1, 2)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        nbytes = 4 * (b * hh * ww * (c + o + (o if res is not None else 0)) + 9 * c * o + o
+                      + 2 * b * c)
+        bound_ms, bound_by = _f32_bound(2 * b * hh * ww * o * 9 * c, nbytes)
+        rows.append({
+            "name": "fused_conv3x3", "route": "cuda", "dtype": "float32",
+            "source": F32_SOURCES["B4"], "replaces": "genima_tpu/kernels/fused_conv.py:380",
+            "shape": f"{b}x{hh}x{ww}x{c}->{o}" + ("+res" if res is not None else ""),
+            "key": f"{b}x{hh}x{ww}x{c}x{o}", "launches": None,
+            "max_abs_err": (got - want).abs().max().item(), "max_rel_err": rel,
+            "ms": cuda_ms(lambda: fc.fused_conv3x3(*args), iters),
+            "plain_ms": cuda_ms(lambda: fc.fused_conv3x3_reference(*args), 2),
+            "library_ms": cuda_ms(lambda: F.conv2d(act, w_cl, bias, padding=1), iters),
+            "library": "cuDNN conv2d alone in f32 (TF32 off), channels_last, on the "
+                       "pre-activated input (it skips the GN/SiLU prologue and the residual)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": {"tile": f"{plan.side}x{plan.side} pixels x {plan.bn} channels",
+                     "blocks": plan.blocks},
+            "smem_bytes": plan.smem_bytes, **regs["fused_conv"].get(f"f32_{plan.bn}", {}),
+        })
+
+    for m, k, n in w8_shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)
+        got = w8.w8_matmul(x, w_q, scale)
+        again = w8.w8_matmul(x, w_q, scale)
+        want = w8.w8_matmul_reference(x, w_q, scale)
+        torch.cuda.synchronize()
+        rel = _rel_err(got, want)
+        if not (got.dtype == torch.float32 and rel <= F32_W8_REL_TOL and torch.equal(got, again)):
+            raise AssertionError(f"B5 f32 {m}x{k}x{n}: max err {rel} of max |y|, repeat equal "
+                                 f"{torch.equal(got, again)}")
+        plan = w8._plan_for(m, k, n, dtype=torch.float32)
+        if w8._library().w8_matmul_f32_smem_bytes() != plan.smem_bytes:
+            raise AssertionError("B5 f32 plan's shared memory != the kernel's")
+        w_deq = (w_q.float() * scale[:, None]).t()
+        bound_ms, bound_by = _f32_bound(2 * m * k * n, 4 * m * k + k * n + 4 * n + 4 * m * n)
+        rows.append({
+            "name": "w8_matmul", "route": "cuda", "dtype": "float32",
+            "source": F32_SOURCES["B5"], "replaces": "genima_tpu/kernels/w8_matmul.py:94",
+            "shape": f"{m}x{k}x{n}", "key": f"{m}x{k}x{n}", "launches": None,
+            "max_abs_err": (got - want).abs().max().item(), "max_rel_err": rel,
+            "ms": cuda_ms(lambda: w8.w8_matmul(x, w_q, scale), iters * 4),
+            "plain_ms": cuda_ms(lambda: w8.w8_matmul_reference(x, w_q, scale), 3),
+            "library_ms": cuda_ms(lambda: torch.matmul(x, w_deq), iters * 4),
+            "library": "torch.matmul in f32 (TF32 off) on the pre-dequantised f32 weight",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": {"tile": f"{w8.F32_TILE} tokens x {w8.F32_TILE} rows",
+                     "blocks": plan.blocks},
+            "smem_bytes": plan.smem_bytes, **regs["w8_matmul"].get("f32_", {}),
+        })
+    return rows
+
+
+def f32_phase(pa, card: str) -> tuple[dict, dict, dict]:
+    """Phase 17: every kernel family on f32 against its f32 plain version
+    at the f32 paths' shapes, SD-1.5's, 768x768's and a head-dim sweep;
+    then (a) f32 serving on the default backend (105 B1 a step) and (b)
+    under ``pallas+w8`` / fused (230 B3 / 25 B4 / 1380 B5 / 0 B1), each
+    noise prediction held to the library path's at ``F32_EPS_REL_TOL``;
+    (c) the ``--mixed_precision no`` ControlNet fine-tune at batch 4,
+    512x512 (6 B1 / 15 B2a / 15 B2b / 0 fallbacks a step), step 1's
+    ControlNet gradients held to the library attention's at
+    ``F32_GRAD_REL_TOL``. TF32 is off throughout (``main``). Returns the
+    paths' results, the kernel rows by path and the shape checks no path
+    runs."""
+    t_phase = time.time()
+    rows = {"f32_control": f32_attention_rows(pa, SD_LEVELS, seed=70, train=False),
+            "f32_train": f32_attention_rows(pa, TRAIN_LEVELS, seed=71, train=True),
+            "f32_opt_in": f32_opt_rows(FLASH_SHAPES, CONV_SHAPES, W8_SHAPES, seed=72)}
+    checks = {
+        "sd15_control": f32_attention_rows(pa, SD15_LEVELS, seed=73, train=False, iters=2),
+        "sd15_train": f32_attention_rows(pa, SD15_TRAIN_LEVELS, seed=74, train=True, iters=2),
+        "sd15_opt_in": f32_opt_rows(SD15_FLASH_SHAPES, [], [], seed=75, iters=2),
+        "sd768_control": f32_attention_rows(pa, SD768_LEVELS, seed=76, train=False, iters=2),
+        "sd768_train": f32_attention_rows(pa, SD768_TRAIN_LEVELS, seed=77, train=True, iters=2),
+        "head_dim_sweep": [
+            r for i, dd in enumerate(F32_SWEEP_DIMS)
+            for r in f32_attention_rows(pa, [(2, 256, 8 * dd, 8)], seed=80 + i, train=True,
+                                        iters=2)
+            + f32_opt_rows([(1, 1000, 1000, 8 * dd, 8), (1, 1000, 77, 8 * dd, 8)], [], [],
+                           seed=90 + i, iters=2)],
+    }
+    out = {"kernel_checks_s": time.time() - t_phase}
+    t0 = time.time()
+    out["serve"] = _serve("sd", 512, "fused", "xla", F32_SERVE_LAUNCHES, F32_SERVE_STEPS,
+                          dtype=torch.float32, eps_tol=F32_EPS_REL_TOL)
+    out["serve"]["s"] = time.time() - t0
+    t0 = time.time()
+    out["opt_in"] = _serve("sd", 512, OPT_BACKEND, OPT_CONV_BACKEND, OPT_LAUNCHES,
+                           F32_SERVE_STEPS, dtype=torch.float32, eps_tol=F32_EPS_REL_TOL)
+    out["opt_in"]["s"] = time.time() - t0
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train"] = _sd_finetune(pa, Path(tmp), 512, TRAIN_LAUNCHES, grad_check=True,
+                                    precision="no", steps=F32_TRAIN_STEPS,
+                                    grad_tol=F32_GRAD_REL_TOL)
+    out["train"]["s"] = time.time() - t0
+    _fill_launches(rows["f32_control"], {"B1": out["serve"]["launches_by_shape"]["B1"]})
+    _fill_launches(rows["f32_opt_in"], out["opt_in"]["launches_by_shape"])
+    _fill_launches(rows["f32_train"], out["train"]["launches_by_shape"])
+    out["phase_s"] = time.time() - t_phase
+    return out, rows, checks
 
 
 def per_step_sums(rows) -> dict:
@@ -4244,6 +4583,24 @@ def main() -> int:
         + f"; pix2pix15 train steps {[round(x, 1) for x in p16['pix2pix15_train']['step_ms']]} "
         f"ms, peak {p16['pix2pix15_train']['peak_mem_gb']:.2f} GiB; kernel checks "
         f"{p16['kernel_checks_s']:.1f} s; phase {p16['phase_s']:.1f} s")
+    p17, p17_rows, p17_checks = f32_phase(pa, card)
+    print("f32 " + json.dumps(p17))
+    print("f32_shape_checks " + json.dumps(p17_checks))
+    sv17, op17, tr17 = p17["serve"], p17["opt_in"], p17["train"]
+    print(f"f32 ({card}; TF32 off): default serving steps "
+          f"{[round(x, 1) for x in sv17['step_ms']]} ms by events, eps rel err "
+          f"{sv17['eps_rel_err_vs_library_attention']:.3e}, step peak "
+          f"{sv17['step_peak_mem_gb']:.2f} GiB; pallas+w8 / fused steps "
+          f"{[round(x, 1) for x in op17['step_ms']]} ms, eps rel err {op17['eps_rel_err_vs_library_attention']:.3e}"
+          f" (float models {op17['eps_float_models_rel_err_vs_library_attention']:.3e}), int8 "
+          f"{op17['eps_int8_vs_dequantised_float']:.3e}, decode "
+          f"{op17['vae_fused_vs_default_decode']:.3e}, step peak {op17['step_peak_mem_gb']:.2f} "
+          f"GiB; fine-tune steps {[round(x, 1) for x in tr17['step_ms']]} ms (batch "
+          f"{TRAIN_BATCH}, 512^2, --mixed_precision no), grads rel "
+          f"{tr17['grad_rel_norm_diff_vs_library_attention']:.3e} (floored projections "
+          f"{tr17['grad_attn_proj_rel_floored']:.3e}, the library's two SDPA backends "
+          f"{tr17['grad_library_backends_rel_norm_diff']:.3e}), peak {tr17['peak_mem_gb']:.2f} "
+          f"GiB; kernel checks {p17['kernel_checks_s']:.1f} s; phase {p17['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -4268,13 +4625,16 @@ def main() -> int:
         + [("sd768_control", r, SD768_STEPS) for r in hd_rows["sd768_control"]]
         + [("sd768_train", r, SD15_TRAIN_STEPS) for r in hd_rows["sd768_train"]]
         + [(name, r, PIX2PIX15_TRAIN_STEPS if name == "pix2pix15_train" else OPT16_STEPS)
-           for name, rs in p16_rows.items() for r in rs])))
+           for name, rs in p16_rows.items() for r in rs]
+        + [(name, r, F32_TRAIN_STEPS if name == "f32_train" else F32_SERVE_STEPS)
+           for name, rs in p17_rows.items() for r in rs])))
     rows = (kernels + cfg_kernels + train_kernels + opt_kernels + cohort_kernels
             + batch4_kernels + batched_kernels + pretrain_kernels + sdxl_kernels
             + sdxl_train_kernels + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
             + pix2pix_opt_kernels + dp_kernels + mesh_eval_kernels + tp_kernels
             + [r for rs in hd_rows.values() for r in rs]
-            + [r for rs in p16_rows.values() for r in rs])
+            + [r for rs in p16_rows.values() for r in rs]
+            + [r for rs in p17_rows.values() for r in rs])
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

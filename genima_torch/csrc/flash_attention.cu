@@ -20,7 +20,12 @@
 // ones; at D = 200..256 (four atoms) with 1 warpgroup on 64- or 80-key
 // tiles. kernels/flash_attention.py::plan picks one per shape (python -m
 // genima_torch.tune_kernels attn times every candidate).
+//
+// On f32 q, k and v it is attention_f32.cuh's forward instead (FFMA on the
+// CUDA cores: its note says why), with an f32 output, as the TPU kernel
+// writes its output in q's dtype.
 
+#include "attention_f32.cuh"
 #include "attention_fwd_hopper.cuh"
 
 using namespace attn_hopper;
@@ -87,6 +92,20 @@ int flash_attention_smem_bytes(int nwg, int bn, int stages, int d) {
                              : (nwg == 1 || nwg == 2) && (bn == 64 || bn == 80 || bn == 128))
                  : (nwg == 1 && (bn == 64 || bn == 80)) || (atoms < 4 && nwg == 2 && bn == 64);
   return tile ? fwd_smem_bytes(nwg, bn, stages, atoms) : 0;
+}
+
+// The same on (B, S, heads, d) f32 tensors, d any head dim from 1 to 256,
+// Sq and Sk >= 1.
+int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int batch,
+                            int sq, int sk, int heads, int d, void* stream) {
+  return attn_f32::forward<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory a block of the f32 forward asks for at head dim d (0 for a d
+// there is no kernel for).
+int flash_attention_f32_smem_bytes(int d) {
+  return attn_f32::head_dim_ok(d) ? attn_f32::fwd_smem_bytes(attn_f32::head_atoms(d)) : 0;
 }
 
 const char* flash_attention_error_string(int code) { return hopper_host::error_string(code); }

@@ -59,6 +59,21 @@
 // O < 128 (a lane-alignment rule of the TPU's DMA and VMEM), its split of
 // the output channels when a band overflows VMEM, and its row-band height
 // search.
+//
+// Float32 (fused_conv3x3_f32_kernel): the TPU kernel takes x's dtype, so on
+// f32 x, w, residual and y it computes the same function in f32 (activation,
+// products and sums in f32, no rounding but f32's own). The tensor cores
+// take f32 only as TF32, about three decimal digits, which misses the f32
+// result; so this kernel is an FFMA implicit GEMM on the CUDA cores, bound
+// by FFMA's 67 TFLOP/s at the decoder's widths. A block (256 threads) owns
+// an 8 x 8 pixel patch by 64 output channels (16 x 16 by 16 for conv_out's
+// few channels); per chunk of 16 input channels it loads the (side + 2)^2
+// halo band and the chunk's weights of the nine taps (and of the skip) into
+// shared memory, takes the 1x1 skip on the raw band's centre, applies the
+// GroupNorm affine and SiLU to the band in place (out-of-image pixels and
+// channels past C stay 0), then runs the nine taps: each thread 4 pixels x
+// 4 output channels, a band pixel 17 floats apart so that the pixels a warp
+// reads lie in distinct banks. Epilogue: + bias [+ residual] in f32.
 
 #include "hopper.cuh"
 
@@ -380,6 +395,157 @@ int weight_map(CUtensorMap* map, const void* w, int c, int opad, int depth, int 
                              box_n == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
+// --- float32 ------------------------------------------------------------------
+
+// BN output channels (64, or 16 for conv_out) by a kSide x kSide patch
+template <int BN>
+struct F32Cfg {
+  static constexpr int kTX = BN / 4;          // threads across the output channels
+  static constexpr int kTY = 256 / kTX;       // and across the pixels, 4 of each a thread
+  static constexpr int kSide = BN == 64 ? 8 : 16;
+  static constexpr int kHalo = kSide + 2;
+  static constexpr int kCK = 16;              // input channels a chunk
+  static constexpr int kLD = kCK + 1;         // floats a band pixel
+  static constexpr int kBand = kHalo * kHalo * kLD;
+  static constexpr int kW = 10 * kCK * BN;    // nine taps, then the skip
+  static constexpr int kSmem = 4 * (kBand + kW);
+  static_assert(4 * kTY == kSide * kSide, "four pixels a thread");
+};
+
+struct F32Params {
+  const float* x;      // (B, H, W, C)
+  const float* w;      // (9, C, O)
+  const float* b;      // (O,)
+  const float* scale;  // (B, C) or null
+  const float* shift;
+  const float* wskip;  // (C, O) or null
+  const float* res;    // (B, H, W, O) or null
+  float* y;            // (B, H, W, O)
+  int h, w_img, c, o, tiles_x;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(256) fused_conv3x3_f32_kernel(const F32Params p) {
+  using C = F32Cfg<BN>;
+  constexpr int kSide = C::kSide, kHalo = C::kHalo, kCK = C::kCK, kLD = C::kLD;
+  extern __shared__ float smem_f[];
+  float* band = smem_f;
+  float* wt = band + C::kBand;
+  const int tx = threadIdx.x % C::kTX, ty = threadIdx.x / C::kTX;
+  const int y0 = blockIdx.x / p.tiles_x * kSide, x0 = blockIdx.x % p.tiles_x * kSide;
+  const int n0 = blockIdx.y * BN, bi = blockIdx.z;
+  int py[4], px[4];  // this thread's pixels ty + kTY * r of the patch
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    py[r] = (ty + C::kTY * r) / kSide;
+    px[r] = (ty + C::kTY * r) % kSide;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+  const float* xb = p.x + static_cast<size_t>(bi) * p.h * p.w_img * p.c;
+  const float* sc = p.scale ? p.scale + static_cast<size_t>(bi) * p.c : nullptr;
+  const float* sh = p.shift ? p.shift + static_cast<size_t>(bi) * p.c : nullptr;
+
+  for (int c0 = 0; c0 < p.c; c0 += kCK) {
+    __syncthreads();  // the previous chunk's band and weights read
+    for (int idx = threadIdx.x; idx < kHalo * kHalo * kCK; idx += 256) {
+      const int q = idx / kCK, k = idx % kCK;
+      const int yy = y0 - 1 + q / kHalo, xx = x0 - 1 + q % kHalo, ch = c0 + k;
+      float v = 0.f;
+      if (yy >= 0 && yy < p.h && xx >= 0 && xx < p.w_img && ch < p.c)
+        v = xb[(static_cast<size_t>(yy) * p.w_img + xx) * p.c + ch];
+      band[q * kLD + k] = v;
+    }
+    for (int idx = threadIdx.x; idx < C::kW; idx += 256) {
+      const int n = idx % BN, k = idx / BN % kCK, tap = idx / (BN * kCK);
+      const int ch = c0 + k, col = n0 + n;
+      float v = 0.f;
+      if (ch < p.c && col < p.o) {
+        if (tap < 9)
+          v = p.w[(static_cast<size_t>(tap) * p.c + ch) * p.o + col];
+        else if (p.wskip)
+          v = p.wskip[static_cast<size_t>(ch) * p.o + col];
+      }
+      wt[idx] = v;
+    }
+    __syncthreads();
+    if (p.wskip) {  // the 1x1 shortcut on the raw band's centre
+#pragma unroll
+      for (int k = 0; k < kCK; ++k) {
+        float a[4], bw[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = band[((py[r] + 1) * kHalo + px[r] + 1) * kLD + k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bw[j] = wt[(9 * kCK + k) * BN + tx + C::kTX * j];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], bw[j], acc[r][j]);
+      }
+    }
+    if (sc) {  // silu(x * scale + shift) in place, in the image and below C only
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kHalo * kHalo * kCK; idx += 256) {
+        const int q = idx / kCK, k = idx % kCK;
+        const int yy = y0 - 1 + q / kHalo, xx = x0 - 1 + q % kHalo, ch = c0 + k;
+        if (yy < 0 || yy >= p.h || xx < 0 || xx >= p.w_img || ch >= p.c) continue;
+        const float v = fmaf(band[q * kLD + k], sc[ch], sh[ch]);
+        band[q * kLD + k] = v * (1.f / (1.f + expf(-v)));
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int di = tap / 3, dj = tap % 3;
+#pragma unroll 4
+      for (int k = 0; k < kCK; ++k) {
+        float a[4], bw[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = band[((py[r] + di) * kHalo + px[r] + dj) * kLD + k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bw[j] = wt[(tap * kCK + k) * BN + tx + C::kTX * j];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], bw[j], acc[r][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int yy = y0 + py[r], xx = x0 + px[r];
+    if (yy >= p.h || xx >= p.w_img) continue;
+    const size_t pix = ((static_cast<size_t>(bi) * p.h + yy) * p.w_img + xx) * p.o;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + C::kTX * j;
+      if (col >= p.o) continue;
+      float v = acc[r][j] + p.b[col];
+      if (p.res) v += p.res[pix + col];
+      p.y[pix + col] = v;
+    }
+  }
+}
+
+template <int BN>
+int launch_f32(const F32Params& p, int batch, int tiles, cudaStream_t stream) {
+  constexpr int smem = F32Cfg<BN>::kSmem;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_conv3x3_f32_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid(tiles, (p.o + BN - 1) / BN, batch);
+  fused_conv3x3_f32_kernel<BN><<<grid, 256, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -438,6 +604,43 @@ int fused_conv3x3_smem_bytes(int bn, int rows) {
   if (bn == 128 && rows == 2) return Cfg<128, 2>::smem_bytes();
   if (bn == 16 && rows == 4) return Cfg<16, 4>::smem_bytes();
   return 0;
+}
+
+// The same on f32 x (B, H, W, C), w (9, C, O), b (O,), scale/shift (B, C),
+// wskip (C, O) and residual (B, H, W, O) into f32 y, any C and O, with bn
+// output channels a block (64, or 16 for O <= 16: kernels/fused_conv.py::
+// f32_plan). Launches on `stream`, does not synchronise; returns 0 or an
+// error code for fused_conv3x3_error_string.
+int fused_conv3x3_f32(const void* x, const void* w, const void* b, const void* scale,
+                      const void* shift, const void* wskip, const void* residual, void* y,
+                      int batch, int h, int w_img, int c, int o, int bn, void* stream) {
+  if (batch < 1 || h < 1 || w_img < 1 || c < 1 || o < 1 || (bn != 64 && bn != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [](const void* t) { return static_cast<const float*>(t); };
+  F32Params p;
+  p.x = f(x);
+  p.w = f(w);
+  p.b = f(b);
+  p.scale = f(scale);
+  p.shift = f(shift);
+  p.wskip = f(wskip);
+  p.res = f(residual);
+  p.y = static_cast<float*>(y);
+  p.h = h;
+  p.w_img = w_img;
+  p.c = c;
+  p.o = o;
+  const int side = bn == 64 ? F32Cfg<64>::kSide : F32Cfg<16>::kSide;
+  p.tiles_x = (w_img + side - 1) / side;
+  const int tiles = p.tiles_x * ((h + side - 1) / side);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bn == 64 ? launch_f32<64>(p, batch, tiles, s) : launch_f32<16>(p, batch, tiles, s);
+}
+
+// Shared memory a block of the f32 kernel with bn output channels asks for;
+// 0 for a bn there is no kernel for.
+int fused_conv3x3_f32_smem_bytes(int bn) {
+  return bn == 64 ? F32Cfg<64>::kSmem : bn == 16 ? F32Cfg<16>::kSmem : 0;
 }
 
 const char* fused_conv3x3_error_string(int code) { return hopper_host::error_string(code); }

@@ -28,7 +28,12 @@
 // candidate). Head dims up to 64 take every tile; 72..192 (two or three
 // 64-column atoms) take 64-key tiles with one or two warpgroups; 200..256
 // (four atoms) 64-key tiles with one.
+//
+// On f32 q, k and v, B1 and B2a are attention_f32.cuh's forward instead
+// (FFMA on the CUDA cores: its note says why), with f32 o and L: the TPU
+// kernels write their output in q's dtype.
 
+#include "attention_f32.cuh"
 #include "attention_fwd_hopper.cuh"
 
 using namespace attn_hopper;
@@ -109,6 +114,25 @@ int packed_attention_fwd_lse(const void* q, const void* k, const void* v, void* 
                              int bn, int stages, void* stream) {
   return forward<true>(q, k, v, o, static_cast<float*>(lse), batch, sq, sk, heads, d, scale_dim,
                        nwg, bn, stages, static_cast<cudaStream_t>(stream));
+}
+
+// B1 and B2a on packed (B, S, heads * d) f32 tensors, d any head dim from 1
+// to 256, Sq and Sk >= 1 (the wrapper holds them to multiples of 64, as
+// B2b needs); L into `lse` when it is not null. Launches on `stream`, does
+// not synchronise; returns 0 or an error code for
+// packed_attention_error_string.
+int packed_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int batch, int sq, int sk, int heads, int d, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  return l ? attn_f32::forward<true>(q, k, v, o, l, batch, sq, sk, heads, d, s)
+           : attn_f32::forward<false>(q, k, v, o, l, batch, sq, sk, heads, d, s);
+}
+
+// Shared memory a block of the f32 forward asks for at head dim d (0 for a d
+// there is no kernel for).
+int packed_attention_f32_smem_bytes(int d) {
+  return attn_f32::head_dim_ok(d) ? attn_f32::fwd_smem_bytes(attn_f32::head_atoms(d)) : 0;
 }
 
 const char* packed_attention_error_string(int code) { return hopper_host::error_string(code); }

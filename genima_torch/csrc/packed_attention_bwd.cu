@@ -68,7 +68,13 @@
 //     (64 KB), the ring 2 x 64 KB.
 //   Every contraction over d sees zeros past d (Q or dO, K or V), and dQ,
 //   dK and dV store their real d columns only.
+//
+// On f32 tensors it is attention_f32.cuh's backward instead (FFMA on the
+// CUDA cores, its note says why): the same two kernels and the same
+// arithmetic with P and dS kept in f32, dq, dk and dv in f32, as the TPU
+// kernel writes them in q's dtype.
 
+#include "attention_f32.cuh"
 #include "attention_hopper.cuh"
 
 namespace {
@@ -635,6 +641,322 @@ int launch_bwd(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap&
 
 }  // namespace
 
+namespace attn_f32 {
+namespace {
+
+// Rows of the backward's blocks and tiles at DA atoms: four resident tiles
+// of 64 rows x 257 floats do not fit 227 KB.
+__host__ __device__ constexpr int bwd_rows(int da) { return da == 4 ? 32 : 64; }
+
+// Dynamic shared memory of a backward block: four tiles (Q, dO, K, V), dS
+// (and P^T in the dk/dv kernel), and a row's L * log2(e) and Drow.
+int bwd_smem_bytes(int da, bool dkdv) {
+  const int r = bwd_rows(da), ld = 64 * da + 1;
+  return 4 * (4 * r * ld + (dkdv ? 2 : 1) * r * (r + 1) + 2 * r);
+}
+
+struct BwdParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* lse;   // (B, Sq, heads)
+  const float* dout;
+  float* drow;        // (B, heads, Sq): rowsum(dO * O), the dq kernel's for the dk/dv kernel
+  float* dq;
+  float* dk;
+  float* dv;
+  int sq, sk, c, d, heads;
+  float scale, scale_log2;
+};
+
+// dq for a block of R query rows: Q and dO resident, K and V streamed in
+// tiles of R keys; first Drow and L * log2(e) of the block's rows.
+template <int DA>
+__global__ void __launch_bounds__(kThreads, 1) attention_f32_dq_kernel(const BwdParams p) {
+  constexpr int R = bwd_rows(DA), RN = R / 16, W = 64 * DA, LD = W + 1, LDP = R + 1;
+  constexpr int NC = 4 * DA;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + R * LD;
+  float* ks = dos + R * LD;
+  float* vs = ks + R * LD;
+  float* dss = vs + R * LD;
+  float* lrow = dss + R * LDP;
+  float* drow = lrow + R;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * R, head = blockIdx.y, b = blockIdx.z;
+  const int col0 = head * p.d;
+  load_tile<R, W, LD>(qs, p.q, b, q0, p.sq, p.c, col0, p.d);
+  load_tile<R, W, LD>(dos, p.dout, b, q0, p.sq, p.c, col0, p.d);
+  __syncthreads();
+  {  // warp w: rows w, w + 8, ...
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < R; r += kThreads / 32) {
+      const int row = q0 + r;
+      float acc = 0.f;
+      if (row < p.sq) {
+        const float* orow = p.o + (static_cast<size_t>(b) * p.sq + row) * p.c + col0;
+        for (int e = lane; e < p.d; e += 32) acc = fmaf(dos[r * LD + e], orow[e], acc);
+      }
+#pragma unroll
+      for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) {
+        drow[r] = acc;
+        lrow[r] = row < p.sq
+                      ? p.lse[(static_cast<size_t>(b) * p.sq + row) * p.heads + head] * kLog2e
+                      : INFINITY;
+        if (row < p.sq) p.drow[(static_cast<size_t>(b) * p.heads + head) * p.sq + row] = acc;
+      }
+    }
+  }
+
+  float dq[RN][NC];
+#pragma unroll
+  for (int r = 0; r < RN; ++r)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) dq[r][n] = 0.f;
+
+  for (int k0 = 0; k0 < p.sk; k0 += R) {
+    __syncthreads();  // Drow and L stored; the previous tile's K and dS read
+    load_tile<R, W, LD>(ks, p.k, b, k0, p.sk, p.c, col0, p.d);
+    load_tile<R, W, LD>(vs, p.v, b, k0, p.sk, p.c, col0, p.d);
+    __syncthreads();
+    float s[RN][RN], dp[RN][RN];
+#pragma unroll
+    for (int r = 0; r < RN; ++r)
+#pragma unroll
+      for (int c = 0; c < RN; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 2
+    for (int e = 0; e < p.d; ++e) {
+      float a[RN], g[RN], kb[RN], vb[RN];
+#pragma unroll
+      for (int r = 0; r < RN; ++r) {
+        a[r] = qs[(ty + 16 * r) * LD + e];
+        g[r] = dos[(ty + 16 * r) * LD + e];
+      }
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        kb[c] = ks[(tx + 16 * c) * LD + e];
+        vb[c] = vs[(tx + 16 * c) * LD + e];
+      }
+#pragma unroll
+      for (int r = 0; r < RN; ++r)
+#pragma unroll
+        for (int c = 0; c < RN; ++c) {
+          s[r][c] = fmaf(a[r], kb[c], s[r][c]);
+          dp[r][c] = fmaf(g[r], vb[c], dp[r][c]);
+        }
+    }
+    const int valid = min(R, p.sk - k0);
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      const int i = ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        const int j = tx + 16 * c;
+        const float pv = j < valid ? exp2f(fmaf(s[r][c], p.scale_log2, -lrow[i])) : 0.f;
+        dss[i * LDP + j] = pv * (dp[r][c] - drow[i]) * p.scale;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < valid; ++j) {
+      float ds[RN];
+#pragma unroll
+      for (int r = 0; r < RN; ++r) ds[r] = dss[(ty + 16 * r) * LDP + j];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float kv = ks[j * LD + tx + 16 * n];
+#pragma unroll
+        for (int r = 0; r < RN; ++r) dq[r][n] = fmaf(ds[r], kv, dq[r][n]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RN; ++r) {
+    const int row = q0 + ty + 16 * r;
+    if (row >= p.sq) continue;
+    float* dst = p.dq + (static_cast<size_t>(b) * p.sq + row) * p.c + col0;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      if (tx + 16 * n < p.d) dst[tx + 16 * n] = dq[r][n];
+  }
+}
+
+// dk and dv for a block of R keys: K and V resident, Q and dO streamed in
+// tiles of R query rows; S^T, dP^T with keys as rows, P^T and dS^T through
+// shared memory.
+template <int DA>
+__global__ void __launch_bounds__(kThreads, 1) attention_f32_dkdv_kernel(const BwdParams p) {
+  constexpr int R = bwd_rows(DA), RN = R / 16, W = 64 * DA, LD = W + 1, LDP = R + 1;
+  constexpr int NC = 4 * DA;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + R * LD;
+  float* qs = vs + R * LD;
+  float* dos = qs + R * LD;
+  float* pt = dos + R * LD;
+  float* dst = pt + R * LDP;
+  float* lrow = dst + R * LDP;
+  float* drow = lrow + R;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.x * R, head = blockIdx.y, b = blockIdx.z;
+  const int col0 = head * p.d;
+  load_tile<R, W, LD>(ks, p.k, b, k0, p.sk, p.c, col0, p.d);
+  load_tile<R, W, LD>(vs, p.v, b, k0, p.sk, p.c, col0, p.d);
+
+  float dk[RN][NC], dv[RN][NC];
+#pragma unroll
+  for (int r = 0; r < RN; ++r)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) dk[r][n] = dv[r][n] = 0.f;
+
+  for (int q0 = 0; q0 < p.sq; q0 += R) {
+    __syncthreads();  // K, V stored; the previous tile's Q, dO, P^T and dS^T read
+    load_tile<R, W, LD>(qs, p.q, b, q0, p.sq, p.c, col0, p.d);
+    load_tile<R, W, LD>(dos, p.dout, b, q0, p.sq, p.c, col0, p.d);
+    for (int r = threadIdx.x; r < R; r += kThreads) {
+      const int row = q0 + r;
+      const bool in = row < p.sq;
+      lrow[r] = in ? p.lse[(static_cast<size_t>(b) * p.sq + row) * p.heads + head] * kLog2e
+                   : INFINITY;  // P = 0 on rows past Sq
+      drow[r] = in ? p.drow[(static_cast<size_t>(b) * p.heads + head) * p.sq + row] : 0.f;
+    }
+    __syncthreads();
+    float s[RN][RN], dp[RN][RN];  // rows: keys ty + 16 r; columns: query rows tx + 16 c
+#pragma unroll
+    for (int r = 0; r < RN; ++r)
+#pragma unroll
+      for (int c = 0; c < RN; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 2
+    for (int e = 0; e < p.d; ++e) {
+      float kk[RN], vv[RN], qq[RN], gg[RN];
+#pragma unroll
+      for (int r = 0; r < RN; ++r) {
+        kk[r] = ks[(ty + 16 * r) * LD + e];
+        vv[r] = vs[(ty + 16 * r) * LD + e];
+      }
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        qq[c] = qs[(tx + 16 * c) * LD + e];
+        gg[c] = dos[(tx + 16 * c) * LD + e];
+      }
+#pragma unroll
+      for (int r = 0; r < RN; ++r)
+#pragma unroll
+        for (int c = 0; c < RN; ++c) {
+          s[r][c] = fmaf(kk[r], qq[c], s[r][c]);
+          dp[r][c] = fmaf(vv[r], gg[c], dp[r][c]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      const int j = ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        const int i = tx + 16 * c;
+        const float pv = exp2f(fmaf(s[r][c], p.scale_log2, -lrow[i]));
+        pt[j * LDP + i] = pv;
+        dst[j * LDP + i] = pv * (dp[r][c] - drow[i]) * p.scale;
+      }
+    }
+    __syncthreads();
+    const int valid = min(R, p.sq - q0);
+#pragma unroll 2
+    for (int i = 0; i < valid; ++i) {
+      float pr[RN], dr[RN];
+#pragma unroll
+      for (int r = 0; r < RN; ++r) {
+        pr[r] = pt[(ty + 16 * r) * LDP + i];
+        dr[r] = dst[(ty + 16 * r) * LDP + i];
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float gv = dos[i * LD + tx + 16 * n];
+        const float qv = qs[i * LD + tx + 16 * n];
+#pragma unroll
+        for (int r = 0; r < RN; ++r) {
+          dv[r][n] = fmaf(pr[r], gv, dv[r][n]);
+          dk[r][n] = fmaf(dr[r], qv, dk[r][n]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RN; ++r) {
+    const int row = k0 + ty + 16 * r;
+    if (row >= p.sk) continue;
+    const size_t at = (static_cast<size_t>(b) * p.sk + row) * p.c + col0;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      if (tx + 16 * n >= p.d) continue;
+      p.dk[at + tx + 16 * n] = dk[r][n];
+      p.dv[at + tx + 16 * n] = dv[r][n];
+    }
+  }
+}
+
+template <int DA>
+int launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
+  constexpr int R = bwd_rows(DA);
+  const int dq_smem = bwd_smem_bytes(DA, false), dkdv_smem = bwd_smem_bytes(DA, true);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(attention_f32_dq_kernel<DA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attention_f32_dkdv_kernel<DA>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  attention_f32_dq_kernel<DA>
+      <<<dim3((p.sq + R - 1) / R, p.heads, batch), kThreads, dq_smem, stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attention_f32_dkdv_kernel<DA>
+      <<<dim3((p.sk + R - 1) / R, p.heads, batch), kThreads, dkdv_smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward of `forward` (with its o and L); drow is a (B, heads, Sq)
+// f32 scratch; 0 or a CUDA error code.
+int backward(const void* q, const void* k, const void* v, const void* o, const void* lse,
+             const void* dout, void* drow, void* dq, void* dk, void* dv, int batch, int sq,
+             int sk, int heads, int d, cudaStream_t stream) {
+  if (batch < 1 || sq < 1 || sk < 1 || heads < 1 || !head_dim_ok(d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [](const void* x) { return static_cast<const float*>(x); };
+  BwdParams p;
+  p.q = f(q);
+  p.k = f(k);
+  p.v = f(v);
+  p.o = f(o);
+  p.lse = f(lse);
+  p.dout = f(dout);
+  p.drow = static_cast<float*>(drow);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.sq = sq;
+  p.sk = sk;
+  p.c = heads * d;
+  p.d = d;
+  p.heads = heads;
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  p.scale_log2 = kLog2e * p.scale;
+  switch (head_atoms(d)) {
+    case 1: return launch_bwd<1>(p, batch, stream);
+    case 2: return launch_bwd<2>(p, batch, stream);
+    case 3: return launch_bwd<3>(p, batch, stream);
+    default: return launch_bwd<4>(p, batch, stream);
+  }
+}
+
+}  // namespace
+}  // namespace attn_f32
+
 extern "C" {
 
 // dq, dk, dv of packed (B, S, heads * d) bf16 attention, from the forward's
@@ -697,6 +1019,24 @@ int packed_attention_bwd_smem_bytes(int dkdv, int d) {
     case 3: return dkdv ? BwdCfg<3>::kDkdvSmem : BwdCfg<3>::kDqSmem;
     default: return dkdv ? BwdCfg<4>::kDkdvSmem : BwdCfg<4>::kDqSmem;
   }
+}
+
+// The same on f32 tensors, d any head dim from 1 to 256; `drow` is a
+// (B, heads, Sq) f32 scratch the first kernel fills with rowsum(dO * O).
+int packed_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                             const void* lse, const void* dout, void* drow, void* dq, void* dk,
+                             void* dv, int batch, int sq, int sk, int heads, int d,
+                             void* stream) {
+  if (sq < 64 || sk < 64 || sq % 64 || sk % 64) return static_cast<int>(cudaErrorInvalidValue);
+  return attn_f32::backward(q, k, v, o, lse, dout, drow, dq, dk, dv, batch, sq, sk, heads, d,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory each of the two f32 kernels asks for at head dim d (0 for a
+// d there is no kernel for).
+int packed_attention_bwd_f32_smem_bytes(int dkdv, int d) {
+  return attn_f32::head_dim_ok(d) ? attn_f32::bwd_smem_bytes(attn_f32::head_atoms(d), dkdv != 0)
+                                  : 0;
 }
 
 const char* packed_attention_bwd_error_string(int code) { return hopper_host::error_string(code); }

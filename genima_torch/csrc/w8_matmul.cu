@@ -47,6 +47,16 @@
 //     and N.
 // Every shape with K % 16 == 0 and N % 8 == 0 runs (TMA needs 16-byte row
 // strides).
+//
+// Float32 x (w8_matmul_f32_kernel): the TPU kernel's body casts x to bf16
+// before the product and accumulates in f32, and writes x's dtype. So here
+// each f32 value of x is rounded to bf16 as the block loads it into shared
+// memory (no cast pass over x in device memory), the product of a bf16 and
+// an int8 value is exact in f32, sums are f32, the scale is applied once and
+// out is f32. A simple tiled GEMM on the CUDA cores (FFMA): a block of 256
+// threads owns 64 tokens x 64 weight rows, each thread 4 x 4, over K tiles
+// of 32 held in shared memory 33 floats a row apart (so the rows a warp
+// reads lie in distinct banks). No split, so two calls give the same bits.
 
 #include "hopper.cuh"
 
@@ -304,6 +314,64 @@ int launch(const CUtensorMap& map_w, const CUtensorMap& map_x, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- float32 x ------------------------------------------------------------------
+
+constexpr int kF32Tile = 64;   // tokens and weight rows a block
+constexpr int kF32K = 32;      // K a shared-memory tile
+constexpr int kF32Ld = kF32K + 1;
+
+__global__ void __launch_bounds__(256) w8_matmul_f32_kernel(const float* __restrict__ x,
+                                                            const int8_t* __restrict__ w_q,
+                                                            const float* __restrict__ scale,
+                                                            float* __restrict__ out, int m,
+                                                            int n, int k) {
+  __shared__ float xs[kF32Tile * kF32Ld];
+  __shared__ float ws[kF32Tile * kF32Ld];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kF32Tile, m0 = blockIdx.y * kF32Tile;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int k0 = 0; k0 < k; k0 += kF32K) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kF32Tile * kF32K; idx += 256) {
+      const int r = idx / kF32K, kk = idx % kF32K, kc = k0 + kk;
+      const int row = m0 + r, col = n0 + r;
+      xs[r * kF32Ld + kk] =
+          row < m && kc < k
+              ? __bfloat162float(__float2bfloat16_rn(x[static_cast<size_t>(row) * k + kc]))
+              : 0.f;
+      ws[r * kF32Ld + kk] =
+          col < n && kc < k ? static_cast<float>(w_q[static_cast<size_t>(col) * k + kc]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kF32K; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = xs[(ty + 16 * r) * kF32Ld + kk];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = ws[(tx + 16 * c) * kF32Ld + kk];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = m0 + ty + 16 * r;
+    if (row >= m) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = n0 + tx + 16 * c;
+      if (col < n) out[static_cast<size_t>(row) * n + col] = acc[r][c] * scale[col];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -356,6 +424,22 @@ int w8_matmul(const void* x, const void* w_q, const void* scale, void* out, int 
 int w8_matmul_smem_bytes(int bt, int stages) {
   return 1024 + stages * (BN * kBK + 2 * bt * 128) + 16 * stages + 16;
 }
+
+// out (M, N) f32 = (bf16(x) (M, K) f32 @ w_q (N, K) int8 ^T) * scale (N,)
+// f32, any M, N, K >= 1. Launches on `stream`, does not synchronise; returns
+// 0 or an error code for w8_matmul_error_string.
+int w8_matmul_f32(const void* x, const void* w_q, const void* scale, void* out, int m, int n,
+                  int k, void* stream) {
+  if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kF32Tile - 1) / kF32Tile, (m + kF32Tile - 1) / kF32Tile);
+  w8_matmul_f32_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w_q),
+      static_cast<const float*>(scale), static_cast<float*>(out), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Static shared memory of a block of the f32 kernel.
+int w8_matmul_f32_smem_bytes() { return 2 * kF32Tile * kF32Ld * 4; }
 
 const char* w8_matmul_error_string(int code) { return hopper_host::error_string(code); }
 

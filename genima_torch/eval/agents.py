@@ -7,7 +7,9 @@ Counterpart of ``SDControlNetAgent``, ``SDXLControlNetAgent`` and their
   the ``sd_ckpt`` base trees (``params.msgpack``) over it, then the
   fine-tuned ControlNet found by ``find_model_checkpoint(diffusion_ckpt)``,
   each loaded through ``params_from_jax``'s naming rules into the
-  pipeline's modules (bf16 on the card);
+  pipeline's modules, in the agent's ``dtype`` (the reference's field:
+  ``None`` is ``default_dtype``, bf16 on the card; ``torch.float32`` keeps
+  an f32 pipeline and an f32 tree, which sends f32 through the kernels);
 - the tokenizer (``load_tokenizer(merges, model_dir=sd_ckpt)``) and a
   prompt-embedding cache keyed by the token ids;
 - per-episode latents from a ``torch.Generator`` on the device, seeded with
@@ -66,12 +68,19 @@ class SDControlNetAgent:
     seed: int = 2  # per-episode latent seed (the reference's diffusion_seed)
     autoencoder: str = ""  # "taesd": decode with the tiny VAE
     device: Any = "cuda"
+    # the pipeline's and the weights' dtype; None: the pipeline's default
+    # (bf16 on the card, f32 on the CPU), or the given pipe's own
+    dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
         if self.pipe is None:
+            given = {} if self.dtype is None else {"dtype": self.dtype}
             self.pipe = self.PIPELINE(backend=self.backend, device=self.device,
-                                      use_tiny_vae=self.autoencoder == "taesd")
+                                      use_tiny_vae=self.autoencoder == "taesd", **given)
+        elif self.dtype is not None and self.dtype != self.pipe.dtype:
+            raise ValueError(f"dtype {self.dtype} does not match the pipe's {self.pipe.dtype}")
         self.device = self.pipe.device
+        self.dtype = self.pipe.dtype
         self.tokenizer = load_tokenizer(self.tokenizer_merges, model_dir=self.sd_ckpt)
         if self.params is None:
             self.params = self._load_params()

@@ -25,7 +25,7 @@ drive it.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -75,7 +75,7 @@ VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent, "pix2pix": SDP
 
 def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
                     conv_backend: str = "xla", n_envs: int = 1, variant: str = "sd",
-                    resolution: int = RESOLUTION):
+                    resolution: int = RESOLUTION, dtype: Optional[torch.dtype] = None):
     """Returns ``(step, args)``; ``step(**args)`` runs one control step.
     ``backend`` and ``conv_backend`` are the pipeline's (the default path, or
     the opt-in serving configuration ``"pallas+w8"`` / ``"fused"``, whose
@@ -85,9 +85,12 @@ def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",
     ``variant="sdxl"``: ``prompt_embeds`` is the (hidden, pooled) pair and
     ``noise`` the (5, n, 64, 64, 4) ancestral noise. ``resolution`` is the
     tiled observation's side (the eval CLI's ``image_resolution``: 768 gives
-    96x96 latents and 384x384 views, resized to ``OBS_SIZE`` for ACT)."""
+    96x96 latents and 384x384 views, resized to ``OBS_SIZE`` for ACT).
+    ``dtype`` is the diffusion pipeline's (the agents' field: ``None`` is
+    bf16 on the card; ``torch.float32`` sends f32 through every kernel)."""
     agent_cls = VARIANTS[variant]
-    pipe = agent_cls.PIPELINE(device=device, backend=backend, conv_backend=conv_backend)
+    given = {} if dtype is None else {"dtype": dtype}
+    pipe = agent_cls.PIPELINE(device=device, backend=backend, conv_backend=conv_backend, **given)
     dag = agent_cls(
         pipe, params=pipe.init_params(torch.Generator(device=pipe.device).manual_seed(seed)),
         resolution=resolution)

@@ -21,7 +21,10 @@ prompt tokens; under ``"pallas_self"`` only self-attention does.
   consumer warpgroups, the key tile and the ring depth per shape. It reads
   (B, S, H, D) in place with row stride H*D; the JAX wrapper's
   transposes to (B*H, S, D) are a TPU tiling artifact and are not ported.
-  Takes bf16 and every head dim D from 1 to 256 (SD-1.5's 40/80/160 among
+  On f32 q, k and v it launches ``csrc/attention_f32.cuh``'s forward
+  instead (FFMA on the CUDA cores, f32 out, as the TPU kernel writes q's
+  dtype; ``f32_plan`` gives its blocks): no bf16 round trip.
+  Takes bf16 or f32 and every head dim D from 1 to 256 (SD-1.5's 40/80/160 among
   them), read as ceil(D / 64) atoms of 64 columns; a D that is not a
   multiple of 8 is zero-padded to the next one in a scratch copy first
   (TMA needs 16-byte row strides), the kernel scaled by the real D, and only
@@ -271,9 +274,55 @@ def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int |
                 smem_bytes=smem_bytes(nwg, bn, stages, atoms), why_short=why, atoms=atoms)
 
 
-def _plan_for(b: int, sq: int, sk: int, h: int, d: int) -> Plan:
-    """The plan a call launches (``tune_kernels`` and the card tests swap in
-    others)."""
+F32_ROWS = 64  # query rows a block of the f32 forward, keys a K/V tile
+F32_THREADS = 256  # a 16 x 16 grid of threads, FFMA on the CUDA cores
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """One call of the f32 attention kernels (``csrc/attention_f32.cuh``):
+    blocks of ``rows`` query rows (or keys, in B2b's dk/dv kernel) over
+    (tiles, heads, batch), a head held in shared memory as ``atoms``
+    64-column atoms, each row 64 * atoms + 1 floats apart."""
+
+    rows: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+    atoms: int
+    why_short: str  # why the grid is under one wave ("" if it is not)
+    threads: int = F32_THREADS
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def f32_smem_bytes(atoms: int) -> int:
+    """Dynamic shared memory of an f32 forward block: the Q, K and V tiles
+    and P. Mirrors ``fwd_smem_bytes`` in ``csrc/attention_f32.cuh``, which
+    ``flash_attention_f32_smem_bytes`` and ``packed_attention_f32_smem_bytes``
+    return."""
+    return 4 * (3 * F32_ROWS * (ATOM * atoms + 1) + F32_ROWS * (F32_ROWS + 1))
+
+
+def f32_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS) -> F32Plan:
+    """The f32 forward's launch for a (B, Sq, Sk, heads) call at head dim
+    ``d``: one block per 64 query rows, head and batch; one kernel per
+    atom count, so every shape has one."""
+    _check_shape(b, sq, sk, h)
+    check_head_dim(d)
+    grid = (-(-sq // F32_ROWS), h, b)
+    blocks = grid[0] * h * b
+    why = f"{grid[0]} tiles of {F32_ROWS} query rows x {h} heads x batch {b}" if blocks < sms else ""
+    return F32Plan(rows=F32_ROWS, grid=grid, smem_bytes=f32_smem_bytes(head_atoms(d)),
+                   atoms=head_atoms(d), why_short=why)
+
+
+def _plan_for(b: int, sq: int, sk: int, h: int, d: int, *, dtype=torch.bfloat16):
+    """The plan a call launches: ``plan``'s on bf16, ``f32_plan``'s on f32
+    (``tune_kernels`` and the card tests swap in others)."""
+    if dtype == torch.float32:
+        return f32_plan(b, sq, sk, h, d)
     return plan(b, sq, sk, h, d)
 
 
@@ -290,16 +339,35 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    # f32: pointers, (B, Sq, Sk, heads, d), the stream
+    lib.flash_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p
+    ]
+    lib.flash_attention_fwd_f32.restype = ctypes.c_int
+    lib.flash_attention_f32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_attention_f32_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+CUDA_DTYPES = (torch.bfloat16, torch.float32)  # what the attention kernels take
+
+
+def check_dtypes(q: torch.Tensor, *others: tuple[str, torch.Tensor]) -> None:
+    """Raises unless q is bf16 or f32 and each named tensor has q's dtype."""
+    if q.dtype not in CUDA_DTYPES:
+        raise ValueError(f"q must be bfloat16 or float32 on CUDA, got {q.dtype}")
+    for name, x in others:
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} as q is (bfloat16 or float32 on "
+                             f"CUDA), got {x.dtype}")
 
 
 def _check_cuda_inputs(q, k, v) -> None:
     b, _, h, d = q.shape
+    check_dtypes(q, ("k", k), ("v", v))
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16 on CUDA, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if k.shape != (b, k.shape[1], h, d) or v.shape != k.shape or k.shape[1] < 1:
@@ -315,22 +383,30 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
-    p = _plan_for(b, sq, k.shape[1], h, d)
-    dp = padded_head_dim(d)
-    qp, kp, vp = (pad_heads(x, d) for x in (q, k, v))
-    out = torch.empty_like(qp)
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-                                     b, sq, k.shape[1], h, dp, d, p.nwg, p.bn, p.stages, stream)
+    if q.dtype == torch.float32:  # the FFMA kernel (f32_plan), any d: no padding
+        out = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.flash_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             out.data_ptr(), b, sq, k.shape[1], h, d, stream)
+    else:
+        p = _plan_for(b, sq, k.shape[1], h, d)
+        dp = padded_head_dim(d)
+        qp, kp, vp = (pad_heads(x, d) for x in (q, k, v))
+        out = torch.empty_like(qp)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.flash_attention_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                         out.data_ptr(), b, sq, k.shape[1], h, dp, d, p.nwg,
+                                         p.bn, p.stages, stream)
     with _build.COUNT_LOCK:  # mesh rows launch from several threads
         flash_attention.launches += 1
         flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_fwd launch failed: {lib.flash_attention_error_string(rc).decode()} ({rc})")
-    return unpad_heads(out, d)
+    return out if q.dtype == torch.float32 else unpad_heads(out, d)
 
 
 class FlashAttention(torch.autograd.Function):

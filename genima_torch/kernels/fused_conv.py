@@ -25,6 +25,10 @@ Layouts are the JAX package's: x and y NHWC ``(B, H, W, C)``, w HWIO
   its VMEM channel split are lane and VMEM rules of that chip and are not
   ported. Bound: tensor-core operations at the decoder's widths, input
   bytes for conv_out.
+  On f32 x it launches the same source's f32 kernel instead (an FFMA
+  implicit GEMM on the CUDA cores: TF32 would miss the f32 result; f32
+  weights, activation, sums and output, as the TPU kernel keeps x's
+  dtype; ``f32_plan`` gives its tile), for any C and O.
 * CPU: ``fused_conv3x3_reference``, the kernel's arithmetic in plain
   PyTorch. The wrapper takes it only for tensors that lie on the CPU.
 
@@ -131,9 +135,54 @@ def make_plan(b: int, h: int, w: int, c: int, o: int, bn: int, rows: int,
                 smem_bytes=smem_bytes(bn, rows), why_short=why)
 
 
-def _plan_for(b: int, h: int, w: int, c: int, o: int) -> Plan:
-    """The plan a call launches (``tune_kernels`` and the card tests swap
-    in others)."""
+F32_TILES = {64: 8, 16: 16}  # output channels -> pixel patch side of the f32 kernel
+F32_CHUNK = 16  # input channels a band of the f32 kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """One call of the f32 kernel: blocks of a ``side`` x ``side`` pixel
+    patch by ``bn`` output channels over (patches, channel blocks, batch),
+    256 threads each."""
+
+    bn: int
+    side: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+    why_short: str
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def f32_smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of an f32 block: the halo band of a chunk
+    (17 floats a pixel) and the chunk's weights of the nine taps and the
+    skip. Mirrors ``F32Cfg::kSmem`` in the source, which
+    ``fused_conv3x3_f32_smem_bytes`` returns."""
+    halo = F32_TILES[bn] + 2
+    return 4 * (halo * halo * (F32_CHUNK + 1) + 10 * F32_CHUNK * bn)
+
+
+def f32_plan(b: int, h: int, w: int, c: int, o: int, sms: int = SMS) -> F32Plan:
+    """The f32 kernel's tile: 16 output channels over 16 x 16 pixels for
+    conv_out's few channels, else 64 over 8 x 8."""
+    if min(b, h, w, c, o) < 1:
+        raise ValueError(f"empty conv: B={b}, H={h}, W={w}, C={c}, O={o}")
+    bn = 16 if o <= 16 else 64
+    side = F32_TILES[bn]
+    grid = (-(-h // side) * -(-w // side), -(-o // bn), b)
+    n = grid[0] * grid[1] * grid[2]
+    why = f"{n} patches of {side}x{side} pixels x {bn} output channels" if n < sms else ""
+    return F32Plan(bn=bn, side=side, grid=grid, smem_bytes=f32_smem_bytes(bn), why_short=why)
+
+
+def _plan_for(b: int, h: int, w: int, c: int, o: int, *, dtype=torch.bfloat16):
+    """The plan a call launches: ``plan``'s on bf16, ``f32_plan``'s on f32
+    (``tune_kernels`` and the card tests swap in others)."""
+    if dtype == torch.float32:
+        return f32_plan(b, h, w, c, o)
     return plan(b, h, w, c, o)
 
 
@@ -146,6 +195,12 @@ def _library() -> ctypes.CDLL:
     lib.fused_conv3x3_smem_bytes.restype = ctypes.c_int
     lib.fused_conv3x3_error_string.argtypes = [ctypes.c_int]
     lib.fused_conv3x3_error_string.restype = ctypes.c_char_p
+    # f32: eight pointers, (B, H, W, C, O, bn), the stream
+    lib.fused_conv3x3_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.fused_conv3x3_f32.restype = ctypes.c_int
+    lib.fused_conv3x3_f32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_conv3x3_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -155,22 +210,60 @@ def _pad_out(t: torch.Tensor, opad: int) -> torch.Tensor:
     return t if t.shape[-1] == opad else F.pad(t, (0, opad - t.shape[-1]))
 
 
-def _launch(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
+def _check_cuda_inputs(x, w, b, scale, shift, wskip, residual) -> None:
     bsz, h, wd, c = x.shape
     o = w.shape[-1]
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"x must be bfloat16 on CUDA, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bfloat16 or float32 on CUDA, got {x.dtype}")
     if w.shape != (3, 3, c, o) or b.shape != (o,):
         raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)} do not fit C={c}")
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
-    p = _plan_for(bsz, h, wd, c, o)
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
     for name, t, shape in (("scale", scale, (bsz, c)), ("shift", shift, (bsz, c)),
                            ("wskip", wskip, (c, o)), ("residual", residual, (bsz, h, wd, o))):
         if t is not None and t.shape != shape:
             raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
+
+
+def _count(x, o: int) -> None:
+    with _build.COUNT_LOCK:  # mesh rows launch from several threads
+        fused_conv3x3.launches += 1
+        fused_conv3x3.launches_by_shape[(*x.shape, o)] += 1
+
+
+def _launch_f32(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
+    """The f32 kernel: every operand in f32 (weights included), f32 out."""
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    p = _plan_for(bsz, h, wd, c, o, dtype=x.dtype)
+    operands = [t if t is None else t.float().contiguous()
+                for t in (x, w, b, scale, shift, wskip, residual)]
+    for t in operands:
+        if t is not None and t.device != x.device:
+            raise ValueError(f"every operand must be on {x.device}")
+    out = torch.empty(bsz, h, wd, o, device=x.device, dtype=torch.float32)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.fused_conv3x3_f32(*[None if t is None else t.data_ptr() for t in operands],
+                                   out.data_ptr(), bsz, h, wd, c, o, p.bn, stream)
+    _count(x, o)
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_conv3x3_f32 launch failed: {lib.fused_conv3x3_error_string(rc).decode()} "
+            f"({rc})")
+    return out
+
+
+def _launch(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
+    _check_cuda_inputs(x, w, b, scale, shift, wskip, residual)
+    if x.dtype == torch.float32:
+        return _launch_f32(x, w, b, scale, shift, wskip, residual)
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    p = _plan_for(bsz, h, wd, c, o)
     opad = -(-o // 8) * 8
     operands = dict(
         x=x.contiguous(),
@@ -191,9 +284,7 @@ def _launch(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fused_conv3x3(*ptrs, out.data_ptr(), bsz, h, wd, c, o, opad, p.bn, p.rows,
                                p.blocks, stream)
-    with _build.COUNT_LOCK:  # mesh rows launch from several threads
-        fused_conv3x3.launches += 1
-        fused_conv3x3.launches_by_shape[(bsz, h, wd, c, o)] += 1
+    _count(x, o)
     if rc != 0:
         raise RuntimeError(
             f"fused_conv3x3 launch failed: {lib.fused_conv3x3_error_string(rc).decode()} ({rc})")

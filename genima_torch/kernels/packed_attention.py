@@ -45,6 +45,11 @@ it runs B1 and records nothing for autograd.
   multiples of 64 (9216 at 768x768, 16384 at 1024x1024): the TPU forward's
   ``_forward_streaming`` rows. Anything else raises (d above 256: five
   atoms of f32 accumulator would pass a thread's registers).
+  On f32 q, k and v (``--mixed_precision no``, f32 serving) B1, B2a and B2b
+  launch ``csrc/attention_f32.cuh``'s kernels instead: FFMA on the CUDA
+  cores, f32 products, P and dS kept in f32, o, L, dq, dk and dv in f32, as
+  the TPU kernels write q's dtype; any head dim up to 256 without padding,
+  the same Sq and Sk. No bf16 round trip.
 * CPU: ``packed_attention_reference``, ``packed_attention_lse_reference`` and
   ``packed_attention_backward_reference``, the same arithmetic in plain
   PyTorch (bf16 roundings included). The wrappers take them only for
@@ -115,13 +120,38 @@ class BackwardPlan:
         return min(255, REGISTERS_SM // self.threads // 8 * 8)
 
 
+def f32_backward_rows(atoms: int) -> int:
+    """Query rows (dq kernel) or keys (dk/dv kernel) a block of the f32
+    backward: 32 at four atoms, whose four resident 64-row tiles would not
+    fit. Mirrors ``bwd_rows`` in ``csrc/attention_f32.cuh``."""
+    return 32 if atoms == 4 else 64
+
+
+def f32_backward_smem_bytes(atoms: int, dkdv: bool) -> int:
+    """Shared memory of an f32 backward block: four tiles (Q, dO, K, V), dS
+    (and P^T in the dk/dv kernel), and L and Drow of a tile's rows. Mirrors
+    ``bwd_smem_bytes`` in ``csrc/attention_f32.cuh``."""
+    r = f32_backward_rows(atoms)
+    return 4 * (4 * r * (fa.ATOM * atoms + 1) + (2 if dkdv else 1) * r * (r + 1) + 2 * r)
+
+
 def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
-                  sms: int = SMS) -> BackwardPlan:
-    """The fixed tiling of B2b (128-row blocks, a ring of 64-row tiles) at
-    one shape; raises for a shape the kernels do not take."""
+                  sms: int = SMS, *, dtype=torch.bfloat16) -> BackwardPlan:
+    """The fixed tiling of B2b (128-row blocks, a ring of 64-row tiles; on
+    f32 the FFMA kernels' blocks of ``f32_backward_rows`` rows, 256
+    threads) at one shape; raises for a shape the kernels do not take."""
     _check_shape(b, sq, sk, h)
     fa.check_head_dim(d)
     atoms = fa.head_atoms(d)
+    if dtype == torch.float32:
+        rows = f32_backward_rows(atoms)
+        dq, dkdv = (-(-sq // rows), h, b), (-(-sk // rows), h, b)
+        short = [f"{name}: {g[0]} blocks of {rows} x {h} heads x batch {b}"
+                 for name, g in (("dq", dq), ("dk/dv", dkdv)) if g[0] * h * b < sms]
+        return BackwardPlan(
+            dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=f32_backward_smem_bytes(atoms, False),
+            dkdv_smem_bytes=f32_backward_smem_bytes(atoms, True), why_short="; ".join(short),
+            atoms=atoms, stages=1, passes=1, rows=rows, threads=fa.F32_THREADS)
     stages = 2 if atoms >= 3 else BWD_STAGES
     rows, threads = (BLOCK, 160) if atoms == 4 else (BWD_BLOCK_ROWS, BWD_THREADS)
     tile = BLOCK * fa.ATOM * 2 * atoms  # 64 rows of every atom
@@ -276,11 +306,10 @@ def kernel_tiles(q: torch.Tensor, k: torch.Tensor) -> bool:
 def _check_cuda_inputs(q, k, v, num_heads) -> None:
     b, sq, c = q.shape
     sk = k.shape[1]
+    fa.check_dtypes(q, ("k", k), ("v", v))
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16 on CUDA, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if k.shape != (b, sk, c) or v.shape != k.shape:
@@ -297,9 +326,13 @@ def _device(q: torch.Tensor) -> str:
     return q.device.type
 
 
-def _plan_for(b: int, sq: int, sk: int, h: int, d: int) -> fa.Plan:
-    """The plan a B1 or B2a call launches (``tune_kernels`` and the card
-    tests swap in others)."""
+def _plan_for(b: int, sq: int, sk: int, h: int, d: int, *, dtype=torch.bfloat16):
+    """The plan a B1 or B2a call launches: ``forward_plan``'s on bf16,
+    ``fa.f32_plan``'s on f32 (``tune_kernels`` and the card tests swap in
+    others)."""
+    if dtype == torch.float32:
+        _check_shape(b, sq, sk, h)
+        return fa.f32_plan(b, sq, sk, h, d)
     return forward_plan(b, sq, sk, h, d)
 
 
@@ -319,6 +352,13 @@ def _library() -> ctypes.CDLL:
     lib.packed_attention_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_error_string.restype = ctypes.c_char_p
+    # f32: q, k, v, o, lse (or null), then (B, Sq, Sk, heads, d), the stream
+    lib.packed_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p
+    ]
+    lib.packed_attention_fwd_f32.restype = ctypes.c_int
+    lib.packed_attention_f32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.packed_attention_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -334,6 +374,13 @@ def _bwd_library() -> ctypes.CDLL:
     lib.packed_attention_bwd_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_bwd_error_string.restype = ctypes.c_char_p
+    # f32: ten pointers, (B, Sq, Sk, heads, d), the stream
+    lib.packed_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p
+    ]
+    lib.packed_attention_bwd_f32.restype = ctypes.c_int
+    lib.packed_attention_bwd_f32_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.packed_attention_bwd_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -350,6 +397,8 @@ def _count(fn, q: torch.Tensor, k: torch.Tensor) -> None:
 
 def _launch_forward(q, k, v, num_heads, with_lse: bool):
     _check_cuda_inputs(q, k, v, num_heads)
+    if q.dtype == torch.float32:
+        return _launch_forward_f32(q, k, v, num_heads, with_lse)
     b, sq, c = q.shape
     d = c // num_heads
     p = _plan_for(b, sq, k.shape[1], num_heads, d)
@@ -370,6 +419,24 @@ def _launch_forward(q, k, v, num_heads, with_lse: bool):
     _raise_on(rc, "packed_attention_fwd" + ("_lse" if with_lse else ""),
               lib.packed_attention_error_string)
     out = fa.unpad_heads(out, d)
+    return (out, lse) if with_lse else out
+
+
+def _launch_forward_f32(q, k, v, num_heads, with_lse: bool):
+    """B1 or B2a on f32: the FFMA kernel of ``csrc/attention_f32.cuh``
+    (``fa.f32_plan``), any head dim without padding."""
+    b, sq, c = q.shape
+    d = c // num_heads
+    out = torch.empty_like(q)
+    lse = torch.empty(b, sq, num_heads, device=q.device, dtype=torch.float32) if with_lse else None
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.packed_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), lse.data_ptr() if with_lse else None,
+                                          b, sq, k.shape[1], num_heads, d, stream)
+    _count(packed_attention_forward_lse if with_lse else packed_flash_attention, q, k)
+    _raise_on(rc, "packed_attention_fwd_f32", lib.packed_attention_error_string)
     return (out, lse) if with_lse else out
 
 
@@ -405,6 +472,8 @@ def packed_attention_backward(
         raise ValueError(f"shapes o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
     b, sq, c = q.shape
     d = c // num_heads
+    if q.dtype == torch.float32:
+        return _launch_backward_f32(q, k, v, o, lse, do, num_heads)
     qp, kp, vp, op, dop = (fa.pad_heads(x, d) for x in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
     # L * log2(e) and rowsum(dO * O) as (B, heads, Sq), written by the first
@@ -421,6 +490,27 @@ def packed_attention_backward(
     _count(packed_attention_backward, q, k)
     _raise_on(rc, "packed_attention_bwd", lib.packed_attention_bwd_error_string)
     return tuple(fa.unpad_heads(x, d) for x in (dq, dk, dv))
+
+
+def _launch_backward_f32(q, k, v, o, lse, do, num_heads):
+    """B2b on f32: the two FFMA kernels of ``csrc/attention_f32.cuh``
+    (``backward_plan(..., dtype=torch.float32)``)."""
+    b, sq, c = q.shape
+    d = c // num_heads
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # rowsum(dO * O) as (B, heads, Sq), written by the first kernel for the second
+    drow = torch.empty(b, num_heads, sq, device=q.device, dtype=torch.float32)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.packed_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), drow.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, k.shape[1], num_heads, d, stream,
+        )
+    _count(packed_attention_backward, q, k)
+    _raise_on(rc, "packed_attention_bwd_f32", lib.packed_attention_bwd_error_string)
+    return dq, dk, dv
 
 
 class PackedFlashAttention(torch.autograd.Function):

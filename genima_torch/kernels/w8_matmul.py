@@ -20,6 +20,11 @@ brings weight rows in as the kernel's wgmma A operand.
   tile, the split and the ring depth per shape. Takes bf16 x, K % 16 == 0
   and N % 8 == 0; anything else raises. Bound: weight bytes at M <= 256,
   tensor cores at M = 4096.
+  On f32 x it launches the same source's f32 kernel instead: each x value
+  rounded to bf16 as the block loads it (the TPU body's cast, with no cast
+  pass in the wrapper), exact bf16 x int8 products summed in f32 on the
+  CUDA cores (FFMA), ``* scale``, f32 out; no split, so repeated calls give
+  the same bits.
 * CPU: ``w8_matmul_reference``, the JAX fallback's arithmetic (x rounded to
   bf16, exact int8 values, f32 accumulate, ``* scale``, cast to x's dtype).
   The wrapper takes it only for tensors that lie on the CPU.
@@ -177,9 +182,41 @@ def _workspace(device: torch.device, p: Plan, stream: torch.cuda.Stream) -> tupl
     return ws.data_ptr(), tickets.data_ptr()
 
 
-def _plan_for(m: int, k: int, n: int) -> Plan:
-    """The plan a call launches (``tune_kernels`` and the card tests swap
-    in others)."""
+F32_TILE = 64  # tokens and weight rows a block of the f32 kernel
+F32_K = 32  # K a shared-memory tile of it
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """One call of the f32 kernel: 64 x 64 tiles over (N tiles, token
+    tiles), 256 threads each, static shared memory."""
+
+    grid: tuple[int, int]
+    smem_bytes: int
+    why_short: str
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def f32_plan(m: int, k: int, n: int, sms: int = SMS) -> F32Plan:
+    """The f32 kernel's grid for an (M, K) x (K, N) call. Mirrors
+    ``w8_matmul_f32_smem_bytes`` in the source (x and w tiles, 33 floats a
+    row)."""
+    if min(m, k, n) < 1:
+        raise ValueError(f"M={m}, K={k}, N={n}: every dimension must be positive")
+    grid = (-(-n // F32_TILE), -(-m // F32_TILE))
+    why = (f"{grid[0] * grid[1]} tiles of {F32_TILE} tokens x {F32_TILE} weight rows"
+           if grid[0] * grid[1] < sms else "")
+    return F32Plan(grid=grid, smem_bytes=2 * F32_TILE * (F32_K + 1) * 4, why_short=why)
+
+
+def _plan_for(m: int, k: int, n: int, *, dtype=torch.bfloat16):
+    """The plan a call launches: ``plan``'s on bf16 x, ``f32_plan``'s on f32
+    (``tune_kernels`` and the card tests swap in others)."""
+    if dtype == torch.float32:
+        return f32_plan(m, k, n)
     return plan(m, k, n)
 
 
@@ -193,14 +230,19 @@ def _library() -> ctypes.CDLL:
     lib.w8_matmul_smem_bytes.restype = ctypes.c_int
     lib.w8_matmul_error_string.argtypes = [ctypes.c_int]
     lib.w8_matmul_error_string.restype = ctypes.c_char_p
+    # f32: x, w_q, scale, out, then (M, N, K), the stream
+    lib.w8_matmul_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.w8_matmul_f32.restype = ctypes.c_int
+    lib.w8_matmul_f32_smem_bytes.argtypes = []
+    lib.w8_matmul_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
 
 def _check_cuda_inputs(x2, w_q, scale) -> None:
     m, k = x2.shape
     n = w_q.shape[0]
-    if x2.dtype != torch.bfloat16:
-        raise ValueError(f"x must be bfloat16 on CUDA, got {x2.dtype}")
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bfloat16 or float32 on CUDA, got {x2.dtype}")
     if w_q.dtype != torch.int8 or w_q.shape != (n, k):
         raise ValueError(f"w_q must be int8 (N, {k}), got {w_q.dtype} {tuple(w_q.shape)}")
     if scale.dtype != torch.float32 or scale.shape != (n,):
@@ -227,14 +269,18 @@ def _forward(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.T
     x2 = x.reshape(-1, k).contiguous()  # proj_in's tokens are a permuted NCHW view
     _check_cuda_inputs(x2, w_q, scale)
     m, n = x2.shape[0], w_q.shape[0]
-    p = _plan_for(m, k, n)
     out = torch.empty(m, n, device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
-        ws, tickets = _workspace(x.device, p, stream)
-        rc = lib.w8_matmul(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                           m, n, k, p.bt, p.split, p.stages, ws, tickets, stream.cuda_stream)
+        if x.dtype == torch.float32:  # bf16 rounding of x inside the kernel (f32_plan)
+            rc = lib.w8_matmul_f32(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                                   out.data_ptr(), m, n, k, stream.cuda_stream)
+        else:
+            p = _plan_for(m, k, n)
+            ws, tickets = _workspace(x.device, p, stream)
+            rc = lib.w8_matmul(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                               m, n, k, p.bt, p.split, p.stages, ws, tickets, stream.cuda_stream)
     with _build.COUNT_LOCK:  # mesh rows launch from several threads
         w8_matmul.launches += 1
         w8_matmul.launches_by_shape[(m, k, n)] += 1

@@ -53,8 +53,8 @@ def test_packed_attention_kernel_rejects_unsupported_shapes(cuda):
     q = torch.zeros(1, 320, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
         pa.packed_flash_attention(q[:, :100], q[:, :100], q[:, :100], 2)
-    with pytest.raises(ValueError, match="bfloat16"):
-        pa.packed_flash_attention(q.float(), q.float(), q.float(), 2)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):  # f32 has its kernel now
+        pa.packed_flash_attention(q.half(), q.half(), q.half(), 2)
 
 
 # the three SD levels at 64x64 latents, at B=1 and at the trainer's B=4
@@ -937,3 +937,139 @@ def test_unet_pretrain_step_on_cuda_matches_library_attention(cuda):
     attn = [k for k in x if ".attn1.to_" in k and k.endswith("weight")]
     assert len(attn) == 16  # 4 projections x (1 down, 2 up, 1 mid-block) attentions
     assert max(diff[k].norm().item() / x[k].norm().item() for k in attn) <= 0.1
+
+
+# --- float32: FFMA kernels held to their f32 plain versions, TF32 off ------
+
+F32_TOL = 1e-4  # attention and L max abs err at unit-scale inputs; B2b, B4 / max |grad|, |y|
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain versions in full f32: cuBLAS and cuDNN without TF32."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _f32_inputs(cuda, shapes, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(*s, generator=gen, device=cuda) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,h", [
+    (1, 4096, 320, 5), (4, 1024, 640, 10), (4, 256, 1280, 20),  # SD (and SDXL's 1024/256)
+    (1, 4096, 320, 8), (4, 1024, 640, 8), (2, 256, 1280, 8),  # SD-1.5: d = 40/80/160
+    (1, 9216, 320, 5),  # 768x768
+] + [(2, 256, 2 * d, 2) for d in (1, 36, 64, 100, 160, 200, 256)])
+def test_f32_packed_kernels_match_plain_versions(cuda, no_tf32, b, s, c, h):
+    q, k, v, do = _f32_inputs(cuda, [(b, s, c)] * 4, seed=s + c + h)
+    launches = pa.packed_flash_attention.launches
+    o1 = pa.packed_flash_attention(q, k, v, h)
+    o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    torch.cuda.synchronize()
+    assert pa.packed_flash_attention.launches == launches + 1  # the f32 kernel, no fallback
+    assert o1.dtype == o.dtype == torch.float32 and torch.equal(o, o1)
+    assert (o1 - o_ref).abs().max().item() <= F32_TOL
+    assert (lse - lse_ref).abs().max().item() <= F32_TOL
+    if s > 4096:  # the plain backward's f32 scores of 9216 rows: the forward only
+        return
+    got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) and x.dtype == torch.float32 for x, y in zip(got, again))
+    assert max(_rel_err(x, y) for x, y in zip(got, want)) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_f32_packed_autograd_runs_b2a_and_b2b(cuda, no_tf32):
+    q, k, v, do = _f32_inputs(cuda, [(2, 256, 128)] * 4, seed=3)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = (pa.packed_attention_forward_lse.launches, pa.packed_attention_backward.launches,
+              pa.PackedFlashAttention.fallbacks)
+    pa.packed_flash_attention(*leaves, 2).backward(do)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    pa.packed_attention_reference(*ref, 2).backward(do)
+    torch.cuda.synchronize()
+    assert (pa.packed_attention_forward_lse.launches, pa.packed_attention_backward.launches,
+            pa.PackedFlashAttention.fallbacks) == (counts[0] + 1, counts[1] + 1, counts[2])
+    for x, y in zip(leaves, ref):
+        assert _rel_err(x.grad, y.grad) <= F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,c,h", [
+    (1, 4096, 4096, 320, 5), (1, 4096, 77, 320, 5), (1, 64, 77, 1280, 20),
+    (1, 1024, 77, 640, 8), (2, 130, 129, 12, 4), (1, 1000, 1000, 8 * 36, 8),
+    (1, 1000, 77, 8 * 256, 8), (1, 200, 300, 8 * 200, 8)])
+def test_f32_flash_attention_matches_plain_version(cuda, no_tf32, b, sq, sk, c, h):
+    q, k, v = _f32_inputs(cuda, [(b, sq, h, c // h), (b, sk, h, c // h), (b, sk, h, c // h)],
+                          seed=sq + sk)
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and (got - want).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,variant", [(s, "gn_silu") for s in CONV_SHAPES] + [
+    ((1, 512, 512, 128, 3), "plain"), ((2, 33, 66, 136, 256), "skip_residual"),
+    ((1, 9, 70, 16, 8), "skip_residual")])
+def test_f32_fused_conv_matches_plain_version(cuda, no_tf32, shape, variant):
+    b, h, w, c, o = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(b, h, w, c, generator=gen, device=cuda)
+    args = dict(x=x, w=torch.randn(3, 3, c, o, generator=gen, device=cuda) / (3 * c ** 0.5),
+                b=torch.randn(o, generator=gen, device=cuda), scale=None, shift=None,
+                wskip=None, residual=None)
+    if variant != "plain":
+        args["scale"], args["shift"] = fc.fold_group_norm(
+            x, 1.0 + 0.2 * torch.randn(c, generator=gen, device=cuda),
+            0.2 * torch.randn(c, generator=gen, device=cuda), 8, 1e-6)
+    if variant == "skip_residual" or (variant == "gn_silu" and c == o):
+        args["residual"] = torch.randn(b, h, w, o, generator=gen, device=cuda)
+    if variant == "skip_residual":
+        args["wskip"] = torch.randn(c, o, generator=gen, device=cuda) / c ** 0.5
+    launches = fc.fused_conv3x3.launches
+    got = fc.fused_conv3x3(*args.values())
+    want = fc.fused_conv3x3_reference(*args.values())
+    torch.cuda.synchronize()
+    assert fc.fused_conv3x3.launches == launches + 1
+    assert got.dtype == torch.float32 and _rel_err(got, want) <= F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 320, 2560), (4096, 1280, 320), (77, 1024, 1280),
+                                   (64, 1280, 10240), (5, 48, 24)])
+def test_f32_w8_matmul_matches_plain_version_bit_for_bit_twice(cuda, no_tf32, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device=cuda) / k ** 0.5)
+    got = w8.w8_matmul(x, w_q, scale)
+    again = w8.w8_matmul(x, w_q, scale)
+    want = w8.w8_matmul_reference(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    # x rounded to bf16 in the kernel as in the plain version: f32 sums in another order
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_f32_plans_match_the_sources_shared_memory(cuda):
+    lib, blib = pa._library(), pa._bwd_library()
+    for d in (1, 36, 64, 65, 128, 129, 192, 193, 256):
+        plan = pa._plan_for(1, 64, 64, 1, d, dtype=torch.float32)
+        assert lib.packed_attention_f32_smem_bytes(d) == plan.smem_bytes
+        assert fa._library().flash_attention_f32_smem_bytes(d) == plan.smem_bytes
+        bp = pa.backward_plan(1, 64, 64, 1, d, dtype=torch.float32)
+        assert [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1)] == [
+            bp.dq_smem_bytes, bp.dkdv_smem_bytes]
+    for o in (3, 128):
+        plan = fc._plan_for(1, 8, 8, 16, o, dtype=torch.float32)
+        assert fc._library().fused_conv3x3_f32_smem_bytes(plan.bn) == plan.smem_bytes
+    assert w8._library().w8_matmul_f32_smem_bytes() == w8._plan_for(
+        1, 16, 8, dtype=torch.float32).smem_bytes

@@ -1,0 +1,229 @@
+"""Float32 through the port's kernels, on the CPU.
+
+- The f32 launch plans fit the card: at every head dim from 1 to 256 and at
+  every shape the f32 paths pin, each block's shared memory is within the
+  232,448 bytes a block may take and its tile is one the sources
+  instantiate (the card tests hold the sources' own counts to these).
+- The wrappers' checks take f32 (and bf16) and still refuse f16 and f64,
+  and mixed dtypes.
+- ``SDControlNetAgent(dtype=torch.float32)`` (and its SDXL and pix2pix
+  subclasses) builds an f32 pipeline and keeps an f32 tree, as JAX's
+  ``DiffusionAgent.dtype`` does; on the tiny config its ``infer`` on seeded
+  numpy inputs matches JAX's ``make_tiny_sd_agent(dtype=float32)`` within
+  one uint8 level (the two attention paths and the conv orders differ at
+  f32 rounding, which can move a pixel across a level).
+- ``build_main_path(dtype=...)`` hands the dtype to the pipeline.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from genima_tpu.eval.agents import make_tiny_sd_agent as jax_make_tiny_sd_agent
+
+from genima_torch.diffusion.pipeline import SDControlNetPipeline
+from genima_torch.eval import main_path
+from genima_torch.eval.agents import SDControlNetAgent, SDPix2PixAgent, SDXLControlNetAgent
+from genima_torch.kernels import flash_attention as fa
+from genima_torch.kernels import fused_conv as fc
+from genima_torch.kernels import packed_attention as pa
+from genima_torch.kernels import w8_matmul as w8
+from genima_torch.nn.clip_text import CLIPTextConfig
+from genima_torch.nn.unet import UNetConfig
+from genima_torch.nn.vae import VAEConfig
+
+SMEM_BLOCK = 232448  # dynamic shared memory one block may take on an H100
+F32 = torch.float32
+
+# (B, S, C, heads) the f32 paths and checks give B1/B2a/B2b: SD's levels
+# (SDXL's 1024 and 256 tokens among them) at batch 1, 2 and 4, SD-1.5's and
+# 768x768's
+ATTN_SHAPES = [(b, s, c, h) for b in (1, 2, 4)
+               for s, c, h in ((4096, 320, 5), (1024, 640, 10), (256, 1280, 20))] + [
+    (b, s, c, 8) for b in (1, 4) for s, c in ((4096, 320), (1024, 640), (256, 1280))] + [
+    (b, s, c, h) for b in (1, 4) for s, c, h in ((9216, 320, 5), (2304, 640, 10))]
+# B3 (B, Sq, Sk, C, heads): self-attention and the 77 prompt keys at the
+# opt-in path's four levels
+FLASH_SHAPES = [(1, s, k, c, h) for s, c, h in ((4096, 320, 5), (1024, 640, 10), (256, 1280, 20),
+                                                (64, 1280, 20)) for k in (s, 77)]
+# B4 (B, H, W, C, O): the SD VAE decoder at 512^2
+CONV_SHAPES = [(1, 64, 64, 512, 512), (1, 128, 128, 512, 512), (1, 256, 256, 512, 256),
+               (1, 256, 256, 256, 256), (1, 512, 512, 256, 128), (1, 512, 512, 128, 128),
+               (1, 512, 512, 128, 3)]
+# B5 (M, K, N): the opt-in path's int8 linears
+W8_SHAPES = [(m, k, n) for m, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
+             for k, n in ((c, c), (c, 8 * c), (4 * c, c))] + [(77, 1024, c) for c in (320, 640, 1280)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_f32_attention_plans_fit_at_every_head_dim():
+    for d in range(1, 257):
+        atoms = fa.head_atoms(d)
+        for plan in (fa._plan_for(1, 1000, 77, 8, d, dtype=F32),
+                     pa._plan_for(4, 1024, 1024, 8, d, dtype=F32)):
+            assert isinstance(plan, fa.F32Plan) and plan.rows == fa.F32_ROWS
+            assert plan.atoms == atoms and 1 <= atoms <= 4, d
+            assert plan.smem_bytes == fa.f32_smem_bytes(atoms) <= SMEM_BLOCK, d
+        bp = pa.backward_plan(4, 1024, 1024, 8, d, dtype=F32)
+        assert bp.rows == pa.f32_backward_rows(atoms) == (32 if atoms == 4 else 64), d
+        assert max(bp.dq_smem_bytes, bp.dkdv_smem_bytes) <= SMEM_BLOCK, d
+        assert bp.dkdv_smem_bytes == bp.dq_smem_bytes + 4 * bp.rows * (bp.rows + 1)
+        # the bf16 plans of the same head dim are untouched
+        assert fa._plan_for(1, 1000, 77, 8, d) == fa.plan(1, 1000, 77, 8, d)
+
+
+@pytest.mark.parametrize("b,s,c,h", ATTN_SHAPES)
+def test_f32_packed_plans_at_the_pinned_shapes(b, s, c, h):
+    plan = pa._plan_for(b, s, s, h, c // h, dtype=F32)
+    assert plan.grid == (s // 64, h, b) and plan.smem_bytes <= SMEM_BLOCK
+    bp = pa.backward_plan(b, s, s, h, c // h, dtype=F32)
+    assert bp.dq_grid == (s // bp.rows, h, b) == bp.dkdv_grid
+    assert bp.threads == fa.F32_THREADS and max(bp.dq_smem_bytes, bp.dkdv_smem_bytes) <= SMEM_BLOCK
+
+
+@pytest.mark.parametrize("b,sq,sk,c,h", FLASH_SHAPES)
+def test_f32_flash_plans_at_the_pinned_shapes(b, sq, sk, c, h):
+    plan = fa._plan_for(b, sq, sk, h, c // h, dtype=F32)
+    assert plan.grid == (-(-sq // 64), h, b) and plan.smem_bytes <= SMEM_BLOCK
+
+
+def test_f32_conv_and_w8_plans_at_the_pinned_shapes():
+    for b, hh, ww, c, o in CONV_SHAPES:
+        plan = fc._plan_for(b, hh, ww, c, o, dtype=F32)
+        assert (plan.bn, plan.side) == ((16, 16) if o <= 16 else (64, 8))
+        assert plan.smem_bytes == fc.f32_smem_bytes(plan.bn) <= SMEM_BLOCK
+        assert plan.grid == (-(-hh // plan.side) * -(-ww // plan.side), -(-o // plan.bn), b)
+    for m, k, n in W8_SHAPES:
+        plan = w8._plan_for(m, k, n, dtype=F32)
+        assert plan.grid == (-(-n // 64), -(-m // 64)) and plan.smem_bytes == 16896
+
+
+def _inputs(name, dtype):
+    """A call of each wrapper's input checks on CPU tensors of ``dtype``."""
+    if name == "packed":
+        q = torch.zeros(1, 256, 128, dtype=dtype)
+        return lambda: pa._check_cuda_inputs(q, q, q, 2)
+    if name == "flash":
+        q = torch.zeros(1, 77, 2, 40, dtype=dtype)
+        return lambda: fa._check_cuda_inputs(q, q, q)
+    if name == "conv":
+        x = torch.zeros(1, 4, 4, 16, dtype=dtype)
+        return lambda: fc._check_cuda_inputs(x, torch.zeros(3, 3, 16, 8), torch.zeros(8), None,
+                                             None, None, None)
+    x = torch.zeros(4, 32, dtype=dtype)
+    return lambda: w8._check_cuda_inputs(x, torch.zeros(8, 32, dtype=torch.int8),
+                                         torch.ones(8))
+
+
+@pytest.mark.parametrize("name", ["packed", "flash", "conv", "w8"])
+@pytest.mark.parametrize("dtype,ok", [(torch.float32, True), (torch.bfloat16, True),
+                                      (torch.float16, False), (torch.float64, False)])
+def test_wrappers_take_f32_and_refuse_f16_and_f64(name, dtype, ok):
+    check = _inputs(name, dtype)
+    if ok:
+        check()
+        return
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        check()
+
+
+def test_attention_wrappers_refuse_mixed_dtypes():
+    q, k = torch.zeros(1, 256, 128), torch.zeros(1, 256, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k must be torch.float32"):
+        pa._check_cuda_inputs(q, k, q, 2)
+    q4, v4 = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16), torch.zeros(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="v must be torch.bfloat16"):
+        fa._check_cuda_inputs(q4, q4, v4)
+
+
+def _tiny_pipeline(**kw):
+    return SDControlNetPipeline(unet_cfg=UNetConfig.tiny(), vae_cfg=VAEConfig.tiny_test(),
+                                text_cfg=CLIPTextConfig.tiny(), **kw)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("cls", [SDControlNetAgent, SDXLControlNetAgent, SDPix2PixAgent])
+def test_every_agent_hands_its_dtype_to_the_pipeline(monkeypatch, cls):
+    seen = []
+
+    def record(**kw):
+        seen.append(kw)
+        raise _Stop
+
+    monkeypatch.setattr(cls, "PIPELINE", staticmethod(record))
+    for dtype in (torch.float32, None):
+        with pytest.raises(_Stop):
+            cls(dtype=dtype, device="cpu")
+    assert seen[0]["dtype"] is torch.float32 and "dtype" not in seen[1]
+
+
+def test_f32_agent_builds_an_f32_pipeline_and_keeps_an_f32_tree(monkeypatch):
+    monkeypatch.setattr(SDControlNetAgent, "PIPELINE", staticmethod(_tiny_pipeline))
+    agent = SDControlNetAgent(dtype=torch.float32, device="cpu", resolution=32)
+    assert agent.pipe.dtype == agent.dtype == torch.float32
+    for name, module in agent.params.items():
+        dtypes = {t.dtype for t in module.state_dict().values() if t.is_floating_point()}
+        assert dtypes == {torch.float32}, name
+    # None keeps the pipeline's default; a dtype that contradicts a given pipe raises
+    assert SDControlNetAgent(device="cpu", resolution=32).dtype == torch.float32
+    with pytest.raises(ValueError, match="does not match"):
+        SDControlNetAgent(pipe=agent.pipe, params=agent.params, dtype=torch.bfloat16)
+
+
+def test_f32_agent_infer_matches_jax(monkeypatch):
+    """Both agents on one f32 tree (JAX's seeded init, the ControlNet's zero
+    convs redrawn so that its residuals shape the output), the same latents
+    injected and the same prompt through each package's tokenizer and CLIP."""
+    jagent = jax_make_tiny_sd_agent(resolution=32, dtype=jnp.float32, seed=3)
+    leaves = jax.tree_util.tree_leaves(jagent.params)
+    assert {x.dtype for x in leaves} == {np.dtype(np.float32)}  # JAX keeps an f32 tree f32
+    rng = np.random.RandomState(5)
+    cn = dict(jagent.params["controlnet"])
+    for k in [k for k in cn if k.startswith("controlnet_")]:
+        cn[k] = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(rng.randn(*x.shape).astype(np.float32) * 0.1), cn[k])
+    jagent.params = {**jagent.params, "controlnet": cn}
+
+    monkeypatch.setattr(SDControlNetAgent, "PIPELINE", staticmethod(_tiny_pipeline))
+    agent = SDControlNetAgent(dtype=torch.float32, device="cpu", resolution=32, seed=3,
+                              params={})  # weights from JAX below
+    agent.params = agent.pipe.params_from_jax(jax.tree_util.tree_map(np.asarray, jagent.params))
+    latents = rng.randn(1, 16, 16, 4).astype(np.float32)
+    agent._next_latents = lambda batch: torch.from_numpy(latents)
+    jagent._next_latents = lambda batch: jnp.asarray(latents)
+    images = rng.randint(0, 256, (1, 32, 32, 3)).astype(np.uint8)
+    got = agent.infer(images, ["reach the red target"], num_inference_steps=2)
+    want = jagent.infer(images, ["reach the red target"], num_inference_steps=2)
+    assert got.shape == want.shape == (1, 32, 32, 3) and got.dtype == np.uint8
+    diff = np.abs(got.astype(int) - np.asarray(want).astype(int))
+    assert diff.max() <= 1, f"targets differ by {diff.max()} levels"
+
+
+def test_build_main_path_hands_the_dtype_to_the_pipeline(monkeypatch):
+    seen = []
+
+    def record(**kw):
+        seen.append(kw)
+        raise _Stop
+
+    monkeypatch.setattr(main_path.SD15ControlNetAgent, "PIPELINE", staticmethod(record))
+    for dtype in (torch.float32, None):
+        with pytest.raises(_Stop):
+            main_path.build_main_path(device="cpu", variant="sd15", dtype=dtype,
+                                      backend="pallas+w8", conv_backend="fused")
+    assert seen[0] == {"device": "cpu", "backend": "pallas+w8", "conv_backend": "fused",
+                       "dtype": torch.float32}
+    assert "dtype" not in seen[1]
