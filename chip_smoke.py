@@ -249,8 +249,9 @@
    768x768 likewise (230 / 25 / 1380); (d) SDXL-turbo under ``pallas``
    (1040 B3) and (e) under ``pallas+w8`` / fused (1040 / 25 / 5360).
 17. Float32 through every kernel, TF32 off on every side. Kernel checks of
-   the f32 kernels (FFMA on the CUDA cores; B5 rounds x to bf16 as it loads
-   it, the TPU body's cast) against their f32 plain versions: B1 at SD's
+   the f32 kernels (attention: FFMA on the CUDA cores; B4: 3xTF32 on the
+   tensor cores; B5: the bf16 kernel on f32 x, rounded to bf16 in shared
+   memory, the TPU body's cast) against their f32 plain versions: B1 at SD's
    levels, B1/B2a/B2b at the trainer's batch 4, B3/B4/B5 at the opt-in
    path's shapes, then B1/B2a/B2b/B3 at SD-1.5's levels, at 768x768's and
    a head-dim sweep (d = 1, 36, 64, 100, 160, 200, 256), printed as
@@ -271,7 +272,8 @@
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
-same sums of its bound and library time), one ``{"kernels": [...]}`` line,
+same sums of its bound and library time, and of the FFMA bound where a
+row keeps one), one ``{"kernels": [...]}`` line,
 and last
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a GPU or without the package.
@@ -704,13 +706,14 @@ def _rel_err(got, want) -> float:
 
 def ptxas_report(log: str) -> dict[str, dict]:
     """Registers and spills of each kernel instantiation in an ``nvcc
-    -Xptxas -v`` log, keyed by its template arguments ("128" for
-    ``w8_matmul_kernel<128>``, "128x2" for ``fused_conv3x3_kernel<128, 2>``,
-    "1x2x128x1" for ``attention_fwd_kernel<1, 2, 128, true>``; B2b's two
-    kernels "dq1" / "dkdv1" for ``packed_attention_bwd_dq_kernel<1>``); the
-    f32 kernels with an "f32_" in front ("f32_1x1" for
-    ``attention_f32_fwd_kernel<1, true>``, "f32_dq4", "f32_64" for
-    ``fused_conv3x3_f32_kernel<64>``, "f32_" for ``w8_matmul_f32_kernel``)."""
+    -Xptxas -v`` log, keyed by its template arguments ("128x0" for
+    ``w8_matmul_kernel<128, false>``, "128x1" for its f32-x form, "128x2"
+    for ``fused_conv3x3_kernel<128, 2>``, "1x2x128x1" for
+    ``attention_fwd_kernel<1, 2, 128, true>``; B2b's two kernels "dq1" /
+    "dkdv1" for ``packed_attention_bwd_dq_kernel<1>``); the f32 kernels
+    named so with an "f32_" in front ("f32_1x1" for
+    ``attention_f32_fwd_kernel<1, true>``, "f32_dq4", "f32_128x2" for
+    ``fused_conv3x3_f32_kernel<128, 2>``)."""
     import re
 
     out, key = {}, None
@@ -862,7 +865,7 @@ def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "plan": {"tile": f"{plan.bt} tokens x {w8.BN} rows", "split": plan.split,
                      "stages": plan.stages, "blocks": plan.blocks},
-            "smem_bytes": plan.smem_bytes, **regs["w8_matmul"].get(str(plan.bt), {}),
+            "smem_bytes": plan.smem_bytes, **regs["w8_matmul"].get(f"{plan.bt}x0", {}),
         })
     return rows
 
@@ -4014,8 +4017,12 @@ def opt_geometries_phase(pa, card: str, pools: dict) -> tuple[dict, dict, list]:
 # phase 17: float32 through every kernel (--mixed_precision no, f32 serving)
 # ---------------------------------------------------------------------------
 
-# the f32 kernels run FFMA on the CUDA cores: H100 SXM FP32, 67 TFLOP/s
+# the f32 attention kernels run FFMA on the CUDA cores: H100 SXM FP32, 67
+# TFLOP/s; B4's f32 kernel runs 3xTF32 on the tensor cores, three TF32
+# products (495 TFLOP/s dense) for each f32 one; B5's f32-x kernel multiplies
+# bf16 x int8 on the bf16 tensor cores (PEAK_BF16_FLOPS)
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 # f32 kernels against their f32 plain versions: attention's max abs err at
 # unit-scale inputs and L's; B2b's and B4's max err over max |grad| or |y|
 F32_TOL = 1e-4
@@ -4031,9 +4038,9 @@ F32_SOURCES = {"B1": "genima_torch/csrc/attention_f32.cuh",
                "B4": "genima_torch/csrc/fused_conv.cu", "B5": "genima_torch/csrc/w8_matmul.cu"}
 
 
-def _f32_bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """``_bound`` against the f32 kernels' peak, FFMA's."""
-    ops_s, bytes_s = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def _f32_bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """``_bound`` against an f32 kernel's peak, FFMA's unless given."""
+    ops_s, bytes_s = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
 
 
@@ -4137,7 +4144,9 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
     """B3, B4 and B5 on seeded f32 inputs at the opt-in path's shapes
     against their plain versions (B3 and B4 at ``F32_TOL``, B5 at
     ``F32_W8_REL_TOL`` and bit-equal over two calls), timed beside their
-    FFMA bound and the library call in f32 (TF32 off)."""
+    bound and the library call in f32 (TF32 off). B3's bound is FFMA's;
+    B4's is 3xTF32's and B5's the bf16 tensor cores', each row keeping
+    FFMA's as ``ffma_bound_ms``."""
     import torch.nn.functional as F
 
     from genima_torch.kernels import _build
@@ -4195,14 +4204,14 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
         if not (got.dtype == torch.float32 and rel <= F32_TOL):
             raise AssertionError(f"B4 f32 {b}x{hh}x{ww}x{c}->{o}: max err {rel} of max |y|")
         plan = fc._plan_for(b, hh, ww, c, o, dtype=torch.float32)
-        if fc._library().fused_conv3x3_f32_smem_bytes(plan.bn) != plan.smem_bytes:
+        if fc._library().fused_conv3x3_f32_smem_bytes(plan.bn, plan.rows) != plan.smem_bytes:
             raise AssertionError("B4 f32 plan's shared memory != the kernel's")
         act = x * scale[:, None, None] + shift[:, None, None]
         act = (act * torch.sigmoid(act)).permute(0, 3, 1, 2)
         w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         nbytes = 4 * (b * hh * ww * (c + o + (o if res is not None else 0)) + 9 * c * o + o
                       + 2 * b * c)
-        bound_ms, bound_by = _f32_bound(2 * b * hh * ww * o * 9 * c, nbytes)
+        bound_ms, bound_by = _f32_bound(2 * b * hh * ww * o * 9 * c, nbytes, PEAK_3XTF32_FLOPS)
         rows.append({
             "name": "fused_conv3x3", "route": "cuda", "dtype": "float32",
             "source": F32_SOURCES["B4"], "replaces": "genima_tpu/kernels/fused_conv.py:380",
@@ -4215,9 +4224,11 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
             "library": "cuDNN conv2d alone in f32 (TF32 off), channels_last, on the "
                        "pre-activated input (it skips the GN/SiLU prologue and the residual)",
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "plan": {"tile": f"{plan.side}x{plan.side} pixels x {plan.bn} channels",
-                     "blocks": plan.blocks},
-            "smem_bytes": plan.smem_bytes, **regs["fused_conv"].get(f"f32_{plan.bn}", {}),
+            "ffma_bound_ms": _f32_bound(2 * b * hh * ww * o * 9 * c, nbytes)[0],
+            "plan": {"tile": f"{plan.rows * 64} pixels x {plan.bn} channels",
+                     "chunks": plan.chunks, "tiles": plan.n_tiles, "blocks": plan.blocks},
+            "smem_bytes": plan.smem_bytes,
+            **regs["fused_conv"].get(f"f32_{plan.bn}x{plan.rows}", {}),
         })
 
     for m, k, n in w8_shapes:
@@ -4232,10 +4243,11 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
             raise AssertionError(f"B5 f32 {m}x{k}x{n}: max err {rel} of max |y|, repeat equal "
                                  f"{torch.equal(got, again)}")
         plan = w8._plan_for(m, k, n, dtype=torch.float32)
-        if w8._library().w8_matmul_f32_smem_bytes() != plan.smem_bytes:
+        if w8._library().w8_matmul_f32_smem_bytes(plan.bt, plan.stages) != plan.smem_bytes:
             raise AssertionError("B5 f32 plan's shared memory != the kernel's")
         w_deq = (w_q.float() * scale[:, None]).t()
-        bound_ms, bound_by = _f32_bound(2 * m * k * n, 4 * m * k + k * n + 4 * n + 4 * m * n)
+        nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+        bound_ms, bound_by = _f32_bound(2 * m * k * n, nbytes, PEAK_BF16_FLOPS)
         rows.append({
             "name": "w8_matmul", "route": "cuda", "dtype": "float32",
             "source": F32_SOURCES["B5"], "replaces": "genima_tpu/kernels/w8_matmul.py:94",
@@ -4246,9 +4258,10 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
             "library_ms": cuda_ms(lambda: torch.matmul(x, w_deq), iters * 4),
             "library": "torch.matmul in f32 (TF32 off) on the pre-dequantised f32 weight",
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "plan": {"tile": f"{w8.F32_TILE} tokens x {w8.F32_TILE} rows",
-                     "blocks": plan.blocks},
-            "smem_bytes": plan.smem_bytes, **regs["w8_matmul"].get("f32_", {}),
+            "ffma_bound_ms": _f32_bound(2 * m * k * n, nbytes)[0],
+            "plan": {"tile": f"{plan.bt} tokens x {w8.BN} rows", "split": plan.split,
+                     "stages": plan.stages, "blocks": plan.blocks},
+            "smem_bytes": plan.smem_bytes, **regs["w8_matmul"].get(f"{plan.bt}x1", {}),
         })
     return rows
 
@@ -4317,6 +4330,8 @@ def per_step_sums(rows) -> dict:
         d["ms"] += per * row["ms"]
         d["bound_ms"] += per * row["bound_ms"]
         d["library_ms"] += per * row["library_ms"]
+        if "ffma_bound_ms" in row:
+            d["ffma_bound_ms"] = d.get("ffma_bound_ms", 0.0) + per * row["ffma_bound_ms"]
     return out
 
 

@@ -1,6 +1,6 @@
 """Time the packed attention kernels of another checkout against this one.
 
-    python -m genima_torch.ab_kernels OTHER_DIR [--profile]
+    python -m genima_torch.ab_kernels OTHER_DIR [--profile | --f32]
 
 Run from the repository root on a GPU host, with ``OTHER_DIR`` a second
 checkout (``git archive <commit> | tar -x -C OTHER_DIR``). Four processes
@@ -8,8 +8,9 @@ run in turns, the other tree, this one, this one, the other tree, so both
 see the same card and its drift; each builds its own kernels and times B1,
 B2a and B2b at ``chip_smoke.py``'s trainer levels (batch 4) and B1 at the
 serving levels by CUDA events (``chip_smoke.cuda_ms``), or with
-``--profile`` B2b's two kernels by ``torch.profiler``. Prints each key's
-times on both sides and this tree's over the other's.
+``--profile`` B2b's two kernels by ``torch.profiler``, or with ``--f32``
+B4 and B5 on f32 inputs at the opt-in path's shapes (TF32 off). Prints each
+key's times on both sides and this tree's over the other's.
 """
 
 from __future__ import annotations
@@ -47,13 +48,38 @@ print("RESULT " + json.dumps(out))
 '''
 
 
+F32_CODE = r'''
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from genima_torch.kernels import _build, fused_conv as fc, w8_matmul as w8
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+_build.build_all(["fused_conv", "w8_matmul"])
+gen = torch.Generator(device="cuda").manual_seed(1)
+out = {}
+for b, h, w, c, o in cs.CONV_SHAPES:
+    x = torch.randn(b, h, w, c, generator=gen, device="cuda")
+    scale, shift = fc.fold_group_norm(x, 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda"),
+                                      0.2 * torch.randn(c, generator=gen, device="cuda"), 32, 1e-6)
+    args = (x, torch.randn(3, 3, c, o, generator=gen, device="cuda") / (3 * c ** 0.5),
+            torch.randn(o, generator=gen, device="cuda"), scale, shift, None,
+            torch.randn(b, h, w, o, generator=gen, device="cuda") if c == o else None)
+    out[f"B4 f32 {b}x{h}x{w}x{c}->{o}"] = cs.cuda_ms(lambda: fc.fused_conv3x3(*args), 10)
+for m, k, n in cs.W8_SHAPES:
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w_q, scale = w8.quantize_weight(torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)
+    out[f"B5 f32 {m}x{k}x{n}"] = cs.cuda_ms(lambda: w8.w8_matmul(x, w_q, scale), 50)
+print("RESULT " + json.dumps(out))
+'''
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0].startswith("-"):
         print(__doc__, file=sys.stderr)
         return 2
     other, here = str(Path(argv[0]).resolve()), str(Path.cwd())
-    code = f"PROFILE = {'--profile' in argv}\n" + CODE
+    code = F32_CODE if "--f32" in argv else f"PROFILE = {'--profile' in argv}\n" + CODE
     runs = []
     for tree in (other, here, here, other):
         r = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,

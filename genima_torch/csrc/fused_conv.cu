@@ -61,19 +61,42 @@
 // search.
 //
 // Float32 (fused_conv3x3_f32_kernel): the TPU kernel takes x's dtype, so on
-// f32 x, w, residual and y it computes the same function in f32 (activation,
-// products and sums in f32, no rounding but f32's own). The tensor cores
-// take f32 only as TF32, about three decimal digits, which misses the f32
-// result; so this kernel is an FFMA implicit GEMM on the CUDA cores, bound
-// by FFMA's 67 TFLOP/s at the decoder's widths. A block (256 threads) owns
-// an 8 x 8 pixel patch by 64 output channels (16 x 16 by 16 for conv_out's
-// few channels); per chunk of 16 input channels it loads the (side + 2)^2
-// halo band and the chunk's weights of the nine taps (and of the skip) into
-// shared memory, takes the 1x1 skip on the raw band's centre, applies the
-// GroupNorm affine and SiLU to the band in place (out-of-image pixels and
-// channels past C stay 0), then runs the nine taps: each thread 4 pixels x
-// 4 output channels, a band pixel 17 floats apart so that the pixels a warp
-// reads lie in distinct banks. Epilogue: + bias [+ residual] in f32.
+// f32 x, w, residual and y it computes the same function in f32 (activation
+// and sums in f32, each product to f32's accuracy). One TF32 pass on the
+// tensor cores reads ~1e-3, so every product is split: a = a_big + a_small
+// with a_big = tf32(a) and a_small = tf32(a - a_big), and a * b is summed as
+// a_small * b_big + a_big * b_small + a_big * b_big (3xTF32, ~1e-6; the
+// dropped a_small * b_small is 2^-22 of a * b). Bound: 2*B*H*W*O*(9C [+ C])
+// operations at a third of the TF32 rate, 495 / 3 = 165 TFLOP/s, which is
+// 2.5x FFMA's 67. The same structure as the bf16 kernel, with these
+// changes:
+//   * tf32 wgmma takes B only K-major, so the wrapper hands the kernel the
+//     weights as (9, O, C) (and the skip as (O, C)); a weight box is BN
+//     output channels x 32 input channels, 128-byte swizzled rows, whose
+//     descriptor steps 32 bytes a k8 step. The producer is a warpgroup: one
+//     warp issues the TMA loads, the other three round each landed weight
+//     stage to tf32 in place and write the remainder's tf32 beside it (the
+//     "small" tile), fence the async proxy and arrive on the stage's "ready"
+//     barrier, which the consumers wait on instead of "full". No split
+//     weight copy is made in device memory, so the L2 reads of weights stay
+//     those of one f32 tile a tap, and the consumers meet at no barrier per
+//     tap. With two consumer warpgroups, setmaxnreg moves registers from the
+//     producer warpgroup (40) to the consumers (232);
+//   * the band is 32 input channels of f32 a chunk (128 bytes a pixel, the
+//     same 128-byte swizzle), so the shifted windows come in with the same
+//     ldmatrix: on 32-bit data an 8x8 b16 matrix is 8 pixels x 4 channels,
+//     and matrices (pixels 0-7 | 8-15) x (channels 0-3 | 4-7) are
+//     m16n8k8.tf32's A fragment. Each warp splits its A registers into big
+//     and small in registers (two cvt.rna and a subtraction an element),
+//     and a tap is two wgmma groups of 2 k8 steps x 3 wgmma;
+//   * the GroupNorm affine and SiLU run once per band element and output
+//     block in f32 (expf), in place, as in the bf16 kernel; 128 output
+//     channels a tile at the decoder's widths, 16 x 4 rows for conv_out;
+//   * the tensor cores' f32 sums cut the low bits of each addend (the error
+//     grows with K, to ~1.5e-5 of max |y| at K = 9 x 512 in one
+//     accumulator), so each 32-channel chunk sums into a fresh wgmma
+//     accumulator, added into an f32 register total at the chunk's end;
+//   * epilogue: + bias [+ residual] in f32, f32 out.
 
 #include "hopper.cuh"
 
@@ -87,12 +110,14 @@ constexpr int kBandW = kTW + 2;
 constexpr int kBandStages = 2;
 constexpr int kWStages = 4;
 
+// T: the residual's and y's type, bf16 or f32
+template <typename T>
 struct Params {
-  const float* b;              // (o,)
-  const float* scale;          // (B, C) or null
+  const float* b;      // (o,)
+  const float* scale;  // (B, C) or null
   const float* shift;
-  const __nv_bfloat16* res;    // (B, H, W, o) or null
-  __nv_bfloat16* y;            // (B, H, W, o)
+  const T* res;        // (B, H, W, o) or null
+  T* y;                // (B, H, W, o)
   int h, w_img, c, o, n_chunks, has_skip;
   int tiles_w, tiles_h, o_blocks, n_tiles;  // tile t: o block fastest, then x, y, batch
 };
@@ -147,7 +172,8 @@ template <int BN, int NWG>
 __global__ void __launch_bounds__(Cfg<BN, NWG>::kThreads, 1)
 fused_conv3x3_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_w,
-                     const __grid_constant__ CUtensorMap map_skip, const Params p) {
+                     const __grid_constant__ CUtensorMap map_skip,
+                     const Params<__nv_bfloat16> p) {
   using C = Cfg<BN, NWG>;
   constexpr int kTH = C::kTH, kBandH = C::kBandH, kConsumers = C::kConsumers;
   extern __shared__ uint8_t smem_raw[];
@@ -370,7 +396,8 @@ fused_conv3x3_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 template <int BN, int NWG>
-int launch(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& ms, const Params& p,
+int launch(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& ms,
+           const Params<__nv_bfloat16>& p,
            int blocks, cudaStream_t stream) {
   const int smem = Cfg<BN, NWG>::smem_bytes();
   static bool configured = false;
@@ -395,155 +422,336 @@ int weight_map(CUtensorMap* map, const void* w, int c, int opad, int depth, int 
                              box_n == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
-// --- float32 ------------------------------------------------------------------
+// --- float32: 3xTF32 on the tensor cores -------------------------------------
 
-// BN output channels (64, or 16 for conv_out) by a kSide x kSide patch
-template <int BN>
+constexpr int kBK32 = 32;  // f32 input channels per chunk: 128 bytes a pixel
+
+// BN output channels by NWG image rows (one consumer warpgroup each)
+template <int BN, int NWG>
 struct F32Cfg {
-  static constexpr int kTX = BN / 4;          // threads across the output channels
-  static constexpr int kTY = 256 / kTX;       // and across the pixels, 4 of each a thread
-  static constexpr int kSide = BN == 64 ? 8 : 16;
-  static constexpr int kHalo = kSide + 2;
-  static constexpr int kCK = 16;              // input channels a chunk
-  static constexpr int kLD = kCK + 1;         // floats a band pixel
-  static constexpr int kBand = kHalo * kHalo * kLD;
-  static constexpr int kW = 10 * kCK * BN;    // nine taps, then the skip
-  static constexpr int kSmem = 4 * (kBand + kW);
-  static_assert(4 * kTY == kSide * kSide, "four pixels a thread");
+  static constexpr int kTH = NWG;
+  static constexpr int kBandH = kTH + 2;
+  static constexpr int kBandBytes = kBandH * kBandW * kBK32 * 4;
+  static constexpr int kBandStride = (kBandBytes + 1023) / 1024 * 1024;  // swizzle atoms
+  static constexpr int kConsumers = 128 * NWG;
+  static constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+  static constexpr int kSplitters = 96;              // its warps 1-3
+  static constexpr int kWTile = BN * kBK32 * 4;  // one tap: BN output x 32 input channels
+  static constexpr int kWStage = 2 * kWTile;     // its tf32 values, then their remainders'
+  static int smem_bytes() {
+    return 1024 + kBandStages * kBandStride + kWStages * kWStage +
+           8 * (2 * kBandStages + 3 * kWStages);
+  }
 };
 
-struct F32Params {
-  const float* x;      // (B, H, W, C)
-  const float* w;      // (9, C, O)
-  const float* b;      // (O,)
-  const float* scale;  // (B, C) or null
-  const float* shift;
-  const float* wskip;  // (C, O) or null
-  const float* res;    // (B, H, W, O) or null
-  float* y;            // (B, H, W, O)
-  int h, w_img, c, o, tiles_x;
-};
+// silu(v * sc + sh) on 4 f32 channels in place
+__device__ __forceinline__ void activate4(float4* v, const float* sc, const float* sh) {
+  const float4 s = __ldg(reinterpret_cast<const float4*>(sc));
+  const float4 o = __ldg(reinterpret_cast<const float4*>(sh));
+  const auto f = [](float a, float m, float c) {
+    const float u = fmaf(a, m, c);
+    return u * (1.f / (1.f + expf(-u)));
+  };
+  float4 x = *v;
+  x = make_float4(f(x.x, s.x, o.x), f(x.y, s.y, o.y), f(x.z, s.z, o.z), f(x.w, s.w, o.w));
+  *v = x;
+}
 
-template <int BN>
-__global__ void __launch_bounds__(256) fused_conv3x3_f32_kernel(const F32Params p) {
-  using C = F32Cfg<BN>;
-  constexpr int kSide = C::kSide, kHalo = C::kHalo, kCK = C::kCK, kLD = C::kLD;
-  extern __shared__ float smem_f[];
-  float* band = smem_f;
-  float* wt = band + C::kBand;
-  const int tx = threadIdx.x % C::kTX, ty = threadIdx.x / C::kTX;
-  const int y0 = blockIdx.x / p.tiles_x * kSide, x0 = blockIdx.x % p.tiles_x * kSide;
-  const int n0 = blockIdx.y * BN, bi = blockIdx.z;
-  int py[4], px[4];  // this thread's pixels ty + kTY * r of the patch
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    py[r] = (ty + C::kTY * r) / kSide;
-    px[r] = (ty + C::kTY * r) % kSide;
+template <int BN, int NWG>
+__global__ void __launch_bounds__(F32Cfg<BN, NWG>::kThreads, 1)
+fused_conv3x3_f32_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_skip,
+                         const Params<float> p) {
+  using C = F32Cfg<BN, NWG>;
+  constexpr int kTH = C::kTH, kBandH = C::kBandH, kConsumers = C::kConsumers;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* band_ring = smem;
+  uint8_t* w_ring = smem + kBandStages * C::kBandStride;
+  uint64_t* band_full = reinterpret_cast<uint64_t*>(w_ring + kWStages * C::kWStage);
+  uint64_t* band_empty = band_full + kBandStages;
+  uint64_t* w_full = band_empty + kBandStages;
+  uint64_t* w_empty = w_full + kWStages;
+  uint64_t* w_ready = w_empty + kWStages;  // split: the consumers may read it
+
+  int y0, x0, n0, bi;
+  auto coord = [&](int tile) {
+    n0 = (tile % p.o_blocks) * BN;
+    tile /= p.o_blocks;
+    x0 = (tile % p.tiles_w) * kTW;
+    tile /= p.tiles_w;
+    y0 = (tile % p.tiles_h) * kTH;
+    bi = tile / p.tiles_h;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBandStages; ++s) {
+      mbar_init(&band_full[s], 1);
+      mbar_init(&band_empty[s], NWG);
+    }
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&w_full[s], 1);
+      mbar_init(&w_empty[s], NWG);
+      mbar_init(&w_ready[s], C::kSplitters);
+    }
+    mbar_fence_init();
   }
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-  const float* xb = p.x + static_cast<size_t>(bi) * p.h * p.w_img * p.c;
-  const float* sc = p.scale ? p.scale + static_cast<size_t>(bi) * p.c : nullptr;
-  const float* sh = p.shift ? p.shift + static_cast<size_t>(bi) * p.c : nullptr;
+  __syncthreads();
 
-  for (int c0 = 0; c0 < p.c; c0 += kCK) {
-    __syncthreads();  // the previous chunk's band and weights read
-    for (int idx = threadIdx.x; idx < kHalo * kHalo * kCK; idx += 256) {
-      const int q = idx / kCK, k = idx % kCK;
-      const int yy = y0 - 1 + q / kHalo, xx = x0 - 1 + q % kHalo, ch = c0 + k;
-      float v = 0.f;
-      if (yy >= 0 && yy < p.h && xx >= 0 && xx < p.w_img && ch < p.c)
-        v = xb[(static_cast<size_t>(yy) * p.w_img + xx) * p.c + ch];
-      band[q * kLD + k] = v;
-    }
-    for (int idx = threadIdx.x; idx < C::kW; idx += 256) {
-      const int n = idx % BN, k = idx / BN % kCK, tap = idx / (BN * kCK);
-      const int ch = c0 + k, col = n0 + n;
-      float v = 0.f;
-      if (ch < p.c && col < p.o) {
-        if (tap < 9)
-          v = p.w[(static_cast<size_t>(tap) * p.c + ch) * p.o + col];
-        else if (p.wskip)
-          v = p.wskip[static_cast<size_t>(ch) * p.o + col];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (warp >= 4 * NWG) {  // the producer warpgroup
+    if constexpr (NWG == 2) setmaxnreg_dec<40>();
+    if (warp > 4 * NWG) {
+      // splitters: every weight stage in ring order, as the loads fill it
+      const int sid = threadIdx.x - kConsumers - 32;
+      int ws = 0;
+      uint32_t wph = 0;
+      const int per_tile = p.n_chunks * (9 + p.has_skip);
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        for (int i = 0; i < per_tile; ++i) {
+          mbar_wait(&w_full[ws], wph);
+          float4* big = reinterpret_cast<float4*>(w_ring + ws * C::kWStage);
+          float4* small = reinterpret_cast<float4*>(w_ring + ws * C::kWStage + C::kWTile);
+          for (int idx = sid; idx < C::kWTile / 16; idx += C::kSplitters) {
+            const float4 v = big[idx];
+            const float4 hi =
+                make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+            big[idx] = hi;
+            small[idx] = make_float4(tf32_rna(v.x - hi.x), tf32_rna(v.y - hi.y),
+                                     tf32_rna(v.z - hi.z), tf32_rna(v.w - hi.w));
+          }
+          fence_proxy_async();  // before wgmma reads them
+          mbar_arrive(&w_ready[ws]);
+          if (++ws == kWStages) {
+            ws = 0;
+            wph ^= 1;
+          }
+        }
       }
-      wt[idx] = v;
-    }
-    __syncthreads();
-    if (p.wskip) {  // the 1x1 shortcut on the raw band's centre
-#pragma unroll
-      for (int k = 0; k < kCK; ++k) {
-        float a[4], bw[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = band[((py[r] + 1) * kHalo + px[r] + 1) * kLD + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bw[j] = wt[(9 * kCK + k) * BN + tx + C::kTX * j];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], bw[j], acc[r][j]);
-      }
-    }
-    if (sc) {  // silu(x * scale + shift) in place, in the image and below C only
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kHalo * kHalo * kCK; idx += 256) {
-        const int q = idx / kCK, k = idx % kCK;
-        const int yy = y0 - 1 + q / kHalo, xx = x0 - 1 + q % kHalo, ch = c0 + k;
-        if (yy < 0 || yy >= p.h || xx < 0 || xx >= p.w_img || ch >= p.c) continue;
-        const float v = fmaf(band[q * kLD + k], sc[ch], sh[ch]);
-        band[q * kLD + k] = v * (1.f / (1.f + expf(-v)));
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int di = tap / 3, dj = tap % 3;
-#pragma unroll 4
-      for (int k = 0; k < kCK; ++k) {
-        float a[4], bw[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = band[((py[r] + di) * kHalo + px[r] + dj) * kLD + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bw[j] = wt[(tap * kCK + k) * BN + tx + C::kTX * j];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], bw[j], acc[r][j]);
+    } else if (lane == 0) {
+      prefetch_tensormap(&map_x);
+      prefetch_tensormap(&map_w);
+      int ws = 0;
+      uint32_t wph = 0;
+      auto load_w = [&](const CUtensorMap* map, int c0, int tap) {
+        mbar_wait(&w_empty[ws], wph ^ 1);
+        mbar_expect_tx(&w_full[ws], C::kWTile);
+        tma_load_3d(w_ring + ws * C::kWStage, map, &w_full[ws], c0, n0, tap);
+        if (++ws == kWStages) {
+          ws = 0;
+          wph ^= 1;
+        }
+      };
+      int bands = 0;
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        coord(tile);
+        for (int i = 0; i < p.n_chunks; ++i, ++bands) {
+          const int bs = bands % kBandStages;
+          const uint32_t bph = (bands / kBandStages) & 1;
+          const int c0 = i * kBK32;
+          mbar_wait(&band_empty[bs], bph ^ 1);
+          mbar_expect_tx(&band_full[bs], C::kBandBytes);
+          tma_load_4d(band_ring + bs * C::kBandStride, &map_x, &band_full[bs], c0, x0 - 1, y0 - 1,
+                      bi);
+          if (p.has_skip) load_w(&map_skip, c0, 0);
+          for (int tap = 0; tap < 9; ++tap) load_w(&map_w, c0, tap);
+        }
       }
     }
+    return;
   }
 
+  if constexpr (NWG == 2) setmaxnreg_inc<232>();
+  const int ctid = threadIdx.x;
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // the tensor cores' f32 sums cut the low bits of each addend, so an error
+  // grows with the number of wgmmas summed into one accumulator: each
+  // 32-channel chunk starts a fresh one, added into `total` in f32 at its end
+  float acc[BN / 2], total[BN / 2];
+  const int a_pix = wq * 16 + (lane & 15);
+  const int a_half = lane >> 4;
+
+  // One K-slice of 32 channels (a tap, or the skip) once its weight stage
+  // is split: two wgmma groups of two k8 steps, each with its own A
+  // registers: the band shifted by (di, dj), split in registers ([0] tf32,
+  // [1] the remainder's tf32), and small x big, big x small, big x big per
+  // k8 step. As in the w8 kernel, a group waits only for the one before it
+  // (wait_group 1), whose A registers are then free, and a weight stage goes
+  // back to the producer once its second group has completed. Two k8 steps
+  // a group keep the A registers at 32: with four, ptxas serialised the
+  // wgmmas for want of registers.
+  int ws = 0;
+  uint32_t wph = 0;
+  int pending = -1;  // the weight stage whose second group may still run
+  uint32_t a0[2][2][4], a1[2][2][4];
+  auto fence_a = [](uint32_t (&a)[2][2][4]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int yy = y0 + py[r], xx = x0 + px[r];
-    if (yy >= p.h || xx >= p.w_img) continue;
-    const size_t pix = ((static_cast<size_t>(bi) * p.h + yy) * p.w_img + xx) * p.o;
+    for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + C::kTX * j;
-      if (col >= p.o) continue;
-      float v = acc[r][j] + p.b[col];
-      if (p.res) v += p.res[pix + col];
-      p.y[pix + col] = v;
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[s][kk][r])::"memory");
+  };
+  auto release_w = [&](int st) {
+    if (wq == 0 && lane == 0) mbar_arrive(&w_empty[st]);
+  };
+  auto half_group = [&](uint32_t row, int q, const uint8_t* wt, int half, uint32_t (&a)[2][2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kk = 2 * half + j;
+      ldmatrix_x4(a[0][j], row + (((2 * kk + a_half) ^ (q & 7)) << 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = __uint_as_float(a[0][j][e]);
+        const float hi = tf32_rna(v);
+        a[0][j][e] = __float_as_uint(hi);
+        a[1][j][e] = __float_as_uint(tf32_rna(v - hi));
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kk = 2 * half + j;
+      const uint64_t d_big = make_desc(wt + kk * 32, 128, 16, 1024);
+      const uint64_t d_small = make_desc(wt + C::kWTile + kk * 32, 128, 16, 1024);
+      wgmma_tf32_rs<BN>(acc, a[1][j], d_big);
+      wgmma_tf32_rs<BN>(acc, a[0][j], d_small);
+      wgmma_tf32_rs<BN>(acc, a[0][j], d_big);
+    }
+    wgmma_commit();
+  };
+  auto group = [&](const uint8_t* band, int di, int dj) {
+    mbar_wait(&w_ready[ws], wph);
+    const uint8_t* wt = w_ring + ws * C::kWStage;
+    const int q = (wg + di) * kBandW + a_pix + dj;
+    const uint32_t row = smem_u32(band) + q * 128;
+    half_group(row, q, wt, 0, a0);
+    wgmma_wait<1>();
+    fence_a(a1);
+    if (pending >= 0) release_w(pending);
+    half_group(row, q, wt, 1, a1);
+    wgmma_wait<1>();
+    fence_a(a0);
+    pending = ws;
+    if (++ws == kWStages) {
+      ws = 0;
+      wph ^= 1;
+    }
+  };
+
+  int bands = 0;
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    coord(tile);
+    const float* scale = p.scale ? p.scale + static_cast<size_t>(bi) * p.c : nullptr;
+    const float* shift = p.shift ? p.shift + static_cast<size_t>(bi) * p.c : nullptr;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) total[i] = 0.f;
+
+    for (int i = 0; i < p.n_chunks; ++i, ++bands) {
+      const int bs = bands % kBandStages;
+      const uint32_t bph = (bands / kBandStages) & 1;
+      const int c0 = i * kBK32;
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+      fence_operands(acc);
+      uint8_t* band = band_ring + bs * C::kBandStride;
+      mbar_wait(&band_full[bs], bph);
+      if (p.has_skip) group(band, 1, 1);  // the 1x1 shortcut on the raw band
+      if (scale) {
+        named_barrier(1, kConsumers);  // nobody still reads the raw band
+        for (int idx = ctid; idx < kBandH * kBandW * 8; idx += kConsumers) {
+          const int q = idx >> 3;
+          const int j = (idx & 7) ^ (q & 7);  // logical 4-channel group
+          const int yy = y0 - 1 + q / kBandW, xx = x0 - 1 + q % kBandW;
+          const int cc = c0 + 4 * j;
+          if (yy < 0 || yy >= p.h || xx < 0 || xx >= p.w_img || cc >= p.c) continue;
+          activate4(reinterpret_cast<float4*>(band + idx * 16), scale + cc, shift + cc);
+        }
+        fence_proxy_async();  // before TMA overwrites these bytes
+        named_barrier(1, kConsumers);
+      }
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) group(band, tap / 3, tap % 3);
+      wgmma_wait<0>();
+      fence_a(a1);
+      fence_operands(acc);
+      release_w(pending);
+      pending = -1;
+      if (wq == 0 && lane == 0) mbar_arrive(&band_empty[bs]);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) total[e] += acc[e];
+    }
+
+    // epilogue: + bias [+ residual] in f32, masked to the image and to O
+    const int yy = y0 + wg;
+    const bool pairs = (p.o & 1) == 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int xx = x0 + wq * 16 + g + 8 * half;
+      if (yy >= p.h || xx >= p.w_img) continue;
+      const size_t pix = ((static_cast<size_t>(bi) * p.h + yy) * p.w_img + xx) * p.o;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        float v0 = total[4 * j + 2 * half], v1 = total[4 * j + 2 * half + 1];
+        if (pairs) {
+          if (col >= p.o) continue;
+          v0 += p.b[col];
+          v1 += p.b[col + 1];
+          if (p.res) {
+            const float2 r = *reinterpret_cast<const float2*>(p.res + pix + col);
+            v0 += r.x;
+            v1 += r.y;
+          }
+          *reinterpret_cast<float2*>(p.y + pix + col) = make_float2(v0, v1);
+        } else {
+          const float vs[2] = {v0, v1};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (col + e >= p.o) continue;
+            float v = vs[e] + p.b[col + e];
+            if (p.res) v += p.res[pix + col + e];
+            p.y[pix + col + e] = v;
+          }
+        }
+      }
     }
   }
 }
 
-template <int BN>
-int launch_f32(const F32Params& p, int batch, int tiles, cudaStream_t stream) {
-  constexpr int smem = F32Cfg<BN>::kSmem;
+template <int BN, int NWG>
+int launch_f32(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& ms,
+               const Params<float>& p, int blocks, cudaStream_t stream) {
+  const int smem = F32Cfg<BN, NWG>::smem_bytes();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_conv3x3_f32_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fused_conv3x3_f32_kernel<BN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  const dim3 grid(tiles, (p.o + BN - 1) / BN, batch);
-  fused_conv3x3_f32_kernel<BN><<<grid, 256, smem, stream>>>(p);
+  fused_conv3x3_f32_kernel<BN, NWG>
+      <<<blocks, F32Cfg<BN, NWG>::kThreads, smem, stream>>>(mx, mw, ms, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A K-major (depth, O, C) f32 weight map, box (32 input channels, bn output
+// channels, 1), 128-byte swizzled; output channels past O arrive as zeros.
+int weight_map_f32(CUtensorMap* map, const void* w, int c, int o, int depth, int bn) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(o),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 4,
+                                 static_cast<cuuint64_t>(o) * c * 4};
+  const cuuint32_t box[3] = {kBK32, static_cast<cuuint32_t>(bn), 1};
+  return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
@@ -577,7 +785,7 @@ int fused_conv3x3(const void* x, const void* w, const void* b, const void* scale
   if (rc) return rc;
   if ((rc = weight_map(&mw, w, c, opad, 9, box_n))) return rc;
   if ((rc = weight_map(&ms, wskip ? wskip : w, c, opad, 1, box_n))) return rc;
-  Params p;
+  Params<__nv_bfloat16> p;
   p.b = static_cast<const float*>(b);
   p.scale = static_cast<const float*>(scale);
   p.shift = static_cast<const float*>(shift);
@@ -606,41 +814,60 @@ int fused_conv3x3_smem_bytes(int bn, int rows) {
   return 0;
 }
 
-// The same on f32 x (B, H, W, C), w (9, C, O), b (O,), scale/shift (B, C),
-// wskip (C, O) and residual (B, H, W, O) into f32 y, any C and O, with bn
-// output channels a block (64, or 16 for O <= 16: kernels/fused_conv.py::
-// f32_plan). Launches on `stream`, does not synchronise; returns 0 or an
-// error code for fused_conv3x3_error_string.
+int fused_conv3x3_f32_smem_bytes(int bn, int rows);
+
+// The same on f32 x (B, H, W, C), b (O,), scale/shift (B, C), residual
+// (B, H, W, O) into f32 y, with the weights K-major: w (9, O, C) and wskip
+// (O, C) (the wrapper transposes HWIO). Any O; C % 8 == 0 and 16-byte
+// aligned tensors (the wrapper checks). The tile and the persistent blocks
+// are kernels/fused_conv.py::plan(..., f32=True)'s. Launches on `stream`,
+// does not synchronise; returns 0 or an error code for
+// fused_conv3x3_error_string.
 int fused_conv3x3_f32(const void* x, const void* w, const void* b, const void* scale,
                       const void* shift, const void* wskip, const void* residual, void* y,
-                      int batch, int h, int w_img, int c, int o, int bn, void* stream) {
-  if (batch < 1 || h < 1 || w_img < 1 || c < 1 || o < 1 || (bn != 64 && bn != 16))
+                      int batch, int h, int w_img, int c, int o, int bn, int rows, int blocks,
+                      void* stream) {
+  if (fused_conv3x3_f32_smem_bytes(bn, rows) == 0 || blocks < 1 || c % 8 || o < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto f = [](const void* t) { return static_cast<const float*>(t); };
-  F32Params p;
-  p.x = f(x);
-  p.w = f(w);
-  p.b = f(b);
-  p.scale = f(scale);
-  p.shift = f(shift);
-  p.wskip = f(wskip);
-  p.res = f(residual);
+  CUtensorMap mx, mw, ms;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w_img),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(c) * 4,
+                                 static_cast<cuuint64_t>(w_img) * c * 4,
+                                 static_cast<cuuint64_t>(h) * w_img * c * 4};
+  const cuuint32_t box[4] = {kBK32, kBandW, static_cast<cuuint32_t>(rows + 2), 1};
+  int rc = hopper_host::encode(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  if ((rc = weight_map_f32(&mw, w, c, o, 9, bn))) return rc;
+  if ((rc = weight_map_f32(&ms, wskip ? wskip : w, c, o, 1, bn))) return rc;
+  Params<float> p;
+  p.b = static_cast<const float*>(b);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.res = static_cast<const float*>(residual);
   p.y = static_cast<float*>(y);
   p.h = h;
   p.w_img = w_img;
   p.c = c;
   p.o = o;
-  const int side = bn == 64 ? F32Cfg<64>::kSide : F32Cfg<16>::kSide;
-  p.tiles_x = (w_img + side - 1) / side;
-  const int tiles = p.tiles_x * ((h + side - 1) / side);
+  p.n_chunks = (c + kBK32 - 1) / kBK32;
+  p.has_skip = wskip != nullptr;
+  p.tiles_w = (w_img + kTW - 1) / kTW;
+  p.tiles_h = (h + rows - 1) / rows;
+  p.o_blocks = (o + bn - 1) / bn;
+  p.n_tiles = p.tiles_w * p.tiles_h * p.o_blocks * batch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bn == 64 ? launch_f32<64>(p, batch, tiles, s) : launch_f32<16>(p, batch, tiles, s);
+  if (bn == 128) return launch_f32<128, 2>(mx, mw, ms, p, blocks, s);
+  return launch_f32<16, 4>(mx, mw, ms, p, blocks, s);
 }
 
-// Shared memory a block of the f32 kernel with bn output channels asks for;
-// 0 for a bn there is no kernel for.
-int fused_conv3x3_f32_smem_bytes(int bn) {
-  return bn == 64 ? F32Cfg<64>::kSmem : bn == 16 ? F32Cfg<16>::kSmem : 0;
+// Shared memory a block of the f32 (bn output channels, rows image rows)
+// kernel asks for; 0 for a tile there is no kernel for.
+int fused_conv3x3_f32_smem_bytes(int bn, int rows) {
+  if (bn == 128 && rows == 2) return F32Cfg<128, 2>::smem_bytes();
+  if (bn == 16 && rows == 4) return F32Cfg<16, 4>::smem_bytes();
+  return 0;
 }
 
 const char* fused_conv3x3_error_string(int code) { return hopper_host::error_string(code); }

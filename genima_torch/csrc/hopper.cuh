@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (w8_matmul.cu, fused_conv.cu, flash_attention.cu, packed_attention_bwd.cu):
 // TMA tensor maps and loads, bulk copies, mbarrier rings, setmaxnreg, and
-// wgmma with A from registers and B from shared memory.
+// wgmma with A from registers and B from shared memory (bf16, and tf32 for
+// fused_conv.cu's f32 kernel).
 //
 // A TMA load is issued by one thread and completes on an mbarrier that
 // expects the box's bytes (out-of-bounds elements are zero-filled and
@@ -349,6 +350,60 @@ __device__ __forceinline__ void wgmma_ss<128, 0>(float* d, uint64_t desc_a, uint
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b));
+}
+
+
+// D (64 x N f32) += A (64 x 8 tf32, registers) * B (8 x N tf32, shared
+// memory, K-major: tf32 has no transposed form). A is mma.sync
+// m16n8k8.tf32's A fragment per warp (warp w of the group holds rows
+// 16w..16w+15): a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4),
+// a3 (row g + 8, k t + 4), with g = lane / 4 and t = lane % 4. The tensor
+// cores read the top 19 bits of each 32-bit operand: callers round to tf32
+// first (cvt.rna.tf32.f32) so that nothing is cut.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t a[4], uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float* d, const uint32_t a[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<16>(float* d, const uint32_t a[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// f32 rounded to tf32 (nearest, ties away from zero): the low 13 bits zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
 }
 
 }  // namespace hopper

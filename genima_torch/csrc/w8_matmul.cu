@@ -1,21 +1,25 @@
 // Weight-only int8 matmul for Hopper (sm_90a): out = (x @ w_q^T) * scale.
 //
 // Replaces genima_tpu/kernels/w8_matmul.py::_w8_matmul_2d / _kernel (and
-// w8_matmul_interpret, the same kernel body): x (M, K) bf16, w_q (N, K) int8
-// (the nn.Linear layout, one row per output column), scale (N,) f32, out
-// (M, N) bf16. The weights stay int8 in device and shared memory and are
-// widened to bf16 in registers on their way into the tensor cores: no
-// dequantised copy is ever written. The f32 scale is applied once, in the
-// epilogue.
+// w8_matmul_interpret, the same kernel body): x (M, K) bf16 or f32, w_q
+// (N, K) int8 (the nn.Linear layout, one row per output column), scale (N,)
+// f32, out (M, N) in x's dtype. The TPU body casts x and w to bf16 and sums
+// in f32; a bf16 x int8 product is exact in f32, so the bf16 tensor cores
+// compute that sum exactly up to the order of the additions. The weights
+// stay int8 in device and shared memory and are widened to bf16 in
+// registers on their way into the tensor cores: no dequantised copy is ever
+// written. The f32 scale is applied once, in the epilogue.
 //
-// What bounds it on the H100: 2*M*K*N operations on K*N + 2*M*K + 2*M*N
-// bytes. On the serving path M is 64, 77, 256, 1024 or 4096 tokens; at
-// M <= 256 the weight bytes bound it, and a call moves 0.3-13 MB, which is
-// a few microseconds at 3.35 TB/s: the kernel has to fill all 132 SMs and
-// keep enough weight bytes in flight on each, or latency sets its time.
+// What bounds it on the H100: 2*M*K*N operations on K*N + e*M*K + e*M*N
+// bytes (e = 2 for bf16 x, 4 for f32). On the serving path M is 64, 77,
+// 256, 1024 or 4096 tokens; at M <= 256 the weight bytes bound it, and a
+// call moves 0.3-13 MB, which is a few microseconds at 3.35 TB/s: the
+// kernel has to fill all 132 SMs and keep enough weight bytes in flight on
+// each, or latency sets its time.
 //
 // Design (one block per (64 weight rows, token tile, K split); a consumer
-// warpgroup and a producer warp, two blocks an SM):
+// warpgroup and a producer warp, two blocks an SM where shared memory
+// allows):
 //   * swap-AB: the block computes out^T = W x^T. The 64 weight rows are
 //     wgmma's A operand, so each int8 weight is loaded from shared memory
 //     and widened by exactly one thread, in registers; the token tile (64,
@@ -23,40 +27,42 @@
 //     memory. At M = 4096 the same orientation runs with 128-token tiles
 //     (the usual one would widen the weight into shared memory first);
 //   * a ring of `stages` K tiles, 128 wide, filled by TMA behind mbarriers:
-//     the producer warp issues the W box (64 x 128 int8) and two x boxes
-//     (BT x 64 bf16 each), all 128-byte swizzled, and waits only on "empty"
-//     barriers; the consumers wait on "full" barriers. Out-of-range rows
-//     and columns arrive as zeros, so ragged M, N and K need no masks in
-//     the main loop. A stage is two wgmma groups of four k16 steps with
-//     their own A registers, so the warps widen one group's weights while
-//     the tensor cores run the other's (wait_group 1);
+//     the producer warp issues the W box (64 x 128 int8) and the x boxes
+//     (two of BT x 64 bf16, or four of BT x 32 f32), all 128-byte swizzled,
+//     and waits only on "empty" barriers; the consumers wait on "full"
+//     barriers. Out-of-range rows and columns arrive as zeros, so ragged M,
+//     N and K need no masks in the main loop. A stage is two wgmma groups of
+//     four k16 steps with their own A registers, so the warps widen one
+//     group's weights while the tensor cores run the other's (wait_group 1);
+//   * f32 x: TMA copies without converting, so the consumers round the
+//     stage's f32 x to bf16 (round to nearest even, the TPU body's cast) in
+//     place, into the two bf16 boxes the bf16 kernel reads, then fence the
+//     async proxy and meet at a named barrier before the stage's first
+//     wgmma. This overlaps the previous stage's second group, and there is
+//     no cast pass over x in device memory and no second launch. The f32
+//     stage is twice the bf16 one's x bytes, so f32 x takes 64- or
+//     80-token tiles, two blocks an SM (128-token ones fit one an SM and
+//     measured up to 2x slower);
 //   * widening: a 32-bit word of four int8 values becomes four exact bf16
 //     by byte permutes into the f32 magic number 2^23 + 128 + v, one
 //     subtraction, and taking the high halves (|v| <= 127 is exact in bf16);
 //   * split-K: `plan` in kernels/w8_matmul.py picks the token tile, a split
 //     of the K tiles and the ring depth. Small-M calls split K until about
-//     half a wave of blocks runs (measured: beyond that the partials cost
-//     more than the extra blocks gain). With a split, each block writes its f32 partial tile to a workspace in
-//     its own register order, takes a ticket from a per-tile counter, and
-//     the block that takes the last ticket reads the partials back and sums
+//     half a wave of blocks runs (bf16, measured: beyond that the partials
+//     cost more than the extra blocks gain; f32 splits up to 8 ways). With a
+//     split, each block writes its f32 partial tile to a workspace in its
+//     own register order, takes a ticket from a per-tile counter, and the
+//     block that takes the last ticket reads the partials back and sums
 //     them in split order 0, 1, ..., so the result does not depend on which
 //     block finishes last: two calls give the same bits. That block resets
 //     the counter for the next call. No float atomics, no second launch;
-//   * epilogue: * scale in f32, one rounding to bf16, staged through shared
-//     memory so the (M, N) output is written in 16-byte rows, masked to M
-//     and N.
+//   * epilogue: * scale in f32, then one rounding to bf16 (bf16 x) or none
+//     (f32 x), staged through shared memory so the (M, N) output is written
+//     in 16-byte rows, masked to M and N.
 // Every shape with K % 16 == 0 and N % 8 == 0 runs (TMA needs 16-byte row
 // strides).
-//
-// Float32 x (w8_matmul_f32_kernel): the TPU kernel's body casts x to bf16
-// before the product and accumulates in f32, and writes x's dtype. So here
-// each f32 value of x is rounded to bf16 as the block loads it into shared
-// memory (no cast pass over x in device memory), the product of a bf16 and
-// an int8 value is exact in f32, sums are f32, the scale is applied once and
-// out is f32. A simple tiled GEMM on the CUDA cores (FFMA): a block of 256
-// threads owns 64 tokens x 64 weight rows, each thread 4 x 4, over K tiles
-// of 32 held in shared memory 33 floats a row apart (so the rows a warp
-// reads lie in distinct banks). No split, so two calls give the same bits.
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -68,7 +74,7 @@ constexpr int kBK = 128;  // K per ring stage (the W box's 128-byte rows)
 
 struct Params {
   const float* scale;
-  __nv_bfloat16* out;
+  void* out;     // (M, N) in x's dtype
   float* ws;     // split > 1: [split][tiles][BN * BT] f32 partials
   int* tickets;  // split > 1: [tiles], zero between calls
   int m, n, k_tiles, split, stages;
@@ -79,13 +85,18 @@ constexpr int BN = 64;
 constexpr int kConsumers = 128;
 constexpr int kThreads = kConsumers + 32;
 
-template <int BT>
+// BT tokens a tile; F32: x arrives as f32 (four boxes of 32 values a
+// stage) instead of bf16 (two boxes of 64)
+template <int BT, bool F32>
 struct Cfg {
   static constexpr int kWBytes = BN * kBK;
-  static constexpr int kXBox = BT * 128;  // BT rows x 64 bf16
-  static constexpr int kStage = kWBytes + 2 * kXBox;
+  static constexpr int kXBox = BT * 128;  // BT rows of 128 bytes
+  static constexpr int kXBoxes = F32 ? 4 : 2;
+  static constexpr int kXBoxK = kBK / kXBoxes;  // K a box
+  static constexpr int kStage = kWBytes + kXBoxes * kXBox;
   static constexpr int kAcc = BT / 2;
-  static constexpr int kStageRow = 72;  // bf16 per staged output row (64 + 8)
+  // elements per staged output row: 64 and 16 bytes of padding
+  static constexpr int kStageRow = F32 ? 68 : 72;
   static int smem_bytes(int stages) { return 1024 + stages * kStage + 16 * stages + 16; }
 };
 
@@ -101,11 +112,57 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
+// Round a stage's f32 x (four boxes of BT rows x 32 values) to bf16 in
+// place, into the two boxes of BT rows x 64 values that the bf16 kernel
+// reads (boxes 0 and 1), round to nearest even as __float2bfloat16_rn. An
+// item is 8 consecutive K of one token row: two 16-byte f32 chunks in, one
+// 16-byte bf16 chunk out, each at its 128-byte swizzled place (chunk c of
+// row r sits at c ^ (r % 8)). A warp pass takes two row pairs (r, r ^ 5)
+// of one 8-row group and 4 chunks of each row, so the 8 lanes of a
+// quarter-warp read 8 distinct 16-byte places of a row span and write 8
+// distinct places: no bank conflicts. Boxes 0 and 1 are overwritten only
+// after every consumer has read them (the first named barrier); the second
+// makes the bf16 tile whole, and visible to wgmma, before any warp issues.
 template <int BT>
+__device__ __forceinline__ void round_x_to_bf16(uint8_t* xs, int wq, int lane) {
+  constexpr int kPasses = BT / 16;  // BT / 2 row pairs, 8 a pass of the warpgroup
+  const int q = lane & 3, rs = (lane >> 2) & 1, jj = (lane >> 3) & 1, pp = lane >> 4;
+  uint32_t v[kPasses][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int pair = 8 * i + 2 * wq + pp;
+      const int u = pair & 3;
+      const int row = 8 * (pair >> 2) + (rs ? u ^ 5 : u);
+      // bf16 chunk 4 jj + q of half h: f32 box 2h + jj, its chunks 2q, 2q + 1
+      const uint8_t* src = xs + (2 * h + jj) * (BT * 128) + row * 128;
+      const float4 lo = *reinterpret_cast<const float4*>(src + (((2 * q) ^ (row & 7)) << 4));
+      const float4 hi = *reinterpret_cast<const float4*>(src + (((2 * q + 1) ^ (row & 7)) << 4));
+      const __nv_bfloat162 b[4] = {__floats2bfloat162_rn(lo.x, lo.y), __floats2bfloat162_rn(lo.z, lo.w),
+                                   __floats2bfloat162_rn(hi.x, hi.y), __floats2bfloat162_rn(hi.z, hi.w)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[i][e] = *reinterpret_cast<const uint32_t*>(&b[e]);
+    }
+    if (h == 0) named_barrier(1, kConsumers);  // boxes 0 and 1 read by every consumer
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int pair = 8 * i + 2 * wq + pp;
+      const int u = pair & 3;
+      const int row = 8 * (pair >> 2) + (rs ? u ^ 5 : u);
+      *reinterpret_cast<uint4*>(xs + h * (BT * 128) + row * 128 + (((4 * jj + q) ^ (row & 7)) << 4)) =
+          make_uint4(v[i][0], v[i][1], v[i][2], v[i][3]);
+    }
+  }
+  fence_proxy_async();
+  named_barrier(1, kConsumers);
+}
+
+template <int BT, bool F32>
 __global__ void __launch_bounds__(kThreads, 2)
 w8_matmul_kernel(const __grid_constant__ CUtensorMap map_w,
                  const __grid_constant__ CUtensorMap map_x, const Params p) {
-  using C = Cfg<BT>;
+  using C = Cfg<BT, F32>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -142,8 +199,10 @@ w8_matmul_kernel(const __grid_constant__ CUtensorMap map_w,
         uint8_t* st = smem + stage * C::kStage;
         mbar_expect_tx(&full[stage], C::kStage);
         tma_load_2d(st, &map_w, &full[stage], kt * kBK, n0);
-        tma_load_2d(st + C::kWBytes, &map_x, &full[stage], kt * kBK, m0);
-        tma_load_2d(st + C::kWBytes + C::kXBox, &map_x, &full[stage], kt * kBK + 64, m0);
+#pragma unroll
+        for (int j = 0; j < C::kXBoxes; ++j)
+          tma_load_2d(st + C::kWBytes + j * C::kXBox, &map_x, &full[stage],
+                      kt * kBK + j * C::kXBoxK, m0);
         if (++stage == p.stages) {
           stage = 0;
           phase ^= 1;
@@ -219,8 +278,9 @@ w8_matmul_kernel(const __grid_constant__ CUtensorMap map_w,
   int prev = -1;  // the stage whose second group may still be running
   for (int kt = kt0; kt < kt1; ++kt) {
     mbar_wait(&full[stage], phase);
-    const uint8_t* ws = smem + stage * C::kStage;
-    const uint8_t* xs = ws + C::kWBytes;
+    uint8_t* ws = smem + stage * C::kStage;
+    uint8_t* xs = ws + C::kWBytes;
+    if constexpr (F32) round_x_to_bf16<BT>(xs, wq, lane);
     widen_half(ws, 0, a0);
     mma_half(xs, 0, a0);
     wgmma_wait<1>();
@@ -278,98 +338,89 @@ w8_matmul_kernel(const __grid_constant__ CUtensorMap map_w,
     if (ctid == 0) p.tickets[tile] = 0;
   }
 
-  // epilogue: the ring is done with, so stage the bf16 tile (BT tokens x
-  // 64 columns) in it, then write 16-byte rows
-  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+  // epilogue: the ring is done with, so stage the tile (BT tokens x 64
+  // columns) in it, then write 16-byte rows
+  using Out = typename std::conditional<F32, float, __nv_bfloat16>::type;
+  constexpr int kVec = 16 / sizeof(Out);  // outputs a 16-byte store
+  Out* st = reinterpret_cast<Out*>(smem);
 #pragma unroll
   for (int i = 0; i < C::kAcc; ++i) {
     const int tok = 8 * (i >> 2) + 2 * t + (i & 1);
     const int half = (i >> 1) & 1;
-    st[tok * C::kStageRow + wq * 16 + g + 8 * half] = __float2bfloat16_rn(acc[i] * (half ? s1 : s0));
+    const float v = acc[i] * (half ? s1 : s0);
+    if constexpr (F32)
+      st[tok * C::kStageRow + wq * 16 + g + 8 * half] = v;
+    else
+      st[tok * C::kStageRow + wq * 16 + g + 8 * half] = __float2bfloat16_rn(v);
   }
   named_barrier(1, kConsumers);
-  for (int idx = ctid; idx < BT * 8; idx += kConsumers) {
-    const int tok = idx >> 3, c8 = (idx & 7) * 8;
-    const int gm = m0 + tok, gn = n0 + c8;
+  Out* out = static_cast<Out*>(p.out);
+  for (int idx = ctid; idx < BT * (BN / kVec); idx += kConsumers) {
+    const int tok = idx / (BN / kVec), cv = (idx % (BN / kVec)) * kVec;
+    const int gm = m0 + tok, gn = n0 + cv;
     if (gm < p.m && gn < p.n)
-      *reinterpret_cast<uint4*>(p.out + static_cast<size_t>(gm) * p.n + gn) =
-          *reinterpret_cast<const uint4*>(st + tok * C::kStageRow + c8);
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(gm) * p.n + gn) =
+          *reinterpret_cast<const uint4*>(st + tok * C::kStageRow + cv);
   }
 }
 
-template <int BT>
+template <int BT, bool F32>
 int launch(const CUtensorMap& map_w, const CUtensorMap& map_x, const Params& p,
            cudaStream_t stream) {
-  using C = Cfg<BT>;
-  const int smem = C::smem_bytes(p.stages);
+  const int smem = Cfg<BT, F32>::smem_bytes(p.stages);
   static int configured = 0;  // the largest dynamic shared memory set so far
   if (smem > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        w8_matmul_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        w8_matmul_kernel<BT, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = smem;
   }
   const dim3 grid((p.n + BN - 1) / BN, (p.m + BT - 1) / BT, p.split);
-  w8_matmul_kernel<BT><<<grid, kThreads, smem, stream>>>(map_w, map_x, p);
+  w8_matmul_kernel<BT, F32><<<grid, kThreads, smem, stream>>>(map_w, map_x, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// --- float32 x ------------------------------------------------------------------
-
-constexpr int kF32Tile = 64;   // tokens and weight rows a block
-constexpr int kF32K = 32;      // K a shared-memory tile
-constexpr int kF32Ld = kF32K + 1;
-
-__global__ void __launch_bounds__(256) w8_matmul_f32_kernel(const float* __restrict__ x,
-                                                            const int8_t* __restrict__ w_q,
-                                                            const float* __restrict__ scale,
-                                                            float* __restrict__ out, int m,
-                                                            int n, int k) {
-  __shared__ float xs[kF32Tile * kF32Ld];
-  __shared__ float ws[kF32Tile * kF32Ld];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n0 = blockIdx.x * kF32Tile, m0 = blockIdx.y * kF32Tile;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += kF32K) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kF32Tile * kF32K; idx += 256) {
-      const int r = idx / kF32K, kk = idx % kF32K, kc = k0 + kk;
-      const int row = m0 + r, col = n0 + r;
-      xs[r * kF32Ld + kk] =
-          row < m && kc < k
-              ? __bfloat162float(__float2bfloat16_rn(x[static_cast<size_t>(row) * k + kc]))
-              : 0.f;
-      ws[r * kF32Ld + kk] =
-          col < n && kc < k ? static_cast<float>(w_q[static_cast<size_t>(col) * k + kc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kF32K; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = xs[(ty + 16 * r) * kF32Ld + kk];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = ws[(tx + 16 * c) * kF32Ld + kk];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
+// Both entry points: x is bf16, or f32 with F32.
+template <bool F32>
+int run(const void* x, const void* w_q, const void* scale, void* out, int m, int n, int k, int bt,
+        int split, int stages, void* ws, void* tickets, void* stream) {
+  constexpr int kElem = F32 ? 4 : 2;
+  CUtensorMap map_w, map_x;
+  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(n)};
+  const cuuint64_t w_strides[1] = {static_cast<cuuint64_t>(k)};
+  const cuuint32_t w_box[2] = {kBK, BN};
+  int rc = hopper_host::encode(&map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w_q, w_dims, w_strides,
+                               w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k) * kElem};
+  const cuuint32_t x_box[2] = {128 / kElem, static_cast<cuuint32_t>(bt)};
+  rc = hopper_host::encode(&map_x,
+                           F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           2, x, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  Params p;
+  p.scale = static_cast<const float*>(scale);
+  p.out = out;
+  p.ws = static_cast<float*>(ws);
+  p.tickets = static_cast<int*>(tickets);
+  p.m = m;
+  p.n = n;
+  p.k_tiles = (k + kBK - 1) / kBK;
+  p.split = split;
+  p.stages = stages;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a stage goes back to the producer only after the next one's first
+  // group is issued: more than one K tile a split needs two stages
+  if (split < 1 || split > p.k_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  if (stages < ((p.k_tiles + split - 1) / split > 1 ? 2 : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bt == 64) return launch<64, F32>(map_w, map_x, p, s);
+  if (bt == 80) return launch<80, F32>(map_w, map_x, p, s);
+  if constexpr (!F32) {  // f32 x at 128 tokens took one block an SM and measured 2x slower
+    if (bt == 128) return launch<128, F32>(map_w, map_x, p, s);
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = m0 + ty + 16 * r;
-    if (row >= m) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = n0 + tx + 16 * c;
-      if (col < n) out[static_cast<size_t>(row) * n + col] = acc[r][c] * scale[col];
-    }
-  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -385,39 +436,14 @@ extern "C" {
 // synchronise; returns 0 or an error code for w8_matmul_error_string.
 int w8_matmul(const void* x, const void* w_q, const void* scale, void* out, int m, int n, int k,
               int bt, int split, int stages, void* ws, void* tickets, void* stream) {
-  CUtensorMap map_w, map_x;
-  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(n)};
-  const cuuint64_t w_strides[1] = {static_cast<cuuint64_t>(k)};
-  const cuuint32_t w_box[2] = {kBK, BN};
-  int rc = hopper_host::encode(&map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w_q, w_dims, w_strides,
-                               w_box, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (rc) return rc;
-  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
-  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k) * 2};
-  const cuuint32_t x_box[2] = {64, static_cast<cuuint32_t>(bt)};
-  rc = hopper_host::encode(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides,
-                           x_box, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (rc) return rc;
-  Params p;
-  p.scale = static_cast<const float*>(scale);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.ws = static_cast<float*>(ws);
-  p.tickets = static_cast<int*>(tickets);
-  p.m = m;
-  p.n = n;
-  p.k_tiles = (k + kBK - 1) / kBK;
-  p.split = split;
-  p.stages = stages;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // a stage goes back to the producer only after the next one's first
-  // group is issued: more than one K tile a split needs two stages
-  if (split < 1 || split > p.k_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  if (stages < ((p.k_tiles + split - 1) / split > 1 ? 2 : 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bt == 64) return launch<64>(map_w, map_x, p, s);
-  if (bt == 80) return launch<80>(map_w, map_x, p, s);
-  if (bt == 128) return launch<128>(map_w, map_x, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run<false>(x, w_q, scale, out, m, n, k, bt, split, stages, ws, tickets, stream);
+}
+
+// The same on f32 x into f32 out: out = (bf16(x) @ w_q^T) * scale, x
+// rounded to bf16 inside the kernel (plan(..., f32=True)).
+int w8_matmul_f32(const void* x, const void* w_q, const void* scale, void* out, int m, int n,
+                  int k, int bt, int split, int stages, void* ws, void* tickets, void* stream) {
+  return run<true>(x, w_q, scale, out, m, n, k, bt, split, stages, ws, tickets, stream);
 }
 
 // Shared memory a block of the bt-token kernel asks for at `stages`.
@@ -425,21 +451,10 @@ int w8_matmul_smem_bytes(int bt, int stages) {
   return 1024 + stages * (BN * kBK + 2 * bt * 128) + 16 * stages + 16;
 }
 
-// out (M, N) f32 = (bf16(x) (M, K) f32 @ w_q (N, K) int8 ^T) * scale (N,)
-// f32, any M, N, K >= 1. Launches on `stream`, does not synchronise; returns
-// 0 or an error code for w8_matmul_error_string.
-int w8_matmul_f32(const void* x, const void* w_q, const void* scale, void* out, int m, int n,
-                  int k, void* stream) {
-  if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kF32Tile - 1) / kF32Tile, (m + kF32Tile - 1) / kF32Tile);
-  w8_matmul_f32_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w_q),
-      static_cast<const float*>(scale), static_cast<float*>(out), m, n, k);
-  return static_cast<int>(cudaGetLastError());
+// The same for the f32-x kernel (four x boxes a stage).
+int w8_matmul_f32_smem_bytes(int bt, int stages) {
+  return 1024 + stages * (BN * kBK + 4 * bt * 128) + 16 * stages + 16;
 }
-
-// Static shared memory of a block of the f32 kernel.
-int w8_matmul_f32_smem_bytes() { return 2 * kF32Tile * kF32Ld * 4; }
 
 const char* w8_matmul_error_string(int code) { return hopper_host::error_string(code); }
 

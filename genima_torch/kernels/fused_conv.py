@@ -25,10 +25,13 @@ Layouts are the JAX package's: x and y NHWC ``(B, H, W, C)``, w HWIO
   its VMEM channel split are lane and VMEM rules of that chip and are not
   ported. Bound: tensor-core operations at the decoder's widths, input
   bytes for conv_out.
-  On f32 x it launches the same source's f32 kernel instead (an FFMA
-  implicit GEMM on the CUDA cores: TF32 would miss the f32 result; f32
-  weights, activation, sums and output, as the TPU kernel keeps x's
-  dtype; ``f32_plan`` gives its tile), for any C and O.
+  On f32 x it launches the same source's f32 kernel instead, as the TPU
+  kernel keeps x's dtype: the same persistent implicit GEMM on the TF32
+  tensor cores with every product split in three (3xTF32: big x big, big
+  x small, small x big, with big = tf32(a) and small = tf32(a - big)), so
+  it keeps f32's accuracy where one TF32 pass would not; the activation,
+  sums and output in f32, 32-channel bands, the weights handed over
+  K-major as (9, O, C) (``plan(..., f32=True)``), any O.
 * CPU: ``fused_conv3x3_reference``, the kernel's arithmetic in plain
   PyTorch. The wrapper takes it only for tensors that lie on the CPU.
 
@@ -69,13 +72,15 @@ def fused_conv3x3_reference(x, w, b, scale=None, shift=None, wskip=None, residua
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 TILE_W, CHUNK = 64, 64  # output columns per tile, input channels per band
+F32_CHUNK = 32  # input channels per band of the f32 kernel (128 bytes a pixel)
 BAND_STAGES, W_STAGES = 2, 4
 # (output channels, image rows) per tile that the source instantiates: one
 # consumer warpgroup per row, wgmma N = output channels. Measured on the
 # H100 (``python -m genima_torch.tune_kernels conv``): 128 x 2 beats 256 x 2
 # and 128 x 4 at every decoder shape (both spill: ptxas gives a 288-thread
 # block at most 168 registers, a 544-thread one 96); 16 x 4 beats 16 x 2 at
-# conv_out, where the per-tap latency is worth four warpgroups.
+# conv_out, where the per-tap latency is worth four warpgroups. The f32
+# kernel instantiates the same two.
 TILES = ((128, 2), (16, 4))
 
 
@@ -89,40 +94,46 @@ class Plan:
     rows: int  # image rows per tile, one consumer warpgroup each
     tiles: tuple[int, int, int]  # (pixel tiles, output-channel blocks, batch)
     blocks: int  # persistent blocks, one an SM at most
-    chunks: int  # 64-channel bands per tile
+    chunks: int  # bands per tile (64 channels, or 32 for f32)
     smem_bytes: int
     why_short: str  # why the grid is under one wave ("" if it is not)
+    f32: bool = False  # the 3xTF32 kernel
 
     @property
     def n_tiles(self) -> int:
         return self.tiles[0] * self.tiles[1] * self.tiles[2]
 
 
-def smem_bytes(bn: int, rows: int) -> int:
+def smem_bytes(bn: int, rows: int, f32: bool = False) -> int:
     """Dynamic shared memory of one block: 1 KB of alignment slack, the
-    band ring ((rows + 2) x 66 pixels x 64 channels a stage, in whole KB),
-    the weight ring (64 x bn bf16 a stage) and the barriers. Mirrors
-    ``fused_conv3x3_smem_bytes`` in the source."""
-    band = -(-(rows + 2) * (TILE_W + 2) * CHUNK * 2 // 1024) * 1024
-    return 1024 + BAND_STAGES * band + W_STAGES * CHUNK * bn * 2 + 16 * (BAND_STAGES + W_STAGES)
+    band ring ((rows + 2) x 66 pixels x 128 bytes a stage, in whole KB: 64
+    bf16 or 32 f32 channels), the weight ring (a tap's weights a stage: 64
+    x bn bf16, or 32 x bn f32 and their remainders') and the barriers.
+    Mirrors ``fused_conv3x3_smem_bytes`` and ``fused_conv3x3_f32_smem_bytes``
+    in the source."""
+    band = -(-(rows + 2) * (TILE_W + 2) * 128 // 1024) * 1024
+    w_stage = 2 * F32_CHUNK * bn * 4 if f32 else CHUNK * bn * 2
+    # full and empty barriers a stage, and a "ready" one a weight stage in f32
+    barriers = 16 * (BAND_STAGES + W_STAGES) + (8 * W_STAGES if f32 else 0)
+    return 1024 + BAND_STAGES * band + W_STAGES * w_stage + barriers
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, h: int, w: int, c: int, o: int, sms: int = SMS) -> Plan:
-    """Tile for a (B, H, W, C) -> O call: 16 output channels over four
-    image rows for conv_out's few channels, else 128 over two. One
-    persistent block per SM (the rings take most of its shared memory), or
-    one per tile when there are fewer tiles."""
+def plan(b: int, h: int, w: int, c: int, o: int, sms: int = SMS, f32: bool = False) -> Plan:
+    """Tile for a (B, H, W, C) -> O call (``f32``: of the 3xTF32 kernel):
+    16 output channels over four image rows for conv_out's few channels,
+    else 128 over two. One persistent block per SM (the rings take most of
+    its shared memory), or one per tile when there are fewer tiles."""
     if min(b, h, w, c, o) < 1:
         raise ValueError(f"empty conv: B={b}, H={h}, W={w}, C={c}, O={o}")
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
     bn, rows = TILES[1] if o <= 16 else TILES[0]
-    return make_plan(b, h, w, c, o, bn, rows, sms)
+    return make_plan(b, h, w, c, o, bn, rows, sms, f32=f32)
 
 
 def make_plan(b: int, h: int, w: int, c: int, o: int, bn: int, rows: int,
-              sms: int = SMS) -> Plan:
+              sms: int = SMS, f32: bool = False) -> Plan:
     """The launch for a chosen tile."""
     if (bn, rows) not in TILES:
         raise ValueError(f"no kernel for {bn} output channels x {rows} rows")
@@ -131,59 +142,15 @@ def make_plan(b: int, h: int, w: int, c: int, o: int, bn: int, rows: int,
     n_tiles = grid[0] * grid[1] * grid[2]
     why = (f"{grid[0] * b} tiles of {rows}x{TILE_W} pixels x {grid[1]} blocks of {bn} "
            f"output channels" if n_tiles < sms else "")
-    return Plan(bn=bn, rows=rows, tiles=grid, blocks=min(n_tiles, sms), chunks=-(-c // CHUNK),
-                smem_bytes=smem_bytes(bn, rows), why_short=why)
+    return Plan(bn=bn, rows=rows, tiles=grid, blocks=min(n_tiles, sms),
+                chunks=-(-c // (F32_CHUNK if f32 else CHUNK)),
+                smem_bytes=smem_bytes(bn, rows, f32), why_short=why, f32=f32)
 
 
-F32_TILES = {64: 8, 16: 16}  # output channels -> pixel patch side of the f32 kernel
-F32_CHUNK = 16  # input channels a band of the f32 kernel
-
-
-@dataclasses.dataclass(frozen=True)
-class F32Plan:
-    """One call of the f32 kernel: blocks of a ``side`` x ``side`` pixel
-    patch by ``bn`` output channels over (patches, channel blocks, batch),
-    256 threads each."""
-
-    bn: int
-    side: int
-    grid: tuple[int, int, int]
-    smem_bytes: int
-    why_short: str
-
-    @property
-    def blocks(self) -> int:
-        return self.grid[0] * self.grid[1] * self.grid[2]
-
-
-def f32_smem_bytes(bn: int) -> int:
-    """Dynamic shared memory of an f32 block: the halo band of a chunk
-    (17 floats a pixel) and the chunk's weights of the nine taps and the
-    skip. Mirrors ``F32Cfg::kSmem`` in the source, which
-    ``fused_conv3x3_f32_smem_bytes`` returns."""
-    halo = F32_TILES[bn] + 2
-    return 4 * (halo * halo * (F32_CHUNK + 1) + 10 * F32_CHUNK * bn)
-
-
-def f32_plan(b: int, h: int, w: int, c: int, o: int, sms: int = SMS) -> F32Plan:
-    """The f32 kernel's tile: 16 output channels over 16 x 16 pixels for
-    conv_out's few channels, else 64 over 8 x 8."""
-    if min(b, h, w, c, o) < 1:
-        raise ValueError(f"empty conv: B={b}, H={h}, W={w}, C={c}, O={o}")
-    bn = 16 if o <= 16 else 64
-    side = F32_TILES[bn]
-    grid = (-(-h // side) * -(-w // side), -(-o // bn), b)
-    n = grid[0] * grid[1] * grid[2]
-    why = f"{n} patches of {side}x{side} pixels x {bn} output channels" if n < sms else ""
-    return F32Plan(bn=bn, side=side, grid=grid, smem_bytes=f32_smem_bytes(bn), why_short=why)
-
-
-def _plan_for(b: int, h: int, w: int, c: int, o: int, *, dtype=torch.bfloat16):
-    """The plan a call launches: ``plan``'s on bf16, ``f32_plan``'s on f32
-    (``tune_kernels`` and the card tests swap in others)."""
-    if dtype == torch.float32:
-        return f32_plan(b, h, w, c, o)
-    return plan(b, h, w, c, o)
+def _plan_for(b: int, h: int, w: int, c: int, o: int, *, dtype=torch.bfloat16) -> Plan:
+    """The plan a call launches: ``plan``'s for x's dtype (``tune_kernels``
+    and the card tests swap in others)."""
+    return plan(b, h, w, c, o, f32=dtype == torch.float32)
 
 
 @functools.cache
@@ -195,11 +162,11 @@ def _library() -> ctypes.CDLL:
     lib.fused_conv3x3_smem_bytes.restype = ctypes.c_int
     lib.fused_conv3x3_error_string.argtypes = [ctypes.c_int]
     lib.fused_conv3x3_error_string.restype = ctypes.c_char_p
-    # f32: eight pointers, (B, H, W, C, O, bn), the stream
-    lib.fused_conv3x3_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    # f32: eight pointers, (B, H, W, C, O, bn, rows, blocks), the stream
+    lib.fused_conv3x3_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     lib.fused_conv3x3_f32.restype = ctypes.c_int
-    lib.fused_conv3x3_f32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_conv3x3_f32_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.fused_conv3x3_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -234,21 +201,30 @@ def _count(x, o: int) -> None:
 
 
 def _launch_f32(x, w, b, scale, shift, wskip, residual) -> torch.Tensor:
-    """The f32 kernel: every operand in f32 (weights included), f32 out."""
+    """The 3xTF32 kernel: every operand in f32, the weights K-major (one
+    transposing copy a call, as the bf16 path casts its weights), f32 out."""
     bsz, h, wd, c = x.shape
     o = w.shape[-1]
     p = _plan_for(bsz, h, wd, c, o, dtype=x.dtype)
-    operands = [t if t is None else t.float().contiguous()
-                for t in (x, w, b, scale, shift, wskip, residual)]
+    operands = [
+        x.contiguous(),
+        w.float().reshape(9, c, o).transpose(1, 2).contiguous(),
+        b.float().contiguous(),
+        None if scale is None else scale.float().contiguous(),
+        None if shift is None else shift.float().contiguous(),
+        None if wskip is None else wskip.float().t().contiguous(),
+        None if residual is None else residual.float().contiguous(),
+    ]
     for t in operands:
-        if t is not None and t.device != x.device:
-            raise ValueError(f"every operand must be on {x.device}")
+        if t is not None and (t.device != x.device or t.data_ptr() % 16):
+            raise ValueError(f"every operand must be 16-byte aligned on {x.device}")
     out = torch.empty(bsz, h, wd, o, device=x.device, dtype=torch.float32)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fused_conv3x3_f32(*[None if t is None else t.data_ptr() for t in operands],
-                                   out.data_ptr(), bsz, h, wd, c, o, p.bn, stream)
+                                   out.data_ptr(), bsz, h, wd, c, o, p.bn, p.rows, p.blocks,
+                                   stream)
     _count(x, o)
     if rc != 0:
         raise RuntimeError(

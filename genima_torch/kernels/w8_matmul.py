@@ -17,14 +17,14 @@ brings weight rows in as the kernel's wgmma A operand.
   fed by a TMA + mbarrier ring of 128-wide K tiles, with a split-K whose
   partials are summed in a fixed order by the last block of each tile, so
   results are bit-identical from call to call. ``plan`` picks the token
-  tile, the split and the ring depth per shape. Takes bf16 x, K % 16 == 0
-  and N % 8 == 0; anything else raises. Bound: weight bytes at M <= 256,
-  tensor cores at M = 4096.
-  On f32 x it launches the same source's f32 kernel instead: each x value
-  rounded to bf16 as the block loads it (the TPU body's cast, with no cast
-  pass in the wrapper), exact bf16 x int8 products summed in f32 on the
-  CUDA cores (FFMA), ``* scale``, f32 out; no split, so repeated calls give
-  the same bits.
+  tile, the split and the ring depth per shape. Takes bf16 or f32 x,
+  K % 16 == 0 and N % 8 == 0; anything else raises. Bound: weight bytes at
+  M <= 256, tensor cores at M = 4096.
+  On f32 x the same kernel (its f32 instantiation, ``plan(..., f32=True)``)
+  brings x in as f32 and rounds it to bf16 in shared memory (the TPU
+  body's cast, with no cast pass in device memory): the bf16 x int8
+  products are exact, so the bf16 tensor cores give the TPU body's f32 sum
+  up to its order; ``* scale`` and the output stay f32.
 * CPU: ``w8_matmul_reference``, the JAX fallback's arithmetic (x rounded to
   bf16, exact int8 values, f32 accumulate, ``* scale``, cast to x's dtype).
   The wrapper takes it only for tensors that lie on the CPU.
@@ -67,6 +67,12 @@ BK = 128  # K per ring stage
 BN = 64  # weight rows per block (one consumer warpgroup)
 TOKEN_TILES = (64, 80, 128)  # the wgmma N of the token tile
 MAX_SPLIT = 4
+# f32 x: a stage's x bytes double, so 128-token tiles fit one block an SM
+# and measured up to 2x slower than 64-token ones at every M above 80 (H100,
+# all the opt-in path's shapes); 77-token calls have 5 or 10 tiles, hence
+# splits up to 8
+F32_TOKEN_TILES = (64, 80)
+F32_MAX_SPLIT = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +84,7 @@ class Plan:
     split: int
     stages: int
     k_tiles: int
+    f32: bool  # the f32-x instantiation
     grid: tuple[int, int, int]  # (N tiles, token tiles, split)
     smem_bytes: int
     workspace_floats: int  # f32 partials, 0 without a split
@@ -98,23 +105,32 @@ class Plan:
         return [(z * kt // s, (z + 1) * kt // s) for z in range(s)]
 
 
-def smem_bytes(bt: int, stages: int) -> int:
+def stage_bytes(bt: int, f32: bool = False) -> int:
+    """One ring stage: the int8 W box and the x boxes (two of bt x 64 bf16,
+    or four of bt x 32 f32)."""
+    return BN * BK + (4 if f32 else 2) * bt * 128
+
+
+def smem_bytes(bt: int, stages: int, f32: bool = False) -> int:
     """Dynamic shared memory of one block: 1 KB of alignment slack, the
-    ring (int8 W box + two bf16 x boxes per stage) and its barriers.
-    Mirrors ``w8_matmul_smem_bytes`` in the source."""
-    return 1024 + stages * (BN * BK + 2 * bt * 128) + 16 * stages + 16
+    ring and its barriers. Mirrors ``w8_matmul_smem_bytes`` and
+    ``w8_matmul_f32_smem_bytes`` in the source."""
+    return 1024 + stages * stage_bytes(bt, f32) + 16 * stages + 16
 
 
 @functools.lru_cache(maxsize=None)
-def plan(m: int, k: int, n: int, sms: int = SMS) -> Plan:
-    """Tile, split-K and ring depth for an (M, K) x (K, N) call.
+def plan(m: int, k: int, n: int, sms: int = SMS, f32: bool = False) -> Plan:
+    """Tile, split-K and ring depth for an (M, K) x (K, N) call (``f32``:
+    of the f32-x kernel).
 
-    * token tile: the smallest of 64, 80, 128 that holds M, else 128;
+    * token tile: the smallest of 64, 80, 128 that holds M, else 128 (f32
+      x: of 64 and 80, else 64);
     * split: none once the tiles make half a wave; below that, the fewest
-      splits of the K tiles (at most 4) that reach half a wave. Measured
-      on the H100 (``python -m genima_torch.tune_kernels w8``): past that a
-      split's f32 partials cost more than the extra blocks gain, and a
-      deep ring per block does better;
+      splits of the K tiles (at most 4, 8 for f32 x) that reach half a
+      wave. Measured on the H100 for bf16 (``python -m
+      genima_torch.tune_kernels w8``): past that a split's f32 partials
+      cost more than the extra blocks gain, and a deep ring per block does
+      better;
     * ring: as deep as a split's K tiles need, within one block's shared
       memory when the grid fits the SMs, else within half an SM's, so that
       two blocks share an SM.
@@ -123,29 +139,34 @@ def plan(m: int, k: int, n: int, sms: int = SMS) -> Plan:
         raise ValueError(f"M={m}, K={k}, N={n}: every dimension must be positive (K >= 16, N >= 8)")
     if k % 16 or n % 8:
         raise ValueError(f"K={k} must be a multiple of 16 and N={n} of 8")
-    bt = next((t for t in TOKEN_TILES if m <= t), TOKEN_TILES[-1])
+    tiles_of = F32_TOKEN_TILES if f32 else TOKEN_TILES
+    bt = next((t for t in tiles_of if m <= t), tiles_of[0] if f32 else tiles_of[-1])
     tiles = -(-n // BN) * -(-m // bt)
     half_wave = -(-sms // 2)
-    split = 1 if tiles >= half_wave else min(-(-k // BK), MAX_SPLIT, -(-half_wave // tiles))
-    return make_plan(m, k, n, bt, split, sms=sms)
+    most = F32_MAX_SPLIT if f32 else MAX_SPLIT
+    split = 1 if tiles >= half_wave else min(-(-k // BK), most, -(-half_wave // tiles))
+    return make_plan(m, k, n, bt, split, sms=sms, f32=f32)
 
 
 def make_plan(m: int, k: int, n: int, bt: int, split: int = 1, stages: int | None = None,
-              sms: int = SMS) -> Plan:
+              sms: int = SMS, f32: bool = False) -> Plan:
     """The launch for a chosen token tile and split; the ring depth as
     ``plan`` derives it unless given."""
     k_tiles = -(-k // BK)
     m_tiles, n_tiles = -(-m // bt), -(-n // BN)
     tiles = n_tiles * m_tiles
-    if not 1 <= split <= k_tiles or bt not in TOKEN_TILES:
+    if not 1 <= split <= k_tiles or bt not in (F32_TOKEN_TILES if f32 else TOKEN_TILES):
         raise ValueError(f"no such launch: bt={bt}, split={split} of {k_tiles}")
     blocks = tiles * split
     per_split = -(-k_tiles // split)
-    budget = SMEM_BLOCK if blocks <= sms else SMEM_TWO_BLOCKS
-    stage = BN * BK + 2 * bt * 128
+    stage = stage_bytes(bt, f32)
     # a stage is handed back only once the next one's first group is issued,
     # so a split of two or more K tiles needs two stages
     least = 1 if per_split == 1 else 2
+    if blocks > sms and (SMEM_TWO_BLOCKS - 1040) // (stage + 16) >= least:
+        budget = SMEM_TWO_BLOCKS
+    else:
+        budget = SMEM_BLOCK
     stages = stages or max(least, min(per_split, (budget - 1040) // (stage + 16)))
     if stages < least:
         raise ValueError(f"{per_split} K tiles a split need at least two stages")
@@ -153,8 +174,8 @@ def make_plan(m: int, k: int, n: int, bt: int, split: int = 1, stages: int | Non
     if blocks < sms:
         why = (f"{tiles} tiles of {bt} tokens x {BN} weight rows, split {split} of "
                f"{k_tiles} K tiles: more splits measured slower (partials)")
-    return Plan(bt=bt, split=split, stages=stages, k_tiles=k_tiles,
-                grid=(n_tiles, m_tiles, split), smem_bytes=smem_bytes(bt, stages),
+    return Plan(bt=bt, split=split, stages=stages, k_tiles=k_tiles, f32=f32,
+                grid=(n_tiles, m_tiles, split), smem_bytes=smem_bytes(bt, stages, f32),
                 workspace_floats=split * tiles * BN * bt if split > 1 else 0,
                 tickets=tiles if split > 1 else 0, why_short=why)
 
@@ -182,42 +203,10 @@ def _workspace(device: torch.device, p: Plan, stream: torch.cuda.Stream) -> tupl
     return ws.data_ptr(), tickets.data_ptr()
 
 
-F32_TILE = 64  # tokens and weight rows a block of the f32 kernel
-F32_K = 32  # K a shared-memory tile of it
-
-
-@dataclasses.dataclass(frozen=True)
-class F32Plan:
-    """One call of the f32 kernel: 64 x 64 tiles over (N tiles, token
-    tiles), 256 threads each, static shared memory."""
-
-    grid: tuple[int, int]
-    smem_bytes: int
-    why_short: str
-
-    @property
-    def blocks(self) -> int:
-        return self.grid[0] * self.grid[1]
-
-
-def f32_plan(m: int, k: int, n: int, sms: int = SMS) -> F32Plan:
-    """The f32 kernel's grid for an (M, K) x (K, N) call. Mirrors
-    ``w8_matmul_f32_smem_bytes`` in the source (x and w tiles, 33 floats a
-    row)."""
-    if min(m, k, n) < 1:
-        raise ValueError(f"M={m}, K={k}, N={n}: every dimension must be positive")
-    grid = (-(-n // F32_TILE), -(-m // F32_TILE))
-    why = (f"{grid[0] * grid[1]} tiles of {F32_TILE} tokens x {F32_TILE} weight rows"
-           if grid[0] * grid[1] < sms else "")
-    return F32Plan(grid=grid, smem_bytes=2 * F32_TILE * (F32_K + 1) * 4, why_short=why)
-
-
-def _plan_for(m: int, k: int, n: int, *, dtype=torch.bfloat16):
-    """The plan a call launches: ``plan``'s on bf16 x, ``f32_plan``'s on f32
-    (``tune_kernels`` and the card tests swap in others)."""
-    if dtype == torch.float32:
-        return f32_plan(m, k, n)
-    return plan(m, k, n)
+def _plan_for(m: int, k: int, n: int, *, dtype=torch.bfloat16) -> Plan:
+    """The plan a call launches: ``plan``'s for x's dtype (``tune_kernels``
+    and the card tests swap in others)."""
+    return plan(m, k, n, f32=dtype == torch.float32)
 
 
 @functools.cache
@@ -226,15 +215,13 @@ def _library() -> ctypes.CDLL:
     lib.w8_matmul.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     lib.w8_matmul.restype = ctypes.c_int
-    lib.w8_matmul_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.w8_matmul_smem_bytes.restype = ctypes.c_int
+    lib.w8_matmul_f32.argtypes = lib.w8_matmul.argtypes
+    lib.w8_matmul_f32.restype = ctypes.c_int
+    for fn in (lib.w8_matmul_smem_bytes, lib.w8_matmul_f32_smem_bytes):
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
     lib.w8_matmul_error_string.argtypes = [ctypes.c_int]
     lib.w8_matmul_error_string.restype = ctypes.c_char_p
-    # f32: x, w_q, scale, out, then (M, N, K), the stream
-    lib.w8_matmul_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.w8_matmul_f32.restype = ctypes.c_int
-    lib.w8_matmul_f32_smem_bytes.argtypes = []
-    lib.w8_matmul_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -273,14 +260,12 @@ def _forward(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.T
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
-        if x.dtype == torch.float32:  # bf16 rounding of x inside the kernel (f32_plan)
-            rc = lib.w8_matmul_f32(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                                   out.data_ptr(), m, n, k, stream.cuda_stream)
-        else:
-            p = _plan_for(m, k, n)
-            ws, tickets = _workspace(x.device, p, stream)
-            rc = lib.w8_matmul(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                               m, n, k, p.bt, p.split, p.stages, ws, tickets, stream.cuda_stream)
+        f32 = x.dtype == torch.float32  # x rounded to bf16 inside the kernel
+        p = _plan_for(m, k, n, dtype=x.dtype)
+        ws, tickets = _workspace(x.device, p, stream)
+        rc = (lib.w8_matmul_f32 if f32 else lib.w8_matmul)(
+            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k, p.bt,
+            p.split, p.stages, ws, tickets, stream.cuda_stream)
     with _build.COUNT_LOCK:  # mesh rows launch from several threads
         w8_matmul.launches += 1
         w8_matmul.launches_by_shape[(m, k, n)] += 1

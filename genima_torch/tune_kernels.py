@@ -140,6 +140,7 @@ def tune_bwd(shapes, cuda_ms) -> None:
 def tune_w8(shapes, cuda_ms) -> None:
     from genima_torch.kernels import w8_matmul as w8
 
+    default = w8._plan_for
     gen = torch.Generator(device="cuda").manual_seed(2)
     for m, k, n in shapes:
         x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
@@ -152,10 +153,10 @@ def tune_w8(shapes, cuda_ms) -> None:
             for split in (1, 2, 3, 4, 6, 8):
                 if split <= k_tiles:
                     p = w8.make_plan(m, k, n, bt, split)
-                    w8._plan_for = lambda *a, p=p: p
+                    w8._plan_for = lambda *a, p=p, **kw: p
                     times[f"bt{bt}/split{split}/stages{p.stages}"] = cuda_ms(
                         lambda: w8.w8_matmul(x, w_q, scale), 100)
-        w8._plan_for = lambda *a: w8.plan(*a)
+        w8._plan_for = default
         d = w8.plan(m, k, n)
         print(json.dumps({
             "shape": f"{m}x{k}x{n}", "default": f"bt{d.bt}/split{d.split}/stages{d.stages}",
@@ -166,6 +167,7 @@ def tune_w8(shapes, cuda_ms) -> None:
 def tune_conv(shapes, cuda_ms) -> None:
     from genima_torch.kernels import fused_conv as fc
 
+    default = fc._plan_for
     gen = torch.Generator(device="cuda").manual_seed(2)
     for b, h, w, c, o in shapes:
         x = torch.randn(b, h, w, c, generator=gen, device="cuda").bfloat16()
@@ -180,9 +182,9 @@ def tune_conv(shapes, cuda_ms) -> None:
         for bn, rows in fc.TILES:
             if (bn == 16) == (o <= 16):
                 p = fc.make_plan(b, h, w, c, o, bn, rows)
-                fc._plan_for = lambda *a, p=p: p
+                fc._plan_for = lambda *a, p=p, **kw: p
                 times[f"{bn}x{rows}"] = cuda_ms(lambda: fc.fused_conv3x3(*args), 20)
-        fc._plan_for = lambda *a: fc.plan(*a)
+        fc._plan_for = default
         d = fc.plan(b, h, w, c, o)
         print(json.dumps({"shape": f"{b}x{h}x{w}x{c}->{o}", "default": f"{d.bn}x{d.rows}",
                           "plans_ms": times}))

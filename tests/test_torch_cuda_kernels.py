@@ -939,7 +939,7 @@ def test_unet_pretrain_step_on_cuda_matches_library_attention(cuda):
     assert max(diff[k].norm().item() / x[k].norm().item() for k in attn) <= 0.1
 
 
-# --- float32: FFMA kernels held to their f32 plain versions, TF32 off ------
+# --- float32: the f32 kernels held to their f32 plain versions, TF32 off ---
 
 F32_TOL = 1e-4  # attention and L max abs err at unit-scale inputs; B2b, B4 / max |grad|, |y|
 
@@ -1018,7 +1018,10 @@ def test_f32_flash_attention_matches_plain_version(cuda, no_tf32, b, sq, sk, c, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,variant", [(s, "gn_silu") for s in CONV_SHAPES] + [
     ((1, 512, 512, 128, 3), "plain"), ((2, 33, 66, 136, 256), "skip_residual"),
-    ((1, 9, 70, 16, 8), "skip_residual")])
+    ((1, 9, 70, 16, 8), "skip_residual"),
+    # the decoder's 512 -> 512 widths (their gn_silu cases carry the
+    # residual) with the 1x1 skip, and without the activation
+    ((1, 64, 64, 512, 512), "skip_residual"), ((1, 128, 128, 512, 512), "plain")])
 def test_f32_fused_conv_matches_plain_version(cuda, no_tf32, shape, variant):
     b, h, w, c, o = shape
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
@@ -1044,7 +1047,9 @@ def test_f32_fused_conv_matches_plain_version(cuda, no_tf32, shape, variant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(4096, 320, 2560), (4096, 1280, 320), (77, 1024, 1280),
-                                   (64, 1280, 10240), (5, 48, 24)])
+                                   (64, 1280, 10240), (5, 48, 24),
+                                   # split-K (4 and 2 ways), ragged M split 8 ways
+                                   (64, 5120, 1280), (256, 1280, 1280), (77, 1024, 320)])
 def test_f32_w8_matmul_matches_plain_version_bit_for_bit_twice(cuda, no_tf32, m, k, n):
     gen = torch.Generator(device=cuda).manual_seed(m + k + n)
     x = torch.randn(m, k, generator=gen, device=cuda)
@@ -1070,6 +1075,7 @@ def test_f32_plans_match_the_sources_shared_memory(cuda):
             bp.dq_smem_bytes, bp.dkdv_smem_bytes]
     for o in (3, 128):
         plan = fc._plan_for(1, 8, 8, 16, o, dtype=torch.float32)
-        assert fc._library().fused_conv3x3_f32_smem_bytes(plan.bn) == plan.smem_bytes
-    assert w8._library().w8_matmul_f32_smem_bytes() == w8._plan_for(
-        1, 16, 8, dtype=torch.float32).smem_bytes
+        assert fc._library().fused_conv3x3_f32_smem_bytes(plan.bn, plan.rows) == plan.smem_bytes
+    for m, k, n in ((1, 16, 8), (64, 5120, 1280), (77, 1024, 320), (4096, 320, 320)):
+        plan = w8._plan_for(m, k, n, dtype=torch.float32)
+        assert w8._library().w8_matmul_f32_smem_bytes(plan.bt, plan.stages) == plan.smem_bytes

@@ -13,6 +13,11 @@
   one uint8 level (the two attention paths and the conv orders differ at
   f32 rounding, which can move a pixel across a level).
 - ``build_main_path(dtype=...)`` hands the dtype to the pipeline.
+- The f32 B4 kernel's 3xTF32 arithmetic, emulated in plain PyTorch: each
+  f32 operand split into tf32(a) and tf32(a - tf32(a)) (TF32 rounding done
+  on the bits), three products summed in f32, lands within 1e-6 of max
+  |y| of the f64 sums at K = 9 x 512, where one TF32 pass misses the
+  kernels' 1e-4.
 """
 
 import jax
@@ -36,6 +41,7 @@ from genima_torch.nn.vae import VAEConfig
 
 SMEM_BLOCK = 232448  # dynamic shared memory one block may take on an H100
 F32 = torch.float32
+F32_TOL = 1e-4  # the f32 kernels' limit against their plain versions, of max |y|
 
 # (B, S, C, heads) the f32 paths and checks give B1/B2a/B2b: SD's levels
 # (SDXL's 1024 and 256 tokens among them) at batch 1, 2 and 4, SD-1.5's and
@@ -97,15 +103,54 @@ def test_f32_flash_plans_at_the_pinned_shapes(b, sq, sk, c, h):
     assert plan.grid == (-(-sq // 64), h, b) and plan.smem_bytes <= SMEM_BLOCK
 
 
+# B5's f32 plans at the pinned shapes: (token tile, K split), and the grid
+# (N tiles, token tiles, split) that follows
+W8_F32_PLANS = {
+    (4096, 320, 320): (64, 1), (4096, 320, 2560): (64, 1), (4096, 1280, 320): (64, 1),
+    (1024, 640, 640): (64, 1), (1024, 640, 5120): (64, 1), (1024, 2560, 640): (64, 1),
+    (256, 1280, 1280): (64, 1), (256, 1280, 10240): (64, 1), (256, 5120, 1280): (64, 1),
+    (64, 1280, 1280): (64, 4), (64, 1280, 10240): (64, 1), (64, 5120, 1280): (64, 4),
+    (77, 1024, 320): (80, 8), (77, 1024, 640): (80, 7), (77, 1024, 1280): (80, 4),
+}
+HALF_WAVE = -(-w8.SMS // 2)
+SMEM_TWO_BLOCKS = 115712  # each of two blocks that share an SM
+
+
 def test_f32_conv_and_w8_plans_at_the_pinned_shapes():
     for b, hh, ww, c, o in CONV_SHAPES:
         plan = fc._plan_for(b, hh, ww, c, o, dtype=F32)
-        assert (plan.bn, plan.side) == ((16, 16) if o <= 16 else (64, 8))
-        assert plan.smem_bytes == fc.f32_smem_bytes(plan.bn) <= SMEM_BLOCK
-        assert plan.grid == (-(-hh // plan.side) * -(-ww // plan.side), -(-o // plan.bn), b)
-    for m, k, n in W8_SHAPES:
+        assert plan.f32 and (plan.bn, plan.rows) == ((16, 4) if o <= 16 else (128, 2))
+        band = -(-(plan.rows + 2) * 66 * 32 * 4 // 1024) * 1024  # 32 f32 channels a pixel
+        smem = 1024 + 2 * band + 4 * 2 * plan.bn * 32 * 4 + 8 * 16  # as F32Cfg::smem_bytes
+        assert plan.smem_bytes == fc.smem_bytes(plan.bn, plan.rows, f32=True) == smem <= SMEM_BLOCK
+        assert plan.tiles == (-(-hh // plan.rows) * -(-ww // 64), -(-o // plan.bn), b)
+        assert plan.chunks == -(-c // 32) and plan.blocks == min(plan.n_tiles, fc.SMS)
+    assert set(W8_F32_PLANS) == set(W8_SHAPES)
+    for (m, k, n), (bt, split) in W8_F32_PLANS.items():
         plan = w8._plan_for(m, k, n, dtype=F32)
-        assert plan.grid == (-(-n // 64), -(-m // 64)) and plan.smem_bytes == 16896
+        assert plan.f32 and (plan.bt, plan.split) == (bt, split), (m, k, n)
+        assert plan.grid == (-(-n // 64), -(-m // bt), split)
+        # as w8_matmul_f32_smem_bytes: the int8 W box and four f32 x boxes a stage
+        smem = 1024 + plan.stages * (64 * 128 + 4 * bt * 128) + 16 * plan.stages + 16
+        assert plan.smem_bytes == w8.smem_bytes(bt, plan.stages, f32=True) == smem <= SMEM_BLOCK
+        if plan.blocks > w8.SMS:  # two blocks an SM
+            assert plan.smem_bytes <= SMEM_TWO_BLOCKS
+        if m <= 256:  # no longer 20-80 blocks walking K alone: half a wave, or every K tile split
+            assert plan.blocks >= HALF_WAVE or plan.split == plan.k_tiles, (m, k, n)
+    assert w8._plan_for(64, 5120, 1280, dtype=F32).blocks >= HALF_WAVE
+
+
+@pytest.mark.parametrize("m,k,n", W8_SHAPES)
+def test_f32_w8_plan_splits_k_like_the_bf16_one(m, k, n):
+    """The f32 plan is the bf16 kernel's: the same K tiles and split ranges,
+    a ring of at least two stages where a split walks two K tiles or more,
+    and a split only while the tiles make under half a wave."""
+    p, q = w8._plan_for(m, k, n, dtype=F32), w8.plan(m, k, n)
+    assert p.k_tiles == q.k_tiles and p.k_ranges()[-1][1] == p.k_tiles
+    longest = max(b - a for a, b in p.k_ranges())
+    assert p.stages >= (2 if longest > 1 else 1) and p.stages <= max(longest, 2)
+    assert (p.split > 1) == (p.tiles < HALF_WAVE)
+    assert p.workspace_floats == (p.split * p.tiles * 64 * p.bt if p.split > 1 else 0)
 
 
 def _inputs(name, dtype):
@@ -227,3 +272,34 @@ def test_build_main_path_hands_the_dtype_to_the_pipeline(monkeypatch):
     assert seen[0] == {"device": "cpu", "backend": "pallas+w8", "conv_backend": "fused",
                        "dtype": torch.float32}
     assert "dtype" not in seen[1]
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32 (10 mantissa bits, nearest, ties away from zero:
+    ``cvt.rna.tf32.f32``) on the bits."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["randn", "silu", "wide"])
+def test_3xtf32_split_keeps_f32_accuracy_where_one_pass_does_not(kind):
+    rng = np.random.RandomState({"randn": 0, "silu": 1, "wide": 2}[kind])
+    k = 9 * 512  # a 3x3 conv's sum over 512 input channels
+    a = rng.randn(64, k).astype(np.float32)
+    if kind == "silu":  # the activated band, as B4 reads it
+        a = a / (1 + np.exp(-a))
+    if kind == "wide":  # values over many binades
+        a = a * np.exp2(rng.randint(-8, 9, a.shape)).astype(np.float32)
+    a = torch.from_numpy(a)
+    b = torch.from_numpy((rng.randn(k, 16) / np.sqrt(k)).astype(np.float32))
+    a_big, b_big = _tf32(a), _tf32(b)
+    assert not (a_big.view(torch.int32) & 0x1FFF).any()  # 13 low bits cut
+    assert torch.equal(a_big + (a - a_big), a)  # the remainder is exact in f32
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    want = a.double() @ b.double()
+
+    def err(y):
+        return ((y.double() - want).abs().max() / want.abs().max()).item()
+
+    three = a_small @ b_big + a_big @ b_small + a_big @ b_big
+    assert err(three) <= 1e-6
+    assert err(a_big @ b_big) > F32_TOL  # one TF32 pass fails the kernels' limit
