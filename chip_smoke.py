@@ -249,9 +249,9 @@
    768x768 likewise (230 / 25 / 1380); (d) SDXL-turbo under ``pallas``
    (1040 B3) and (e) under ``pallas+w8`` / fused (1040 / 25 / 5360).
 17. Float32 through every kernel, TF32 off on every side. Kernel checks of
-   the f32 kernels (attention: FFMA on the CUDA cores; B4: 3xTF32 on the
-   tensor cores; B5: the bf16 kernel on f32 x, rounded to bf16 in shared
-   memory, the TPU body's cast) against their f32 plain versions: B1 at SD's
+   the f32 kernels (attention and B4: 3xTF32 on the tensor cores; B5: the
+   bf16 kernel on f32 x, rounded to bf16 in shared memory, the TPU body's
+   cast) against their f32 plain versions: B1 at SD's
    levels, B1/B2a/B2b at the trainer's batch 4, B3/B4/B5 at the opt-in
    path's shapes, then B1/B2a/B2b/B3 at SD-1.5's levels, at 768x768's and
    a head-dim sweep (d = 1, 36, 64, 100, 160, 200, 256), printed as
@@ -711,8 +711,8 @@ def ptxas_report(log: str) -> dict[str, dict]:
     for ``fused_conv3x3_kernel<128, 2>``, "1x2x128x1" for
     ``attention_fwd_kernel<1, 2, 128, true>``; B2b's two kernels "dq1" /
     "dkdv1" for ``packed_attention_bwd_dq_kernel<1>``); the f32 kernels
-    named so with an "f32_" in front ("f32_1x1" for
-    ``attention_f32_fwd_kernel<1, true>``, "f32_dq4", "f32_128x2" for
+    named so with an "f32_" in front ("f32_1x2x64x1" for
+    ``attention_f32_fwd_kernel<1, 2, 64, true>``, "f32_dq4", "f32_128x2" for
     ``fused_conv3x3_f32_kernel<128, 2>``)."""
     import re
 
@@ -4017,10 +4017,11 @@ def opt_geometries_phase(pa, card: str, pools: dict) -> tuple[dict, dict, list]:
 # phase 17: float32 through every kernel (--mixed_precision no, f32 serving)
 # ---------------------------------------------------------------------------
 
-# the f32 attention kernels run FFMA on the CUDA cores: H100 SXM FP32, 67
-# TFLOP/s; B4's f32 kernel runs 3xTF32 on the tensor cores, three TF32
-# products (495 TFLOP/s dense) for each f32 one; B5's f32-x kernel multiplies
-# bf16 x int8 on the bf16 tensor cores (PEAK_BF16_FLOPS)
+# the f32 kernels split each f32 product into three TF32 ones on the tensor
+# cores (3xTF32: 495 TFLOP/s dense for TF32, a third for f32): the attention
+# kernels (B1, B2a, B2b, B3) and B4's; B5's f32-x kernel multiplies bf16 x
+# int8 on the bf16 tensor cores (PEAK_BF16_FLOPS). Every f32 row keeps the
+# FFMA bound (H100 SXM FP32, 67 TFLOP/s) as ``ffma_bound_ms``.
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # f32 kernels against their f32 plain versions: attention's max abs err at
@@ -4034,7 +4035,8 @@ F32_SERVE_LAUNCHES = {"B1": LAUNCHES_PER_STEP, "B3": 0, "B4": 0, "B5": 0}
 F32_SERVE_STEPS = 2
 F32_TRAIN_STEPS = 2
 F32_SWEEP_DIMS = (1, 36, 64, 100, 160, 200, 256)
-F32_SOURCES = {"B1": "genima_torch/csrc/attention_f32.cuh",
+F32_SOURCES = {"B1": "genima_torch/csrc/attention_f32_hopper.cuh",
+               "B2b": "genima_torch/csrc/packed_attention_bwd.cu",
                "B4": "genima_torch/csrc/fused_conv.cu", "B5": "genima_torch/csrc/w8_matmul.cu"}
 
 
@@ -4044,13 +4046,28 @@ def _f32_bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tup
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
 
 
+def _f32_attn_bounds(flops: float, nbytes: float) -> dict:
+    """An f32 attention row's bound at 3xTF32's peak, FFMA's beside it."""
+    bound_ms, bound_by = _f32_bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "ffma_bound_ms": _f32_bound(flops, nbytes)[0]}
+
+
+def _f32_fwd_plan(plan) -> dict:
+    return {"query_rows": plan.rows, "consumer_warpgroups": plan.nwg, "key_tile": plan.bn,
+            "stages": plan.stages, "threads": plan.threads, "blocks": plan.blocks,
+            "head_atoms": plan.atoms}
+
+
 def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> list[dict]:
     """B1 (with ``train`` also B2a and B2b) on seeded f32 (B, S, C) inputs
     at ``levels`` against their plain versions at ``F32_TOL``; B2a's output
-    must be B1's bit for bit and two B2b calls must give the same bits."""
+    must be B1's bit for bit and two B2b calls must give the same bits.
+    Bounds at 3xTF32's peak (``ffma_bound_ms``: FFMA's)."""
     import torch.nn.functional as F
 
     from genima_torch.kernels import _build
+    from genima_torch.kernels import flash_attention as fa
 
     regs = ptxas_report(_build.build_log("packed_attention"))
     bregs = ptxas_report(_build.build_log("packed_attention_bwd"))
@@ -4059,10 +4076,11 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
     rows = []
     for b, s, c, h in levels:
         d = c // h
+        dp = fa.f32_padded_head_dim(d)
         q, k, v, do = (torch.randn(b, s, c, generator=gen, device="cuda") for _ in range(4))
         tag = f"f32 {b}x{s}x{c}/{h}"
         plan = pa._plan_for(b, s, s, h, d, dtype=torch.float32)
-        if lib.packed_attention_f32_smem_bytes(d) != plan.smem_bytes:
+        if lib.packed_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages, dp) != plan.smem_bytes:
             raise AssertionError(f"{tag}: f32 plan's shared memory {plan.smem_bytes} != the kernel's")
         o1 = pa.packed_flash_attention(q, k, v, h)
         o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
@@ -4073,18 +4091,16 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
         heads = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
         common = {"route": "cuda", "dtype": "float32", "source": F32_SOURCES["B1"],
                   "shape": f"{b}x{s}x{c}/{h}", "key": f"{b}x{s}x{s}x{c}", "launches": None,
-                  "plan": {"query_rows": plan.rows, "threads": plan.threads,
-                           "blocks": plan.blocks, "head_atoms": plan.atoms},
-                  "smem_bytes": plan.smem_bytes}
-        bound_ms, bound_by = _f32_bound(4 * b * s * s * c, 4 * 4 * b * s * c)
+                  "plan": _f32_fwd_plan(plan), "smem_bytes": plan.smem_bytes}
+        kernel = f"f32_{plan.atoms}x{plan.nwg}x{plan.bn}"
         rows.append({"name": "packed_flash_attention",
                      "replaces": "genima_tpu/kernels/packed_attention.py:194", **common,
                      "max_abs_err": err,
                      "ms": cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), iters),
                      "plain_ms": cuda_ms(lambda: pa.packed_attention_reference(q, k, v, h), 2),
                      "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     **regs.get(f"f32_{plan.atoms}x0", {})})
+                     **_f32_attn_bounds(4 * b * s * s * c, 4 * 4 * b * s * c),
+                     **regs.get(f"{kernel}x0", {})})
         if not train:
             continue
         o, lse = pa.packed_attention_forward_lse(q, k, v, h)
@@ -4093,7 +4109,6 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
         if not (o_err <= F32_TOL and lse_err <= F32_TOL and torch.equal(o, o1)):
             raise AssertionError(f"B2a {tag}: o err {o_err}, L err {lse_err}, "
                                  f"o == B1's {torch.equal(o, o1)}")
-        bound_ms, bound_by = _f32_bound(4 * b * s * s * c, 4 * 4 * b * s * c + 4 * b * s * h)
         rows.append({"name": "packed_attention_forward_lse",
                      "replaces": "genima_tpu/kernels/packed_attention.py:274", **common,
                      "max_abs_err": max(o_err, lse_err), "o_abs_err": o_err,
@@ -4101,8 +4116,8 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
                      "ms": cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), iters),
                      "plain_ms": cuda_ms(lambda: pa.packed_attention_lse_reference(q, k, v, h), 2),
                      "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     **regs.get(f"f32_{plan.atoms}x1", {})})
+                     **_f32_attn_bounds(4 * b * s * s * c, 4 * 4 * b * s * c + 4 * b * s * h),
+                     **regs.get(f"{kernel}x1", {})})
         got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
         again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
         want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
@@ -4112,18 +4127,19 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
         if not (rel <= F32_TOL and same and got[0].dtype == torch.float32):
             raise AssertionError(f"B2b {tag}: max err {rel} of max |grad|, repeat equal {same}")
         bp = pa.backward_plan(b, s, s, h, d, dtype=torch.float32)
-        smem = [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1)]
+        smem = [blib.packed_attention_bwd_f32_smem_bytes(x, dp) for x in (0, 1)]
         if smem != [bp.dq_smem_bytes, bp.dkdv_smem_bytes]:
             raise AssertionError(f"B2b {tag}: f32 plan's shared memory != the kernels' {smem}")
         leaves = [x.detach().requires_grad_() for x in heads]
         out = F.scaled_dot_product_attention(*leaves)
         go = do.view(b, s, h, d).transpose(1, 2)
-        bound_ms, bound_by = _f32_bound(10 * b * s * s * c, 4 * 8 * b * s * c + 4 * b * s * h)
         rows.append({
             "name": "packed_attention_backward",
             "replaces": "genima_tpu/kernels/packed_attention.py:380", **common,
+            "source": F32_SOURCES["B2b"],
             "plan": {"kernels": "dq, then dk/dv", "rows_per_block": bp.rows,
-                     "threads": bp.threads, "head_atoms": bp.atoms,
+                     "tile_rows": [bp.tile, bp.dkdv_tile], "stages": [bp.stages, bp.dkdv_stages],
+                     "dkdv_passes": bp.passes, "threads": bp.threads, "head_atoms": bp.atoms,
                      "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
             "smem_bytes": smem,
             "max_abs_err": max((x - y).abs().max().item() for x, y in zip(got, want)),
@@ -4133,7 +4149,7 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
                 lambda: pa.packed_attention_backward_reference(q, k, v, o, lse, do, h), 2),
             "library_ms": cuda_ms(
                 lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), iters),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            **_f32_attn_bounds(10 * b * s * s * c, 4 * 8 * b * s * c + 4 * b * s * h),
             "dq": bregs.get(f"f32_dq{bp.atoms}", {}), "dkdv": bregs.get(f"f32_dkdv{bp.atoms}", {}),
         })
         del out, leaves, got, again, want
@@ -4144,9 +4160,9 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
     """B3, B4 and B5 on seeded f32 inputs at the opt-in path's shapes
     against their plain versions (B3 and B4 at ``F32_TOL``, B5 at
     ``F32_W8_REL_TOL`` and bit-equal over two calls), timed beside their
-    bound and the library call in f32 (TF32 off). B3's bound is FFMA's;
-    B4's is 3xTF32's and B5's the bf16 tensor cores', each row keeping
-    FFMA's as ``ffma_bound_ms``."""
+    bound and the library call in f32 (TF32 off). B3's and B4's bounds are
+    3xTF32's and B5's the bf16 tensor cores', each row keeping FFMA's as
+    ``ffma_bound_ms``."""
     import torch.nn.functional as F
 
     from genima_torch.kernels import _build
@@ -4168,10 +4184,11 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
         if not (got.dtype == torch.float32 and err <= F32_TOL):
             raise AssertionError(f"B3 f32 {b}x{sq}x{sk}x{c}/{h}: {got.dtype}, max abs err {err}")
         plan = fa._plan_for(b, sq, sk, h, d, dtype=torch.float32)
-        if fa._library().flash_attention_f32_smem_bytes(d) != plan.smem_bytes:
+        smem = fa._library().flash_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                                             fa.f32_padded_head_dim(d))
+        if smem != plan.smem_bytes:
             raise AssertionError("B3 f32 plan's shared memory != the kernel's")
         heads = [t.transpose(1, 2) for t in (q, k, v)]
-        bound_ms, bound_by = _f32_bound(4 * b * sq * sk * c, 4 * b * (2 * sq + 2 * sk) * c)
         rows.append({
             "name": "flash_attention", "route": "cuda", "dtype": "float32",
             "source": F32_SOURCES["B1"], "replaces": "genima_tpu/kernels/flash_attention.py:129",
@@ -4181,11 +4198,9 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
             "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 2),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
             "library": "scaled_dot_product_attention forward in f32 on the same views",
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "plan": {"query_rows": plan.rows, "threads": plan.threads, "blocks": plan.blocks,
-                     "head_atoms": plan.atoms},
-            "smem_bytes": plan.smem_bytes,
-            **regs["flash_attention"].get(f"f32_{plan.atoms}x0", {}),
+            **_f32_attn_bounds(4 * b * sq * sk * c, 4 * b * (2 * sq + 2 * sk) * c),
+            "plan": _f32_fwd_plan(plan), "smem_bytes": plan.smem_bytes,
+            **regs["flash_attention"].get(f"f32_{plan.atoms}x{plan.nwg}x{plan.bn}x0", {}),
         })
 
     for b, hh, ww, c, o in conv_shapes:

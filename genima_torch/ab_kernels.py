@@ -9,8 +9,10 @@ see the same card and its drift; each builds its own kernels and times B1,
 B2a and B2b at ``chip_smoke.py``'s trainer levels (batch 4) and B1 at the
 serving levels by CUDA events (``chip_smoke.cuda_ms``), or with
 ``--profile`` B2b's two kernels by ``torch.profiler``, or with ``--f32``
-B4 and B5 on f32 inputs at the opt-in path's shapes (TF32 off). Prints each
-key's times on both sides and this tree's over the other's.
+the f32 kernels on f32 inputs (TF32 off): B1 at the serving levels, B2a and
+B2b at the trainer levels, B3 (self-attention and the 77 prompt keys), B4
+and B5 at the opt-in path's shapes. Prints each key's times on both sides
+and this tree's over the other's.
 """
 
 from __future__ import annotations
@@ -53,10 +55,25 @@ import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from genima_torch.kernels import _build, fused_conv as fc, w8_matmul as w8
+from genima_torch.kernels import flash_attention as fa, packed_attention as pa
 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-_build.build_all(["fused_conv", "w8_matmul"])
+_build.build_all(["fused_conv", "w8_matmul", "packed_attention", "packed_attention_bwd",
+                  "flash_attention"])
 gen = torch.Generator(device="cuda").manual_seed(1)
 out = {}
+for b, s, c, h in cs.SD_LEVELS + cs.TRAIN_LEVELS:
+    q, k, v, do = (torch.randn(b, s, c, generator=gen, device="cuda") for _ in range(4))
+    key = f"{b}x{s}x{c}/{h}"
+    if b == 1:
+        out["B1 f32 " + key] = cs.cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 20)
+        continue
+    o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+    out["B2a f32 " + key] = cs.cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), 20)
+    out["B2b f32 " + key] = cs.cuda_ms(
+        lambda: pa.packed_attention_backward(q, k, v, o, lse, do, h), 10)
+for b, sq, sk, c, h in cs.FLASH_SHAPES:
+    q, k, v = (torch.randn(b, x, h, c // h, generator=gen, device="cuda") for x in (sq, sk, sk))
+    out[f"B3 f32 {b}x{sq}x{sk}x{c}/{h}"] = cs.cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
 for b, h, w, c, o in cs.CONV_SHAPES:
     x = torch.randn(b, h, w, c, generator=gen, device="cuda")
     scale, shift = fc.fold_group_norm(x, 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda"),

@@ -1,0 +1,597 @@
+// Float32 attention for Hopper (sm_90a) on the TF32 tensor cores, every f32
+// product split in three (3xTF32), on packed (B, S, heads * d) f32 tensors:
+// the forward shared by B1/B2a (packed_attention.cu) and B3
+// (flash_attention.cu), and the pieces B2b's f32 dq and dk/dv kernels
+// (packed_attention_bwd.cu) are built from.
+//
+// Replaces, on f32 inputs, genima_tpu/kernels/packed_attention.py:194
+// _forward/_packed_kernel, :153 _forward_streaming, :274
+// _forward_with_lse/_packed_kernel_lse and flash_attention.py:129
+// _flash_forward/_flash_kernel, which take the input's dtype through:
+// non-causal softmax(Q K^T / sqrt(d)) V with an online softmax in f32, P
+// kept in f32, keys at or past Sk masked out, query rows at or past Sq never
+// stored; with kWriteLse also L = m + ln(l) per (row, head) into a
+// (B, Sq, heads) f32 tensor.
+//
+// 3xTF32. The tensor cores take f32 only as TF32: they read the top 19 bits
+// of each operand, and one such pass misses the f32 results by ~1e-3 at
+// unit-scale inputs, where these kernels are held to 1e-4. Each operand x is
+// split into big = x with its low 13 bits cleared (tf32 exactly) and small =
+// x - big (exact in f32; the tensor cores read its top 19 bits), and a * b
+// is summed as a_small b_big + a_big b_small + a_big b_big: ~1e-6 of the
+// result, as B4's f32 kernel reads. Big is cleared explicitly, so nothing
+// rests on how the tensor cores treat the low bits of big. The tensor cores'
+// own f32 sums cut low bits of each addend, so an error grows with the
+// number of products summed into one accumulator: every P V (and dQ, dK, dV)
+// sum of a key (or query) tile goes into a fresh accumulator, added in f32
+// to the running one.
+//
+// Bound: the forward does 4 * B * Sq * Sk * C flops (three TF32 passes of
+// each: at 495 / 3 = 165 TFLOP/s) on 4 * B * (2 Sq + 2 Sk) * C bytes; at the
+// SD levels the flops bound it, the 77-key cross rows are bound by bytes.
+//
+// Which products run where. wgmma takes 32-bit operands from shared memory
+// only K-major. S = Q K^T (and the backward's dP = dO V^T, S^T = K Q^T,
+// dP^T = V dO^T) is K-major on the row-major tiles TMA lands: wgmma with A
+// from registers (ldmatrix of the raw tile, split per k8 step; columns at
+// or past d zeroed there) and B the streamed tile, which the producer
+// warpgroup's warps 1-3 split in place (big) and into a remainder tile
+// (small). O += P V (and dQ += dS K, dV += P^T dO, dK += dS^T Q) contracts
+// over the rows of a row-major tile, which is not K-major: these run on
+// mma.sync m16n8k8.tf32 (route c), A = P straight from the S accumulator
+// (a thread holds columns 2t and 2t + 1 of each 8-key slice, which as the
+// A fragment's k = t and t + 4 means keys 2t and 2t + 1: the B fragment
+// reads its k rows in that order, so nothing is shuffled), B read from the
+// raw row-major tile with one 16-byte load per row and 32-column slab (the
+// n8 blocks take slab columns 4n + nb, so a thread's loads are contiguous
+// and free of bank conflicts, and its output columns 8t..8t+7 too). Why not
+// a transposing producer (route a): it would add two transposed tiles to
+// every stage, which at 64-key tiles of 256 columns would not fit, and a
+// wgmma accumulator a key tile would double O's registers (256 f32 a
+// thread at d = 256); mma.sync keeps a fresh accumulator at 16 registers a
+// slab, and needs no transposed copy at any head dim.
+//
+// Layout: a head of d columns (the wrappers zero-pad a d that is not a
+// multiple of 4 to the next one: TMA needs 16-byte row strides, and the
+// float4 stores 16-byte columns; scale_dim is the real head dim) is read
+// as DA = ceil(d / 64) atoms, 2 * DA slabs of 32 f32 columns (128 bytes a row, 128-byte swizzled: 16-byte chunk c of row r
+// at chunk c ^ (r % 8)), one TMA box (32, rows, 1) each from 3-D (C, S, B)
+// maps, so rows at or past S are zero-filled within the batch. Columns past
+// d come from the next head (or TMA's zeros past C): every sum over d sees
+// them times zeros of its A operand, and output columns past d are never
+// stored.
+//
+// Forward design: one block per (64 * NWG query rows, head, batch): NWG
+// consumer warpgroups of 64 rows and a producer warpgroup, whose warp 0's
+// first thread TMA-loads the block's Q tile once and streams (K, V) tiles
+// of BN keys through a ring behind "full" / "empty" mbarriers, and whose
+// warps 1-3 split each landed K tile (big in place, small beside it) and
+// arrive on a "ready" barrier; setmaxnreg moves registers to the consumers
+// where there are two. Per tile, a consumer warpgroup: S = Q K^T (3xTF32
+// wgmma m64nBNk8, two k8 steps a group, two register sets so that one group
+// is in flight while the next one's A is split), the online softmax in base
+// 2 in registers, and per slab O = O * alpha + P V (a fresh 3xTF32 mma.sync
+// accumulator). A warp gives the stage back once it has read V. Tiles
+// (fwd_tile_ok; kernels/flash_attention.py::f32_plan picks one and the ring
+// depth per shape): one atom two consumer warpgroups on 64-key tiles (B3's
+// 77-key prompt: one warpgroup on one 80-key tile); two atoms two
+// warpgroups on 32-key tiles; three and four one, on 32- and 16-key tiles
+// (shared memory). One warpgroup on 64-key tiles, and rings of three or
+// four stages, measured no faster at the SD shapes.
+
+#pragma once
+
+#include <math.h>
+
+#include "attention_hopper.cuh"
+
+namespace attn_f32 {
+
+// Internal linkage, as attention_fwd_hopper.cuh: the launch functions'
+// `configured` statics must be one per library.
+namespace {
+
+using namespace hopper;
+
+constexpr int kSlabBytes = 128;  // 32 f32 columns: the swizzle span
+constexpr int kMaxHeadDim = 256;
+constexpr int kProducer = 128;   // the producer warpgroup
+constexpr int kSplitters = 96;   // its warps 1-3
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMasked = -1e30f;  // the JAX kernels' _NEG_INF
+constexpr uint32_t kTf32Mask = 0xFFFFE000u;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take
+
+inline int head_atoms(int d) { return (d + 63) / 64; }
+
+// Whether the kernels take heads of d columns (packed width), scaled by
+// 1 / sqrt(scale_dim): d a multiple of 4 up to 256 (16-byte rows and column
+// offsets for TMA and the float4 stores), scale_dim the real head dim it
+// pads (d itself, or up to 3 columns fewer that the wrapper zero-padded).
+inline bool head_dim_ok(int d, int scale_dim) {
+  return d >= 4 && d <= kMaxHeadDim && d % 4 == 0 && scale_dim <= d && scale_dim > d - 4;
+}
+
+// --- plans (mirrored by kernels/flash_attention.py and packed_attention.py) --
+
+// Dynamic shared memory of a forward block of nwg consumer warpgroups, bn-key
+// tiles and a ring of `stages`: alignment slack, the Q tile, the ring of
+// (K, K's remainders, V) and its barriers.
+constexpr int fwd_smem_bytes(int da, int nwg, int bn, int stages) {
+  return 1024 + 64 * nwg * 2 * da * kSlabBytes + stages * 3 * bn * 2 * da * kSlabBytes +
+         8 * (3 * stages + 1);
+}
+
+// --- device helpers ----------------------------------------------------------
+
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & kTf32Mask);
+}
+
+// x as TF32 operands: big (x's low 13 bits cleared) and small (x - big).
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  const float b = tf32_trunc(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(x - b);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled slab.
+__device__ __forceinline__ int swz(int r, int c) { return r * kSlabBytes + ((c ^ (r & 7)) << 4); }
+
+// The splitters' work on a landed tile of `bytes`: each value x becomes big
+// in place and x - big at the same offset of `small` (the swizzle is the
+// same in both, so the walk ignores it). Generic-proxy writes: the caller
+// fences them for wgmma (fence_proxy_async) before it arrives.
+__device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* small, int bytes, int sid) {
+  float4* big = reinterpret_cast<float4*>(tile);
+  float4* rem = reinterpret_cast<float4*>(small);
+  for (int i = sid; i < bytes / 16; i += kSplitters) {
+    const float4 v = big[i];
+    const float4 b = make_float4(tf32_trunc(v.x), tf32_trunc(v.y), tf32_trunc(v.z), tf32_trunc(v.w));
+    big[i] = b;
+    rem[i] = make_float4(v.x - b.x, v.y - b.y, v.z - b.z, v.w - b.w);
+  }
+}
+
+// The A fragments (big, small) of k8 step kk of a warp's 16 rows (from row
+// row0, a multiple of 16) of a raw R-row tile at shared address `tile`;
+// columns at or past `cols` are zero. ldmatrix on 32-bit data: an 8x8 b16
+// matrix is 8 rows x 4 f32, so the four matrices are m16n8k8.tf32's A.
+template <int R>
+__device__ __forceinline__ void load_a(uint32_t big[4], uint32_t small[4], uint32_t tile,
+                                       int row0, int kk, int lane, int cols) {
+  uint32_t r[4];
+  ldmatrix_x4(r, tile + (kk >> 2) * R * kSlabBytes + (row0 + (lane & 15)) * kSlabBytes +
+                     (((2 * (kk & 3) + (lane >> 4)) ^ (lane & 7)) << 4));
+  const int c = 8 * kk + (lane & 3);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float x = c + (e >= 2 ? 4 : 0) < cols ? __uint_as_float(r[e]) : 0.f;
+    split(x, big[e], small[e]);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void fence_frag_set(uint32_t (&a)[G][2][4]) {
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][h][e])::"memory");
+}
+
+// acc (this warpgroup's 64 rows x N, wgmma's accumulator layout) = A B^T
+// over the 4 * NS k8 steps of NS slabs, 3xTF32: A this warp's 16 rows from
+// row0 of a raw R-row tile at shared address `a_tile` (split per k8 step,
+// columns at or past `cols` zeroed), B an N-row tile split into `b_big`
+// (in place) and `b_small`. G k8 steps (3 G wgmmas) a group, two register
+// sets: a group is issued while the one before it may still run, and a set
+// is refilled only once the group that read it is retired. G = 2 where the
+// registers allow, 1 where 16 more would spill.
+template <int NS, int R, int N, int G>
+__device__ __forceinline__ void gemm_abt(float (&acc)[N / 2], uint32_t a_tile, int row0,
+                                         const uint8_t* b_big, const uint8_t* b_small, int lane,
+                                         int cols) {
+  constexpr int kGroups = 4 * NS / G;
+  uint32_t a[2][G][2][4];  // [set][k8 step][big, small][4]
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_operands(acc);
+#pragma unroll
+  for (int grp = 0; grp < kGroups; ++grp) {
+    uint32_t(&set)[G][2][4] = a[grp & 1];
+#pragma unroll
+    for (int j = 0; j < G; ++j) load_a<R>(set[j][0], set[j][1], a_tile, row0, G * grp + j, lane, cols);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int kk = G * grp + j;
+      const int off = (kk >> 2) * N * kSlabBytes + (kk & 3) * 32;
+      const uint64_t db = make_desc(b_big + off, 128, 16, 1024);
+      const uint64_t ds = make_desc(b_small + off, 128, 16, 1024);
+      wgmma_tf32_rs<N>(acc, set[j][1], db);
+      wgmma_tf32_rs<N>(acc, set[j][0], ds);
+      wgmma_tf32_rs<N>(acc, set[j][0], db);
+    }
+    wgmma_commit();
+    fence_operands(acc);
+    wgmma_wait<1>();  // the group before this one is retired: its set is free
+    fence_frag_set(a[(grp + 1) & 1]);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  fence_frag_set(a[0]);
+  fence_frag_set(a[1]);
+}
+
+// acc (a warp's 16 rows x one 32-column slab: n8 block nb holds slab
+// columns 4n + nb) += X B over K rows, 3xTF32 on mma.sync: X this warp's
+// rows of a wgmma accumulator over K columns (x, split here), B the slab
+// `b` of a row-major K-row tile, raw (split here) or, with kSplit, already
+// split into `b` (big) and `b_small`. k8 step j takes rows 8j + 2t (k = t)
+// and 8j + 2t + 1 (k = t + 4): the order in which x holds them.
+template <int K, bool kSplit>
+__device__ __forceinline__ void gemm_xb(float (&acc)[4][4], const float* x, const uint8_t* b,
+                                        const uint8_t* b_small, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    uint32_t xb[4], xs[4];
+    split(x[4 * j], xb[0], xs[0]);
+    split(x[4 * j + 2], xb[1], xs[1]);
+    split(x[4 * j + 1], xb[2], xs[2]);
+    split(x[4 * j + 3], xb[3], xs[3]);
+    const int o0 = swz(8 * j + 2 * t, g), o1 = swz(8 * j + 2 * t + 1, g);
+    const float4 v0 = *reinterpret_cast<const float4*>(b + o0);
+    const float4 v1 = *reinterpret_cast<const float4*>(b + o1);
+    const float r0[4] = {v0.x, v0.y, v0.z, v0.w}, r1[4] = {v1.x, v1.y, v1.z, v1.w};
+    float s0[4], s1[4];
+    if constexpr (kSplit) {
+      const float4 w0 = *reinterpret_cast<const float4*>(b_small + o0);
+      const float4 w1 = *reinterpret_cast<const float4*>(b_small + o1);
+      s0[0] = w0.x, s0[1] = w0.y, s0[2] = w0.z, s0[3] = w0.w;
+      s1[0] = w1.x, s1[1] = w1.y, s1[2] = w1.z, s1[3] = w1.w;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      uint32_t b0, b0s, b1, b1s;
+      if constexpr (kSplit) {
+        b0 = __float_as_uint(r0[nb]), b0s = __float_as_uint(s0[nb]);
+        b1 = __float_as_uint(r1[nb]), b1s = __float_as_uint(s1[nb]);
+      } else {
+        split(r0[nb], b0, b0s);
+        split(r1[nb], b1, b1s);
+      }
+      mma_tf32(acc[nb], xs, b0, b1);
+      mma_tf32(acc[nb], xb, b0s, b1s);
+      mma_tf32(acc[nb], xb, b0, b1);
+    }
+  }
+}
+
+// Rows g and g + 8 of a warp's slab accumulator (gemm_xb's layout), times
+// inv0 / inv8, into f32 rows at dst0 (row g's element at the slab's column
+// 0; rows ld floats apart, 16-byte aligned), each row only if its flag is
+// set, columns at or past `cols` (a multiple of 4, from the slab's first)
+// never.
+__device__ __forceinline__ void store_slab(float* dst0, int ld, const float (&o)[4][4], float inv0,
+                                           float inv8, bool ok0, bool ok8, int t, int cols) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!(r ? ok8 : ok0)) continue;
+    float* dst = dst0 + static_cast<size_t>(8 * r) * ld;
+    const float inv = r ? inv8 : inv0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 8 * t + 4 * h;
+      if (c < cols)
+        *reinterpret_cast<float4*>(dst + c) =
+            make_float4(o[0][2 * r + h] * inv, o[1][2 * r + h] * inv, o[2][2 * r + h] * inv,
+                        o[3][2 * r + h] * inv);
+    }
+  }
+}
+
+// A (C, S, B) map of a packed (B, S, C) f32 tensor with a (32, rows, 1) box.
+int seq_map(CUtensorMap* map, const void* x, int batch, int s, int c, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 4,
+                                 static_cast<cuuint64_t>(s) * c * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, x, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// --- forward -----------------------------------------------------------------
+
+struct FwdParams {
+  float* o;
+  float* lse;  // (B, Sq, heads), written by the kWriteLse kernels
+  int sq, sk, c, d, heads, n_tiles, stages;
+  float scale_log2;  // log2(e) / sqrt(scale_dim)
+};
+
+template <int DA, int NWG, int BN>
+struct FwdCfg {
+  static constexpr int kNS = 2 * DA;  // slabs
+  static constexpr int kBM = 64 * NWG;  // query rows a block
+  static constexpr int kThreads = 128 * NWG + kProducer;
+  static constexpr int kQBytes = kBM * kNS * kSlabBytes;
+  static constexpr int kTile = BN * kNS * kSlabBytes;  // one K or V tile
+  static constexpr int kStage = 3 * kTile;             // K (big), its remainders, V
+  // k8 steps a wgmma group: one where two would spill (O takes 32 f32 a
+  // thread an atom)
+  static constexpr int kGroup = DA >= 3 ? 1 : 2;
+};
+
+template <int DA, int NWG, int BN, bool kWriteLse>
+__global__ void __launch_bounds__(FwdCfg<DA, NWG, BN>::kThreads, 1)
+attention_f32_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v, const FwdParams p) {
+  using C = FwdCfg<DA, NWG, BN>;
+  constexpr int NS = C::kNS;
+  const int S = p.stages;
+  constexpr int kS = BN / 2;  // score accumulator values a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = attn_hopper::align1024(smem_raw);
+  uint8_t* q_tile = smem;
+  uint8_t* ring = smem + C::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * C::kStage);
+  uint64_t* ready = full + S;
+  uint64_t* empty = ready + S;
+  uint64_t* q_full = empty + S;
+
+  const int q0 = blockIdx.x * C::kBM;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kSplitters);
+      mbar_init(&empty[s], 4 * NWG);  // each consumer warp, once it has read V
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (warp >= 4 * NWG) {  // the producer warpgroup
+    if constexpr (NWG >= 2) setmaxnreg_dec<40>();
+    if (warp == 4 * NWG) {
+      if (lane == 0) {
+        prefetch_tensormap(&map_q);
+        prefetch_tensormap(&map_k);
+        prefetch_tensormap(&map_v);
+        const int col = head * p.d;
+        mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          tma_load_3d(q_tile + s * C::kBM * kSlabBytes, &map_q, q_full, col + 32 * s, q0, batch);
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int j = 0; j < p.n_tiles; ++j) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = ring + stage * C::kStage;
+          mbar_expect_tx(&full[stage], 2 * C::kTile);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            tma_load_3d(st + s * BN * kSlabBytes, &map_k, &full[stage], col + 32 * s, j * BN, batch);
+            tma_load_3d(st + 2 * C::kTile + s * BN * kSlabBytes, &map_v, &full[stage],
+                        col + 32 * s, j * BN, batch);
+          }
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else {  // splitters: K of every stage, in ring order
+      const int sid = threadIdx.x - 128 * NWG - 32;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < p.n_tiles; ++j) {
+        mbar_wait(&full[stage], phase);
+        uint8_t* st = ring + stage * C::kStage;
+        split_tile(st, st + C::kTile, C::kTile, sid);
+        fence_proxy_async();  // before wgmma reads them
+        mbar_arrive(&ready[stage]);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (NWG >= 2) setmaxnreg_inc<232>();
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = wg * 64 + wq * 16;  // this warp's rows in the Q tile
+  const uint32_t q_addr = smem_u32(q_tile);
+
+  float o[NS][4][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[s][nb][e] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < p.n_tiles; ++j) {
+    mbar_wait(&full[stage], phase);  // V, read by this thread's loads
+    mbar_wait(&ready[stage], phase);
+    const uint8_t* kt = ring + stage * C::kStage;
+    const uint8_t* vt = kt + 2 * C::kTile;
+
+    float s[kS];
+    gemm_abt<NS, C::kBM, BN, C::kGroup>(s, q_addr, row0, kt, kt + C::kTile, lane, p.d);
+
+    const int kv0 = j * BN;
+    if (kv0 + BN > p.sk) {  // the ragged last tile: keys >= Sk
+#pragma unroll
+      for (int i = 0; i < kS; ++i)
+        if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= p.sk) s[i] = kMasked;
+    }
+    // online softmax in base 2: rows g (r = 0) and g + 8 (r = 1); row_max is
+    // kept pre-scaled, so p = 2^(s * scale - max) is one FFMA and one EX2
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kS; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 2));
+      const float m_new = fmaxf(row_max[r], tile_max[r] * p.scale_log2);
+      alpha[r] = attn_hopper::exp2_approx(row_max[r] - m_new);  // 0 at the first tile
+      row_max[r] = m_new;
+      row_sum[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = attn_hopper::exp2_approx(fmaf(s[i], p.scale_log2, -row_max[r]));
+      row_sum[r] += s[i];
+    }
+    // O = O * alpha + P V, a fresh accumulator a slab
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      float acc[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+      gemm_xb<BN, false>(acc, s, vt + sl * BN * kSlabBytes, nullptr, g, t);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[sl][nb][e] = fmaf(o[sl][nb][e], alpha[e >> 1], acc[nb][e]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 1);
+    row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 2);
+  }
+  const int row = q0 + row0 + g;
+  const bool ok0 = row < p.sq, ok8 = row + 8 < p.sq;
+  float* dst = p.o + (static_cast<size_t>(batch) * p.sq + row) * p.c + head * p.d;
+  const float inv0 = 1.f / row_sum[0], inv8 = 1.f / row_sum[1];
+#pragma unroll
+  for (int sl = 0; sl < NS; ++sl)
+    store_slab(dst + 32 * sl, p.c, o[sl], inv0, inv8, ok0, ok8, t, p.d - 32 * sl);
+  if constexpr (kWriteLse) {
+    // L = m + ln(l) in natural-log units: row_max is m * log2(e)
+    if (t == 0) {
+      float* l0 = p.lse + (static_cast<size_t>(batch) * p.sq + row) * p.heads + head;
+      if (ok0) l0[0] = (row_max[0] + log2f(row_sum[0])) * kLn2;
+      if (ok8) l0[static_cast<size_t>(8) * p.heads] = (row_max[1] + log2f(row_sum[1])) * kLn2;
+    }
+  }
+}
+
+template <int DA, int NWG, int BN, bool kWriteLse>
+int launch_fwd(const void* q, const void* k, const void* v, FwdParams& p, int batch,
+               cudaStream_t stream) {
+  using C = FwdCfg<DA, NWG, BN>;
+  CUtensorMap mq, mk, mv;
+  int rc = seq_map(&mq, q, batch, p.sq, p.c, C::kBM);
+  if (rc) return rc;
+  if ((rc = seq_map(&mk, k, batch, p.sk, p.c, BN))) return rc;
+  if ((rc = seq_map(&mv, v, batch, p.sk, p.c, BN))) return rc;
+  p.n_tiles = (p.sk + BN - 1) / BN;
+  const int smem = fwd_smem_bytes(DA, NWG, BN, p.stages);
+  static int configured = 0;  // the largest dynamic shared memory set so far
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(attention_f32_fwd_kernel<DA, NWG, BN, kWriteLse>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  const dim3 grid((p.sq + C::kBM - 1) / C::kBM, p.heads, batch);
+  attention_f32_fwd_kernel<DA, NWG, BN, kWriteLse><<<grid, C::kThreads, smem, stream>>>(mq, mk, mv,
+                                                                                        p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The (nwg, bn) tiles the f32 forward has at each atom count: one atom
+// (2, 64) and, with kCross (flash_attention.cu's B3, whose prompt has 77
+// keys), (1, 80); two (2, 32); three (1, 32); four (1, 16).
+template <bool kCross>
+bool fwd_tile_ok(int da, int nwg, int bn) {
+  switch (da) {
+    case 1: return (nwg == 2 && bn == 64) || (kCross && nwg == 1 && bn == 80);
+    case 2: return nwg == 2 && bn == 32;
+    case 3: return nwg == 1 && bn == 32;
+    case 4: return nwg == 1 && bn == 16;
+    default: return false;
+  }
+}
+
+// The forward on (B, Sq, heads * d) q, (B, Sk, heads * d) k and v, f32,
+// 16-byte aligned, d a multiple of 4, into o and, with kWriteLse, L, with
+// the (nwg, bn, stages) of the wrapper's plan; 0 or an error code for
+// hopper_host::error_string. A template, so that each library instantiates
+// only the kernels it launches.
+template <bool kWriteLse, bool kCross>
+int forward(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
+            int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
+            cudaStream_t stream) {
+  const int da = head_atoms(d);
+  if (batch < 1 || sq < 1 || sk < 1 || heads < 1 || !head_dim_ok(d, scale_dim) ||
+      !fwd_tile_ok<kCross>(da, nwg, bn) || stages < 1 ||
+      fwd_smem_bytes(da, nwg, bn, stages) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p;
+  p.o = static_cast<float*>(o);
+  p.lse = lse;
+  p.sq = sq;
+  p.sk = sk;
+  p.c = heads * d;
+  p.d = d;
+  p.heads = heads;
+  p.stages = stages;
+  p.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
+  const auto s = stream;
+  switch (da) {
+    case 1:
+      if constexpr (kCross) {
+        if (bn == 80) return launch_fwd<1, 1, 80, kWriteLse>(q, k, v, p, batch, s);
+      }
+      return launch_fwd<1, 2, 64, kWriteLse>(q, k, v, p, batch, s);
+    case 2: return launch_fwd<2, 2, 32, kWriteLse>(q, k, v, p, batch, s);
+    case 3: return launch_fwd<3, 1, 32, kWriteLse>(q, k, v, p, batch, s);
+    default: return launch_fwd<4, 1, 16, kWriteLse>(q, k, v, p, batch, s);
+  }
+}
+
+}  // namespace
+}  // namespace attn_f32

@@ -21,11 +21,11 @@
 // tiles. kernels/flash_attention.py::plan picks one per shape (python -m
 // genima_torch.tune_kernels attn times every candidate).
 //
-// On f32 q, k and v it is attention_f32.cuh's forward instead (FFMA on the
-// CUDA cores: its note says why), with an f32 output, as the TPU kernel
-// writes its output in q's dtype.
+// On f32 q, k and v it is attention_f32_hopper.cuh's forward instead
+// (3xTF32 on the tensor cores: its note gives the design), with an f32
+// output, as the TPU kernel writes its output in q's dtype.
 
-#include "attention_f32.cuh"
+#include "attention_f32_hopper.cuh"
 #include "attention_fwd_hopper.cuh"
 
 using namespace attn_hopper;
@@ -94,18 +94,24 @@ int flash_attention_smem_bytes(int nwg, int bn, int stages, int d) {
   return tile ? fwd_smem_bytes(nwg, bn, stages, atoms) : 0;
 }
 
-// The same on (B, S, heads, d) f32 tensors, d any head dim from 1 to 256,
-// Sq and Sk >= 1.
+// The same on (B, S, heads, d) f32 tensors, d a multiple of 4 up to 256
+// (the wrapper zero-pads any other head dim and passes the real one as
+// scale_dim), Sq and Sk >= 1, with the consumer warpgroups, key tile and
+// ring depth of kernels/flash_attention.py::f32_plan.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int batch,
-                            int sq, int sk, int heads, int d, void* stream) {
-  return attn_f32::forward<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d,
-                                  static_cast<cudaStream_t>(stream));
+                            int sq, int sk, int heads, int d, int scale_dim, int nwg, int bn,
+                            int stages, void* stream) {
+  return attn_f32::forward<false, true>(q, k, v, o, nullptr, batch, sq, sk, heads, d, scale_dim,
+                                        nwg, bn, stages, static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory a block of the f32 forward asks for at head dim d (0 for a d
-// there is no kernel for).
-int flash_attention_f32_smem_bytes(int d) {
-  return attn_f32::head_dim_ok(d) ? attn_f32::fwd_smem_bytes(attn_f32::head_atoms(d)) : 0;
+// Shared memory a block of the f32 forward asks for with (nwg, bn, stages)
+// at head dim d (0 for a launch there is no kernel for).
+int flash_attention_f32_smem_bytes(int nwg, int bn, int stages, int d) {
+  if (!attn_f32::head_dim_ok(d, d) || stages < 1) return 0;
+  const int da = attn_f32::head_atoms(d);
+  return attn_f32::fwd_tile_ok<true>(da, nwg, bn) ? attn_f32::fwd_smem_bytes(da, nwg, bn, stages)
+                                                  : 0;
 }
 
 const char* flash_attention_error_string(int code) { return hopper_host::error_string(code); }

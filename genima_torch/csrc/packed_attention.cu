@@ -29,11 +29,11 @@
 // 64-column atoms) take 64-key tiles with one or two warpgroups; 200..256
 // (four atoms) 64-key tiles with one.
 //
-// On f32 q, k and v, B1 and B2a are attention_f32.cuh's forward instead
-// (FFMA on the CUDA cores: its note says why), with f32 o and L: the TPU
-// kernels write their output in q's dtype.
+// On f32 q, k and v, B1 and B2a are attention_f32_hopper.cuh's forward
+// instead (3xTF32 on the tensor cores: its note gives the design), with f32
+// o and L: the TPU kernels write their output in q's dtype.
 
-#include "attention_f32.cuh"
+#include "attention_f32_hopper.cuh"
 #include "attention_fwd_hopper.cuh"
 
 using namespace attn_hopper;
@@ -116,23 +116,31 @@ int packed_attention_fwd_lse(const void* q, const void* k, const void* v, void* 
                        nwg, bn, stages, static_cast<cudaStream_t>(stream));
 }
 
-// B1 and B2a on packed (B, S, heads * d) f32 tensors, d any head dim from 1
-// to 256, Sq and Sk >= 1 (the wrapper holds them to multiples of 64, as
-// B2b needs); L into `lse` when it is not null. Launches on `stream`, does
-// not synchronise; returns 0 or an error code for
-// packed_attention_error_string.
+// B1 and B2a on packed (B, S, heads * d) f32 tensors, d a multiple of 4 up
+// to 256 (the wrapper zero-pads any other head dim and passes the real one
+// as scale_dim), Sq and Sk >= 1 (the wrapper holds them to multiples of 64,
+// as B2b needs), with the consumer warpgroups, key tile and ring depth of
+// kernels/flash_attention.py::f32_plan; L into `lse` when it is not null.
+// Launches on `stream`, does not synchronise; returns 0 or an error code
+// for packed_attention_error_string.
 int packed_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int batch, int sq, int sk, int heads, int d, void* stream) {
+                             int batch, int sq, int sk, int heads, int d, int scale_dim, int nwg,
+                             int bn, int stages, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return l ? attn_f32::forward<true>(q, k, v, o, l, batch, sq, sk, heads, d, s)
-           : attn_f32::forward<false>(q, k, v, o, l, batch, sq, sk, heads, d, s);
+  return l ? attn_f32::forward<true, false>(q, k, v, o, l, batch, sq, sk, heads, d, scale_dim,
+                                            nwg, bn, stages, s)
+           : attn_f32::forward<false, false>(q, k, v, o, l, batch, sq, sk, heads, d, scale_dim,
+                                             nwg, bn, stages, s);
 }
 
-// Shared memory a block of the f32 forward asks for at head dim d (0 for a d
-// there is no kernel for).
-int packed_attention_f32_smem_bytes(int d) {
-  return attn_f32::head_dim_ok(d) ? attn_f32::fwd_smem_bytes(attn_f32::head_atoms(d)) : 0;
+// Shared memory a block of the f32 forward asks for with (nwg, bn, stages)
+// at head dim d (0 for a launch there is no kernel for).
+int packed_attention_f32_smem_bytes(int nwg, int bn, int stages, int d) {
+  if (!attn_f32::head_dim_ok(d, d) || stages < 1) return 0;
+  const int da = attn_f32::head_atoms(d);
+  return attn_f32::fwd_tile_ok<false>(da, nwg, bn) ? attn_f32::fwd_smem_bytes(da, nwg, bn, stages)
+                                                   : 0;
 }
 
 const char* packed_attention_error_string(int code) { return hopper_host::error_string(code); }

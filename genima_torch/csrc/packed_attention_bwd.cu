@@ -69,12 +69,12 @@
 //   Every contraction over d sees zeros past d (Q or dO, K or V), and dQ,
 //   dK and dV store their real d columns only.
 //
-// On f32 tensors it is attention_f32.cuh's backward instead (FFMA on the
-// CUDA cores, its note says why): the same two kernels and the same
-// arithmetic with P and dS kept in f32, dq, dk and dv in f32, as the TPU
-// kernel writes them in q's dtype.
+// On f32 tensors it is the f32 backward below instead (3xTF32 on the tensor
+// cores, on attention_f32_hopper.cuh's pieces): the same two kernels and the
+// same arithmetic with P and dS kept in f32, dq, dk and dv in f32, as the
+// TPU kernel writes them in q's dtype.
 
-#include "attention_f32.cuh"
+#include "attention_f32_hopper.cuh"
 #include "attention_hopper.cuh"
 
 namespace {
@@ -644,25 +644,65 @@ int launch_bwd(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap&
 namespace attn_f32 {
 namespace {
 
-// Rows of the backward's blocks and tiles at DA atoms: four resident tiles
-// of 64 rows x 257 floats do not fit 227 KB.
-__host__ __device__ constexpr int bwd_rows(int da) { return da == 4 ? 32 : 64; }
+// --- backward (B2b on f32) ---------------------------------------------------
+//
+// Replaces genima_tpu/kernels/packed_attention.py:380 _flash_backward /
+// _bwd_kernel on f32 inputs (P and dS kept in f32, dq, dk and dv in f32).
+// Two kernels, no atomics, so two calls give the same bits, on the header's
+// pieces (attention_f32_hopper.cuh: 3xTF32, wgmma for the K-major products,
+// mma.sync for those over a tile's rows). Each is warp-specialised as the
+// forward is: the producer warpgroup's warp 0 TMA-loads the block's two
+// resident tensors once and streams tiles of T rows through a ring; its
+// warps 1-3 split each landed tile (big in place, small beside it), since
+// each streamed tile is both a wgmma B operand and a mma.sync B operand.
+//   * dq kernel, one block per (64 * NWG query rows, head, batch): Q and dO
+//     resident (raw: the A operands, split per k8 step). Its prologue
+//     computes Drow = rowsum(dO * O) over the head's columns and
+//     L * log2(e) for its rows and writes both, (B, heads, Sq), into the
+//     `delta` scratch for the second kernel. Per tile of T keys: S = Q K^T
+//     and dP = dO V^T (wgmma), P = 2^(S scale log2(e) - L log2(e)) and
+//     dS = P (dP - Drow) / sqrt(d) in registers, dQ += dS K (mma.sync, a
+//     fresh accumulator a tile and slab).
+//   * dk/dv kernel, one block per (64 * NWG keys, head, batch): K and V
+//     resident. Per tile of T query rows (with their L * log2(e) and Drow,
+//     bulk-copied from the scratch into the stage): S^T = K Q^T and dP^T =
+//     V dO^T (wgmma), P^T and dS^T in registers, dV += P^T dO and
+//     dK += dS^T Q (mma.sync). At three and four atoms dV and dK would
+//     take 96-128 registers a thread each, so the kernel makes two passes
+//     over the query tiles, dV in the first and dK in the second.
+// Bound: 10 * B * Sq * Sk * C flops (the TPU kernel's count; these kernels
+// form S and dP in both, 14) at 3xTF32's 165 TFLOP/s, on ~32 * B * (Sq +
+// Sk) * C bytes. Plans (bwd_nwg, bwd_tile, bwd_stages, bwd_passes;
+// kernels/packed_attention.py::backward_plan): one atom two consumer
+// warpgroups on 64-row tiles; two to four atoms one warpgroup, on 32-, 16-
+// and 8-row tiles (16 in the dk/dv kernel at two atoms): shared memory and
+// registers.
 
-// Dynamic shared memory of a backward block: four tiles (Q, dO, K, V), dS
-// (and P^T in the dk/dv kernel), and a row's L * log2(e) and Drow.
-int bwd_smem_bytes(int da, bool dkdv) {
-  const int r = bwd_rows(da), ld = 64 * da + 1;
-  return 4 * (4 * r * ld + (dkdv ? 2 : 1) * r * (r + 1) + 2 * r);
+constexpr int bwd_nwg(int da) { return da == 1 ? 2 : 1; }
+// rows a streamed tile: 64, 32, 16, 8 at one to four atoms, but 16 in the
+// dk/dv kernel at two (its dK and dV, live beside S^T and dP^T, spilled
+// at 32)
+constexpr int bwd_tile(int da, bool dkdv) { return dkdv && da == 2 ? 16 : 128 >> da; }
+constexpr int bwd_stages(int da, bool dkdv) { return dkdv && da == 2 ? 4 : da == 4 ? 3 : 2; }
+__host__ __device__ constexpr int bwd_passes(int da) { return da >= 3 ? 2 : 1; }
+
+// Dynamic shared memory of a backward block: alignment slack, two resident
+// tensors of 64 * nwg rows, the ring of four tiles (two tensors and their
+// remainders), in the dk/dv kernel a stage's L * log2(e) and Drow, and the
+// barriers.
+constexpr int bwd_smem_bytes(int da, bool dkdv) {
+  return 1024 + 2 * 64 * bwd_nwg(da) * 2 * da * kSlabBytes +
+         bwd_stages(da, dkdv) *
+             (4 * bwd_tile(da, dkdv) * 2 * da * kSlabBytes + (dkdv ? 8 * bwd_tile(da, dkdv) : 0)) +
+         8 * (3 * bwd_stages(da, dkdv) + 1);
 }
 
 struct BwdParams {
-  const float* q;
-  const float* k;
-  const float* v;
   const float* o;
   const float* lse;   // (B, Sq, heads)
   const float* dout;
-  float* drow;        // (B, heads, Sq): rowsum(dO * O), the dq kernel's for the dk/dv kernel
+  float* l2;          // (B, heads, Sq): L * log2(e), the dq kernel's for the dk/dv kernel
+  float* drow;        // (B, heads, Sq): rowsum(dO * O), likewise
   float* dq;
   float* dk;
   float* dv;
@@ -670,237 +710,349 @@ struct BwdParams {
   float scale, scale_log2;
 };
 
-// dq for a block of R query rows: Q and dO resident, K and V streamed in
-// tiles of R keys; first Drow and L * log2(e) of the block's rows.
-template <int DA>
-__global__ void __launch_bounds__(kThreads, 1) attention_f32_dq_kernel(const BwdParams p) {
-  constexpr int R = bwd_rows(DA), RN = R / 16, W = 64 * DA, LD = W + 1, LDP = R + 1;
-  constexpr int NC = 4 * DA;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + R * LD;
-  float* ks = dos + R * LD;
-  float* vs = ks + R * LD;
-  float* dss = vs + R * LD;
-  float* lrow = dss + R * LDP;
-  float* drow = lrow + R;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * R, head = blockIdx.y, b = blockIdx.z;
-  const int col0 = head * p.d;
-  load_tile<R, W, LD>(qs, p.q, b, q0, p.sq, p.c, col0, p.d);
-  load_tile<R, W, LD>(dos, p.dout, b, q0, p.sq, p.c, col0, p.d);
+template <int DA, bool kDkdv>
+struct BwdCfg {
+  static constexpr int kNS = 2 * DA;
+  static constexpr int kNWG = bwd_nwg(DA);
+  static constexpr int kT = bwd_tile(DA, kDkdv);
+  static constexpr int kStages = bwd_stages(DA, kDkdv);
+  static constexpr int kBM = 64 * kNWG;  // rows a block: query rows (dq) or keys (dk/dv)
+  static constexpr int kThreads = 128 * kNWG + kProducer;
+  static constexpr int kRes = kBM * kNS * kSlabBytes;   // one resident tensor
+  static constexpr int kTile = kT * kNS * kSlabBytes;   // one streamed tile
+  static constexpr int kStage = 4 * kTile;  // X, X's remainders, Y, Y's remainders
+  // k8 steps a wgmma group: one where two would spill
+  static constexpr int kGroup = DA == 1 ? 2 : 1;
+};
+
+// The producer warpgroup of both kernels: warp 0's first thread loads the two
+// resident tensors (rows r0 of maps ra, rb), then `tiles` tiles of T rows of
+// maps sa and sb into the ring (with kRows, the tile's T values of `rows_a`
+// and `rows_b` too, into `rows`); warps 1-3 split both tensors of each
+// stage. Tile j reads rows (j % per_pass) * T.
+template <int DA, bool kRows>  // kRows: the dk/dv kernel's
+__device__ __forceinline__ void bwd_producer(const CUtensorMap* ra, const CUtensorMap* rb,
+                                             const CUtensorMap* sa, const CUtensorMap* sb,
+                                             uint8_t* res, uint8_t* ring, float* rows,
+                                             uint64_t* full, uint64_t* ready, uint64_t* empty,
+                                             uint64_t* res_full, int r0, int col, int batch,
+                                             int tiles, int per_pass, const float* rows_a,
+                                             const float* rows_b) {
+  using C = BwdCfg<DA, kRows>;
+  constexpr int NS = C::kNS, T = C::kT, S = C::kStages;
+  const int warp = (threadIdx.x >> 5) - 4 * C::kNWG;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (warp == 0) {
+    if ((threadIdx.x & 31) != 0) return;
+    prefetch_tensormap(ra);
+    prefetch_tensormap(rb);
+    prefetch_tensormap(sa);
+    prefetch_tensormap(sb);
+    mbar_expect_tx(res_full, 2 * C::kRes);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load_3d(res + s * C::kBM * kSlabBytes, ra, res_full, col + 32 * s, r0, batch);
+      tma_load_3d(res + C::kRes + s * C::kBM * kSlabBytes, rb, res_full, col + 32 * s, r0, batch);
+    }
+    for (int j = 0; j < tiles; ++j) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      uint8_t* st = ring + stage * C::kStage;
+      const int row = (j % per_pass) * T;
+      mbar_expect_tx(&full[stage], 2 * C::kTile + (kRows ? 8 * T : 0));
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        tma_load_3d(st + s * T * kSlabBytes, sa, &full[stage], col + 32 * s, row, batch);
+        tma_load_3d(st + 2 * C::kTile + s * T * kSlabBytes, sb, &full[stage], col + 32 * s, row,
+                    batch);
+      }
+      if constexpr (kRows) {
+        bulk_load(rows + stage * 2 * T, rows_a + row, 4 * T, &full[stage]);
+        bulk_load(rows + stage * 2 * T + T, rows_b + row, 4 * T, &full[stage]);
+      }
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+  const int sid = threadIdx.x - 128 * C::kNWG - 32;
+  for (int j = 0; j < tiles; ++j) {
+    mbar_wait(&full[stage], phase);
+    uint8_t* st = ring + stage * C::kStage;
+    split_tile(st, st + C::kTile, C::kTile, sid);
+    split_tile(st + 2 * C::kTile, st + 3 * C::kTile, C::kTile, sid);
+    fence_proxy_async();  // before wgmma reads them
+    mbar_arrive(&ready[stage]);
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void bwd_barriers(uint64_t* full, uint64_t* ready, uint64_t* empty,
+                                             uint64_t* res_full) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kSplitters);
+      mbar_init(&empty[s], 4 * C::kNWG);
+    }
+    mbar_init(res_full, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  {  // warp w: rows w, w + 8, ...
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp; r < R; r += kThreads / 32) {
-      const int row = q0 + r;
-      float acc = 0.f;
-      if (row < p.sq) {
-        const float* orow = p.o + (static_cast<size_t>(b) * p.sq + row) * p.c + col0;
-        for (int e = lane; e < p.d; e += 32) acc = fmaf(dos[r * LD + e], orow[e], acc);
-      }
+}
+
+template <int NS>
+__device__ __forceinline__ void zero_slabs(float (&x)[NS][4][4]) {
 #pragma unroll
-      for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) {
-        drow[r] = acc;
-        lrow[r] = row < p.sq
-                      ? p.lse[(static_cast<size_t>(b) * p.sq + row) * p.heads + head] * kLog2e
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[s][nb][e] = 0.f;
+}
+
+// acc += X B for every slab, each into a fresh accumulator first (B's big
+// tile at b, its remainders at b_small, T rows a slab).
+template <int NS, int T>
+__device__ __forceinline__ void add_xb(float (&acc)[NS][4][4], const float* x, const uint8_t* b,
+                                       const uint8_t* b_small, int g, int t) {
+#pragma unroll
+  for (int sl = 0; sl < NS; ++sl) {
+    float part[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
+    gemm_xb<T, true>(part, x, b + sl * T * kSlabBytes, b_small + sl * T * kSlabBytes, g, t);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[sl][nb][e] += part[nb][e];
+  }
+}
+
+// dq for a block of query rows: Q and dO resident, K and V streamed.
+template <int DA>
+__global__ void __launch_bounds__(BwdCfg<DA, false>::kThreads, 1)
+attention_f32_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, const BwdParams p) {
+  using C = BwdCfg<DA, false>;
+  constexpr int NS = C::kNS, NWG = C::kNWG, T = C::kT, S = C::kStages;
+  constexpr int kS = T / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = attn_hopper::align1024(smem_raw);
+  uint8_t* res = smem;  // Q, then dO
+  uint8_t* ring = smem + 2 * C::kRes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * C::kStage);
+  uint64_t* ready = full + S;
+  uint64_t* empty = ready + S;
+  uint64_t* res_full = empty + S;
+  const int q0 = blockIdx.x * C::kBM, head = blockIdx.y, batch = blockIdx.z;
+  bwd_barriers<C>(full, ready, empty, res_full);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4 * NWG) {
+    if constexpr (NWG >= 2) setmaxnreg_dec<40>();
+    bwd_producer<DA, false>(&map_q, &map_do, &map_k, &map_v, res, ring, nullptr, full, ready,
+                            empty, res_full, q0, head * p.d, batch, p.sk / T, p.sk / T, nullptr,
+                            nullptr);
+    return;
+  }
+  if constexpr (NWG >= 2) setmaxnreg_inc<232>();
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+  const int row0 = wg * 64 + wq * 16;
+  const int row = q0 + row0 + g;  // global row of r = 0; r = 1 is row + 8
+
+  // Drow over the head's columns (dO and O from global memory, a float4 a
+  // lane) and L * log2(e), for rows g and g + 8; rows past Sq: P = 0
+  float l2[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    float acc = 0.f;
+    if (rr < p.sq) {
+      const size_t at = (static_cast<size_t>(batch) * p.sq + rr) * p.c + head * p.d;
+      for (int c = 4 * t; c < p.d; c += 16) {
+        const float4 a = *reinterpret_cast<const float4*>(p.dout + at + c);
+        const float4 b = *reinterpret_cast<const float4*>(p.o + at + c);
+        acc = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffff, acc, 1);
+    acc += __shfl_xor_sync(0xffffffff, acc, 2);
+    dr[r] = acc;
+    l2[r] = rr < p.sq ? p.lse[(static_cast<size_t>(batch) * p.sq + rr) * p.heads + head] * kLog2e
                       : INFINITY;
-        if (row < p.sq) p.drow[(static_cast<size_t>(b) * p.heads + head) * p.sq + row] = acc;
-      }
+    if (t == 0 && rr < p.sq) {
+      const size_t at = (static_cast<size_t>(batch) * p.heads + head) * p.sq + rr;
+      p.l2[at] = l2[r];
+      p.drow[at] = acc;
     }
   }
 
-  float dq[RN][NC];
+  float dq[NS][4][4];
+  zero_slabs(dq);
+  const uint32_t q_addr = smem_u32(res), do_addr = smem_u32(res + C::kRes);
+  mbar_wait(res_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < p.sk / T; ++j) {
+    mbar_wait(&full[stage], phase);
+    mbar_wait(&ready[stage], phase);
+    const uint8_t* kt = ring + stage * C::kStage;
+    const uint8_t* vt = kt + 2 * C::kTile;
+    float s[kS], dp[kS];
+    gemm_abt<NS, C::kBM, T, C::kGroup>(s, q_addr, row0, kt, kt + C::kTile, lane, p.d);
+    gemm_abt<NS, C::kBM, T, C::kGroup>(dp, do_addr, row0, vt, vt + C::kTile, lane, p.d);
 #pragma unroll
-  for (int r = 0; r < RN; ++r)
-#pragma unroll
-    for (int n = 0; n < NC; ++n) dq[r][n] = 0.f;
-
-  for (int k0 = 0; k0 < p.sk; k0 += R) {
-    __syncthreads();  // Drow and L stored; the previous tile's K and dS read
-    load_tile<R, W, LD>(ks, p.k, b, k0, p.sk, p.c, col0, p.d);
-    load_tile<R, W, LD>(vs, p.v, b, k0, p.sk, p.c, col0, p.d);
-    __syncthreads();
-    float s[RN][RN], dp[RN][RN];
-#pragma unroll
-    for (int r = 0; r < RN; ++r)
-#pragma unroll
-      for (int c = 0; c < RN; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < p.d; ++e) {
-      float a[RN], g[RN], kb[RN], vb[RN];
-#pragma unroll
-      for (int r = 0; r < RN; ++r) {
-        a[r] = qs[(ty + 16 * r) * LD + e];
-        g[r] = dos[(ty + 16 * r) * LD + e];
-      }
-#pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        kb[c] = ks[(tx + 16 * c) * LD + e];
-        vb[c] = vs[(tx + 16 * c) * LD + e];
-      }
-#pragma unroll
-      for (int r = 0; r < RN; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) {
-          s[r][c] = fmaf(a[r], kb[c], s[r][c]);
-          dp[r][c] = fmaf(g[r], vb[c], dp[r][c]);
-        }
+    for (int i = 0; i < kS; ++i) {
+      const int r = (i >> 1) & 1;
+      const float pv = attn_hopper::exp2_approx(fmaf(s[i], p.scale_log2, -l2[r]));
+      s[i] = pv * (dp[i] - dr[r]) * p.scale;  // dS
     }
-    const int valid = min(R, p.sk - k0);
-#pragma unroll
-    for (int r = 0; r < RN; ++r) {
-      const int i = ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        const int j = tx + 16 * c;
-        const float pv = j < valid ? exp2f(fmaf(s[r][c], p.scale_log2, -lrow[i])) : 0.f;
-        dss[i * LDP + j] = pv * (dp[r][c] - drow[i]) * p.scale;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < valid; ++j) {
-      float ds[RN];
-#pragma unroll
-      for (int r = 0; r < RN; ++r) ds[r] = dss[(ty + 16 * r) * LDP + j];
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float kv = ks[j * LD + tx + 16 * n];
-#pragma unroll
-        for (int r = 0; r < RN; ++r) dq[r][n] = fmaf(ds[r], kv, dq[r][n]);
-      }
+    add_xb<NS, T>(dq, s, kt, kt + C::kTile, g, t);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  float* dst = p.dq + (static_cast<size_t>(batch) * p.sq + row) * p.c + head * p.d;
 #pragma unroll
-  for (int r = 0; r < RN; ++r) {
-    const int row = q0 + ty + 16 * r;
-    if (row >= p.sq) continue;
-    float* dst = p.dq + (static_cast<size_t>(b) * p.sq + row) * p.c + col0;
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-      if (tx + 16 * n < p.d) dst[tx + 16 * n] = dq[r][n];
-  }
+  for (int sl = 0; sl < NS; ++sl)
+    store_slab(dst + 32 * sl, p.c, dq[sl], 1.f, 1.f, row < p.sq, row + 8 < p.sq, t, p.d - 32 * sl);
 }
 
-// dk and dv for a block of R keys: K and V resident, Q and dO streamed in
-// tiles of R query rows; S^T, dP^T with keys as rows, P^T and dS^T through
-// shared memory.
-template <int DA>
-__global__ void __launch_bounds__(kThreads, 1) attention_f32_dkdv_kernel(const BwdParams p) {
-  constexpr int R = bwd_rows(DA), RN = R / 16, W = 64 * DA, LD = W + 1, LDP = R + 1;
-  constexpr int NC = 4 * DA;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + R * LD;
-  float* qs = vs + R * LD;
-  float* dos = qs + R * LD;
-  float* pt = dos + R * LD;
-  float* dst = pt + R * LDP;
-  float* lrow = dst + R * LDP;
-  float* drow = lrow + R;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * R, head = blockIdx.y, b = blockIdx.z;
-  const int col0 = head * p.d;
-  load_tile<R, W, LD>(ks, p.k, b, k0, p.sk, p.c, col0, p.d);
-  load_tile<R, W, LD>(vs, p.v, b, k0, p.sk, p.c, col0, p.d);
-
-  float dk[RN][NC], dv[RN][NC];
+// One pass of the dk/dv kernel over the query tiles: dV (kDV) and / or dK
+// (kDK) of this warp's keys.
+template <int DA, bool kDV, bool kDK>
+__device__ __forceinline__ void dkdv_pass(float (&dv)[2 * DA][4][4], float (&dk)[2 * DA][4][4],
+                                          const BwdParams& p, uint32_t k_addr, uint32_t v_addr,
+                                          const uint8_t* ring, const float* rows, uint64_t* full,
+                                          uint64_t* ready, uint64_t* empty, int& stage,
+                                          uint32_t& phase, int row0, int lane) {
+  using C = BwdCfg<DA, true>;
+  constexpr int NS = C::kNS, T = C::kT, kS = T / 2;
+  const int g = lane >> 2, t = lane & 3;
+  for (int j = 0; j < p.sq / T; ++j) {
+    mbar_wait(&full[stage], phase);
+    mbar_wait(&ready[stage], phase);
+    const uint8_t* qt = ring + stage * C::kStage;
+    const uint8_t* dot = qt + 2 * C::kTile;
+    const float* l2 = rows + stage * 2 * T;
+    const float* dr = l2 + T;
+    // S^T and dP^T back to back, then P^T and dS^T, then dV and dK (forming
+    // dP^T after dV += P^T dO holds fewer values at once and spills less,
+    // but measured slower)
+    float st[kS], dpt[kS];
+    gemm_abt<NS, C::kBM, T, C::kGroup>(st, k_addr, row0, qt, qt + C::kTile, lane, p.d);
+    if constexpr (kDK)
+      gemm_abt<NS, C::kBM, T, C::kGroup>(dpt, v_addr, row0, dot, dot + C::kTile, lane, p.d);
 #pragma unroll
-  for (int r = 0; r < RN; ++r)
+    for (int i = 0; i < kS; i += 4) {  // query columns 8 (i / 4) + 2t and + 1
+      const float2 l = *reinterpret_cast<const float2*>(l2 + 2 * i + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(dr + 2 * i + 2 * t);
 #pragma unroll
-    for (int n = 0; n < NC; ++n) dk[r][n] = dv[r][n] = 0.f;
-
-  for (int q0 = 0; q0 < p.sq; q0 += R) {
-    __syncthreads();  // K, V stored; the previous tile's Q, dO, P^T and dS^T read
-    load_tile<R, W, LD>(qs, p.q, b, q0, p.sq, p.c, col0, p.d);
-    load_tile<R, W, LD>(dos, p.dout, b, q0, p.sq, p.c, col0, p.d);
-    for (int r = threadIdx.x; r < R; r += kThreads) {
-      const int row = q0 + r;
-      const bool in = row < p.sq;
-      lrow[r] = in ? p.lse[(static_cast<size_t>(b) * p.sq + row) * p.heads + head] * kLog2e
-                   : INFINITY;  // P = 0 on rows past Sq
-      drow[r] = in ? p.drow[(static_cast<size_t>(b) * p.heads + head) * p.sq + row] : 0.f;
-    }
-    __syncthreads();
-    float s[RN][RN], dp[RN][RN];  // rows: keys ty + 16 r; columns: query rows tx + 16 c
-#pragma unroll
-    for (int r = 0; r < RN; ++r)
-#pragma unroll
-      for (int c = 0; c < RN; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < p.d; ++e) {
-      float kk[RN], vv[RN], qq[RN], gg[RN];
-#pragma unroll
-      for (int r = 0; r < RN; ++r) {
-        kk[r] = ks[(ty + 16 * r) * LD + e];
-        vv[r] = vs[(ty + 16 * r) * LD + e];
-      }
-#pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        qq[c] = qs[(tx + 16 * c) * LD + e];
-        gg[c] = dos[(tx + 16 * c) * LD + e];
-      }
-#pragma unroll
-      for (int r = 0; r < RN; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) {
-          s[r][c] = fmaf(kk[r], qq[c], s[r][c]);
-          dp[r][c] = fmaf(vv[r], gg[c], dp[r][c]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < RN; ++r) {
-      const int j = ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        const int i = tx + 16 * c;
-        const float pv = exp2f(fmaf(s[r][c], p.scale_log2, -lrow[i]));
-        pt[j * LDP + i] = pv;
-        dst[j * LDP + i] = pv * (dp[r][c] - drow[i]) * p.scale;
+      for (int e = 0; e < 4; ++e) {
+        st[i + e] = attn_hopper::exp2_approx(fmaf(st[i + e], p.scale_log2, e & 1 ? -l.y : -l.x));
+        if constexpr (kDK)  // dS^T
+          dpt[i + e] = st[i + e] * (dpt[i + e] - (e & 1 ? d2.y : d2.x)) * p.scale;
       }
     }
-    __syncthreads();
-    const int valid = min(R, p.sq - q0);
-#pragma unroll 2
-    for (int i = 0; i < valid; ++i) {
-      float pr[RN], dr[RN];
-#pragma unroll
-      for (int r = 0; r < RN; ++r) {
-        pr[r] = pt[(ty + 16 * r) * LDP + i];
-        dr[r] = dst[(ty + 16 * r) * LDP + i];
-      }
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float gv = dos[i * LD + tx + 16 * n];
-        const float qv = qs[i * LD + tx + 16 * n];
-#pragma unroll
-        for (int r = 0; r < RN; ++r) {
-          dv[r][n] = fmaf(pr[r], gv, dv[r][n]);
-          dk[r][n] = fmaf(dr[r], qv, dk[r][n]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RN; ++r) {
-    const int row = k0 + ty + 16 * r;
-    if (row >= p.sk) continue;
-    const size_t at = (static_cast<size_t>(b) * p.sk + row) * p.c + col0;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      if (tx + 16 * n >= p.d) continue;
-      p.dk[at + tx + 16 * n] = dk[r][n];
-      p.dv[at + tx + 16 * n] = dv[r][n];
+    if constexpr (kDV) add_xb<NS, T>(dv, st, dot, dot + C::kTile, g, t);
+    if constexpr (kDK) add_xb<NS, T>(dk, dpt, qt, qt + C::kTile, g, t);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == C::kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 }
 
+// dk and dv for a block of keys: K and V resident, Q and dO streamed.
 template <int DA>
-int launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int R = bwd_rows(DA);
-  const int dq_smem = bwd_smem_bytes(DA, false), dkdv_smem = bwd_smem_bytes(DA, true);
+__global__ void __launch_bounds__(BwdCfg<DA, true>::kThreads, 1)
+attention_f32_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_do, const BwdParams p) {
+  using C = BwdCfg<DA, true>;
+  constexpr int NS = C::kNS, NWG = C::kNWG, T = C::kT, S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = attn_hopper::align1024(smem_raw);
+  uint8_t* res = smem;  // K, then V
+  uint8_t* ring = smem + 2 * C::kRes;
+  float* rows = reinterpret_cast<float*>(ring + S * C::kStage);  // a stage's L * log2(e), Drow
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + S * 2 * T);
+  uint64_t* ready = full + S;
+  uint64_t* empty = ready + S;
+  uint64_t* res_full = empty + S;
+  const int k0 = blockIdx.x * C::kBM, head = blockIdx.y, batch = blockIdx.z;
+  bwd_barriers<C>(full, ready, empty, res_full);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4 * NWG) {
+    if constexpr (NWG >= 2) setmaxnreg_dec<40>();
+    const size_t at = (static_cast<size_t>(batch) * p.heads + head) * p.sq;
+    bwd_producer<DA, true>(&map_k, &map_v, &map_q, &map_do, res, ring, rows, full, ready, empty,
+                           res_full, k0, head * p.d, batch, bwd_passes(DA) * (p.sq / T), p.sq / T,
+                           p.l2 + at, p.drow + at);
+    return;
+  }
+  if constexpr (NWG >= 2) setmaxnreg_inc<232>();
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+  const int row0 = wg * 64 + wq * 16;
+  const int key = k0 + row0 + g;
+  const uint32_t k_addr = smem_u32(res), v_addr = smem_u32(res + C::kRes);
+  const bool ok0 = key < p.sk, ok8 = key + 8 < p.sk;
+  const size_t at = (static_cast<size_t>(batch) * p.sk + key) * p.c + head * p.d;
+  mbar_wait(res_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  if constexpr (bwd_passes(DA) == 1) {
+    float dv[NS][4][4], dk[NS][4][4];
+    zero_slabs(dv);
+    zero_slabs(dk);
+    dkdv_pass<DA, true, true>(dv, dk, p, k_addr, v_addr, ring, rows, full, ready, empty, stage,
+                              phase, row0, lane);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      store_slab(p.dv + at + 32 * sl, p.c, dv[sl], 1.f, 1.f, ok0, ok8, t, p.d - 32 * sl);
+      store_slab(p.dk + at + 32 * sl, p.c, dk[sl], 1.f, 1.f, ok0, ok8, t, p.d - 32 * sl);
+    }
+  } else {
+    float acc[NS][4][4];
+    zero_slabs(acc);
+    dkdv_pass<DA, true, false>(acc, acc, p, k_addr, v_addr, ring, rows, full, ready, empty, stage,
+                               phase, row0, lane);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+      store_slab(p.dv + at + 32 * sl, p.c, acc[sl], 1.f, 1.f, ok0, ok8, t, p.d - 32 * sl);
+    zero_slabs(acc);
+    dkdv_pass<DA, false, true>(acc, acc, p, k_addr, v_addr, ring, rows, full, ready, empty, stage,
+                               phase, row0, lane);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+      store_slab(p.dk + at + 32 * sl, p.c, acc[sl], 1.f, 1.f, ok0, ok8, t, p.d - 32 * sl);
+  }
+}
+
+template <int DA>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const BwdParams& p,
+               int batch, cudaStream_t stream) {
+  using C = BwdCfg<DA, false>;
+  using D = BwdCfg<DA, true>;
+  constexpr int dq_smem = bwd_smem_bytes(DA, false), dkdv_smem = bwd_smem_bytes(DA, true);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(attention_f32_dq_kernel<DA>,
@@ -911,31 +1063,44 @@ int launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
+  // resident tensors in blocks of kBM rows, streamed ones in each kernel's tiles
+  CUtensorMap rq, rdo, rk, rv, tq, tdo, tk, tv;
+  int rc;
+  if ((rc = seq_map(&rq, q, batch, p.sq, p.c, C::kBM))) return rc;
+  if ((rc = seq_map(&rdo, dout, batch, p.sq, p.c, C::kBM))) return rc;
+  if ((rc = seq_map(&rk, k, batch, p.sk, p.c, D::kBM))) return rc;
+  if ((rc = seq_map(&rv, v, batch, p.sk, p.c, D::kBM))) return rc;
+  if ((rc = seq_map(&tq, q, batch, p.sq, p.c, D::kT))) return rc;
+  if ((rc = seq_map(&tdo, dout, batch, p.sq, p.c, D::kT))) return rc;
+  if ((rc = seq_map(&tk, k, batch, p.sk, p.c, C::kT))) return rc;
+  if ((rc = seq_map(&tv, v, batch, p.sk, p.c, C::kT))) return rc;
   attention_f32_dq_kernel<DA>
-      <<<dim3((p.sq + R - 1) / R, p.heads, batch), kThreads, dq_smem, stream>>>(p);
+      <<<dim3((p.sq + C::kBM - 1) / C::kBM, p.heads, batch), C::kThreads, dq_smem, stream>>>(
+          rq, rdo, tk, tv, p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   attention_f32_dkdv_kernel<DA>
-      <<<dim3((p.sk + R - 1) / R, p.heads, batch), kThreads, dkdv_smem, stream>>>(p);
+      <<<dim3((p.sk + D::kBM - 1) / D::kBM, p.heads, batch), D::kThreads, dkdv_smem, stream>>>(
+          rk, rv, tq, tdo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward of `forward` (with its o and L); drow is a (B, heads, Sq)
-// f32 scratch; 0 or a CUDA error code.
+// The backward of `forward` (with its o and L) on f32 tensors of heads of d
+// columns (a multiple of 4) scaled by 1 / sqrt(scale_dim), Sq and Sk
+// multiples of 64; `delta` is a (2, B, heads, Sq) f32 scratch the dq kernel
+// fills with L * log2(e) and Drow; 0 or an error code.
 int backward(const void* q, const void* k, const void* v, const void* o, const void* lse,
-             const void* dout, void* drow, void* dq, void* dk, void* dv, int batch, int sq,
-             int sk, int heads, int d, cudaStream_t stream) {
-  if (batch < 1 || sq < 1 || sk < 1 || heads < 1 || !head_dim_ok(d))
+             const void* dout, void* delta, void* dq, void* dk, void* dv, int batch, int sq,
+             int sk, int heads, int d, int scale_dim, cudaStream_t stream) {
+  if (batch < 1 || heads < 1 || sq < 64 || sk < 64 || sq % 64 || sk % 64 ||
+      !head_dim_ok(d, scale_dim))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto f = [](const void* x) { return static_cast<const float*>(x); };
   BwdParams p;
-  p.q = f(q);
-  p.k = f(k);
-  p.v = f(v);
-  p.o = f(o);
-  p.lse = f(lse);
-  p.dout = f(dout);
-  p.drow = static_cast<float*>(drow);
+  p.o = static_cast<const float*>(o);
+  p.lse = static_cast<const float*>(lse);
+  p.dout = static_cast<const float*>(dout);
+  p.l2 = static_cast<float*>(delta);
+  p.drow = p.l2 + static_cast<size_t>(batch) * heads * sq;
   p.dq = static_cast<float*>(dq);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
@@ -944,13 +1109,13 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
   p.c = heads * d;
   p.d = d;
   p.heads = heads;
-  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(scale_dim)));
   p.scale_log2 = kLog2e * p.scale;
   switch (head_atoms(d)) {
-    case 1: return launch_bwd<1>(p, batch, stream);
-    case 2: return launch_bwd<2>(p, batch, stream);
-    case 3: return launch_bwd<3>(p, batch, stream);
-    default: return launch_bwd<4>(p, batch, stream);
+    case 1: return launch_bwd<1>(q, k, v, dout, p, batch, stream);
+    case 2: return launch_bwd<2>(q, k, v, dout, p, batch, stream);
+    case 3: return launch_bwd<3>(q, k, v, dout, p, batch, stream);
+    default: return launch_bwd<4>(q, k, v, dout, p, batch, stream);
   }
 }
 
@@ -1021,22 +1186,22 @@ int packed_attention_bwd_smem_bytes(int dkdv, int d) {
   }
 }
 
-// The same on f32 tensors, d any head dim from 1 to 256; `drow` is a
-// (B, heads, Sq) f32 scratch the first kernel fills with rowsum(dO * O).
+// The same on f32 tensors (3xTF32): d a multiple of 4 up to 256 (the
+// wrapper zero-pads any other head dim), scale_dim d or the real head dim of
+// heads zero-padded to d columns; `delta` as above.
 int packed_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
-                             const void* lse, const void* dout, void* drow, void* dq, void* dk,
-                             void* dv, int batch, int sq, int sk, int heads, int d,
+                             const void* lse, const void* dout, void* delta, void* dq, void* dk,
+                             void* dv, int batch, int sq, int sk, int heads, int d, int scale_dim,
                              void* stream) {
-  if (sq < 64 || sk < 64 || sq % 64 || sk % 64) return static_cast<int>(cudaErrorInvalidValue);
-  return attn_f32::backward(q, k, v, o, lse, dout, drow, dq, dk, dv, batch, sq, sk, heads, d,
-                            static_cast<cudaStream_t>(stream));
+  return attn_f32::backward(q, k, v, o, lse, dout, delta, dq, dk, dv, batch, sq, sk, heads, d,
+                            scale_dim, static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory each of the two f32 kernels asks for at head dim d (0 for a
 // d there is no kernel for).
 int packed_attention_bwd_f32_smem_bytes(int dkdv, int d) {
-  return attn_f32::head_dim_ok(d) ? attn_f32::bwd_smem_bytes(attn_f32::head_atoms(d), dkdv != 0)
-                                  : 0;
+  return attn_f32::head_dim_ok(d, d) ? attn_f32::bwd_smem_bytes(attn_f32::head_atoms(d), dkdv != 0)
+                                     : 0;
 }
 
 const char* packed_attention_bwd_error_string(int code) { return hopper_host::error_string(code); }

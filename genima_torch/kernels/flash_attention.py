@@ -21,9 +21,11 @@ prompt tokens; under ``"pallas_self"`` only self-attention does.
   consumer warpgroups, the key tile and the ring depth per shape. It reads
   (B, S, H, D) in place with row stride H*D; the JAX wrapper's
   transposes to (B*H, S, D) are a TPU tiling artifact and are not ported.
-  On f32 q, k and v it launches ``csrc/attention_f32.cuh``'s forward
-  instead (FFMA on the CUDA cores, f32 out, as the TPU kernel writes q's
-  dtype; ``f32_plan`` gives its blocks): no bf16 round trip.
+  On f32 q, k and v it launches ``csrc/attention_f32_hopper.cuh``'s
+  forward instead (3xTF32 on the tensor cores: S = Q K^T on wgmma, O += P V
+  on mma.sync; f32 out, as the TPU kernel writes q's dtype; ``f32_plan``
+  gives its blocks; a D that is not a multiple of 4 zero-padded to the next
+  one): no bf16 round trip.
   Takes bf16 or f32 and every head dim D from 1 to 256 (SD-1.5's 40/80/160 among
   them), read as ceil(D / 64) atoms of 64 columns; a D that is not a
   multiple of 8 is zero-padded to the next one in a scratch copy first
@@ -72,11 +74,11 @@ def check_head_dim(d: int) -> None:
         raise ValueError(f"head_dim {d} must be from 1 to {MAX_HEAD_DIM}")
 
 
-def pad_heads(x: torch.Tensor, d: int) -> torch.Tensor:
+def pad_heads(x: torch.Tensor, d: int, dp: int | None = None) -> torch.Tensor:
     """(..., heads * d) or (..., d) -> the same with each head zero-padded
-    to ``padded_head_dim(d)`` columns (a new contiguous tensor), or ``x``
-    itself when d is a multiple of 8."""
-    dp = padded_head_dim(d)
+    to ``dp`` columns (``padded_head_dim(d)`` unless given; a new contiguous
+    tensor), or ``x`` itself when dp is d."""
+    dp = padded_head_dim(d) if dp is None else dp
     if dp == d:
         return x
     heads = x.shape[-1] // d
@@ -84,9 +86,9 @@ def pad_heads(x: torch.Tensor, d: int) -> torch.Tensor:
         *x.shape[:-1], heads * dp)
 
 
-def unpad_heads(x: torch.Tensor, d: int) -> torch.Tensor:
+def unpad_heads(x: torch.Tensor, d: int, dp: int | None = None) -> torch.Tensor:
     """Undoes ``pad_heads``: the d real columns of each head, contiguous."""
-    dp = padded_head_dim(d)
+    dp = padded_head_dim(d) if dp is None else dp
     if dp == d:
         return x
     heads = x.shape[-1] // dp
@@ -274,55 +276,94 @@ def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int |
                 smem_bytes=smem_bytes(nwg, bn, stages, atoms), why_short=why, atoms=atoms)
 
 
-F32_ROWS = 64  # query rows a block of the f32 forward, keys a K/V tile
-F32_THREADS = 256  # a 16 x 16 grid of threads, FFMA on the CUDA cores
+F32_SLAB_BYTES = 128  # 32 f32 columns: one TMA box and swizzle span of the f32 kernels
+F32_PRODUCER = 128  # the f32 kernels' producer warpgroup (TMA and the 3xTF32 splitters)
+
+
+def f32_padded_head_dim(d: int) -> int:
+    """The columns the f32 kernels read a head of ``d`` as: the next
+    multiple of 4 (TMA's 16-byte row strides and column offsets); the
+    wrappers zero-pad to it."""
+    return -(-d // 4) * 4
+
+
+# (consumer warpgroups of 64 query rows, keys a K/V tile): the f32
+# forward's instantiations per atom count (``fwd_tile_ok`` in
+# ``csrc/attention_f32_hopper.cuh``); the 80-key tile, for B3's 77 prompt
+# keys, is built into flash_attention.cu only
+F32_TILES = {1: ((2, 64), (1, 80)), 2: ((2, 32),), 3: ((1, 32),), 4: ((1, 16),)}
 
 
 @dataclasses.dataclass(frozen=True)
 class F32Plan:
-    """One call of the f32 attention kernels (``csrc/attention_f32.cuh``):
-    blocks of ``rows`` query rows (or keys, in B2b's dk/dv kernel) over
-    (tiles, heads, batch), a head held in shared memory as ``atoms``
-    64-column atoms, each row 64 * atoms + 1 floats apart."""
+    """One call of the f32 forward (``csrc/attention_f32_hopper.cuh``,
+    3xTF32): blocks of ``rows`` = 64 * ``nwg`` query rows (consumer
+    warpgroups beside a producer warpgroup) over (tiles, heads, batch), K/V
+    tiles of ``bn`` keys in a ring of ``stages``, a head read as ``atoms``
+    64-column atoms."""
 
-    rows: int
+    nwg: int
+    bn: int
+    stages: int
     grid: tuple[int, int, int]
     smem_bytes: int
     atoms: int
     why_short: str  # why the grid is under one wave ("" if it is not)
-    threads: int = F32_THREADS
+
+    @property
+    def rows(self) -> int:
+        return 64 * self.nwg
+
+    @property
+    def threads(self) -> int:
+        return 128 * self.nwg + F32_PRODUCER
 
     @property
     def blocks(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
 
-def f32_smem_bytes(atoms: int) -> int:
-    """Dynamic shared memory of an f32 forward block: the Q, K and V tiles
-    and P. Mirrors ``fwd_smem_bytes`` in ``csrc/attention_f32.cuh``, which
+def f32_smem_bytes(nwg: int, bn: int, stages: int, atoms: int) -> int:
+    """Dynamic shared memory of an f32 forward block: alignment slack, the Q
+    tile, a ring of (K, K's remainders, V) tiles and its barriers. Mirrors
+    ``fwd_smem_bytes`` in ``csrc/attention_f32_hopper.cuh``, which
     ``flash_attention_f32_smem_bytes`` and ``packed_attention_f32_smem_bytes``
     return."""
-    return 4 * (3 * F32_ROWS * (ATOM * atoms + 1) + F32_ROWS * (F32_ROWS + 1))
+    slabs = 2 * atoms
+    return (1024 + 64 * nwg * slabs * F32_SLAB_BYTES + stages * 3 * bn * slabs * F32_SLAB_BYTES
+            + 8 * (3 * stages + 1))
 
 
-def f32_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS) -> F32Plan:
+F32_STAGES = 2  # the f32 forward's ring: deeper rings measured no faster at the SD shapes
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS, *,
+             key80: bool = False) -> F32Plan:
     """The f32 forward's launch for a (B, Sq, Sk, heads) call at head dim
-    ``d``: one block per 64 query rows, head and batch; one kernel per
-    atom count, so every shape has one."""
+    ``d``: one atom two consumer warpgroups (128 query rows) on 64-key
+    tiles, or with ``key80`` (B3, whose library has the 80-key tile) one
+    warpgroup on one 80-key tile for up to 80 keys; two to four atoms their
+    one tile. A ring of two stages (one where there is one K/V tile)."""
     _check_shape(b, sq, sk, h)
     check_head_dim(d)
-    grid = (-(-sq // F32_ROWS), h, b)
+    atoms = head_atoms(f32_padded_head_dim(d))
+    nwg, bn = (1, 80) if atoms == 1 and key80 and sk <= 80 else F32_TILES[atoms][0]
+    stages = min(F32_STAGES, -(-sk // bn))
+    grid = (-(-sq // (64 * nwg)), h, b)
     blocks = grid[0] * h * b
-    why = f"{grid[0]} tiles of {F32_ROWS} query rows x {h} heads x batch {b}" if blocks < sms else ""
-    return F32Plan(rows=F32_ROWS, grid=grid, smem_bytes=f32_smem_bytes(head_atoms(d)),
-                   atoms=head_atoms(d), why_short=why)
+    why = (f"{grid[0]} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
+           if blocks < sms else "")
+    return F32Plan(nwg=nwg, bn=bn, stages=stages, grid=grid,
+                   smem_bytes=f32_smem_bytes(nwg, bn, stages, atoms), atoms=atoms,
+                   why_short=why)
 
 
 def _plan_for(b: int, sq: int, sk: int, h: int, d: int, *, dtype=torch.bfloat16):
     """The plan a call launches: ``plan``'s on bf16, ``f32_plan``'s on f32
     (``tune_kernels`` and the card tests swap in others)."""
     if dtype == torch.float32:
-        return f32_plan(b, sq, sk, h, d)
+        return f32_plan(b, sq, sk, h, d, key80=True)
     return plan(b, sq, sk, h, d)
 
 
@@ -339,12 +380,13 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
-    # f32: pointers, (B, Sq, Sk, heads, d), the stream
-    lib.flash_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    # f32: pointers, (B, Sq, Sk, heads, padded d, d), the plan's (nwg, bn,
+    # stages), the stream
+    lib.flash_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
     lib.flash_attention_fwd_f32.restype = ctypes.c_int
-    lib.flash_attention_f32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_attention_f32_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.flash_attention_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -384,29 +426,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
     lib = _library()
-    if q.dtype == torch.float32:  # the FFMA kernel (f32_plan), any d: no padding
-        out = torch.empty_like(q)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.flash_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                             out.data_ptr(), b, sq, k.shape[1], h, d, stream)
+    f32 = q.dtype == torch.float32
+    dp = f32_padded_head_dim(d) if f32 else padded_head_dim(d)
+    qp, kp, vp = (pad_heads(x, d, dp) for x in (q, k, v))
+    out = torch.empty_like(qp)
+    # the 3xTF32 kernel on f32, the bf16 one otherwise
+    if f32:
+        p, launch = _plan_for(b, sq, k.shape[1], h, d, dtype=q.dtype), lib.flash_attention_fwd_f32
     else:
-        p = _plan_for(b, sq, k.shape[1], h, d)
-        dp = padded_head_dim(d)
-        qp, kp, vp = (pad_heads(x, d) for x in (q, k, v))
-        out = torch.empty_like(qp)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.flash_attention_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                                         out.data_ptr(), b, sq, k.shape[1], h, dp, d, p.nwg,
-                                         p.bn, p.stages, stream)
+        p, launch = _plan_for(b, sq, k.shape[1], h, d), lib.flash_attention_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = launch(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), b, sq,
+                    k.shape[1], h, dp, d, p.nwg, p.bn, p.stages, stream)
     with _build.COUNT_LOCK:  # mesh rows launch from several threads
         flash_attention.launches += 1
         flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_fwd launch failed: {lib.flash_attention_error_string(rc).decode()} ({rc})")
-    return out if q.dtype == torch.float32 else unpad_heads(out, d)
+    return unpad_heads(out, d, dp)
 
 
 class FlashAttention(torch.autograd.Function):

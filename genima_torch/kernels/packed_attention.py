@@ -46,10 +46,13 @@ it runs B1 and records nothing for autograd.
   ``_forward_streaming`` rows. Anything else raises (d above 256: five
   atoms of f32 accumulator would pass a thread's registers).
   On f32 q, k and v (``--mixed_precision no``, f32 serving) B1, B2a and B2b
-  launch ``csrc/attention_f32.cuh``'s kernels instead: FFMA on the CUDA
-  cores, f32 products, P and dS kept in f32, o, L, dq, dk and dv in f32, as
-  the TPU kernels write q's dtype; any head dim up to 256 without padding,
-  the same Sq and Sk. No bf16 round trip.
+  launch the 3xTF32 kernels instead (``csrc/attention_f32_hopper.cuh``'s
+  forward, ``csrc/packed_attention_bwd.cu``'s f32 dq and dk/dv kernels):
+  every f32 product split into three TF32 ones on the tensor cores (wgmma
+  for S, dP and their transposes, mma.sync for the products over a tile's
+  rows), P and dS kept in f32, o, L, dq, dk and dv in f32, as the TPU
+  kernels write q's dtype; any head dim up to 256 (one off a multiple of 4
+  zero-padded), the same Sq and Sk. No bf16 round trip.
 * CPU: ``packed_attention_reference``, ``packed_attention_lse_reference`` and
   ``packed_attention_backward_reference``, the same arithmetic in plain
   PyTorch (bf16 roundings included). The wrappers take them only for
@@ -111,6 +114,9 @@ class BackwardPlan:
     passes: int = 1
     rows: int = BWD_BLOCK_ROWS  # query rows or keys a block
     threads: int = BWD_THREADS
+    tile: int = BLOCK  # rows a streamed tile (of the dq kernel, where they differ)
+    dkdv_tile: int = BLOCK
+    dkdv_stages: int = BWD_STAGES
 
     @property
     def max_registers(self) -> int:
@@ -120,38 +126,58 @@ class BackwardPlan:
         return min(255, REGISTERS_SM // self.threads // 8 * 8)
 
 
-def f32_backward_rows(atoms: int) -> int:
-    """Query rows (dq kernel) or keys (dk/dv kernel) a block of the f32
-    backward: 32 at four atoms, whose four resident 64-row tiles would not
-    fit. Mirrors ``bwd_rows`` in ``csrc/attention_f32.cuh``."""
-    return 32 if atoms == 4 else 64
+def f32_backward_nwg(atoms: int) -> int:
+    """Consumer warpgroups of 64 rows a block of the f32 backward's two
+    kernels: two at one atom, one at two to four (shared memory). Mirrors
+    ``bwd_nwg`` in ``csrc/packed_attention_bwd.cu``."""
+    return 2 if atoms == 1 else 1
+
+
+def f32_backward_tile(atoms: int, dkdv: bool = False) -> int:
+    """Rows a streamed tile of the f32 backward (``bwd_tile``): 64, 32, 16
+    and 8 at one to four atoms, but 16 in the dk/dv kernel at two (its dK
+    and dV, live beside S^T and dP^T, spilled at 32)."""
+    return 16 if dkdv and atoms == 2 else 128 >> atoms
+
+
+def f32_backward_stages(atoms: int, dkdv: bool = False) -> int:
+    """Depth of the f32 backward's ring (``bwd_stages``)."""
+    return 4 if dkdv and atoms == 2 else 3 if atoms == 4 else 2
 
 
 def f32_backward_smem_bytes(atoms: int, dkdv: bool) -> int:
-    """Shared memory of an f32 backward block: four tiles (Q, dO, K, V), dS
-    (and P^T in the dk/dv kernel), and L and Drow of a tile's rows. Mirrors
-    ``bwd_smem_bytes`` in ``csrc/attention_f32.cuh``."""
-    r = f32_backward_rows(atoms)
-    return 4 * (4 * r * (fa.ATOM * atoms + 1) + (2 if dkdv else 1) * r * (r + 1) + 2 * r)
+    """Shared memory of an f32 backward block: alignment slack, two resident
+    tensors, a ring of four tiles (two tensors and their 3xTF32 remainders),
+    in the dk/dv kernel a stage's L * log2(e) and Drow, and the barriers.
+    Mirrors ``bwd_smem_bytes`` in ``csrc/packed_attention_bwd.cu``."""
+    slabs = 2 * atoms
+    tile, stages = f32_backward_tile(atoms, dkdv), f32_backward_stages(atoms, dkdv)
+    return (1024 + 2 * 64 * f32_backward_nwg(atoms) * slabs * fa.F32_SLAB_BYTES
+            + stages * (4 * tile * slabs * fa.F32_SLAB_BYTES + (8 * tile if dkdv else 0))
+            + 8 * (3 * stages + 1))
 
 
 def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
                   sms: int = SMS, *, dtype=torch.bfloat16) -> BackwardPlan:
     """The fixed tiling of B2b (128-row blocks, a ring of 64-row tiles; on
-    f32 the FFMA kernels' blocks of ``f32_backward_rows`` rows, 256
-    threads) at one shape; raises for a shape the kernels do not take."""
+    f32 the 3xTF32 kernels' blocks of 64 * ``f32_backward_nwg`` rows and
+    tiles of ``f32_backward_tile``) at one shape; raises for a shape the
+    kernels do not take."""
     _check_shape(b, sq, sk, h)
     fa.check_head_dim(d)
     atoms = fa.head_atoms(d)
     if dtype == torch.float32:
-        rows = f32_backward_rows(atoms)
+        rows = 64 * f32_backward_nwg(atoms)
         dq, dkdv = (-(-sq // rows), h, b), (-(-sk // rows), h, b)
         short = [f"{name}: {g[0]} blocks of {rows} x {h} heads x batch {b}"
                  for name, g in (("dq", dq), ("dk/dv", dkdv)) if g[0] * h * b < sms]
         return BackwardPlan(
             dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=f32_backward_smem_bytes(atoms, False),
             dkdv_smem_bytes=f32_backward_smem_bytes(atoms, True), why_short="; ".join(short),
-            atoms=atoms, stages=1, passes=1, rows=rows, threads=fa.F32_THREADS)
+            atoms=atoms, stages=f32_backward_stages(atoms), passes=2 if atoms >= 3 else 1,
+            rows=rows, threads=128 * f32_backward_nwg(atoms) + fa.F32_PRODUCER,
+            tile=f32_backward_tile(atoms), dkdv_tile=f32_backward_tile(atoms, True),
+            dkdv_stages=f32_backward_stages(atoms, True))
     stages = 2 if atoms >= 3 else BWD_STAGES
     rows, threads = (BLOCK, 160) if atoms == 4 else (BWD_BLOCK_ROWS, BWD_THREADS)
     tile = BLOCK * fa.ATOM * 2 * atoms  # 64 rows of every atom
@@ -352,12 +378,13 @@ def _library() -> ctypes.CDLL:
     lib.packed_attention_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_error_string.restype = ctypes.c_char_p
-    # f32: q, k, v, o, lse (or null), then (B, Sq, Sk, heads, d), the stream
-    lib.packed_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    # f32: q, k, v, o, lse (or null), then (B, Sq, Sk, heads, padded d, d),
+    # the plan's (nwg, bn, stages), the stream
+    lib.packed_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_fwd_f32.restype = ctypes.c_int
-    lib.packed_attention_f32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.packed_attention_f32_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.packed_attention_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -374,8 +401,8 @@ def _bwd_library() -> ctypes.CDLL:
     lib.packed_attention_bwd_smem_bytes.restype = ctypes.c_int
     lib.packed_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_bwd_error_string.restype = ctypes.c_char_p
-    # f32: ten pointers, (B, Sq, Sk, heads, d), the stream
-    lib.packed_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    # f32: ten pointers, (B, Sq, Sk, heads, padded d, d), the stream
+    lib.packed_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_bwd_f32.restype = ctypes.c_int
@@ -423,20 +450,25 @@ def _launch_forward(q, k, v, num_heads, with_lse: bool):
 
 
 def _launch_forward_f32(q, k, v, num_heads, with_lse: bool):
-    """B1 or B2a on f32: the FFMA kernel of ``csrc/attention_f32.cuh``
-    (``fa.f32_plan``), any head dim without padding."""
+    """B1 or B2a on f32: the 3xTF32 kernel of ``csrc/attention_f32_hopper.cuh``
+    (``fa.f32_plan``); a head dim off a multiple of 4 zero-padded first."""
     b, sq, c = q.shape
     d = c // num_heads
-    out = torch.empty_like(q)
+    dp = fa.f32_padded_head_dim(d)
+    qp, kp, vp = (fa.pad_heads(x, d, dp) for x in (q, k, v))
+    out = torch.empty_like(qp)
     lse = torch.empty(b, sq, num_heads, device=q.device, dtype=torch.float32) if with_lse else None
+    p = _plan_for(b, sq, k.shape[1], num_heads, d, dtype=torch.float32)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.packed_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = lib.packed_attention_fwd_f32(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                                           out.data_ptr(), lse.data_ptr() if with_lse else None,
-                                          b, sq, k.shape[1], num_heads, d, stream)
+                                          b, sq, k.shape[1], num_heads, dp, d, p.nwg, p.bn,
+                                          p.stages, stream)
     _count(packed_attention_forward_lse if with_lse else packed_flash_attention, q, k)
     _raise_on(rc, "packed_attention_fwd_f32", lib.packed_attention_error_string)
+    out = fa.unpad_heads(out, d, dp)
     return (out, lse) if with_lse else out
 
 
@@ -493,24 +525,28 @@ def packed_attention_backward(
 
 
 def _launch_backward_f32(q, k, v, o, lse, do, num_heads):
-    """B2b on f32: the two FFMA kernels of ``csrc/attention_f32.cuh``
-    (``backward_plan(..., dtype=torch.float32)``)."""
+    """B2b on f32: the two 3xTF32 kernels of ``csrc/packed_attention_bwd.cu``
+    (``backward_plan(..., dtype=torch.float32)``); a head dim off a multiple
+    of 4 zero-padded first."""
     b, sq, c = q.shape
     d = c // num_heads
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # rowsum(dO * O) as (B, heads, Sq), written by the first kernel for the second
-    drow = torch.empty(b, num_heads, sq, device=q.device, dtype=torch.float32)
+    dp = fa.f32_padded_head_dim(d)
+    qp, kp, vp, op, dop = (fa.pad_heads(x, d, dp) for x in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
+    # L * log2(e) and rowsum(dO * O) as (B, heads, Sq), written by the first
+    # kernel for the second
+    delta = torch.empty(2, b, num_heads, sq, device=q.device, dtype=torch.float32)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.packed_attention_bwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), drow.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, k.shape[1], num_heads, d, stream,
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(), lse.data_ptr(),
+            dop.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, k.shape[1], num_heads, dp, d, stream,
         )
     _count(packed_attention_backward, q, k)
     _raise_on(rc, "packed_attention_bwd_f32", lib.packed_attention_bwd_error_string)
-    return dq, dk, dv
+    return tuple(fa.unpad_heads(x, d, dp) for x in (dq, dk, dv))
 
 
 class PackedFlashAttention(torch.autograd.Function):

@@ -1067,11 +1067,17 @@ def test_f32_w8_matmul_matches_plain_version_bit_for_bit_twice(cuda, no_tf32, m,
 def test_f32_plans_match_the_sources_shared_memory(cuda):
     lib, blib = pa._library(), pa._bwd_library()
     for d in (1, 36, 64, 65, 128, 129, 192, 193, 256):
-        plan = pa._plan_for(1, 64, 64, 1, d, dtype=torch.float32)
-        assert lib.packed_attention_f32_smem_bytes(d) == plan.smem_bytes
-        assert fa._library().flash_attention_f32_smem_bytes(d) == plan.smem_bytes
+        dp = fa.f32_padded_head_dim(d)
+        for sk in (64, 4096):
+            plan = pa._plan_for(1, 4096, sk, 1, d, dtype=torch.float32)
+            assert lib.packed_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                                       dp) == plan.smem_bytes
+        for sk in (77, 4096):
+            plan = fa._plan_for(1, 4096, sk, 1, d, dtype=torch.float32)
+            assert fa._library().flash_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                                                dp) == plan.smem_bytes
         bp = pa.backward_plan(1, 64, 64, 1, d, dtype=torch.float32)
-        assert [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1)] == [
+        assert [blib.packed_attention_bwd_f32_smem_bytes(x, dp) for x in (0, 1)] == [
             bp.dq_smem_bytes, bp.dkdv_smem_bytes]
     for o in (3, 128):
         plan = fc._plan_for(1, 8, 8, 16, o, dtype=torch.float32)

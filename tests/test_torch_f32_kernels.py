@@ -75,15 +75,30 @@ def one_torch_thread():
 def test_f32_attention_plans_fit_at_every_head_dim():
     for d in range(1, 257):
         atoms = fa.head_atoms(d)
+        dp = fa.f32_padded_head_dim(d)
+        assert dp % 4 == 0 and d <= dp < d + 4 and fa.head_atoms(dp) == atoms, d
         for plan in (fa._plan_for(1, 1000, 77, 8, d, dtype=F32),
                      pa._plan_for(4, 1024, 1024, 8, d, dtype=F32)):
-            assert isinstance(plan, fa.F32Plan) and plan.rows == fa.F32_ROWS
-            assert plan.atoms == atoms and 1 <= atoms <= 4, d
-            assert plan.smem_bytes == fa.f32_smem_bytes(atoms) <= SMEM_BLOCK, d
+            assert isinstance(plan, fa.F32Plan) and plan.atoms == atoms and 1 <= atoms <= 4, d
+            assert (plan.nwg, plan.bn) in fa.F32_TILES[atoms], d
+            assert plan.rows == 64 * plan.nwg and plan.threads == 128 * plan.nwg + 128
+            # Q, a ring of (K, its remainders, V) and 8-byte barriers, as fwd_smem_bytes
+            slab_rows = 2 * atoms * fa.F32_SLAB_BYTES
+            assert plan.smem_bytes == (1024 + plan.rows * slab_rows
+                                       + plan.stages * 3 * plan.bn * slab_rows
+                                       + 8 * (3 * plan.stages + 1)) <= SMEM_BLOCK, d
         bp = pa.backward_plan(4, 1024, 1024, 8, d, dtype=F32)
-        assert bp.rows == pa.f32_backward_rows(atoms) == (32 if atoms == 4 else 64), d
+        assert bp.rows == 64 * pa.f32_backward_nwg(atoms) == (128 if atoms == 1 else 64), d
+        assert bp.tile == 128 >> atoms and bp.passes == (2 if atoms >= 3 else 1), d
         assert max(bp.dq_smem_bytes, bp.dkdv_smem_bytes) <= SMEM_BLOCK, d
-        assert bp.dkdv_smem_bytes == bp.dq_smem_bytes + 4 * bp.rows * (bp.rows + 1)
+        # two resident tensors, a ring of four tiles (the dk/dv kernel's with a
+        # tile's L * log2(e) and Drow) and its barriers, as bwd_smem_bytes
+        slab_rows = 2 * atoms * fa.F32_SLAB_BYTES
+        for smem, tile, stages, rows in ((bp.dq_smem_bytes, bp.tile, bp.stages, 0),
+                                         (bp.dkdv_smem_bytes, bp.dkdv_tile, bp.dkdv_stages, 8)):
+            assert smem == (1024 + 2 * bp.rows * slab_rows
+                            + stages * (4 * tile * slab_rows + rows * tile)
+                            + 8 * (3 * stages + 1)), d
         # the bf16 plans of the same head dim are untouched
         assert fa._plan_for(1, 1000, 77, 8, d) == fa.plan(1, 1000, 77, 8, d)
 
@@ -91,16 +106,20 @@ def test_f32_attention_plans_fit_at_every_head_dim():
 @pytest.mark.parametrize("b,s,c,h", ATTN_SHAPES)
 def test_f32_packed_plans_at_the_pinned_shapes(b, s, c, h):
     plan = pa._plan_for(b, s, s, h, c // h, dtype=F32)
-    assert plan.grid == (s // 64, h, b) and plan.smem_bytes <= SMEM_BLOCK
+    assert plan.grid == (-(-s // plan.rows), h, b) and plan.smem_bytes <= SMEM_BLOCK
+    assert plan.stages == 2 and (plan.nwg, plan.bn) == fa.F32_TILES[plan.atoms][0]
     bp = pa.backward_plan(b, s, s, h, c // h, dtype=F32)
     assert bp.dq_grid == (s // bp.rows, h, b) == bp.dkdv_grid
-    assert bp.threads == fa.F32_THREADS and max(bp.dq_smem_bytes, bp.dkdv_smem_bytes) <= SMEM_BLOCK
+    assert bp.threads == 128 * bp.rows // 64 + 128
+    assert max(bp.dq_smem_bytes, bp.dkdv_smem_bytes) <= SMEM_BLOCK
 
 
 @pytest.mark.parametrize("b,sq,sk,c,h", FLASH_SHAPES)
 def test_f32_flash_plans_at_the_pinned_shapes(b, sq, sk, c, h):
     plan = fa._plan_for(b, sq, sk, h, c // h, dtype=F32)
-    assert plan.grid == (-(-sq // 64), h, b) and plan.smem_bytes <= SMEM_BLOCK
+    assert plan.grid == (-(-sq // plan.rows), h, b) and plan.smem_bytes <= SMEM_BLOCK
+    # the 77 prompt keys (and a 64-token self-attention) in one 80-key tile
+    assert (plan.nwg, plan.bn, plan.stages) == ((1, 80, 1) if sk <= 80 else (2, 64, 2))
 
 
 # B5's f32 plans at the pinned shapes: (token tile, K split), and the grid
@@ -280,9 +299,114 @@ def _tf32(t: torch.Tensor) -> torch.Tensor:
     return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-@pytest.mark.parametrize("kind", ["randn", "silu", "wide"])
+def _trunc(t: torch.Tensor) -> torch.Tensor:
+    """f32 with its low 13 bits cleared: the big part of the attention
+    kernels' split, and what the tensor cores read of any f32 operand."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the attention kernels take it: each operand split into big =
+    its low 13 bits cleared and small = the rest (exact in f32), of which
+    the tensor cores read 19 bits again; three products summed in f32."""
+    a_big, b_big = _trunc(a), _trunc(b)
+    a_small, b_small = _trunc(a - a_big), _trunc(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass."""
+    return _tf32(a) @ _tf32(b)
+
+
+# the mma.sync products of a tile take k = t and t + 4 of each 8-key slice
+# from keys 2t and 2t + 1, the order the S accumulator holds P in
+KEY_ORDER = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _slices(n: int) -> torch.Tensor:
+    return (torch.arange(0, n, 8)[:, None] + KEY_ORDER).reshape(-1)
+
+
+def _attention_fwd(q, k, v, mm, tile=64):
+    """The f32 forward's arithmetic on one head: S = Q K^T, then per tile of
+    keys an online softmax and P V into a fresh accumulator (keys taken in
+    the kernel's k order), added in f32 to the rescaled running one."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    m = torch.full((q.shape[0], 1), -float("inf"))
+    l = torch.zeros(q.shape[0], 1)
+    o = torch.zeros(q.shape[0], v.shape[1])
+    for k0 in range(0, k.shape[0], tile):
+        s = mm(q, k[k0:k0 + tile].T) * scale
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        order = _slices(s.shape[1])
+        o = o * alpha + mm(p[:, order], v[k0:k0 + tile][order])
+        l = l * alpha + p.sum(dim=1, keepdim=True)
+        m = m_new
+    return o / l, (m + torch.log(l)).squeeze(1)
+
+
+def _attention_bwd(q, k, v, o, lse, do, mm, tile=64):
+    """The f32 backward's arithmetic on one head: dQ over tiles of keys, dK
+    and dV over tiles of queries, each tile's sum in a fresh accumulator."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    drow = (do * o).sum(dim=1, keepdim=True)
+
+    def ds_of(s, dp, lq, dr):
+        p = torch.exp(s * scale - lq)
+        return p, p * (dp - dr) * scale
+
+    dq = torch.zeros_like(q)
+    for k0 in range(0, k.shape[0], tile):
+        kt, vt = k[k0:k0 + tile], v[k0:k0 + tile]
+        _, ds = ds_of(mm(q, kt.T), mm(do, vt.T), lse[:, None], drow)
+        order = _slices(ds.shape[1])
+        dq = dq + mm(ds[:, order], kt[order])
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, q.shape[0], tile):
+        qt, dot = q[q0:q0 + tile], do[q0:q0 + tile]
+        p_t, ds_t = ds_of(mm(k, qt.T), mm(v, dot.T), lse[None, q0:q0 + tile],
+                          drow[q0:q0 + tile].T)
+        order = _slices(p_t.shape[1])
+        dv = dv + mm(p_t[:, order], dot[order])
+        dk = dk + mm(ds_t[:, order], qt[order])
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("kind", ["randn", "silu", "wide", "attention_fwd", "attention_bwd"])
 def test_3xtf32_split_keeps_f32_accuracy_where_one_pass_does_not(kind):
-    rng = np.random.RandomState({"randn": 0, "silu": 1, "wide": 2}[kind])
+    rng = np.random.RandomState({"randn": 0, "silu": 1, "wide": 2, "attention_fwd": 3,
+                                 "attention_bwd": 4}[kind])
+    if kind.startswith("attention"):
+        # one head of 64 columns at unit scale over 4096 keys, as the SD
+        # path's 4096-token level
+        sq = 64 if kind == "attention_fwd" else 128
+        q, k, v, do = (torch.from_numpy(rng.randn(n, 64).astype(np.float32))
+                       for n in (sq, 4096, 4096, sq))
+        q64, k64, v64 = q.double(), k.double(), v.double()
+        s64 = q64 @ k64.T / 8.0
+        lse64 = torch.logsumexp(s64, dim=1)
+        p64 = torch.exp(s64 - lse64[:, None])
+        o64 = p64 @ v64
+        if kind == "attention_fwd":
+            def err(mm):
+                o, lse = _attention_fwd(q, k, v, mm)
+                return max((o.double() - o64).abs().max().item(),
+                           (lse.double() - lse64).abs().max().item())
+        else:
+            do64 = do.double()
+            ds64 = p64 * (do64 @ v64.T - (do64 * o64).sum(1, keepdim=True)) / 8.0
+            want = (ds64 @ k64, ds64.T @ q64, p64.T @ do64)
+
+            def err(mm):
+                got = _attention_bwd(q, k, v, o64.float(), lse64.float(), do, mm)
+                return max(((x.double() - y).abs().max() / y.abs().max()).item()
+                           for x, y in zip(got, want))
+        assert err(_mm3) <= 1e-5
+        assert err(_mm1) > F32_TOL  # one TF32 pass fails the kernels' limit
+        return
     k = 9 * 512  # a 3x3 conv's sum over 512 input channels
     a = rng.randn(64, k).astype(np.float32)
     if kind == "silu":  # the activated band, as B4 reads it
@@ -303,3 +427,47 @@ def test_3xtf32_split_keeps_f32_accuracy_where_one_pass_does_not(kind):
     three = a_small @ b_big + a_big @ b_small + a_big @ b_big
     assert err(three) <= 1e-6
     assert err(a_big @ b_big) > F32_TOL  # one TF32 pass fails the kernels' limit
+
+
+def _scaled_heads(x: torch.Tensor, heads: int, d: int) -> torch.Tensor:
+    """(B, S, heads * dp) -> (B, heads, S, dp)."""
+    b, s, c = x.shape
+    return x.reshape(b, s, heads, c // heads).transpose(1, 2)
+
+
+@pytest.mark.parametrize("d,heads", [(1, 2), (3, 4), (6, 3), (37, 2), (62, 3)])
+def test_f32_padded_heads_keep_the_real_columns(d, heads):
+    """The f32 wrappers zero-pad a head dim off a multiple of 4 (TMA's
+    16-byte rows) and hand the kernels the real d for the scale: attention,
+    L and the three gradients computed as the kernels do on the padded
+    layout (scale 1 / sqrt(d), the padded columns zero), then unpadded, are
+    the plain versions' on the real columns, and nothing reaches the padded
+    columns of any output."""
+    dp = fa.f32_padded_head_dim(d)
+    assert dp % 4 == 0 and dp > d  # every case here pads
+    rng = np.random.RandomState(d)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 128, heads * d).astype(np.float32))
+                   for _ in range(4))
+    qp, kp, vp, dop = (fa.pad_heads(x, d, dp) for x in (q, k, v, do))
+    assert qp.shape == (2, 128, heads * dp)
+    qh, kh, vh, doh = (_scaled_heads(x, heads, dp).double() for x in (qp, kp, vp, dop))
+    scale = 1.0 / np.sqrt(d)  # scale_dim, not the padded width
+    s = qh @ kh.transpose(-1, -2) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    oh = p @ vh
+    ds = p * (doh @ vh.transpose(-1, -2) - (doh * oh).sum(-1, keepdim=True)) * scale
+    grads = (ds @ kh, ds.transpose(-1, -2) @ qh, p.transpose(-1, -2) @ doh)
+    for x in (oh, *grads):
+        assert not x[..., d:].any()  # the padded columns stay zero
+    packed = [x.transpose(1, 2).reshape(2, 128, heads * dp).float() for x in (oh, *grads)]
+    o, dq, dk, dv = (fa.unpad_heads(x, d, dp) for x in packed)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, heads)
+    assert o.shape == q.shape and (o - o_ref).abs().max().item() <= 1e-6
+    assert (lse.transpose(1, 2).float() - lse_ref).abs().max().item() <= 1e-5
+    want = pa.packed_attention_backward_reference(q, k, v, o_ref, lse_ref, do, heads)
+    for x, y in zip((dq, dk, dv), want):
+        assert x.shape == y.shape and ((x - y).abs().max() / y.abs().max()).item() <= 1e-5
+    # B3's (B, S, H, D) layout pads and unpads the same way
+    x4 = q.reshape(2, 128, heads, d)
+    assert torch.equal(fa.unpad_heads(fa.pad_heads(x4, d, dp), d, dp), x4)

@@ -22,8 +22,22 @@ from genima_torch.data import dataset
 from genima_torch.data.tokenizer import HashTokenizer
 
 
+@pytest.fixture(scope="module")
+def jax_native_own_build(tmp_path_factory):
+    """The JAX package's native decoder, built into this module's own
+    directory. Its loader builds ``genima_tpu/native/_image_ops.so`` in
+    place (not atomically) and caches a failed load for the process: under
+    several test workers one of them can load a half-written library and
+    from then on decode with PIL, where the port decodes natively."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", tmp_path_factory.mktemp("jax_native") / "_image_ops.so")
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_load_attempted", False)
+        yield jax_native
+
+
 @pytest.fixture(autouse=True)
-def _needs_the_decoders():
+def _needs_the_decoders(jax_native_own_build):
     """Decided when a test runs, not at import: the first call builds."""
     if native.get_lib() is None or jax_native.get_lib() is None:
         pytest.skip(f"native decoder unavailable (no g++ or libpng): {native.build_error}")

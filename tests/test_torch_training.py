@@ -16,6 +16,7 @@ import pytest
 import torch
 from PIL import Image
 
+from genima_tpu import native as jax_native
 from genima_tpu.core.init_utils import fast_init
 from genima_tpu.data import dataset as jax_dataset
 from genima_tpu.data import tokenizer as jax_tok
@@ -241,9 +242,23 @@ def _make_rendered_dataset(root, task="toy", episodes=2, frames=4, size=IMAGE):
     return root
 
 
+@pytest.fixture(scope="module")
+def jax_native_own_build(tmp_path_factory):
+    """The JAX package's native decoder, built into this module's own
+    directory. Its loader builds ``genima_tpu/native/_image_ops.so`` in
+    place (not atomically) and caches a failed load for the process: under
+    several test workers one of them can load a half-written library and
+    from then on decode with PIL, where the port decodes natively."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", tmp_path_factory.mktemp("jax_native") / "_image_ops.so")
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_load_attempted", False)
+        yield jax_native
+
+
 @pytest.mark.parametrize("use_native", [False, True])  # PIL, or the C++ decoder in both
 @pytest.mark.parametrize("emit_uint8", [True, False])
-def test_dataset_copy_matches_jax(tmp_path, emit_uint8, use_native):
+def test_dataset_copy_matches_jax(tmp_path, emit_uint8, use_native, jax_native_own_build):
     root = _make_rendered_dataset(tmp_path, size=40)
     want = jax_dataset.index_rendered_dataset(root, ["toy"])
     got = dataset.index_rendered_dataset(root, ["toy"])
