@@ -269,6 +269,27 @@
    batch 4, 512x512, 2 steps at 6 B1 / 15 B2a / 15 B2b / 0 fallbacks, frozen
    models bit-unchanged, step 1's ControlNet gradients within 1e-3
    (relative norm) of the library attention's. Step ms by events and peaks.
+18. Heads wider than 256 columns, and B1 at every length the TPU kernel
+   takes. The wide kernels (O, dQ, dK, dV in chunks of three or four
+   64-column atoms, one a block; S and dP summed over every atom streamed
+   through a ring) against their plain versions: B1 at the wide-head path's
+   levels (1 head of 320 at 4096 tokens, 1 of 640 at 1024, 2 at 256), B1,
+   B2a and B2b at its batch 4, B3 self and over 77 keys at its opt-in
+   shapes, B1 in f32 at its levels; a sweep of B1 (1 x 4096, one head),
+   B2a and B2b (4 x 1024) and B3 (1000 queries, self and over 77 keys) in
+   2-8 heads of d = 264, 320, 384, 512, 640 and 1024, in bf16 and in f32
+   (``wide_head_checks``); B1 and B2a at Sq x Sk = 128x77, 96x4096, 77x77
+   and 256x77, d = 64 and 320, bf16 and f32; one autograd call at
+   1x128x320 in 5 heads over 77 keys, which runs B1's kernel and counts one
+   fallback. Limits as phases 2, 4 and 17. Paths: (a)
+   ``build_main_path(variant="sd_wide")`` (``UNetConfig.sd21(num_heads=(1,
+   1, 2, 2))``: head dims 320 and 640), 2 control steps at 105 B1; (b) the
+   same under ``pallas+w8`` / fused, 230 B3 / 25 B4 / 1380 B5 / 0 B1; (c)
+   ``run_training(args, "sd", pipe=wide_head_pipeline(...))``, 2 steps at
+   batch 4, 512x512, 6 B1 / 15 B2a / 15 B2b / 0 fallbacks, frozen models
+   bit-unchanged, one step's ControlNet gradients within 0.1 of the library
+   attention's; (d) (a) in f32 (TF32 off), 105 B1, noise prediction within
+   1e-3. Step ms by events and peaks.
 
 Prints the card's name and power limit, the per-step times and peak memory,
 a ``per_step`` line (per path, per kernel: launches a step x ms, and the
@@ -415,11 +436,14 @@ def _forward_report(pa, b: int, s: int, h: int, d: int, with_lse: bool) -> dict:
     if smem != plan.smem_bytes:
         raise AssertionError(f"packed forward plan's shared memory {plan.smem_bytes} != {smem}")
     regs = ptxas_report(_build.build_log("packed_attention"))
+    key = (f"wide_{fa.wide_chunking(plan.atoms)[1]}" if plan.chunks > 1
+           else f"{plan.atoms}x{plan.nwg}x{plan.bn}")
     return {
         "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
-                 "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms},
+                 "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms,
+                 "column_chunks": plan.chunks},
         "smem_bytes": smem,
-        **regs.get(f"{plan.atoms}x{plan.nwg}x{plan.bn}x{int(with_lse)}", {}),
+        **regs.get(f"{key}x{int(with_lse)}", {}),
     }
 
 
@@ -600,12 +624,19 @@ def _bwd_kernel_report(d: int = 64) -> dict:
     lib = pa._bwd_library()
     report = ptxas_report(_build.build_log("packed_attention_bwd"))
     plan = pa.backward_plan(1, 64, 64, 1, d)
+    wide = fa.wide_chunking(plan.atoms)[1] if plan.chunks > 1 else 0
     out = {}
     for name, dkdv in (("dq", 0), ("dkdv", 1)):
         smem = lib.packed_attention_bwd_smem_bytes(dkdv, fa.padded_head_dim(d))
         if smem != getattr(plan, f"{name}_smem_bytes"):
             raise AssertionError(f"B2b {name} kernel's shared memory {smem} != backward_plan's")
-        out[name] = {**report.get(f"{name}{plan.atoms}", {}), "smem_bytes": smem}
+        if not wide:
+            out[name] = {**report.get(f"{name}{plan.atoms}", {}), "smem_bytes": smem}
+        elif dkdv:  # the dV and the dK kernel
+            out[name] = {"dv": report.get(f"wide_dkdv{wide}x0", {}),
+                         "dk": report.get(f"wide_dkdv{wide}x1", {}), "smem_bytes": smem}
+        else:
+            out[name] = {**report.get(f"wide_dq{wide}", {}), "smem_bytes": smem}
     return out
 
 
@@ -693,6 +724,7 @@ def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
             "bound_by": bound_by,
             "plan": {"kernels": "dq, then dk/dv", "rows_per_block": bp.rows,
                      "stages": bp.stages, "head_atoms": bp.atoms, "dkdv_passes": bp.passes,
+                     "column_chunks": bp.chunks,
                      "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
             **bwd_report,
         })
@@ -713,7 +745,10 @@ def ptxas_report(log: str) -> dict[str, dict]:
     "dkdv1" for ``packed_attention_bwd_dq_kernel<1>``); the f32 kernels
     named so with an "f32_" in front ("f32_1x2x64x1" for
     ``attention_f32_fwd_kernel<1, 2, 64, true>``, "f32_dq4", "f32_128x2" for
-    ``fused_conv3x3_f32_kernel<128, 2>``)."""
+    ``fused_conv3x3_f32_kernel<128, 2>``); the wide kernels (heads past 256
+    columns) with "wide_" after that ("wide_4x1" for
+    ``attention_fwd_wide_kernel<4, true>``, "wide_dkdv3x0" for
+    ``bwd_wide_dkdv_kernel<3, false>``, "f32_wide_dq4")."""
     import re
 
     out, key = {}, None
@@ -722,9 +757,11 @@ def ptxas_report(log: str) -> dict[str, dict]:
         if m:
             f32 = "attn_f32" in m.group(1) or "_f32_kernel" in m.group(1)
             key = "x".join(re.findall(r"L[ib](\d+)E", m.group(1))) or ("" if f32 else m.group(1))
-            kind = re.search(r"_(dq|dkdv)_kernel", m.group(1))
+            kind = re.search(r"_(dq|dkdv)_(?:wide_)?kernel", m.group(1))
             if kind:
                 key = kind.group(1) + key
+            if "_wide_" in m.group(1):
+                key = "wide_" + key
             if f32:
                 key = "f32_" + key
             out[key] = {}
@@ -782,9 +819,12 @@ def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
             "library": "scaled_dot_product_attention forward on the same (B, H, S, D) views",
             "bound_ms": bound_ms, "bound_by": bound_by,
             "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
-                     "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms},
+                     "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms,
+                     "column_chunks": plan.chunks},
             "smem_bytes": plan.smem_bytes,
-            **regs["flash_attention"].get(f"{plan.atoms}x{plan.nwg}x{plan.bn}x0", {}),
+            **regs["flash_attention"].get(
+                f"wide_{fa.wide_chunking(plan.atoms)[1]}x0" if plan.chunks > 1
+                else f"{plan.atoms}x{plan.nwg}x{plan.bn}x0", {}),
         })
 
     for b, h, w, c, o in conv_shapes:
@@ -4056,7 +4096,17 @@ def _f32_attn_bounds(flops: float, nbytes: float) -> dict:
 def _f32_fwd_plan(plan) -> dict:
     return {"query_rows": plan.rows, "consumer_warpgroups": plan.nwg, "key_tile": plan.bn,
             "stages": plan.stages, "threads": plan.threads, "blocks": plan.blocks,
-            "head_atoms": plan.atoms}
+            "head_atoms": plan.atoms, "column_chunks": plan.chunks}
+
+
+def _f32_kernel_key(plan) -> str:
+    """``ptxas_report``'s key of the f32 forward a plan launches, less its
+    L flag."""
+    from genima_torch.kernels import flash_attention as fa
+
+    if plan.chunks > 1:
+        return f"f32_wide_{fa.wide_chunking(plan.atoms)[1]}"
+    return f"f32_{plan.atoms}x{plan.nwg}x{plan.bn}"
 
 
 def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> list[dict]:
@@ -4092,7 +4142,7 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
         common = {"route": "cuda", "dtype": "float32", "source": F32_SOURCES["B1"],
                   "shape": f"{b}x{s}x{c}/{h}", "key": f"{b}x{s}x{s}x{c}", "launches": None,
                   "plan": _f32_fwd_plan(plan), "smem_bytes": plan.smem_bytes}
-        kernel = f"f32_{plan.atoms}x{plan.nwg}x{plan.bn}"
+        kernel = _f32_kernel_key(plan)
         rows.append({"name": "packed_flash_attention",
                      "replaces": "genima_tpu/kernels/packed_attention.py:194", **common,
                      "max_abs_err": err,
@@ -4127,6 +4177,7 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
         if not (rel <= F32_TOL and same and got[0].dtype == torch.float32):
             raise AssertionError(f"B2b {tag}: max err {rel} of max |grad|, repeat equal {same}")
         bp = pa.backward_plan(b, s, s, h, d, dtype=torch.float32)
+        wide = fa.wide_chunking(bp.atoms)[1] if bp.chunks > 1 else 0
         smem = [blib.packed_attention_bwd_f32_smem_bytes(x, dp) for x in (0, 1)]
         if smem != [bp.dq_smem_bytes, bp.dkdv_smem_bytes]:
             raise AssertionError(f"B2b {tag}: f32 plan's shared memory != the kernels' {smem}")
@@ -4140,6 +4191,7 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
             "plan": {"kernels": "dq, then dk/dv", "rows_per_block": bp.rows,
                      "tile_rows": [bp.tile, bp.dkdv_tile], "stages": [bp.stages, bp.dkdv_stages],
                      "dkdv_passes": bp.passes, "threads": bp.threads, "head_atoms": bp.atoms,
+                     "column_chunks": bp.chunks,
                      "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
             "smem_bytes": smem,
             "max_abs_err": max((x - y).abs().max().item() for x, y in zip(got, want)),
@@ -4150,7 +4202,11 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
             "library_ms": cuda_ms(
                 lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), iters),
             **_f32_attn_bounds(10 * b * s * s * c, 4 * 8 * b * s * c + 4 * b * s * h),
-            "dq": bregs.get(f"f32_dq{bp.atoms}", {}), "dkdv": bregs.get(f"f32_dkdv{bp.atoms}", {}),
+            **({"dq": bregs.get(f"f32_dq{bp.atoms}", {}),
+                "dkdv": bregs.get(f"f32_dkdv{bp.atoms}", {})} if bp.chunks == 1 else
+               {"dq": bregs.get(f"f32_wide_dq{wide}", {}),
+                "dv": bregs.get(f"f32_wide_dkdv{wide}x0", {}),
+                "dk": bregs.get(f"f32_wide_dkdv{wide}x1", {})}),
         })
         del out, leaves, got, again, want
     return rows
@@ -4200,7 +4256,7 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
             "library": "scaled_dot_product_attention forward in f32 on the same views",
             **_f32_attn_bounds(4 * b * sq * sk * c, 4 * b * (2 * sq + 2 * sk) * c),
             "plan": _f32_fwd_plan(plan), "smem_bytes": plan.smem_bytes,
-            **regs["flash_attention"].get(f"f32_{plan.atoms}x{plan.nwg}x{plan.bn}x0", {}),
+            **regs["flash_attention"].get(f"{_f32_kernel_key(plan)}x0", {}),
         })
 
     for b, hh, ww, c, o in conv_shapes:
@@ -4328,6 +4384,203 @@ def f32_phase(pa, card: str) -> tuple[dict, dict, dict]:
     _fill_launches(rows["f32_control"], {"B1": out["serve"]["launches_by_shape"]["B1"]})
     _fill_launches(rows["f32_opt_in"], out["opt_in"]["launches_by_shape"])
     _fill_launches(rows["f32_train"], out["train"]["launches_by_shape"])
+    out["phase_s"] = time.time() - t_phase
+    return out, rows, checks
+
+
+# ---------------------------------------------------------------------------
+# phase 18: heads wider than 256 columns (the wide kernels) and B1 at every
+# length the TPU kernel takes
+# ---------------------------------------------------------------------------
+
+# the wide-head SD path (sd-turbo's widths, num_heads (1, 1, 2, 2)): head
+# dims 320 at 4096 tokens and 640 at 1024, 256 and 64; SD's lengths, so SD's
+# launch pins
+WIDE_LEVELS = [(1, 4096, 320, 1), (1, 1024, 640, 1), (1, 256, 1280, 2)]
+WIDE_TRAIN_LEVELS = [(TRAIN_BATCH, s, c, h) for _, s, c, h in WIDE_LEVELS]
+WIDE_OPT_LEVELS = [(4096, 320, 1), (1024, 640, 1), (256, 1280, 2), (64, 1280, 2)]
+WIDE_FLASH_SHAPES = [(1, s, s, c, h) for s, c, h in WIDE_OPT_LEVELS] + [
+    (1, s, CONTEXT[0], c, h) for s, c, h in WIDE_OPT_LEVELS]
+WIDE_STEPS = 2  # control steps a path, the first carrying the warm-up
+WIDE_TRAIN_STEPS = 2
+# the sweep: B1 at 1 x 4096 in one head, B2a/B2b at 4 x 1024 and B3 over
+# 1000 queries (self and over 77 keys) in 2-8 heads, bf16 and f32
+WIDE_SWEEP_DIMS = (264, 320, 384, 512, 640, 1024)
+# B1 and B2a at lengths off a multiple of 64, (Sq, Sk), at (d, heads)
+RAGGED_LENGTHS = [(128, 77), (96, 4096), (77, 77), (256, 77)]
+RAGGED_HEADS = [(64, 5), (320, 1)]
+KV77_SHAPE = (1, 128, 77, 320, 5)  # (B, Sq, Sk, C, heads): the fallback's autograd call
+
+
+def _sweep_heads(d: int) -> int:
+    return max(2, min(8, 2048 // d))
+
+
+def wide_sweep(pa, f32: bool) -> list[dict]:
+    """B1, B2a, B2b and B3 at ``WIDE_SWEEP_DIMS`` against their plain
+    versions (bf16: phases 2 and 4's limits; f32: phase 17's), timed beside
+    their bound and SDPA. No path runs these shapes."""
+    rows = []
+    for i, d in enumerate(WIDE_SWEEP_DIMS):
+        h = _sweep_heads(d)
+        flash = [(1, 1000, 1000, h * d, h), (1, 1000, CONTEXT[0], h * d, h)]
+        if f32:
+            new = (f32_attention_rows(pa, [(1, 4096, d, 1)], seed=150 + i, train=False, iters=2)
+                   + f32_attention_rows(pa, [(TRAIN_BATCH, 1024, h * d, h)], seed=160 + i,
+                                        train=True, iters=2)
+                   + f32_opt_rows(flash, [], [], seed=170 + i, iters=2))
+        else:
+            new = (kernel_phase(pa, [(1, 4096, d, 1)], seed=120 + i)
+                   + training_kernel_phase(pa, [(TRAIN_BATCH, 1024, h * d, h)], seed=130 + i)
+                   + opt_kernel_phase(flash, [], [], seed=140 + i))
+        for r in new:
+            r["head_dim"] = d
+            r["path"] = "none (wide head-dim sweep)"
+            del r["key"]
+        rows += new
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ragged_rows(pa, dtype, seed: int) -> list[dict]:
+    """B1 and B2a at ``RAGGED_LENGTHS`` x ``RAGGED_HEADS`` against their
+    plain versions (attention at ``ATTN_TOL`` / L at ``LSE_TOL`` in bf16,
+    both at ``F32_TOL`` in f32; B2a's output B1's bit for bit), timed beside
+    the bound and SDPA."""
+    import torch.nn.functional as F
+
+    f32 = dtype == torch.float32
+    tol, lse_tol = (F32_TOL, F32_TOL) if f32 else (ATTN_TOL, LSE_TOL)
+    nbytes = 4 if f32 else 2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for d, h in RAGGED_HEADS:
+        c = h * d
+        for sq, sk in RAGGED_LENGTHS:
+            q = torch.randn(1, sq, c, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(1, sk, c, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            tag = f"{'f32' if f32 else 'bf16'} 1x{sq}x{sk}x{c}/{h}"
+            o1 = pa.packed_flash_attention(q, k, v, h)
+            o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+            o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+            torch.cuda.synchronize()
+            err = (o1.float() - o_ref.float()).abs().max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            if not (err <= tol and lse_err <= lse_tol and torch.equal(o, o1)):
+                raise AssertionError(f"ragged B1/B2a {tag}: o err {err}, L err {lse_err}, "
+                                     f"B2a's o == B1's {torch.equal(o, o1)}")
+            heads = [x.view(1, x.shape[1], h, d).transpose(1, 2) for x in (q, k, v)]
+            flops, io = 4 * sq * sk * c, nbytes * (2 * sq + 2 * sk) * c
+            bounds = (_f32_attn_bounds(flops, io) if f32
+                      else dict(zip(("bound_ms", "bound_by"), _bound(flops, io))))
+            common = {"route": "cuda", "dtype": "float32" if f32 else "bfloat16",
+                      "source": F32_SOURCES["B1"] if f32
+                      else "genima_torch/csrc/packed_attention.cu",
+                      "shape": f"1x{sq}x{sk}x{c}/{h}", "head_dim": d, "launches": None,
+                      "path": "none (ragged lengths)",
+                      "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 20),
+                      **bounds}
+            rows.append({"name": "packed_flash_attention",
+                         "replaces": "genima_tpu/kernels/packed_attention.py:194", **common,
+                         "max_abs_err": err,
+                         "ms": cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), 20),
+                         "plain_ms": cuda_ms(lambda: pa.packed_attention_reference(q, k, v, h), 3)})
+            rows.append({"name": "packed_attention_forward_lse",
+                         "replaces": "genima_tpu/kernels/packed_attention.py:274", **common,
+                         "max_abs_err": max(err, lse_err), "lse_abs_err": lse_err,
+                         "ms": cuda_ms(lambda: pa.packed_attention_forward_lse(q, k, v, h), 20),
+                         "plain_ms": cuda_ms(
+                             lambda: pa.packed_attention_lse_reference(q, k, v, h), 3)})
+    return rows
+
+
+def kv77_autograd(pa, seed: int = 180) -> dict:
+    """The repaired fallback: one autograd call at ``KV77_SHAPE`` (B, Sq, Sk,
+    C, heads; bf16, kv = 77, which B2b's tiles do not cover) runs B1's
+    kernel forward (one launch, no B2a, no B2b) and recomputes the gradient
+    through the plain version (one fallback), as JAX's ``_fwd`` / ``_bwd``
+    do; output and gradients held to the plain version's autograd."""
+    b, sq, sk, c, h = KV77_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, sq, c, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, sk, c, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    do = torch.randn(b, sq, c, generator=gen, device="cuda").bfloat16()
+    fns = {"B1": pa.packed_flash_attention, "B2a": pa.packed_attention_forward_lse,
+           "B2b": pa.packed_attention_backward}
+    before = {n: f.launches for n, f in fns.items()}
+    before["fallbacks"] = pa.PackedFlashAttention.fallbacks
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = pa.packed_flash_attention(*leaves, h)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = {n: f.launches - before[n] for n, f in fns.items()}
+    counts["fallbacks"] = pa.PackedFlashAttention.fallbacks - before["fallbacks"]
+    want_counts = {"B1": 1, "B2a": 0, "B2b": 0, "fallbacks": 1}
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref_out = pa.packed_attention_reference(*ref, h)
+    ref_out.backward(do)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    grad_rel = max(_rel_err(x.grad, y.grad) for x, y in zip(leaves, ref))
+    if counts != want_counts or not (err <= ATTN_TOL and grad_rel <= GRAD_TOL):
+        raise AssertionError(f"kv=77 autograd: launches {counts} (want {want_counts}), "
+                             f"o err {err}, grads {grad_rel} of max |grad|")
+    return {"shape": f"{b}x{sq}x{sk}x{c}/{h}", "launches": counts, "o_abs_err": err,
+            "grad_rel_err_vs_plain_autograd": grad_rel}
+
+
+def wide_heads_phase(pa, card: str) -> tuple[dict, dict, dict]:
+    """Phase 18: the wide kernels (heads past 256 columns) against their
+    plain versions at the wide-head path's shapes and a head-dim sweep,
+    bf16 and f32; B1 and B2a at ragged lengths and the kv = 77 autograd
+    call; then (a) ``build_main_path(variant="sd_wide")``, 105 B1 a step;
+    (b) the same under ``pallas+w8`` / fused, 230 B3 / 25 B4 / 1380 B5 / 0
+    B1; (c) ``run_training(args, "sd", pipe=wide_head_pipeline(...))`` at
+    batch 4, 512x512, 6 B1 / 15 B2a / 15 B2b / 0 fallbacks a step, frozen
+    models bit-unchanged, step 1's ControlNet gradients held to the library
+    attention's; (d) f32 serving (TF32 off), 105 B1 a step, within
+    ``F32_EPS_REL_TOL``. Returns the paths' results, the kernel rows by path
+    and the checks no path runs."""
+    from genima_torch.eval.main_path import wide_head_pipeline
+
+    t_phase = time.time()
+    rows = {"wide_control": kernel_phase(pa, WIDE_LEVELS, seed=100),
+            "wide_train": training_kernel_phase(pa, WIDE_TRAIN_LEVELS, seed=101),
+            "wide_opt_in": opt_kernel_phase(WIDE_FLASH_SHAPES, [], [], seed=102),
+            "wide_f32_control": f32_attention_rows(pa, WIDE_LEVELS, seed=103, train=False,
+                                                   iters=3)}
+    checks = {"head_dim_sweep": wide_sweep(pa, f32=False),
+              "f32_head_dim_sweep": wide_sweep(pa, f32=True),
+              "ragged": ragged_rows(pa, torch.bfloat16, seed=110)
+              + ragged_rows(pa, torch.float32, seed=111),
+              "kv77_autograd": kv77_autograd(pa)}
+    out = {"card": card, "kernel_checks_s": time.time() - t_phase}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["serve"] = _sd_serve(pa, "sd_wide", 512, WIDE_STEPS, LAUNCHES_PER_STEP, opt_in=False)
+    out["serve"]["s"] = time.time() - t0
+    t0 = time.time()
+    out["opt_in"] = _serve("sd_wide", 512, OPT_BACKEND, OPT_CONV_BACKEND, OPT_LAUNCHES,
+                           WIDE_STEPS)
+    out["opt_in"]["s"] = time.time() - t0
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train"] = _sd_finetune(
+            pa, Path(tmp), 512, TRAIN_LAUNCHES, grad_check=True, steps=WIDE_TRAIN_STEPS,
+            pipe_factory=lambda args: wide_head_pipeline(
+                dtype=torch.bfloat16, backend="fused", device=args.device, vae_encoder=True))
+    out["train"]["s"] = time.time() - t0
+    t0 = time.time()
+    out["f32_serve"] = _serve("sd_wide", 512, "fused", "xla", F32_SERVE_LAUNCHES,
+                              F32_SERVE_STEPS, dtype=torch.float32, eps_tol=F32_EPS_REL_TOL)
+    out["f32_serve"]["s"] = time.time() - t0
+    _fill_launches(rows["wide_control"], {"B1": out["serve"]["launches_by_shape"]})
+    _fill_launches(rows["wide_opt_in"], out["opt_in"]["launches_by_shape"])
+    _fill_launches(rows["wide_train"], out["train"]["launches_by_shape"])
+    _fill_launches(rows["wide_f32_control"], {"B1": out["f32_serve"]["launches_by_shape"]["B1"]})
+    for name, rs in rows.items():
+        for r in rs:
+            r["path"] = f"{name} (phase 18)"
     out["phase_s"] = time.time() - t_phase
     return out, rows, checks
 
@@ -4631,6 +4884,24 @@ def main() -> int:
           f"{tr17['grad_attn_proj_rel_floored']:.3e}, the library's two SDPA backends "
           f"{tr17['grad_library_backends_rel_norm_diff']:.3e}), peak {tr17['peak_mem_gb']:.2f} "
           f"GiB; kernel checks {p17['kernel_checks_s']:.1f} s; phase {p17['phase_s']:.1f} s")
+    p18, p18_rows, p18_checks = wide_heads_phase(pa, card)
+    print("wide_heads " + json.dumps(p18))
+    print("wide_head_checks " + json.dumps(p18_checks))
+    sv18, op18, tr18, f18 = p18["serve"], p18["opt_in"], p18["train"], p18["f32_serve"]
+    print(f"wide_heads ({card}): control steps {[round(x, 1) for x in sv18['step_ms']]} ms by "
+          f"events, eps rel err {sv18['eps_rel_err_vs_library_attention']:.4f}, peak "
+          f"{sv18['peak_mem_gb']:.2f} GiB; pallas+w8 / fused steps "
+          f"{[round(x, 1) for x in op18['step_ms']]} ms, eps rel err "
+          f"{op18['eps_rel_err_vs_library_attention']:.4f}, step peak "
+          f"{op18['step_peak_mem_gb']:.2f} GiB; fine-tune steps "
+          f"{[round(x, 1) for x in tr18['step_ms']]} ms (batch {TRAIN_BATCH}, 512^2), grads rel "
+          f"{tr18['grad_rel_norm_diff_vs_library_attention']:.4f} (the library's two SDPA "
+          f"backends {tr18['grad_library_backends_rel_norm_diff']:.4f}), peak "
+          f"{tr18['peak_mem_gb']:.2f} GiB; f32 steps {[round(x, 1) for x in f18['step_ms']]} ms, "
+          f"eps rel err {f18['eps_rel_err_vs_library_attention']:.3e}, step peak "
+          f"{f18['step_peak_mem_gb']:.2f} GiB; kv=77 autograd "
+          f"{p18_checks['kv77_autograd']['launches']}; kernel checks "
+          f"{p18['kernel_checks_s']:.1f} s; phase {p18['phase_s']:.1f} s")
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -4657,14 +4928,17 @@ def main() -> int:
         + [(name, r, PIX2PIX15_TRAIN_STEPS if name == "pix2pix15_train" else OPT16_STEPS)
            for name, rs in p16_rows.items() for r in rs]
         + [(name, r, F32_TRAIN_STEPS if name == "f32_train" else F32_SERVE_STEPS)
-           for name, rs in p17_rows.items() for r in rs])))
+           for name, rs in p17_rows.items() for r in rs]
+        + [(name, r, {"wide_train": WIDE_TRAIN_STEPS, "wide_f32_control": F32_SERVE_STEPS}
+            .get(name, WIDE_STEPS)) for name, rs in p18_rows.items() for r in rs])))
     rows = (kernels + cfg_kernels + train_kernels + opt_kernels + cohort_kernels
             + batch4_kernels + batched_kernels + pretrain_kernels + sdxl_kernels
             + sdxl_train_kernels + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
             + pix2pix_opt_kernels + dp_kernels + mesh_eval_kernels + tp_kernels
             + [r for rs in hd_rows.values() for r in rs]
             + [r for rs in p16_rows.values() for r in rs]
-            + [r for rs in p17_rows.values() for r in rs])
+            + [r for rs in p17_rows.values() for r in rs]
+            + [r for rs in p18_rows.values() for r in rs])
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

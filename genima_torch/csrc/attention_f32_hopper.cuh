@@ -49,7 +49,9 @@
 // every stage, which at 64-key tiles of 256 columns would not fit, and a
 // wgmma accumulator a key tile would double O's registers (256 f32 a
 // thread at d = 256); mma.sync keeps a fresh accumulator at 16 registers a
-// slab, and needs no transposed copy at any head dim.
+// slab, and needs no transposed copy at any head dim. Above 256 columns O
+// is kept in chunks of at most four atoms, one a block (the wide kernels
+// at the end of this file).
 //
 // Layout: a head of d columns (the wrappers zero-pad a d that is not a
 // multiple of 4 to the next one: TMA needs 16-byte row strides, and the
@@ -94,7 +96,6 @@ namespace {
 using namespace hopper;
 
 constexpr int kSlabBytes = 128;  // 32 f32 columns: the swizzle span
-constexpr int kMaxHeadDim = 256;
 constexpr int kProducer = 128;   // the producer warpgroup
 constexpr int kSplitters = 96;   // its warps 1-3
 constexpr float kLog2e = 1.4426950408889634f;
@@ -106,11 +107,12 @@ constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take
 inline int head_atoms(int d) { return (d + 63) / 64; }
 
 // Whether the kernels take heads of d columns (packed width), scaled by
-// 1 / sqrt(scale_dim): d a multiple of 4 up to 256 (16-byte rows and column
-// offsets for TMA and the float4 stores), scale_dim the real head dim it
-// pads (d itself, or up to 3 columns fewer that the wrapper zero-padded).
+// 1 / sqrt(scale_dim): d a multiple of 4 (16-byte rows and column offsets
+// for TMA and the float4 stores), scale_dim the real head dim it pads (d
+// itself, or up to 3 columns fewer that the wrapper zero-padded). Above four
+// atoms (d > 256) the wide kernels (below) take the head.
 inline bool head_dim_ok(int d, int scale_dim) {
-  return d >= 4 && d <= kMaxHeadDim && d % 4 == 0 && scale_dim <= d && scale_dim > d - 4;
+  return d >= 4 && d % 4 == 0 && scale_dim <= d && scale_dim > d - 4;
 }
 
 // --- plans (mirrored by kernels/flash_attention.py and packed_attention.py) --
@@ -556,6 +558,327 @@ bool fwd_tile_ok(int da, int nwg, int bn) {
   }
 }
 
+// --- heads of more than four atoms (d > 256) --------------------------------
+//
+// As the bf16 wide kernels (attention_fwd_hopper.cuh): O (the backward's dQ,
+// dK, dV) in chunks of OA = 3 or 4 atoms (attn_hopper::wide_chunk_atoms),
+// one chunk a block; S and dP summed over every atom of the head, nothing of
+// it resident, so shared memory does not grow with d. A ring of 32 KB slots
+// carries, per streamed tile of kWideT = 32 rows, one "S item" an atom (the
+// block's 64 rows of X raw, 16 KB, for the A operand's ldmatrix; the tile's
+// 32 rows of Y, which the producer warpgroup's warps 1-3 split into big in
+// place and small beside it, 8 + 8 KB) and one "chunk item" (the tile's
+// rows of the chunk's atoms, raw: the B operand of the mma.sync products,
+// split on the fly). Each atom's S part goes into a fresh wgmma accumulator,
+// added in f32: the tensor cores' own sums cut low bits with every addend,
+// and a wide head sums up to d products. Maps are 4-D (head_map_f32): zeros
+// past d and past S. One consumer warpgroup (256 threads: up to 255
+// registers a thread).
+
+constexpr int kWideT = 32;                         // rows of a streamed tile
+constexpr int kWideX = 64 * 2 * kSlabBytes;        // X's 64 rows of an atom: 16 KB
+constexpr int kWideY = kWideT * 2 * kSlabBytes;    // Y's 32 rows of an atom: 8 KB
+constexpr int kWideSlotF32 = kWideX + 2 * kWideY;  // 32 KB: also a chunk item's 4 atoms
+constexpr int kWideThreadsF32 = 128 + kProducer;
+
+// Shared memory of a wide f32 block with a ring of `stages` slots (and, for
+// the dk/dv kernels, a stage's kWideT values of L * log2(e) and Drow).
+constexpr int wide_smem_bytes(int stages, bool rows) {
+  return 1024 + stages * (kWideSlotF32 + (rows ? 2 * kWideT * 4 : 0)) + 8 * (3 * stages);
+}
+
+// A (d, heads, S, B) map of a packed (B, S, heads * d) f32 tensor with a
+// (32, 1, rows, 1) box: zeros past a head's d columns and past S.
+inline int head_map_f32(CUtensorMap* map, const void* x, int batch, int s, int heads, int d,
+                        int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 4,
+                                 static_cast<cuuint64_t>(heads) * d * 4,
+                                 static_cast<cuuint64_t>(s) * heads * d * 4};
+  const cuuint32_t box[4] = {32, 1, static_cast<cuuint32_t>(rows), 1};
+  return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+__device__ __forceinline__ void tma_atom_x(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int atom, int head, int row, int batch) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    tma_load_4d(dst + s * 64 * kSlabBytes, map, bar, 64 * atom + 32 * s, head, row, batch);
+}
+
+__device__ __forceinline__ void tma_atom_y(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int atom, int head, int row, int batch) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    tma_load_4d(dst + s * kWideT * kSlabBytes, map, bar, 64 * atom + 32 * s, head, row, batch);
+}
+
+// The chunk's OA atoms of a tile's kWideT rows, raw: slab sl at sl * kWideT rows.
+template <int OA>
+__device__ __forceinline__ void tma_chunk(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int col0, int head, int row, int batch) {
+#pragma unroll
+  for (int sl = 0; sl < 2 * OA; ++sl)
+    tma_load_4d(dst + sl * kWideT * kSlabBytes, map, bar, col0 + 32 * sl, head, row, batch);
+}
+
+// The producer warpgroup of the wide f32 kernels: per tile j of `tiles`,
+// `items` S items and the chunk item (n == items), each issued by warp 0's
+// first thread as `issue(j, n, slot)` once the slot is free, and each S
+// item's Y tile split by warps 1-3, who then arrive on `ready` (for a chunk
+// item too, so that its phases keep step).
+template <class Issue>
+__device__ __forceinline__ void wide_producer(int tiles, int items, uint8_t* ring, uint64_t* full,
+                                              uint64_t* ready, uint64_t* empty, int stages,
+                                              Issue issue) {
+  const int warp = (threadIdx.x >> 5) - 4;
+  if (warp == 0 && (threadIdx.x & 31) != 0) return;
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < tiles; ++j)
+    for (int n = 0; n <= items; ++n) {
+      uint8_t* st = ring + slot * kWideSlotF32;
+      if (warp == 0) {
+        mbar_wait(&empty[slot], phase ^ 1);
+        issue(j, n, slot);
+      } else {
+        mbar_wait(&full[slot], phase);
+        if (n < items) split_tile(st + kWideX, st + kWideX + kWideY, kWideY, threadIdx.x - 160);
+        fence_proxy_async();  // before wgmma reads them
+        mbar_arrive(&ready[slot]);
+      }
+      if (++slot == stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// acc += X Y^T of the S item in `slot` (this warp's 16 rows of X from row0),
+// through a fresh accumulator; the slot goes back to the producer.
+__device__ __forceinline__ void wide_scores_item(float (&acc)[kWideT / 2], const uint8_t* ring,
+                                                 uint64_t* full, uint64_t* ready,
+                                                 uint64_t* empty, int stages, int& slot,
+                                                 uint32_t& phase, int row0, int lane) {
+  mbar_wait(&full[slot], phase);
+  mbar_wait(&ready[slot], phase);
+  const uint8_t* st = ring + slot * kWideSlotF32;
+  float part[kWideT / 2];
+  gemm_abt<2, 64, kWideT, 1>(part, smem_u32(st), row0, st + kWideX, st + kWideX + kWideY, lane,
+                             64);
+#pragma unroll
+  for (int i = 0; i < kWideT / 2; ++i) acc[i] += part[i];
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[slot]);
+  if (++slot == stages) {
+    slot = 0;
+    phase ^= 1;
+  }
+}
+
+struct WideParamsF32 {
+  float* o;  // the forward's o, or the backward's dq, dk or dv
+  float* lse;
+  const float *o_in, *dout, *lse_in;
+  float* l2;    // (B, heads, Sq): L * log2(e), the dq kernel's (chunk 0) for the dk/dv kernels
+  float* drow;  // (B, heads, Sq): rowsum(dO * O), likewise
+  int sq, sk, c, d, heads, atoms, chunks, stages;
+  float scale, scale_log2;
+};
+
+template <int OA, bool kWriteLse>
+__global__ void __launch_bounds__(kWideThreadsF32, 1)
+attention_f32_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v, const WideParamsF32 p) {
+  constexpr int NS = 2 * OA, kS = kWideT / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = attn_hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * kWideSlotF32);
+  uint64_t* ready = full + p.stages;
+  uint64_t* empty = ready + p.stages;
+  const int chunk = blockIdx.x % p.chunks;
+  const int q0 = blockIdx.x / p.chunks * 64;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int col0 = chunk * OA * 64;
+  const int n_tiles = (p.sk + kWideT - 1) / kWideT;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kSplitters);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4) {
+    const CUtensorMap *mq = &map_q, *mk = &map_k, *mv = &map_v;
+    const int atoms = p.atoms;
+    wide_producer(n_tiles, atoms, ring, full, ready, empty, p.stages, [=](int j, int n, int slot) {
+      uint8_t* st = ring + slot * kWideSlotF32;
+      if (n < atoms) {
+        mbar_expect_tx(&full[slot], kWideX + kWideY);
+        tma_atom_x(st, mq, &full[slot], n, head, q0, batch);
+        tma_atom_y(st + kWideX, mk, &full[slot], n, head, j * kWideT, batch);
+      } else {
+        mbar_expect_tx(&full[slot], OA * 2 * kWideT * kSlabBytes);
+        tma_chunk<OA>(st, mv, &full[slot], col0, head, j * kWideT, batch);
+      }
+    });
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  float o[NS][4][4];
+#pragma unroll
+  for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[sl][nb][e] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[kS];
+    zero(s);
+    for (int a = 0; a < p.atoms; ++a)
+      wide_scores_item(s, ring, full, ready, empty, p.stages, slot, phase, row0, lane);
+    const int kv0 = j * kWideT;
+    if (kv0 + kWideT > p.sk) {  // the ragged last tile: keys >= Sk
+#pragma unroll
+      for (int i = 0; i < kS; ++i)
+        if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= p.sk) s[i] = kMasked;
+    }
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kS; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 2));
+      const float m_new = fmaxf(row_max[r], tile_max[r] * p.scale_log2);
+      alpha[r] = attn_hopper::exp2_approx(row_max[r] - m_new);
+      row_max[r] = m_new;
+      row_sum[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = attn_hopper::exp2_approx(fmaf(s[i], p.scale_log2, -row_max[r]));
+      row_sum[r] += s[i];
+    }
+    mbar_wait(&full[slot], phase);  // the chunk's V
+    mbar_wait(&ready[slot], phase);
+    const uint8_t* vt = ring + slot * kWideSlotF32;
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      float acc[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+      gemm_xb<kWideT, false>(acc, s, vt + sl * kWideT * kSlabBytes, nullptr, g, t);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[sl][nb][e] = fmaf(o[sl][nb][e], alpha[e >> 1], acc[nb][e]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (++slot == p.stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 1);
+    row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 2);
+  }
+  const int row = q0 + row0 + g;
+  const bool ok0 = row < p.sq, ok8 = row + 8 < p.sq;
+  float* dst = p.o + (static_cast<size_t>(batch) * p.sq + row) * p.c + head * p.d + col0;
+  const float inv0 = 1.f / row_sum[0], inv8 = 1.f / row_sum[1];
+#pragma unroll
+  for (int sl = 0; sl < NS; ++sl)
+    store_slab(dst + 32 * sl, p.c, o[sl], inv0, inv8, ok0, ok8, t, p.d - col0 - 32 * sl);
+  if constexpr (kWriteLse) {
+    if (chunk == 0 && t == 0) {
+      float* l0 = p.lse + (static_cast<size_t>(batch) * p.sq + row) * p.heads + head;
+      if (ok0) l0[0] = (row_max[0] + log2f(row_sum[0])) * kLn2;
+      if (ok8) l0[static_cast<size_t>(8) * p.heads] = (row_max[1] + log2f(row_sum[1])) * kLn2;
+    }
+  }
+}
+
+template <int OA, bool kWriteLse>
+int launch_fwd_wide(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                    const WideParamsF32& p, int batch, cudaStream_t stream) {
+  const int smem = wide_smem_bytes(p.stages, false);
+  static int configured = 0;  // the largest dynamic shared memory set so far
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(attention_f32_fwd_wide_kernel<OA, kWriteLse>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  const dim3 grid((p.sq + 63) / 64 * p.chunks, p.heads, batch);
+  attention_f32_fwd_wide_kernel<OA, kWriteLse><<<grid, kWideThreadsF32, smem, stream>>>(mq, mk,
+                                                                                        mv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide f32 forward (d > 256, a multiple of 4) with a ring of `stages`.
+template <bool kWriteLse>
+int forward_wide(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                 int sq, int sk, int heads, int d, int scale_dim, int stages,
+                 cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int rc = head_map_f32(&mq, q, batch, sq, heads, d, 64);
+  if (rc) return rc;
+  if ((rc = head_map_f32(&mk, k, batch, sk, heads, d, kWideT))) return rc;
+  if ((rc = head_map_f32(&mv, v, batch, sk, heads, d, kWideT))) return rc;
+  WideParamsF32 p{};
+  p.o = static_cast<float*>(o);
+  p.lse = lse;
+  p.sq = sq;
+  p.sk = sk;
+  p.c = heads * d;
+  p.d = d;
+  p.heads = heads;
+  p.atoms = head_atoms(d);
+  p.chunks = attn_hopper::wide_chunks(p.atoms);
+  p.stages = stages;
+  p.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
+  return attn_hopper::wide_chunk_atoms(p.atoms) == 3
+             ? launch_fwd_wide<3, kWriteLse>(mq, mk, mv, p, batch, stream)
+             : launch_fwd_wide<4, kWriteLse>(mq, mk, mv, p, batch, stream);
+}
+
+// Shared memory of a forward launch with (nwg, bn, stages) at `da` atoms; 0
+// for a launch there is no kernel for (wide heads: one warpgroup on
+// kWideT-key tiles, 2 to kMaxWideStages slots).
+template <bool kCross>
+int fwd_launch_smem(int da, int nwg, int bn, int stages) {
+  if (da > attn_hopper::kNarrowAtoms)
+    return nwg == 1 && bn == kWideT && stages >= 2 && stages <= attn_hopper::kMaxWideStages
+               ? wide_smem_bytes(stages, false)
+               : 0;
+  return fwd_tile_ok<kCross>(da, nwg, bn) ? fwd_smem_bytes(da, nwg, bn, stages) : 0;
+}
+
 // The forward on (B, Sq, heads * d) q, (B, Sk, heads * d) k and v, f32,
 // 16-byte aligned, d a multiple of 4, into o and, with kWriteLse, L, with
 // the (nwg, bn, stages) of the wrapper's plan; 0 or an error code for
@@ -566,10 +889,13 @@ int forward(const void* q, const void* k, const void* v, void* o, float* lse, in
             int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
             cudaStream_t stream) {
   const int da = head_atoms(d);
-  if (batch < 1 || sq < 1 || sk < 1 || heads < 1 || !head_dim_ok(d, scale_dim) ||
-      !fwd_tile_ok<kCross>(da, nwg, bn) || stages < 1 ||
-      fwd_smem_bytes(da, nwg, bn, stages) > kMaxSmem)
+  if (batch < 1 || sq < 1 || sk < 1 || heads < 1 || !head_dim_ok(d, scale_dim) || stages < 1 ||
+      fwd_launch_smem<kCross>(da, nwg, bn, stages) == 0 ||
+      fwd_launch_smem<kCross>(da, nwg, bn, stages) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (da > attn_hopper::kNarrowAtoms)
+    return forward_wide<kWriteLse>(q, k, v, o, lse, batch, sq, sk, heads, d, scale_dim, stages,
+                                   stream);
   FwdParams p;
   p.o = static_cast<float*>(o);
   p.lse = lse;

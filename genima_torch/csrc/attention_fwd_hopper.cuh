@@ -25,7 +25,8 @@
 // stage. DA = 4 (d = 200..256) holds 128 f32 of O a thread: one consumer
 // warpgroup and a one-warp producer (160 threads, so ptxas may give each
 // thread 255 registers), 64-key tiles in a ring of three 64 KB stages, or
-// B3's 80-key prompt tile in two.
+// B3's 80-key prompt tile in two. Heads of more than four atoms (d > 256)
+// take the wide kernel below.
 //
 // Bound: 4 * B * Sq * Sk * C flops on 2 * B * (2 * Sq + 2 * Sk) * C bytes.
 // Self-attention at 4096 and 1024 tokens is bound by tensor-core
@@ -370,6 +371,291 @@ int prepare_fwd(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, FwdParams* p,
   // more than one tile needs two stages
   if (stages < (p->n_tiles > 1 ? 2 : 1)) return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+// --- heads of more than four atoms (d > 256) --------------------------------
+//
+// attention_fwd_wide_kernel: a fifth atom of O would hold 160 f32 a thread
+// beside S and P, so a block keeps O for one chunk of OA = 3 or 4 atoms
+// (wide_chunk_atoms) and the grid walks the chunks: one block per (64 query
+// rows, chunk, head, batch). S's registers do not depend on d, so each block
+// sums S = Q K^T over every atom of the head, runs the online softmax, and
+// accumulates O += P V for its own chunk's columns only; every chunk forms the
+// same S, m and l (bit for bit: the same wgmmas in the same order), and chunk
+// 0 alone stores L. That forms Q K^T once per chunk: at d = 512 (two chunks of
+// four) 1.5x the forward's flops of one pass.
+//   * Nothing of the head is resident: the producer warp's first thread
+//     streams, per 64-key tile, ceil(atoms / 2) "S items" (Q's and K's tiles
+//     of two atoms, 64 rows x 64 columns each) and one "V item" (V's tiles
+//     of the chunk's atoms) through one ring of 32 KB slots behind "full" /
+//     "empty" mbarriers, so shared memory does not grow with d. The maps are
+//     4-D (d, heads, S, B) (head_map): columns past d and rows past S come in
+//     as zeros, so the sums over d need no masking and an odd atom count's
+//     last S item adds zeros.
+//   * One consumer warpgroup of 64 rows (160 threads: it may take 255
+//     registers): per S item, wgmma m64n64k16 with both operands K-major in
+//     the slot, committed as a group; once the group before it is retired its
+//     slot goes back (the V item of the tile before, at the first S item). The
+//     online softmax as the narrow kernel's; P as A fragments in registers;
+//     O += P V for the chunk's atoms, V MN-major, runs under the next tile's
+//     first S item.
+// Bound as the narrow kernel; the price of streaming is Q re-read from L2 for
+// every key tile (and each chunk's S), which holds it under the narrow
+// kernels' share of the tensor-core peak.
+
+struct WideFwdParams {
+  __nv_bfloat16* o;
+  float* lse;  // (B, Sq, heads) f32, written only by the kWriteLse kernels (chunk 0)
+  int sq, sk, c, d, heads, atoms, chunks, n_tiles, stages;
+  float scale_log2;
+};
+
+constexpr int kWideThreads = 160;  // one consumer warpgroup and the producer warp
+constexpr int kAtomTile = 64 * kRowBytes;  // 64 rows x one atom: 8 KB
+
+int wide_fwd_smem_bytes(int stages) { return 1024 + stages * kWideSlot + 16 * stages; }
+
+template <int OA, bool kWriteLse>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const WideFwdParams p) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * kWideSlot);
+  uint64_t* empty = full + p.stages;
+
+  const int chunk = blockIdx.x % p.chunks;
+  const int q0 = blockIdx.x / p.chunks * 64;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int s_items = (p.atoms + 1) / 2;
+  const int col0 = chunk * OA * kAtom;  // the chunk's first column
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (warp == 4) {  // the producer; its first thread issues every load
+    if (lane == 0) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      int slot = 0;
+      uint32_t phase = 0;
+      const auto next = [&] {
+        if (++slot == p.stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      };
+      for (int j = 0; j < p.n_tiles; ++j) {
+        for (int i = 0; i < s_items; ++i) {
+          mbar_wait(&empty[slot], phase ^ 1);
+          uint8_t* st = ring + slot * kWideSlot;
+          mbar_expect_tx(&full[slot], kWideSlot);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = (2 * i + h) * kAtom;
+            tma_load_4d(st + 2 * h * kAtomTile, &map_q, &full[slot], col, head, q0, batch);
+            tma_load_4d(st + (2 * h + 1) * kAtomTile, &map_k, &full[slot], col, head, j * 64,
+                        batch);
+          }
+          next();
+        }
+        mbar_wait(&empty[slot], phase ^ 1);
+        uint8_t* st = ring + slot * kWideSlot;
+        mbar_expect_tx(&full[slot], OA * kAtomTile);
+#pragma unroll
+        for (int a = 0; a < OA; ++a)
+          tma_load_4d(st + a * kAtomTile, &map_v, &full[slot], col0 + a * kAtom, head, j * 64,
+                      batch);
+        next();
+      }
+    }
+    return;
+  }
+
+  const int wq = warp;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool arrives = wq == 0 && lane == 0;
+
+  float o[32 * OA];
+#pragma unroll
+  for (int i = 0; i < 32 * OA; ++i) o[i] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+  uint32_t pf[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) pf[k][0] = pf[k][1] = pf[k][2] = pf[k][3] = 0u;
+  fence_operands(o);
+
+  int slot = 0;
+  uint32_t phase = 0;
+  int held = -1;  // the slot the last committed group reads
+  for (int j = 0; j < p.n_tiles; ++j) {
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_operands(s);
+    for (int i = 0; i < s_items; ++i) {
+      mbar_wait(&full[slot], phase);
+      const uint8_t* st = ring + slot * kWideSlot;
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<64, 0>(s, desc_k(st + 2 * h * kAtomTile, kk),
+                          desc_k(st + (2 * h + 1) * kAtomTile, kk));
+      wgmma_commit();
+      fence_operands(s);
+      wgmma_wait<1>();  // the group before this one (the tile before's P V at i = 0)
+      fence_operands(s);
+      if (held >= 0 && arrives) mbar_arrive(&empty[held]);
+      held = slot;
+      if (++slot == p.stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(o);
+    fence_frags(pf);
+    if (arrives) mbar_arrive(&empty[held]);
+
+    const int kv0 = j * 64;
+    if (kv0 + 64 > p.sk) {  // the ragged last tile: keys >= Sk
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= p.sk) s[i] = kMasked;
+    }
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 2));
+      const float m_new = fmaxf(row_max[r], tile_max[r] * p.scale_log2);
+      alpha[r] = exp2_approx(row_max[r] - m_new);
+      row_max[r] = m_new;
+      row_sum[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2_approx(fmaf(s[i], p.scale_log2, -row_max[r]));
+      row_sum[r] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 32 * OA; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pf[kk], s, kk);
+
+    mbar_wait(&full[slot], phase);  // the chunk's V
+    const uint8_t* vs = ring + slot * kWideSlot;
+    fence_frags(pf);
+    fence_operands(o);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < OA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<64, 1>(o + 32 * a, pf[kk], desc_mn(vs + a * kAtomTile, kk));
+    wgmma_commit();
+    fence_operands(o);
+    held = slot;
+    if (++slot == p.stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(o);
+  fence_frags(pf);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 1);
+    row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 2);
+  }
+  const int row0 = q0 + wq * 16;
+  __nv_bfloat16* rows =
+      p.o + (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d + col0;
+#pragma unroll
+  for (int a = 0; a < OA; ++a)
+    store_acc(rows + a * kAtom, p.c, o + 32 * a, 1.f / row_sum[0], 1.f / row_sum[1],
+              row0 + g < p.sq, row0 + g + 8 < p.sq, g, t, p.d - col0 - a * kAtom);
+  if constexpr (kWriteLse) {
+    if (chunk == 0 && t == 0) {
+      float* l0 = p.lse + (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
+      if (row0 + g < p.sq) l0[0] = (row_max[0] + log2f(row_sum[0])) * kLn2;
+      if (row0 + g + 8 < p.sq)
+        l0[static_cast<size_t>(8) * p.heads] = (row_max[1] + log2f(row_sum[1])) * kLn2;
+    }
+  }
+}
+
+template <int OA, bool kWriteLse>
+int launch_fwd_wide(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                    const WideFwdParams& p, int batch, cudaStream_t stream) {
+  const int smem = wide_fwd_smem_bytes(p.stages);
+  static int configured = 0;  // the largest dynamic shared memory set so far
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(attention_fwd_wide_kernel<OA, kWriteLse>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  const dim3 grid((p.sq + 63) / 64 * p.chunks, p.heads, batch);
+  attention_fwd_wide_kernel<OA, kWriteLse><<<grid, kWideThreads, smem, stream>>>(mq, mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide forward (heads of more than four atoms: d > 256, a multiple of
+// 8) with a ring of `stages` slots; 0 or an error code. The plans' (nwg,
+// bn) of the wide kernel are (1, 64).
+template <bool kWriteLse>
+int forward_wide(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                 int sq, int sk, int heads, int d, int scale_dim, int stages,
+                 cudaStream_t stream) {
+  if (batch < 1 || sq < 1 || sk < 1 || heads < 1 || !head_dim_ok(d, scale_dim) ||
+      head_atoms(d) <= kNarrowAtoms || stages < 2 || stages > kMaxWideStages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  int rc = head_map(&mq, q, batch, sq, heads, d, 64);
+  if (rc) return rc;
+  if ((rc = head_map(&mk, k, batch, sk, heads, d, 64))) return rc;
+  if ((rc = head_map(&mv, v, batch, sk, heads, d, 64))) return rc;
+  WideFwdParams p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
+  p.sq = sq;
+  p.sk = sk;
+  p.c = heads * d;
+  p.d = d;
+  p.heads = heads;
+  p.atoms = head_atoms(d);
+  p.chunks = wide_chunks(p.atoms);
+  p.n_tiles = (sk + 63) / 64;
+  p.stages = stages;
+  p.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
+  return wide_chunk_atoms(p.atoms) == 3
+             ? launch_fwd_wide<3, kWriteLse>(mq, mk, mv, p, batch, stream)
+             : launch_fwd_wide<4, kWriteLse>(mq, mk, mv, p, batch, stream);
 }
 
 }  // namespace

@@ -3,12 +3,16 @@
 // operands of wgmma m64nNk16 with A in registers and B a 128-byte-swizzled
 // tile of 64-wide bf16 rows in shared memory, as TMA writes it.
 //
-// Head dims: a head of d columns (a multiple of 8, 8 to 256) is handled as
-// ceil(d / 64) atoms of 64 columns, the kernels' template parameter DA; d
-// itself is a runtime value. (A head dim that is not a multiple of 8 reaches
-// the kernels zero-padded to the next one by the wrappers, since TMA needs
-// 16-byte row strides; the scale follows the real head dim, `scale_dim`.)
-// An atom's TMA box at column h * d + 64 * a
+// Head dims: a head of d columns (a multiple of 8) is handled as ceil(d / 64)
+// atoms of 64 columns. Up to four atoms (d <= 256) the atom count is the
+// kernels' template parameter DA and d itself a runtime value; above four
+// the wide kernels read the head atom by atom through a ring and keep O (or
+// dQ, dK, dV) for one chunk of at most four atoms a block (wide_chunks
+// below), their atom count a runtime value: no d is too wide. (A head dim
+// that is not a multiple of 8 reaches the kernels zero-padded to the next
+// one by the wrappers, since TMA needs 16-byte row strides; the scale
+// follows the real head dim, `scale_dim`.)
+// In the narrow kernels an atom's TMA box at column h * d + 64 * a
 // reaches into the next head's columns (and past C, where TMA zero-fills):
 // every product that contracts over d sees zeros there, because one of its
 // operands has its columns d..64 * DA zeroed (zero_tail in shared memory,
@@ -18,6 +22,8 @@
 // d = 200 on 1.28x. A
 // non-finite value in the next head's columns still reaches this head's
 // sums (0 * inf): such a value makes that head's own output non-finite too.
+// The wide kernels' 4-D maps (head_map) bring zeros past d instead: there
+// is nothing to zero or mask, and no other head's value reaches a sum.
 //
 // Layouts (lane = 4 * g + t, warp w of a warpgroup owns rows 16w..16w+15):
 //   A fragment (16 x 16 bf16 a warp): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
@@ -48,7 +54,7 @@ namespace attn_hopper {
 
 constexpr int kAtom = 64;                // columns of a head atom
 constexpr int kRowBytes = kAtom * 2;     // one 64-wide bf16 row: the swizzle span
-constexpr int kMaxHeadDim = 256;  // four atoms
+constexpr int kNarrowAtoms = 4;  // the most atoms a block holds O for: d <= 256
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;  // the JAX kernels' _NEG_INF
 
@@ -81,10 +87,40 @@ __device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk) {
 inline int head_atoms(int d) { return (d + kAtom - 1) / kAtom; }
 
 // Whether the kernels take heads of d columns, scaled by 1 / sqrt(scale_dim):
-// d a multiple of 8 up to 256, scale_dim the real head dim it pads (d itself,
-// or up to 7 columns fewer).
+// d a multiple of 8, scale_dim the real head dim it pads (d itself, or up to
+// 7 columns fewer).
 inline bool head_dim_ok(int d, int scale_dim) {
-  return d >= 8 && d <= kMaxHeadDim && d % 8 == 0 && scale_dim <= d && scale_dim > d - 8;
+  return d >= 8 && d % 8 == 0 && scale_dim <= d && scale_dim > d - 8;
+}
+
+// The wide kernels (heads of more than four atoms): O's columns (the
+// backward's dQ, dK, dV) in wide_chunks(atoms) chunks of
+// wide_chunk_atoms(atoms) atoms, three or four, one chunk a block; S (and
+// dP) summed over every atom in each. Mirrored by
+// kernels/flash_attention.py::wide_chunking.
+inline int wide_chunks(int atoms) { return (atoms + kNarrowAtoms - 1) / kNarrowAtoms; }
+inline int wide_chunk_atoms(int atoms) {
+  return (atoms + wide_chunks(atoms) - 1) / wide_chunks(atoms);
+}
+// Their ring: slots of four 64-row atom tiles (bf16; 32 KB), two at least
+// (a block holds one slot across key tiles), as many as the plans give.
+constexpr int kWideSlot = 4 * 64 * kRowBytes;
+constexpr int kMaxWideStages = 6;
+
+// A (d, heads, S, B) map of a packed (B, S, heads * d) bf16 tensor with a
+// (64, 1, rows, 1) box, for the wide kernels: a box's columns at or past d
+// (the next head's in memory) and rows at or past S come in as TMA's zeros,
+// so every sum over d sees zeros there with no masking in the kernel.
+inline int head_map(CUtensorMap* map, const void* x, int batch, int s, int heads, int d,
+                    int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(heads) * d * 2,
+                                 static_cast<cuuint64_t>(s) * heads * d * 2};
+  const cuuint32_t box[4] = {kAtom, 1, static_cast<cuuint32_t>(rows), 1};
+  return hopper_host::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A fragments of a warp's 16 rows x 64 columns of a packed tensor, straight

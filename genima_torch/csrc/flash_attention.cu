@@ -1,6 +1,8 @@
 // Flash-attention forward on (B, S, H, D) for Hopper (sm_90a), any S, D a
-// multiple of 8 up to 256 (the wrapper zero-pads any other D up to 256 to
-// the next multiple of 8 and passes the real one as scale_dim).
+// multiple of 8 (the wrapper zero-pads any other D to the next multiple of 8
+// and passes the real one as scale_dim): up to 256 the narrow kernel, above
+// it attention_fwd_hopper.cuh's wide kernel (O in chunks of three or four
+// 64-column atoms, one a block).
 //
 // Replaces genima_tpu/kernels/flash_attention.py::_flash_forward /
 // _flash_kernel: non-causal softmax(Q K^T / sqrt(D)) V with an online
@@ -68,12 +70,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
                         void* stream) {
   if (flash_attention_smem_bytes(nwg, bn, stages, d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_atoms(d) > kNarrowAtoms)
+    return forward_wide<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d, scale_dim, stages,
+                               s);
   CUtensorMap mq, mk, mv;
   FwdParams p;
   const int rc = prepare_fwd(&mq, &mk, &mv, &p, q, k, v, o, nullptr, batch, sq, sk, heads, d,
                              scale_dim, nwg, bn, stages);
   if (rc) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_atoms(d)) {
     case 1: return launch<1>(mq, mk, mv, p, batch, nwg, bn, s);
     case 2: return launch<2>(mq, mk, mv, p, batch, nwg, bn, s);
@@ -87,6 +92,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
 int flash_attention_smem_bytes(int nwg, int bn, int stages, int d) {
   if (!head_dim_ok(d, d) || stages < 1) return 0;
   const int atoms = head_atoms(d);
+  if (atoms > kNarrowAtoms)  // the wide kernel: one warpgroup on 64-key tiles
+    return nwg == 1 && bn == 64 && stages >= 2 && stages <= kMaxWideStages
+               ? wide_fwd_smem_bytes(stages)
+               : 0;
   const bool tile =
       atoms == 1 ? (nwg == 3 ? bn == 128
                              : (nwg == 1 || nwg == 2) && (bn == 64 || bn == 80 || bn == 128))
@@ -94,9 +103,9 @@ int flash_attention_smem_bytes(int nwg, int bn, int stages, int d) {
   return tile ? fwd_smem_bytes(nwg, bn, stages, atoms) : 0;
 }
 
-// The same on (B, S, heads, d) f32 tensors, d a multiple of 4 up to 256
-// (the wrapper zero-pads any other head dim and passes the real one as
-// scale_dim), Sq and Sk >= 1, with the consumer warpgroups, key tile and
+// The same on (B, S, heads, d) f32 tensors, d a multiple of 4 (the wrapper
+// zero-pads any other head dim and passes the real one as scale_dim; above
+// 256 the wide f32 kernel), Sq and Sk >= 1, with the consumer warpgroups, key tile and
 // ring depth of kernels/flash_attention.py::f32_plan.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int batch,
                             int sq, int sk, int heads, int d, int scale_dim, int nwg, int bn,
@@ -110,8 +119,7 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o
 int flash_attention_f32_smem_bytes(int nwg, int bn, int stages, int d) {
   if (!attn_f32::head_dim_ok(d, d) || stages < 1) return 0;
   const int da = attn_f32::head_atoms(d);
-  return attn_f32::fwd_tile_ok<true>(da, nwg, bn) ? attn_f32::fwd_smem_bytes(da, nwg, bn, stages)
-                                                  : 0;
+  return attn_f32::fwd_launch_smem<true>(da, nwg, bn, stages);
 }
 
 const char* flash_attention_error_string(int code) { return hopper_host::error_string(code); }

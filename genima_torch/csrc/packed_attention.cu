@@ -8,9 +8,11 @@
 // normaliser the backward (packed_attention_bwd.cu) rebuilds P from.
 //
 // Layout: q, k, v and o are (B, S, heads * d) bf16, row-major, exactly as
-// the to_q / to_k / to_v projections emit them; d a multiple of 8 up to 256
-// (the wrapper zero-pads any other head dim up to 256 to the next multiple
-// of 8 and passes the real one as scale_dim), S any multiple of 64. A block
+// the to_q / to_k / to_v projections emit them; d a multiple of 8 (the
+// wrapper zero-pads any other head dim to the next multiple of 8 and passes
+// the real one as scale_dim; above 256 the wide kernel of
+// attention_fwd_hopper.cuh, O in chunks of three or four 64-column atoms,
+// one a block), Sq and Sk any length >= 1, as the TPU forward's. A block
 // reads head h as the d columns at offset h * d with row stride
 // C = heads * d, through 3-D (C, S, B) TMA maps, so no (S, H, D) ->
 // (H, S, D) transpose ever touches device memory. L is (B, S, heads) f32.
@@ -63,6 +65,8 @@ int forward(const void* q, const void* k, const void* v, void* o, float* lse, in
             cudaStream_t s) {
   if (packed_attention_smem_bytes(nwg, bn, stages, d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (head_atoms(d) > kNarrowAtoms)
+    return forward_wide<kWriteLse>(q, k, v, o, lse, batch, sq, sk, heads, d, scale_dim, stages, s);
   CUtensorMap mq, mk, mv;
   FwdParams p;
   const int rc = prepare_fwd(&mq, &mk, &mv, &p, q, k, v, o, lse, batch, sq, sk, heads, d,
@@ -86,8 +90,12 @@ int packed_attention_smem_bytes(int nwg, int bn, int stages, int d) {
   if (!head_dim_ok(d, d) || stages < 1) return 0;
   // one atom: (1, 64) and (1 to 3, 128), as 64-key tiles with more
   // warpgroups never won; two or three: (1 or 2, 64), four: (1, 64), what
-  // their registers and shared memory leave
+  // their registers and shared memory leave; more: the wide kernel's (1, 64)
   const int atoms = head_atoms(d);
+  if (atoms > kNarrowAtoms)
+    return nwg == 1 && bn == 64 && stages >= 2 && stages <= kMaxWideStages
+               ? wide_fwd_smem_bytes(stages)
+               : 0;
   const bool tile = atoms == 1 ? (bn == 64 ? nwg == 1 : bn == 128 && nwg >= 1 && nwg <= 3)
                                : bn == 64 && (nwg == 1 || (atoms < 4 && nwg == 2));
   return tile ? fwd_smem_bytes(nwg, bn, stages, atoms) : 0;
@@ -116,10 +124,10 @@ int packed_attention_fwd_lse(const void* q, const void* k, const void* v, void* 
                        nwg, bn, stages, static_cast<cudaStream_t>(stream));
 }
 
-// B1 and B2a on packed (B, S, heads * d) f32 tensors, d a multiple of 4 up
-// to 256 (the wrapper zero-pads any other head dim and passes the real one
-// as scale_dim), Sq and Sk >= 1 (the wrapper holds them to multiples of 64,
-// as B2b needs), with the consumer warpgroups, key tile and ring depth of
+// B1 and B2a on packed (B, S, heads * d) f32 tensors, d a multiple of 4
+// (the wrapper zero-pads any other head dim and passes the real one as
+// scale_dim; above 256 the wide f32 kernel), Sq and Sk >= 1, with the
+// consumer warpgroups, key tile and ring depth of
 // kernels/flash_attention.py::f32_plan; L into `lse` when it is not null.
 // Launches on `stream`, does not synchronise; returns 0 or an error code
 // for packed_attention_error_string.
@@ -139,8 +147,7 @@ int packed_attention_fwd_f32(const void* q, const void* k, const void* v, void* 
 int packed_attention_f32_smem_bytes(int nwg, int bn, int stages, int d) {
   if (!attn_f32::head_dim_ok(d, d) || stages < 1) return 0;
   const int da = attn_f32::head_atoms(d);
-  return attn_f32::fwd_tile_ok<false>(da, nwg, bn) ? attn_f32::fwd_smem_bytes(da, nwg, bn, stages)
-                                                   : 0;
+  return attn_f32::fwd_launch_smem<false>(da, nwg, bn, stages);
 }
 
 const char* packed_attention_error_string(int code) { return hopper_host::error_string(code); }

@@ -11,9 +11,9 @@
 //
 // Layout: every tensor is packed (B, S, heads * d) bf16, read at column
 // offset h * d with row stride C, as the forward reads it; d a multiple of 8
-// up to 256 (the wrapper zero-pads any other head dim up to 256 to the next
-// multiple of 8 and passes the real one as scale_dim), Sq and Sk any
-// multiples of 64. The TPU wrapper transposes to (B * heads, S, d) around
+// (the wrapper zero-pads any other head dim to the next multiple of 8 and
+// passes the real one as scale_dim; above 256 the wide kernels below), Sq
+// and Sk any multiples of 64. The TPU wrapper transposes to (B * heads, S, d) around
 // its kernel; the packed kernel exists to avoid those transposes, so this
 // one reads head-strided instead. L is (B, Sq, heads) f32.
 //
@@ -639,6 +639,431 @@ int launch_bwd(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap&
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- heads of more than four atoms (d > 256) --------------------------------
+//
+// A chunk of dQ, dK or dV of four atoms already holds 128 f32 a thread beside
+// S and dP; the narrow kernels keep every atom of a block's resident
+// tensors, which no shared memory holds at every d. So above four atoms each
+// output is made in chunks of OA = 3 or 4 atoms (wide_chunk_atoms), one
+// chunk a block, with nothing of the head resident: per streamed tile, S
+// and dP (and their transposes) are summed over every atom of the head
+// from a ring of 32 KB slots (attention_hopper.cuh's kWideSlot: four 64-row
+// atom tiles), then the chunk's product runs on the chunk's atoms of the
+// tile:
+//   * dq kernel, one block per (64 query rows, chunk, head, batch): per
+//     64-key tile, `atoms` items (Q, K, dO, V of one atom) for S = Q K^T and
+//     dP = dO V^T, then one item of K's chunk atoms for dQ += dS K. Its
+//     prologue forms Drow = rowsum(dO * O) over the whole of d (from global
+//     memory) and L * log2(e); chunk 0 writes both into `delta`.
+//   * dV kernel (kDK false), one block per (64 keys, chunk, head, batch):
+//     per 64-query tile, ceil(atoms / 2) items (K and Q of two atoms) for
+//     S^T = K Q^T, then one item of dO's chunk atoms, with the tile's
+//     L * log2(e) and Drow, for dV += P^T dO;
+//   * dK kernel (kDK true): `atoms` items (K, Q, V, dO of one atom) for S^T
+//     and dP^T = V dO^T, then Q's chunk atoms for dK += dS^T Q.
+// The dV and dK passes of the narrow kernels above two atoms are here two
+// launches over separate grids (a kernel template each, so that no wgmma
+// sits in a data-dependent branch). No atomics: two calls give the same
+// bits. One consumer warpgroup and a one-warp producer (160 threads, up to
+// 255 registers); the 4-D maps (head_map) give zeros past d and so no
+// masking. The price of streaming: Q, K, dO, V re-read from L2 for every
+// tile and chunk (S is formed 2 + 2 * chunks times, dP 1 + chunks).
+
+constexpr int kWideThreads = 160;
+
+struct WideBwdParams {
+  const __nv_bfloat16 *o, *dout;
+  const float* lse;  // (B, Sq, heads)
+  float* l2;         // (B, heads, Sq): L * log2(e), written by the dq kernel (chunk 0)
+  float* drow;       // (B, heads, Sq): rowsum(dO * O), likewise
+  __nv_bfloat16* out;  // dq, dk or dv: the kernel's output
+  int sq, sk, c, d, heads, atoms, chunks;
+  float scale_log2, scale;
+};
+
+// Rings of the wide backward: slots of four 64-row atom tiles, a stage's 64
+// values of L * log2(e) and Drow (the dk/dv kernels), the barriers.
+constexpr int wide_bwd_smem_bytes(bool dkdv) {
+  return 1024 + kMaxWideStages * (kWideSlot + (dkdv ? 2 * 64 * 4 : 0) + 16);
+}
+
+// S (and, with kDP, dP) for a tile: `items` slots from the ring, each one
+// atom of X Y^T into s and of X2 Y2^T into dp (kDP), or two atoms of X Y^T
+// into s; each slot goes back once the group after it has been issued and
+// the one before it retired. `held` is the slot of the last committed group
+// (-1: none).
+template <bool kDP>
+__device__ __forceinline__ void wide_scores(float (&s)[32], float (&dp)[32], int items,
+                                            const uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                            int stages, int& slot, uint32_t& phase, int& held,
+                                            bool arrives) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  fence_operands(s);
+  if constexpr (kDP) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = 0.f;
+    fence_operands(dp);
+  }
+  for (int i = 0; i < items; ++i) {
+    mbar_wait(&full[slot], phase);
+    const uint8_t* st = ring + slot * kWideSlot;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0>(s, desc_k(st, kk), desc_k(st + kAtomTile, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (kDP)
+        wgmma_ss<64, 0>(dp, desc_k(st + 2 * kAtomTile, kk), desc_k(st + 3 * kAtomTile, kk));
+      else
+        wgmma_ss<64, 0>(s, desc_k(st + 2 * kAtomTile, kk), desc_k(st + 3 * kAtomTile, kk));
+    }
+    wgmma_commit();
+    fence_operands(s);
+    if constexpr (kDP) fence_operands(dp);
+    wgmma_wait<1>();
+    fence_operands(s);
+    if constexpr (kDP) fence_operands(dp);
+    if (held >= 0 && arrives) mbar_arrive(&empty[held]);
+    held = slot;
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(s);
+  if constexpr (kDP) fence_operands(dp);
+  if (arrives) mbar_arrive(&empty[held]);
+}
+
+template <int OA>
+__device__ __forceinline__ void wide_chunk_mma(float* acc, const uint32_t (&af)[4][4],
+                                               const uint8_t* tile) {
+#pragma unroll
+  for (int a = 0; a < OA; ++a)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<64, 1>(acc + 32 * a, af[kk], desc_mn(tile + a * kAtomTile, kk));
+}
+
+// The chunk's 64 rows x OA atoms of an output from `row` (rows of stride c).
+template <int OA>
+__device__ __forceinline__ void wide_store(const WideBwdParams& p, const float* acc, int batch,
+                                           int s, int row, int head, int chunk, int g, int t) {
+  const int col0 = chunk * OA * kAtom;
+  __nv_bfloat16* dst = p.out + (static_cast<size_t>(batch) * s + row) * p.c + head * p.d + col0;
+#pragma unroll
+  for (int a = 0; a < OA; ++a)
+    store_acc(dst + a * kAtom, p.c, acc + 32 * a, 1.f, 1.f, true, true, g, t,
+              p.d - col0 - a * kAtom);
+}
+
+template <int OA>
+__global__ void __launch_bounds__(kWideThreads, 1)
+bwd_wide_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const WideBwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kMaxWideStages * kWideSlot);
+  uint64_t* empty = full + kMaxWideStages;
+  const int chunk = blockIdx.x % p.chunks;
+  const int q0 = blockIdx.x / p.chunks * 64;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int n_tiles = p.sk / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxWideStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4) {
+    if (lane == 0) {
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        for (int a = 0; a <= p.atoms; ++a) {  // `atoms` S/dP items, then the chunk's K
+          mbar_wait(&empty[slot], phase ^ 1);
+          uint8_t* st = ring + slot * kWideSlot;
+          if (a < p.atoms) {
+            mbar_expect_tx(&full[slot], kWideSlot);
+            tma_load_4d(st, &map_q, &full[slot], a * kAtom, head, q0, batch);
+            tma_load_4d(st + kAtomTile, &map_k, &full[slot], a * kAtom, head, j * 64, batch);
+            tma_load_4d(st + 2 * kAtomTile, &map_do, &full[slot], a * kAtom, head, q0, batch);
+            tma_load_4d(st + 3 * kAtomTile, &map_v, &full[slot], a * kAtom, head, j * 64, batch);
+          } else {
+            mbar_expect_tx(&full[slot], OA * kAtomTile);
+            for (int c = 0; c < OA; ++c)
+              tma_load_4d(st + c * kAtomTile, &map_k, &full[slot], (chunk * OA + c) * kAtom, head,
+                          j * 64, batch);
+          }
+          if (++slot == kMaxWideStages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const bool arrives = warp == 0 && lane == 0;
+  const int row0 = q0 + warp * 16;
+  // Drow over every column of the head and L * log2(e), rows g and g + 8
+  float drow[2] = {0.f, 0.f}, l2[2];
+  const size_t rows_off = (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d;
+  for (int col = 2 * t; col < p.d; col += 8)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t off = rows_off + static_cast<size_t>(g + 8 * r) * p.c + col;
+      const float2 x = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.dout + off));
+      const float2 y = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.o + off));
+      drow[r] += x.x * y.x + x.y * y.y;
+    }
+  const size_t lrow = (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
+  const size_t srow = (static_cast<size_t>(batch) * p.heads + head) * p.sq + row0 + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    drow[r] += __shfl_xor_sync(0xffffffff, drow[r], 1);
+    drow[r] += __shfl_xor_sync(0xffffffff, drow[r], 2);
+    l2[r] = p.lse[lrow + static_cast<size_t>(8 * r) * p.heads] * kLog2e;
+    if (chunk == 0 && t == 0) {
+      p.l2[srow + 8 * r] = l2[r];
+      p.drow[srow + 8 * r] = drow[r];
+    }
+  }
+
+  float dq[32 * OA];
+#pragma unroll
+  for (int i = 0; i < 32 * OA; ++i) dq[i] = 0.f;
+  uint32_t dsf[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) dsf[kk][0] = dsf[kk][1] = dsf[kk][2] = dsf[kk][3] = 0u;
+  fence_operands(dq);
+  int slot = 0, held = -1;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[32], dp[32];
+    wide_scores<true>(s, dp, p.atoms, ring, full, empty, kMaxWideStages, slot, phase, held,
+                      arrives);
+    fence_operands(dq);
+    fence_frags(dsf);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      dp[i] = exp2_approx(fmaf(s[i], p.scale_log2, -l2[r])) * (dp[i] - drow[r]) * p.scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(dsf[kk], dp, kk);
+    mbar_wait(&full[slot], phase);  // the chunk's K
+    fence_frags(dsf);
+    fence_operands(dq);
+    wgmma_fence();
+    wide_chunk_mma<OA>(dq, dsf, ring + slot * kWideSlot);  // dQ += dS K
+    wgmma_commit();
+    fence_operands(dq);
+    held = slot;
+    if (++slot == kMaxWideStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(dq);
+  fence_frags(dsf);
+  wide_store<OA>(p, dq, batch, p.sq, row0, head, chunk, g, t);
+}
+
+template <int OA, bool kDK>
+__global__ void __launch_bounds__(kWideThreads, 1)
+bwd_wide_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, const WideBwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  float* rows_ring = reinterpret_cast<float*>(ring + kMaxWideStages * kWideSlot);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_ring + kMaxWideStages * 2 * 64);
+  uint64_t* empty = full + kMaxWideStages;
+  const int chunk = blockIdx.x % p.chunks;
+  const int k0 = blockIdx.x / p.chunks * 64;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int n_tiles = p.sq / 64;
+  const int items = kDK ? p.atoms : (p.atoms + 1) / 2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxWideStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4) {
+    if (lane == 0) {
+      const size_t bh = (static_cast<size_t>(batch) * p.heads + head) * p.sq;
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        for (int n = 0; n <= items; ++n) {  // S^T (/ dP^T) items, then the chunk's item
+          mbar_wait(&empty[slot], phase ^ 1);
+          uint8_t* st = ring + slot * kWideSlot;
+          if (n < items) {
+            mbar_expect_tx(&full[slot], kWideSlot);
+            const int a = kDK ? n : 2 * n;
+            tma_load_4d(st, &map_k, &full[slot], a * kAtom, head, k0, batch);
+            tma_load_4d(st + kAtomTile, &map_q, &full[slot], a * kAtom, head, i * 64, batch);
+            if (kDK) {
+              tma_load_4d(st + 2 * kAtomTile, &map_v, &full[slot], a * kAtom, head, k0, batch);
+              tma_load_4d(st + 3 * kAtomTile, &map_do, &full[slot], a * kAtom, head, i * 64,
+                          batch);
+            } else {
+              tma_load_4d(st + 2 * kAtomTile, &map_k, &full[slot], (a + 1) * kAtom, head, k0,
+                          batch);
+              tma_load_4d(st + 3 * kAtomTile, &map_q, &full[slot], (a + 1) * kAtom, head, i * 64,
+                          batch);
+            }
+          } else {
+            float* rs = rows_ring + slot * 2 * 64;
+            mbar_expect_tx(&full[slot], OA * kAtomTile + 2 * 64 * 4);
+            for (int c = 0; c < OA; ++c)
+              tma_load_4d(st + c * kAtomTile, kDK ? &map_q : &map_do, &full[slot],
+                          (chunk * OA + c) * kAtom, head, i * 64, batch);
+            bulk_load(rs, p.l2 + bh + i * 64, 64 * 4, &full[slot]);
+            bulk_load(rs + 64, p.drow + bh + i * 64, 64 * 4, &full[slot]);
+          }
+          if (++slot == kMaxWideStages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const bool arrives = warp == 0 && lane == 0;
+  float acc[32 * OA];
+#pragma unroll
+  for (int i = 0; i < 32 * OA; ++i) acc[i] = 0.f;
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) af[kk][0] = af[kk][1] = af[kk][2] = af[kk][3] = 0u;
+  fence_operands(acc);
+  int slot = 0, held = -1;
+  uint32_t phase = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    // transposed scores: rows are this warp's keys g, g + 8; accumulator
+    // value e of column group j is query 8j + 2t + (e & 1) of the tile
+    float s[32], dp[32];
+    wide_scores<kDK>(s, dp, items, ring, full, empty, kMaxWideStages, slot, phase, held,
+                     arrives);
+    fence_operands(acc);
+    fence_frags(af);
+    mbar_wait(&full[slot], phase);  // the chunk's tile and the rows' L * log2(e), Drow
+    const float* rs = rows_ring + slot * 2 * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(rs + 8 * j + 2 * t);
+      const float2 dr = *reinterpret_cast<const float2*>(rs + 64 + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i4 = 4 * j + e;
+        s[i4] = exp2_approx(fmaf(s[i4], p.scale_log2, -(e & 1 ? l.y : l.x)));
+        if constexpr (kDK) s[i4] = s[i4] * (dp[i4] - (e & 1 ? dr.y : dr.x)) * p.scale;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(af[kk], s, kk);
+    fence_frags(af);
+    fence_operands(acc);
+    wgmma_fence();
+    wide_chunk_mma<OA>(acc, af, ring + slot * kWideSlot);  // dK += dS^T Q, dV += P^T dO
+    wgmma_commit();
+    fence_operands(acc);
+    held = slot;
+    if (++slot == kMaxWideStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  fence_frags(af);
+  wide_store<OA>(p, acc, batch, p.sk, k0 + warp * 16, head, chunk, g, t);
+}
+
+template <int OA>
+int launch_bwd_wide(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap& mk,
+                    const CUtensorMap& mv, WideBwdParams p, __nv_bfloat16* dq,
+                    __nv_bfloat16* dk, __nv_bfloat16* dv, int batch, cudaStream_t st) {
+  constexpr int dq_smem = wide_bwd_smem_bytes(false), dkdv_smem = wide_bwd_smem_bytes(true);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(bwd_wide_dq_kernel<OA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(bwd_wide_dkdv_kernel<OA, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(bwd_wide_dkdv_kernel<OA, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  p.out = dq;
+  bwd_wide_dq_kernel<OA><<<dim3(p.sq / 64 * p.chunks, p.heads, batch), kWideThreads, dq_smem,
+                           st>>>(mq, mdo, mk, mv, p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(p.sk / 64 * p.chunks, p.heads, batch);
+  p.out = dv;
+  bwd_wide_dkdv_kernel<OA, false><<<grid, kWideThreads, dkdv_smem, st>>>(mq, mdo, mk, mv, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  p.out = dk;
+  bwd_wide_dkdv_kernel<OA, true><<<grid, kWideThreads, dkdv_smem, st>>>(mq, mdo, mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2b at heads of more than four atoms (d > 256); the arguments as
+// packed_attention_bwd's.
+int backward_wide(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                  const void* dout, void* delta, void* dq, void* dk, void* dv, int batch, int sq,
+                  int sk, int heads, int d, int scale_dim, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = head_map(&mq, q, batch, sq, heads, d, 64))) return rc;
+  if ((rc = head_map(&mk, k, batch, sk, heads, d, 64))) return rc;
+  if ((rc = head_map(&mv, v, batch, sk, heads, d, 64))) return rc;
+  if ((rc = head_map(&mdo, dout, batch, sq, heads, d, 64))) return rc;
+  WideBwdParams p;
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.l2 = static_cast<float*>(delta);
+  p.drow = p.l2 + static_cast<size_t>(batch) * heads * sq;
+  p.sq = sq;
+  p.sk = sk;
+  p.c = heads * d;
+  p.d = d;
+  p.heads = heads;
+  p.atoms = head_atoms(d);
+  p.chunks = wide_chunks(p.atoms);
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(scale_dim)));
+  p.scale_log2 = kLog2e * p.scale;
+  auto* bq = static_cast<__nv_bfloat16*>(dq);
+  auto* bk = static_cast<__nv_bfloat16*>(dk);
+  auto* bv = static_cast<__nv_bfloat16*>(dv);
+  return wide_chunk_atoms(p.atoms) == 3
+             ? launch_bwd_wide<3>(mq, mdo, mk, mv, p, bq, bk, bv, batch, st)
+             : launch_bwd_wide<4>(mq, mdo, mk, mv, p, bq, bk, bv, batch, st);
+}
+
 }  // namespace
 
 namespace attn_f32 {
@@ -1085,6 +1510,317 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- heads of more than four atoms (d > 256) --------------------------------
+//
+// B2b on f32 at d > 256, on the header's wide pieces (attention_f32_hopper.cuh:
+// a ring of 32 KB slots of S items and chunk items, 4-D maps, a fresh
+// accumulator an atom): dQ, dV and dK in chunks of OA atoms, one chunk a
+// block, as the bf16 wide kernels above make them.
+//   * dq kernel, one block per (64 query rows, chunk, head, batch): per tile
+//     of kWideT keys, two S items an atom ((Q, K) into S, (dO, V) into dP),
+//     then K's chunk atoms for dQ += dS K. The prologue as the narrow f32 dq
+//     kernel's, over every column; chunk 0 writes `delta`.
+//   * dk/dv kernel <kDK>, one block per (64 keys, chunk, head, batch): per
+//     tile of kWideT query rows, (K, Q) into S^T (and with kDK (V, dO) into
+//     dP^T) an atom, then the chunk item (dO's chunk atoms for dV += P^T dO,
+//     or Q's for dK += dS^T Q) with the tile's L * log2(e) and Drow. dV and
+//     dK are two launches.
+
+template <int OA>
+__global__ void __launch_bounds__(kWideThreadsF32, 1)
+attention_f32_dq_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v, const WideParamsF32 p) {
+  constexpr int NS = 2 * OA, kS = kWideT / 2, S = attn_hopper::kMaxWideStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = attn_hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * kWideSlotF32);
+  uint64_t* ready = full + S;
+  uint64_t* empty = ready + S;
+  const int chunk = blockIdx.x % p.chunks;
+  const int q0 = blockIdx.x / p.chunks * 64;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int col0 = chunk * OA * 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kSplitters);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4) {
+    const CUtensorMap *mq = &map_q, *mdo = &map_do, *mk = &map_k, *mv = &map_v;
+    const int items = 2 * p.atoms;
+    wide_producer(p.sk / kWideT, items, ring, full, ready, empty, S, [=](int j, int n, int slot) {
+      uint8_t* st = ring + slot * kWideSlotF32;
+      if (n < items) {
+        mbar_expect_tx(&full[slot], kWideX + kWideY);
+        tma_atom_x(st, n & 1 ? mdo : mq, &full[slot], n >> 1, head, q0, batch);
+        tma_atom_y(st + kWideX, n & 1 ? mv : mk, &full[slot], n >> 1, head, j * kWideT, batch);
+      } else {
+        mbar_expect_tx(&full[slot], OA * 2 * kWideT * kSlabBytes);
+        tma_chunk<OA>(st, mk, &full[slot], col0, head, j * kWideT, batch);
+      }
+    });
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  const int row = q0 + row0 + g;  // global row of r = 0; r = 1 is row + 8
+  float l2[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    const size_t at = (static_cast<size_t>(batch) * p.sq + rr) * p.c + head * p.d;
+    float acc = 0.f;
+    for (int c = 4 * t; c < p.d; c += 16) {
+      const float4 a = *reinterpret_cast<const float4*>(p.dout + at + c);
+      const float4 b = *reinterpret_cast<const float4*>(p.o_in + at + c);
+      acc = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+    }
+    acc += __shfl_xor_sync(0xffffffff, acc, 1);
+    acc += __shfl_xor_sync(0xffffffff, acc, 2);
+    dr[r] = acc;
+    l2[r] = p.lse_in[(static_cast<size_t>(batch) * p.sq + rr) * p.heads + head] * kLog2e;
+    if (chunk == 0 && t == 0) {
+      const size_t sat = (static_cast<size_t>(batch) * p.heads + head) * p.sq + rr;
+      p.l2[sat] = l2[r];
+      p.drow[sat] = acc;
+    }
+  }
+  float dq[NS][4][4];
+  zero_slabs(dq);
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < p.sk / kWideT; ++j) {
+    float s[kS], dp[kS];
+    zero(s);
+    zero(dp);
+    for (int a = 0; a < p.atoms; ++a) {
+      wide_scores_item(s, ring, full, ready, empty, S, slot, phase, row0, lane);
+      wide_scores_item(dp, ring, full, ready, empty, S, slot, phase, row0, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = attn_hopper::exp2_approx(fmaf(s[i], p.scale_log2, -l2[r])) * (dp[i] - dr[r]) *
+             p.scale;  // dS
+    }
+    mbar_wait(&full[slot], phase);  // the chunk's K
+    mbar_wait(&ready[slot], phase);
+    const uint8_t* kt = ring + slot * kWideSlotF32;
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      float part[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
+      gemm_xb<kWideT, false>(part, s, kt + sl * kWideT * kSlabBytes, nullptr, g, t);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[sl][nb][e] += part[nb][e];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (++slot == S) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  float* dst = p.o + (static_cast<size_t>(batch) * p.sq + row) * p.c + head * p.d + col0;
+#pragma unroll
+  for (int sl = 0; sl < NS; ++sl)
+    store_slab(dst + 32 * sl, p.c, dq[sl], 1.f, 1.f, true, true, t, p.d - col0 - 32 * sl);
+}
+
+template <int OA, bool kDK>
+__global__ void __launch_bounds__(kWideThreadsF32, 1)
+attention_f32_dkdv_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v, const WideParamsF32 p) {
+  constexpr int NS = 2 * OA, kS = kWideT / 2, S = attn_hopper::kMaxWideStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = attn_hopper::align1024(smem_raw);
+  float* rows = reinterpret_cast<float*>(ring + S * kWideSlotF32);  // a stage's L * log2(e), Drow
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + S * 2 * kWideT);
+  uint64_t* ready = full + S;
+  uint64_t* empty = ready + S;
+  const int chunk = blockIdx.x % p.chunks;
+  const int k0 = blockIdx.x / p.chunks * 64;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int col0 = chunk * OA * 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kSplitters);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4) {
+    const CUtensorMap *mq = &map_q, *mdo = &map_do, *mk = &map_k, *mv = &map_v;
+    const int items = (kDK ? 2 : 1) * p.atoms;
+    const size_t bh = (static_cast<size_t>(batch) * p.heads + head) * p.sq;
+    const float *l2 = p.l2 + bh, *drow = p.drow + bh;
+    wide_producer(p.sq / kWideT, items, ring, full, ready, empty, S, [=](int j, int n, int slot) {
+      uint8_t* st = ring + slot * kWideSlotF32;
+      if (n < items) {
+        const bool second = kDK && (n & 1);  // (V, dO) after (K, Q)
+        const int atom = kDK ? n >> 1 : n;
+        mbar_expect_tx(&full[slot], kWideX + kWideY);
+        tma_atom_x(st, second ? mv : mk, &full[slot], atom, head, k0, batch);
+        tma_atom_y(st + kWideX, second ? mdo : mq, &full[slot], atom, head, j * kWideT, batch);
+      } else {
+        float* rs = rows + slot * 2 * kWideT;
+        mbar_expect_tx(&full[slot], OA * 2 * kWideT * kSlabBytes + 2 * kWideT * 4);
+        tma_chunk<OA>(st, kDK ? mq : mdo, &full[slot], col0, head, j * kWideT, batch);
+        bulk_load(rs, l2 + j * kWideT, kWideT * 4, &full[slot]);
+        bulk_load(rs + kWideT, drow + j * kWideT, kWideT * 4, &full[slot]);
+      }
+    });
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  float acc[NS][4][4];
+  zero_slabs(acc);
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < p.sq / kWideT; ++j) {
+    // transposed scores: rows are this warp's keys; value e of column group
+    // i / 4 is query 8 (i / 4) + 2t + (e & 1) of the tile
+    float st[kS], dpt[kS];
+    zero(st);
+    if constexpr (kDK) zero(dpt);
+    for (int a = 0; a < p.atoms; ++a) {
+      wide_scores_item(st, ring, full, ready, empty, S, slot, phase, row0, lane);
+      if constexpr (kDK)
+        wide_scores_item(dpt, ring, full, ready, empty, S, slot, phase, row0, lane);
+    }
+    mbar_wait(&full[slot], phase);  // the chunk's tile, L * log2(e) and Drow
+    mbar_wait(&ready[slot], phase);
+    const uint8_t* ct = ring + slot * kWideSlotF32;
+    const float* l2 = rows + slot * 2 * kWideT;
+    const float* dr = l2 + kWideT;
+#pragma unroll
+    for (int i = 0; i < kS; i += 4) {
+      const float2 l = *reinterpret_cast<const float2*>(l2 + 2 * i + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(dr + 2 * i + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[i + e] = attn_hopper::exp2_approx(fmaf(st[i + e], p.scale_log2, e & 1 ? -l.y : -l.x));
+        if constexpr (kDK)  // dS^T
+          st[i + e] = st[i + e] * (dpt[i + e] - (e & 1 ? d2.y : d2.x)) * p.scale;
+      }
+    }
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl) {
+      float part[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
+      gemm_xb<kWideT, false>(part, st, ct + sl * kWideT * kSlabBytes, nullptr, g, t);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[sl][nb][e] += part[nb][e];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (++slot == S) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  const int key = k0 + row0 + g;
+  float* dst = p.o + (static_cast<size_t>(batch) * p.sk + key) * p.c + head * p.d + col0;
+#pragma unroll
+  for (int sl = 0; sl < NS; ++sl)
+    store_slab(dst + 32 * sl, p.c, acc[sl], 1.f, 1.f, true, true, t, p.d - col0 - 32 * sl);
+}
+
+// x*: maps of 64-row boxes (a block's rows: Q and dO in the dq kernel, K
+// and V in the dk/dv kernels), y*: of kWideT-row boxes (a streamed tile's).
+template <int OA>
+int launch_bwd_wide(const CUtensorMap (&x)[4], const CUtensorMap (&y)[4], WideParamsF32 p,
+                    float* dq, float* dk, float* dv, int batch, cudaStream_t st) {
+  constexpr int dq_smem = wide_smem_bytes(attn_hopper::kMaxWideStages, false);
+  constexpr int dkdv_smem = wide_smem_bytes(attn_hopper::kMaxWideStages, true);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(attention_f32_dq_wide_kernel<OA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attention_f32_dkdv_wide_kernel<OA, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attention_f32_dkdv_wide_kernel<OA, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  p.o = dq;  // maps in the order q, dO, k, v
+  attention_f32_dq_wide_kernel<OA><<<dim3(p.sq / 64 * p.chunks, p.heads, batch),
+                                     kWideThreadsF32, dq_smem, st>>>(x[0], x[1], y[2], y[3], p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(p.sk / 64 * p.chunks, p.heads, batch);
+  p.o = dv;
+  attention_f32_dkdv_wide_kernel<OA, false>
+      <<<grid, kWideThreadsF32, dkdv_smem, st>>>(y[0], y[1], x[2], x[3], p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  p.o = dk;
+  attention_f32_dkdv_wide_kernel<OA, true>
+      <<<grid, kWideThreadsF32, dkdv_smem, st>>>(y[0], y[1], x[2], x[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 backward at d > 256; the arguments as `backward`'s.
+int backward_wide(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                  const void* dout, void* delta, void* dq, void* dk, void* dv, int batch, int sq,
+                  int sk, int heads, int d, int scale_dim, cudaStream_t stream) {
+  const void* base[4] = {q, dout, k, v};
+  const int rows[4] = {sq, sq, sk, sk};
+  CUtensorMap x[4], y[4];
+  for (int i = 0; i < 4; ++i) {
+    int rc = head_map_f32(&x[i], base[i], batch, rows[i], heads, d, 64);
+    if (!rc) rc = head_map_f32(&y[i], base[i], batch, rows[i], heads, d, kWideT);
+    if (rc) return rc;
+  }
+  WideParamsF32 p{};
+  p.o_in = static_cast<const float*>(o);
+  p.dout = static_cast<const float*>(dout);
+  p.lse_in = static_cast<const float*>(lse);
+  p.l2 = static_cast<float*>(delta);
+  p.drow = p.l2 + static_cast<size_t>(batch) * heads * sq;
+  p.sq = sq;
+  p.sk = sk;
+  p.c = heads * d;
+  p.d = d;
+  p.heads = heads;
+  p.atoms = head_atoms(d);
+  p.chunks = attn_hopper::wide_chunks(p.atoms);
+  p.stages = attn_hopper::kMaxWideStages;
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(scale_dim)));
+  p.scale_log2 = kLog2e * p.scale;
+  auto* fq = static_cast<float*>(dq);
+  auto* fk = static_cast<float*>(dk);
+  auto* fv = static_cast<float*>(dv);
+  return attn_hopper::wide_chunk_atoms(p.atoms) == 3
+             ? launch_bwd_wide<3>(x, y, p, fq, fk, fv, batch, stream)
+             : launch_bwd_wide<4>(x, y, p, fq, fk, fv, batch, stream);
+}
+
 // The backward of `forward` (with its o and L) on f32 tensors of heads of d
 // columns (a multiple of 4) scaled by 1 / sqrt(scale_dim), Sq and Sk
 // multiples of 64; `delta` is a (2, B, heads, Sq) f32 scratch the dq kernel
@@ -1095,6 +1831,9 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
   if (batch < 1 || heads < 1 || sq < 64 || sk < 64 || sq % 64 || sk % 64 ||
       !head_dim_ok(d, scale_dim))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (head_atoms(d) > attn_hopper::kNarrowAtoms)
+    return backward_wide(q, k, v, o, lse, dout, delta, dq, dk, dv, batch, sq, sk, heads, d,
+                         scale_dim, stream);
   BwdParams p;
   p.o = static_cast<const float*>(o);
   p.lse = static_cast<const float*>(lse);
@@ -1126,19 +1865,23 @@ extern "C" {
 
 // dq, dk, dv of packed (B, S, heads * d) bf16 attention, from the forward's
 // o and (B, Sq, heads) f32 lse and the output gradient dout; Sq and Sk
-// multiples of 64, d a multiple of 8 up to 256, scale_dim d or the real head
-// dim of heads zero-padded to d columns. `delta` is a
-// (2, B, heads, Sq) f32 scratch the first kernel fills with L * log2(e) and
-// rowsum(dO * O) for the second. Needs 16-byte aligned tensors (the wrapper
-// checks). Launches both kernels on `stream`, does not synchronise, and
+// multiples of 64, d a multiple of 8 (above 256 the wide kernels),
+// scale_dim d or the real head dim of heads zero-padded to d columns.
+// `delta` is a (2, B, heads, Sq) f32 scratch the first kernel fills with
+// L * log2(e) and rowsum(dO * O) for the second. Needs 16-byte aligned
+// tensors (the wrapper checks). Launches both kernels on `stream`, does not synchronise, and
 // returns 0 or the first error code for packed_attention_bwd_error_string.
 int packed_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* lse, const void* dout, void* delta, void* dq, void* dk,
                          void* dv, int batch, int sq, int sk, int heads, int d, int scale_dim,
                          void* stream) {
-  if (sq < 64 || sk < 64 || sq % 64 || sk % 64 || !head_dim_ok(d, scale_dim))
+  if (batch < 1 || heads < 1 || sq < 64 || sk < 64 || sq % 64 || sk % 64 ||
+      !head_dim_ok(d, scale_dim))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (head_atoms(d) > kNarrowAtoms)
+    return backward_wide(q, k, v, o, lse, dout, delta, dq, dk, dv, batch, sq, sk, heads, d,
+                         scale_dim, st);
   const int c = heads * d;
   CUtensorMap mq, mk, mv, mdo;
   int rc;
@@ -1182,13 +1925,15 @@ int packed_attention_bwd_smem_bytes(int dkdv, int d) {
     case 1: return dkdv ? BwdCfg<1>::kDkdvSmem : BwdCfg<1>::kDqSmem;
     case 2: return dkdv ? BwdCfg<2>::kDkdvSmem : BwdCfg<2>::kDqSmem;
     case 3: return dkdv ? BwdCfg<3>::kDkdvSmem : BwdCfg<3>::kDqSmem;
-    default: return dkdv ? BwdCfg<4>::kDkdvSmem : BwdCfg<4>::kDqSmem;
+    case 4: return dkdv ? BwdCfg<4>::kDkdvSmem : BwdCfg<4>::kDqSmem;
+    default: return wide_bwd_smem_bytes(dkdv != 0);  // the wide kernels (d > 256)
   }
 }
 
-// The same on f32 tensors (3xTF32): d a multiple of 4 up to 256 (the
-// wrapper zero-pads any other head dim), scale_dim d or the real head dim of
-// heads zero-padded to d columns; `delta` as above.
+// The same on f32 tensors (3xTF32): d a multiple of 4 (the wrapper
+// zero-pads any other head dim; above 256 the wide f32 kernels), scale_dim
+// d or the real head dim of heads zero-padded to d columns; `delta` as
+// above.
 int packed_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                              const void* lse, const void* dout, void* delta, void* dq, void* dk,
                              void* dv, int batch, int sq, int sk, int heads, int d, int scale_dim,
@@ -1200,8 +1945,10 @@ int packed_attention_bwd_f32(const void* q, const void* k, const void* v, const 
 // Shared memory each of the two f32 kernels asks for at head dim d (0 for a
 // d there is no kernel for).
 int packed_attention_bwd_f32_smem_bytes(int dkdv, int d) {
-  return attn_f32::head_dim_ok(d, d) ? attn_f32::bwd_smem_bytes(attn_f32::head_atoms(d), dkdv != 0)
-                                     : 0;
+  if (!attn_f32::head_dim_ok(d, d)) return 0;
+  const int da = attn_f32::head_atoms(d);
+  return da > kNarrowAtoms ? attn_f32::wide_smem_bytes(kMaxWideStages, dkdv != 0)
+                           : attn_f32::bwd_smem_bytes(da, dkdv != 0);
 }
 
 const char* packed_attention_bwd_error_string(int code) { return hopper_host::error_string(code); }

@@ -14,7 +14,11 @@ at 320/640/1280 channels, head dims 40/80/160; ``CLIPTextConfig.sd15``: the
 768-wide CLIP-L; the SD VAE), with ``variant="pix2pix15"`` an
 ``SDPix2PixAgent`` on ``pix2pix15_pipeline`` (InstructPix2Pix at SD-1.5
 geometry, the layout of the public instruct-pix2pix model:
-``UNetConfig.sd15(in_channels=8)``, ``CLIPTextConfig.sd15``), a
+``UNetConfig.sd15(in_channels=8)``, ``CLIPTextConfig.sd15``), with ``variant="sd_wide"`` an
+``SDControlNetAgent`` on ``wide_head_pipeline`` (sd-turbo's widths in
+fewer, wider heads: ``UNetConfig.sd21(num_heads=(1, 1, 2, 2))``, head dims
+320 and 640, past the 256 columns a block of the narrow attention kernels
+holds), a
 ``GenimaACTAgent`` (``ACTConfig()``, ViT-B/32 text tower, ResNet-18 width
 64) and a ``FusedGenimaStep`` over four 256x256 views, with seeded
 scaled-normal weights made on the device and seeded inputs: a 512x512 uint8
@@ -54,6 +58,21 @@ class SD15ControlNetAgent(SDControlNetAgent):
     PIPELINE = staticmethod(sd15_pipeline)
 
 
+def wide_head_pipeline(**kw) -> SDControlNetPipeline:
+    """sd-turbo's widths in wider heads, as a JAX user builds them from the
+    config alone: ``SDControlNetPipeline`` with ``UNetConfig.sd21(num_heads=
+    (1, 1, 2, 2))`` (head dims 320 at the 4096-token level, 640 at the
+    1024-, 256- and 64-token ones: five and ten 64-column atoms; the
+    ControlNet copies the UNet's config); ``kw`` as the pipeline's own."""
+    return SDControlNetPipeline(unet_cfg=UNetConfig.sd21(num_heads=(1, 1, 2, 2)), **kw)
+
+
+class WideHeadControlNetAgent(SDControlNetAgent):
+    """``SDControlNetAgent`` on ``wide_head_pipeline``."""
+
+    PIPELINE = staticmethod(wide_head_pipeline)
+
+
 def pix2pix15_pipeline(**kw) -> SDPix2PixPipeline:
     """InstructPix2Pix at SD-1.5 geometry, as a JAX user builds it:
     ``SDPix2PixPipeline`` with ``UNetConfig.sd15(in_channels=8)`` and
@@ -70,7 +89,8 @@ class SD15Pix2PixAgent(SDPix2PixAgent):
 
 
 VARIANTS = {"sd": SDControlNetAgent, "sdxl": SDXLControlNetAgent, "pix2pix": SDPix2PixAgent,
-            "sd15": SD15ControlNetAgent, "pix2pix15": SD15Pix2PixAgent}
+            "sd15": SD15ControlNetAgent, "pix2pix15": SD15Pix2PixAgent,
+            "sd_wide": WideHeadControlNetAgent}
 
 
 def build_main_path(device: Any = "cuda", seed: int = 0, backend: str = "fused",

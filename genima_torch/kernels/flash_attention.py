@@ -26,14 +26,16 @@ prompt tokens; under ``"pallas_self"`` only self-attention does.
   on mma.sync; f32 out, as the TPU kernel writes q's dtype; ``f32_plan``
   gives its blocks; a D that is not a multiple of 4 zero-padded to the next
   one): no bf16 round trip.
-  Takes bf16 or f32 and every head dim D from 1 to 256 (SD-1.5's 40/80/160 among
+  Takes bf16 or f32 and every head dim D >= 1 (SD-1.5's 40/80/160 among
   them), read as ceil(D / 64) atoms of 64 columns; a D that is not a
   multiple of 8 is zero-padded to the next one in a scratch copy first
   (TMA needs 16-byte row strides), the kernel scaled by the real D, and only
-  the D real columns are kept. D above 256 raises: five atoms of f32 O
-  would pass a thread's 255 registers at 64 rows. Bound: tensor-core
-  operations for long self-attention, bytes for cross-attention over 77
-  keys.
+  the D real columns are kept. Above four atoms (D > 256: five atoms of f32
+  O would pass a thread's 255 registers at 64 rows) the wide kernels take
+  the head: O in ``wide_chunking``'s chunks of three or four atoms, one a
+  block, S summed over every atom streamed through a ring (``wide_plan``,
+  ``f32_plan``). Bound: tensor-core operations for long self-attention,
+  bytes for cross-attention over 77 keys.
 * CPU: ``flash_attention_reference``, the same arithmetic in plain PyTorch
   (f32 scores, P rounded to v's dtype before P V). The wrapper takes it only
   for tensors that lie on the CPU.
@@ -53,7 +55,7 @@ from genima_torch.kernels import _build
 
 HEAD_DIM = 64  # the head dim of the sd-turbo / SDXL geometry, the plans' default
 ATOM = 64  # columns of a head atom: the kernels read a head as ceil(d / 64) of them
-MAX_HEAD_DIM = 256  # four atoms: five would hold 160 f32 of O a thread
+NARROW_ATOMS = 4  # the most atoms a block holds O for (d <= 256): five would hold 160 f32 a thread
 
 
 def head_atoms(d: int) -> int:
@@ -69,9 +71,20 @@ def padded_head_dim(d: int) -> int:
 
 
 def check_head_dim(d: int) -> None:
-    """Raises for a head dim the attention kernels do not take."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be from 1 to {MAX_HEAD_DIM}")
+    """Raises for a head dim the attention kernels do not take: below 1.
+    Every d >= 1 is taken (above ``NARROW_ATOMS`` atoms by the wide
+    kernels, whose shared memory does not grow with d)."""
+    if d < 1:
+        raise ValueError(f"head_dim {d} must be at least 1")
+
+
+def wide_chunking(atoms: int) -> tuple[int, int]:
+    """(chunks, atoms a chunk) of O's columns for a head of ``atoms`` >
+    ``NARROW_ATOMS`` atoms: as few chunks of at most four atoms as cover
+    it, evened out (5 atoms: 2 chunks of 3; 10: 3 of 4; 16: 4 of 4). Mirrors
+    ``wide_chunks`` / ``wide_chunk_atoms`` in ``csrc/attention_hopper.cuh``."""
+    chunks = -(-atoms // NARROW_ATOMS)
+    return chunks, -(-atoms // chunks)
 
 
 def pad_heads(x: torch.Tensor, d: int, dp: int | None = None) -> torch.Tensor:
@@ -121,6 +134,11 @@ WIDE_TILES = ((1, 64), (1, 80), (2, 64))
 # and at 200..256 (four atoms): 128 f32 of O a thread, so one consumer
 # warpgroup beside a one-warp producer (160 threads: up to 255 registers)
 WIDEST_TILES = ((1, 64), (1, 80))
+# and above 256 (the wide kernel, B1/B2a's and B3's alike): one consumer
+# warpgroup on 64-key tiles, a ring of 32 KB slots (four 64-row atom tiles)
+WIDE_HEAD_TILES = ((1, 64),)
+WIDE_SLOT_BYTES = 4 * 64 * 128
+WIDE_STAGES = 6  # the ring's slots (kMaxWideStages in csrc/attention_hopper.cuh)
 MAX_STAGES = 4
 LONG_KEY_LOOP = 4  # K/V tiles from which two or three consumer warpgroups pay
 # time per 64 query rows of a three-warpgroup block against a two-warpgroup
@@ -143,6 +161,7 @@ class Plan:
     smem_bytes: int
     why_short: str  # why the grid is under one wave ("" if it is not)
     atoms: int = 1
+    chunks: int = 1  # O's column chunks, one a block (the wide kernel, above four atoms)
 
     @property
     def blocks(self) -> int:
@@ -175,15 +194,22 @@ class Plan:
 
 def smem_bytes(nwg: int, bn: int, stages: int, atoms: int = 1) -> int:
     """Dynamic shared memory of one block: 1 KB of alignment slack, the Q
-    tile, the K/V ring and the barriers. Mirrors ``fwd_smem_bytes`` in
+    tile, the K/V ring and the barriers (above four atoms the wide kernel's
+    ring of slots and its barriers, whatever the atoms). Mirrors
+    ``fwd_smem_bytes`` / ``wide_fwd_smem_bytes`` in
     ``csrc/attention_fwd_hopper.cuh``, which ``flash_attention_smem_bytes``
     and ``packed_attention_smem_bytes`` return."""
+    if atoms > NARROW_ATOMS:
+        return 1024 + stages * WIDE_SLOT_BYTES + 16 * stages
     return 1024 + (64 * nwg * 128 + stages * 2 * bn * 128) * atoms + 16 * stages + 16
 
 
 def tiles_for(d: int) -> tuple:
     """B3's instantiations at head dim ``d``."""
-    return {1: TILES, 4: WIDEST_TILES}.get(head_atoms(d), WIDE_TILES)
+    atoms = head_atoms(d)
+    if atoms > NARROW_ATOMS:
+        return WIDE_HEAD_TILES
+    return {1: TILES, 4: WIDEST_TILES}.get(atoms, WIDE_TILES)
 
 
 def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
@@ -212,11 +238,14 @@ def plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS) ->
     prompt), two warpgroups for a key loop of ``LONG_KEY_LOOP`` tiles or
     more, and as deep a ring as shared memory leaves (three stages for two
     warpgroups at three atoms); four-atom heads (d = 200..256) the same
-    tiles with one warpgroup (three stages of 64 keys, two of 80).
+    tiles with one warpgroup (three stages of 64 keys, two of 80); wider
+    heads the wide kernel (``wide_plan``).
     """
     _check_shape(b, sq, sk, h)
     check_head_dim(d)
     atoms = head_atoms(d)
+    if atoms > NARROW_ATOMS:
+        return wide_plan(b, sq, sk, h, d, sms)
     if atoms > 1:
         bn = 80 if 64 < sk <= 80 else 64
         nwg = 2 if atoms < 4 and -(-sk // bn) >= LONG_KEY_LOOP else 1
@@ -241,6 +270,14 @@ def long_loop_warpgroups(b: int, sq: int, h: int, sms: int = SMS) -> int:
     return 3 if cost(3) <= cost(2) else 2
 
 
+def wide_plan(b: int, sq: int, sk: int, h: int, d: int, sms: int = SMS) -> Plan:
+    """The wide kernel's launch (heads of more than four atoms; B1, B2a and
+    B3 alike): one consumer warpgroup of 64 query rows on 64-key tiles, a
+    ring of ``WIDE_STAGES`` 32 KB slots (192 KB whatever d is), one block
+    per (64 rows, chunk of O's columns, head, batch)."""
+    return make_plan(b, sq, sk, h, 1, 64, WIDE_STAGES, sms=sms, tiles=WIDE_HEAD_TILES, d=d)
+
+
 def max_stages(nwg: int, bn: int, atoms: int) -> int:
     """The deepest ring (at most ``MAX_STAGES``) a block's shared memory
     holds."""
@@ -259,21 +296,28 @@ def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int |
     if (nwg, bn) not in (tiles_for(d) if tiles is None else tiles):
         raise ValueError(f"no kernel for {nwg} warpgroups x {bn}-key tiles at head_dim {d}")
     kv_tiles = -(-sk // bn)
-    deepest = max_stages(nwg, bn, atoms)
-    if stages is None:
-        stages = min(kv_tiles, deepest)
-    # a stage goes back to the producer only once the next tile has arrived
-    if not (2 if kv_tiles > 1 else 1) <= stages <= deepest:
+    if atoms > NARROW_ATOMS:
+        # the wide kernel's ring holds a slot across key tiles: two at least
+        chunks, fewest, deepest = wide_chunking(atoms)[0], 2, WIDE_STAGES
+        stages = WIDE_STAGES if stages is None else stages
+    else:
+        # a stage goes back to the producer only once the next tile has arrived
+        chunks, fewest, deepest = 1, 2 if kv_tiles > 1 else 1, max_stages(nwg, bn, atoms)
+        stages = min(kv_tiles, deepest) if stages is None else stages
+    if not fewest <= stages <= deepest:
         raise ValueError(f"{stages} stages for {kv_tiles} K/V tiles at head_dim {d}")
-    grid = (-(-sq // (64 * nwg)), h, b)
+    grid = (-(-sq // (64 * nwg)) * chunks, h, b)
     blocks = grid[0] * grid[1] * grid[2]
     why = ""
     if blocks < sms:
-        why = f"{grid[0]} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
+        why = f"{grid[0] // chunks} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
+        if chunks > 1:
+            why += f" x {chunks} column chunks"
         if nwg > 1:
             why += f", {nwg} warpgroups sharing each of {kv_tiles} K/V tiles"
     return Plan(nwg=nwg, bn=bn, stages=stages, kv_tiles=kv_tiles, grid=grid,
-                smem_bytes=smem_bytes(nwg, bn, stages, atoms), why_short=why, atoms=atoms)
+                smem_bytes=smem_bytes(nwg, bn, stages, atoms), why_short=why, atoms=atoms,
+                chunks=chunks)
 
 
 F32_SLAB_BYTES = 128  # 32 f32 columns: one TMA box and swizzle span of the f32 kernels
@@ -292,6 +336,10 @@ def f32_padded_head_dim(d: int) -> int:
 # ``csrc/attention_f32_hopper.cuh``); the 80-key tile, for B3's 77 prompt
 # keys, is built into flash_attention.cu only
 F32_TILES = {1: ((2, 64), (1, 80)), 2: ((2, 32),), 3: ((1, 32),), 4: ((1, 16),)}
+# above four atoms the wide f32 kernel: one consumer warpgroup on 32-key
+# tiles, a ring of ``WIDE_STAGES`` 32 KB slots (64 query rows of an atom
+# raw and a tile's 32 keys of it split, or a tile of the chunk's atoms)
+F32_WIDE_TILE = (1, 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,6 +357,7 @@ class F32Plan:
     smem_bytes: int
     atoms: int
     why_short: str  # why the grid is under one wave ("" if it is not)
+    chunks: int = 1  # O's column chunks, one a block (the wide kernel, above four atoms)
 
     @property
     def rows(self) -> int:
@@ -329,9 +378,20 @@ def f32_smem_bytes(nwg: int, bn: int, stages: int, atoms: int) -> int:
     ``fwd_smem_bytes`` in ``csrc/attention_f32_hopper.cuh``, which
     ``flash_attention_f32_smem_bytes`` and ``packed_attention_f32_smem_bytes``
     return."""
+    if atoms > NARROW_ATOMS:
+        return f32_wide_smem_bytes(stages, rows=False)
     slabs = 2 * atoms
     return (1024 + 64 * nwg * slabs * F32_SLAB_BYTES + stages * 3 * bn * slabs * F32_SLAB_BYTES
             + 8 * (3 * stages + 1))
+
+
+def f32_wide_smem_bytes(stages: int, rows: bool) -> int:
+    """Shared memory of a wide f32 block (the forward, or B2b's dq and, with
+    ``rows``, dk/dv kernels): alignment slack, a ring of 32 KB slots (the
+    dk/dv kernels' with a tile's 32 values of L * log2(e) and Drow) and
+    three barriers a slot. Mirrors ``wide_smem_bytes`` in
+    ``csrc/attention_f32_hopper.cuh``."""
+    return 1024 + stages * (WIDE_SLOT_BYTES + (2 * 32 * 4 if rows else 0)) + 24 * stages
 
 
 F32_STAGES = 2  # the f32 forward's ring: deeper rings measured no faster at the SD shapes
@@ -344,19 +404,28 @@ def f32_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS
     ``d``: one atom two consumer warpgroups (128 query rows) on 64-key
     tiles, or with ``key80`` (B3, whose library has the 80-key tile) one
     warpgroup on one 80-key tile for up to 80 keys; two to four atoms their
-    one tile. A ring of two stages (one where there is one K/V tile)."""
+    one tile. A ring of two stages (one where there is one K/V tile). Above
+    four atoms the wide kernel: ``F32_WIDE_TILE``, ``WIDE_STAGES`` slots, a
+    block per (64 rows, chunk of O's columns, head, batch)."""
     _check_shape(b, sq, sk, h)
     check_head_dim(d)
     atoms = head_atoms(f32_padded_head_dim(d))
-    nwg, bn = (1, 80) if atoms == 1 and key80 and sk <= 80 else F32_TILES[atoms][0]
-    stages = min(F32_STAGES, -(-sk // bn))
-    grid = (-(-sq // (64 * nwg)), h, b)
+    chunks = 1
+    if atoms > NARROW_ATOMS:
+        (nwg, bn), stages, chunks = F32_WIDE_TILE, WIDE_STAGES, wide_chunking(atoms)[0]
+    else:
+        nwg, bn = (1, 80) if atoms == 1 and key80 and sk <= 80 else F32_TILES[atoms][0]
+        stages = min(F32_STAGES, -(-sk // bn))
+    grid = (-(-sq // (64 * nwg)) * chunks, h, b)
     blocks = grid[0] * h * b
-    why = (f"{grid[0]} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
-           if blocks < sms else "")
+    why = ""
+    if blocks < sms:
+        why = f"{grid[0] // chunks} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
+        if chunks > 1:
+            why += f" x {chunks} column chunks"
     return F32Plan(nwg=nwg, bn=bn, stages=stages, grid=grid,
                    smem_bytes=f32_smem_bytes(nwg, bn, stages, atoms), atoms=atoms,
-                   why_short=why)
+                   why_short=why, chunks=chunks)
 
 
 def _plan_for(b: int, sq: int, sk: int, h: int, d: int, *, dtype=torch.bfloat16):

@@ -36,23 +36,31 @@ it runs B1 and records nothing for autograd.
   flops and the backward 10*S^2*C on ~8*S*C and ~16*S*C bytes, so at the
   SD levels tensor-core operations bound both; the design keeps scores out
   of device memory.
-  Takes bf16, every head dim from 1 to 256 (the tiny configs' 16/32, SD's
-  64, SD-1.5's 40/80/160; read as ceil(d / 64) atoms of 64 columns, the
-  columns past d zeroed where a product sums over them and never stored; a
-  d that is not a multiple of 8 zero-padded to the next one in scratch
-  copies first, as TMA needs 16-byte row strides, with the kernels scaled
-  by the real d and only its d columns kept), and ``Sq``, ``Sk`` any
-  multiples of 64 (9216 at 768x768, 16384 at 1024x1024): the TPU forward's
-  ``_forward_streaming`` rows. Anything else raises (d above 256: five
-  atoms of f32 accumulator would pass a thread's registers).
+  Takes bf16 and every head dim d >= 1 (the tiny configs' 16/32, SD's 64,
+  SD-1.5's 40/80/160, the wide-head SD's 320/640; read as ceil(d / 64)
+  atoms of 64 columns, the columns past d zeroed where a product sums over
+  them and never stored; a d that is not a multiple of 8 zero-padded to
+  the next one in scratch copies first, as TMA needs 16-byte row strides,
+  with the kernels scaled by the real d and only its d columns kept). Up
+  to four atoms a block holds O (dQ, dK, dV) whole; above (d > 256: five
+  atoms of f32 accumulator would pass a thread's registers) the wide
+  kernels keep one chunk of three or four atoms a block and stream every
+  atom of the head through a ring (``fa.wide_chunking``). B1 and B2a take
+  any ``Sq``, ``Sk`` >= 1, every length the TPU forward takes (``_forward``:
+  Sq <= 128 with K/V resident, ``_forward_streaming``: multiples of 128)
+  and more (keys past Sk masked, query rows past Sq never stored); B2b takes
+  multiples of 64 (``kernel_tiles``; 9216 at 768x768, 16384 at
+  1024x1024), and autograd recomputes the gradient of any other shape
+  through the plain version, as JAX's ``_fwd`` does.
   On f32 q, k and v (``--mixed_precision no``, f32 serving) B1, B2a and B2b
   launch the 3xTF32 kernels instead (``csrc/attention_f32_hopper.cuh``'s
   forward, ``csrc/packed_attention_bwd.cu``'s f32 dq and dk/dv kernels):
   every f32 product split into three TF32 ones on the tensor cores (wgmma
   for S, dP and their transposes, mma.sync for the products over a tile's
   rows), P and dS kept in f32, o, L, dq, dk and dv in f32, as the TPU
-  kernels write q's dtype; any head dim up to 256 (one off a multiple of 4
-  zero-padded), the same Sq and Sk. No bf16 round trip.
+  kernels write q's dtype; any head dim (one off a multiple of 4
+  zero-padded; above four atoms the wide f32 kernels), the same Sq and Sk.
+  No bf16 round trip.
 * CPU: ``packed_attention_reference``, ``packed_attention_lse_reference`` and
   ``packed_attention_backward_reference``, the same arithmetic in plain
   PyTorch (bf16 roundings included). The wrappers take them only for
@@ -73,16 +81,18 @@ from genima_torch.kernels import _build
 from genima_torch.kernels import flash_attention as fa
 
 HEAD_DIM = fa.HEAD_DIM
-BLOCK = 64  # Sq and Sk are multiples of this: the backward's 64-row tiles
+BLOCK = 64  # B2b's Sq and Sk are multiples of this: its 64-row tiles
 # B1/B2a: (consumer warpgroups of 64 query rows, keys a K/V tile), the
 # instantiations of packed_attention.cu at head dims up to 64: those
-# ``forward_plan`` picks at some shape (Sk is a multiple of 64, so B3's
-# 80-key tile for the 77 prompt tokens is not built; 64-key tiles with two
-# or three warpgroups never beat 128-key ones, tune_kernels packed)
+# ``forward_plan`` picks at some shape (B3's 80-key tile for the 77 prompt
+# tokens is not built: no path sends B1 the prompt, and the autograd
+# fallback's kv = 77 takes one 128-key tile; 64-key tiles with two or three
+# warpgroups never beat 128-key ones, tune_kernels packed)
 FORWARD_TILES = ((1, 64), (1, 128), (2, 128), (3, 128))
 # and at 72..192 (two or three 64-column atoms): one block an SM
 WIDE_FORWARD_TILES = ((1, 64), (2, 64))
-# and at 200..256 (four atoms): one consumer warpgroup, 160 threads
+# and at 200..256 (four atoms): one consumer warpgroup, 160 threads; above,
+# the wide kernel's (fa.WIDE_HEAD_TILES), also one warpgroup on 64-key tiles
 WIDEST_FORWARD_TILES = ((1, 64),)
 # B2b: query rows (dq kernel) or keys (dk/dv kernel) a block, two consumer
 # warpgroups of 64, and the depth of each kernel's TMA ring (at one or two
@@ -117,6 +127,7 @@ class BackwardPlan:
     tile: int = BLOCK  # rows a streamed tile (of the dq kernel, where they differ)
     dkdv_tile: int = BLOCK
     dkdv_stages: int = BWD_STAGES
+    chunks: int = 1  # column chunks of dQ, dK, dV, one a block (the wide kernels)
 
     @property
     def max_registers(self) -> int:
@@ -157,15 +168,43 @@ def f32_backward_smem_bytes(atoms: int, dkdv: bool) -> int:
             + 8 * (3 * stages + 1))
 
 
+def wide_backward_plan(b: int, sq: int, sk: int, h: int, atoms: int, sms: int = SMS, *,
+                       f32: bool = False) -> BackwardPlan:
+    """B2b's wide kernels (more than four atoms): a dq launch over (64 query
+    rows, chunk, head, batch) and a dV and a dK launch (``passes``) each over
+    (64 keys, chunk, head, batch); one consumer warpgroup beside a producer
+    warp (bf16) or warpgroup (f32), a ring of ``fa.WIDE_STAGES`` 32 KB slots
+    of 64-row (bf16) or 32-row (f32) tiles. Shared memory mirrors
+    ``wide_bwd_smem_bytes`` / ``attn_f32::wide_smem_bytes`` in the source."""
+    chunks = fa.wide_chunking(atoms)[0]
+    stages = fa.WIDE_STAGES
+    dq, dkdv = (-(-sq // BLOCK) * chunks, h, b), (-(-sk // BLOCK) * chunks, h, b)
+    short = [f"{name}: {g[0] // chunks} blocks of 64 x {chunks} chunks x {h} heads x batch {b}"
+             for name, g in (("dq", dq), ("dk/dv", dkdv)) if g[0] * h * b < sms]
+    if f32:
+        smem = (fa.f32_wide_smem_bytes(stages, False), fa.f32_wide_smem_bytes(stages, True))
+        threads, tile = 128 + fa.F32_PRODUCER, 32
+    else:
+        ring = 1024 + stages * (fa.WIDE_SLOT_BYTES + 16)
+        smem = (ring, ring + stages * 2 * BLOCK * 4)
+        threads, tile = 160, BLOCK
+    return BackwardPlan(
+        dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=smem[0], dkdv_smem_bytes=smem[1],
+        why_short="; ".join(short), atoms=atoms, stages=stages, passes=2, rows=BLOCK,
+        threads=threads, tile=tile, dkdv_tile=tile, dkdv_stages=stages, chunks=chunks)
+
+
 def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
                   sms: int = SMS, *, dtype=torch.bfloat16) -> BackwardPlan:
     """The fixed tiling of B2b (128-row blocks, a ring of 64-row tiles; on
     f32 the 3xTF32 kernels' blocks of 64 * ``f32_backward_nwg`` rows and
-    tiles of ``f32_backward_tile``) at one shape; raises for a shape the
-    kernels do not take."""
+    tiles of ``f32_backward_tile``; above four atoms ``wide_backward_plan``)
+    at one shape; raises for a shape the kernels do not take."""
     _check_shape(b, sq, sk, h)
     fa.check_head_dim(d)
-    atoms = fa.head_atoms(d)
+    atoms = fa.head_atoms(fa.f32_padded_head_dim(d) if dtype == torch.float32 else d)
+    if atoms > fa.NARROW_ATOMS:
+        return wide_backward_plan(b, sq, sk, h, atoms, sms, f32=dtype == torch.float32)
     if dtype == torch.float32:
         rows = 64 * f32_backward_nwg(atoms)
         dq, dkdv = (-(-sq // rows), h, b), (-(-sk // rows), h, b)
@@ -213,7 +252,10 @@ def _check_shape(b: int, sq: int, sk: int, h: int) -> None:
 
 def forward_tiles(d: int) -> tuple:
     """B1/B2a's instantiations at head dim ``d``."""
-    return {1: FORWARD_TILES, 4: WIDEST_FORWARD_TILES}.get(fa.head_atoms(d), WIDE_FORWARD_TILES)
+    atoms = fa.head_atoms(d)
+    if atoms > fa.NARROW_ATOMS:
+        return fa.WIDE_HEAD_TILES
+    return {1: FORWARD_TILES, 4: WIDEST_FORWARD_TILES}.get(atoms, WIDE_FORWARD_TILES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,13 +279,16 @@ def forward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
     Two- and three-atom heads (d = 72..192) take 64-key tiles, two
     warpgroups for a key loop of ``fa.LONG_KEY_LOOP`` tiles or more, and as
     deep a ring as shared memory leaves; four-atom heads (d = 200..256)
-    64-key tiles, one warpgroup, three stages.
+    64-key tiles, one warpgroup, three stages; wider heads the wide kernel
+    (``fa.wide_plan``). Sq and Sk may be any length.
 
     Raises for a shape the kernel does not take.
     """
     fa.check_head_dim(d)
     atoms = fa.head_atoms(d)
-    if atoms > 1:
+    if atoms > fa.NARROW_ATOMS:
+        nwg, bn = fa.WIDE_HEAD_TILES[0]
+    elif atoms > 1:
         nwg, bn = (2 if atoms < 4 and -(-sk // 64) >= fa.LONG_KEY_LOOP else 1), 64
     elif -(-sk // 128) >= fa.LONG_KEY_LOOP:
         nwg, bn = fa.long_loop_warpgroups(b, sq, h, sms), 128
@@ -257,7 +302,6 @@ def make_forward_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int,
     """B1/B2a's launch for a chosen tile; the ring depth as ``forward_plan``
     derives it unless given. The shared memory mirrors
     ``packed_attention_smem_bytes`` in the source."""
-    _check_shape(b, sq, sk, h)
     return fa.make_plan(b, sq, sk, h, nwg, bn, stages, sms=sms, tiles=forward_tiles(d), d=d)
 
 
@@ -329,7 +373,9 @@ def kernel_tiles(q: torch.Tensor, k: torch.Tensor) -> bool:
     return all(s % BLOCK == 0 and s > 0 for s in (q.shape[1], k.shape[1]))
 
 
-def _check_cuda_inputs(q, k, v, num_heads) -> None:
+def _check_cuda_inputs(q, k, v, num_heads, whole_tiles: bool = True) -> None:
+    """The checks before a launch: B2b's (``whole_tiles``: Sq and Sk
+    multiples of 64), or B1's and B2a's, which take any lengths."""
     b, sq, c = q.shape
     sk = k.shape[1]
     fa.check_dtypes(q, ("k", k), ("v", v))
@@ -343,7 +389,8 @@ def _check_cuda_inputs(q, k, v, num_heads) -> None:
     if num_heads < 1 or c % num_heads:
         raise ValueError(f"channels {c} do not split into {num_heads} heads")
     fa.check_head_dim(c // num_heads)
-    _check_seq(sq, sk)
+    if whole_tiles:
+        _check_seq(sq, sk)
 
 
 def _device(q: torch.Tensor) -> str:
@@ -357,7 +404,6 @@ def _plan_for(b: int, sq: int, sk: int, h: int, d: int, *, dtype=torch.bfloat16)
     ``fa.f32_plan``'s on f32 (``tune_kernels`` and the card tests swap in
     others)."""
     if dtype == torch.float32:
-        _check_shape(b, sq, sk, h)
         return fa.f32_plan(b, sq, sk, h, d)
     return forward_plan(b, sq, sk, h, d)
 
@@ -423,7 +469,7 @@ def _count(fn, q: torch.Tensor, k: torch.Tensor) -> None:
 
 
 def _launch_forward(q, k, v, num_heads, with_lse: bool):
-    _check_cuda_inputs(q, k, v, num_heads)
+    _check_cuda_inputs(q, k, v, num_heads, whole_tiles=False)
     if q.dtype == torch.float32:
         return _launch_forward_f32(q, k, v, num_heads, with_lse)
     b, sq, c = q.shape
@@ -554,7 +600,8 @@ class PackedFlashAttention(torch.autograd.Function):
     the forward runs B2a and saves q, k, v, o and L; the backward runs B2b.
     A shape the kernels cannot tile (``kernel_tiles`` false) runs the plain
     forward and recomputes its gradient through the plain version's
-    autograd, counted in ``PackedFlashAttention.fallbacks``."""
+    autograd, counted in ``PackedFlashAttention.fallbacks``: the forward is
+    still B1's kernel (on the card), as JAX's ``_fwd`` runs its kernel."""
 
     fallbacks = 0  # backward passes that took the plain recompute
 

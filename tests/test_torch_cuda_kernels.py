@@ -51,8 +51,9 @@ def test_packed_attention_kernel_matches_plain_version(cuda, b, sq, sk, c, h):
 @pytest.mark.cuda
 def test_packed_attention_kernel_rejects_unsupported_shapes(cuda):
     q = torch.zeros(1, 320, 128, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        pa.packed_flash_attention(q[:, :100], q[:, :100], q[:, :100], 2)
+    lse = torch.zeros(1, 100, 2, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):  # B2b's tiles; B1 takes any length
+        pa.packed_attention_backward(*(q[:, :100],) * 4, lse, q[:, :100], 2)
     with pytest.raises(ValueError, match="bfloat16 or float32"):  # f32 has its kernel now
         pa.packed_flash_attention(q.half(), q.half(), q.half(), 2)
 
@@ -750,7 +751,7 @@ def test_new_kernels_reject_what_they_cannot_take(cuda):
     w_q = torch.zeros(8, 40, device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match="multiple of 16"):
         w8.w8_matmul(x, w_q, torch.ones(8, device=cuda))
-    for d in (264, 320):  # above 256: five atoms of f32 O would pass a thread's registers
+    for d in (0,):  # every d >= 1 runs (above 256 on the wide kernels)
         q = torch.zeros(1, 8, 2, d, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention(q, q, q)
@@ -1085,3 +1086,100 @@ def test_f32_plans_match_the_sources_shared_memory(cuda):
     for m, k, n in ((1, 16, 8), (64, 5120, 1280), (77, 1024, 320), (4096, 320, 320)):
         plan = w8._plan_for(m, k, n, dtype=torch.float32)
         assert w8._library().w8_matmul_f32_smem_bytes(plan.bt, plan.stages) == plan.smem_bytes
+
+
+# heads wider than 256 columns: the wide kernels (O, dQ, dK, dV in chunks of
+# three or four 64-column atoms, one a block), bf16 and f32
+WIDE_HEAD_DIMS = [320, 640]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_head_kernels_match_plain_versions(cuda, no_tf32, dtype, d):
+    b, s, h = 2, 256, 2
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do = (torch.randn(b, s, h * d, generator=gen, device=cuda).to(dtype)
+                   for _ in range(4))
+    tol, lse_tol, grad_tol = ((F32_TOL,) * 3 if dtype == torch.float32
+                              else (1e-2, LSE_ATOL, GRAD_REL_TOL))
+    o1 = pa.packed_flash_attention(q, k, v, h)
+    o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
+    q4, k4, v4 = (x.view(b, s, h, d) for x in (q, k, v))
+    k77, v77 = (x[:, :77].contiguous() for x in (k4, v4))  # the prompt's 77 keys
+    o3 = fa.flash_attention(q4, k77, v77)
+    o3_ref = fa.flash_attention_reference(q4, k77, v77)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1) and o1.dtype == dtype
+    assert (o1.float() - o_ref.float()).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= lse_tol
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert max(_rel_err(x, y) for x, y in zip(got, want)) <= grad_tol
+    assert (o3.float() - o3_ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_b1_takes_kv77_on_the_card(cuda, no_tf32, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(77)
+    q = torch.randn(1, 128, 320, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(1, 77, 320, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    launches = pa.packed_flash_attention.launches
+    got = pa.packed_flash_attention(q, k, v, 5)
+    want = pa.packed_attention_reference(q, k, v, 5)
+    torch.cuda.synchronize()
+    assert pa.packed_flash_attention.launches == launches + 1
+    tol = F32_TOL if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_kv77_autograd_runs_b1_and_recomputes_the_gradient(cuda):
+    """The repaired fallback: the forward is B1's kernel, the gradient the
+    plain version's, as JAX's ``_fwd`` / ``_bwd`` at kv = 77."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, do = (torch.randn(1, 128, 320, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, 77, 320, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = (pa.packed_flash_attention.launches, pa.packed_attention_forward_lse.launches,
+              pa.packed_attention_backward.launches, pa.PackedFlashAttention.fallbacks)
+    out = pa.packed_flash_attention(*leaves, 5)
+    out.backward(do)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref_out = pa.packed_attention_reference(*ref, 5)
+    ref_out.backward(do)
+    torch.cuda.synchronize()
+    assert (pa.packed_flash_attention.launches, pa.packed_attention_forward_lse.launches,
+            pa.packed_attention_backward.launches, pa.PackedFlashAttention.fallbacks) == (
+        counts[0] + 1, counts[1], counts[2], counts[3] + 1)
+    assert (out.float() - ref_out.float()).abs().max().item() <= 1e-2
+    for x, y in zip(leaves, ref):
+        assert _rel_err(x.grad, y.grad) <= GRAD_REL_TOL
+
+
+@pytest.mark.cuda
+def test_wide_plans_match_the_sources_shared_memory(cuda):
+    lib, blib, flib = pa._library(), pa._bwd_library(), fa._library()
+    for d in (264, 320, 640, 1024, 4096):
+        plan = pa.forward_plan(1, 4096, 4096, 1, d)
+        assert lib.packed_attention_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                               d) == plan.smem_bytes
+        plan = fa.plan(1, 1000, 77, 2, d)
+        assert flib.flash_attention_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                               d) == plan.smem_bytes
+        bp = pa.backward_plan(1, 64, 64, 1, d)
+        assert [blib.packed_attention_bwd_smem_bytes(x, d) for x in (0, 1)] == [
+            bp.dq_smem_bytes, bp.dkdv_smem_bytes]
+        plan = pa._plan_for(1, 4096, 4096, 1, d, dtype=torch.float32)
+        assert lib.packed_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                                   d) == plan.smem_bytes
+        plan = fa._plan_for(1, 1000, 77, 2, d, dtype=torch.float32)
+        assert flib.flash_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages,
+                                                   d) == plan.smem_bytes
+        bp = pa.backward_plan(1, 64, 64, 1, d, dtype=torch.float32)
+        assert [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1)] == [
+            bp.dq_smem_bytes, bp.dkdv_smem_bytes]

@@ -186,7 +186,7 @@ def _bf16(*shape):
     (1, 9216, 9216, 320, 5, None),   # 768x768, level 0
     (1, 256, 256, 336, 2, None),     # d 168: three atoms
     (1, 256, 256, 72, 2, None),      # d 36: zero-padded to 40 for the kernels
-    (1, 256, 256, 528, 2, "head_dim"),   # d 264: above 256
+    (1, 256, 256, 528, 2, None),         # d 264: five atoms, the wide kernels
     (1, 256, 256, 100, 3, "split"),      # 100 channels do not split into 3 heads
     (1, 9248, 9248, 320, 5, "multiple of 64"),
 ])
@@ -201,7 +201,7 @@ def test_packed_input_checks_take_the_new_shapes(b, sq, sk, c, h, match):
 
 
 @pytest.mark.parametrize("d,match", [(40, None), (80, None), (160, None), (8, None),
-                                     (168, None), (36, None), (264, "head_dim"),
+                                     (168, None), (36, None), (264, None),
                                      (0, "head_dim")])
 def test_flash_input_checks_take_the_new_head_dims(d, match):
     q = _bf16(1, 64, 8, d)

@@ -270,7 +270,7 @@ def test_backward_plan_fits_shared_memory_and_registers():
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(1, 65, 64, 1, 64), (1, 64, 100, 1, 64),
-                                         (1, 64, 64, 1, 264), (1, 0, 64, 1, 64),
+                                         (1, 64, 64, 1, 0), (1, 0, 64, 1, 64),
                                          (0, 64, 64, 1, 64), (1, 64, 64, 0, 64)])
 def test_backward_plan_rejects_what_the_kernels_cannot_take(b, sq, sk, h, d):
     with pytest.raises(ValueError):
@@ -367,8 +367,8 @@ def test_forward_plan_fits_shared_memory_and_registers(nwg, bn, b, sq, sk, h):
             assert p.max_registers == 128 and 24 * 128 + 160 * 384 <= 128 * p.threads
 
 
-@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 65, 64, 1, 64), (1, 64, 100, 1, 64),
-                                         (1, 64, 64, 1, 264), (1, 0, 64, 1, 64),
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 64, 0, 1, 64), (1, 64, 64, 1, -8),
+                                         (1, 64, 64, 1, 0), (1, 0, 64, 1, 64),
                                          (0, 64, 64, 1, 64), (1, 64, 64, 0, 64)])
 def test_forward_plan_rejects_what_the_kernel_cannot_take(b, sq, sk, h, d):
     with pytest.raises(ValueError):
@@ -384,8 +384,8 @@ def test_make_forward_plan_rejects_impossible_launches():
         pa.make_forward_plan(1, 256, 256, 2, nwg=1, bn=64, stages=1)  # 4 tiles need 2 stages
     with pytest.raises(ValueError):
         pa.make_forward_plan(1, 256, 256, 2, nwg=1, bn=64, stages=5)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        pa.make_forward_plan(1, 200, 256, 2, nwg=3, bn=128)
+    with pytest.raises(ValueError, match="no kernel"):  # B1 takes Sq = 200, not this tile
+        pa.make_forward_plan(1, 200, 256, 2, nwg=3, bn=64)
 
 
 @pytest.mark.parametrize("b,sq,sk,h", FORWARD_PLAN_SHAPES)
