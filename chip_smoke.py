@@ -2,6 +2,7 @@
 """Drive genima_torch's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wide    # phase 18 alone, after the build
 
 1. Builds every CUDA kernel of the paths from ``genima_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, started together).
@@ -436,15 +437,32 @@ def _forward_report(pa, b: int, s: int, h: int, d: int, with_lse: bool) -> dict:
     if smem != plan.smem_bytes:
         raise AssertionError(f"packed forward plan's shared memory {plan.smem_bytes} != {smem}")
     regs = ptxas_report(_build.build_log("packed_attention"))
-    key = (f"wide_{fa.wide_chunking(plan.atoms)[1]}" if plan.chunks > 1
-           else f"{plan.atoms}x{plan.nwg}x{plan.bn}")
     return {
-        "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
-                 "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms,
-                 "column_chunks": plan.chunks},
+        "plan": _forward_plan_dict(plan),
         "smem_bytes": smem,
-        **regs.get(f"{key}x{int(with_lse)}", {}),
+        **regs.get(_kernel_key(plan, with_lse), {}),
     }
+
+
+def _kernel_key(plan, with_lse: bool) -> str:
+    """``ptxas_report``'s key of the bf16 forward a plan launches: the
+    narrow kernel's atoms x warpgroups x key tile and L flag; the paired
+    wide kernel's L and key-split flags, or the streaming one's atoms a
+    chunk and the same flags."""
+    from genima_torch.kernels import flash_attention as fa
+
+    lse, split = int(with_lse), int(plan.splits > 1)
+    if plan.atoms <= fa.NARROW_ATOMS:
+        return f"{plan.atoms}x{plan.nwg}x{plan.bn}x{lse}"
+    if plan.nwg == 2:
+        return f"pair_{lse}x{split}"
+    return f"wide_{fa.wide_chunking(plan.atoms)[1]}x{lse}x{split}"
+
+
+def _forward_plan_dict(plan) -> dict:
+    return {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
+            "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms,
+            "column_chunks": plan.chunks, "cluster": plan.cluster, "key_splits": plan.splits}
 
 
 def _b1_row(pa, q, k, v, h, err: float) -> dict:
@@ -746,9 +764,12 @@ def ptxas_report(log: str) -> dict[str, dict]:
     named so with an "f32_" in front ("f32_1x2x64x1" for
     ``attention_f32_fwd_kernel<1, 2, 64, true>``, "f32_dq4", "f32_128x2" for
     ``fused_conv3x3_f32_kernel<128, 2>``); the wide kernels (heads past 256
-    columns) with "wide_" after that ("wide_4x1" for
-    ``attention_fwd_wide_kernel<4, true>``, "wide_dkdv3x0" for
-    ``bwd_wide_dkdv_kernel<3, false>``, "f32_wide_dq4")."""
+    columns) with "wide_" after that ("wide_4x1x0" for
+    ``attention_fwd_wide_kernel<4, true, false>``, "wide_dkdv3x0" for
+    ``bwd_wide_dkdv_kernel<3, false>``, "f32_wide_dq4"), the paired wide
+    forward "pair_1x0" (``attention_fwd_pair_kernel<true, false>``) and the
+    clustered f32 one "f32_cluster_0"
+    (``attention_f32_fwd_cluster_kernel<false>``)."""
     import re
 
     out, key = {}, None
@@ -762,6 +783,10 @@ def ptxas_report(log: str) -> dict[str, dict]:
                 key = kind.group(1) + key
             if "_wide_" in m.group(1):
                 key = "wide_" + key
+            if "_cluster_" in m.group(1):
+                key = "cluster_" + key
+            if "_pair_" in m.group(1):
+                key = "pair_" + key
             if f32:
                 key = "f32_" + key
             out[key] = {}
@@ -818,13 +843,9 @@ def opt_kernel_phase(flash_shapes=FLASH_SHAPES, conv_shapes=CONV_SHAPES,
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), 50),
             "library": "scaled_dot_product_attention forward on the same (B, H, S, D) views",
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "plan": {"warpgroups": plan.nwg, "query_rows": plan.rows, "key_tile": plan.bn,
-                     "stages": plan.stages, "blocks": plan.blocks, "head_atoms": plan.atoms,
-                     "column_chunks": plan.chunks},
+            "plan": _forward_plan_dict(plan),
             "smem_bytes": plan.smem_bytes,
-            **regs["flash_attention"].get(
-                f"wide_{fa.wide_chunking(plan.atoms)[1]}x0" if plan.chunks > 1
-                else f"{plan.atoms}x{plan.nwg}x{plan.bn}x0", {}),
+            **regs["flash_attention"].get(_kernel_key(plan, False), {}),
         })
 
     for b, h, w, c, o in conv_shapes:
@@ -4096,17 +4117,19 @@ def _f32_attn_bounds(flops: float, nbytes: float) -> dict:
 def _f32_fwd_plan(plan) -> dict:
     return {"query_rows": plan.rows, "consumer_warpgroups": plan.nwg, "key_tile": plan.bn,
             "stages": plan.stages, "threads": plan.threads, "blocks": plan.blocks,
-            "head_atoms": plan.atoms, "column_chunks": plan.chunks}
+            "head_atoms": plan.atoms, "column_chunks": plan.chunks, "cluster": plan.cluster}
 
 
-def _f32_kernel_key(plan) -> str:
-    """``ptxas_report``'s key of the f32 forward a plan launches, less its
-    L flag."""
+def _f32_kernel_key(plan, with_lse: bool) -> str:
+    """``ptxas_report``'s key of the f32 forward a plan launches."""
     from genima_torch.kernels import flash_attention as fa
 
+    lse = int(with_lse)
+    if plan.cluster > 1:
+        return f"f32_cluster_{lse}"
     if plan.chunks > 1:
-        return f"f32_wide_{fa.wide_chunking(plan.atoms)[1]}"
-    return f"f32_{plan.atoms}x{plan.nwg}x{plan.bn}"
+        return f"f32_wide_{fa.wide_chunking(plan.atoms)[1]}x{lse}"
+    return f"f32_{plan.atoms}x{plan.nwg}x{plan.bn}x{lse}"
 
 
 def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> list[dict]:
@@ -4142,7 +4165,6 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
         common = {"route": "cuda", "dtype": "float32", "source": F32_SOURCES["B1"],
                   "shape": f"{b}x{s}x{c}/{h}", "key": f"{b}x{s}x{s}x{c}", "launches": None,
                   "plan": _f32_fwd_plan(plan), "smem_bytes": plan.smem_bytes}
-        kernel = _f32_kernel_key(plan)
         rows.append({"name": "packed_flash_attention",
                      "replaces": "genima_tpu/kernels/packed_attention.py:194", **common,
                      "max_abs_err": err,
@@ -4150,7 +4172,7 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
                      "plain_ms": cuda_ms(lambda: pa.packed_attention_reference(q, k, v, h), 2),
                      "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
                      **_f32_attn_bounds(4 * b * s * s * c, 4 * 4 * b * s * c),
-                     **regs.get(f"{kernel}x0", {})})
+                     **regs.get(_f32_kernel_key(plan, False), {})})
         if not train:
             continue
         o, lse = pa.packed_attention_forward_lse(q, k, v, h)
@@ -4167,7 +4189,7 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
                      "plain_ms": cuda_ms(lambda: pa.packed_attention_lse_reference(q, k, v, h), 2),
                      "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters),
                      **_f32_attn_bounds(4 * b * s * s * c, 4 * 4 * b * s * c + 4 * b * s * h),
-                     **regs.get(f"{kernel}x1", {})})
+                     **regs.get(_f32_kernel_key(plan, True), {})})
         got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
         again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
         want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
@@ -4256,7 +4278,7 @@ def f32_opt_rows(flash_shapes, conv_shapes, w8_shapes, seed: int, iters: int = 5
             "library": "scaled_dot_product_attention forward in f32 on the same views",
             **_f32_attn_bounds(4 * b * sq * sk * c, 4 * b * (2 * sq + 2 * sk) * c),
             "plan": _f32_fwd_plan(plan), "smem_bytes": plan.smem_bytes,
-            **regs["flash_attention"].get(f"{_f32_kernel_key(plan)}x0", {}),
+            **regs["flash_attention"].get(_f32_kernel_key(plan, False), {}),
         })
 
     for b, hh, ww, c, o in conv_shapes:
@@ -4613,6 +4635,16 @@ def _fill_launches(rows, launches_by_shape: dict) -> None:
             raise AssertionError(f"kernel {row['name']} {row['shape']} never launched")
 
 
+@contextlib.contextmanager
+def _timed(seconds: dict, name: str):
+    """Adds the host seconds of the block to ``seconds[name]``."""
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        seconds[name] = round(seconds.get(name, 0.0) + time.time() - t0, 1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -4633,23 +4665,27 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.time()
-    _build.build_all(KERNEL_SOURCES)
+    t_start = t0 = time.time()
+    phase_s: dict[str, float] = {}  # host seconds of each phase, printed before the kernels line
+    with _timed(phase_s, "1 build"):
+        _build.build_all(KERNEL_SOURCES)
     print(f"built kernels in {time.time() - t0:.1f} s")
     for name in KERNEL_SOURCES:
         for key, report in ptxas_report(_build.build_log(name)).items():
             print(f"  {name} <{key}>: {json.dumps(report)}")
 
-    kernels = kernel_phase(pa)
-    cfg_kernels = kernel_phase(pa, CFG_LEVELS, seed=3)
-    train_kernels = training_kernel_phase(pa)
+    with _timed(phase_s, "2 kernel checks"):
+        kernels = kernel_phase(pa)
+        cfg_kernels = kernel_phase(pa, CFG_LEVELS, seed=3)
+        train_kernels = training_kernel_phase(pa)
     # B2a and B2b in phase 11's UNet pretrain run at the trainer's batch-4
     # shapes: the same rows, their launches counted on that path
     pretrain_kernels = [dict(r, path="pretrain UNet (phase 11)") for r in train_kernels
                         if r["name"] != "packed_flash_attention"]
-    opt_kernels = opt_kernel_phase()
-    batched_kernels = opt_kernel_phase(BATCHED_FLASH_SHAPES, BATCHED_CONV_SHAPES,
-                                       BATCHED_W8_SHAPES, seed=4)
+    with _timed(phase_s, "4 opt-in kernel checks"):
+        opt_kernels = opt_kernel_phase()
+        batched_kernels = opt_kernel_phase(BATCHED_FLASH_SHAPES, BATCHED_CONV_SHAPES,
+                                           BATCHED_W8_SHAPES, seed=4)
     # B1 in phase 10 runs at the shapes of the CFG rows (a cohort of 2 envs)
     # and of the trainer's batch-4 rows (4 envs): the same rows, their
     # launches counted on that path
@@ -4674,29 +4710,38 @@ def main() -> int:
     pix2pix_opt_kernels = [dict(r, path="pix2pix opt-in step") for r in opt_kernels]
     # phase 14: each rank of the data-parallel fine-tune runs B1/B2a/B2b at
     # its batch of 2; mesh serving runs B1 at the control step's batch 1
-    dp_kernels = [dict(r, path=f"data-parallel fine-tune, rank 0 of {DP_WORLD} (phase 14)")
-                  for r in training_kernel_phase(pa, DP_LEVELS, seed=5)]
+    with _timed(phase_s, "2 kernel checks"):
+        dp_kernels = [dict(r, path=f"data-parallel fine-tune, rank 0 of {DP_WORLD} (phase 14)")
+                      for r in training_kernel_phase(pa, DP_LEVELS, seed=5)]
     mesh_eval_kernels = [dict(r, path="eval over a 1x1 mesh (phase 14)") for r in kernels]
     tp_kernels = [dict(r, path="TP-sharded control step, 1x2 mesh (phase 14)") for r in kernels]
-    path = _sd_serve(pa, "sd", 512, PATH_STEPS, LAUNCHES_PER_STEP, opt_in=False)
+    with _timed(phase_s, "3 serve"):
+        path = _sd_serve(pa, "sd", 512, PATH_STEPS, LAUNCHES_PER_STEP, opt_in=False)
     _fill_launches(kernels, {"B1": path["launches_by_shape"]})
     print("path " + json.dumps(path))
-    train = train_phase(pa)
+    with _timed(phase_s, "6 train"):
+        train = train_phase(pa)
     _fill_launches(train_kernels, train["launches_by_shape"])
     print("train " + json.dumps(train))
-    opt = _serve("sd", 512, OPT_BACKEND, OPT_CONV_BACKEND, OPT_LAUNCHES, OPT_STEPS)
+    with _timed(phase_s, "5 opt-in serve"):
+        opt = _serve("sd", 512, OPT_BACKEND, OPT_CONV_BACKEND, OPT_LAUNCHES, OPT_STEPS)
     _fill_launches(opt_kernels, opt["launches_by_shape"])
     print("opt_path " + json.dumps(opt))
     with tempfile.TemporaryDirectory() as tmp:
         # phases 7 and 10 evaluate the same checkpoints
-        written = write_eval_checkpoints(Path(tmp))
-        ev = eval_phase(pa, card, written)
+        with _timed(phase_s, "7 eval"):
+            written = write_eval_checkpoints(Path(tmp))
+            ev = eval_phase(pa, card, written)
         del written["controlnet_state"]
-        bt = batched_eval_phase(pa, card, written)
-        sx = sdxl_phase(pa, card, written["controller_dir"], Path(tmp) / "sdxl")
+        with _timed(phase_s, "10 batched eval"):
+            bt = batched_eval_phase(pa, card, written)
+        with _timed(phase_s, "12 sdxl"):
+            sx = sdxl_phase(pa, card, written["controller_dir"], Path(tmp) / "sdxl")
         shutil.rmtree(Path(tmp) / "sdxl", ignore_errors=True)
-        px = pix2pix_phase(pa, card, written["controller_dir"])
-        dp = distributed_phase(pa, card, written)
+        with _timed(phase_s, "13 pix2pix"):
+            px = pix2pix_phase(pa, card, written["controller_dir"])
+        with _timed(phase_s, "14 distributed"):
+            dp = distributed_phase(pa, card, written)
     _fill_launches(cfg_kernels, {"B1": ev["cfg_launches_by_shape"]})
     print("eval " + json.dumps(ev))
     for name in ("fused", "cfg"):
@@ -4705,7 +4750,8 @@ def main() -> int:
               f"{e['control_time_s']:.4f} s, fused step {e['fused_step_time_s']} s, "
               f"ControlNet checkpoint write {ev['controlnet_write_s']:.2f} s, load (agent "
               f"weights) {e['diffusion_params_load_s']:.2f} s")
-    ft = finetune_phase(pa, card)
+    with _timed(phase_s, "8 finetune"):
+        ft = finetune_phase(pa, card)
     print("finetune " + json.dumps(ft))
     gb = 1e9
     print(f"finetune ({card}): checkpoint {ft['checkpoint_bytes'] / gb:.3f} GB, async writes "
@@ -4720,7 +4766,8 @@ def main() -> int:
           f"{ft['q8_moment_bytes'] / gb:.3f} GB; run C steps update "
           f"{ft['run_c_update_step_ms']} ms, accumulate {ft['run_c_accumulate_step_ms']} ms; "
           f"peak {ft['peak_mem_gb_a']:.2f} / {ft['peak_mem_gb_c']:.2f} GiB")
-    at = act_train_phase(card)
+    with _timed(phase_s, "9 act train"):
+        at = act_train_phase(card)
     print("act_train " + json.dumps(at))
     print(f"act_train ({card}): step {at['step_ms_median']:.1f} ms (update "
           f"{at['update_ms_median']:.1f}: augmentation {at['augment_ms_median']:.2f}, "
@@ -4731,7 +4778,8 @@ def main() -> int:
           f"first loss {at['first_loss_card']:.6f} (CPU {at['first_loss_cpu']:.6f}); update "
           f"with cuDNN TF32 off / on {at['update_ms_median_cudnn_tf32_off']:.1f} / "
           f"{at['update_ms_median_cudnn_tf32_on']:.1f} ms; peak {at['peak_mem_gb']:.2f} GiB")
-    rp = render_pretrain_phase(pa, card)
+    with _timed(phase_s, "11 render, pretrain"):
+        rp = render_pretrain_phase(pa, card)
     _fill_launches(pretrain_kernels, rp["pretrain_launches_by_shape"])
     print("render_pretrain " + json.dumps(rp))
     print(f"render_pretrain ({card}): render {rp['render_frames_per_s']:.1f} frames/s by the host "
@@ -4832,7 +4880,8 @@ def main() -> int:
           f"whole {d14['whole_eps_rel_norm_diff_vs_f32']:.3e}; "
           f"{d14['column_sharded_layers']} layers split, peak "
           f"{d14['peak_mem_gb']:.2f} GiB; phase {dp['phase_s']:.1f} s")
-    hd, hd_rows = head_dims_phase(pa, card)
+    with _timed(phase_s, "15 head dims"):
+        hd, hd_rows = head_dims_phase(pa, card)
     print("head_dims " + json.dumps(hd))
     s15, t15, t768, s768 = hd["sd15_serve"], hd["sd15_train"], hd["sd768_train"], hd["sd768_serve"]
     print(f"head_dims ({card}): SD-1.5 control step {[round(x, 1) for x in s15['step_ms']]} ms "
@@ -4848,9 +4897,10 @@ def main() -> int:
           f"control step {[round(x, 1) for x in s768['step_ms']]} ms, eps rel err "
           f"{s768['eps_rel_err_vs_library_attention']:.4f}, peak {s768['peak_mem_gb']:.2f} GiB; "
           f"kernel checks {hd['kernel_checks_s']:.1f} s; phase {hd['phase_s']:.1f} s")
-    p16, p16_rows, sweep = opt_geometries_phase(pa, card, {
-        "sd_opt": opt_kernels, "sd15_control": hd_rows["sd15_control"],
-        "sd15_train": hd_rows["sd15_train"], "sd15_opt_in": hd_rows["sd15_opt_in"]})
+    with _timed(phase_s, "16 opt-in geometries"):
+        p16, p16_rows, sweep = opt_geometries_phase(pa, card, {
+            "sd_opt": opt_kernels, "sd15_control": hd_rows["sd15_control"],
+            "sd15_train": hd_rows["sd15_train"], "sd15_opt_in": hd_rows["sd15_opt_in"]})
     print("opt_geometries " + json.dumps(p16))
     print("head_dim_sweep " + json.dumps(sweep))
     print(f"opt_geometries ({card}): " + "; ".join(
@@ -4866,7 +4916,8 @@ def main() -> int:
         + f"; pix2pix15 train steps {[round(x, 1) for x in p16['pix2pix15_train']['step_ms']]} "
         f"ms, peak {p16['pix2pix15_train']['peak_mem_gb']:.2f} GiB; kernel checks "
         f"{p16['kernel_checks_s']:.1f} s; phase {p16['phase_s']:.1f} s")
-    p17, p17_rows, p17_checks = f32_phase(pa, card)
+    with _timed(phase_s, "17 f32"):
+        p17, p17_rows, p17_checks = f32_phase(pa, card)
     print("f32 " + json.dumps(p17))
     print("f32_shape_checks " + json.dumps(p17_checks))
     sv17, op17, tr17 = p17["serve"], p17["opt_in"], p17["train"]
@@ -4884,7 +4935,8 @@ def main() -> int:
           f"{tr17['grad_attn_proj_rel_floored']:.3e}, the library's two SDPA backends "
           f"{tr17['grad_library_backends_rel_norm_diff']:.3e}), peak {tr17['peak_mem_gb']:.2f} "
           f"GiB; kernel checks {p17['kernel_checks_s']:.1f} s; phase {p17['phase_s']:.1f} s")
-    p18, p18_rows, p18_checks = wide_heads_phase(pa, card)
+    with _timed(phase_s, "18 wide heads"):
+        p18, p18_rows, p18_checks = wide_heads_phase(pa, card)
     print("wide_heads " + json.dumps(p18))
     print("wide_head_checks " + json.dumps(p18_checks))
     sv18, op18, tr18, f18 = p18["serve"], p18["opt_in"], p18["train"], p18["f32_serve"]
@@ -4902,6 +4954,8 @@ def main() -> int:
           f"{f18['step_peak_mem_gb']:.2f} GiB; kv=77 autograd "
           f"{p18_checks['kv77_autograd']['launches']}; kernel checks "
           f"{p18['kernel_checks_s']:.1f} s; phase {p18['phase_s']:.1f} s")
+    phase_s["total"] = round(time.time() - t_start, 1)
+    print("phase_seconds " + json.dumps(phase_s))
     print("per_step " + json.dumps(per_step_sums(
         [("control", r, PATH_STEPS) for r in kernels]
         + [("train", r, TRAIN_STEPS) for r in train_kernels]
@@ -4948,5 +5002,43 @@ def main() -> int:
     return 0
 
 
+def wide_main() -> int:
+    """``python3 chip_smoke.py --wide``: phase 18 alone (the wide kernels'
+    checks, the head-dim sweep, the ragged rows, the kv = 77 call and the
+    four ``sd_wide`` paths with their pins), after the build, with TF32 off;
+    prints its rows, its checks and its ``per_step`` sums. Fails as the
+    whole run does."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    from genima_torch.kernels import _build
+    from genima_torch.kernels import packed_attention as pa
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    _build.build_all(KERNEL_SOURCES)
+    print(f"built kernels in {time.time() - t0:.1f} s")
+    for name in ("packed_attention", "flash_attention"):
+        for key, report in ptxas_report(_build.build_log(name)).items():
+            if key.startswith(("pair_", "wide_", "f32_cluster_", "f32_wide_")):
+                print(f"  {name} <{key}>: {json.dumps(report)}")
+    p18, p18_rows, p18_checks = wide_heads_phase(pa, card)
+    print("wide_heads " + json.dumps(p18))
+    print("wide_head_checks " + json.dumps(p18_checks))
+    print("per_step " + json.dumps(per_step_sums(
+        [(name, r, {"wide_train": WIDE_TRAIN_STEPS, "wide_f32_control": F32_SERVE_STEPS}
+          .get(name, WIDE_STEPS)) for name, rs in p18_rows.items() for r in rs])))
+    print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"}
+                                  for rs in p18_rows.values() for r in rs]}))
+    print(f"wide phase passed in {time.time() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(wide_main() if sys.argv[1:] == ["--wide"] else main())

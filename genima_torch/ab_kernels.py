@@ -1,6 +1,6 @@
 """Time the packed attention kernels of another checkout against this one.
 
-    python -m genima_torch.ab_kernels OTHER_DIR [--profile | --f32]
+    python -m genima_torch.ab_kernels OTHER_DIR [--profile | --f32 | --wide]
 
 Run from the repository root on a GPU host, with ``OTHER_DIR`` a second
 checkout (``git archive <commit> | tar -x -C OTHER_DIR``). Four processes
@@ -11,8 +11,14 @@ serving levels by CUDA events (``chip_smoke.cuda_ms``), or with
 ``--profile`` B2b's two kernels by ``torch.profiler``, or with ``--f32``
 the f32 kernels on f32 inputs (TF32 off): B1 at the serving levels, B2a and
 B2b at the trainer levels, B3 (self-attention and the 77 prompt keys), B4
-and B5 at the opt-in path's shapes. Prints each key's times on both sides
-and this tree's over the other's.
+and B5 at the opt-in path's shapes, or with ``--wide`` the wide forwards
+(heads past 256 columns) in bf16 and f32 (TF32 off): B1 at the wide-head
+path's serving levels (``chip_smoke.WIDE_LEVELS``), B1 and B2a at its
+trainer levels, B3 at its opt-in shapes (self-attention and the 77 prompt
+keys), and at every d of ``chip_smoke.WIDE_SWEEP_DIMS`` B1 at 1 x 4096 in
+one head, B2a at 4 x 1024 and B3 over 1000 queries (self and 77 keys) in
+``chip_smoke._sweep_heads(d)`` heads. Prints each key's times on both
+sides and this tree's over the other's.
 """
 
 from __future__ import annotations
@@ -90,13 +96,53 @@ print("RESULT " + json.dumps(out))
 '''
 
 
+WIDE_CODE = r'''
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from genima_torch.kernels import _build, flash_attention as fa, packed_attention as pa
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+_build.build_all(["packed_attention", "flash_attention"])
+gen = torch.Generator(device="cuda").manual_seed(1)
+out = {}
+for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+    iters = 20 if dtype == torch.bfloat16 else 10
+    packed = [(b, s, c, h, "") for b, s, c, h in cs.WIDE_LEVELS + cs.WIDE_TRAIN_LEVELS]
+    flash = [(b, sq, sk, c, h, "") for b, sq, sk, c, h in cs.WIDE_FLASH_SHAPES]
+    for d in cs.WIDE_SWEEP_DIMS:
+        h = cs._sweep_heads(d)
+        packed += [(1, 4096, d, 1, " sweep"), (cs.TRAIN_BATCH, 1024, h * d, h, " sweep")]
+        flash += [(1, 1000, 1000, h * d, h, " sweep"), (1, 1000, cs.CONTEXT[0], h * d, h, " sweep")]
+    for b, s, c, h, what in packed:
+        q, k, v = (torch.randn(b, s, c, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        key = f"{tag} {b}x{s}x{c}/{h} d {c // h}{what}"
+        if b == 1 or not what:
+            out["B1 " + key] = cs.cuda_ms(lambda: pa.packed_flash_attention(q, k, v, h), iters)
+        if b > 1:
+            out["B2a " + key] = cs.cuda_ms(
+                lambda: pa.packed_attention_forward_lse(q, k, v, h), iters)
+    for b, sq, sk, c, h, what in flash:
+        q, k, v = (torch.randn(b, x, h, c // h, generator=gen, device="cuda").to(dtype)
+                   for x in (sq, sk, sk))
+        out[f"B3 {tag} {b}x{sq}x{sk}x{c}/{h} d {c // h}{what}"] = cs.cuda_ms(
+            lambda: fa.flash_attention(q, k, v), iters)
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out))
+'''
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0].startswith("-"):
         print(__doc__, file=sys.stderr)
         return 2
     other, here = str(Path(argv[0]).resolve()), str(Path.cwd())
-    code = F32_CODE if "--f32" in argv else f"PROFILE = {'--profile' in argv}\n" + CODE
+    if "--f32" in argv:
+        code = F32_CODE
+    elif "--wide" in argv:
+        code = WIDE_CODE
+    else:
+        code = f"PROFILE = {'--profile' in argv}\n" + CODE
     runs = []
     for tree in (other, here, here, other):
         r = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,

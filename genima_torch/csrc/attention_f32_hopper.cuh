@@ -50,8 +50,8 @@
 // wgmma accumulator a key tile would double O's registers (256 f32 a
 // thread at d = 256); mma.sync keeps a fresh accumulator at 16 registers a
 // slab, and needs no transposed copy at any head dim. Above 256 columns O
-// is kept in chunks of at most four atoms, one a block (the wide kernels
-// at the end of this file).
+// is kept in chunks of at most four atoms (two in the clustered forward),
+// one a block (the wide kernels at the end of this file).
 //
 // Layout: a head of d columns (the wrappers zero-pad a d that is not a
 // multiple of 4 to the next one: TMA needs 16-byte row strides, and the
@@ -840,16 +840,342 @@ int launch_fwd_wide(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensor
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide f32 forward (d > 256, a multiple of 4) with a ring of `stages`.
+// --- the clustered wide f32 forward (d = 260..1024) --------------------------
+//
+// attention_f32_fwd_cluster_kernel: O in chunks of two atoms (four 32-column
+// slabs), the chunks of one 64-row query tile the CTAs of a thread-block
+// cluster (3 to 8), so S = Q K^T is formed once per key tile for the whole
+// head, as in the bf16 clustered kernel (attention_fwd_hopper.cuh). Two
+// atoms of O hold 64 f32 a thread, where three or four held 96 or 128 beside
+// S, P and the 3xTF32 operands and spilled; the grid has two to three times
+// the blocks. Each CTA (a consumer warpgroup and the producer warpgroup: 256
+// threads) keeps its chunk's slabs of Q resident, raw (32 KB), and streams
+// per 32-key tile a K item (its slabs of K, which the producer's warps 1-3
+// split into big in place and small beside it) and a V item (raw) through a
+// ring of 32 KB slots. Per tile: its partial S over its own 128 columns
+// (3xTF32 wgmma, A split per k8 step from an ldmatrix of Q; one accumulator
+// over the 128 columns, as the narrow kernels sum up to 256), bulk-copied
+// to every peer; while the copies fly, O = O * alpha + P V of the tile
+// before, a slab at a time with a fresh mma.sync accumulator; then the
+// peers' partials, summed in chunk order, so every CTA holds the same S, m
+// and l bit for bit; the online softmax. The keys are not split.
+// Bound as the narrow f32 kernel; the exchange adds 8 KB a peer a key tile
+// over the SM-to-SM network, ~1.5 us a peer on the H100: from 9 atoms (five
+// chunks) on, where the streaming kernel forms S three or more times and
+// spills, the cluster is faster (1x1024 at d = 640: 0.150 ms against 0.385);
+// at five to eight atoms the streaming kernel is (1x4096 at d = 320: 0.828
+// against 1.08), and takes the head.
+
+constexpr int kClusterAtomsF32 = 2;          // atoms of O a CTA
+constexpr int kClusterChunksF32 = 8;         // the most chunks: a portable cluster
+constexpr int kXBytesF32 = 64 * kWideT * 4;  // one partial S: 64 rows x 32 keys f32
+constexpr int kClusterQ = 64 * 2 * kClusterAtomsF32 * kSlabBytes;      // Q's slabs: 32 KB
+constexpr int kClusterTile = kWideT * 2 * kClusterAtomsF32 * kSlabBytes;  // a tile's: 16 KB
+constexpr int kClusterSlot = 2 * kClusterTile;  // K big and small, or V raw: 32 KB
+
+inline int cluster_chunks_f32(int atoms) {
+  return (atoms + kClusterAtomsF32 - 1) / kClusterAtomsF32;
+}
+
+// Whether an f32 head of `atoms` atoms takes the clustered kernel: 9 to 16
+// (d = 516..1024; mirrored by kernels/flash_attention.py::f32_clustered).
+inline bool f32_clustered(int atoms) {
+  return atoms > 2 * attn_hopper::kNarrowAtoms && cluster_chunks_f32(atoms) <= kClusterChunksF32;
+}
+
+// Dynamic shared memory of a clustered f32 block: alignment slack, Q's slabs,
+// the ring, two out buffers and two exchange buffers a peer, and the
+// barriers (full, ready and empty a slot, Q's, two exchanges').
+constexpr int cluster_smem_bytes_f32(int chunks, int stages) {
+  return 1024 + kClusterQ + stages * kClusterSlot + 2 * chunks * kXBytesF32 +
+         8 * (3 * stages + 3);
+}
+
+// The ring's depth: as many slots as shared memory leaves, at most
+// kMaxWideStages (mirrored by kernels/flash_attention.py::f32_cluster_stages).
+inline int cluster_stages_f32(int chunks) {
+  int s = attn_hopper::kMaxWideStages;
+  while (s > 2 && cluster_smem_bytes_f32(chunks, s) > kMaxSmem) --s;
+  return s;
+}
+
+struct ClusterParamsF32 {
+  float* o;
+  float* lse;
+  int sq, sk, c, d, heads, chunks, stages;
+  float scale_log2;
+};
+
+template <bool kWriteLse>
+__global__ void __launch_bounds__(kWideThreadsF32, 1)
+attention_f32_fwd_cluster_kernel(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const ClusterParamsF32 p) {
+  constexpr int OA = kClusterAtomsF32;
+  using attn_hopper::cluster_sync;
+  using attn_hopper::map_rank;
+  constexpr int NS = 2 * OA, kS = kWideT / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_tile = attn_hopper::align1024(smem_raw);
+  uint8_t* ring = q_tile + kClusterQ;
+  uint8_t* xout = ring + p.stages * kClusterSlot;  // this CTA's partial S, by tile parity
+  uint8_t* xbuf = xout + 2 * kXBytesF32;            // the peers', by tile parity and peer
+  const int peers = p.chunks - 1;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xbuf + 2 * peers * kXBytesF32);
+  uint64_t* ready = full + p.stages;
+  uint64_t* empty = ready + p.stages;
+  uint64_t* q_full = empty + p.stages;
+  uint64_t* xfull = q_full + 1;  // the two exchange buffers'
+  const int chunk = static_cast<int>(attn_hopper::cluster_rank());
+  const int q0 = blockIdx.x / p.chunks * 64;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int col0 = chunk * OA * 64;
+  const int n_tiles = (p.sk + kWideT - 1) / kWideT;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kSplitters);
+      mbar_init(&empty[s], 4);  // each consumer warp, once it has read the item
+    }
+    mbar_init(q_full, 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&xfull[b], 1);
+      mbar_expect_tx(&xfull[b], peers * kXBytesF32);  // tiles 0 and 1
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();  // every peer's barriers are set before anything reaches them
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4) {  // the producer warpgroup: warp 0 loads, warps 1-3 split K
+    const bool loader = warp == 4;
+    if (!loader || lane == 0) {
+      if (loader) {
+        prefetch_tensormap(&map_q);
+        prefetch_tensormap(&map_k);
+        prefetch_tensormap(&map_v);
+        mbar_expect_tx(q_full, kClusterQ);
+#pragma unroll
+        for (int sl = 0; sl < NS; ++sl)
+          tma_load_4d(q_tile + sl * 64 * kSlabBytes, &map_q, q_full, col0 + 32 * sl, head, q0,
+                      batch);
+      }
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j)
+        for (int kv = 0; kv < 2; ++kv) {  // the K item, then the V item
+          uint8_t* st = ring + slot * kClusterSlot;
+          if (loader) {
+            mbar_wait(&empty[slot], phase ^ 1);
+            mbar_expect_tx(&full[slot], kClusterTile);
+#pragma unroll
+            for (int sl = 0; sl < NS; ++sl)
+              tma_load_4d(st + sl * kWideT * kSlabBytes, kv ? &map_v : &map_k, &full[slot],
+                          col0 + 32 * sl, head, j * kWideT, batch);
+          } else {
+            mbar_wait(&full[slot], phase);
+            if (kv == 0) split_tile(st, st + kClusterTile, kClusterTile, threadIdx.x - 160);
+            fence_proxy_async();  // before wgmma reads them
+            mbar_arrive(&ready[slot]);
+          }
+          if (++slot == p.stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3, tid = threadIdx.x;
+    const int row0 = warp * 16;
+    const uint32_t q_addr = smem_u32(q_tile), x_addr = smem_u32(xbuf), x_bar = smem_u32(xfull);
+    float o[NS][4][4];
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[sl][nb][e] = 0.f;
+    float row_max[2] = {-INFINITY, -INFINITY};
+    float row_sum[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+    // the ring carries K(0), V(0), K(1), ...: item i in slot i % stages, its
+    // (i / stages)-th use; the consumers take K(j) before V(j - 1) and give
+    // each slot back in its order of use
+    const auto wait_item = [&](int i) {
+      mbar_wait(&full[i % p.stages], (i / p.stages) & 1);
+      mbar_wait(&ready[i % p.stages], (i / p.stages) & 1);
+      return ring + i % p.stages * kClusterSlot;
+    };
+    const auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[i % p.stages]);
+    };
+    float pp[kS];  // P of the tile whose P V is pending
+    float alpha_p[2] = {0.f, 0.f};
+    // O = O * alpha + P V of tile j, a fresh accumulator a slab
+    const auto pv = [&](int j) {
+      const uint8_t* vt = wait_item(2 * j + 1);
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl) {
+        float acc[4][4];
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+        gemm_xb<kWideT, false>(acc, pp, vt + sl * kWideT * kSlabBytes, nullptr, g, t);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[sl][nb][e] = fmaf(o[sl][nb][e], alpha_p[e >> 1], acc[nb][e]);
+      }
+      release(2 * j + 1);
+    };
+    for (int j = 0; j < n_tiles; ++j) {
+      const uint8_t* kt = wait_item(2 * j);  // the K item
+      float s[kS];
+      gemm_abt<NS, 64, kWideT, 1>(s, q_addr, row0, kt, kt + kClusterTile, lane, 128);
+      release(2 * j);
+
+      // the partial to every peer
+      const int b = j & 1;
+      float4* out = reinterpret_cast<float4*>(xout + b * kXBytesF32);
+#pragma unroll
+      for (int k = 0; k < kS / 4; ++k)
+        out[k * 128 + tid] = make_float4(s[4 * k], s[4 * k + 1], s[4 * k + 2], s[4 * k + 3]);
+      fence_proxy_async();  // before the bulk copies read them
+      named_barrier(1, 128);
+      if (tid == 0) {
+        for (int c = 0; c < p.chunks; ++c) {
+          if (c == chunk) continue;
+          const int idx = chunk < c ? chunk : chunk - 1;  // this CTA's buffer at the peer
+          attn_hopper::bulk_copy_peer(map_rank(x_addr + (b * peers + idx) * kXBytesF32, c),
+                                      smem_u32(out), kXBytesF32, map_rank(x_bar + b * 8, c));
+        }
+        attn_hopper::bulk_commit();
+      }
+      // the tile before's P V runs while the partials travel
+      if (j > 0) pv(j - 1);
+
+      // the sum in chunk order
+      attn_hopper::mbar_wait_cluster(&xfull[b], (j >> 1) & 1);
+#pragma unroll
+      for (int k = 0; k < kS / 4; ++k) {
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c = 0; c < p.chunks; ++c) {
+          float4 v;
+          if (c == chunk) {
+            v = make_float4(s[4 * k], s[4 * k + 1], s[4 * k + 2], s[4 * k + 3]);
+          } else {
+            const int idx = c < chunk ? c : c - 1;
+            v = *reinterpret_cast<const float4*>(xbuf + (b * peers + idx) * kXBytesF32 +
+                                                 (k * 128 + tid) * 16);
+          }
+          sum = c == 0 ? v : make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z, sum.w + v.w);
+        }
+        s[4 * k] = sum.x, s[4 * k + 1] = sum.y, s[4 * k + 2] = sum.z, s[4 * k + 3] = sum.w;
+      }
+      // buffer b's next phase (tile j + 2): no peer sends it before this
+      // CTA's partial for tile j + 1, which comes after this
+      if (tid == 0) mbar_expect_tx(&xfull[b], peers * kXBytesF32);
+
+      const int kv0 = j * kWideT;
+      if (kv0 + kWideT > p.sk) {  // the ragged last tile: keys >= Sk
+#pragma unroll
+        for (int i = 0; i < kS; ++i)
+          if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= p.sk) s[i] = kMasked;
+      }
+      float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kS; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 1));
+        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 2));
+        const float m_new = fmaxf(row_max[r], tile_max[r] * p.scale_log2);
+        alpha_p[r] = attn_hopper::exp2_approx(row_max[r] - m_new);
+        row_max[r] = m_new;
+        row_sum[r] *= alpha_p[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        const int r = (i >> 1) & 1;
+        pp[i] = attn_hopper::exp2_approx(fmaf(s[i], p.scale_log2, -row_max[r]));
+        row_sum[r] += pp[i];
+      }
+    }
+    pv(n_tiles - 1);
+    if (tid == 0) attn_hopper::bulk_wait_read();  // before the CTA may leave
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 1);
+      row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 2);
+    }
+    const int row = q0 + row0 + g;
+    const bool ok0 = row < p.sq, ok8 = row + 8 < p.sq;
+    float* dst = p.o + (static_cast<size_t>(batch) * p.sq + row) * p.c + head * p.d + col0;
+    const float inv0 = 1.f / row_sum[0], inv8 = 1.f / row_sum[1];
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+      store_slab(dst + 32 * sl, p.c, o[sl], inv0, inv8, ok0, ok8, t, p.d - col0 - 32 * sl);
+    if constexpr (kWriteLse) {
+      if (chunk == 0 && t == 0) {
+        float* l0 = p.lse + (static_cast<size_t>(batch) * p.sq + row) * p.heads + head;
+        if (ok0) l0[0] = (row_max[0] + log2f(row_sum[0])) * kLn2;
+        if (ok8) l0[static_cast<size_t>(8) * p.heads] = (row_max[1] + log2f(row_sum[1])) * kLn2;
+      }
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still write to its shared memory
+}
+
+template <bool kWriteLse>
+int launch_fwd_cluster(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                       const ClusterParamsF32& p, int batch, cudaStream_t stream) {
+  const int smem = cluster_smem_bytes_f32(p.chunks, p.stages);
+  const auto kernel = attention_f32_fwd_cluster_kernel<kWriteLse>;
+  static int configured = 0;  // the largest dynamic shared memory set so far
+  if (smem > configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  const dim3 grid((p.sq + 63) / 64 * p.chunks, p.heads, batch);
+  return attn_hopper::launch_clustered(kernel, grid, kWideThreadsF32, smem, p.chunks, stream, mq,
+                                       mk, mv, p);
+}
+
+// The wide f32 forward (d > 256, a multiple of 4) with a ring of `stages`:
+// at 9 to 16 atoms the clustered kernel (chunks of two atoms), else the
+// streaming one.
 template <bool kWriteLse>
 int forward_wide(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
                  int sq, int sk, int heads, int d, int scale_dim, int stages,
                  cudaStream_t stream) {
+  const int atoms = head_atoms(d), chunks = cluster_chunks_f32(atoms);
+  const bool clustered = f32_clustered(atoms);
   CUtensorMap mq, mk, mv;
   int rc = head_map_f32(&mq, q, batch, sq, heads, d, 64);
   if (rc) return rc;
   if ((rc = head_map_f32(&mk, k, batch, sk, heads, d, kWideT))) return rc;
   if ((rc = head_map_f32(&mv, v, batch, sk, heads, d, kWideT))) return rc;
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
+  if (clustered) {
+    ClusterParamsF32 p{};
+    p.o = static_cast<float*>(o);
+    p.lse = lse;
+    p.sq = sq;
+    p.sk = sk;
+    p.c = heads * d;
+    p.d = d;
+    p.heads = heads;
+    p.chunks = chunks;
+    p.stages = stages;
+    p.scale_log2 = scale_log2;
+    return launch_fwd_cluster<kWriteLse>(mq, mk, mv, p, batch, stream);
+  }
   WideParamsF32 p{};
   p.o = static_cast<float*>(o);
   p.lse = lse;
@@ -858,24 +1184,30 @@ int forward_wide(const void* q, const void* k, const void* v, void* o, float* ls
   p.c = heads * d;
   p.d = d;
   p.heads = heads;
-  p.atoms = head_atoms(d);
-  p.chunks = attn_hopper::wide_chunks(p.atoms);
+  p.atoms = atoms;
+  p.chunks = attn_hopper::wide_chunks(atoms);
   p.stages = stages;
-  p.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
-  return attn_hopper::wide_chunk_atoms(p.atoms) == 3
+  p.scale_log2 = scale_log2;
+  return attn_hopper::wide_chunk_atoms(atoms) == 3
              ? launch_fwd_wide<3, kWriteLse>(mq, mk, mv, p, batch, stream)
              : launch_fwd_wide<4, kWriteLse>(mq, mk, mv, p, batch, stream);
 }
 
 // Shared memory of a forward launch with (nwg, bn, stages) at `da` atoms; 0
 // for a launch there is no kernel for (wide heads: one warpgroup on
-// kWideT-key tiles, 2 to kMaxWideStages slots).
+// kWideT-key tiles; the clustered kernel's ring as deep as
+// cluster_stages_f32 gives, the streaming kernel's 2 to kMaxWideStages
+// slots).
 template <bool kCross>
 int fwd_launch_smem(int da, int nwg, int bn, int stages) {
-  if (da > attn_hopper::kNarrowAtoms)
-    return nwg == 1 && bn == kWideT && stages >= 2 && stages <= attn_hopper::kMaxWideStages
-               ? wide_smem_bytes(stages, false)
-               : 0;
+  if (da > attn_hopper::kNarrowAtoms) {
+    if (nwg != 1 || bn != kWideT) return 0;
+    const int chunks = cluster_chunks_f32(da);
+    if (f32_clustered(da))
+      return stages == cluster_stages_f32(chunks) ? cluster_smem_bytes_f32(chunks, stages) : 0;
+    return stages >= 2 && stages <= attn_hopper::kMaxWideStages ? wide_smem_bytes(stages, false)
+                                                                : 0;
+  }
   return fwd_tile_ok<kCross>(da, nwg, bn) ? fwd_smem_bytes(da, nwg, bn, stages) : 0;
 }
 

@@ -26,7 +26,7 @@
 // warpgroup and a one-warp producer (160 threads, so ptxas may give each
 // thread 255 registers), 64-key tiles in a ring of three 64 KB stages, or
 // B3's 80-key prompt tile in two. Heads of more than four atoms (d > 256)
-// take the wide kernel below.
+// take the wide kernels below.
 //
 // Bound: 4 * B * Sq * Sk * C flops on 2 * B * (2 * Sq + 2 * Sk) * C bytes.
 // Self-attention at 4096 and 1024 tokens is bound by tensor-core
@@ -373,6 +373,92 @@ int prepare_fwd(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, FwdParams* p,
   return 0;
 }
 
+// --- the wide forwards' key split --------------------------------------------
+//
+// Where a wide forward's grid is short, its keys are split `splits` ways
+// (1 to kMaxSplits), each split a contiguous range of key tiles
+// (split_begin) and its own block; the splits of one output tile are the
+// CTAs of a thread-block cluster (rank = split). At the end each block
+// leaves its O (unnormalised), m and l in its ring, consumer thread by
+// thread, as float4s, and after a cluster barrier merges a share of the
+// atoms over the splits in split order (m = max, l and O rescaled by
+// 2^(m_s - m) and summed), reading its peers' through distributed shared
+// memory, once a launch: the result does not depend on timing, and B2a
+// writes one L a row from the merged m and l.
+
+constexpr int kMaxSplits = 4;  // key ranges a launch: CTAs a cluster
+
+// The merge, by the kThreads consumer threads of a block (ct its thread, its
+// O the OA atoms `o` starting at atom `atom0` of its output, rows at `rows`
+// with row stride ld and columns d_left = d - that atom's first column left):
+// O, m and l (row_max, row_sum after their quad sums) into `area`, a cluster
+// barrier, then atom a merged and stored by split (atom0 + a) % splits; m
+// and l come back merged. The caller's other threads run cluster_sync once
+// while this runs.
+template <int OA, int kThreads>
+__device__ __forceinline__ void merge_splits(const float* o, const float (&row_max)[2],
+                                             const float (&row_sum)[2], uint8_t* area, int ct,
+                                             int split, int splits, int atom0,
+                                             __nv_bfloat16* rows, int ld, bool ok0, bool ok8,
+                                             int g, int t, int d_left, float (&m)[2],
+                                             float (&l)[2]) {
+  float4* mine = reinterpret_cast<float4*>(area);
+  const uint32_t area_addr = hopper::smem_u32(area);
+  hopper::named_barrier(1, kThreads);  // every consumer is done with the ring
+#pragma unroll
+  for (int k = 0; k < 8 * OA; ++k)
+    mine[k * kThreads + ct] = make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+  mine[8 * OA * kThreads + ct] = make_float4(row_max[0], row_max[1], row_sum[0], row_sum[1]);
+  cluster_sync();
+  // the splits' m, l in split order: m the max, l rescaled and summed
+  float f[kMaxSplits][2];  // each split's rescale 2^(m_s - m), rows g and g + 8
+  float ms[kMaxSplits][2], ls[kMaxSplits][2];
+#pragma unroll
+  for (int s2 = 0; s2 < kMaxSplits; ++s2) {
+    if (s2 >= splits) continue;
+    const float4 v =
+        s2 == split ? make_float4(row_max[0], row_max[1], row_sum[0], row_sum[1])
+                    : ld_cluster(map_rank(area_addr + (8 * OA * kThreads + ct) * 16, s2));
+    ms[s2][0] = v.x, ms[s2][1] = v.y, ls[s2][0] = v.z, ls[s2][1] = v.w;
+    m[0] = s2 == 0 ? v.x : fmaxf(m[0], v.x);
+    m[1] = s2 == 0 ? v.y : fmaxf(m[1], v.y);
+  }
+#pragma unroll
+  for (int s2 = 0; s2 < kMaxSplits; ++s2) {
+    if (s2 >= splits) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      f[s2][r] = exp2_approx(ms[s2][r] - m[r]);
+      l[r] = s2 == 0 ? ls[s2][r] * f[s2][r] : fmaf(ls[s2][r], f[s2][r], l[r]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < OA; ++a) {
+    if ((atom0 + a) % splits != split) continue;
+    float acc[32];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int e = 8 * a + k;  // float4 e of the thread's O
+#pragma unroll
+      for (int s2 = 0; s2 < kMaxSplits; ++s2) {
+        if (s2 >= splits) continue;
+        const float4 v = s2 == split
+                             ? make_float4(o[4 * e], o[4 * e + 1], o[4 * e + 2], o[4 * e + 3])
+                             : ld_cluster(map_rank(area_addr + (e * kThreads + ct) * 16, s2));
+        // elements 4e..4e+3: rows g, g, g + 8, g + 8
+        const float f0 = f[s2][0], f8 = f[s2][1];
+        sum = s2 == 0 ? make_float4(v.x * f0, v.y * f0, v.z * f8, v.w * f8)
+                      : make_float4(fmaf(v.x, f0, sum.x), fmaf(v.y, f0, sum.y),
+                                    fmaf(v.z, f8, sum.z), fmaf(v.w, f8, sum.w));
+      }
+      acc[4 * k] = sum.x, acc[4 * k + 1] = sum.y, acc[4 * k + 2] = sum.z, acc[4 * k + 3] = sum.w;
+    }
+    store_acc(rows + a * kAtom, ld, acc, 1.f / l[0], 1.f / l[1], ok0, ok8, g, t,
+              d_left - a * kAtom);
+  }
+}
+
 // --- heads of more than four atoms (d > 256) --------------------------------
 //
 // attention_fwd_wide_kernel: a fifth atom of O would hold 160 f32 a thread
@@ -399,14 +485,20 @@ int prepare_fwd(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, FwdParams* p,
 //     online softmax as the narrow kernel's; P as A fragments in registers;
 //     O += P V for the chunk's atoms, V MN-major, runs under the next tile's
 //     first S item.
+//   * Where the grid is short, the keys are split (merge_splits above): one
+//     block per (64 query rows, chunk, key range, head, batch), the ranges of
+//     one (rows, chunk) a cluster. The variant without the merge (kSplit
+//     false) keeps the kernel's 170 and 202 registers at three and four
+//     atoms; with the merge compiled in it takes 235-255.
 // Bound as the narrow kernel; the price of streaming is Q re-read from L2 for
 // every key tile (and each chunk's S), which holds it under the narrow
-// kernels' share of the tensor-core peak.
+// kernels' share of the tensor-core peak. Five- and six-atom heads over more
+// than two key tiles take the paired kernel below instead.
 
 struct WideFwdParams {
   __nv_bfloat16* o;
   float* lse;  // (B, Sq, heads) f32, written only by the kWriteLse kernels (chunk 0)
-  int sq, sk, c, d, heads, atoms, chunks, n_tiles, stages;
+  int sq, sk, c, d, heads, atoms, chunks, splits, n_tiles, stages;
   float scale_log2;
 };
 
@@ -415,7 +507,7 @@ constexpr int kAtomTile = 64 * kRowBytes;  // 64 rows x one atom: 8 KB
 
 int wide_fwd_smem_bytes(int stages) { return 1024 + stages * kWideSlot + 16 * stages; }
 
-template <int OA, bool kWriteLse>
+template <int OA, bool kWriteLse, bool kSplit>
 __global__ void __launch_bounds__(kWideThreads, 1)
 attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
@@ -426,12 +518,17 @@ attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * kWideSlot);
   uint64_t* empty = full + p.stages;
 
-  const int chunk = blockIdx.x % p.chunks;
-  const int q0 = blockIdx.x / p.chunks * 64;
+  // the key range (the rank in the cluster) and the (query tile, chunk) block
+  const int split = kSplit ? blockIdx.x % p.splits : 0;
+  const int block = kSplit ? blockIdx.x / p.splits : blockIdx.x;
+  const int chunk = block % p.chunks;
+  const int q0 = block / p.chunks * 64;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int s_items = (p.atoms + 1) / 2;
   const int col0 = chunk * OA * kAtom;  // the chunk's first column
+  const int t0 = kSplit ? split_begin(split, p.n_tiles, p.splits) : 0;
+  const int t1 = kSplit ? split_begin(split + 1, p.n_tiles, p.splits) : p.n_tiles;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -458,7 +555,7 @@ attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
           phase ^= 1;
         }
       };
-      for (int j = 0; j < p.n_tiles; ++j) {
+      for (int j = t0; j < t1; ++j) {
         for (int i = 0; i < s_items; ++i) {
           mbar_wait(&empty[slot], phase ^ 1);
           uint8_t* st = ring + slot * kWideSlot;
@@ -482,6 +579,10 @@ attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
         next();
       }
     }
+    if constexpr (kSplit) {  // the consumers' merge
+      cluster_sync();
+      cluster_sync();
+    }
     return;
   }
 
@@ -503,7 +604,7 @@ attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   int slot = 0;
   uint32_t phase = 0;
   int held = -1;  // the slot the last committed group reads
-  for (int j = 0; j < p.n_tiles; ++j) {
+  for (int j = t0; j < t1; ++j) {
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -595,51 +696,376 @@ attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   const int row0 = q0 + wq * 16;
   __nv_bfloat16* rows =
       p.o + (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d + col0;
+  const bool ok0 = row0 + g < p.sq, ok8 = row0 + g + 8 < p.sq;
+  float m[2] = {row_max[0], row_max[1]}, l[2] = {row_sum[0], row_sum[1]};
+  if constexpr (kSplit) {  // the ring is idle: every load has been consumed
+    merge_splits<OA, 128>(o, row_max, row_sum, ring, threadIdx.x, split, p.splits, 0, rows, p.c,
+                          ok0, ok8, g, t, p.d - col0, m, l);
+  } else {
 #pragma unroll
-  for (int a = 0; a < OA; ++a)
-    store_acc(rows + a * kAtom, p.c, o + 32 * a, 1.f / row_sum[0], 1.f / row_sum[1],
-              row0 + g < p.sq, row0 + g + 8 < p.sq, g, t, p.d - col0 - a * kAtom);
+    for (int a = 0; a < OA; ++a)
+      store_acc(rows + a * kAtom, p.c, o + 32 * a, 1.f / l[0], 1.f / l[1], ok0, ok8, g, t,
+                p.d - col0 - a * kAtom);
+  }
   if constexpr (kWriteLse) {
-    if (chunk == 0 && t == 0) {
+    if (chunk == 0 && split == 0 && t == 0) {
       float* l0 = p.lse + (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
-      if (row0 + g < p.sq) l0[0] = (row_max[0] + log2f(row_sum[0])) * kLn2;
-      if (row0 + g + 8 < p.sq)
-        l0[static_cast<size_t>(8) * p.heads] = (row_max[1] + log2f(row_sum[1])) * kLn2;
+      if (ok0) l0[0] = (m[0] + log2f(l[0])) * kLn2;
+      if (ok8) l0[static_cast<size_t>(8) * p.heads] = (m[1] + log2f(l[1])) * kLn2;
     }
   }
+  if constexpr (kSplit) cluster_sync();  // no block leaves while a peer may still read its ring
 }
 
-template <int OA, bool kWriteLse>
+template <int OA, bool kWriteLse, bool kSplit>
 int launch_fwd_wide(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
                     const WideFwdParams& p, int batch, cudaStream_t stream) {
   const int smem = wide_fwd_smem_bytes(p.stages);
+  const auto kernel = attention_fwd_wide_kernel<OA, kWriteLse, kSplit>;
   static int configured = 0;  // the largest dynamic shared memory set so far
   if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(attention_fwd_wide_kernel<OA, kWriteLse>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = smem;
   }
-  const dim3 grid((p.sq + 63) / 64 * p.chunks, p.heads, batch);
-  attention_fwd_wide_kernel<OA, kWriteLse><<<grid, kWideThreads, smem, stream>>>(mq, mk, mv, p);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((p.sq + 63) / 64 * p.chunks * p.splits, p.heads, batch);
+  if constexpr (kSplit) {
+    return launch_clustered(kernel, grid, kWideThreads, smem, p.splits, stream, mq, mk, mv, p);
+  } else {
+    kernel<<<grid, kWideThreads, smem, stream>>>(mq, mk, mv, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// --- heads of five or six atoms (d = 264..384): the paired kernel ----------
+//
+// attention_fwd_pair_kernel: one block per (64 query rows, key range, head,
+// batch) holds O for the whole head: two consumer warpgroups of the same 64
+// rows, each owning three of the six atoms of O (96 f32 a thread, where a
+// block of one warpgroup would need 192). Each warpgroup forms S = Q K^T
+// over all six atoms itself (wgmma m64n64k16, both operands K-major in
+// shared memory: Q resident, loaded once; the ring's K item), the same
+// wgmmas in the same order, so both hold the same S, m and l bit for bit;
+// the online softmax, P as A fragments in registers and O += P V for the
+// warpgroup's atoms (the ring's V item) as the narrow kernel's, P V under
+// the next tile's S. The two warpgroups share every K and V load and never
+// wait for each other. A producer warpgroup, whose first thread issues every
+// TMA load (Q once, then per key tile a K item and a V item of the six atoms
+// of 64 keys, 48 KB each, through a ring of three), gives its registers to
+// the consumers (setmaxnreg: 24 and 240).
+//   Measured against it on the H100: summing two partial S of three
+// atoms through shared memory behind a barrier a tile was 1-12% slower;
+// chunks of O in the CTAs of a cluster exchanging partial S (16 KB a peer a
+// key tile over the SM-to-SM network, ~1.5 us a peer) twice the streaming
+// kernel's time.
+//   Where the grid is short (the plan's why_short: 1x4096 in one head gives
+// 64 blocks), the keys are split (merge_splits above: the splits of a query
+// tile the CTAs of one cluster, merging O, m and l once, the (warpgroup,
+// atom) pairs shared out over the splits; B2a writes one L a row, split 0).
+// Bound as the narrow kernel: the tensor-core operations of one pass over
+// the six atoms (d = 264 and 320 compute on 1.45x and 1.2x the columns they
+// need: the sixth atom is TMA's zeros), S formed twice; a block reads K and
+// V of every atom from L2 once a key tile, 403 MB a call at 1x4096 and
+// d = 320.
+
+constexpr int kPairAtoms = 3;  // atoms of O a consumer warpgroup
+constexpr int kPairThreads = 384;  // two consumer warpgroups and the producer warpgroup
+constexpr int kPairItem = 2 * kPairAtoms * kAtomTile;  // a K or V item: six atoms of 64 keys
+
+struct PairFwdParams {
+  __nv_bfloat16* o;
+  float* lse;  // (B, Sq, heads) f32, written only by the kWriteLse kernels
+  int sq, sk, c, d, heads, splits, n_tiles, stages;
+  float scale_log2;
+};
+
+// Dynamic shared memory of a paired block: alignment slack, Q's six atoms,
+// the ring of `stages` items, and the barriers (full and empty a slot, Q's).
+inline int pair_fwd_smem_bytes(int stages) {
+  return 1024 + (1 + stages) * kPairItem + 8 * (2 * stages + 1);
+}
+
+// The ring's depth: as many slots as shared memory leaves (three; mirrored by
+// kernels/flash_attention.py::pair_stages).
+inline int pair_fwd_stages() {
+  int s = kMaxWideStages;
+  while (s > 2 && pair_fwd_smem_bytes(s) > 232448) --s;
+  return s;
+}
+
+template <bool kWriteLse, bool kSplit>
+__global__ void __launch_bounds__(kPairThreads, 1)
+attention_fwd_pair_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const PairFwdParams p) {
+  using namespace hopper;
+  constexpr int OA = kPairAtoms;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_tile = align1024(smem_raw);
+  uint8_t* ring = q_tile + kPairItem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * kPairItem);
+  uint64_t* empty = full + p.stages;
+  uint64_t* q_full = empty + p.stages;
+
+  const int split = blockIdx.x % p.splits;  // the key range (the rank in the cluster)
+  const int q0 = blockIdx.x / p.splits * 64;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int t0 = split_begin(split, p.n_tiles, p.splits);
+  const int tiles = split_begin(split + 1, p.n_tiles, p.splits) - t0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // each consumer warpgroup
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= 8) {  // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (warp == 8 && lane == 0) {  // its first thread issues every load
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      mbar_expect_tx(q_full, kPairItem);
+#pragma unroll
+      for (int a = 0; a < 2 * OA; ++a)
+        tma_load_4d(q_tile + a * kAtomTile, &map_q, q_full, a * kAtom, head, q0, batch);
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int j = t0; j < t0 + tiles; ++j)
+        for (int kv = 0; kv < 2; ++kv) {  // the K item, then the V item
+          mbar_wait(&empty[slot], phase ^ 1);
+          uint8_t* st = ring + slot * kPairItem;
+          mbar_expect_tx(&full[slot], kPairItem);
+#pragma unroll
+          for (int a = 0; a < 2 * OA; ++a)
+            tma_load_4d(st + a * kAtomTile, kv ? &map_v : &map_k, &full[slot], a * kAtom, head,
+                        j * 64, batch);
+          if (++slot == p.stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    if constexpr (kSplit) {  // the consumers' merge
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = warp >> 2;            // the warpgroup: its atoms 3 wg .. 3 wg + 2
+  const int tid = threadIdx.x & 127;   // within the warpgroup
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = q0 + (warp & 3) * 16;
+  const int col0 = wg * OA * kAtom;  // the warpgroup's first column
+  float o[32 * OA];
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+  {
+    const bool arrives = (warp & 3) == 0 && lane == 0;
+#pragma unroll
+    for (int i = 0; i < 32 * OA; ++i) o[i] = 0.f;
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) pf[k][0] = pf[k][1] = pf[k][2] = pf[k][3] = 0u;
+    fence_operands(o);
+    mbar_wait(q_full, 0);
+
+    int slot = 0;
+    uint32_t phase = 0;
+    int held = -1;  // the slot of the V item the P V group in flight reads
+    for (int jj = 0; jj < tiles; ++jj) {
+      mbar_wait(&full[slot], phase);  // the K item
+      const uint8_t* ks = ring + slot * kPairItem;
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_operands(s);
+      wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < 2 * OA; ++a)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<64, 0>(s, desc_k(q_tile + a * kAtomTile, kk), desc_k(ks + a * kAtomTile, kk));
+      wgmma_commit();
+      fence_operands(s);
+      wgmma_wait<0>();  // S over the six atoms, and the tile before's P V
+      fence_operands(s);
+      fence_operands(o);
+      fence_frags(pf);
+      if (arrives) {
+        mbar_arrive(&empty[slot]);
+        if (held >= 0) mbar_arrive(&empty[held]);
+      }
+      if (++slot == p.stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+
+      const int kv0 = (t0 + jj) * 64;
+      if (kv0 + 64 > p.sk) {  // the ragged last tile: keys >= Sk
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= p.sk) s[i] = kMasked;
+      }
+      float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 1));
+        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffff, tile_max[r], 2));
+        const float m_new = fmaxf(row_max[r], tile_max[r] * p.scale_log2);
+        alpha[r] = exp2_approx(row_max[r] - m_new);
+        row_max[r] = m_new;
+        row_sum[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = exp2_approx(fmaf(s[i], p.scale_log2, -row_max[r]));
+        row_sum[r] += s[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 32 * OA; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(pf[kk], s, kk);
+
+      mbar_wait(&full[slot], phase);  // the V item
+      const uint8_t* vs = ring + slot * kPairItem + wg * OA * kAtomTile;
+      fence_frags(pf);
+      fence_operands(o);
+      wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < OA; ++a)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<64, 1>(o + 32 * a, pf[kk], desc_mn(vs + a * kAtomTile, kk));
+      wgmma_commit();
+      fence_operands(o);
+      held = slot;
+      if (++slot == p.stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(o);
+    fence_frags(pf);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 1);
+      row_sum[r] += __shfl_xor_sync(0xffffffff, row_sum[r], 2);
+    }
+  }
+
+  __nv_bfloat16* rows =
+      p.o + (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d + col0;
+  const bool ok0 = row0 + g < p.sq, ok8 = row0 + g + 8 < p.sq;
+  float m[2] = {row_max[0], row_max[1]}, l[2] = {row_sum[0], row_sum[1]};
+  if constexpr (kSplit) {  // the ring is idle: every load has been consumed
+    merge_splits<OA, 256>(o, row_max, row_sum, ring, threadIdx.x, split, p.splits, OA * wg, rows,
+                          p.c, ok0, ok8, g, t, p.d - col0, m, l);
+  } else {
+#pragma unroll
+    for (int a = 0; a < OA; ++a)
+      store_acc(rows + a * kAtom, p.c, o + 32 * a, 1.f / l[0], 1.f / l[1], ok0, ok8, g, t,
+                p.d - col0 - a * kAtom);
+  }
+  if constexpr (kWriteLse) {
+    if (wg == 0 && split == 0 && t == 0) {
+      float* l0 = p.lse + (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
+      if (ok0) l0[0] = (m[0] + log2f(l[0])) * kLn2;
+      if (ok8) l0[static_cast<size_t>(8) * p.heads] = (m[1] + log2f(l[1])) * kLn2;
+    }
+  }
+  if constexpr (kSplit) cluster_sync();  // no block leaves while a peer may still read it
+}
+
+template <bool kWriteLse, bool kSplit>
+int launch_fwd_pair(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                    const PairFwdParams& p, int batch, cudaStream_t stream) {
+  const int smem = pair_fwd_smem_bytes(p.stages);
+  const auto kernel = attention_fwd_pair_kernel<kWriteLse, kSplit>;
+  static int configured = 0;  // the largest dynamic shared memory set so far
+  if (smem > configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  const dim3 grid((p.sq + 63) / 64 * p.splits, p.heads, batch);
+  if constexpr (kSplit) {
+    return launch_clustered(kernel, grid, kPairThreads, smem, p.splits, stream, mq, mk, mv, p);
+  } else {
+    kernel<<<grid, kPairThreads, smem, stream>>>(mq, mk, mv, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// Whether heads of `atoms` atoms may take the paired kernel: five or six.
+inline bool paired(int atoms) { return atoms > kNarrowAtoms && atoms <= 2 * kPairAtoms; }
+
+// Shared memory a wide forward launch of (nwg, bn) asks for at head dim d
+// with `stages` (0 for a launch there is no kernel for): the paired
+// kernel's (2, 64) at five or six atoms, its ring as deep as
+// pair_fwd_stages gives; the streaming kernel's (1, 64), 2 to
+// kMaxWideStages slots.
+inline int wide_launch_smem(int nwg, int bn, int d, int stages) {
+  if (bn != 64) return 0;
+  if (nwg == 2)
+    return paired(head_atoms(d)) && stages == pair_fwd_stages() ? pair_fwd_smem_bytes(stages) : 0;
+  return nwg == 1 && stages >= 2 && stages <= kMaxWideStages ? wide_fwd_smem_bytes(stages) : 0;
 }
 
 // The wide forward (heads of more than four atoms: d > 256, a multiple of
-// 8) with a ring of `stages` slots; 0 or an error code. The plans' (nwg,
-// bn) of the wide kernel are (1, 64).
+// 8) with the plan's (nwg, bn, stages) and its keys split `splits` ways (1
+// to kMaxSplits, a key tile each at least): (2, 64) the paired kernel, (1,
+// 64) the streaming kernel. 0 or an error code.
 template <bool kWriteLse>
 int forward_wide(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
-                 int sq, int sk, int heads, int d, int scale_dim, int stages,
-                 cudaStream_t stream) {
+                 int sq, int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
+                 int splits, cudaStream_t stream) {
+  const int atoms = head_atoms(d), n_tiles = (sk + 63) / 64;
   if (batch < 1 || sq < 1 || sk < 1 || heads < 1 || !head_dim_ok(d, scale_dim) ||
-      head_atoms(d) <= kNarrowAtoms || stages < 2 || stages > kMaxWideStages)
+      atoms <= kNarrowAtoms || wide_launch_smem(nwg, bn, d, stages) == 0 ||
+      splits < 1 || splits > kMaxSplits || splits > n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   int rc = head_map(&mq, q, batch, sq, heads, d, 64);
   if (rc) return rc;
   if ((rc = head_map(&mk, k, batch, sk, heads, d, 64))) return rc;
   if ((rc = head_map(&mv, v, batch, sk, heads, d, 64))) return rc;
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
+  const bool split = splits > 1;
+  if (nwg == 2) {
+    PairFwdParams p;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.lse = lse;
+    p.sq = sq;
+    p.sk = sk;
+    p.c = heads * d;
+    p.d = d;
+    p.heads = heads;
+    p.splits = splits;
+    p.n_tiles = n_tiles;
+    p.stages = stages;
+    p.scale_log2 = scale_log2;
+    return split ? launch_fwd_pair<kWriteLse, true>(mq, mk, mv, p, batch, stream)
+                 : launch_fwd_pair<kWriteLse, false>(mq, mk, mv, p, batch, stream);
+  }
   WideFwdParams p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = lse;
@@ -648,14 +1074,17 @@ int forward_wide(const void* q, const void* k, const void* v, void* o, float* ls
   p.c = heads * d;
   p.d = d;
   p.heads = heads;
-  p.atoms = head_atoms(d);
-  p.chunks = wide_chunks(p.atoms);
-  p.n_tiles = (sk + 63) / 64;
+  p.atoms = atoms;
+  p.chunks = wide_chunks(atoms);
+  p.splits = splits;
+  p.n_tiles = n_tiles;
   p.stages = stages;
-  p.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(scale_dim)));
-  return wide_chunk_atoms(p.atoms) == 3
-             ? launch_fwd_wide<3, kWriteLse>(mq, mk, mv, p, batch, stream)
-             : launch_fwd_wide<4, kWriteLse>(mq, mk, mv, p, batch, stream);
+  p.scale_log2 = scale_log2;
+  if (wide_chunk_atoms(atoms) == 3)
+    return split ? launch_fwd_wide<3, kWriteLse, true>(mq, mk, mv, p, batch, stream)
+                 : launch_fwd_wide<3, kWriteLse, false>(mq, mk, mv, p, batch, stream);
+  return split ? launch_fwd_wide<4, kWriteLse, true>(mq, mk, mv, p, batch, stream)
+               : launch_fwd_wide<4, kWriteLse, false>(mq, mk, mv, p, batch, stream);
 }
 
 }  // namespace

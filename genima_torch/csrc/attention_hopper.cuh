@@ -6,9 +6,11 @@
 // Head dims: a head of d columns (a multiple of 8) is handled as ceil(d / 64)
 // atoms of 64 columns. Up to four atoms (d <= 256) the atom count is the
 // kernels' template parameter DA and d itself a runtime value; above four
-// the wide kernels read the head atom by atom through a ring and keep O (or
-// dQ, dK, dV) for one chunk of at most four atoms a block (wide_chunks
-// below), their atom count a runtime value: no d is too wide. (A head dim
+// the wide kernels keep O for the whole head in two warpgroups of three
+// atoms (the paired forward, five or six atoms) or read the head atom by
+// atom through a ring and keep O (or dQ, dK, dV) for one chunk of at most
+// four atoms a block (wide_chunks below), their atom count a runtime value:
+// no d is too wide. (A head dim
 // that is not a multiple of 8 reaches the kernels zero-padded to the next
 // one by the wrappers, since TMA needs 16-byte row strides; the scale
 // follows the real head dim, `scale_dim`.)
@@ -203,6 +205,116 @@ __device__ __forceinline__ void fence_acc(float* r) {
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
                                     ~static_cast<uintptr_t>(1023));
+}
+
+// --- thread-block clusters (the wide forwards) -------------------------------
+//
+// The CTAs of a cluster run on neighbouring SMs and reach each other's
+// shared memory: the wide forwards' key splits merge their O through it
+// once a launch, and the clustered f32 forward pushes its partial scores
+// into its peers' buffers with a bulk copy, which completes bytes on an
+// mbarrier in the peer's shared memory, each CTA waiting on its own
+// barrier, as for a TMA load. (st.async of 16 bytes a thread, one barrier
+// update each, took 2.6-7.5 ns an update on the H100.)
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of this CTA's shared address `addr` in the
+// CTA of rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives (releasing its earlier
+// writes) and waits for all (acquiring theirs). No thread of a clustered
+// kernel returns before its last cluster_sync.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) of this CTA's shared memory at `src` to the
+// shared::cluster address `dst` in a peer CTA, by the bulk-copy engine,
+// completing `bytes` of transaction on the peer's mbarrier at `bar` (a
+// shared::cluster address): one transaction, where st.async takes one a 16
+// bytes. The caller fences its generic writes of `src` for the async proxy
+// first (fence_proxy_async) and commits the copy (bulk_commit).
+__device__ __forceinline__ void bulk_copy_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk copies have read their sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// 16 bytes from the shared::cluster address `addr` (a peer CTA's shared
+// memory).
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Wait until this CTA's barrier's phase with parity `parity` has completed,
+// acquiring at cluster scope what peers' copies wrote before completing it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = hopper::smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The wide forwards' key ranges: split s of `splits` takes key tiles
+// [s * tiles / splits, (s + 1) * tiles / splits).
+__host__ __device__ __forceinline__ int split_begin(int s, int tiles, int splits) {
+  return s * tiles / splits;
+}
+
+// A launch of `kernel` over `grid` in clusters of `cluster` blocks along x;
+// 0 or an error code.
+template <class Kernel, class... Args>
+int launch_clustered(Kernel kernel, dim3 grid, int threads, int smem, int cluster,
+                     cudaStream_t stream, const Args&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace attn_hopper

@@ -1,8 +1,9 @@
 // Flash-attention forward on (B, S, H, D) for Hopper (sm_90a), any S, D a
 // multiple of 8 (the wrapper zero-pads any other D to the next multiple of 8
 // and passes the real one as scale_dim): up to 256 the narrow kernel, above
-// it attention_fwd_hopper.cuh's wide kernel (O in chunks of three or four
-// 64-column atoms, one a block).
+// it attention_fwd_hopper.cuh's wide kernels (at five or six 64-column atoms
+// the paired kernel, two warpgroups of one block; else O in chunks of three
+// or four atoms, one a block).
 //
 // Replaces genima_tpu/kernels/flash_attention.py::_flash_forward /
 // _flash_kernel: non-causal softmax(Q K^T / sqrt(D)) V with an online
@@ -60,20 +61,21 @@ int flash_attention_smem_bytes(int nwg, int bn, int stages, int d);
 
 // softmax(Q_h K_h^T / sqrt(scale_dim)) V_h for every head h of
 // (B, S, heads, d) bf16 tensors, Sq and Sk >= 1, with the consumer
-// warpgroups (nwg), key tile (bn) and ring depth of
-// kernels/flash_attention.py::plan; scale_dim is d, or the real head dim of
-// heads zero-padded to d columns. Needs 16-byte aligned tensors (the wrapper
+// warpgroups (nwg), key tile (bn), ring depth and key splits (1 but in the
+// wide kernels) of kernels/flash_attention.py::plan; scale_dim is d, or the
+// real head dim of heads zero-padded to d columns. Needs 16-byte aligned tensors (the wrapper
 // checks). Launches on `stream`, does not synchronise; returns 0 or an error
 // code for flash_attention_error_string.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch, int sq,
                         int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
-                        void* stream) {
+                        int splits, void* stream) {
   if (flash_attention_smem_bytes(nwg, bn, stages, d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_atoms(d) > kNarrowAtoms)
-    return forward_wide<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d, scale_dim, stages,
-                               s);
+    return forward_wide<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d, scale_dim, nwg, bn,
+                               stages, splits, s);
+  if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   FwdParams p;
   const int rc = prepare_fwd(&mq, &mk, &mv, &p, q, k, v, o, nullptr, batch, sq, sk, heads, d,
@@ -92,10 +94,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
 int flash_attention_smem_bytes(int nwg, int bn, int stages, int d) {
   if (!head_dim_ok(d, d) || stages < 1) return 0;
   const int atoms = head_atoms(d);
-  if (atoms > kNarrowAtoms)  // the wide kernel: one warpgroup on 64-key tiles
-    return nwg == 1 && bn == 64 && stages >= 2 && stages <= kMaxWideStages
-               ? wide_fwd_smem_bytes(stages)
-               : 0;
+  if (atoms > kNarrowAtoms)  // the wide kernels: the paired (2, 64), the streaming (1, 64)
+    return wide_launch_smem(nwg, bn, d, stages);
   const bool tile =
       atoms == 1 ? (nwg == 3 ? bn == 128
                              : (nwg == 1 || nwg == 2) && (bn == 64 || bn == 80 || bn == 128))
@@ -109,7 +109,8 @@ int flash_attention_smem_bytes(int nwg, int bn, int stages, int d) {
 // ring depth of kernels/flash_attention.py::f32_plan.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int batch,
                             int sq, int sk, int heads, int d, int scale_dim, int nwg, int bn,
-                            int stages, void* stream) {
+                            int stages, int splits, void* stream) {
+  if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   return attn_f32::forward<false, true>(q, k, v, o, nullptr, batch, sq, sk, heads, d, scale_dim,
                                         nwg, bn, stages, static_cast<cudaStream_t>(stream));
 }

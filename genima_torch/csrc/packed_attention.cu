@@ -10,8 +10,9 @@
 // Layout: q, k, v and o are (B, S, heads * d) bf16, row-major, exactly as
 // the to_q / to_k / to_v projections emit them; d a multiple of 8 (the
 // wrapper zero-pads any other head dim to the next multiple of 8 and passes
-// the real one as scale_dim; above 256 the wide kernel of
-// attention_fwd_hopper.cuh, O in chunks of three or four 64-column atoms,
+// the real one as scale_dim; above 256 the wide kernels of
+// attention_fwd_hopper.cuh: at five or six 64-column atoms the paired
+// kernel, two warpgroups of one block, else O in chunks of three or four atoms,
 // one a block), Sq and Sk any length >= 1, as the TPU forward's. A block
 // reads head h as the d columns at offset h * d with row stride
 // C = heads * d, through 3-D (C, S, B) TMA maps, so no (S, H, D) ->
@@ -61,12 +62,14 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
 
 template <bool kWriteLse>
 int forward(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
-            int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
+            int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages, int splits,
             cudaStream_t s) {
   if (packed_attention_smem_bytes(nwg, bn, stages, d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (head_atoms(d) > kNarrowAtoms)
-    return forward_wide<kWriteLse>(q, k, v, o, lse, batch, sq, sk, heads, d, scale_dim, stages, s);
+    return forward_wide<kWriteLse>(q, k, v, o, lse, batch, sq, sk, heads, d, scale_dim, nwg, bn,
+                                   stages, splits, s);
+  if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   FwdParams p;
   const int rc = prepare_fwd(&mq, &mk, &mv, &p, q, k, v, o, lse, batch, sq, sk, heads, d,
@@ -90,12 +93,11 @@ int packed_attention_smem_bytes(int nwg, int bn, int stages, int d) {
   if (!head_dim_ok(d, d) || stages < 1) return 0;
   // one atom: (1, 64) and (1 to 3, 128), as 64-key tiles with more
   // warpgroups never won; two or three: (1 or 2, 64), four: (1, 64), what
-  // their registers and shared memory leave; more: the wide kernel's (1, 64)
+  // their registers and shared memory leave; five or six: the paired
+  // kernel's (2, 64); more: the streaming wide kernel's (1, 64)
   const int atoms = head_atoms(d);
   if (atoms > kNarrowAtoms)
-    return nwg == 1 && bn == 64 && stages >= 2 && stages <= kMaxWideStages
-               ? wide_fwd_smem_bytes(stages)
-               : 0;
+    return wide_launch_smem(nwg, bn, d, stages);
   const bool tile = atoms == 1 ? (bn == 64 ? nwg == 1 : bn == 128 && nwg >= 1 && nwg <= 3)
                                : bn == 64 && (nwg == 1 || (atoms < 4 && nwg == 2));
   return tile ? fwd_smem_bytes(nwg, bn, stages, atoms) : 0;
@@ -103,25 +105,26 @@ int packed_attention_smem_bytes(int nwg, int bn, int stages, int d) {
 
 // softmax(Q_h K_h^T / sqrt(scale_dim)) V_h for every head h of packed
 // (B, S, heads * d) bf16 tensors, with the consumer warpgroups (nwg), key
-// tile (bn) and ring depth of kernels/packed_attention.py::forward_plan;
-// scale_dim is d, or the real head dim of heads zero-padded to d columns.
+// tile (bn), ring depth and key splits (1 but in the wide kernels) of
+// kernels/packed_attention.py::forward_plan; scale_dim is d, or the real
+// head dim of heads zero-padded to d columns.
 // Needs 16-byte aligned tensors (the wrapper checks). Launches on `stream`,
 // does not synchronise; returns 0 or an error code for
 // packed_attention_error_string.
 int packed_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch, int sq,
                          int sk, int heads, int d, int scale_dim, int nwg, int bn, int stages,
-                         void* stream) {
+                         int splits, void* stream) {
   return forward<false>(q, k, v, o, nullptr, batch, sq, sk, heads, d, scale_dim, nwg, bn, stages,
-                        static_cast<cudaStream_t>(stream));
+                        splits, static_cast<cudaStream_t>(stream));
 }
 
 // The same, and L = m + log(l) per (row, head) into the (B, Sq, heads) f32
 // tensor `lse`.
 int packed_attention_fwd_lse(const void* q, const void* k, const void* v, void* o, void* lse,
                              int batch, int sq, int sk, int heads, int d, int scale_dim, int nwg,
-                             int bn, int stages, void* stream) {
+                             int bn, int stages, int splits, void* stream) {
   return forward<true>(q, k, v, o, static_cast<float*>(lse), batch, sq, sk, heads, d, scale_dim,
-                       nwg, bn, stages, static_cast<cudaStream_t>(stream));
+                       nwg, bn, stages, splits, static_cast<cudaStream_t>(stream));
 }
 
 // B1 and B2a on packed (B, S, heads * d) f32 tensors, d a multiple of 4
@@ -133,9 +136,10 @@ int packed_attention_fwd_lse(const void* q, const void* k, const void* v, void* 
 // for packed_attention_error_string.
 int packed_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                              int batch, int sq, int sk, int heads, int d, int scale_dim, int nwg,
-                             int bn, int stages, void* stream) {
+                             int bn, int stages, int splits, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   return l ? attn_f32::forward<true, false>(q, k, v, o, l, batch, sq, sk, heads, d, scale_dim,
                                             nwg, bn, stages, s)
            : attn_f32::forward<false, false>(q, k, v, o, l, batch, sq, sk, heads, d, scale_dim,

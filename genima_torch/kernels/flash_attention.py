@@ -32,10 +32,14 @@ prompt tokens; under ``"pallas_self"`` only self-attention does.
   (TMA needs 16-byte row strides), the kernel scaled by the real D, and only
   the D real columns are kept. Above four atoms (D > 256: five atoms of f32
   O would pass a thread's 255 registers at 64 rows) the wide kernels take
-  the head: O in ``wide_chunking``'s chunks of three or four atoms, one a
-  block, S summed over every atom streamed through a ring (``wide_plan``,
-  ``f32_plan``). Bound: tensor-core operations for long self-attention,
-  bytes for cross-attention over 77 keys.
+  the head (``wide_plan``, ``f32_plan``): at five or six atoms the paired
+  kernel (two warpgroups of three atoms of O sharing every K and V load),
+  else O in ``wide_chunking``'s chunks of three or four atoms, one a block,
+  S summed over every atom streamed through a ring; in f32 from
+  nine to sixteen atoms the clustered kernel (chunks of two atoms the CTAs
+  of a cluster, exchanging partial S); the keys split where the grid is
+  short. Bound: tensor-core operations for long self-attention, bytes for
+  cross-attention over 77 keys.
 * CPU: ``flash_attention_reference``, the same arithmetic in plain PyTorch
   (f32 scores, P rounded to v's dtype before P V). The wrapper takes it only
   for tensors that lie on the CPU.
@@ -134,11 +138,22 @@ WIDE_TILES = ((1, 64), (1, 80), (2, 64))
 # and at 200..256 (four atoms): 128 f32 of O a thread, so one consumer
 # warpgroup beside a one-warp producer (160 threads: up to 255 registers)
 WIDEST_TILES = ((1, 64), (1, 80))
-# and above 256 (the wide kernel, B1/B2a's and B3's alike): one consumer
-# warpgroup on 64-key tiles, a ring of 32 KB slots (four 64-row atom tiles)
-WIDE_HEAD_TILES = ((1, 64),)
+# and above 256 (the wide kernels, B1/B2a's and B3's alike), on 64-key
+# tiles: at five or six atoms (d = 264..384) the paired kernel, two consumer
+# warpgroups of the same 64 rows, ``PAIR_ATOMS`` atoms of O each, both
+# forming S over the whole head, Q resident, a ring of ``pair_stages`` 48 KB
+# items (over more than ``PAIR_MIN_TILES`` key tiles); else the streaming
+# kernel, one consumer warpgroup and a ring of ``WIDE_STAGES`` 32 KB slots
+# (four 64-row atom tiles); both split the keys where the grid is short
+# (``key_splits``)
+WIDE_HEAD_TILES = ((1, 64), (2, 64))
 WIDE_SLOT_BYTES = 4 * 64 * 128
 WIDE_STAGES = 6  # the ring's slots (kMaxWideStages in csrc/attention_hopper.cuh)
+ATOM_TILE_BYTES = 64 * 128  # 64 rows of one bf16 atom
+PAIR_ATOMS = 3  # kPairAtoms in csrc/attention_fwd_hopper.cuh: atoms of O a warpgroup
+MAX_SPLITS = 4  # key ranges a launch (kMaxSplits): CTAs a cluster
+MIN_SPLIT_TILES = 2  # key tiles a range at least: a merge costs a few microseconds
+PAIR_MIN_TILES = 2  # key tiles up to which the streaming kernel takes five or six atoms
 MAX_STAGES = 4
 LONG_KEY_LOOP = 4  # K/V tiles from which two or three consumer warpgroups pay
 # time per 64 query rows of a three-warpgroup block against a two-warpgroup
@@ -162,14 +177,21 @@ class Plan:
     why_short: str  # why the grid is under one wave ("" if it is not)
     atoms: int = 1
     chunks: int = 1  # O's column chunks, one a block (the wide kernel, above four atoms)
+    splits: int = 1  # key ranges of the wide kernels where the grid is short: a cluster
 
     @property
     def blocks(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
     @property
+    def cluster(self) -> int:
+        """CTAs a thread-block cluster: the wide kernels' key splits."""
+        return self.splits
+
+    @property
     def rows(self) -> int:
-        return 64 * self.nwg
+        """Query rows a block (the paired kernel's two warpgroups share theirs)."""
+        return 64 if self.atoms > NARROW_ATOMS else 64 * self.nwg
 
     @property
     def threads(self) -> int:
@@ -194,14 +216,52 @@ class Plan:
 
 def smem_bytes(nwg: int, bn: int, stages: int, atoms: int = 1) -> int:
     """Dynamic shared memory of one block: 1 KB of alignment slack, the Q
-    tile, the K/V ring and the barriers (above four atoms the wide kernel's
-    ring of slots and its barriers, whatever the atoms). Mirrors
-    ``fwd_smem_bytes`` / ``wide_fwd_smem_bytes`` in
+    tile, the K/V ring and the barriers (above four atoms the paired
+    kernel's, ``pair_smem_bytes``, or the streaming kernel's ring of slots
+    and its barriers, whatever the atoms). Mirrors ``fwd_smem_bytes`` /
+    ``pair_fwd_smem_bytes`` / ``wide_fwd_smem_bytes`` in
     ``csrc/attention_fwd_hopper.cuh``, which ``flash_attention_smem_bytes``
     and ``packed_attention_smem_bytes`` return."""
     if atoms > NARROW_ATOMS:
+        if nwg == 2:
+            return pair_smem_bytes(stages)
         return 1024 + stages * WIDE_SLOT_BYTES + 16 * stages
     return 1024 + (64 * nwg * 128 + stages * 2 * bn * 128) * atoms + 16 * stages + 16
+
+
+def paired(atoms: int) -> bool:
+    """Whether a head of ``atoms`` atoms fits the paired wide kernel: five
+    or six (d = 264..384), two warpgroups of ``PAIR_ATOMS`` atoms of O."""
+    return NARROW_ATOMS < atoms <= 2 * PAIR_ATOMS
+
+
+def wide_warpgroups(atoms: int, sk: int) -> int:
+    """The wide kernel a head of ``atoms`` > ``NARROW_ATOMS`` atoms over
+    ``sk`` keys takes, by its consumer warpgroups: 2, the paired kernel, at
+    five or six atoms and more than ``PAIR_MIN_TILES`` key tiles; else 1,
+    the streaming kernel, which measured faster over the 77 prompt keys
+    (1x4096x77 at d = 320: 0.00905 ms against 0.01376 with the keys split;
+    H100)."""
+    return 2 if paired(atoms) and -(-sk // 64) > PAIR_MIN_TILES else 1
+
+
+def pair_smem_bytes(stages: int) -> int:
+    """Shared memory of a paired block: alignment slack, Q's six atoms,
+    ``stages`` K or V items of six atoms, the barriers. Mirrors
+    ``pair_fwd_smem_bytes``."""
+    return 1024 + (1 + stages) * 2 * PAIR_ATOMS * ATOM_TILE_BYTES + 8 * (2 * stages + 1)
+
+
+def pair_stages() -> int:
+    """The paired kernel's ring: as many 48 KB items as shared memory leaves
+    (three; ``pair_fwd_stages``)."""
+    return max([2] + [s for s in range(2, WIDE_STAGES + 1) if pair_smem_bytes(s) <= SMEM_BLOCK])
+
+
+def pair_merge_fits(stages: int) -> bool:
+    """Whether a paired block's ring holds what a key split leaves for the
+    merge: each consumer thread's O, m and l as float4s."""
+    return stages * 2 * PAIR_ATOMS * ATOM_TILE_BYTES >= (8 * PAIR_ATOMS + 1) * 256 * 16
 
 
 def tiles_for(d: int) -> tuple:
@@ -270,12 +330,29 @@ def long_loop_warpgroups(b: int, sq: int, h: int, sms: int = SMS) -> int:
     return 3 if cost(3) <= cost(2) else 2
 
 
+def key_splits(blocks: int, kv_tiles: int, sms: int = SMS) -> int:
+    """Key ranges of the wide kernels: 1 where ``blocks`` fill the card;
+    where they do not, as many as keep the grid within one wave, each range
+    ``MIN_SPLIT_TILES`` key tiles at least, ``MAX_SPLITS`` at most (1x4096
+    in one head at d = 320: 64 blocks, two ranges; 1x1024 at d = 640: 48
+    blocks, two; the 77 prompt keys, two tiles: none)."""
+    if blocks >= sms:
+        return 1
+    return max(k for k in range(1, MAX_SPLITS + 1)
+               if k == 1 or (k * MIN_SPLIT_TILES <= kv_tiles and blocks * k <= sms))
+
+
 def wide_plan(b: int, sq: int, sk: int, h: int, d: int, sms: int = SMS) -> Plan:
-    """The wide kernel's launch (heads of more than four atoms; B1, B2a and
-    B3 alike): one consumer warpgroup of 64 query rows on 64-key tiles, a
-    ring of ``WIDE_STAGES`` 32 KB slots (192 KB whatever d is), one block
-    per (64 rows, chunk of O's columns, head, batch)."""
-    return make_plan(b, sq, sk, h, 1, 64, WIDE_STAGES, sms=sms, tiles=WIDE_HEAD_TILES, d=d)
+    """The wide kernels' launch (heads of more than four atoms; B1, B2a and
+    B3 alike) on 64-key tiles, the keys split ``key_splits`` ways where the
+    grid is short: where ``wide_warpgroups`` gives two, the paired kernel,
+    two consumer warpgroups of 64 query rows, one block per (64 rows, key
+    range, head, batch), a ring of ``pair_stages`` items; else the streaming
+    kernel, one warpgroup, one block per (64 rows, chunk of O's columns,
+    key range, head, batch), ``WIDE_STAGES`` 32 KB slots (192 KB whatever d
+    is)."""
+    return make_plan(b, sq, sk, h, wide_warpgroups(head_atoms(d), sk), 64, sms=sms,
+                     tiles=WIDE_HEAD_TILES, d=d)
 
 
 def max_stages(nwg: int, bn: int, atoms: int) -> int:
@@ -296,8 +373,16 @@ def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int |
     if (nwg, bn) not in (tiles_for(d) if tiles is None else tiles):
         raise ValueError(f"no kernel for {nwg} warpgroups x {bn}-key tiles at head_dim {d}")
     kv_tiles = -(-sk // bn)
-    if atoms > NARROW_ATOMS:
-        # the wide kernel's ring holds a slot across key tiles: two at least
+    pair = atoms > NARROW_ATOMS and nwg == 2
+    if pair and not paired(atoms):
+        raise ValueError(f"no wide kernel for {nwg} warpgroups at head_dim {d}")
+    if pair:
+        # the paired kernel's ring is as deep as shared memory leaves
+        chunks, fewest = 1, pair_stages()
+        deepest = fewest
+        stages = deepest if stages is None else stages
+    elif atoms > NARROW_ATOMS:
+        # the streaming kernel's ring holds a slot across key tiles: two at least
         chunks, fewest, deepest = wide_chunking(atoms)[0], 2, WIDE_STAGES
         stages = WIDE_STAGES if stages is None else stages
     else:
@@ -306,18 +391,25 @@ def make_plan(b: int, sq: int, sk: int, h: int, nwg: int, bn: int, stages: int |
         stages = min(kv_tiles, deepest) if stages is None else stages
     if not fewest <= stages <= deepest:
         raise ValueError(f"{stages} stages for {kv_tiles} K/V tiles at head_dim {d}")
-    grid = (-(-sq // (64 * nwg)) * chunks, h, b)
-    blocks = grid[0] * grid[1] * grid[2]
+    rows = 64 if atoms > NARROW_ATOMS else 64 * nwg  # the paired kernel's warpgroups share rows
+    tiles = -(-sq // rows)
+    blocks = tiles * chunks * h * b
     why = ""
     if blocks < sms:
-        why = f"{grid[0] // chunks} tiles of {64 * nwg} query rows x {h} heads x batch {b}"
+        why = f"{tiles} tiles of {rows} query rows x {h} heads x batch {b}"
         if chunks > 1:
             why += f" x {chunks} column chunks"
-        if nwg > 1:
+        if pair:
+            why += ", 2 warpgroups splitting O's columns"
+        elif nwg > 1:
             why += f", {nwg} warpgroups sharing each of {kv_tiles} K/V tiles"
-    return Plan(nwg=nwg, bn=bn, stages=stages, kv_tiles=kv_tiles, grid=grid,
+    splits = key_splits(blocks, kv_tiles, sms) if atoms > NARROW_ATOMS else 1
+    if splits > 1:
+        why += f"; keys split {splits} ways"
+    return Plan(nwg=nwg, bn=bn, stages=stages, kv_tiles=kv_tiles,
+                grid=(tiles * chunks * splits, h, b),
                 smem_bytes=smem_bytes(nwg, bn, stages, atoms), why_short=why, atoms=atoms,
-                chunks=chunks)
+                chunks=chunks, splits=splits)
 
 
 F32_SLAB_BYTES = 128  # 32 f32 columns: one TMA box and swizzle span of the f32 kernels
@@ -336,10 +428,18 @@ def f32_padded_head_dim(d: int) -> int:
 # ``csrc/attention_f32_hopper.cuh``); the 80-key tile, for B3's 77 prompt
 # keys, is built into flash_attention.cu only
 F32_TILES = {1: ((2, 64), (1, 80)), 2: ((2, 32),), 3: ((1, 32),), 4: ((1, 16),)}
-# above four atoms the wide f32 kernel: one consumer warpgroup on 32-key
-# tiles, a ring of ``WIDE_STAGES`` 32 KB slots (64 query rows of an atom
-# raw and a tile's 32 keys of it split, or a tile of the chunk's atoms)
+# above four atoms the wide f32 kernels: one consumer warpgroup on 32-key
+# tiles. At 9 to 16 atoms (d = 516..1024) the clustered kernel: chunks of
+# ``F32_CLUSTER_ATOMS`` atoms, the CTAs of a cluster exchanging partial
+# scores, Q's two atoms resident, a ring of 32 KB slots (a K item split, or
+# a V item raw) as deep as shared memory leaves (``f32_cluster_stages``);
+# else the streaming kernel's ``WIDE_STAGES`` slots (64 query rows of an
+# atom raw and a tile's 32 keys of it split, or a tile of the chunk's atoms)
+# over ``wide_chunking``'s chunks
 F32_WIDE_TILE = (1, 32)
+F32_CLUSTER_ATOMS = 2  # kClusterAtomsF32 in csrc/attention_f32_hopper.cuh
+F32_CLUSTER_CHUNKS = 8  # kClusterChunksF32: a portable cluster
+F32_EXCHANGE_BYTES = 64 * 32 * 4  # one partial S, 64 rows x 32 keys (kXBytesF32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,10 +458,17 @@ class F32Plan:
     atoms: int
     why_short: str  # why the grid is under one wave ("" if it is not)
     chunks: int = 1  # O's column chunks, one a block (the wide kernel, above four atoms)
+    splits: int = 1  # key ranges: the f32 kernels never split
 
     @property
     def rows(self) -> int:
         return 64 * self.nwg
+
+    @property
+    def cluster(self) -> int:
+        """CTAs a thread-block cluster: the chunks for the clustered wide
+        kernel, else 1."""
+        return self.chunks if f32_clustered(self.atoms) else 1
 
     @property
     def threads(self) -> int:
@@ -378,6 +485,8 @@ def f32_smem_bytes(nwg: int, bn: int, stages: int, atoms: int) -> int:
     ``fwd_smem_bytes`` in ``csrc/attention_f32_hopper.cuh``, which
     ``flash_attention_f32_smem_bytes`` and ``packed_attention_f32_smem_bytes``
     return."""
+    if f32_clustered(atoms):
+        return f32_cluster_smem_bytes(f32_wide_chunking(atoms)[0], stages)
     if atoms > NARROW_ATOMS:
         return f32_wide_smem_bytes(stages, rows=False)
     slabs = 2 * atoms
@@ -394,6 +503,39 @@ def f32_wide_smem_bytes(stages: int, rows: bool) -> int:
     return 1024 + stages * (WIDE_SLOT_BYTES + (2 * 32 * 4 if rows else 0)) + 24 * stages
 
 
+def f32_wide_chunking(atoms: int) -> tuple[int, int]:
+    """(chunks, atoms a chunk) of the f32 wide forward's O: the clustered
+    kernel's chunks of ``F32_CLUSTER_ATOMS`` atoms, else ``wide_chunking``'s."""
+    if f32_clustered(atoms):
+        return -(-atoms // F32_CLUSTER_ATOMS), F32_CLUSTER_ATOMS
+    return wide_chunking(atoms)
+
+
+def f32_clustered(atoms: int) -> bool:
+    """Whether an f32 head of ``atoms`` atoms takes the clustered wide
+    forward: 9 to 16 (d = 516..1024; ``f32_clustered`` in the source). At 5
+    to 8 the streaming kernel measured faster (1x4096 at d = 320: 0.828 ms
+    against 1.08; H100)."""
+    return 2 * NARROW_ATOMS < atoms and -(-atoms // F32_CLUSTER_ATOMS) <= F32_CLUSTER_CHUNKS
+
+
+def f32_cluster_smem_bytes(chunks: int, stages: int) -> int:
+    """Shared memory of a clustered f32 block: alignment slack, Q's four
+    slabs of 64 rows, ``stages`` 32 KB slots, two out buffers and two
+    exchange buffers a peer, three barriers a slot and three more. Mirrors
+    ``cluster_smem_bytes_f32`` in ``csrc/attention_f32_hopper.cuh``."""
+    return (1024 + 64 * 4 * F32_SLAB_BYTES + stages * WIDE_SLOT_BYTES
+            + 2 * chunks * F32_EXCHANGE_BYTES + 8 * (3 * stages + 3))
+
+
+def f32_cluster_stages(chunks: int) -> int:
+    """The clustered f32 kernel's ring: as many slots as shared memory
+    leaves, at most ``WIDE_STAGES`` (``cluster_stages_f32``): 3 at five and
+    six chunks (d = 516..768), 2 at seven and eight (769..1024)."""
+    return max([2] + [s for s in range(2, WIDE_STAGES + 1)
+                      if f32_cluster_smem_bytes(chunks, s) <= SMEM_BLOCK])
+
+
 F32_STAGES = 2  # the f32 forward's ring: deeper rings measured no faster at the SD shapes
 
 
@@ -405,14 +547,17 @@ def f32_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM, sms: int = SMS
     tiles, or with ``key80`` (B3, whose library has the 80-key tile) one
     warpgroup on one 80-key tile for up to 80 keys; two to four atoms their
     one tile. A ring of two stages (one where there is one K/V tile). Above
-    four atoms the wide kernel: ``F32_WIDE_TILE``, ``WIDE_STAGES`` slots, a
-    block per (64 rows, chunk of O's columns, head, batch)."""
+    four atoms the wide kernels: ``F32_WIDE_TILE``, a block per (64 rows,
+    chunk of O's columns, head, batch) over ``f32_wide_chunking``'s chunks;
+    the clustered kernel's ``f32_cluster_stages`` slots, the streaming
+    kernel's ``WIDE_STAGES``."""
     _check_shape(b, sq, sk, h)
     check_head_dim(d)
     atoms = head_atoms(f32_padded_head_dim(d))
     chunks = 1
     if atoms > NARROW_ATOMS:
-        (nwg, bn), stages, chunks = F32_WIDE_TILE, WIDE_STAGES, wide_chunking(atoms)[0]
+        (nwg, bn), chunks = F32_WIDE_TILE, f32_wide_chunking(atoms)[0]
+        stages = f32_cluster_stages(chunks) if f32_clustered(atoms) else WIDE_STAGES
     else:
         nwg, bn = (1, 80) if atoms == 1 and key80 and sk <= 80 else F32_TILES[atoms][0]
         stages = min(F32_STAGES, -(-sk // bn))
@@ -440,8 +585,8 @@ def _plan_for(b: int, sq: int, sk: int, h: int, d: int, *, dtype=torch.bfloat16)
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     # pointers, then (B, Sq, Sk, heads, padded d, d) and the plan's (nwg, bn,
-    # stages), then the stream
-    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+    # stages, splits), then the stream
+    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.flash_attention_fwd.restype = ctypes.c_int
@@ -450,8 +595,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     # f32: pointers, (B, Sq, Sk, heads, padded d, d), the plan's (nwg, bn,
-    # stages), the stream
-    lib.flash_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+    # stages, splits), the stream
+    lib.flash_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.flash_attention_fwd_f32.restype = ctypes.c_int
@@ -507,7 +652,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), b, sq,
-                    k.shape[1], h, dp, d, p.nwg, p.bn, p.stages, stream)
+                    k.shape[1], h, dp, d, p.nwg, p.bn, p.stages, p.splits, stream)
     with _build.COUNT_LOCK:  # mesh rows launch from several threads
         flash_attention.launches += 1
         flash_attention.launches_by_shape[(b, sq, k.shape[1], h * q.shape[-1])] += 1

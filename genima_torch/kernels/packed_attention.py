@@ -43,9 +43,11 @@ it runs B1 and records nothing for autograd.
   the next one in scratch copies first, as TMA needs 16-byte row strides,
   with the kernels scaled by the real d and only its d columns kept). Up
   to four atoms a block holds O (dQ, dK, dV) whole; above (d > 256: five
-  atoms of f32 accumulator would pass a thread's registers) the wide
-  kernels keep one chunk of three or four atoms a block and stream every
-  atom of the head through a ring (``fa.wide_chunking``). B1 and B2a take
+  atoms of f32 accumulator would pass a thread's registers) B1/B2a's paired
+  kernel holds five or six atoms in two warpgroups of one block, and the
+  wide kernels keep one chunk of three or four atoms a block and stream
+  every atom of the head through a ring (``fa.wide_chunking``,
+  ``fa.wide_plan``). B1 and B2a take
   any ``Sq``, ``Sk`` >= 1, every length the TPU forward takes (``_forward``:
   Sq <= 128 with K/V resident, ``_forward_streaming``: multiples of 128)
   and more (keys past Sk masked, query rows past Sq never stored); B2b takes
@@ -287,7 +289,7 @@ def forward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
     fa.check_head_dim(d)
     atoms = fa.head_atoms(d)
     if atoms > fa.NARROW_ATOMS:
-        nwg, bn = fa.WIDE_HEAD_TILES[0]
+        nwg, bn = fa.wide_warpgroups(atoms, sk), 64
     elif atoms > 1:
         nwg, bn = (2 if atoms < 4 and -(-sk // 64) >= fa.LONG_KEY_LOOP else 1), 64
     elif -(-sk // 128) >= fa.LONG_KEY_LOOP:
@@ -330,6 +332,38 @@ def packed_attention_lse_reference(
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), _heads(v, num_heads)) / l
+    lse = (m + torch.log(l)).squeeze(-1).transpose(1, 2).contiguous()
+    return _packed(o, q.dtype), lse
+
+
+def packed_attention_split_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, splits: int,
+    tile: int = BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the clustered wide kernel's key split (B1 and B2a
+    where ``forward_plan`` gives ``splits`` > 1): the keys cut into
+    ``splits`` ranges of whole ``tile``-key tiles (range s from tile s * n /
+    splits, ``split_begin`` in ``csrc/attention_hopper.cuh``), each range's
+    row max m_s, sum l_s and unnormalised O_s (P rounded to v's dtype before
+    P V) formed alone, then merged in range order: m the max, l and O the
+    sums of l_s and O_s rescaled by exp(m_s - m). Returns o in q's dtype and
+    L = m + log(l) as (B, Sq, heads) f32, as ``packed_attention_lse_reference``."""
+    d = q.shape[-1] // num_heads
+    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
+    n = -(-k.shape[1] // tile)
+    parts = []
+    for i in range(splits):
+        lo, hi = i * n // splits * tile, min((i + 1) * n // splits * tile, k.shape[1])
+        s = torch.matmul(qh, kh[:, :, lo:hi].transpose(-1, -2)) * (1.0 / math.sqrt(d))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      torch.matmul(p.to(v.dtype).float(), vh[:, :, lo:hi])))
+    m = parts[0][0]
+    for part in parts[1:]:
+        m = torch.maximum(m, part[0])
+    l = sum(ls * torch.exp(ms - m) for ms, ls, _ in parts)
+    o = sum(os * torch.exp(ms - m) for ms, _, os in parts) / l
     lse = (m + torch.log(l)).squeeze(-1).transpose(1, 2).contiguous()
     return _packed(o, q.dtype), lse
 
@@ -412,11 +446,11 @@ def _plan_for(b: int, sq: int, sk: int, h: int, d: int, *, dtype=torch.bfloat16)
 def _library() -> ctypes.CDLL:
     lib = _build.load("packed_attention")
     # pointers, then (B, Sq, Sk, heads, padded d, d) and the plan's (nwg, bn,
-    # stages), then the stream
-    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+    # stages, splits), then the stream
+    lib.packed_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
-    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    lib.packed_attention_fwd_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_fwd.restype = lib.packed_attention_fwd_lse.restype = ctypes.c_int
@@ -425,8 +459,8 @@ def _library() -> ctypes.CDLL:
     lib.packed_attention_error_string.argtypes = [ctypes.c_int]
     lib.packed_attention_error_string.restype = ctypes.c_char_p
     # f32: q, k, v, o, lse (or null), then (B, Sq, Sk, heads, padded d, d),
-    # the plan's (nwg, bn, stages), the stream
-    lib.packed_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    # the plan's (nwg, bn, stages, splits), the stream
+    lib.packed_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.packed_attention_fwd_f32.restype = ctypes.c_int
@@ -483,7 +517,7 @@ def _launch_forward(q, k, v, num_heads, with_lse: bool):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr())
         dims = (b, sq, k.shape[1], num_heads, fa.padded_head_dim(d), d, p.nwg, p.bn, p.stages,
-                stream)
+                p.splits, stream)
         if with_lse:
             rc = lib.packed_attention_fwd_lse(*args, lse.data_ptr(), *dims)
         else:
@@ -511,7 +545,7 @@ def _launch_forward_f32(q, k, v, num_heads, with_lse: bool):
         rc = lib.packed_attention_fwd_f32(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                                           out.data_ptr(), lse.data_ptr() if with_lse else None,
                                           b, sq, k.shape[1], num_heads, dp, d, p.nwg, p.bn,
-                                          p.stages, stream)
+                                          p.stages, p.splits, stream)
     _count(packed_attention_forward_lse if with_lse else packed_flash_attention, q, k)
     _raise_on(rc, "packed_attention_fwd_f32", lib.packed_attention_error_string)
     out = fa.unpad_heads(out, d, dp)

@@ -6,6 +6,8 @@ it runs on a GPU host without it:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -119,7 +121,7 @@ def _forward_into(out, lse, q, k, v, h, p):
     b, sq, c = q.shape
     rc = lib.packed_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq,
-        k.shape[1], h, c // h, c // h, p.nwg, p.bn, p.stages,
+        k.shape[1], h, c // h, c // h, p.nwg, p.bn, p.stages, p.splits,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0, lib.packed_attention_error_string(rc)
 
@@ -1088,8 +1090,8 @@ def test_f32_plans_match_the_sources_shared_memory(cuda):
         assert w8._library().w8_matmul_f32_smem_bytes(plan.bt, plan.stages) == plan.smem_bytes
 
 
-# heads wider than 256 columns: the wide kernels (O, dQ, dK, dV in chunks of
-# three or four 64-column atoms, one a block), bf16 and f32
+# heads wider than 256 columns: the wide kernels (B1/B2a/B3 at five or six
+# atoms paired, above and B2b in chunks of O, dQ, dK, dV), bf16 and f32
 WIDE_HEAD_DIMS = [320, 640]
 
 
@@ -1183,3 +1185,53 @@ def test_wide_plans_match_the_sources_shared_memory(cuda):
         bp = pa.backward_plan(1, 64, 64, 1, d, dtype=torch.float32)
         assert [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1)] == [
             bp.dq_smem_bytes, bp.dkdv_smem_bytes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,h", [(1, 256, 320, 1), (2, 192, 384, 2), (1, 1024, 640, 1),
+                                     (2, 256, 640, 2)])
+def test_wide_forward_every_key_split_matches_plain_version(cuda, monkeypatch, b, s, d, h):
+    """The wide forwards (paired at d = 320 and 384, the latter over an odd
+    number of query tiles, streaming at 640) at every key split a launch
+    takes (1 to four, a key tile each at least): B1 and B2a against the
+    plain version, B2a's output B1's and two calls the same bits at each
+    split."""
+    q, k, v = _bf16_inputs(cuda, b, s, h * d, seed=d + s, n=3)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    plan = pa.forward_plan(b, s, s, h, d)
+    assert plan.nwg == (2 if d <= 384 else 1)
+    for splits in range(1, min(plan.kv_tiles, fa.MAX_SPLITS) + 1):
+        p = dataclasses.replace(plan, splits=splits,
+                                grid=(plan.grid[0] // plan.splits * splits, *plan.grid[1:]))
+        monkeypatch.setattr(pa, "_plan_for", lambda *a, p=p, **kw: p)
+        o1 = pa.packed_flash_attention(q, k, v, h)
+        o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+        again = pa.packed_flash_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o1.float(), o_ref.float(), atol=1e-2, rtol=0)
+        torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+        assert torch.equal(o, o1) and torch.equal(again, o1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_forward_past_1024_columns_streams_and_matches(cuda, no_tf32, dtype):
+    """Past 1024 columns B1, B2a and B3 run the streaming wide kernels (f32:
+    more chunks of two atoms than one cluster takes): d = 1088 (17 atoms,
+    five chunks of four)."""
+    b, s, h, d = 1, 256, 1, 1088
+    plan = pa._plan_for(b, s, s, h, d, dtype=dtype)
+    assert plan.nwg == 1 and plan.chunks == 5 and plan.cluster == plan.splits
+    gen = torch.Generator(device=cuda).manual_seed(1088)
+    q, k, v = (torch.randn(b, s, h * d, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    o1 = pa.packed_flash_attention(q, k, v, h)
+    o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+    o_ref, lse_ref = pa.packed_attention_lse_reference(q, k, v, h)
+    q4, k4, v4 = (x.view(b, s, h, d) for x in (q, k, v))
+    o3 = fa.flash_attention(q4, k4, v4)
+    torch.cuda.synchronize()
+    tol, lse_tol = (F32_TOL, F32_TOL) if dtype == torch.float32 else (1e-2, LSE_ATOL)
+    assert torch.equal(o, o1)
+    assert (o1.float() - o_ref.float()).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= lse_tol
+    assert (o3.float() - fa.flash_attention_reference(q4, k4, v4).float()).abs().max().item() <= tol

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from chip_smoke import (BATCHED_CONV_SHAPES, BATCHED_FLASH_SHAPES, BATCHED_W8_SHAPES,
-                        CONV_SHAPES, FLASH_SHAPES, SD_LEVELS, TRAIN_LEVELS, W8_SHAPES)
+                        CONV_SHAPES, FLASH_SHAPES, SD_LEVELS, TRAIN_LEVELS, W8_SHAPES,
+                        WIDE_SWEEP_DIMS, _sweep_heads)
 from genima_torch.kernels import flash_attention as fa
 from genima_torch.kernels import fused_conv as fc
 from genima_torch.kernels import packed_attention as pa
@@ -350,6 +351,113 @@ def test_forward_tiles_and_smem_mirror_the_sources():
                 assert fa.smem_bytes(nwg, bn, stages, atoms) == want
 
 
+def test_wide_forward_plans_mirror_the_sources():
+    """The wide forwards' constants and shared-memory counts, read from the
+    CUDA sources, are the plans': the paired kernel's atoms a warpgroup,
+    item bytes, key splits and ``pair_fwd_smem_bytes`` at every ring depth;
+    the clustered f32 kernel's atoms a chunk, chunks a cluster, exchange
+    bytes and ``cluster_smem_bytes_f32`` at every chunk count."""
+    fwd = (SRC / "attention_fwd_hopper.cuh").read_text()
+    f32 = (SRC / "attention_f32_hopper.cuh").read_text()
+    common = (SRC / "attention_hopper.cuh").read_text()
+    env = {"kWideT": 32, "kSlabBytes": fa.F32_SLAB_BYTES, "kAtomTile": fa.ATOM_TILE_BYTES}
+
+    def const(src, name):
+        env[name] = eval(re.search(rf"constexpr int {name} = ([^;]+);", src).group(1), dict(env))
+        return env[name]
+
+    assert const(fwd, "kPairAtoms") == fa.PAIR_ATOMS
+    assert const(fwd, "kPairItem") == 2 * fa.PAIR_ATOMS * fa.ATOM_TILE_BYTES
+    assert const(fwd, "kMaxSplits") == fa.MAX_SPLITS
+    assert const(common, "kMaxWideStages") == fa.WIDE_STAGES
+    assert const(f32, "kClusterAtomsF32") == fa.F32_CLUSTER_ATOMS
+    assert const(f32, "kClusterChunksF32") == fa.F32_CLUSTER_CHUNKS
+    assert const(f32, "kXBytesF32") == fa.F32_EXCHANGE_BYTES
+    for name in ("kClusterQ", "kClusterTile", "kClusterSlot"):
+        const(f32, name)
+    assert env["kClusterSlot"] == fa.WIDE_SLOT_BYTES
+    body = re.search(r"int pair_fwd_smem_bytes\(int stages\) \{\s*return ([^;]+);", fwd).group(1)
+    f32_body = re.search(r"int cluster_smem_bytes_f32\(int chunks, int stages\) \{"
+                         r"\s*return ([^;]+);", f32).group(1)
+    for stages in range(2, fa.WIDE_STAGES + 1):
+        assert fa.pair_smem_bytes(stages) == eval(f"({body})", dict(env, stages=stages))
+        for chunks in range(5, fa.F32_CLUSTER_CHUNKS + 1):
+            want = eval(f"({f32_body})", dict(env, chunks=chunks, stages=stages))
+            assert fa.f32_cluster_smem_bytes(chunks, stages) == want
+
+
+@pytest.mark.parametrize("d", WIDE_SWEEP_DIMS)
+def test_wide_forward_plans_fit_the_card_at_every_sweep_d(d):
+    """At every d of the card's sweep the wide forwards' plans (bf16 and
+    f32, the sweep's and the path's shapes) fit 227 KB, their clusters the
+    key splits (bf16) or the chunks (clustered f32) and no more than a
+    portable cluster, their rings two slots at least and, where the keys are
+    split, room for the merge."""
+    h = _sweep_heads(d)
+    bf16 = [pa.forward_plan(1, 4096, 4096, 1, d), pa.forward_plan(4, 1024, 1024, h, d),
+            fa.plan(1, 1000, 1000, h, d), fa.plan(1, 1000, 77, h, d),
+            pa.forward_plan(1, 1024, 1024, 1, d), pa.forward_plan(1, 256, 256, 2, d)]
+    f32 = [fa.f32_plan(1, 4096, 4096, 1, d), fa.f32_plan(4, 1024, 1024, h, d),
+           fa.f32_plan(1, 1000, 77, h, d, key80=True)]
+    for p in bf16 + f32:
+        assert p.smem_bytes <= SMEM_LIMIT and 2 <= p.stages <= fa.WIDE_STAGES
+        assert p.cluster <= 8 and p.grid[0] % p.cluster == 0
+    for p in bf16:
+        assert p.cluster == p.splits <= fa.MAX_SPLITS
+        assert p.splits == 1 or p.nwg == 1 or fa.pair_merge_fits(p.stages)
+    for p in f32:
+        assert p.splits == 1
+        assert p.cluster == (p.chunks if fa.f32_clustered(p.atoms) else 1)
+
+
+def test_wide_forward_rows_find_their_ptxas_report():
+    """chip_smoke's rows name each wide forward by the key ``ptxas_report``
+    gives its kernel in an ``nvcc -Xptxas -v`` log: the paired kernel at
+    d = 320, the streaming one at 640 (chunks of four atoms), both with
+    their keys split, the clustered f32 one at 640 and the streaming f32 one
+    at 320."""
+    import chip_smoke
+
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Used {regs} registers, 0 bytes spill stores, 0 bytes spill loads"
+        for name, regs in (
+            ("_ZN11attn_hopper12_GLOBAL__N_125attention_fwd_pair_kernelILb1ELb1EEEvN", 232),
+            ("_ZN11attn_hopper12_GLOBAL__N_125attention_fwd_wide_kernelILi4ELb0ELb1EEEvN", 202),
+            ("_ZN8attn_f3212_GLOBAL__N_132attention_f32_fwd_cluster_kernelILb0EEEvN", 250),
+            ("_ZN8attn_f3212_GLOBAL__N_129attention_f32_fwd_wide_kernelILi3ELb0EEEvN", 255)))
+    report = chip_smoke.ptxas_report(log)
+    assert report["pair_1x1"]["registers"] == 232 and report["wide_4x0x1"]["registers"] == 202
+    assert report["f32_cluster_0"]["registers"] == 250
+    assert report["f32_wide_3x0"] == {"registers": 255, "spill_bytes": 0}
+    assert chip_smoke._kernel_key(pa.forward_plan(1, 4096, 4096, 1, 320), True) == "pair_1x1"
+    assert chip_smoke._kernel_key(fa.plan(1, 1024, 1024, 1, 640), False) == "wide_4x0x1"
+    assert chip_smoke._f32_kernel_key(fa.f32_plan(1, 1024, 1024, 1, 640), False) in report
+    assert chip_smoke._f32_kernel_key(fa.f32_plan(1, 4096, 4096, 1, 320), False) in report
+
+
+# (B, Sq, Sk, heads, d) -> key splits: the wide-head path's levels and B3's
+@pytest.mark.parametrize("b,sq,sk,h,d,splits", [
+    (1, 4096, 4096, 1, 320, 2),   # 64 blocks of the paired kernel: 128
+    (4, 4096, 4096, 1, 320, 1),   # 256 blocks
+    (1, 1024, 1024, 1, 320, 4),   # 16 blocks: four ranges of four tiles
+    (1, 4096, 77, 1, 320, 1),     # the prompt's two key tiles (the streaming kernel)
+    (1, 1024, 1024, 1, 640, 2),   # 48 blocks of the streaming kernel (3 chunks): 96
+    (1, 256, 256, 2, 640, 2),     # 24: 48, ranges of two tiles
+    (4, 1024, 1024, 1, 640, 1),   # 192
+    (1, 64, 64, 2, 640, 1),       # one key tile
+    (1, 1024, 77, 1, 640, 1),     # two key tiles
+])
+def test_wide_key_splits_only_where_the_grid_is_short(b, sq, sk, h, d, splits):
+    p = pa.forward_plan(b, sq, sk, h, d)
+    assert p.nwg == (2 if d <= 384 and sk > 128 else 1)  # the paired kernel, else streaming
+    assert p.splits == splits and fa.plan(b, sq, sk, h, d).splits == splits
+    assert bool(p.why_short) == (p.blocks // splits < fa.SMS)
+    assert p.blocks <= fa.SMS or splits == 1
+    assert ("keys split" in p.why_short) == (splits > 1)
+    assert fa.f32_plan(b, sq, sk, h, d).splits == 1
+
+
 @pytest.mark.parametrize("nwg,bn", pa.FORWARD_TILES)
 @pytest.mark.parametrize("b,sq,sk,h", [(4, 4096, 4096, 5), (1, 256, 256, 20), (2, 192, 64, 5)])
 def test_forward_plan_fits_shared_memory_and_registers(nwg, bn, b, sq, sk, h):
@@ -419,6 +527,6 @@ def test_b1_and_b2a_launch_one_plan(monkeypatch, b, sq, sk, h):
     o, lse = pa._launch_forward(q, k, k, h, with_lse=True)
     assert out.shape == o.shape == q.shape and lse.shape == (b, sq, h)
     p = pa.forward_plan(b, sq, sk, h)
-    assert calls["B1"][4:] == (b, sq, sk, h, 64, 64, p.nwg, p.bn, p.stages, 7)
+    assert calls["B1"][4:] == (b, sq, sk, h, 64, 64, p.nwg, p.bn, p.stages, p.splits, 7)
     assert calls["B2a"][5:] == calls["B1"][4:]
     assert pa.packed_flash_attention.launches == pa.packed_attention_forward_lse.launches == 1

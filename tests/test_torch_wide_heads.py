@@ -1,8 +1,9 @@
 """Heads wider than 256 columns, and B1 at every length the TPU kernel takes.
 
 The JAX kernels take any head dim; the port's CUDA kernels read a head past
-four 64-column atoms through the wide kernels (O, dQ, dK and dV in chunks
-of three or four atoms, one a block, S and dP summed over every atom).
+four 64-column atoms through the wide kernels (B1/B2a/B3 at five or six
+atoms with two warpgroups sharing S, above in chunks of O; B2b's dQ, dK
+and dV in chunks of three or four atoms, one a block).
 On the CPU, at small sizes:
 
 * the port's plain versions of B1, B2a and B2b at d = 320 and 640 against
@@ -14,8 +15,10 @@ On the CPU, at small sizes:
 * a UNet at (320, 640) channels in one head each (d = 320 and 640), on the
   same weights (moved by ``state_dict_from_jax``), against JAX's noise
   prediction;
-* the launch plans at d = 264 to 1024: chunk counts, shared memory within
-  what a block may take, no raise.
+* the key split and merge of the wide forwards, in plain PyTorch, against
+  JAX's kernel;
+* the launch plans at d = 264 to 1024: kernel choice, chunk counts, key
+  splits, shared memory within what a block may take, no raise.
 
 The CUDA kernels are held to these plain versions on the card in
 test_torch_cuda_kernels.py and chip_smoke.py phase 18.
@@ -99,6 +102,22 @@ def test_b2b_autograd_matches_jax_custom_vjp(d):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(y), atol=GRAD_ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_key_split_merge_matches_pallas_kernel(splits):
+    """The clustered wide kernel's key split and merge in plain PyTorch
+    (``pa.packed_attention_split_reference``) at d = 320, 2 heads, Sq 128
+    and Sk 320 (five 64-key tiles: ranges of one to three tiles) against
+    JAX's ``_forward_with_lse`` in interpret mode: o and L at ``FWD_ATOL``
+    (f32; the same sums regrouped by range)."""
+    q, k, v = _packed(128, 320, 640, seed=splits)
+    want_o, want_l = _forward_with_lse(*map(jnp.asarray, (q, k, v)), 2, 128, True)
+    got_o, got_l = pa.packed_attention_split_reference(*map(torch.from_numpy, (q, k, v)), 2,
+                                                       splits)
+    assert got_o.shape == (1, 128, 640) and got_l.shape == (1, 128, 2)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=FWD_ATOL)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=FWD_ATOL)
+
+
 @pytest.mark.parametrize("sq,sk", [(128, 128), (100, 77)])
 def test_b3_plain_version_matches_pallas_kernel(sq, sk):
     """Self-attention, and cross-attention over the 77 prompt tokens, at
@@ -166,20 +185,44 @@ def test_wide_head_pipeline_gives_heads_of_320_and_640():
 @pytest.mark.parametrize("d", [264, 320, 384, 512, 640, 1024])
 def test_wide_plans_chunk_the_head_and_fit_the_card(d):
     """B1/B2a's, B3's and B2b's plans, bf16 and f32, at heads past four
-    atoms: O (dQ, dK, dV) in chunks of three or four atoms, one a block;
-    shared memory the wide kernels' ring, whatever d is."""
+    atoms, every d of the card's sweep: five or six atoms the paired kernel
+    (two warpgroups of three atoms of O, the whole head a block) over more
+    than two key tiles, else the streaming kernel (O in chunks of three or
+    four atoms, one a block); the
+    keys split only where the grid is short, a cluster of the splits, the
+    ring then holding the merge; f32 the clustered kernel (chunks of two
+    atoms, a CTA each) from nine atoms on; shared memory within what a block
+    may take; B2b's chunks of three or four atoms, one a block."""
     atoms = fa.head_atoms(d)
     chunks, per = fa.wide_chunking(atoms)
     assert chunks == -(-atoms // 4) and per in (3, 4) and (chunks - 1) * per < atoms <= chunks * per
+    assert fa.paired(atoms) == (d <= 384) and fa.f32_clustered(atoms) == (d > 512)
     for p in (pa.forward_plan(1, 4096, 4096, 1, d), fa.plan(1, 1000, 77, 2, d),
-              pa.forward_plan(1, 96, 4096, 1, d)):
-        assert (p.nwg, p.bn, p.chunks, p.atoms) == (1, 64, chunks, atoms)
-        assert p.grid[0] == -(-p.grid[0] // chunks) * chunks and p.threads == 160
-        assert p.smem_bytes == fa.smem_bytes(1, 64, p.stages, atoms) <= SMEM_LIMIT
-        assert p.max_registers == 255 and p.stages == fa.WIDE_STAGES
+              pa.forward_plan(1, 96, 4096, 1, d), pa.forward_plan(1, 1024, 1024, 1, d),
+              fa.plan(1, 64, 64, 2, d)):
+        assert (p.bn, p.atoms, p.rows) == (64, atoms, 64)
+        # the paired kernel where it fits and the key loop passes two tiles
+        assert (p.nwg == 2) == (fa.paired(atoms) and p.kv_tiles > fa.PAIR_MIN_TILES)
+        if p.nwg == 2:
+            assert (p.nwg, p.chunks, p.threads, p.stages) == (2, 1, 384, fa.pair_stages())
+            assert p.smem_bytes == fa.pair_smem_bytes(p.stages) <= SMEM_LIMIT
+            assert p.splits == 1 or fa.pair_merge_fits(p.stages)
+        else:
+            assert (p.nwg, p.chunks, p.threads, p.stages) == (1, chunks, 160, fa.WIDE_STAGES)
+            assert p.smem_bytes == fa.smem_bytes(1, 64, p.stages, atoms) <= SMEM_LIMIT
+            assert p.max_registers == 255
+        assert p.cluster == p.splits and 1 <= p.splits <= fa.MAX_SPLITS
+        assert p.splits == 1 or (p.why_short and p.splits * fa.MIN_SPLIT_TILES <= p.kv_tiles)
+        assert p.grid[0] % p.cluster == 0
     f = fa.f32_plan(1, 4096, 4096, 1, d)
-    assert (f.nwg, f.bn, f.chunks, f.threads) == (1, 32, chunks, 256)
-    assert f.grid == (64 * chunks, 1, 1) and f.smem_bytes <= SMEM_LIMIT
+    f_chunks, f_per = fa.f32_wide_chunking(atoms)
+    assert (f.nwg, f.bn, f.chunks, f.threads, f.splits) == (1, 32, f_chunks, 256, 1)
+    assert f.grid == (64 * f_chunks, 1, 1) and f.smem_bytes <= SMEM_LIMIT
+    if fa.f32_clustered(atoms):
+        assert (f.cluster, f_per, f.stages) == (f_chunks, 2, fa.f32_cluster_stages(f_chunks))
+        assert f.smem_bytes == fa.f32_cluster_smem_bytes(f_chunks, f.stages)
+    else:
+        assert (f.cluster, f_chunks, f.stages) == (1, chunks, fa.WIDE_STAGES)
     for dtype in (torch.bfloat16, torch.float32):
         bp = pa.backward_plan(4, 1024, 1024, 8, d, dtype=dtype)
         assert bp.chunks == chunks and bp.passes == 2 and bp.rows == 64
@@ -188,13 +231,22 @@ def test_wide_plans_chunk_the_head_and_fit_the_card(d):
 
 
 def test_no_head_dim_reaches_the_shared_memory_bound():
-    """Shared memory is the only bound below the wrappers; the wide plans'
-    does not grow with d, so no d reaches it."""
+    """Shared memory is the only bound below the wrappers; no d reaches it.
+    Past 1024 columns (more chunks than a cluster takes) the forwards stream
+    every atom through the wide kernels' ring, whose shared memory does not
+    grow with d."""
+    for d in (257, 1000, 1024):
+        assert max(pa.forward_plan(1, 64, 64, 1, d).smem_bytes,
+                   fa.f32_plan(1, 64, 64, 1, d).smem_bytes) <= SMEM_LIMIT
     sizes = {(p.smem_bytes, f.smem_bytes, b.dq_smem_bytes, b.dkdv_smem_bytes)
-             for d in (257, 1000, 4096, 65536)
+             for d in (1032, 4096, 65536)
              for p, f, b in [(pa.forward_plan(1, 64, 64, 1, d), fa.f32_plan(1, 64, 64, 1, d),
                               pa.backward_plan(1, 64, 64, 1, d))]}
     assert len(sizes) == 1 and max(next(iter(sizes))) <= SMEM_LIMIT
+    for d in (1032, 4096):
+        p, f = pa.forward_plan(1, 64, 64, 1, d), fa.f32_plan(1, 64, 64, 1, d)
+        assert (p.cluster, p.splits, p.stages, f.cluster, f.stages) == (1, 1, fa.WIDE_STAGES, 1,
+                                                                        fa.WIDE_STAGES)
     fa.check_head_dim(65536)
     with pytest.raises(ValueError, match="head_dim"):
         fa.check_head_dim(0)
