@@ -631,10 +631,22 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
 
 
+def _wide_bwd_keys(atoms: int, f32: bool) -> dict[str, str]:
+    """``ptxas_report``'s keys of B2b's three wide kernels (dq, dV, dK) at a
+    head of ``atoms`` atoms: ``bwd_wide_kernel<mode, oa, resident>`` (bf16),
+    ``attention_f32_bwd_wide_kernel<mode, oa>`` (f32); mode 0 dq, 1 dK, 2 dV."""
+    from genima_torch.kernels import packed_attention as pa
+
+    oa = pa.wide_backward_out_atoms(atoms, f32)
+    tail = "" if f32 else f"x{int(pa.wide_backward_resident(atoms))}"
+    prefix = "f32_wide_" if f32 else "wide_"
+    return {name: f"{prefix}{mode}x{oa}{tail}" for name, mode in (("dq", 0), ("dv", 2), ("dk", 1))}
+
+
 def _bwd_kernel_report(d: int = 64) -> dict:
-    """ptxas registers and spills of B2b's two kernels at head dim d and the
+    """ptxas registers and spills of B2b's kernels at head dim d and the
     shared memory each asks for (held to ``backward_plan``'s count), keyed
-    "dq" and "dkdv"."""
+    "dq" and "dkdv" (past four atoms "dq", "dv" and "dk": three launches)."""
     from genima_torch.kernels import _build
     from genima_torch.kernels import flash_attention as fa
     from genima_torch.kernels import packed_attention as pa
@@ -642,20 +654,15 @@ def _bwd_kernel_report(d: int = 64) -> dict:
     lib = pa._bwd_library()
     report = ptxas_report(_build.build_log("packed_attention_bwd"))
     plan = pa.backward_plan(1, 64, 64, 1, d)
-    wide = fa.wide_chunking(plan.atoms)[1] if plan.chunks > 1 else 0
-    out = {}
-    for name, dkdv in (("dq", 0), ("dkdv", 1)):
-        smem = lib.packed_attention_bwd_smem_bytes(dkdv, fa.padded_head_dim(d))
-        if smem != getattr(plan, f"{name}_smem_bytes"):
-            raise AssertionError(f"B2b {name} kernel's shared memory {smem} != backward_plan's")
-        if not wide:
-            out[name] = {**report.get(f"{name}{plan.atoms}", {}), "smem_bytes": smem}
-        elif dkdv:  # the dV and the dK kernel
-            out[name] = {"dv": report.get(f"wide_dkdv{wide}x0", {}),
-                         "dk": report.get(f"wide_dkdv{wide}x1", {}), "smem_bytes": smem}
-        else:
-            out[name] = {**report.get(f"wide_dq{wide}", {}), "smem_bytes": smem}
-    return out
+    smem = [lib.packed_attention_bwd_smem_bytes(x, fa.padded_head_dim(d)) for x in (0, 1, 2)]
+    if smem != [plan.dq_smem_bytes, plan.dkdv_smem_bytes, plan.dv_smem_bytes]:
+        raise AssertionError(f"B2b kernels' shared memory {smem} != backward_plan's")
+    if plan.atoms <= fa.NARROW_ATOMS:
+        return {name: {**report.get(f"{name}{plan.atoms}", {}), "smem_bytes": b}
+                for name, b in (("dq", smem[0]), ("dkdv", smem[1]))}
+    keys = _wide_bwd_keys(plan.atoms, f32=False)
+    return {name: {**report.get(keys[name], {}), "smem_bytes": b}
+            for name, b in (("dq", smem[0]), ("dk", smem[1]), ("dv", smem[2]))}
 
 
 def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
@@ -740,9 +747,11 @@ def training_kernel_phase(pa, levels=TRAIN_LEVELS, seed: int = 1) -> list[dict]:
                 lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), 50),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "plan": {"kernels": "dq, then dk/dv", "rows_per_block": bp.rows,
-                     "stages": bp.stages, "head_atoms": bp.atoms, "dkdv_passes": bp.passes,
-                     "column_chunks": bp.chunks,
+            "plan": {"kernels": "dq, then dV and dK" if bp.out_atoms else "dq, then dk/dv",
+                     "rows_per_block": bp.rows, "stages": bp.stages, "head_atoms": bp.atoms,
+                     "dkdv_passes": bp.passes, "column_chunks": bp.chunks,
+                     "out_atoms_per_warpgroup": bp.out_atoms,
+                     "tile_splits": [bp.splits, bp.dkdv_splits],
                      "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
             **bwd_report,
         })
@@ -4199,9 +4208,9 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
         if not (rel <= F32_TOL and same and got[0].dtype == torch.float32):
             raise AssertionError(f"B2b {tag}: max err {rel} of max |grad|, repeat equal {same}")
         bp = pa.backward_plan(b, s, s, h, d, dtype=torch.float32)
-        wide = fa.wide_chunking(bp.atoms)[1] if bp.chunks > 1 else 0
-        smem = [blib.packed_attention_bwd_f32_smem_bytes(x, dp) for x in (0, 1)]
-        if smem != [bp.dq_smem_bytes, bp.dkdv_smem_bytes]:
+        wide = bp.atoms > fa.NARROW_ATOMS
+        smem = [blib.packed_attention_bwd_f32_smem_bytes(x, dp) for x in (0, 1, 2)]
+        if smem != [bp.dq_smem_bytes, bp.dkdv_smem_bytes, bp.dv_smem_bytes]:
             raise AssertionError(f"B2b {tag}: f32 plan's shared memory != the kernels' {smem}")
         leaves = [x.detach().requires_grad_() for x in heads]
         out = F.scaled_dot_product_attention(*leaves)
@@ -4210,10 +4219,12 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
             "name": "packed_attention_backward",
             "replaces": "genima_tpu/kernels/packed_attention.py:380", **common,
             "source": F32_SOURCES["B2b"],
-            "plan": {"kernels": "dq, then dk/dv", "rows_per_block": bp.rows,
+            "plan": {"kernels": "dq, then dV and dK" if wide else "dq, then dk/dv",
+                     "rows_per_block": bp.rows,
                      "tile_rows": [bp.tile, bp.dkdv_tile], "stages": [bp.stages, bp.dkdv_stages],
                      "dkdv_passes": bp.passes, "threads": bp.threads, "head_atoms": bp.atoms,
-                     "column_chunks": bp.chunks,
+                     "column_chunks": bp.chunks, "out_atoms_per_warpgroup": bp.out_atoms,
+                     "tile_splits": [bp.splits, bp.dkdv_splits],
                      "blocks": [math.prod(bp.dq_grid), math.prod(bp.dkdv_grid)]},
             "smem_bytes": smem,
             "max_abs_err": max((x - y).abs().max().item() for x, y in zip(got, want)),
@@ -4225,10 +4236,9 @@ def f32_attention_rows(pa, levels, seed: int, train: bool, iters: int = 5) -> li
                 lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), iters),
             **_f32_attn_bounds(10 * b * s * s * c, 4 * 8 * b * s * c + 4 * b * s * h),
             **({"dq": bregs.get(f"f32_dq{bp.atoms}", {}),
-                "dkdv": bregs.get(f"f32_dkdv{bp.atoms}", {})} if bp.chunks == 1 else
-               {"dq": bregs.get(f"f32_wide_dq{wide}", {}),
-                "dv": bregs.get(f"f32_wide_dkdv{wide}x0", {}),
-                "dk": bregs.get(f"f32_wide_dkdv{wide}x1", {})}),
+                "dkdv": bregs.get(f"f32_dkdv{bp.atoms}", {})} if not wide else
+               {name: bregs.get(key, {})
+                for name, key in _wide_bwd_keys(bp.atoms, f32=True).items()}),
         })
         del out, leaves, got, again, want
     return rows
@@ -4425,6 +4435,9 @@ WIDE_FLASH_SHAPES = [(1, s, s, c, h) for s, c, h in WIDE_OPT_LEVELS] + [
     (1, s, CONTEXT[0], c, h) for s, c, h in WIDE_OPT_LEVELS]
 WIDE_STEPS = 2  # control steps a path, the first carrying the warm-up
 WIDE_TRAIN_STEPS = 2
+# steps over which phase 18's rows count their launches, by path (else WIDE_STEPS)
+WIDE_PATH_STEPS = {"wide_train": WIDE_TRAIN_STEPS, "wide_f32_train": WIDE_TRAIN_STEPS,
+                   "wide_f32_control": F32_SERVE_STEPS}
 # the sweep: B1 at 1 x 4096 in one head, B2a/B2b at 4 x 1024 and B3 over
 # 1000 queries (self and over 77 keys) in 2-8 heads, bf16 and f32
 WIDE_SWEEP_DIMS = (264, 320, 384, 512, 640, 1024)
@@ -4561,8 +4574,11 @@ def wide_heads_phase(pa, card: str) -> tuple[dict, dict, dict]:
     batch 4, 512x512, 6 B1 / 15 B2a / 15 B2b / 0 fallbacks a step, frozen
     models bit-unchanged, step 1's ControlNet gradients held to the library
     attention's; (d) f32 serving (TF32 off), 105 B1 a step, within
-    ``F32_EPS_REL_TOL``. Returns the paths' results, the kernel rows by path
-    and the checks no path runs."""
+    ``F32_EPS_REL_TOL``; (e) the f32 fine-tune (``--mixed_precision no``,
+    TF32 off), 6 B1 / 15 B2a / 15 B2b / 0 fallbacks a step, step 1's
+    gradients within ``F32_GRAD_REL_TOL`` of the library attention's.
+    Returns the paths' results, the kernel rows by path and the checks no
+    path runs."""
     from genima_torch.eval.main_path import wide_head_pipeline
 
     t_phase = time.time()
@@ -4570,7 +4586,9 @@ def wide_heads_phase(pa, card: str) -> tuple[dict, dict, dict]:
             "wide_train": training_kernel_phase(pa, WIDE_TRAIN_LEVELS, seed=101),
             "wide_opt_in": opt_kernel_phase(WIDE_FLASH_SHAPES, [], [], seed=102),
             "wide_f32_control": f32_attention_rows(pa, WIDE_LEVELS, seed=103, train=False,
-                                                   iters=3)}
+                                                   iters=3),
+            "wide_f32_train": f32_attention_rows(pa, WIDE_TRAIN_LEVELS, seed=104, train=True,
+                                                 iters=3)}
     checks = {"head_dim_sweep": wide_sweep(pa, f32=False),
               "f32_head_dim_sweep": wide_sweep(pa, f32=True),
               "ragged": ragged_rows(pa, torch.bfloat16, seed=110)
@@ -4596,10 +4614,19 @@ def wide_heads_phase(pa, card: str) -> tuple[dict, dict, dict]:
     out["f32_serve"] = _serve("sd_wide", 512, "fused", "xla", F32_SERVE_LAUNCHES,
                               F32_SERVE_STEPS, dtype=torch.float32, eps_tol=F32_EPS_REL_TOL)
     out["f32_serve"]["s"] = time.time() - t0
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["f32_train"] = _sd_finetune(
+            pa, Path(tmp), 512, TRAIN_LAUNCHES, precision="no", steps=WIDE_TRAIN_STEPS,
+            grad_check=True, grad_tol=F32_GRAD_REL_TOL,
+            pipe_factory=lambda args: wide_head_pipeline(
+                dtype=torch.float32, backend="fused", device=args.device, vae_encoder=True))
+    out["f32_train"]["s"] = time.time() - t0
     _fill_launches(rows["wide_control"], {"B1": out["serve"]["launches_by_shape"]})
     _fill_launches(rows["wide_opt_in"], out["opt_in"]["launches_by_shape"])
     _fill_launches(rows["wide_train"], out["train"]["launches_by_shape"])
     _fill_launches(rows["wide_f32_control"], {"B1": out["f32_serve"]["launches_by_shape"]["B1"]})
+    _fill_launches(rows["wide_f32_train"], out["f32_train"]["launches_by_shape"])
     for name, rs in rows.items():
         for r in rs:
             r["path"] = f"{name} (phase 18)"
@@ -4940,6 +4967,7 @@ def main() -> int:
     print("wide_heads " + json.dumps(p18))
     print("wide_head_checks " + json.dumps(p18_checks))
     sv18, op18, tr18, f18 = p18["serve"], p18["opt_in"], p18["train"], p18["f32_serve"]
+    ft18 = p18["f32_train"]
     print(f"wide_heads ({card}): control steps {[round(x, 1) for x in sv18['step_ms']]} ms by "
           f"events, eps rel err {sv18['eps_rel_err_vs_library_attention']:.4f}, peak "
           f"{sv18['peak_mem_gb']:.2f} GiB; pallas+w8 / fused steps "
@@ -4951,7 +4979,9 @@ def main() -> int:
           f"backends {tr18['grad_library_backends_rel_norm_diff']:.4f}), peak "
           f"{tr18['peak_mem_gb']:.2f} GiB; f32 steps {[round(x, 1) for x in f18['step_ms']]} ms, "
           f"eps rel err {f18['eps_rel_err_vs_library_attention']:.3e}, step peak "
-          f"{f18['step_peak_mem_gb']:.2f} GiB; kv=77 autograd "
+          f"{f18['step_peak_mem_gb']:.2f} GiB; f32 fine-tune steps "
+          f"{[round(x, 1) for x in ft18['step_ms']]} ms, grads rel "
+          f"{ft18['grad_rel_norm_diff_vs_library_attention']:.3e}; kv=77 autograd "
           f"{p18_checks['kv77_autograd']['launches']}; kernel checks "
           f"{p18['kernel_checks_s']:.1f} s; phase {p18['phase_s']:.1f} s")
     phase_s["total"] = round(time.time() - t_start, 1)
@@ -4983,8 +5013,8 @@ def main() -> int:
            for name, rs in p16_rows.items() for r in rs]
         + [(name, r, F32_TRAIN_STEPS if name == "f32_train" else F32_SERVE_STEPS)
            for name, rs in p17_rows.items() for r in rs]
-        + [(name, r, {"wide_train": WIDE_TRAIN_STEPS, "wide_f32_control": F32_SERVE_STEPS}
-            .get(name, WIDE_STEPS)) for name, rs in p18_rows.items() for r in rs])))
+        + [(name, r, WIDE_PATH_STEPS.get(name, WIDE_STEPS))
+           for name, rs in p18_rows.items() for r in rs])))
     rows = (kernels + cfg_kernels + train_kernels + opt_kernels + cohort_kernels
             + batch4_kernels + batched_kernels + pretrain_kernels + sdxl_kernels
             + sdxl_train_kernels + pix2pix_kernels + pix2pix_n2_kernels + pix2pix_train_kernels
@@ -5032,8 +5062,8 @@ def wide_main() -> int:
     print("wide_heads " + json.dumps(p18))
     print("wide_head_checks " + json.dumps(p18_checks))
     print("per_step " + json.dumps(per_step_sums(
-        [(name, r, {"wide_train": WIDE_TRAIN_STEPS, "wide_f32_control": F32_SERVE_STEPS}
-          .get(name, WIDE_STEPS)) for name, rs in p18_rows.items() for r in rs])))
+        [(name, r, WIDE_PATH_STEPS.get(name, WIDE_STEPS))
+         for name, rs in p18_rows.items() for r in rs])))
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"}
                                   for rs in p18_rows.values() for r in rs]}))
     print(f"wide phase passed in {time.time() - t0:.1f} s")

@@ -11,14 +11,14 @@ serving levels by CUDA events (``chip_smoke.cuda_ms``), or with
 ``--profile`` B2b's two kernels by ``torch.profiler``, or with ``--f32``
 the f32 kernels on f32 inputs (TF32 off): B1 at the serving levels, B2a and
 B2b at the trainer levels, B3 (self-attention and the 77 prompt keys), B4
-and B5 at the opt-in path's shapes, or with ``--wide`` the wide forwards
+and B5 at the opt-in path's shapes, or with ``--wide`` the wide kernels
 (heads past 256 columns) in bf16 and f32 (TF32 off): B1 at the wide-head
-path's serving levels (``chip_smoke.WIDE_LEVELS``), B1 and B2a at its
+path's serving levels (``chip_smoke.WIDE_LEVELS``), B1, B2a and B2b at its
 trainer levels, B3 at its opt-in shapes (self-attention and the 77 prompt
 keys), and at every d of ``chip_smoke.WIDE_SWEEP_DIMS`` B1 at 1 x 4096 in
-one head, B2a at 4 x 1024 and B3 over 1000 queries (self and 77 keys) in
-``chip_smoke._sweep_heads(d)`` heads. Prints each key's times on both
-sides and this tree's over the other's.
+one head, B2a and B2b at 4 x 1024 and B3 over 1000 queries (self and 77
+keys) in ``chip_smoke._sweep_heads(d)`` heads. Prints each key's times on
+both sides and this tree's over the other's.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ sys.path.insert(0, ".")
 import chip_smoke as cs
 from genima_torch.kernels import _build, flash_attention as fa, packed_attention as pa
 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-_build.build_all(["packed_attention", "flash_attention"])
+_build.build_all(["packed_attention", "flash_attention", "packed_attention_bwd"])
 gen = torch.Generator(device="cuda").manual_seed(1)
 out = {}
 for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -121,6 +121,10 @@ for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         if b > 1:
             out["B2a " + key] = cs.cuda_ms(
                 lambda: pa.packed_attention_forward_lse(q, k, v, h), iters)
+            do = torch.randn(b, s, c, generator=gen, device="cuda").to(dtype)
+            o, lse = pa.packed_attention_forward_lse(q, k, v, h)
+            out["B2b " + key] = cs.cuda_ms(
+                lambda: pa.packed_attention_backward(q, k, v, o, lse, do, h), iters)
     for b, sq, sk, c, h, what in flash:
         q, k, v = (torch.randn(b, x, h, c // h, generator=gen, device="cuda").to(dtype)
                    for x in (sq, sk, sk))

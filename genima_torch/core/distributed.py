@@ -34,6 +34,8 @@ from typing import Any, Optional
 import torch
 import torch.distributed as tdist
 
+from genima_torch import resolve_device
+
 # (index, count) installed by force_process(); None = ask torch.distributed
 _FORCED: Optional[tuple[int, int]] = None
 
@@ -65,8 +67,9 @@ def initialize(
     more than one process takes part. Explicit arguments win over
     ``WORLD_SIZE`` / ``RANK`` (then ``env://``, which reads ``MASTER_ADDR``
     and ``MASTER_PORT``). With neither, nothing happens. ``backend``
-    defaults to ``nccl`` when ``device`` (default: ``cuda`` where there is
-    one) is a card, else ``gloo``; a card becomes the current device.
+    defaults to ``nccl`` when ``device`` (default: ``cuda``; raises where
+    there is no card, the CPU only when named) is a card, else ``gloo``; a
+    card becomes the current device.
     ``timeout_s`` bounds each collective (PyTorch's default otherwise)."""
     if group_active():
         return tdist.get_world_size() > 1
@@ -77,9 +80,7 @@ def initialize(
         rank = int(env["RANK"])
     if init_method is None and world_size is None:
         return False
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = process_device(device)
+    device = resolve_device(process_device("cuda" if device is None else device))
     if device.type == "cuda":
         torch.cuda.set_device(device)
     tdist.init_process_group(

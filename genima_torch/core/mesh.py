@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from genima_torch import resolve_device
 from genima_torch.core import distributed as dist
 
 DATA_AXIS = "data"
@@ -59,16 +60,18 @@ class Mesh:
 
 
 def _default_devices() -> list[torch.device]:
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """Every visible card; raises where there is none (the CPU only when a
+    caller lists it)."""
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1,
               devices: Optional[list] = None) -> Mesh:
-    """A (data, fsdp) mesh over ``devices`` (default: every visible card,
-    else the CPU). With ``n_data=None`` every device goes to the data
-    axis; extra devices are left out; too few raise."""
+    """A (data, fsdp) mesh over ``devices`` (default: every visible card;
+    none raises, the CPU is used only when listed). With ``n_data=None``
+    every device goes to the data axis; extra devices are left out; too few
+    raise."""
     devices = [torch.device(d) for d in (devices if devices is not None else _default_devices())]
     if n_data is None:
         n_data = len(devices) // n_fsdp

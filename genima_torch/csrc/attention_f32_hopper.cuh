@@ -560,10 +560,11 @@ bool fwd_tile_ok(int da, int nwg, int bn) {
 
 // --- heads of more than four atoms (d > 256) --------------------------------
 //
-// As the bf16 wide kernels (attention_fwd_hopper.cuh): O (the backward's dQ,
-// dK, dV) in chunks of OA = 3 or 4 atoms (attn_hopper::wide_chunk_atoms),
-// one chunk a block; S and dP summed over every atom of the head, nothing of
-// it resident, so shared memory does not grow with d. A ring of 32 KB slots
+// As the bf16 streaming wide forward (attention_fwd_hopper.cuh): O in
+// chunks of OA = 3 or 4 atoms (attn_hopper::wide_chunk_atoms), one chunk a
+// block; S summed over every atom of the head, nothing of it resident, so
+// shared memory does not grow with d (the wide backward in
+// packed_attention_bwd.cu uses the same items and ring). A ring of 32 KB slots
 // carries, per streamed tile of kWideT = 32 rows, one "S item" an atom (the
 // block's 64 rows of X raw, 16 KB, for the A operand's ldmatrix; the tile's
 // 32 rows of Y, which the producer warpgroup's warps 1-3 split into big in
@@ -685,11 +686,8 @@ __device__ __forceinline__ void wide_scores_item(float (&acc)[kWideT / 2], const
 }
 
 struct WideParamsF32 {
-  float* o;  // the forward's o, or the backward's dq, dk or dv
+  float* o;
   float* lse;
-  const float *o_in, *dout, *lse_in;
-  float* l2;    // (B, heads, Sq): L * log2(e), the dq kernel's (chunk 0) for the dk/dv kernels
-  float* drow;  // (B, heads, Sq): rowsum(dO * O), likewise
   int sq, sk, c, d, heads, atoms, chunks, stages;
   float scale, scale_log2;
 };

@@ -8,9 +8,10 @@
 // kernels' template parameter DA and d itself a runtime value; above four
 // the wide kernels keep O for the whole head in two warpgroups of three
 // atoms (the paired forward, five or six atoms) or read the head atom by
-// atom through a ring and keep O (or dQ, dK, dV) for one chunk of at most
-// four atoms a block (wide_chunks below), their atom count a runtime value:
-// no d is too wide. (A head dim
+// atom through a ring and keep O for one chunk of at most four atoms a
+// block (wide_chunks below); the wide backward keeps dQ, dK or dV for up
+// to ten atoms a block in two warpgroups (packed_attention_bwd.cu); their
+// atom count a runtime value: no d is too wide. (A head dim
 // that is not a multiple of 8 reaches the kernels zero-padded to the next
 // one by the wrappers, since TMA needs 16-byte row strides; the scale
 // follows the real head dim, `scale_dim`.)
@@ -95,10 +96,9 @@ inline bool head_dim_ok(int d, int scale_dim) {
   return d >= 8 && d % 8 == 0 && scale_dim <= d && scale_dim > d - 8;
 }
 
-// The wide kernels (heads of more than four atoms): O's columns (the
-// backward's dQ, dK, dV) in wide_chunks(atoms) chunks of
-// wide_chunk_atoms(atoms) atoms, three or four, one chunk a block; S (and
-// dP) summed over every atom in each. Mirrored by
+// The streaming wide forwards (heads of more than four atoms): O's columns
+// in wide_chunks(atoms) chunks of wide_chunk_atoms(atoms) atoms, three or
+// four, one chunk a block; S summed over every atom in each. Mirrored by
 // kernels/flash_attention.py::wide_chunking.
 inline int wide_chunks(int atoms) { return (atoms + kNarrowAtoms - 1) / kNarrowAtoms; }
 inline int wide_chunk_atoms(int atoms) {

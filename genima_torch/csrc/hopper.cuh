@@ -119,6 +119,13 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive on barrier `id` without waiting for it: the signalling side of a
+// producer / consumer pair whose other side waits with named_barrier (the
+// same id and thread count, arrivals and waits together).
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Move registers between the warpgroups of a warp-specialised block: every
 // warp of a warpgroup executes the same call. A producer warpgroup gives
 // registers back (dec) so the consumer warpgroups can take them (inc); the

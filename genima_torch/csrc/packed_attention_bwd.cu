@@ -641,35 +641,133 @@ int launch_bwd(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap&
 
 // --- heads of more than four atoms (d > 256) --------------------------------
 //
-// A chunk of dQ, dK or dV of four atoms already holds 128 f32 a thread beside
-// S and dP; the narrow kernels keep every atom of a block's resident
-// tensors, which no shared memory holds at every d. So above four atoms each
-// output is made in chunks of OA = 3 or 4 atoms (wide_chunk_atoms), one
-// chunk a block, with nothing of the head resident: per streamed tile, S
-// and dP (and their transposes) are summed over every atom of the head
-// from a ring of 32 KB slots (attention_hopper.cuh's kWideSlot: four 64-row
-// atom tiles), then the chunk's product runs on the chunk's atoms of the
-// tile:
-//   * dq kernel, one block per (64 query rows, chunk, head, batch): per
-//     64-key tile, `atoms` items (Q, K, dO, V of one atom) for S = Q K^T and
-//     dP = dO V^T, then one item of K's chunk atoms for dQ += dS K. Its
-//     prologue forms Drow = rowsum(dO * O) over the whole of d (from global
-//     memory) and L * log2(e); chunk 0 writes both into `delta`.
-//   * dV kernel (kDK false), one block per (64 keys, chunk, head, batch):
-//     per 64-query tile, ceil(atoms / 2) items (K and Q of two atoms) for
-//     S^T = K Q^T, then one item of dO's chunk atoms, with the tile's
-//     L * log2(e) and Drow, for dV += P^T dO;
-//   * dK kernel (kDK true): `atoms` items (K, Q, V, dO of one atom) for S^T
-//     and dP^T = V dO^T, then Q's chunk atoms for dK += dS^T Q.
-// The dV and dK passes of the narrow kernels above two atoms are here two
-// launches over separate grids (a kernel template each, so that no wgmma
-// sits in a data-dependent branch). No atomics: two calls give the same
-// bits. One consumer warpgroup and a one-warp producer (160 threads, up to
-// 255 registers); the 4-D maps (head_map) give zeros past d and so no
-// masking. The price of streaming: Q, K, dO, V re-read from L2 for every
-// tile and chunk (S is formed 2 + 2 * chunks times, dP 1 + chunks).
+// Three launches, each one block per (64 rows, output chunk, head, batch)
+// with two consumer warpgroups and a producer warpgroup (384 threads;
+// setmaxnreg 24 / 240), walking 64-row tiles of the other sequence:
+//   * dq (kWideDq): rows of Q, tiles of K and V; dQ += dS K;
+//   * dV (kWideDv): rows of K, tiles of Q and dO; dV += P^T dO;
+//   * dK (kWideDk): rows of K, tiles of Q and dO; dK += dS^T Q.
+// A block holds its output for 2 * OA atoms, OA in each consumer warpgroup
+// (wide_bwd_oa: 3 at five or six atoms, 4 at seven or eight, 5 at nine or
+// ten: the whole head in one block up to d = 640; past ten atoms chunks of
+// eight, one a block). S and dP are formed once a tile in each block, the
+// work split between the warpgroups:
+//   * dq and dK: warpgroup 0 forms S (S^T) over every atom of the head and
+//     P = 2^(S scale log2(e) - L log2(e)); warpgroup 1 forms dP (dP^T) and,
+//     from P handed over in shared memory, dS = P (dP - Drow) / sqrt(d) as
+//     bf16 A fragments, which it hands back; each warpgroup then runs the
+//     product over its OA atoms of the tile (K or Q) with dS as A.
+//   * dV: each warpgroup sums S^T over half the atoms (even, odd);
+//     warpgroup 1 hands its part over, warpgroup 0 adds it (always in that
+//     order), forms P^T as A fragments and hands them back; dV += P^T dO
+//     over each warpgroup's atoms.
+// The hand-overs are 32 values a thread through a 16 KB buffer, each thread
+// exchanging with the thread of the other warpgroup that holds the same
+// accumulator elements, behind two named barriers (one warpgroup arrives,
+// the other waits); every value is written by one warpgroup and read by the
+// other in program order, so no step needs a third barrier. Both warpgroups
+// run the same wgmma code on different operands (no wgmma in a
+// data-dependent branch).
+//   Operands: the block's 64 rows of the row tensors (Q and dO, or K and V;
+// dV: K) stay resident in shared memory up to six atoms (96 KB); past six
+// they stream a tile at a time beside the tile's operands. Three rings,
+// each fed by its own thread of the producer warpgroup with TMA from 4-D
+// maps (head_map: zeros past d and past S, so no masking):
+//   * O: 8 KB atom tiles of the tensor the output product reads (K, Q or
+//     dO), the block's 2 * OA atoms a tile, read by both warpgroups and
+//     held until the tile's output product is retired; in dq and dK
+//     warpgroup 0 forms S from these same tiles;
+//   * E0, E1: 16 KB slots of warpgroup 0's and 1's other operands, given
+//     back as soon as the wgmma reading them is retired (dq/dK: E0 the
+//     streamed rows of Q or K and any atom of the head outside the block's
+//     chunk, E1 dO / V and V / dO; dV: E0 the rows of K and the tile's Q).
+// No atomics: two calls give the same bits. Against a design of one
+// warpgroup a block holding a chunk of three or four atoms of the output
+// (S formed 2 + 2 * chunks times, dP 1 + chunks, every operand re-read from
+// L2 per tile and chunk): at d = 320 and 640 the three launches form S, dP
+// and the products 8 times 2 B Sq Sk d (13 and 18 that way), and read the
+// row tensors once a block.
 
-constexpr int kWideThreads = 160;
+constexpr int kWideDq = 0, kWideDk = 1, kWideDv = 2;
+constexpr int kWideBwdThreads = 384;     // two consumer warpgroups and the producer warpgroup
+constexpr int kWideEMax = 16;            // barriers an early ring
+constexpr int kWideXBuf = 128 * 32 * 4;  // the hand-over: 32 values a consumer thread
+constexpr int kWideMaxOStages = 20;
+constexpr int kBlockSmem = 232448;  // dynamic shared memory a block may take
+constexpr int kWideBwdSms = 132;    // the H100's SMs: a grid under them is split
+constexpr int kWideBwdMaxSplits = 4;
+// setmaxnreg: the producer warpgroup's registers a thread (24 and 32 left
+// its threads spilling), the consumers' what is left of the SM's 512 a
+// thread-slot (two warpgroups)
+constexpr int kWideProducerRegs = 40;
+constexpr int kWideConsumerRegs = (512 - kWideProducerRegs) / 2 / 8 * 8;
+
+// The early rings' slots: with the rows resident a tile atom (8 KB), else a
+// row atom and a tile atom (16 KB).
+__host__ __device__ constexpr int wide_e_slot(bool res) { return (res ? 1 : 2) * kAtomTile; }
+
+// The plan of the wide backward, mirrored by
+// kernels/packed_attention.py::wide_backward_plan: atoms of output a consumer
+// warpgroup holds, chunks of the head, whether the row tensors stay
+// resident, the O ring's depth from the shared memory left, and the splits
+// of the tile loop where the grid is short.
+inline int wide_bwd_chunks(int atoms) { return atoms <= 10 ? 1 : (atoms + 7) / 8; }
+inline int wide_bwd_oa(int atoms) { return atoms <= 6 ? 3 : atoms <= 8 ? 4 : atoms <= 10 ? 5 : 4; }
+inline bool wide_bwd_resident(int atoms) { return atoms <= 6; }
+inline int imin(int a, int b) { return a < b ? a : b; }
+// the O ring's atoms a tile: the chunk's atoms of the head (past them the
+// output product reads a zero tile)
+inline int wide_bwd_o_atoms(int atoms) {
+  const int chunk = 2 * wide_bwd_oa(atoms);
+  return atoms < chunk ? atoms : chunk;
+}
+inline int wide_bwd_e_rings(int mode, bool res) {
+  return (!res || mode == kWideDv ? 1 : 0) + (mode != kWideDv ? 1 : 0);
+}
+// Alignment slack, the resident rows, the hand-over buffer, the zero tile,
+// the barriers; then the rings.
+inline int wide_bwd_fixed_bytes(int mode, int atoms) {
+  const bool res = wide_bwd_resident(atoms);
+  const int res_tensors = res ? (mode == kWideDv ? 1 : 2) : 0;
+  return 1024 + res_tensors * atoms * kAtomTile + kWideXBuf + kAtomTile + 8 * (4 * kWideEMax + 1);
+}
+// Depths of the O ring (slots of 8 KB and two barriers) and of each early
+// ring: with the rows resident the O ring holds two tiles where three early
+// slots are left beside it (so that a tile's output product and its O slots
+// never hold up the next tile's scores), the early rings what is left;
+// streaming, three early slots a warpgroup (dV's one ring six), the O ring
+// what is left (20 at most).
+inline void wide_bwd_rings(int mode, int atoms, int& o_stages, int& e_stages) {
+  const bool res = wide_bwd_resident(atoms);
+  const int left = kBlockSmem - wide_bwd_fixed_bytes(mode, atoms);
+  const int e_bytes = wide_bwd_e_rings(mode, res) * wide_e_slot(res);  // a slot of each ring
+  const int per_o = kAtomTile + 16;
+  if (res) {
+    o_stages = imin(2 * wide_bwd_o_atoms(atoms), (left - 3 * e_bytes) / per_o);
+    e_stages = imin(kWideEMax, (left - o_stages * per_o) / e_bytes);
+  } else {
+    e_stages = mode == kWideDv ? 6 : 3;
+    o_stages = imin(kWideMaxOStages, (left - e_stages * e_bytes) / per_o);
+  }
+}
+inline int wide_bwd_smem_bytes(int mode, int atoms) {
+  int o, e;
+  wide_bwd_rings(mode, atoms, o, e);
+  return wide_bwd_fixed_bytes(mode, atoms) + o * (kAtomTile + 16) +
+         e * wide_bwd_e_rings(mode, wide_bwd_resident(atoms)) * wide_e_slot(wide_bwd_resident(atoms));
+}
+// Ranges of the tile loop a block's rows take: 1 where the grid fills the
+// card, else as many as keep it within one wave, two tiles each at least
+// (a tile each ran slower at 4 x 256 in two heads of 640 on the H100: the
+// merge outweighs a tile), kWideBwdMaxSplits at most (the CTAs of a
+// cluster, merged at the end).
+inline int wide_bwd_splits(int blocks, int tiles) {
+  int k = 1;
+  if (blocks < kWideBwdSms)
+    for (int s = 2; s <= kWideBwdMaxSplits; ++s)
+      if (2 * s <= tiles && blocks * s <= kWideBwdSms) k = s;
+  return k;
+}
 
 struct WideBwdParams {
   const __nv_bfloat16 *o, *dout;
@@ -677,277 +775,192 @@ struct WideBwdParams {
   float* l2;         // (B, heads, Sq): L * log2(e), written by the dq kernel (chunk 0)
   float* drow;       // (B, heads, Sq): rowsum(dO * O), likewise
   __nv_bfloat16* out;  // dq, dk or dv: the kernel's output
-  int sq, sk, c, d, heads, atoms, chunks;
+  int rows, n_tiles;   // the block's sequence (Sq or Sk) and the tiles of the other
+  int sq, c, d, heads, atoms, chunks, o_stages, e_stages, splits;
   float scale_log2, scale;
 };
 
-// Rings of the wide backward: slots of four 64-row atom tiles, a stage's 64
-// values of L * log2(e) and Drow (the dk/dv kernels), the barriers.
-constexpr int wide_bwd_smem_bytes(bool dkdv) {
-  return 1024 + kMaxWideStages * (kWideSlot + (dkdv ? 2 * 64 * 4 : 0) + 16);
+// Slot and phase of the n-th item of a ring of `stages` slots.
+__device__ __forceinline__ void ring_at(int n, int stages, int& slot, uint32_t& phase) {
+  slot = n % stages;
+  phase = static_cast<uint32_t>(n / stages) & 1u;
 }
 
-// S (and, with kDP, dP) for a tile: `items` slots from the ring, each one
-// atom of X Y^T into s and of X2 Y2^T into dp (kDP), or two atoms of X Y^T
-// into s; each slot goes back once the group after it has been issued and
-// the one before it retired. `held` is the slot of the last committed group
-// (-1: none).
-template <bool kDP>
-__device__ __forceinline__ void wide_scores(float (&s)[32], float (&dp)[32], int items,
-                                            const uint8_t* ring, uint64_t* full, uint64_t* empty,
-                                            int stages, int& slot, uint32_t& phase, int& held,
-                                            bool arrives) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
-  fence_operands(s);
-  if constexpr (kDP) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dp[i] = 0.f;
-    fence_operands(dp);
-  }
-  for (int i = 0; i < items; ++i) {
-    mbar_wait(&full[slot], phase);
-    const uint8_t* st = ring + slot * kWideSlot;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0>(s, desc_k(st, kk), desc_k(st + kAtomTile, kk));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (kDP)
-        wgmma_ss<64, 0>(dp, desc_k(st + 2 * kAtomTile, kk), desc_k(st + 3 * kAtomTile, kk));
-      else
-        wgmma_ss<64, 0>(s, desc_k(st + 2 * kAtomTile, kk), desc_k(st + 3 * kAtomTile, kk));
-    }
-    wgmma_commit();
-    fence_operands(s);
-    if constexpr (kDP) fence_operands(dp);
-    wgmma_wait<1>();
-    fence_operands(s);
-    if constexpr (kDP) fence_operands(dp);
-    if (held >= 0 && arrives) mbar_arrive(&empty[held]);
-    held = slot;
-    if (++slot == stages) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-  wgmma_wait<0>();
-  fence_operands(s);
-  if constexpr (kDP) fence_operands(dp);
-  if (arrives) mbar_arrive(&empty[held]);
-}
-
-template <int OA>
-__device__ __forceinline__ void wide_chunk_mma(float* acc, const uint32_t (&af)[4][4],
-                                               const uint8_t* tile) {
-#pragma unroll
-  for (int a = 0; a < OA; ++a)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<64, 1>(acc + 32 * a, af[kk], desc_mn(tile + a * kAtomTile, kk));
-}
-
-// The chunk's 64 rows x OA atoms of an output from `row` (rows of stride c).
-template <int OA>
-__device__ __forceinline__ void wide_store(const WideBwdParams& p, const float* acc, int batch,
-                                           int s, int row, int head, int chunk, int g, int t) {
-  const int col0 = chunk * OA * kAtom;
-  __nv_bfloat16* dst = p.out + (static_cast<size_t>(batch) * s + row) * p.c + head * p.d + col0;
-#pragma unroll
-  for (int a = 0; a < OA; ++a)
-    store_acc(dst + a * kAtom, p.c, acc + 32 * a, 1.f, 1.f, true, true, g, t,
-              p.d - col0 - a * kAtom);
-}
-
-template <int OA>
-__global__ void __launch_bounds__(kWideThreads, 1)
-bwd_wide_dq_kernel(const __grid_constant__ CUtensorMap map_q,
-                   const __grid_constant__ CUtensorMap map_do,
-                   const __grid_constant__ CUtensorMap map_k,
-                   const __grid_constant__ CUtensorMap map_v, const WideBwdParams p) {
+// Maps: dq (q, dO, k, v), dK and dV (k, v, q, dO): rows x, x2, tiles y, y2.
+template <int kMode, int OA, bool kRes>
+__global__ void __launch_bounds__(kWideBwdThreads, 1)
+bwd_wide_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_x2,
+                const __grid_constant__ CUtensorMap map_y, const __grid_constant__ CUtensorMap map_y2,
+                const WideBwdParams p) {
+  constexpr bool kDv = kMode == kWideDv;
+  constexpr bool kE0 = !kRes || kDv;  // warpgroup 0's early ring
+  constexpr bool kE1 = !kDv;          // warpgroup 1's
+  constexpr int kResN = kRes ? (kDv ? 1 : 2) : 0;
+  constexpr int kChunk = 2 * OA;      // output atoms a block
+  constexpr int kESlot = wide_e_slot(kRes);
+  const int kES = p.e_stages;
+  constexpr int kYOff = kRes ? 0 : kAtomTile;  // a slot's tile atom
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kMaxWideStages * kWideSlot);
-  uint64_t* empty = full + kMaxWideStages;
-  const int chunk = blockIdx.x % p.chunks;
-  const int q0 = blockIdx.x / p.chunks * 64;
+  const int A = p.atoms;
+  uint8_t* res = align1024(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(res + kResN * A * kAtomTile);
+  uint8_t* zero_tile = reinterpret_cast<uint8_t*>(xbuf) + kWideXBuf;  // output atoms past d
+  uint8_t* e0 = zero_tile + kAtomTile;
+  uint8_t* e1 = e0 + (kE0 ? kES * kESlot : 0);
+  uint8_t* oring = e1 + (kE1 ? kES * kESlot : 0);
+  uint64_t* o_full = reinterpret_cast<uint64_t*>(oring + p.o_stages * kAtomTile);
+  uint64_t* o_empty = o_full + p.o_stages;
+  uint64_t* e_full = o_empty + p.o_stages;  // [ring][stage]
+  uint64_t* e_empty = e_full + 2 * kWideEMax;
+  uint64_t* res_full = e_empty + 2 * kWideEMax;
+
+  // blockIdx.x: (row block, chunk, split), the splits of a row block's
+  // chunk the CTAs of one cluster
+  const int split = blockIdx.x % p.splits;
+  const int chunk = blockIdx.x / p.splits % p.chunks;
+  const int r0 = blockIdx.x / p.splits / p.chunks * 64;
   const int head = blockIdx.y, batch = blockIdx.z;
-  const int n_tiles = p.sk / 64;
+  const int c0 = chunk * kChunk;  // the block's first output atom
+  const int n_o = min(kChunk, A - c0);  // its atoms of the head: the O ring's a tile
+  const int t0 = split_begin(split, p.n_tiles, p.splits);
+  const int tiles = split_begin(split + 1, p.n_tiles, p.splits) - t0;
+  // dq / dK: a tile atom outside the block's chunk comes through E0 (dV:
+  // every tile atom of the score product)
+  const auto in_chunk = [&](int a) { return !kDv && a >= c0 && a < c0 + n_o; };
+
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kMaxWideStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 1);
+    for (int s = 0; s < p.o_stages; ++s) {
+      mbar_init(&o_full[s], 1);
+      mbar_init(&o_empty[s], 2);  // each consumer warpgroup
     }
+    for (int s = 0; s < 2 * kWideEMax; ++s) {
+      mbar_init(&e_full[s], 1);
+      mbar_init(&e_empty[s], 1);
+    }
+    mbar_init(res_full, 1);
     mbar_fence_init();
   }
   __syncthreads();
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == 4) {
-    if (lane == 0) {
-      int slot = 0;
-      uint32_t phase = 0;
-      for (int j = 0; j < n_tiles; ++j) {
-        for (int a = 0; a <= p.atoms; ++a) {  // `atoms` S/dP items, then the chunk's K
-          mbar_wait(&empty[slot], phase ^ 1);
-          uint8_t* st = ring + slot * kWideSlot;
-          if (a < p.atoms) {
-            mbar_expect_tx(&full[slot], kWideSlot);
-            tma_load_4d(st, &map_q, &full[slot], a * kAtom, head, q0, batch);
-            tma_load_4d(st + kAtomTile, &map_k, &full[slot], a * kAtom, head, j * 64, batch);
-            tma_load_4d(st + 2 * kAtomTile, &map_do, &full[slot], a * kAtom, head, q0, batch);
-            tma_load_4d(st + 3 * kAtomTile, &map_v, &full[slot], a * kAtom, head, j * 64, batch);
-          } else {
-            mbar_expect_tx(&full[slot], OA * kAtomTile);
-            for (int c = 0; c < OA; ++c)
-              tma_load_4d(st + c * kAtomTile, &map_k, &full[slot], (chunk * OA + c) * kAtom, head,
-                          j * 64, batch);
-          }
-          if (++slot == kMaxWideStages) {
-            slot = 0;
-            phase ^= 1;
-          }
+  if (warp >= 8) {  // the producer warpgroup: a thread a ring
+    setmaxnreg_dec<kWideProducerRegs>();
+    if (lane == 0 && warp == 8) {  // the resident rows, then the O ring
+      if constexpr (kRes) {
+        mbar_expect_tx(res_full, kResN * A * kAtomTile);
+        for (int a = 0; a < A; ++a) {
+          tma_load_4d(res + a * kAtomTile, &map_x, res_full, a * kAtom, head, r0, batch);
+          if constexpr (kResN == 2)
+            tma_load_4d(res + (A + a) * kAtomTile, &map_x2, res_full, a * kAtom, head, r0, batch);
         }
       }
+      const CUtensorMap* mo = kDv ? &map_y2 : &map_y;
+      for (int j = 0, n = 0; j < tiles; ++j)
+        for (int i = 0; i < n_o; ++i, ++n) {
+          int slot;
+          uint32_t phase;
+          ring_at(n, p.o_stages, slot, phase);
+          mbar_wait(&o_empty[slot], phase ^ 1);
+          mbar_expect_tx(&o_full[slot], kAtomTile);
+          tma_load_4d(oring + slot * kAtomTile, mo, &o_full[slot], (c0 + i) * kAtom, head,
+                      (t0 + j) * 64, batch);
+        }
+    } else if (lane == 0 && ((warp == 9 && kE0) || (warp == 10 && kE1))) {
+      const int r = warp - 9;  // 0: E0, 1: E1
+      uint8_t* ring = r ? e1 : e0;
+      const CUtensorMap* mx = r ? &map_x2 : &map_x;
+      const CUtensorMap* my = r ? &map_y2 : &map_y;
+      for (int j = 0, n = 0; j < tiles; ++j)
+        for (int a = 0; a < A; ++a, ++n) {
+          const bool tile_atom = r == 1 || !in_chunk(a);
+          int slot;
+          uint32_t phase;
+          ring_at(n, kES, slot, phase);
+          uint64_t* full = &e_full[r * kWideEMax + slot];
+          mbar_wait(&e_empty[r * kWideEMax + slot], phase ^ 1);
+          mbar_expect_tx(full, ((kRes ? 0 : 1) + (tile_atom ? 1 : 0)) * kAtomTile);
+          uint8_t* st = ring + slot * kESlot;
+          if (!kRes) tma_load_4d(st, mx, full, a * kAtom, head, r0, batch);
+          if (tile_atom) tma_load_4d(st + kYOff, my, full, a * kAtom, head, (t0 + j) * 64, batch);
+        }
+    }
+    if (p.splits > 1) {  // the consumers' merge
+      cluster_sync();
+      cluster_sync();
     }
     return;
   }
-  const int g = lane >> 2, t = lane & 3;
-  const bool arrives = warp == 0 && lane == 0;
-  const int row0 = q0 + warp * 16;
-  // Drow over every column of the head and L * log2(e), rows g and g + 8
-  float drow[2] = {0.f, 0.f}, l2[2];
-  const size_t rows_off = (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d;
-  for (int col = 2 * t; col < p.d; col += 8)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t off = rows_off + static_cast<size_t>(g + 8 * r) * p.c + col;
-      const float2 x = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.dout + off));
-      const float2 y = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.o + off));
-      drow[r] += x.x * y.x + x.y * y.y;
-    }
-  const size_t lrow = (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
-  const size_t srow = (static_cast<size_t>(batch) * p.heads + head) * p.sq + row0 + g;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    drow[r] += __shfl_xor_sync(0xffffffff, drow[r], 1);
-    drow[r] += __shfl_xor_sync(0xffffffff, drow[r], 2);
-    l2[r] = p.lse[lrow + static_cast<size_t>(8 * r) * p.heads] * kLog2e;
-    if (chunk == 0 && t == 0) {
-      p.l2[srow + 8 * r] = l2[r];
-      p.drow[srow + 8 * r] = drow[r];
-    }
-  }
 
-  float dq[32 * OA];
-#pragma unroll
-  for (int i = 0; i < 32 * OA; ++i) dq[i] = 0.f;
-  uint32_t dsf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) dsf[kk][0] = dsf[kk][1] = dsf[kk][2] = dsf[kk][3] = 0u;
-  fence_operands(dq);
-  int slot = 0, held = -1;
-  uint32_t phase = 0;
-  for (int j = 0; j < n_tiles; ++j) {
-    float s[32], dp[32];
-    wide_scores<true>(s, dp, p.atoms, ring, full, empty, kMaxWideStages, slot, phase, held,
-                      arrives);
-    fence_operands(dq);
-    fence_frags(dsf);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      dp[i] = exp2_approx(fmaf(s[i], p.scale_log2, -l2[r])) * (dp[i] - drow[r]) * p.scale;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(dsf[kk], dp, kk);
-    mbar_wait(&full[slot], phase);  // the chunk's K
-    fence_frags(dsf);
-    fence_operands(dq);
-    wgmma_fence();
-    wide_chunk_mma<OA>(dq, dsf, ring + slot * kWideSlot);  // dQ += dS K
-    wgmma_commit();
-    fence_operands(dq);
-    held = slot;
-    if (++slot == kMaxWideStages) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-  wgmma_wait<0>();
-  fence_operands(dq);
-  fence_frags(dsf);
-  wide_store<OA>(p, dq, batch, p.sq, row0, head, chunk, g, t);
-}
+  setmaxnreg_inc<kWideConsumerRegs>();
+  // the consumer warpgroup, made warp-uniform for the compiler
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x >> 7, 0);
+  const int tid = threadIdx.x & 127;
+  const int wq = warp & 3, g = lane >> 2, t = lane & 3;
+  const bool leader = tid == 0;  // arrives on the rings' barriers for its warpgroup
 
-template <int OA, bool kDK>
-__global__ void __launch_bounds__(kWideThreads, 1)
-bwd_wide_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
-                     const __grid_constant__ CUtensorMap map_do,
-                     const __grid_constant__ CUtensorMap map_k,
-                     const __grid_constant__ CUtensorMap map_v, const WideBwdParams p) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = align1024(smem_raw);
-  float* rows_ring = reinterpret_cast<float*>(ring + kMaxWideStages * kWideSlot);
-  uint64_t* full = reinterpret_cast<uint64_t*>(rows_ring + kMaxWideStages * 2 * 64);
-  uint64_t* empty = full + kMaxWideStages;
-  const int chunk = blockIdx.x % p.chunks;
-  const int k0 = blockIdx.x / p.chunks * 64;
-  const int head = blockIdx.y, batch = blockIdx.z;
-  const int n_tiles = p.sq / 64;
-  const int items = kDK ? p.atoms : (p.atoms + 1) / 2;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kMaxWideStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 1);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == 4) {
-    if (lane == 0) {
-      const size_t bh = (static_cast<size_t>(batch) * p.heads + head) * p.sq;
-      int slot = 0;
-      uint32_t phase = 0;
-      for (int i = 0; i < n_tiles; ++i) {
-        for (int n = 0; n <= items; ++n) {  // S^T (/ dP^T) items, then the chunk's item
-          mbar_wait(&empty[slot], phase ^ 1);
-          uint8_t* st = ring + slot * kWideSlot;
-          if (n < items) {
-            mbar_expect_tx(&full[slot], kWideSlot);
-            const int a = kDK ? n : 2 * n;
-            tma_load_4d(st, &map_k, &full[slot], a * kAtom, head, k0, batch);
-            tma_load_4d(st + kAtomTile, &map_q, &full[slot], a * kAtom, head, i * 64, batch);
-            if (kDK) {
-              tma_load_4d(st + 2 * kAtomTile, &map_v, &full[slot], a * kAtom, head, k0, batch);
-              tma_load_4d(st + 3 * kAtomTile, &map_do, &full[slot], a * kAtom, head, i * 64,
-                          batch);
-            } else {
-              tma_load_4d(st + 2 * kAtomTile, &map_k, &full[slot], (a + 1) * kAtom, head, k0,
-                          batch);
-              tma_load_4d(st + 3 * kAtomTile, &map_q, &full[slot], (a + 1) * kAtom, head, i * 64,
-                          batch);
-            }
-          } else {
-            float* rs = rows_ring + slot * 2 * 64;
-            mbar_expect_tx(&full[slot], OA * kAtomTile + 2 * 64 * 4);
-            for (int c = 0; c < OA; ++c)
-              tma_load_4d(st + c * kAtomTile, kDK ? &map_q : &map_do, &full[slot],
-                          (chunk * OA + c) * kAtom, head, i * 64, batch);
-            bulk_load(rs, p.l2 + bh + i * 64, 64 * 4, &full[slot]);
-            bulk_load(rs + 64, p.drow + bh + i * 64, 64 * 4, &full[slot]);
-          }
-          if (++slot == kMaxWideStages) {
-            slot = 0;
-            phase ^= 1;
-          }
+  // dq: L * log2(e) (warpgroup 0) or Drow over every column (warpgroup 1)
+  // of this thread's rows g and g + 8; chunk 0, split 0 writes them for dK
+  // and dV
+  float rowv[2] = {0.f, 0.f};
+  if constexpr (kMode == kWideDq) {
+    const int row0 = r0 + wq * 16;
+    const size_t srow = (static_cast<size_t>(batch) * p.heads + head) * p.sq + row0 + g;
+    if (wg == 0) {
+      const size_t lrow = (static_cast<size_t>(batch) * p.sq + row0 + g) * p.heads + head;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        rowv[r] = p.lse[lrow + static_cast<size_t>(8 * r) * p.heads] * kLog2e;
+    } else {
+      const size_t rows_off = (static_cast<size_t>(batch) * p.sq + row0) * p.c + head * p.d;
+      for (int col = 2 * t; col < p.d; col += 8)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const size_t off = rows_off + static_cast<size_t>(g + 8 * r) * p.c + col;
+          const float2 x = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.dout + off));
+          const float2 y = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p.o + off));
+          rowv[r] += x.x * y.x + x.y * y.y;
         }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rowv[r] += __shfl_xor_sync(0xffffffff, rowv[r], 1);
+        rowv[r] += __shfl_xor_sync(0xffffffff, rowv[r], 2);
       }
     }
-    return;
+    if (chunk == 0 && split == 0 && t == 0) {
+      float* dst = wg ? p.drow : p.l2;
+      dst[srow] = rowv[0];
+      dst[srow + 8] = rowv[1];
+    }
   }
-  const int g = lane >> 2, t = lane & 3;
-  const bool arrives = warp == 0 && lane == 0;
+  // dK / dV: this warpgroup's per-query values of a tile (L * log2(e) for
+  // warpgroup 0, Drow for warpgroup 1), read from the dq kernel's scratch
+  const float* cols_src =
+      (wg ? p.drow : p.l2) + (static_cast<size_t>(batch) * p.heads + head) * p.sq;
+
+  // operands of this warpgroup's score product: dq / dK (X, Y) for
+  // warpgroup 0, (X2, Y2) for 1; dV (X, Y) for both, halves of the atoms.
+  // An early ring carries an item an atom a tile (with the rows resident in
+  // dq / dK, E0 none: the chunk is the whole head, every tile atom in O).
+  const uint8_t* res_x = res + (kResN == 2 && wg ? A : 0) * kAtomTile;
+  const int er = kDv ? 0 : wg;  // this warpgroup's early ring
+  uint8_t* ering = er ? e1 : e0;
+  uint64_t* ef = e_full + er * kWideEMax;
+  uint64_t* ee = e_empty + er * kWideEMax;
+  const int a0 = kDv ? wg : 0, astep = kDv ? 2 : 1;
+
+  // a tile's O slots go back (this warpgroup's arrival on each) once its
+  // output product is retired: in the next tile, after its first score group
+  // is issued (the O ring holds a tile and an atom at least), so that the
+  // output product runs under the next tile's scores
+  const auto release_o = [&](int n0) {
+    for (int i = 0; i < n_o; ++i) {
+      int os;
+      uint32_t op;
+      ring_at(n0 + i, p.o_stages, os, op);
+      mbar_wait(&o_full[os], op);
+      mbar_arrive(&o_empty[os]);
+    }
+  };
   float acc[32 * OA];
 #pragma unroll
   for (int i = 0; i < 32 * OA; ++i) acc[i] = 0.f;
@@ -955,79 +968,261 @@ bwd_wide_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) af[kk][0] = af[kk][1] = af[kk][2] = af[kk][3] = 0u;
   fence_operands(acc);
-  int slot = 0, held = -1;
-  uint32_t phase = 0;
-  for (int i = 0; i < n_tiles; ++i) {
-    // transposed scores: rows are this warp's keys g, g + 8; accumulator
-    // value e of column group j is query 8j + 2t + (e & 1) of the tile
-    float s[32], dp[32];
-    wide_scores<kDK>(s, dp, items, ring, full, empty, kMaxWideStages, slot, phase, held,
-                     arrives);
-    fence_operands(acc);
+  for (int i = threadIdx.x; i < kAtomTile / 16; i += 256)
+    reinterpret_cast<uint4*>(zero_tile)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();  // before wgmma reads it
+  named_barrier(1, 256);
+  if constexpr (kRes) mbar_wait(res_full, 0);
+  uint32_t* xbuf_u = reinterpret_cast<uint32_t*>(xbuf);
+
+  for (int jj = 0; jj < tiles; ++jj) {
+    const int j = t0 + jj;
+    const int obase = jj * n_o;
+    float2 colv[8];  // dK / dV: columns 8i + 2t and + 1 of this tile
+    if constexpr (kMode != kWideDq) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        colv[i] = *reinterpret_cast<const float2*>(cols_src + j * 64 + 8 * i + 2 * t);
+    }
+    // the score product over this warpgroup's atoms, an atom a group; an
+    // early slot goes back once the group after it is issued and it retired
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_operands(s);
+    int held = -1;  // the early ring item of the last committed group
+    for (int a = a0; a < A; a += astep) {
+      const bool first = a == a0;
+      const bool from_o = !kDv && wg == 0 && in_chunk(a);
+      const bool from_e = !kRes || !from_o;
+      const int en = jj * A + a;
+      int es = 0, os = 0;
+      uint32_t ep = 0, op = 0;
+      if (from_e) {
+        ring_at(en, kES, es, ep);
+        mbar_wait(&ef[es], ep);
+      }
+      if (from_o) {
+        ring_at(obase + a - c0, p.o_stages, os, op);
+        mbar_wait(&o_full[os], op);
+      }
+      const uint8_t* xa = kRes ? res_x + a * kAtomTile : ering + es * kESlot;
+      const uint8_t* ya = from_o ? oring + os * kAtomTile : ering + es * kESlot + kYOff;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0>(s, desc_k(xa, kk), desc_k(ya, kk));
+      wgmma_commit();
+      fence_operands(s);
+      wgmma_wait<1>();
+      fence_operands(s);
+      if (first && jj > 0) {  // the tile before's output product is retired
+        fence_acc<32 * OA>(acc);
+        fence_frags(af);  // its A fragments were live until here
+        if (leader) release_o(obase - n_o);
+      }
+      if (held >= 0 && leader) {
+        int hs;
+        uint32_t hp;
+        ring_at(held, kES, hs, hp);
+        mbar_arrive(&ee[hs]);
+      }
+      held = from_e ? en : -1;
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+    if (held >= 0 && leader) {
+      int hs;
+      uint32_t hp;
+      ring_at(held, kES, hs, hp);
+      mbar_arrive(&ee[hs]);
+    }
+
+    // the hand-overs: after them af holds dS (dq, dK) or P^T (dV)
     fence_frags(af);
-    mbar_wait(&full[slot], phase);  // the chunk's tile and the rows' L * log2(e), Drow
-    const float* rs = rows_ring + slot * 2 * 64;
+    if constexpr (kDv) {
+      if (wg == 1) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(rs + 8 * j + 2 * t);
-      const float2 dr = *reinterpret_cast<const float2*>(rs + 64 + 8 * j + 2 * t);
+        for (int i = 0; i < 32; ++i) xbuf[i * 128 + tid] = s[i];  // the odd atoms' S^T
+        named_arrive(1, 256);
+        named_barrier(2, 256);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i4 = 4 * j + e;
-        s[i4] = exp2_approx(fmaf(s[i4], p.scale_log2, -(e & 1 ? l.y : l.x)));
-        if constexpr (kDK) s[i4] = s[i4] * (dp[i4] - (e & 1 ? dr.y : dr.x)) * p.scale;
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) af[kk][e] = xbuf_u[(4 * kk + e) * 128 + tid];
+      } else {
+        named_barrier(1, 256);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] += xbuf[i * 128 + tid];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[4 * i] = exp2_approx(fmaf(s[4 * i], p.scale_log2, -colv[i].x));
+          s[4 * i + 1] = exp2_approx(fmaf(s[4 * i + 1], p.scale_log2, -colv[i].y));
+          s[4 * i + 2] = exp2_approx(fmaf(s[4 * i + 2], p.scale_log2, -colv[i].x));
+          s[4 * i + 3] = exp2_approx(fmaf(s[4 * i + 3], p.scale_log2, -colv[i].y));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc_to_a(af[kk], s, kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xbuf_u[(4 * kk + e) * 128 + tid] = af[kk][e];
+        }
+        named_arrive(2, 256);
+      }
+    } else {
+      if (wg == 0) {  // P from S
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float l;
+          if constexpr (kMode == kWideDq) {
+            l = rowv[(i >> 1) & 1];
+          } else {
+            l = i & 1 ? colv[i >> 2].y : colv[i >> 2].x;
+          }
+          xbuf[i * 128 + tid] = exp2_approx(fmaf(s[i], p.scale_log2, -l));
+        }
+        named_arrive(1, 256);
+        named_barrier(2, 256);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) af[kk][e] = xbuf_u[(4 * kk + e) * 128 + tid];
+      } else {  // dS from P and dP (in s)
+        named_barrier(1, 256);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float dr;
+          if constexpr (kMode == kWideDq) {
+            dr = rowv[(i >> 1) & 1];
+          } else {
+            dr = i & 1 ? colv[i >> 2].y : colv[i >> 2].x;
+          }
+          s[i] = xbuf[i * 128 + tid] * (s[i] - dr) * p.scale;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc_to_a(af[kk], s, kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xbuf_u[(4 * kk + e) * 128 + tid] = af[kk][e];
+        }
+        named_arrive(2, 256);
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(af[kk], s, kk);
     fence_frags(af);
-    fence_operands(acc);
-    wgmma_fence();
-    wide_chunk_mma<OA>(acc, af, ring + slot * kWideSlot);  // dK += dS^T Q, dV += P^T dO
-    wgmma_commit();
-    fence_operands(acc);
-    held = slot;
-    if (++slot == kMaxWideStages) {
-      slot = 0;
-      phase ^= 1;
+
+    // the output product over this warpgroup's OA atoms of the tile
+    // (an atom past the head's reads the zero tile)
+#pragma unroll
+    for (int a = 0; a < OA; ++a) {
+      const int i = wg * OA + a;  // the atom of the chunk
+      if (i < n_o) {
+        int os;
+        uint32_t op;
+        ring_at(obase + i, p.o_stages, os, op);
+        mbar_wait(&o_full[os], op);
+      }
     }
+    fence_acc<32 * OA>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < OA; ++a) {
+      const int i = wg * OA + a;
+      const uint8_t* tile =
+          i < n_o ? oring + (obase + i) % p.o_stages * kAtomTile : zero_tile;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<64, 1>(acc + 32 * a, af[kk], desc_mn(tile, kk));
+    }
+    wgmma_commit();
+    fence_acc<32 * OA>(acc);
+    fence_frags(af);
   }
+  // the last output product, and its O slots
   wgmma_wait<0>();
-  fence_operands(acc);
+  fence_acc<32 * OA>(acc);
   fence_frags(af);
-  wide_store<OA>(p, acc, batch, p.sk, k0 + warp * 16, head, chunk, g, t);
+  if (leader && tiles > 0) release_o((tiles - 1) * n_o);
+
+  const int col0 = (c0 + wg * OA) * kAtom;
+  __nv_bfloat16* dst =
+      p.out + (static_cast<size_t>(batch) * p.rows + r0 + wq * 16) * p.c + head * p.d + col0;
+  if (p.splits == 1) {
+#pragma unroll
+    for (int a = 0; a < OA; ++a)
+      store_acc(dst + a * kAtom, p.c, acc + 32 * a, 1.f, 1.f, true, true, g, t,
+                p.d - col0 - a * kAtom);
+    return;
+  }
+  // the splits' merge: each block leaves its sums in shared memory, thread
+  // by thread, as float4s; after a cluster barrier atom a of warpgroup wg is
+  // summed over the splits in split order, reading the peers' through
+  // distributed shared memory, by split (wg * OA + a) % splits, which stores
+  // it; a second barrier keeps every block until its peers have read it
+  const int ct = threadIdx.x;  // 0..255
+  float4* mine = reinterpret_cast<float4*>(res);
+  const uint32_t area = smem_u32(res);
+  named_barrier(1, 256);  // both warpgroups are done with the rings
+#pragma unroll
+  for (int k = 0; k < 8 * OA; ++k)
+    mine[k * 256 + ct] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+  cluster_sync();
+#pragma unroll
+  for (int a = 0; a < OA; ++a) {
+    if ((wg * OA + a) % p.splits != split) continue;
+    float sum[32];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = 8 * a + k;  // float4 e of the thread's sums
+      float4 v4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s2 = 0; s2 < p.splits; ++s2) {
+        const float4 v = s2 == split ? mine[e * 256 + ct]
+                                     : ld_cluster(map_rank(area + (e * 256 + ct) * 16, s2));
+        v4 = s2 == 0 ? v : make_float4(v4.x + v.x, v4.y + v.y, v4.z + v.z, v4.w + v.w);
+      }
+      sum[4 * k] = v4.x, sum[4 * k + 1] = v4.y, sum[4 * k + 2] = v4.z, sum[4 * k + 3] = v4.w;
+    }
+    store_acc(dst + a * kAtom, p.c, sum, 1.f, 1.f, true, true, g, t, p.d - col0 - a * kAtom);
+  }
+  cluster_sync();
 }
 
-template <int OA>
-int launch_bwd_wide(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap& mk,
-                    const CUtensorMap& mv, WideBwdParams p, __nv_bfloat16* dq,
-                    __nv_bfloat16* dk, __nv_bfloat16* dv, int batch, cudaStream_t st) {
-  constexpr int dq_smem = wide_bwd_smem_bytes(false), dkdv_smem = wide_bwd_smem_bytes(true);
-  static bool configured = false;
+template <int kMode, int OA, bool kRes>
+int launch_wide_kernel(const CUtensorMap& mx, const CUtensorMap& mx2, const CUtensorMap& my,
+                       const CUtensorMap& my2, WideBwdParams p, void* out, int rows, int n_tiles,
+                       int batch, cudaStream_t st) {
+  const auto kernel = bwd_wide_kernel<kMode, OA, kRes>;
+  static bool configured = false;  // the most any d asks for
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(bwd_wide_dq_kernel<OA>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(bwd_wide_dkdv_kernel<OA, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(bwd_wide_dkdv_kernel<OA, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBlockSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  p.out = dq;
-  bwd_wide_dq_kernel<OA><<<dim3(p.sq / 64 * p.chunks, p.heads, batch), kWideThreads, dq_smem,
-                           st>>>(mq, mdo, mk, mv, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(p.sk / 64 * p.chunks, p.heads, batch);
-  p.out = dv;
-  bwd_wide_dkdv_kernel<OA, false><<<grid, kWideThreads, dkdv_smem, st>>>(mq, mdo, mk, mv, p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  p.out = dk;
-  bwd_wide_dkdv_kernel<OA, true><<<grid, kWideThreads, dkdv_smem, st>>>(mq, mdo, mk, mv, p);
+  const int smem = wide_bwd_smem_bytes(kMode, p.atoms);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.rows = rows;
+  p.n_tiles = n_tiles;
+  wide_bwd_rings(kMode, p.atoms, p.o_stages, p.e_stages);
+  // the O ring holds a tile and an atom, each early ring two slots
+  if (p.o_stages <= wide_bwd_o_atoms(p.atoms) || p.e_stages < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.splits = wide_bwd_splits(rows / 64 * p.chunks * p.heads * batch, n_tiles);
+  const dim3 grid(rows / 64 * p.chunks * p.splits, p.heads, batch);
+  if (p.splits > 1)
+    return launch_clustered(kernel, grid, kWideBwdThreads, smem, p.splits, st, mx, mx2, my, my2, p);
+  kernel<<<grid, kWideBwdThreads, smem, st>>>(mx, mx2, my, my2, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dq first (it writes `delta`), then dV and dK.
+template <int OA, bool kRes>
+int launch_bwd_wide(const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap& mk,
+                    const CUtensorMap& mv, const WideBwdParams& p, void* dq, void* dk, void* dv,
+                    int sk, int batch, cudaStream_t st) {
+  int rc = launch_wide_kernel<kWideDq, OA, kRes>(mq, mdo, mk, mv, p, dq, p.sq, sk / 64, batch, st);
+  if (!rc)
+    rc = launch_wide_kernel<kWideDv, OA, kRes>(mk, mv, mq, mdo, p, dv, sk, p.sq / 64, batch, st);
+  if (!rc)
+    rc = launch_wide_kernel<kWideDk, OA, kRes>(mk, mv, mq, mdo, p, dk, sk, p.sq / 64, batch, st);
+  return rc;
 }
 
 // B2b at heads of more than four atoms (d > 256); the arguments as
@@ -1041,27 +1236,25 @@ int backward_wide(const void* q, const void* k, const void* v, const void* o, co
   if ((rc = head_map(&mk, k, batch, sk, heads, d, 64))) return rc;
   if ((rc = head_map(&mv, v, batch, sk, heads, d, 64))) return rc;
   if ((rc = head_map(&mdo, dout, batch, sq, heads, d, 64))) return rc;
-  WideBwdParams p;
+  WideBwdParams p{};
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.l2 = static_cast<float*>(delta);
   p.drow = p.l2 + static_cast<size_t>(batch) * heads * sq;
   p.sq = sq;
-  p.sk = sk;
   p.c = heads * d;
   p.d = d;
   p.heads = heads;
   p.atoms = head_atoms(d);
-  p.chunks = wide_chunks(p.atoms);
+  p.chunks = wide_bwd_chunks(p.atoms);
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(scale_dim)));
   p.scale_log2 = kLog2e * p.scale;
-  auto* bq = static_cast<__nv_bfloat16*>(dq);
-  auto* bk = static_cast<__nv_bfloat16*>(dk);
-  auto* bv = static_cast<__nv_bfloat16*>(dv);
-  return wide_chunk_atoms(p.atoms) == 3
-             ? launch_bwd_wide<3>(mq, mdo, mk, mv, p, bq, bk, bv, batch, st)
-             : launch_bwd_wide<4>(mq, mdo, mk, mv, p, bq, bk, bv, batch, st);
+  switch (wide_bwd_oa(p.atoms)) {
+    case 3: return launch_bwd_wide<3, true>(mq, mdo, mk, mv, p, dq, dk, dv, sk, batch, st);
+    case 4: return launch_bwd_wide<4, false>(mq, mdo, mk, mv, p, dq, dk, dv, sk, batch, st);
+    default: return launch_bwd_wide<5, false>(mq, mdo, mk, mv, p, dq, dk, dv, sk, batch, st);
+  }
 }
 
 }  // namespace
@@ -1512,216 +1705,255 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
 
 // --- heads of more than four atoms (d > 256) --------------------------------
 //
-// B2b on f32 at d > 256, on the header's wide pieces (attention_f32_hopper.cuh:
-// a ring of 32 KB slots of S items and chunk items, 4-D maps, a fresh
-// accumulator an atom): dQ, dV and dK in chunks of OA atoms, one chunk a
-// block, as the bf16 wide kernels above make them.
-//   * dq kernel, one block per (64 query rows, chunk, head, batch): per tile
-//     of kWideT keys, two S items an atom ((Q, K) into S, (dO, V) into dP),
-//     then K's chunk atoms for dQ += dS K. The prologue as the narrow f32 dq
-//     kernel's, over every column; chunk 0 writes `delta`.
-//   * dk/dv kernel <kDK>, one block per (64 keys, chunk, head, batch): per
-//     tile of kWideT query rows, (K, Q) into S^T (and with kDK (V, dO) into
-//     dP^T) an atom, then the chunk item (dO's chunk atoms for dV += P^T dO,
-//     or Q's for dK += dS^T Q) with the tile's L * log2(e) and Drow. dV and
-//     dK are two launches.
+// B2b on f32 at d > 256, as the bf16 wide backward above makes it: three
+// launches (dq, dV, dK), each one block per (64 rows, output chunk, head,
+// batch) with two consumer warpgroups holding 2 * OA atoms of the output
+// (wide_bwd_oa_f32: 3 at five or six atoms, 4 above, past eight atoms
+// chunks of eight, one a block) and a producer warpgroup (384 threads), S
+// and dP formed once a tile of kWideT = 32 rows in each block and split
+// between the warpgroups as there: dq / dK warpgroup 0 S and P, warpgroup 1
+// dP and dS, handed over in f32 (16 values a thread); dV each warpgroup
+// half the atoms of S^T, warpgroup 1's part added to warpgroup 0's. On the
+// header's wide pieces (attention_f32_hopper.cuh): one ring of 32 KB slots,
+// a tile's items in order: per atom an S item (the block's 64 rows of X
+// raw, 16 KB, and the tile's 32 rows of Y, split by the producer's warps
+// 1-3 into big and small), dq / dK the two warpgroups' items in turn (X, Y
+// then X2, Y2), dV the atoms in turn; then an output item a warpgroup (the
+// tile's rows of its OA atoms of K, Q or dO, raw: mma.sync's B, split on
+// the fly). Each item is read by one warpgroup, whose four warps give it
+// back. S (dP) is formed with a fresh wgmma accumulator an atom and the
+// products a slab with a fresh mma.sync accumulator, added in f32, as the
+// narrow f32 kernels do.
 
-template <int OA>
-__global__ void __launch_bounds__(kWideThreadsF32, 1)
-attention_f32_dq_wide_kernel(const __grid_constant__ CUtensorMap map_q,
-                             const __grid_constant__ CUtensorMap map_do,
-                             const __grid_constant__ CUtensorMap map_k,
-                             const __grid_constant__ CUtensorMap map_v, const WideParamsF32 p) {
-  constexpr int NS = 2 * OA, kS = kWideT / 2, S = attn_hopper::kMaxWideStages;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = attn_hopper::align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * kWideSlotF32);
-  uint64_t* ready = full + S;
-  uint64_t* empty = ready + S;
-  const int chunk = blockIdx.x % p.chunks;
-  const int q0 = blockIdx.x / p.chunks * 64;
-  const int head = blockIdx.y, batch = blockIdx.z;
-  const int col0 = chunk * OA * 64;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&ready[s], kSplitters);
-      mbar_init(&empty[s], 4);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 4) {
-    const CUtensorMap *mq = &map_q, *mdo = &map_do, *mk = &map_k, *mv = &map_v;
-    const int items = 2 * p.atoms;
-    wide_producer(p.sk / kWideT, items, ring, full, ready, empty, S, [=](int j, int n, int slot) {
-      uint8_t* st = ring + slot * kWideSlotF32;
-      if (n < items) {
-        mbar_expect_tx(&full[slot], kWideX + kWideY);
-        tma_atom_x(st, n & 1 ? mdo : mq, &full[slot], n >> 1, head, q0, batch);
-        tma_atom_y(st + kWideX, n & 1 ? mv : mk, &full[slot], n >> 1, head, j * kWideT, batch);
-      } else {
-        mbar_expect_tx(&full[slot], OA * 2 * kWideT * kSlabBytes);
-        tma_chunk<OA>(st, mk, &full[slot], col0, head, j * kWideT, batch);
-      }
-    });
-    return;
-  }
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = warp * 16;
-  const int row = q0 + row0 + g;  // global row of r = 0; r = 1 is row + 8
-  float l2[2], dr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + 8 * r;
-    const size_t at = (static_cast<size_t>(batch) * p.sq + rr) * p.c + head * p.d;
-    float acc = 0.f;
-    for (int c = 4 * t; c < p.d; c += 16) {
-      const float4 a = *reinterpret_cast<const float4*>(p.dout + at + c);
-      const float4 b = *reinterpret_cast<const float4*>(p.o_in + at + c);
-      acc = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
-    }
-    acc += __shfl_xor_sync(0xffffffff, acc, 1);
-    acc += __shfl_xor_sync(0xffffffff, acc, 2);
-    dr[r] = acc;
-    l2[r] = p.lse_in[(static_cast<size_t>(batch) * p.sq + rr) * p.heads + head] * kLog2e;
-    if (chunk == 0 && t == 0) {
-      const size_t sat = (static_cast<size_t>(batch) * p.heads + head) * p.sq + rr;
-      p.l2[sat] = l2[r];
-      p.drow[sat] = acc;
-    }
-  }
-  float dq[NS][4][4];
-  zero_slabs(dq);
-  int slot = 0;
-  uint32_t phase = 0;
-  for (int j = 0; j < p.sk / kWideT; ++j) {
-    float s[kS], dp[kS];
-    zero(s);
-    zero(dp);
-    for (int a = 0; a < p.atoms; ++a) {
-      wide_scores_item(s, ring, full, ready, empty, S, slot, phase, row0, lane);
-      wide_scores_item(dp, ring, full, ready, empty, S, slot, phase, row0, lane);
-    }
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      const int r = (i >> 1) & 1;
-      s[i] = attn_hopper::exp2_approx(fmaf(s[i], p.scale_log2, -l2[r])) * (dp[i] - dr[r]) *
-             p.scale;  // dS
-    }
-    mbar_wait(&full[slot], phase);  // the chunk's K
-    mbar_wait(&ready[slot], phase);
-    const uint8_t* kt = ring + slot * kWideSlotF32;
-#pragma unroll
-    for (int sl = 0; sl < NS; ++sl) {
-      float part[4][4];
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
-      gemm_xb<kWideT, false>(part, s, kt + sl * kWideT * kSlabBytes, nullptr, g, t);
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dq[sl][nb][e] += part[nb][e];
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[slot]);
-    if (++slot == S) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-  float* dst = p.o + (static_cast<size_t>(batch) * p.sq + row) * p.c + head * p.d + col0;
-#pragma unroll
-  for (int sl = 0; sl < NS; ++sl)
-    store_slab(dst + 32 * sl, p.c, dq[sl], 1.f, 1.f, true, true, t, p.d - col0 - 32 * sl);
+constexpr int kWideBwdItems = 6;              // the ring's slots
+constexpr int kWideXBufF32 = 128 * (kWideT / 2) * 4;  // the hand-over: 16 values a thread
+constexpr int kWideProducerRegsF32 = 40;  // as the bf16 kernel's
+constexpr int kWideConsumerRegsF32 = (512 - kWideProducerRegsF32) / 2 / 8 * 8;
+
+// Chunks of eight atoms at most (OA = 4: five would not fit the registers),
+// the fewest atoms a warpgroup that cover the head in them (3 or 4: at ten
+// atoms two chunks of six ran faster than two of eight on the H100, with
+// less of the output product on zero atoms).
+inline int wide_bwd_chunks_f32(int atoms) { return (atoms + 7) / 8; }
+inline int wide_bwd_oa_f32(int atoms) {
+  const int per = 2 * wide_bwd_chunks_f32(atoms);  // warpgroups over the head
+  const int oa = (atoms + per - 1) / per;
+  return oa < 3 ? 3 : oa;
 }
 
-template <int OA, bool kDK>
-__global__ void __launch_bounds__(kWideThreadsF32, 1)
-attention_f32_dkdv_wide_kernel(const __grid_constant__ CUtensorMap map_q,
-                               const __grid_constant__ CUtensorMap map_do,
-                               const __grid_constant__ CUtensorMap map_k,
-                               const __grid_constant__ CUtensorMap map_v, const WideParamsF32 p) {
-  constexpr int NS = 2 * OA, kS = kWideT / 2, S = attn_hopper::kMaxWideStages;
+// Alignment slack, the ring, the hand-over buffer, the barriers (full,
+// ready, empty a slot); mirrored by kernels/packed_attention.py.
+constexpr int wide_bwd_smem_bytes_f32() {
+  return 1024 + kWideBwdItems * kWideSlotF32 + kWideXBufF32 + 8 * 3 * kWideBwdItems;
+}
+
+struct WideBwdParamsF32 {
+  const float *o, *dout, *lse;
+  float* l2;    // (B, heads, Sq): L * log2(e), the dq kernel's (chunk 0) for dK and dV
+  float* drow;  // (B, heads, Sq): rowsum(dO * O), likewise
+  float* out;
+  int rows, n_tiles;  // the block's sequence (Sq or Sk) and the tiles of the other
+  int sq, c, d, heads, atoms, chunks, splits;
+  float scale, scale_log2;
+};
+
+// Maps: x, x2 64-row boxes of the block's rows (dq: q, dO; dK / dV: k, v),
+// y, y2 kWideT-row boxes of the tiles (dq: k, v; dK / dV: q, dO), out the
+// output product's (dq: k, dK: q, dV: dO).
+template <int kMode, int OA>
+__global__ void __launch_bounds__(384, 1)
+attention_f32_bwd_wide_kernel(const __grid_constant__ CUtensorMap map_x,
+                              const __grid_constant__ CUtensorMap map_x2,
+                              const __grid_constant__ CUtensorMap map_y,
+                              const __grid_constant__ CUtensorMap map_y2,
+                              const __grid_constant__ CUtensorMap map_out,
+                              const WideBwdParamsF32 p) {
+  constexpr bool kDv = kMode == 2;
+  constexpr int NS = 2 * OA, kS = kWideT / 2, S = kWideBwdItems;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = attn_hopper::align1024(smem_raw);
-  float* rows = reinterpret_cast<float*>(ring + S * kWideSlotF32);  // a stage's L * log2(e), Drow
-  uint64_t* full = reinterpret_cast<uint64_t*>(rows + S * 2 * kWideT);
+  float* xbuf = reinterpret_cast<float*>(ring + S * kWideSlotF32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(xbuf) + kWideXBufF32);
   uint64_t* ready = full + S;
   uint64_t* empty = ready + S;
-  const int chunk = blockIdx.x % p.chunks;
-  const int k0 = blockIdx.x / p.chunks * 64;
+  const int A = p.atoms;
+  const int split = blockIdx.x % p.splits;  // as the bf16 kernel's
+  const int chunk = blockIdx.x / p.splits % p.chunks;
+  const int r0 = blockIdx.x / p.splits / p.chunks * 64;
   const int head = blockIdx.y, batch = blockIdx.z;
-  const int col0 = chunk * OA * 64;
+  const int c0 = chunk * 2 * OA;                    // the block's first output atom
+  const int t0 = attn_hopper::split_begin(split, p.n_tiles, p.splits);
+  const int tiles = attn_hopper::split_begin(split + 1, p.n_tiles, p.splits) - t0;
+  const int n_s = kDv ? A : 2 * A;                  // S items a tile
+  const int items = n_s + 2;                        // and an output item a warpgroup
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&ready[s], kSplitters);
-      mbar_init(&empty[s], 4);
+      mbar_init(&empty[s], 4);  // the reading warpgroup's warps
     }
     mbar_fence_init();
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 4) {
-    const CUtensorMap *mq = &map_q, *mdo = &map_do, *mk = &map_k, *mv = &map_v;
-    const int items = (kDK ? 2 : 1) * p.atoms;
-    const size_t bh = (static_cast<size_t>(batch) * p.heads + head) * p.sq;
-    const float *l2 = p.l2 + bh, *drow = p.drow + bh;
-    wide_producer(p.sq / kWideT, items, ring, full, ready, empty, S, [=](int j, int n, int slot) {
-      uint8_t* st = ring + slot * kWideSlotF32;
-      if (n < items) {
-        const bool second = kDK && (n & 1);  // (V, dO) after (K, Q)
-        const int atom = kDK ? n >> 1 : n;
-        mbar_expect_tx(&full[slot], kWideX + kWideY);
-        tma_atom_x(st, second ? mv : mk, &full[slot], atom, head, k0, batch);
-        tma_atom_y(st + kWideX, second ? mdo : mq, &full[slot], atom, head, j * kWideT, batch);
-      } else {
-        float* rs = rows + slot * 2 * kWideT;
-        mbar_expect_tx(&full[slot], OA * 2 * kWideT * kSlabBytes + 2 * kWideT * 4);
-        tma_chunk<OA>(st, kDK ? mq : mdo, &full[slot], col0, head, j * kWideT, batch);
-        bulk_load(rs, l2 + j * kWideT, kWideT * 4, &full[slot]);
-        bulk_load(rs + kWideT, drow + j * kWideT, kWideT * 4, &full[slot]);
+  if (warp >= 8) {  // the producer warpgroup: warp 0's first thread loads, warps 1-3 split
+    setmaxnreg_dec<kWideProducerRegsF32>();
+    const int pw = warp - 8;
+    for (int j = t0, n = 0; j < t0 + tiles && (pw > 0 || lane == 0); ++j)
+      for (int i = 0; i < items; ++i, ++n) {
+        const int slot = n % S;
+        const uint32_t phase = (n / S) & 1;
+        uint8_t* st = ring + slot * kWideSlotF32;
+        if (pw == 0) {
+          mbar_wait(&empty[slot], phase ^ 1);
+          if (i < n_s) {
+            const bool second = !kDv && (i & 1);  // (X2, Y2) after (X, Y)
+            const int atom = kDv ? i : i >> 1;
+            mbar_expect_tx(&full[slot], kWideX + kWideY);
+            tma_atom_x(st, second ? &map_x2 : &map_x, &full[slot], atom, head, r0, batch);
+            tma_atom_y(st + kWideX, second ? &map_y2 : &map_y, &full[slot], atom, head,
+                       j * kWideT, batch);
+          } else {
+            mbar_expect_tx(&full[slot], OA * 2 * kWideT * kSlabBytes);
+            tma_chunk<OA>(st, &map_out, &full[slot], (c0 + (i - n_s) * OA) * 64, head, j * kWideT,
+                          batch);
+          }
+        } else {
+          mbar_wait(&full[slot], phase);
+          if (i < n_s) split_tile(st + kWideX, st + kWideX + kWideY, kWideY, threadIdx.x - 288);
+          fence_proxy_async();  // before wgmma reads them
+          mbar_arrive(&ready[slot]);
+        }
       }
-    });
+    if (p.splits > 1) {  // the consumers' merge
+      attn_hopper::cluster_sync();
+      attn_hopper::cluster_sync();
+    }
     return;
   }
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = warp * 16;
+  setmaxnreg_inc<kWideConsumerRegsF32>();
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x >> 7, 0);
+  const int tid = threadIdx.x & 127;
+  const int wq = warp & 3, g = lane >> 2, t = lane & 3;
+  const int row0 = wq * 16;  // this warp's rows of the block
+
+  // dq: L * log2(e) (warpgroup 0) or Drow (warpgroup 1) of rows g and g + 8;
+  // chunk 0 writes them for dK and dV
+  float rowv[2] = {0.f, 0.f};
+  if constexpr (kMode == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = r0 + row0 + g + 8 * r;
+      if (wg == 0) {
+        rowv[r] = p.lse[(static_cast<size_t>(batch) * p.sq + rr) * p.heads + head] * kLog2e;
+      } else {
+        const size_t at = (static_cast<size_t>(batch) * p.sq + rr) * p.c + head * p.d;
+        float acc = 0.f;
+        for (int c = 4 * t; c < p.d; c += 16) {
+          const float4 a = *reinterpret_cast<const float4*>(p.dout + at + c);
+          const float4 b = *reinterpret_cast<const float4*>(p.o + at + c);
+          acc = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+        }
+        acc += __shfl_xor_sync(0xffffffff, acc, 1);
+        acc += __shfl_xor_sync(0xffffffff, acc, 2);
+        rowv[r] = acc;
+      }
+      if (chunk == 0 && split == 0 && t == 0)
+        (wg ? p.drow : p.l2)[(static_cast<size_t>(batch) * p.heads + head) * p.sq + rr] = rowv[r];
+    }
+  }
+  const float* cols_src =
+      (wg ? p.drow : p.l2) + (static_cast<size_t>(batch) * p.heads + head) * p.sq;
+
   float acc[NS][4][4];
   zero_slabs(acc);
-  int slot = 0;
-  uint32_t phase = 0;
-  for (int j = 0; j < p.sq / kWideT; ++j) {
-    // transposed scores: rows are this warp's keys; value e of column group
-    // i / 4 is query 8 (i / 4) + 2t + (e & 1) of the tile
-    float st[kS], dpt[kS];
-    zero(st);
-    if constexpr (kDK) zero(dpt);
-    for (int a = 0; a < p.atoms; ++a) {
-      wide_scores_item(st, ring, full, ready, empty, S, slot, phase, row0, lane);
-      if constexpr (kDK)
-        wide_scores_item(dpt, ring, full, ready, empty, S, slot, phase, row0, lane);
+  const int a0 = kDv ? wg : 0, astep = kDv ? 2 : 1;
+  for (int jj = 0; jj < tiles; ++jj) {
+    const int j = t0 + jj;
+    const int base = jj * items;
+    float2 colv[kS / 4];  // dK / dV: columns 8i + 2t and + 1 of this tile
+    if constexpr (kMode != 0) {
+#pragma unroll
+      for (int i = 0; i < kS / 4; ++i)
+        colv[i] = *reinterpret_cast<const float2*>(cols_src + j * kWideT + 8 * i + 2 * t);
     }
-    mbar_wait(&full[slot], phase);  // the chunk's tile, L * log2(e) and Drow
-    mbar_wait(&ready[slot], phase);
-    const uint8_t* ct = ring + slot * kWideSlotF32;
-    const float* l2 = rows + slot * 2 * kWideT;
-    const float* dr = l2 + kWideT;
+    float s[kS];
+    zero(s);
+    for (int a = a0; a < A; a += astep) {
+      const int n = base + (kDv ? a : 2 * a + wg);
+      const int slot = n % S;
+      const uint32_t phase = (n / S) & 1;
+      mbar_wait(&full[slot], phase);
+      mbar_wait(&ready[slot], phase);
+      const uint8_t* st = ring + slot * kWideSlotF32;
+      float part[kS];
+      gemm_abt<2, 64, kWideT, 1>(part, smem_u32(st), row0, st + kWideX, st + kWideX + kWideY,
+                                 lane, 64);
 #pragma unroll
-    for (int i = 0; i < kS; i += 4) {
-      const float2 l = *reinterpret_cast<const float2*>(l2 + 2 * i + 2 * t);
-      const float2 d2 = *reinterpret_cast<const float2*>(dr + 2 * i + 2 * t);
+      for (int i = 0; i < kS; ++i) s[i] += part[i];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+
+    // the hand-overs: after them s holds dS (dq, dK) or P^T (dV)
+    if constexpr (kDv) {
+      if (wg == 1) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        st[i + e] = attn_hopper::exp2_approx(fmaf(st[i + e], p.scale_log2, e & 1 ? -l.y : -l.x));
-        if constexpr (kDK)  // dS^T
-          st[i + e] = st[i + e] * (dpt[i + e] - (e & 1 ? d2.y : d2.x)) * p.scale;
+        for (int i = 0; i < kS; ++i) xbuf[i * 128 + tid] = s[i];  // the odd atoms' S^T
+        named_arrive(1, 256);
+        named_barrier(2, 256);
+#pragma unroll
+        for (int i = 0; i < kS; ++i) s[i] = xbuf[i * 128 + tid];
+      } else {
+        named_barrier(1, 256);
+#pragma unroll
+        for (int i = 0; i < kS; ++i) {
+          const float l = i & 1 ? colv[i >> 2].y : colv[i >> 2].x;
+          s[i] = attn_hopper::exp2_approx(fmaf(s[i] + xbuf[i * 128 + tid], p.scale_log2, -l));
+          xbuf[i * 128 + tid] = s[i];
+        }
+        named_arrive(2, 256);
+      }
+    } else {
+      if (wg == 0) {  // P from S
+#pragma unroll
+        for (int i = 0; i < kS; ++i) {
+          float l;
+          if constexpr (kMode == 0) {
+            l = rowv[(i >> 1) & 1];
+          } else {
+            l = i & 1 ? colv[i >> 2].y : colv[i >> 2].x;
+          }
+          xbuf[i * 128 + tid] = attn_hopper::exp2_approx(fmaf(s[i], p.scale_log2, -l));
+        }
+        named_arrive(1, 256);
+        named_barrier(2, 256);
+#pragma unroll
+        for (int i = 0; i < kS; ++i) s[i] = xbuf[i * 128 + tid];
+      } else {  // dS from P and dP (in s)
+        named_barrier(1, 256);
+#pragma unroll
+        for (int i = 0; i < kS; ++i) {
+          float dr;
+          if constexpr (kMode == 0) {
+            dr = rowv[(i >> 1) & 1];
+          } else {
+            dr = i & 1 ? colv[i >> 2].y : colv[i >> 2].x;
+          }
+          s[i] = xbuf[i * 128 + tid] * (s[i] - dr) * p.scale;
+          xbuf[i * 128 + tid] = s[i];
+        }
+        named_arrive(2, 256);
       }
     }
+
+    // the output product over this warpgroup's OA atoms of the tile
+    const int n = base + n_s + wg;
+    const int slot = n % S;
+    const uint32_t phase = (n / S) & 1;
+    mbar_wait(&full[slot], phase);
+    mbar_wait(&ready[slot], phase);
+    const uint8_t* ot = ring + slot * kWideSlotF32;
 #pragma unroll
     for (int sl = 0; sl < NS; ++sl) {
       float part[4][4];
@@ -1729,7 +1961,7 @@ attention_f32_dkdv_wide_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
-      gemm_xb<kWideT, false>(part, st, ct + sl * kWideT * kSlabBytes, nullptr, g, t);
+      gemm_xb<kWideT, false>(part, s, ot + sl * kWideT * kSlabBytes, nullptr, g, t);
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
@@ -1737,52 +1969,91 @@ attention_f32_dkdv_wide_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);
-    if (++slot == S) {
-      slot = 0;
-      phase ^= 1;
-    }
   }
-  const int key = k0 + row0 + g;
-  float* dst = p.o + (static_cast<size_t>(batch) * p.sk + key) * p.c + head * p.d + col0;
+  const int col0 = (c0 + wg * OA) * 64;
+  float* dst = p.out + (static_cast<size_t>(batch) * p.rows + r0 + row0 + g) * p.c + head * p.d +
+               col0;
+  if (p.splits == 1) {
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+      store_slab(dst + 32 * sl, p.c, acc[sl], 1.f, 1.f, true, true, t, p.d - col0 - 32 * sl);
+    return;
+  }
+  // the splits' merge, as the bf16 kernel's: atom a of warpgroup wg (two
+  // slabs) summed in split order by split (wg * OA + a) % splits
+  const int ct = threadIdx.x;  // 0..255
+  float4* mine = reinterpret_cast<float4*>(ring);
+  const uint32_t area = smem_u32(ring);
+  named_barrier(1, 256);  // both warpgroups are done with the ring
 #pragma unroll
   for (int sl = 0; sl < NS; ++sl)
-    store_slab(dst + 32 * sl, p.c, acc[sl], 1.f, 1.f, true, true, t, p.d - col0 - 32 * sl);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+      mine[(4 * sl + nb) * 256 + ct] =
+          make_float4(acc[sl][nb][0], acc[sl][nb][1], acc[sl][nb][2], acc[sl][nb][3]);
+  attn_hopper::cluster_sync();
+#pragma unroll
+  for (int a = 0; a < OA; ++a) {
+    if ((wg * OA + a) % p.splits != split) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sl = 2 * a + h;
+      float sum[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int e = 4 * sl + nb;
+        float4 v4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s2 = 0; s2 < p.splits; ++s2) {
+          const float4 v =
+              s2 == split ? mine[e * 256 + ct]
+                          : attn_hopper::ld_cluster(attn_hopper::map_rank(area + (e * 256 + ct) * 16, s2));
+          v4 = s2 == 0 ? v : make_float4(v4.x + v.x, v4.y + v.y, v4.z + v.z, v4.w + v.w);
+        }
+        sum[nb][0] = v4.x, sum[nb][1] = v4.y, sum[nb][2] = v4.z, sum[nb][3] = v4.w;
+      }
+      store_slab(dst + 32 * sl, p.c, sum, 1.f, 1.f, true, true, t, p.d - col0 - 32 * sl);
+    }
+  }
+  attn_hopper::cluster_sync();
 }
 
-// x*: maps of 64-row boxes (a block's rows: Q and dO in the dq kernel, K
-// and V in the dk/dv kernels), y*: of kWideT-row boxes (a streamed tile's).
-template <int OA>
-int launch_bwd_wide(const CUtensorMap (&x)[4], const CUtensorMap (&y)[4], WideParamsF32 p,
-                    float* dq, float* dk, float* dv, int batch, cudaStream_t st) {
-  constexpr int dq_smem = wide_smem_bytes(attn_hopper::kMaxWideStages, false);
-  constexpr int dkdv_smem = wide_smem_bytes(attn_hopper::kMaxWideStages, true);
+template <int kMode, int OA>
+int launch_wide_f32(const CUtensorMap& mx, const CUtensorMap& mx2, const CUtensorMap& my,
+                    const CUtensorMap& my2, const CUtensorMap& mo, WideBwdParamsF32 p, float* out,
+                    int rows, int n_tiles, int batch, cudaStream_t st) {
+  const auto kernel = attention_f32_bwd_wide_kernel<kMode, OA>;
+  constexpr int smem = wide_bwd_smem_bytes_f32();
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(attention_f32_dq_wide_kernel<OA>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attention_f32_dkdv_wide_kernel<OA, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attention_f32_dkdv_wide_kernel<OA, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  p.o = dq;  // maps in the order q, dO, k, v
-  attention_f32_dq_wide_kernel<OA><<<dim3(p.sq / 64 * p.chunks, p.heads, batch),
-                                     kWideThreadsF32, dq_smem, st>>>(x[0], x[1], y[2], y[3], p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(p.sk / 64 * p.chunks, p.heads, batch);
-  p.o = dv;
-  attention_f32_dkdv_wide_kernel<OA, false>
-      <<<grid, kWideThreadsF32, dkdv_smem, st>>>(y[0], y[1], x[2], x[3], p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  p.o = dk;
-  attention_f32_dkdv_wide_kernel<OA, true>
-      <<<grid, kWideThreadsF32, dkdv_smem, st>>>(y[0], y[1], x[2], x[3], p);
+  p.out = out;
+  p.rows = rows;
+  p.n_tiles = n_tiles;
+  p.splits = wide_bwd_splits(rows / 64 * p.chunks * p.heads * batch, n_tiles);
+  const dim3 grid(rows / 64 * p.chunks * p.splits, p.heads, batch);
+  if (p.splits > 1)
+    return attn_hopper::launch_clustered(kernel, grid, 384, smem, p.splits, st, mx, mx2, my, my2,
+                                         mo, p);
+  kernel<<<grid, 384, smem, st>>>(mx, mx2, my, my2, mo, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x*: maps of 64-row boxes (q, dO, k, v), y*: of kWideT-row boxes; dq first
+// (it writes `delta`), then dV and dK.
+template <int OA>
+int launch_bwd_wide(const CUtensorMap (&x)[4], const CUtensorMap (&y)[4],
+                    const WideBwdParamsF32& p, float* dq, float* dk, float* dv, int sk, int batch,
+                    cudaStream_t st) {
+  int rc = launch_wide_f32<0, OA>(x[0], x[1], y[2], y[3], y[2], p, dq, p.sq, sk / kWideT, batch, st);
+  if (!rc)
+    rc = launch_wide_f32<2, OA>(x[2], x[3], y[0], y[1], y[1], p, dv, sk, p.sq / kWideT, batch, st);
+  if (!rc)
+    rc = launch_wide_f32<1, OA>(x[2], x[3], y[0], y[1], y[0], p, dk, sk, p.sq / kWideT, batch, st);
+  return rc;
 }
 
 // The f32 backward at d > 256; the arguments as `backward`'s.
@@ -1797,28 +2068,26 @@ int backward_wide(const void* q, const void* k, const void* v, const void* o, co
     if (!rc) rc = head_map_f32(&y[i], base[i], batch, rows[i], heads, d, kWideT);
     if (rc) return rc;
   }
-  WideParamsF32 p{};
-  p.o_in = static_cast<const float*>(o);
+  WideBwdParamsF32 p{};
+  p.o = static_cast<const float*>(o);
   p.dout = static_cast<const float*>(dout);
-  p.lse_in = static_cast<const float*>(lse);
+  p.lse = static_cast<const float*>(lse);
   p.l2 = static_cast<float*>(delta);
   p.drow = p.l2 + static_cast<size_t>(batch) * heads * sq;
   p.sq = sq;
-  p.sk = sk;
   p.c = heads * d;
   p.d = d;
   p.heads = heads;
   p.atoms = head_atoms(d);
-  p.chunks = attn_hopper::wide_chunks(p.atoms);
-  p.stages = attn_hopper::kMaxWideStages;
+  p.chunks = wide_bwd_chunks_f32(p.atoms);
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(scale_dim)));
   p.scale_log2 = kLog2e * p.scale;
   auto* fq = static_cast<float*>(dq);
   auto* fk = static_cast<float*>(dk);
   auto* fv = static_cast<float*>(dv);
-  return attn_hopper::wide_chunk_atoms(p.atoms) == 3
-             ? launch_bwd_wide<3>(x, y, p, fq, fk, fv, batch, stream)
-             : launch_bwd_wide<4>(x, y, p, fq, fk, fv, batch, stream);
+  return wide_bwd_oa_f32(p.atoms) == 3
+             ? launch_bwd_wide<3>(x, y, p, fq, fk, fv, sk, batch, stream)
+             : launch_bwd_wide<4>(x, y, p, fq, fk, fv, sk, batch, stream);
 }
 
 // The backward of `forward` (with its o and L) on f32 tensors of heads of d
@@ -1917,16 +2186,19 @@ int packed_attention_bwd(const void* q, const void* k, const void* v, const void
   }
 }
 
-// Shared memory each of the two kernels asks for at head dim d (0 for a d
-// there is no kernel for).
+// Shared memory each kernel asks for at head dim d (0 for a d there is no
+// kernel for): dkdv 0 the dq kernel, 1 the dk/dv kernel (above four atoms
+// the dK kernel), 2 above four atoms the dV kernel (below, 0: dV is the
+// dk/dv kernel's).
 int packed_attention_bwd_smem_bytes(int dkdv, int d) {
-  if (!head_dim_ok(d, d)) return 0;
+  if (!head_dim_ok(d, d) || dkdv < 0 || dkdv > 2) return 0;
+  if (dkdv == 2 && head_atoms(d) <= kNarrowAtoms) return 0;
   switch (head_atoms(d)) {
     case 1: return dkdv ? BwdCfg<1>::kDkdvSmem : BwdCfg<1>::kDqSmem;
     case 2: return dkdv ? BwdCfg<2>::kDkdvSmem : BwdCfg<2>::kDqSmem;
     case 3: return dkdv ? BwdCfg<3>::kDkdvSmem : BwdCfg<3>::kDqSmem;
     case 4: return dkdv ? BwdCfg<4>::kDkdvSmem : BwdCfg<4>::kDqSmem;
-    default: return wide_bwd_smem_bytes(dkdv != 0);  // the wide kernels (d > 256)
+    default: return wide_bwd_smem_bytes(dkdv, head_atoms(d));  // the wide kernels (d > 256)
   }
 }
 
@@ -1942,13 +2214,13 @@ int packed_attention_bwd_f32(const void* q, const void* k, const void* v, const 
                             scale_dim, static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory each of the two f32 kernels asks for at head dim d (0 for a
-// d there is no kernel for).
+// Shared memory each f32 kernel asks for at head dim d, dkdv as for
+// packed_attention_bwd_smem_bytes (0 for a d there is no kernel for).
 int packed_attention_bwd_f32_smem_bytes(int dkdv, int d) {
-  if (!attn_f32::head_dim_ok(d, d)) return 0;
+  if (!attn_f32::head_dim_ok(d, d) || dkdv < 0 || dkdv > 2) return 0;
   const int da = attn_f32::head_atoms(d);
-  return da > kNarrowAtoms ? attn_f32::wide_smem_bytes(kMaxWideStages, dkdv != 0)
-                           : attn_f32::bwd_smem_bytes(da, dkdv != 0);
+  if (da > kNarrowAtoms) return attn_f32::wide_bwd_smem_bytes_f32();  // dq, dK and dV alike
+  return dkdv == 2 ? 0 : attn_f32::bwd_smem_bytes(da, dkdv != 0);
 }
 
 const char* packed_attention_bwd_error_string(int code) { return hopper_host::error_string(code); }

@@ -44,10 +44,12 @@ it runs B1 and records nothing for autograd.
   with the kernels scaled by the real d and only its d columns kept). Up
   to four atoms a block holds O (dQ, dK, dV) whole; above (d > 256: five
   atoms of f32 accumulator would pass a thread's registers) B1/B2a's paired
-  kernel holds five or six atoms in two warpgroups of one block, and the
-  wide kernels keep one chunk of three or four atoms a block and stream
-  every atom of the head through a ring (``fa.wide_chunking``,
-  ``fa.wide_plan``). B1 and B2a take
+  kernel holds five or six atoms in two warpgroups of one block, the
+  streaming forwards keep one chunk of three or four atoms a block and
+  stream every atom of the head through a ring (``fa.wide_chunking``,
+  ``fa.wide_plan``), and B2b launches a dq, a dV and a dK kernel whose
+  blocks hold the whole head up to ten atoms in two warpgroups that split
+  S and dP between them (``wide_backward_plan``). B1 and B2a take
   any ``Sq``, ``Sk`` >= 1, every length the TPU forward takes (``_forward``:
   Sq <= 128 with K/V resident, ``_forward_streaming``: multiples of 128)
   and more (keys past Sk masked, query rows past Sq never stored); B2b takes
@@ -130,6 +132,11 @@ class BackwardPlan:
     dkdv_tile: int = BLOCK
     dkdv_stages: int = BWD_STAGES
     chunks: int = 1  # column chunks of dQ, dK, dV, one a block (the wide kernels)
+    dv_smem_bytes: int = 0  # the wide kernels' dV launch (below: dV is the dk/dv kernel's)
+    out_atoms: int = 0  # the wide kernels: atoms of the output a consumer warpgroup holds
+    resident: bool = False  # the wide bf16 kernels: the block's rows resident
+    splits: int = 1  # the wide kernels: ranges of the dq kernel's key tiles (a cluster)
+    dkdv_splits: int = 1  # and of the dV and dK kernels' query tiles
 
     @property
     def max_registers(self) -> int:
@@ -170,30 +177,125 @@ def f32_backward_smem_bytes(atoms: int, dkdv: bool) -> int:
             + 8 * (3 * stages + 1))
 
 
+# B2b past four atoms (csrc/packed_attention_bwd.cu, the wide section):
+# three launches (dq, dV, dK) of 384 threads, two consumer warpgroups each
+# holding ``wide_backward_out_atoms`` atoms of the output
+WIDE_BWD_THREADS = 384
+WIDE_BWD_ATOM_TILE = 64 * fa.ATOM * 2  # 64 rows x one 64-column bf16 atom
+WIDE_BWD_XBUF = 128 * 32 * 4  # the warpgroups' hand-over buffer (bf16 kernels)
+WIDE_BWD_MAX_O_STAGES = 20
+WIDE_BWD_E_MAX = 16  # barriers an early ring
+WIDE_BWD_F32_ITEMS = 6  # the f32 kernels' ring of 32 KB slots
+WIDE_BWD_MODES = ("dq", "dk", "dv")  # kWideDq, kWideDk, kWideDv
+
+
+def wide_backward_chunks(atoms: int, f32: bool = False) -> int:
+    """Chunks of the head's output columns, one a block: one up to ten atoms
+    (f32: eight), then chunks of eight. Mirrors ``wide_bwd_chunks`` /
+    ``wide_bwd_chunks_f32``."""
+    return -(-atoms // 8) if f32 or atoms > 10 else 1
+
+
+def wide_backward_out_atoms(atoms: int, f32: bool = False) -> int:
+    """Atoms of output a consumer warpgroup holds (``wide_bwd_oa`` /
+    ``wide_bwd_oa_f32``): bf16 3 at five or six atoms, 4 at seven or eight,
+    5 at nine or ten, 4 past; f32 the fewest (3 at least) that cover a
+    chunk in two warpgroups."""
+    if f32:
+        return max(3, -(-atoms // (2 * wide_backward_chunks(atoms, True))))
+    if atoms <= 6:
+        return 3
+    return 5 if 8 < atoms <= 10 else 4
+
+
+def wide_backward_resident(atoms: int) -> bool:
+    """Whether the bf16 kernels keep the block's rows resident (six atoms at
+    most); past six they stream a tile at a time."""
+    return atoms <= 6
+
+
+def wide_backward_rings(mode: str, atoms: int) -> tuple[int, int, int]:
+    """(shared memory, O ring depth, early ring depth) of a bf16 wide
+    backward kernel; mirrors ``wide_bwd_fixed_bytes`` / ``wide_bwd_rings``:
+    alignment slack, the resident rows, the hand-over buffer, a zero tile
+    (output atoms past d), the barriers, then the rings. An early ring's
+    slot is a tile atom with the rows resident, else a row atom and a tile
+    atom; with the rows resident the O ring (8 KB atom tiles and two
+    barriers each) takes two tiles where three early slots are left beside
+    it and the early rings the rest; streaming, three early slots a
+    warpgroup (dV's one ring six) and the O ring the rest, 20 at most."""
+    res = wide_backward_resident(atoms)
+    dv = mode == "dv"
+    res_tensors = (1 if dv else 2) if res else 0
+    e_bytes = ((1 if not res or dv else 0) + (0 if dv else 1)) * (1 if res else 2) * WIDE_BWD_ATOM_TILE
+    fixed = (1024 + res_tensors * atoms * WIDE_BWD_ATOM_TILE + WIDE_BWD_XBUF + WIDE_BWD_ATOM_TILE
+             + 8 * (4 * WIDE_BWD_E_MAX + 1))
+    left, per_o = fa.SMEM_BLOCK - fixed, WIDE_BWD_ATOM_TILE + 16
+    if res:
+        o_atoms = min(atoms, 2 * wide_backward_out_atoms(atoms))
+        o_stages = min(2 * o_atoms, (left - 3 * e_bytes) // per_o)
+        e_stages = min(WIDE_BWD_E_MAX, (left - o_stages * per_o) // e_bytes)
+    else:
+        e_stages = 6 if dv else 3
+        o_stages = min(WIDE_BWD_MAX_O_STAGES, (left - e_stages * e_bytes) // per_o)
+    return fixed + o_stages * per_o + e_stages * e_bytes, o_stages, e_stages
+
+
+def wide_backward_splits(blocks: int, tiles: int, sms: int = SMS) -> int:
+    """Ranges of the wide backward's tile loop a block's rows take
+    (``wide_bwd_splits``): 1 where the grid fills the card, else as many as
+    keep it within one wave, two tiles each at least, ``fa.MAX_SPLITS`` at
+    most; the splits of a block are the CTAs of a cluster, which sum their
+    outputs in split order at the end."""
+    if blocks >= sms:
+        return 1
+    return max(k for k in range(1, fa.MAX_SPLITS + 1)
+               if k == 1 or (2 * k <= tiles and blocks * k <= sms))
+
+
+def wide_backward_f32_smem() -> int:
+    """Shared memory of an f32 wide backward kernel (``wide_bwd_smem_bytes_f32``):
+    alignment slack, the ring, the hand-over buffer (16 values a consumer
+    thread), three barriers a slot."""
+    return 1024 + WIDE_BWD_F32_ITEMS * fa.WIDE_SLOT_BYTES + 128 * 16 * 4 + 24 * WIDE_BWD_F32_ITEMS
+
+
 def wide_backward_plan(b: int, sq: int, sk: int, h: int, atoms: int, sms: int = SMS, *,
                        f32: bool = False) -> BackwardPlan:
     """B2b's wide kernels (more than four atoms): a dq launch over (64 query
-    rows, chunk, head, batch) and a dV and a dK launch (``passes``) each over
-    (64 keys, chunk, head, batch); one consumer warpgroup beside a producer
-    warp (bf16) or warpgroup (f32), a ring of ``fa.WIDE_STAGES`` 32 KB slots
-    of 64-row (bf16) or 32-row (f32) tiles. Shared memory mirrors
-    ``wide_bwd_smem_bytes`` / ``attn_f32::wide_smem_bytes`` in the source."""
-    chunks = fa.wide_chunking(atoms)[0]
-    stages = fa.WIDE_STAGES
-    dq, dkdv = (-(-sq // BLOCK) * chunks, h, b), (-(-sk // BLOCK) * chunks, h, b)
-    short = [f"{name}: {g[0] // chunks} blocks of 64 x {chunks} chunks x {h} heads x batch {b}"
-             for name, g in (("dq", dq), ("dk/dv", dkdv)) if g[0] * h * b < sms]
+    rows, chunk, head, batch), then a dV and a dK launch (``passes``) over
+    (64 keys, chunk, head, batch), 384 threads each (two consumer
+    warpgroups, ``out_atoms`` atoms of the output each, and a producer
+    warpgroup). bf16: rows resident up to six atoms, an O ring of 8 KB atom
+    tiles (``stages`` in dq, ``dkdv_stages`` in dK); f32: a ring of
+    ``WIDE_BWD_F32_ITEMS`` 32 KB slots of 32-row tiles. Where a grid is
+    short its tile loop is split (``splits``, ``dkdv_splits``: a cluster of
+    CTAs a block's rows, each grid's x times that). Shared memory mirrors
+    ``packed_attention_bwd_smem_bytes`` / ``_f32_smem_bytes`` (dq, dK,
+    dV)."""
+    chunks = wide_backward_chunks(atoms, f32)
+    tile = 32 if f32 else BLOCK
+    blocks = {name: -(-rows // BLOCK) * chunks for name, rows in (("dq", sq), ("dk/dv", sk))}
+    splits = {name: wide_backward_splits(n * h * b, -(-other // tile), sms)
+              for (name, n), other in zip(blocks.items(), (sk, sq))}
+    dq, dkdv = ((blocks[name] * splits[name], h, b) for name in ("dq", "dk/dv"))
+    short = [f"{name}: {n // chunks} blocks of 64 x {chunks} chunks x {h} heads x batch {b}"
+             f" (the tiles split {splits[name]} ways)"
+             for name, n in blocks.items() if n * h * b < sms]
     if f32:
-        smem = (fa.f32_wide_smem_bytes(stages, False), fa.f32_wide_smem_bytes(stages, True))
-        threads, tile = 128 + fa.F32_PRODUCER, 32
+        smem = (wide_backward_f32_smem(),) * 3
+        stages = dk_stages = WIDE_BWD_F32_ITEMS
     else:
-        ring = 1024 + stages * (fa.WIDE_SLOT_BYTES + 16)
-        smem = (ring, ring + stages * 2 * BLOCK * 4)
-        threads, tile = 160, BLOCK
+        (dq_smem, stages, _), (dk_smem, dk_stages, _), (dv_smem, _, _) = (
+            wide_backward_rings(m, atoms) for m in WIDE_BWD_MODES)
+        smem = (dq_smem, dk_smem, dv_smem)
     return BackwardPlan(
         dq_grid=dq, dkdv_grid=dkdv, dq_smem_bytes=smem[0], dkdv_smem_bytes=smem[1],
-        why_short="; ".join(short), atoms=atoms, stages=stages, passes=2, rows=BLOCK,
-        threads=threads, tile=tile, dkdv_tile=tile, dkdv_stages=stages, chunks=chunks)
+        dv_smem_bytes=smem[2], why_short="; ".join(short), atoms=atoms, stages=stages, passes=2,
+        rows=BLOCK, threads=WIDE_BWD_THREADS, tile=tile, dkdv_tile=tile, dkdv_stages=dk_stages,
+        chunks=chunks, out_atoms=wide_backward_out_atoms(atoms, f32),
+        resident=not f32 and wide_backward_resident(atoms), splits=splits["dq"],
+        dkdv_splits=splits["dk/dv"])
 
 
 def backward_plan(b: int, sq: int, sk: int, h: int, d: int = HEAD_DIM,
@@ -396,6 +498,48 @@ def packed_attention_backward_reference(
     ds = (p * (dp - drow) * scale).to(dtype).float()
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return _packed(dq, dtype), _packed(dk, dtype), _packed(dv, dtype)
+
+
+def packed_attention_backward_split_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, num_heads: int, splits: int, tile: int = BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the wide backward's split tile loop (``splits`` > 1
+    in ``wide_backward_plan``): dq as the sum over ``splits`` ranges of whole
+    ``tile``-key tiles, dk and dv over ranges of query tiles (range s from
+    tile s * n / splits, ``split_begin``; at most one range a tile), each
+    range's part formed alone with ``packed_attention_backward_reference``'s
+    arithmetic and the parts summed in range order, as the cluster's merge
+    sums them. Returns dq, dk, dv in q's dtype."""
+    dtype = q.dtype
+    d = q.shape[-1] // num_heads
+    scale = 1.0 / math.sqrt(d)
+    qh, kh, vh, oh = (_heads(x, num_heads) for x in (q, k, v, o))
+    doh = _heads(do.to(dtype), num_heads)
+    lh = lse.float().transpose(1, 2).unsqueeze(-1)
+    drow = (doh * oh).sum(dim=-1, keepdim=True)
+
+    def ranges(length):
+        n = -(-length // tile)
+        parts = min(splits, n)
+        return [(i * n // parts * tile, min((i + 1) * n // parts * tile, length))
+                for i in range(parts)]
+
+    def ds_p(qs, ks):  # dS and P of query rows qs and keys ks
+        p = torch.exp(torch.matmul(qh[:, :, qs], kh[:, :, ks].transpose(-1, -2)) * scale
+                      - lh[:, :, qs])
+        dp = torch.matmul(doh[:, :, qs], vh[:, :, ks].transpose(-1, -2))
+        return (p * (dp - drow[:, :, qs]) * scale).to(dtype).float(), p
+
+    everything = slice(None)
+    dq = sum(torch.matmul(ds_p(everything, slice(lo, hi))[0], kh[:, :, lo:hi])
+             for lo, hi in ranges(k.shape[1]))
+    dk = dv = 0
+    for lo, hi in ranges(q.shape[1]):
+        ds, p = ds_p(slice(lo, hi), everything)
+        dk = dk + torch.matmul(ds.transpose(-1, -2), qh[:, :, lo:hi])
+        dv = dv + torch.matmul(p.to(dtype).float().transpose(-1, -2), doh[:, :, lo:hi])
     return _packed(dq, dtype), _packed(dk, dtype), _packed(dv, dtype)
 
 

@@ -1174,8 +1174,8 @@ def test_wide_plans_match_the_sources_shared_memory(cuda):
         assert flib.flash_attention_smem_bytes(plan.nwg, plan.bn, plan.stages,
                                                d) == plan.smem_bytes
         bp = pa.backward_plan(1, 64, 64, 1, d)
-        assert [blib.packed_attention_bwd_smem_bytes(x, d) for x in (0, 1)] == [
-            bp.dq_smem_bytes, bp.dkdv_smem_bytes]
+        assert [blib.packed_attention_bwd_smem_bytes(x, d) for x in (0, 1, 2)] == [
+            bp.dq_smem_bytes, bp.dkdv_smem_bytes, bp.dv_smem_bytes]
         plan = pa._plan_for(1, 4096, 4096, 1, d, dtype=torch.float32)
         assert lib.packed_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages,
                                                    d) == plan.smem_bytes
@@ -1183,8 +1183,32 @@ def test_wide_plans_match_the_sources_shared_memory(cuda):
         assert flib.flash_attention_f32_smem_bytes(plan.nwg, plan.bn, plan.stages,
                                                    d) == plan.smem_bytes
         bp = pa.backward_plan(1, 64, 64, 1, d, dtype=torch.float32)
-        assert [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1)] == [
-            bp.dq_smem_bytes, bp.dkdv_smem_bytes]
+        assert [blib.packed_attention_bwd_f32_smem_bytes(x, d) for x in (0, 1, 2)] == [
+            bp.dq_smem_bytes, bp.dkdv_smem_bytes, bp.dv_smem_bytes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [264, 320, 384, 640, 1024])
+def test_wide_backward_matches_plain_version_and_repeats(cuda, no_tf32, dtype, d):
+    """B2b past four atoms (dq, dV and dK a launch each, two warpgroups
+    sharing S and dP; rows resident up to six atoms in bf16; 1024 in two
+    chunks): Sq != Sk so that both kernels walk their own tile count, against
+    the plain version (bf16 2e-2, f32 1e-4 of max |grad|) and two calls the
+    same bits."""
+    b, sq, sk, h = 1, 192, 320, 2 if d <= 640 else 1
+    gen = torch.Generator(device=cuda).manual_seed(d + 1)
+    q, do = (torch.randn(b, sq, h * d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, sk, h * d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    o, lse = pa.packed_attention_lse_reference(q, k, v, h)
+    o = o.to(dtype).contiguous()
+    got = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    again = pa.packed_attention_backward(q, k, v, o, lse, do, h)
+    want = pa.packed_attention_backward_reference(q, k, v, o, lse, do, h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    tol = F32_TOL if dtype == torch.float32 else GRAD_REL_TOL
+    assert max(_rel_err(x, y) for x, y in zip(got, want)) <= tol
 
 
 @pytest.mark.cuda

@@ -30,6 +30,25 @@ from genima_torch.data.tokenizer import HashTokenizer
 PACKAGES = {"port": (dist, ckpt, MetricLogger), "jax": (jax_dist, jax_ckpt, JaxLogger)}
 
 
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    """The default devices are the cards: with none visible ``make_mesh``
+    raises (``resolve_device``) instead of meshing the CPU, which a caller
+    still gets by listing it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    assert make_mesh(devices=["cpu"]).shape == {"data": 1, "fsdp": 1}
+
+
+def test_initialize_without_a_card_raises(monkeypatch, tmp_path):
+    """``initialize(device=None)`` takes the card: with none visible it
+    raises before joining a group, instead of taking the CPU and gloo."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist.initialize(init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+    assert not dist.group_active()
+
+
 @pytest.mark.parametrize("pkg", sorted(PACKAGES))
 def test_process_helpers_default_single(pkg):
     d = PACKAGES[pkg][0]

@@ -436,6 +436,51 @@ def test_wide_forward_rows_find_their_ptxas_report():
     assert chip_smoke._f32_kernel_key(fa.f32_plan(1, 4096, 4096, 1, 320), False) in report
 
 
+def test_wide_backward_plans_mirror_the_source():
+    """B2b's wide kernels: the constants of ``packed_attention_bwd.cu`` the
+    plan mirrors (hand-over buffers, ring depths and slots, the split
+    limits, the f32 ring) are the plan's, and chip_smoke finds the three
+    kernels' ptxas rows (dq, dV, dK; bf16 with its OA and residency, f32 with
+    its OA) under the keys it looks them up by."""
+    import chip_smoke
+
+    src = (SRC / "packed_attention_bwd.cu").read_text()
+
+    def const(name):
+        return int(eval(re.search(rf"constexpr int {name} = ([^;]+);", src).group(1),
+                        {"kWideT": 32}))
+
+    assert const("kWideXBuf") == pa.WIDE_BWD_XBUF
+    assert const("kWideMaxOStages") == pa.WIDE_BWD_MAX_O_STAGES
+    assert const("kBlockSmem") == fa.SMEM_BLOCK
+    assert const("kWideBwdSms") == pa.SMS and const("kWideBwdMaxSplits") == fa.MAX_SPLITS
+    assert const("kWideBwdItems") == pa.WIDE_BWD_F32_ITEMS
+    assert const("kWideXBufF32") == 128 * 16 * 4
+    assert const("kWideProducerRegs") == const("kWideProducerRegsF32") == 40
+    assert const("kWideBwdThreads") == 384
+    assert const("kWideEMax") == pa.WIDE_BWD_E_MAX
+    for mode in pa.WIDE_BWD_MODES:
+        for atoms in (5, 6, 7, 10, 16, 64):
+            smem, o_stages, e_stages = pa.wide_backward_rings(mode, atoms)
+            # a tile's O atoms and one more; two early slots at least
+            o_atoms = min(atoms, 2 * pa.wide_backward_out_atoms(atoms))
+            assert smem <= fa.SMEM_BLOCK and o_stages > o_atoms and 2 <= e_stages <= 16
+    names = {  # mangled as nvcc names them (packed_attention_bwd.cu's kernels)
+        "wide_0x3x1": "_ZN12_GLOBAL__N_115bwd_wide_kernelILi0ELi3ELb1EEEv14CUtensorMap_st",
+        "wide_2x5x0": "_ZN12_GLOBAL__N_115bwd_wide_kernelILi2ELi5ELb0EEEv14CUtensorMap_st",
+        "f32_wide_1x3": "_ZN8attn_f3212_GLOBAL__N_129attention_f32_bwd_wide_kernelILi1ELi3EEEv14",
+    }
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Used 168 registers, 0 bytes spill stores, 0 bytes spill loads"
+        for name in names.values())
+    report = chip_smoke.ptxas_report(log)
+    assert set(report) == set(names)
+    assert chip_smoke._wide_bwd_keys(5, f32=False)["dq"] == "wide_0x3x1"
+    assert chip_smoke._wide_bwd_keys(10, f32=False)["dv"] == "wide_2x5x0"
+    assert chip_smoke._wide_bwd_keys(10, f32=True)["dk"] == "f32_wide_1x3"
+
+
 # (B, Sq, Sk, heads, d) -> key splits: the wide-head path's levels and B3's
 @pytest.mark.parametrize("b,sq,sk,h,d,splits", [
     (1, 4096, 4096, 1, 320, 2),   # 64 blocks of the paired kernel: 128

@@ -3,7 +3,8 @@
 The JAX kernels take any head dim; the port's CUDA kernels read a head past
 four 64-column atoms through the wide kernels (B1/B2a/B3 at five or six
 atoms with two warpgroups sharing S, above in chunks of O; B2b's dQ, dK
-and dV in chunks of three or four atoms, one a block).
+and dV for the whole head a block up to ten atoms, two warpgroups sharing S
+and dP, past that in chunks of eight).
 On the CPU, at small sizes:
 
 * the port's plain versions of B1, B2a and B2b at d = 320 and 640 against
@@ -16,7 +17,8 @@ On the CPU, at small sizes:
   same weights (moved by ``state_dict_from_jax``), against JAX's noise
   prediction;
 * the key split and merge of the wide forwards, in plain PyTorch, against
-  JAX's kernel;
+  JAX's kernel, and the wide backward's split tile loop and merge against
+  JAX's custom VJP;
 * the launch plans at d = 264 to 1024: kernel choice, chunk counts, key
   splits, shared memory within what a block may take, no raise.
 
@@ -118,6 +120,47 @@ def test_key_split_merge_matches_pallas_kernel(splits):
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=FWD_ATOL)
 
 
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_backward_split_merge_matches_jax_custom_vjp(d):
+    """The wide backward's split tile loop and its merge in split order in
+    plain PyTorch (``pa.packed_attention_backward_split_reference``) at
+    Sq 128, Sk 320 (dq over five key tiles in one to four ranges, dk and dv
+    over two query tiles in one or two) against ``jax.grad`` through JAX's
+    custom VJP (``_bwd_kernel``, interpret mode), at ``GRAD_ATOL``."""
+    q, k, v = _packed(128, 320, d, seed=d + 5)
+
+    def loss(q, k, v):
+        return (jax_packed(q, k, v, 1) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = pa.packed_attention_lse_reference(tq, tk, tv, 1)
+    for splits in (1, 2, 4):
+        got = pa.packed_attention_backward_split_reference(tq, tk, tv, o, lse, 2 * o, 1, splits)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=GRAD_ATOL,
+                                       err_msg=f"{name}, {splits} splits")
+
+
+def test_wide_backward_splits_fill_short_grids():
+    """B2b's wide launches split their tile loop only where the grid is under
+    one wave, two tiles a range at least: none at the ``sd_wide`` level of
+    4 x 4096 (256 blocks), two at 4 x 1024 in one head of 640 (64 blocks;
+    f32's two chunks fill the card), two at 4 x 256 in two heads (32 blocks
+    over four tiles; f32 two), the grid x times the splits and within one
+    wave."""
+    for (b, s, c, h), bf16, f32 in (((4, 4096, 320, 1), 1, 1), ((4, 1024, 640, 1), 2, 1),
+                                    ((4, 256, 1280, 2), 2, 2)):
+        for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
+            bp = pa.backward_plan(b, s, s, h, c // h, dtype=dtype)
+            assert bp.splits == bp.dkdv_splits == want
+            blocks = s // 64 * bp.chunks
+            assert bp.dq_grid == (blocks * want, h, b)
+            assert want == 1 or blocks * want * h * b <= pa.SMS
+    assert pa.wide_backward_splits(6, 6) == 3 and pa.wide_backward_splits(6, 5) == 2
+    assert pa.wide_backward_splits(200, 64) == 1
+
+
 @pytest.mark.parametrize("sq,sk", [(128, 128), (100, 77)])
 def test_b3_plain_version_matches_pallas_kernel(sq, sk):
     """Self-attention, and cross-attention over the 77 prompt tokens, at
@@ -192,7 +235,9 @@ def test_wide_plans_chunk_the_head_and_fit_the_card(d):
     keys split only where the grid is short, a cluster of the splits, the
     ring then holding the merge; f32 the clustered kernel (chunks of two
     atoms, a CTA each) from nine atoms on; shared memory within what a block
-    may take; B2b's chunks of three or four atoms, one a block."""
+    may take; B2b's dQ, dK and dV for the whole head a block up to ten
+    atoms (f32: eight), two consumer warpgroups of three to five atoms each,
+    the rows resident up to six atoms (bf16), chunks of eight past."""
     atoms = fa.head_atoms(d)
     chunks, per = fa.wide_chunking(atoms)
     assert chunks == -(-atoms // 4) and per in (3, 4) and (chunks - 1) * per < atoms <= chunks * per
@@ -224,10 +269,19 @@ def test_wide_plans_chunk_the_head_and_fit_the_card(d):
     else:
         assert (f.cluster, f_chunks, f.stages) == (1, chunks, fa.WIDE_STAGES)
     for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
         bp = pa.backward_plan(4, 1024, 1024, 8, d, dtype=dtype)
-        assert bp.chunks == chunks and bp.passes == 2 and bp.rows == 64
-        assert bp.dq_grid == bp.dkdv_grid == (16 * chunks, 8, 4)
-        assert max(bp.dq_smem_bytes, bp.dkdv_smem_bytes) <= SMEM_LIMIT
+        b_chunks, oa = pa.wide_backward_chunks(atoms, f32), pa.wide_backward_out_atoms(atoms, f32)
+        # the whole head a block up to ten atoms (f32: eight): two warpgroups of oa atoms
+        assert bp.chunks == b_chunks == (1 if d <= (512 if f32 else 640) else -(-atoms // 8))
+        assert oa == (3 if d <= 384 or (f32 and d == 640) else 4 if d in (512, 1024) else 5)
+        assert (b_chunks - 1) * 2 * oa < atoms <= b_chunks * 2 * oa
+        assert (bp.passes, bp.rows, bp.threads, bp.out_atoms) == (2, 64, 384, oa)
+        assert bp.resident == (not f32 and d <= 384) and bp.max_registers == 168
+        assert bp.dq_grid == bp.dkdv_grid == (16 * b_chunks, 8, 4)
+        assert max(bp.dq_smem_bytes, bp.dkdv_smem_bytes, bp.dv_smem_bytes) <= SMEM_LIMIT
+        if not f32:  # the O ring holds a tile's atoms of the block's chunk and one more
+            assert min(bp.stages, bp.dkdv_stages) > min(atoms, 2 * oa)
 
 
 def test_no_head_dim_reaches_the_shared_memory_bound():
